@@ -1,0 +1,337 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the repository root.  It drives ``repro_torch`` only (no JAX,
+nothing of the ``repro`` package) in four phases, and any failure exits
+non-zero:
+
+1. build — compiles every CUDA kernel of the port from the sources in
+   the checkout with ``nvcc`` (``repro_torch/kernels/_build.py``).
+2. kernel — ``masked_agg`` at the round's shapes (VGG16 at full width,
+   8 clients, tile 2048, with a unit nobody selected, a client of
+   weight 0 and leaves that are not a multiple of the tile) against its
+   plain PyTorch version on the card, at the reference's own bar
+   (atol = rtol = 2e-5); the tree-level fused FedAvg against the plain
+   ``masked_fedavg``; bitwise repeatability; median times of the
+   kernel, the plain version and a ``torch.bmm`` yardstick beside the
+   bound the card's memory rate sets.
+3. parity — one small hub round on the card through the kernel
+   against the same round on the CPU through the plain aggregation,
+   with the same selection replayed.
+4. round — the paper's hub round (``repro_torch/paper_round.py``):
+   ``Federation.from_config`` on VGG16 at full width, 8 clients training
+   7 of 14 units with the ``uniform`` strategy, ``cifar_like`` data split
+   by ``iid_partition``, batch 32, 2 local steps, 3 rounds, evaluated on
+   256 held-out images.  Checks finite losses, one kernel launch per
+   round, exact-zero deltas on every client's frozen units, and
+   ``comm_summary()`` equal to Table 4's formula on the recorded
+   selections.
+
+It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
+that is unset), and it hides the others.  Before the last line it prints
+the card's name and power limit (as ``nvidia-smi`` reports them) and a
+JSON line of per-kernel numbers; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import functools
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# one card: set before torch initialises CUDA
+CARD = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+os.environ["CUDA_VISIBLE_DEVICES"] = CARD
+
+import torch  # noqa: E402
+
+ROUNDS = 3
+TOL = 2e-5
+PARITY_TOL = 1e-5        # float32 optimizer/aggregation rounding on float64 params
+FP32_PEAK = 67e12            # H100 SXM, float32 outside the tensor cores
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def memory_rate(name: str) -> float:
+    """Peak device-memory bytes/s of the card, from its data sheet."""
+    if "H200" in name:
+        return 4.8e12
+    if "PCIe" in name:
+        return 2.0e12
+    if "NVL" in name:
+        return 3.9e12
+    return 3.35e12                                   # H100 SXM
+
+
+def median_ms(fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    logs = _build.build()
+    secs = time.perf_counter() - t0
+    for name, log in logs.items():
+        print(f"[build] {name}:")
+        for line in log.strip().splitlines():
+            print(f"    {line}")
+    print(f"[build] {len(logs)} kernel source(s) in {secs:.2f} s")
+
+
+def phase_kernel(dev):
+    from repro_torch.core import build_units_flat
+    from repro_torch.core.aggregation import masked_fedavg
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.masked_agg.ref import masked_agg_ref
+    from repro_torch.models import paper_models as pm
+    from repro_torch.paper_round import N_CLIENTS, WIDTH
+
+    gen = torch.Generator().manual_seed(0)
+    params = {p: x.to(dev) for p, x in
+              pm.init_vgg16(gen, width_mult=WIDTH).items()}
+    assign = build_units_flat(params, pm.vgg16_units(params))
+    plan = ops.build_agg_plan(assign, params)
+    c, u = N_CLIENTS, assign.n_units
+    rng = np.random.default_rng(0)
+    sel = torch.as_tensor(rng.integers(0, 2, (c, u)), dtype=torch.float32)
+    sel[:, 5] = 0.0                                  # a unit nobody selected
+    weights = torch.as_tensor(rng.uniform(0.5, 2.0, c), dtype=torch.float32)
+    weights[c // 2] = 0.0                            # a client of weight 0
+    ragged = [s for s in plan.segments if s.n % plan.tile]
+    check(ragged, "no leaf off the tile multiple in the plan")
+    dgen = torch.Generator(device=dev).manual_seed(0)
+    deltas = {p: 0.05 * torch.randn((c,) + tuple(x.shape), generator=dgen,
+                                    device=dev)
+              for p, x in params.items()}
+
+    # zero padding, so that whole tile buffers can be compared below
+    g_t = ops.pack_into(plan, params,
+                        ops.new_tile_buffer(plan, device=dev).zero_())
+    d_t = ops.pack_into(plan, deltas,
+                        ops.new_tile_buffer(plan, (c,), device=dev).zero_())
+    w_t = ops.row_weights(plan, sel * weights[:, None], dev)
+    t, tile = g_t.shape
+
+    out_k = ops.masked_agg(g_t, d_t, w_t)
+    out_p = masked_agg_ref(g_t, d_t, w_t)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    check(torch.allclose(out_k, out_p, atol=TOL, rtol=TOL),
+          f"kernel vs plain: max abs err {err}")
+    check(torch.equal(out_k, ops.masked_agg(g_t, d_t, w_t)),
+          "kernel is not bitwise repeatable")
+    nobody = torch.as_tensor(plan.row_unit == 5, device=dev)
+    check(torch.equal(out_k[nobody], g_t[nobody]),
+          "a unit nobody selected changed")
+    tree_k = ops.masked_fedavg_fused(params, deltas, sel, weights, assign,
+                                     plan=plan)
+    tree_p = masked_fedavg(params, deltas, sel, weights, assign)
+    tree_err = max(float((tree_k[p] - tree_p[p]).abs().max())
+                   for p in params)
+    check(all(torch.allclose(tree_k[p], tree_p[p], atol=TOL, rtol=TOL)
+              for p in params), f"fused vs masked_fedavg: {tree_err}")
+    print(f"[kernel] T={t} tile={tile} C={c}: max abs err vs plain "
+          f"{err:.3e}, tree-level vs masked_fedavg {tree_err:.3e} "
+          f"(tol {TOL})")
+
+    d_tct = d_t.permute(1, 0, 2).contiguous()        # (T, C, tile)
+
+    def library():
+        num = torch.bmm(w_t.unsqueeze(1), d_tct).squeeze(1)
+        den = w_t.sum(1, keepdim=True)
+        return g_t + torch.where(den > 0, num / den.clamp_min(1e-9),
+                                 torch.zeros_like(num))
+
+    lib_err = float((library() - out_p).abs().max())
+    check(lib_err <= 1e-4, f"torch.bmm yardstick disagrees: {lib_err}")
+    nbytes = 4 * (t * tile * (c + 2) + t * c)
+    flops = 2 * c * t * tile
+    name = torch.cuda.get_device_name(0)
+    by_bytes, by_ops = nbytes / memory_rate(name), flops / FP32_PEAK
+    bound = max(by_bytes, by_ops) * 1e3
+    launches0 = ops.masked_agg.launches
+    ms = median_ms(lambda: ops.masked_agg(g_t, d_t, w_t))
+    plain_ms = median_ms(lambda: masked_agg_ref(g_t, d_t, w_t))
+    library_ms = median_ms(library)
+    check(ops.masked_agg.launches > launches0, "timing did not launch")
+    print(f"[kernel] median ms: kernel {ms:.4f}, plain {plain_ms:.4f}, "
+          f"torch.bmm {library_ms:.4f}; bound {bound:.4f}: "
+          f"{nbytes / 1e6:.1f} MB at {memory_rate(name) / 1e12:.2f} TB/s "
+          f"is {by_bytes * 1e3:.4f}, {flops / 1e9:.2f} GFLOP at "
+          f"{FP32_PEAK / 1e12:.0f} TFLOP/s is {by_ops * 1e3:.4f}")
+    return {"name": "masked_agg", "route": "cuda",
+            "source": "src/repro_torch/kernels/masked_agg/csrc/masked_agg.cu",
+            "replaces": "src/repro/kernels/masked_agg/kernel.py:41",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms}
+
+
+def phase_parity(dev):
+    """One small hub round on the card (through the kernel) against the
+    same round on the CPU (plain aggregation): same params, batches and
+    replayed selection, with Adam (the paper's optimizer) and with SGD.
+
+    The model runs in float64 here.  In float32 the two devices' conv
+    arithmetic differs by ~1e-6, enough to flip the odd ReLU whose input
+    lies that close to 0 and to flip the sign of Adam's first step on
+    gradients that are pure rounding noise (conv biases ahead of
+    batch-statistics BN); float64 leaves neither, so every leaf is held
+    to PARITY_TOL.  The optimizer and the aggregation kernel still
+    compute in float32, as on the main path.
+    """
+    from repro_torch.core import FLConfig, Replay, build_round_step
+    from repro_torch.core import build_units_flat
+    from repro_torch.data import cifar_like
+    from repro_torch.models import paper_models as pm
+
+    c = 3
+    params = pm.init_vgg16(torch.Generator().manual_seed(1),
+                           dtype=torch.float64, width_mult=0.125)
+    assign = build_units_flat(params, pm.vgg16_units(params))
+    x, y = cifar_like(c * 4, key=3)
+    batches = {"x": x.reshape(c, 1, 4, 32, 32, 3), "y": y.reshape(c, 1, 4)}
+    sel = np.random.default_rng(2).integers(0, 2, (c, assign.n_units))
+    for opt in ("adam", "sgd"):
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            fl = FLConfig(n_clients=c, n_train_units=7, optimizer=opt)
+            step = build_round_step(
+                functools.partial(pm.vgg16_loss, device=d), assign, fl,
+                strategy=Replay([sel]), device=d)
+            new, _ = step({p: v.to(d) for p, v in params.items()},
+                          {k: torch.as_tensor(v, device=d)
+                           for k, v in batches.items()},
+                          torch.ones(c), None)
+            out[d.type] = {p: v.cpu() for p, v in new.items()}
+        err = {p: float((out["cuda"][p] - out["cpu"][p]).abs().max())
+               for p in params}
+        worst = max(err, key=err.get)
+        check(err[worst] <= PARITY_TOL,
+              f"parity ({opt}) {worst}: card vs CPU max abs err "
+              f"{err[worst]} > {PARITY_TOL}")
+        print(f"[parity] {opt}: one hub round, VGG16 width 0.125 in "
+              f"float64, {c} clients: card (kernel) vs CPU (plain) max abs "
+              f"err {err[worst]:.3e} at {worst} (tol {PARITY_TOL})")
+
+
+class FrozenDeltaCheck:
+    """Server hook: every client's frozen units must ship exact zeros."""
+
+    def __init__(self, assign):
+        self.assign = assign
+        self.checked = 0
+
+    def on_round_start(self, server, round_idx, weights):
+        return None
+
+    def on_round_end(self, server, record, metrics):
+        sel = metrics["sel"]                                  # (C, U) CPU
+        paths = list(self.assign.leaf_units)
+        units = [self.assign.leaf_units[p].base for p in paths]
+        # (leaves, C) largest |delta| per client, read back in one copy
+        peak = torch.stack([metrics["deltas"][p].flatten(1).abs().amax(1)
+                            for p in paths]).cpu()
+        frozen = (sel[:, units] == 0).t()                     # (leaves, C)
+        check(bool((peak[frozen] == 0).all()),
+              f"round {record.round}: a frozen unit has a non-zero delta")
+        check(bool((peak[~frozen] > 0).any()),
+              f"round {record.round}: no trained unit moved")
+        self.checked += int(frozen.sum())
+
+    def on_fit_end(self, server, history):
+        pass
+
+
+def phase_round(dev):
+    from repro_torch import paper_round
+    from repro_torch.core.comm import table4_row
+    from repro_torch.kernels.masked_agg import ops
+
+    fed = paper_round.build(dev, eval_images=256)
+    check(fed.fl.resolve_fused_agg(fed.device), "fused_agg did not resolve on")
+    frozen = FrozenDeltaCheck(fed.assign)
+    fed.server.add_hook(frozen)
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    hist = fed.fit(ROUNDS, log_every=1)
+    torch.cuda.synchronize()
+    launches = ops.masked_agg.launches
+
+    check(all(math.isfinite(r.loss) for r in hist), "non-finite loss")
+    check(launches == ROUNDS,
+          f"masked_agg launched {launches} times in {ROUNDS} rounds")
+    check(frozen.checked > 0, "no frozen unit was checked")
+    summ = fed.comm_summary()
+    t4 = table4_row(fed.assign, fed.params, np.stack(fed.server.sel_history))
+    check(all(summ[k] == v for k, v in t4.items()),
+          f"comm_summary {summ} != table4_row {t4}")
+    for r in hist:
+        print(f"[round] {r.round}: loss {r.loss:.4f} eval accuracy "
+              f"{r.eval_metric:.4f} {r.seconds:.3f} s "
+              f"uplink {r.uplink_bytes:.0f} B")
+    print(f"[round] masked_agg launches {launches}; frozen (client, leaf) "
+          f"deltas checked exactly zero: {frozen.checked}; comm_summary "
+          f"== table4_row: avg uplink {summ['avg_uplink_bytes']:.0f} B, "
+          f"reduction vs full {summ['reduction_vs_full']:.4f}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "test needs a CUDA GPU", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", CARD, "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(smi)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+
+    dev = torch.device("cuda", 0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}")
+    phase_build()
+    row = phase_kernel(dev)
+    phase_parity(dev)
+    row["launches"] = phase_round(dev)
+    print(smi)
+    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

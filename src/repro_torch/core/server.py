@@ -1,0 +1,264 @@
+"""Round orchestration (paper Alg. 1) — the FEDn-combiner role.
+
+The ``Server`` drives rounds at the Python level: handing client
+batches to the ``round_step``, evaluation and history.  Everything
+*situational* — straggler dropout, comm accounting, logging — is a
+composable :class:`ServerHook` rather than an inlined branch.
+
+Hook call order per round::
+
+    on_round_start(server, round_idx, weights) -> weights   (may reweight)
+    ... round step ...
+    on_round_end(server, record, metrics)                   (may annotate)
+
+If every client drops (all weights zero) the round is a recorded no-op:
+the global params are untouched and the ``RoundRecord`` carries
+``skipped=True`` with zero participants.
+
+The server owns one CPU ``torch.Generator`` seeded from ``seed``; the
+round's selection and the straggler draws come from it.  Checkpointing
+(``Checkpointer``) waits for the port of ``ckpt/store.py``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..common import Device, resolve_device
+from . import comm
+from .federation import FLConfig
+from .masking import UnitAssignment
+from .topology import Topology, resolve_topology
+
+
+@dataclasses.dataclass
+class RoundRecord:
+    round: int
+    loss: float
+    eval_metric: Optional[float]
+    seconds: float
+    uplink_bytes: float
+    trained_params: float
+    n_participants: int = 0
+    skipped: bool = False
+    # the round's post-hook client weights (dropped clients are 0)
+    effective_weights: Optional[List[float]] = None
+    # bytes that left a client without landing in the aggregate (the
+    # fault engine fills this; always 0 until it is ported)
+    wasted_bytes: float = 0.0
+    # every client dropped: the round was a recorded no-op (loss 0.0)
+    dropped: bool = False
+
+
+class ServerHook:
+    """Override any subset; defaults are no-ops."""
+
+    def on_round_start(self, server: "Server", round_idx: int,
+                       weights: torch.Tensor) -> Optional[torch.Tensor]:
+        """Return new weights to reweight/drop clients, or None."""
+        return None
+
+    def on_round_end(self, server: "Server", record: RoundRecord,
+                     metrics: Optional[Dict]) -> None:
+        pass
+
+    def on_fit_end(self, server: "Server",
+                   history: List[RoundRecord]) -> None:
+        pass
+
+
+class StragglerDropout(ServerHook):
+    """Simulated stragglers: each client independently drops with
+    probability ``rate``; dropped clients contribute weight 0.  Draws
+    from the server's generator (reproducible per server seed)."""
+
+    def __init__(self, rate: float):
+        self.rate = rate
+
+    def on_round_start(self, server, round_idx, weights):
+        if self.rate <= 0.0:
+            # a rate-0 hook must be a true no-op: drawing anyway would
+            # desync a rate-0 run from a no-hook run
+            return None
+        keep = torch.rand((server.fl.n_clients,),
+                          generator=server.generator) < 1.0 - self.rate
+        return weights * keep.float()
+
+
+class CommAccounting(ServerHook):
+    """Exact per-round transfer accounting (paper Table 4) from the
+    round's selection matrix — fills ``uplink_bytes``/``trained_params``
+    on the record with the server topology's byte math."""
+
+    def on_round_end(self, server, record, metrics):
+        if record.skipped or metrics is None:
+            return
+        ub = server.unit_bytes()
+        counts = comm.unit_param_counts(server.assign,
+                                        server.global_params())
+        # bill only clients that actually uploaded: rows zeroed by
+        # straggler dropout (effective weight 0) ship nothing
+        sel = self._mask_dropped(np.asarray(metrics["sel"]), record)
+        record.uplink_bytes = server.topology.round_bytes(
+            sel, ub, server.fl)["uplink"]
+        record.trained_params = float(np.einsum("cu,u->", sel, counts))
+
+    @staticmethod
+    def _mask_dropped(sel: np.ndarray, record) -> np.ndarray:
+        eff = record.effective_weights
+        if eff is None or len(eff) != sel.shape[0]:
+            return sel
+        keep = (np.asarray(eff, np.float32) > 0).astype(sel.dtype)
+        return sel * keep[:, None]
+
+
+class RoundLogger(ServerHook):
+    """Print a one-line round summary every ``every`` rounds; the final
+    round (``total - 1``) always prints."""
+
+    def __init__(self, every: int = 1, total: Optional[int] = None,
+                 base: int = 0):
+        self.every = max(1, every)
+        self.total = total
+        self.base = base
+
+    def on_round_end(self, server, record, metrics):
+        if record.skipped:
+            print(f"  round {record.round:>4d} SKIPPED "
+                  f"(all clients dropped)")
+            return
+        last = self.total is not None and record.round == self.total - 1
+        if (record.round - self.base) % self.every and not last:
+            return
+        line = f"  round {record.round:>4d}"
+        line += f" loss={record.loss:.4f}"
+        if record.eval_metric is not None:
+            line += f" eval={record.eval_metric:.4f}"
+        line += f" uplink={record.uplink_bytes/1e6:.1f}MB"
+        line += f" {record.seconds:.3f}s"
+        print(line)
+
+
+class Server:
+    """Owns the global params (on ``device``), the generator, the hooks
+    and the run history.  ``global_params()`` is the single-model view
+    that ``eval_fn`` sees and accounting sizes against."""
+
+    def __init__(self, round_step: Callable, assign: UnitAssignment,
+                 fl: FLConfig, params, *, eval_fn: Optional[Callable] = None,
+                 seed: int = 0, dropout_rate: float = 0.0,
+                 hooks: Sequence[ServerHook] = (),
+                 topology: Optional[Topology] = None,
+                 device: Device = "cuda"):
+        self.device = resolve_device(device)
+        self.round_step = round_step
+        self.assign = assign
+        self.fl = fl
+        self.topology = resolve_topology(topology if topology is not None
+                                         else fl.topology)
+        # own the state outright: a caller-held reference to the init
+        # params must not alias the server's
+        self.params = {p: torch.as_tensor(x).detach().to(self.device,
+                                                          copy=True)
+                       for p, x in params.items()}
+        self.eval_fn = eval_fn
+        self.generator = torch.Generator().manual_seed(seed)
+        self.hooks: List[ServerHook] = [CommAccounting()]
+        if dropout_rate > 0.0:
+            self.hooks.append(StragglerDropout(dropout_rate))
+        self.hooks.extend(hooks)
+        self.history: List[RoundRecord] = []
+        self.sel_history: List[np.ndarray] = []
+        self._ubytes = None
+
+    def global_params(self):
+        """The global model (the only server state of a star topology)."""
+        return self.params
+
+    def unit_bytes(self) -> np.ndarray:
+        if self._ubytes is None:
+            self._ubytes = comm.unit_bytes(self.assign, self.global_params())
+        return self._ubytes
+
+    def add_hook(self, hook: ServerHook) -> "Server":
+        self.hooks.append(hook)
+        return self
+
+    def run_round(self, client_batches, weights=None) -> RoundRecord:
+        """client_batches: tree with (C, steps, ...) leaves."""
+        t0 = time.perf_counter()
+        r = len(self.history)
+        c = self.fl.n_clients
+        weights = torch.ones((c,)) if weights is None \
+            else torch.as_tensor(weights, dtype=torch.float32).cpu()
+        for hook in self.hooks:
+            new_w = hook.on_round_start(self, r, weights)
+            if new_w is not None:
+                weights = new_w
+        n_part = int(torch.count_nonzero(weights))
+        eff_w = [float(x) for x in weights]
+        if n_part == 0:
+            # every client dropped: a FedAvg denominator of zero — the
+            # round is a recorded no-op, global params unchanged
+            rec = RoundRecord(r, 0.0, None, time.perf_counter() - t0,
+                              0.0, 0.0, n_participants=0, skipped=True,
+                              dropped=True, effective_weights=eff_w)
+            self.sel_history.append(
+                np.zeros((c, self.assign.n_units), np.float32))
+            metrics = None
+        else:
+            self.params, metrics = self.round_step(
+                self.params, client_batches, weights, self.generator)
+            self.sel_history.append(np.asarray(metrics["sel"]))
+            ev = None
+            if self.eval_fn is not None:
+                ev = float(self.eval_fn(self.global_params()))
+            rec = RoundRecord(r, float(metrics["loss_mean"]), ev,
+                              time.perf_counter() - t0, 0.0, 0.0,
+                              n_participants=n_part,
+                              effective_weights=eff_w)
+        for hook in self.hooks:
+            hook.on_round_end(self, rec, metrics)
+        rec.seconds = time.perf_counter() - t0
+        self.history.append(rec)
+        return rec
+
+    def run(self, rounds: int, batch_fn: Callable[[int], Dict],
+            weights=None, log_every: int = 0) -> List[RoundRecord]:
+        extra = [RoundLogger(log_every, total=len(self.history) + rounds,
+                             base=len(self.history))] \
+            if log_every else []
+        self.hooks.extend(extra)
+        try:
+            for r in range(rounds):
+                self.run_round(batch_fn(r), weights)
+        finally:
+            for h in extra:
+                self.hooks.remove(h)
+        for hook in self.hooks:
+            hook.on_fit_end(self, self.history)
+        return self.history
+
+    def _wasted_summary(self) -> Dict[str, float]:
+        per_round = [r.wasted_bytes for r in self.history]
+        total = float(np.sum(per_round)) if per_round else 0.0
+        return {"total_wasted_bytes": total,
+                "avg_wasted_bytes": total / max(1, len(per_round))}
+
+    def comm_summary(self) -> Dict[str, float]:
+        if not self.sel_history:
+            return {"avg_uplink_bytes": 0.0, "avg_trained_params": 0.0,
+                    "total_uplink_bytes": 0.0, "reduction_vs_full": 0.0,
+                    "total_wasted_bytes": 0.0, "avg_wasted_bytes": 0.0}
+        # selection rows of clients whose effective weight was zeroed
+        # (straggler dropout) shipped nothing — mask them out so the
+        # run summary matches the per-round records
+        hist = np.stack([CommAccounting._mask_dropped(s, rec)
+                         for s, rec in zip(self.sel_history, self.history)])
+        return dict(self.topology.summary(self.assign, self.global_params(),
+                                          hist, self.fl),
+                    **self._wasted_summary())

@@ -1,0 +1,146 @@
+"""The ``Federation`` facade: one object that owns a federated run.
+
+``Federation.from_config`` wires model init -> unit assignment ->
+loader -> ``build_round_step`` -> ``Server`` once::
+
+    fed = Federation.from_config(spec, fl, data=loader, eval_fn=acc)
+    fed.fit(rounds=20, log_every=1)
+    fed.comm_summary()
+
+``spec`` is a :class:`ModelSpec` — the paper's VGG16 lives in
+``repro_torch.models.paper_models``; the zoo ``ArchConfig`` path waits
+for the zoo models.  Strategy and topology are registered plugin names
+in ``fl.strategy`` / ``fl.topology``; pass ``strategy=`` /
+``topology=`` to override either with an instance (a replay strategy in
+the parity tests, for one).  The run lives on ``device`` — the GPU
+unless the caller asks for the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+
+import torch
+
+from ..common import Device, resolve_device
+from ..data import FederatedLoader
+from .federation import FLConfig, build_round_step
+from .masking import UnitAssignment, build_units_flat
+from .server import RoundRecord, Server, ServerHook
+from .strategies import SelectionStrategy
+from .topology import Topology, resolve_topology
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """A model described by plain functions.
+
+    ``init_params(gen)`` draws CPU params from a ``torch.Generator``;
+    ``unit_order`` is either the explicit freeze-unit order (top-level
+    param keys) or a callable ``params -> order`` (e.g.
+    ``paper_models.vgg16_units``).
+    """
+    name: str
+    init_params: Callable[[torch.Generator], Dict[str, torch.Tensor]]
+    loss_fn: Callable                               # (params, batch) -> (loss, aux)
+    unit_order: Union[Sequence[str], Callable[[Any], Sequence[str]]]
+
+
+class Federation:
+    """Owns params, unit assignment, round step, server, data."""
+
+    def __init__(self, *, loss_fn: Callable, params, assign: UnitAssignment,
+                 fl: FLConfig, loader: Optional[FederatedLoader] = None,
+                 eval_fn: Optional[Callable] = None,
+                 loss_kwargs: Optional[Dict] = None, seed: int = 0,
+                 dropout_rate: float = 0.0,
+                 hooks: Sequence[ServerHook] = (),
+                 strategy: Union[str, SelectionStrategy, None] = None,
+                 topology: Union[str, Topology, None] = None,
+                 device: Device = "cuda"):
+        self.device = resolve_device(device)
+        self.fl = fl
+        self.assign = assign
+        self.loader = loader
+        self.topology = resolve_topology(topology if topology is not None
+                                         else fl.topology)
+        round_step = build_round_step(loss_fn, assign, fl, loss_kwargs,
+                                      strategy=strategy,
+                                      topology=self.topology,
+                                      device=self.device)
+        self.server = Server(round_step, assign, fl, params,
+                             eval_fn=eval_fn, seed=seed,
+                             dropout_rate=dropout_rate, hooks=hooks,
+                             topology=self.topology, device=self.device)
+
+    # -- construction -----------------------------------------------------
+
+    @classmethod
+    def from_config(cls, cfg, fl: FLConfig, *, data=None, seed: int = 0,
+                    eval_fn: Optional[Callable] = None,
+                    loss_kwargs: Optional[Dict] = None,
+                    batch_size: int = 8, steps_per_round: int = 2,
+                    device: Device = "cuda", **kwargs) -> "Federation":
+        """Wire a full federated run from a :class:`ModelSpec`.
+
+        ``data`` is a :class:`FederatedLoader`, or a list of per-client
+        array dicts (then ``batch_size``/``steps_per_round`` apply), or
+        None (supply batches to ``run_round`` yourself).  Remaining
+        ``kwargs`` go to the constructor (hooks, dropout_rate,
+        strategy, topology).
+        """
+        dev = resolve_device(device)
+        if not isinstance(cfg, ModelSpec):
+            raise TypeError(
+                f"cfg must be a ModelSpec (the zoo ArchConfig path is not "
+                f"ported yet), got {type(cfg)}")
+        params = cfg.init_params(torch.Generator().manual_seed(seed))
+        order = cfg.unit_order(params) if callable(cfg.unit_order) \
+            else list(cfg.unit_order)
+        assign = build_units_flat(params, order)
+        loader = data
+        if data is not None and not isinstance(data, FederatedLoader):
+            loader = FederatedLoader(list(data), batch_size=batch_size,
+                                     steps_per_round=steps_per_round,
+                                     key=seed)
+        return cls(loss_fn=cfg.loss_fn, params=params, assign=assign, fl=fl,
+                   loader=loader, eval_fn=eval_fn, loss_kwargs=loss_kwargs,
+                   seed=seed, device=dev, **kwargs)
+
+    # -- the run ----------------------------------------------------------
+
+    def fit(self, rounds: int, *, log_every: int = 0,
+            weights=None) -> List[RoundRecord]:
+        """Run ``rounds`` federated rounds off the attached loader."""
+        if self.loader is None:
+            raise ValueError("Federation has no data attached; pass "
+                             "data= to from_config or use run_round")
+        if weights is None:
+            weights = torch.as_tensor(self.loader.weights())
+        base = len(self.server.history)
+
+        def batches(r):
+            return {k: torch.as_tensor(v, device=self.device)
+                    for k, v in self.loader.round_batches(base + r).items()}
+
+        return self.server.run(rounds, batches, weights=weights,
+                               log_every=log_every)
+
+    def run_round(self, client_batches, weights=None) -> RoundRecord:
+        return self.server.run_round(client_batches, weights)
+
+    def evaluate(self) -> Optional[float]:
+        if self.server.eval_fn is None:
+            return None
+        return float(self.server.eval_fn(self.server.global_params()))
+
+    def comm_summary(self) -> Dict[str, float]:
+        return self.server.comm_summary()
+
+    @property
+    def params(self):
+        return self.server.global_params()
+
+    @property
+    def history(self) -> List[RoundRecord]:
+        return self.server.history

@@ -1,0 +1,2 @@
+from .synthetic import cifar_like, imdb_like, casa_like  # noqa: F401
+from .partition import iid_partition, FederatedLoader  # noqa: F401

@@ -1,0 +1,105 @@
+"""Where the time of the paper's hub round goes on the GPU.
+
+    PYTHONPATH=src python -m repro_torch.profile_round [--rounds 3]
+        [--out FILE]
+
+Builds the main path's federation (``paper_round.build``, the same one
+chip_smoke.py drives, without evaluation), runs one round to warm up,
+then ``--rounds`` rounds without and ``--rounds`` rounds under
+``torch.profiler``, and prints one JSON object: the card and its power
+limit, the host wall time per round, the device's busy share (device
+kernel time over the profiled wall time), the kernel launches per round
+and the kernels that take the most device time.  Needs a GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from . import paper_round
+
+
+def _device_us(evt) -> float:
+    # the attribute was renamed from *_cuda_* to *_device_* in torch 2.x
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    raise AttributeError("profiler event has no device time")
+
+
+def _kind(name: str) -> str:
+    if "masked_agg" in name:
+        return "masked_agg (K1)"
+    if any(k in name for k in ("cudnn", "xmma", "implicit_gemm", "conv",
+                               "dgrad", "wgrad", "gemm")):
+        return "convolution / matmul"
+    if "Memcpy" in name or "Memset" in name:
+        return "memcpy / memset"
+    return "elementwise / reduction"
+
+
+def profile(rounds: int) -> dict:
+    fed = paper_round.build("cuda")
+    fed.fit(1)                                   # warm-up: cuDNN, kernel build
+    clean = [r.seconds for r in fed.fit(rounds)[-rounds:]]   # no profiler
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        hist = fed.fit(rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side records only (kernels, memcpy, memset: no host time);
+    # the host ops that launched them carry the same device time again
+    device = [e for e in prof.key_averages()
+              if e.self_cpu_time_total == 0 and _device_us(e) > 0]
+    device_us = sum(_device_us(e) for e in device)
+    launches = sum(e.count for e in device)
+    by_kind: dict = {}
+    for e in device:
+        kind = _kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + _device_us(e) * 1e-3 / rounds
+    top = sorted(device, key=_device_us, reverse=True)[:12]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    return {
+        "card": smi, "torch": torch.__version__,
+        "config": {"width": paper_round.WIDTH,
+                   "clients": paper_round.N_CLIENTS,
+                   "train_units": paper_round.N_TRAIN,
+                   "batch": paper_round.BATCH,
+                   "local_steps": paper_round.LOCAL_STEPS,
+                   "rounds": rounds},
+        "round_seconds": clean,
+        "round_seconds_profiled": [r.seconds for r in hist[-rounds:]],
+        "profiled_wall_s": wall,
+        "device_busy_share": device_us * 1e-6 / wall,
+        "device_ms_per_round": device_us * 1e-3 / rounds,
+        "kernel_launches_per_round": launches / rounds,
+        "device_ms_per_round_by_kind": by_kind,
+        "top_device": [{"name": e.key[:80], "count": e.count,
+                        "device_ms": _device_us(e) * 1e-3}
+                       for e in top],
+    }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    a = ap.parse_args(argv)
+    text = json.dumps(profile(a.rounds), indent=1)
+    print(text)
+    if a.out:
+        with open(a.out, "w") as f:
+            f.write(text + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -23,6 +23,8 @@ from repro.configs.base import get_config, list_configs
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running subprocess/compile tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skips without one)")
 
 
 @pytest.fixture(scope="session")

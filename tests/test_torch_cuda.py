@@ -1,0 +1,91 @@
+"""The hand-written CUDA kernel on a card, against its plain version.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU (this
+file imports neither JAX nor the reference, so it also runs on a GPU
+machine that has no JAX:
+``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.masked_agg import ops
+from repro_torch.kernels.masked_agg.ref import masked_agg_ref
+
+TOL = 2e-5      # the reference's own kernel-vs-oracle bar
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (chip_smoke.py runs "
+                    "these checks at the main path's shapes)")
+    return torch.device("cuda")
+
+
+def _case(dev, t, c, tile, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(t, tile, generator=gen, device=dev)
+    d = torch.randn(c, t, tile, generator=gen, device=dev)
+    w = torch.rand(t, c, generator=gen, device=dev)
+    w[t // 2] = 0.0                                   # denominator 0
+    w[:, c - 1] = 0.0                                 # a client of weight 0
+    return g, d, w
+
+
+@pytest.mark.parametrize("t,c,tile", [(1, 1, 4), (7, 3, 256), (33, 8, 2048),
+                                      (5, 2, 12)])
+def test_kernel_matches_plain(dev, t, c, tile):
+    g, d, w = _case(dev, t, c, tile)
+    before = ops.masked_agg.launches
+    out = ops.masked_agg(g, d, w)
+    torch.cuda.synchronize()
+    assert ops.masked_agg.launches == before + 1
+    torch.testing.assert_close(out, masked_agg_ref(g, d, w), atol=TOL,
+                               rtol=TOL)
+    assert torch.equal(out[t // 2], g[t // 2])        # nobody trained
+    assert torch.equal(out, ops.masked_agg(g, d, w))  # bitwise repeatable
+
+
+def test_kernel_reads_strided_client_planes(dev):
+    # planes of a larger (C, T + 3, tile) buffer: client stride != T*tile
+    g, d, w = _case(dev, 6, 4, 256)
+    big = torch.zeros(4, 9, 256, device=dev)
+    big[:, 2:8] = d
+    view = big[:, 2:8]
+    assert not view.is_contiguous()
+    torch.testing.assert_close(ops.masked_agg(g, view, w),
+                               masked_agg_ref(g, d, w), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("bad", ["misaligned", "row_stride", "float64"])
+def test_kernel_wrapper_raises(dev, bad):
+    g, d, w = _case(dev, 4, 2, 256)
+    if bad == "misaligned":
+        g = torch.zeros(4 * 256 + 1, device=dev)[1:].view(4, 256)
+    elif bad == "row_stride":
+        d = torch.zeros(2, 4, 512, device=dev)[:, :, :256]
+    else:
+        w = w.double()
+    with pytest.raises(ValueError, match="masked_agg"):
+        ops.masked_agg(g, d, w)
+
+
+def test_fused_tree_matches_plain_on_card(dev):
+    from repro_torch.core.aggregation import masked_fedavg
+    from repro_torch.core.masking import build_units_flat
+    from repro_torch.models import paper_models as pm
+    params = {k: v.to(dev) for k, v in pm.init_vgg16(
+        torch.Generator().manual_seed(0), width_mult=0.25).items()}
+    assign = build_units_flat(params, pm.vgg16_units(params))
+    rng = np.random.default_rng(0)
+    sel = torch.as_tensor(rng.integers(0, 2, (5, 14)), dtype=torch.float32)
+    w = torch.as_tensor(rng.uniform(0.5, 2.0, 5), dtype=torch.float32)
+    deltas = {k: 0.05 * torch.randn((5,) + tuple(v.shape), device=dev)
+              for k, v in params.items()}
+    got = ops.masked_fedavg_fused(params, deltas, sel, w, assign)
+    ref = masked_fedavg(params, deltas, sel, w, assign)
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], atol=TOL, rtol=TOL)
