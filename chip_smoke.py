@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in four phases, and any failure exits
+nothing of the ``repro`` package) in seven phases, and any failure exits
 non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
@@ -28,6 +28,21 @@ non-zero:
    round, exact-zero deltas on every client's frozen units, and
    ``comm_summary()`` equal to Table 4's formula on the recorded
    selections.
+5. codec-kernel — ``quantize_pack`` (K2) at bits 8 and 4 on every one
+   of the 80 VGG16 leaf shapes with 8 rows (one of them all zero), plus
+   odd and long rows, against its plain PyTorch version on the same
+   ``x`` and ``u``: codes and scales equal bitwise, and two launches
+   bitwise equal; median times of the 80-leaf sweep (one round's
+   calls) for the kernel and the plain version beside the bound.
+6. packed-round — the same federation with ``packed=True,
+   codec="qint8"``, 3 rounds: finite losses, K2 launched once per leaf
+   per round and K1 never, decoded deltas of frozen (client, leaf)
+   pairs exactly zero, and in every round ``sel @ codec_unit_bytes`` ==
+   ``encoded_wire_bytes`` of the round's slot plan == the billed uplink,
+   beside the fp32 uplink of the same selections.
+7. codec-rounds — one round each with ``qint4`` and ``topk_ef``; the
+   latter holds ``decoded + new residual == signal`` exactly on the
+   rows of participating clients.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -304,6 +319,234 @@ def phase_round(dev):
     return launches
 
 
+def _vgg_leaf_sizes():
+    from repro_torch.models import paper_models as pm
+    from repro_torch.paper_round import WIDTH
+    params = pm.init_vgg16(torch.Generator().manual_seed(0), width_mult=WIDTH)
+    return [int(np.prod(tuple(x.shape))) for x in params.values()]
+
+
+def phase_codec_kernel(dev):
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.codec.ref import quantize_pack_ref
+    from repro_torch.paper_round import N_CLIENTS
+
+    sizes = _vgg_leaf_sizes()
+    check(len(sizes) == 80, f"VGG16 has {len(sizes)} leaves, expected 80")
+    r = N_CLIENTS
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def case(p):
+        x = 0.01 * torch.randn(r, p, generator=gen, device=dev)
+        x[r - 1] = 0.0                       # a non-participant's row
+        return x, torch.rand(r, p, generator=gen, device=dev)
+
+    leaves = [case(p) for p in sizes]
+    extra = [case(p) for p in (4097, 30_001, 2_359_297)]  # odd, long rows
+    name = torch.cuda.get_device_name(0)
+    out = {}
+    for bits in (8, 4):
+        for i, (x, u) in enumerate(leaves + extra):
+            codes, scale = qops.quantize_pack(x, u, bits)
+            want_c, want_s = quantize_pack_ref(x, u, bits)
+            check(codes.dtype == want_c.dtype and torch.equal(codes, want_c)
+                  and torch.equal(scale, want_s),
+                  f"quantize_pack bits {bits} case {i} {tuple(x.shape)}: "
+                  f"codes or scales differ from the plain version")
+            again = qops.quantize_pack(x, u, bits)
+            check(torch.equal(again[0], codes) and torch.equal(again[1], scale),
+                  f"quantize_pack bits {bits} case {i} is not bitwise "
+                  f"repeatable")
+            if bits == 4:
+                check(bool((codes[r - 1] == 0x88).all()),
+                      "an all-zero row did not pack to 0x88")
+        torch.cuda.synchronize()
+        n = r * sum(sizes)
+        code_bytes = n if bits == 8 else r * sum((p + 1) // 2 for p in sizes)
+        nbytes = 8 * n + code_bytes + 4 * r * len(sizes)
+        ops_ = 7 * n              # |x|, max, mul, add, floor, two clamps
+        by_bytes, by_ops = nbytes / memory_rate(name), ops_ / FP32_PEAK
+        ms = median_ms(lambda: [qops.quantize_pack(x, u, bits)
+                                for x, u in leaves], iters=10)
+        plain_ms = median_ms(lambda: [quantize_pack_ref(x, u, bits)
+                                      for x, u in leaves], iters=10)
+        bound = max(by_bytes, by_ops) * 1e3
+        # the largest single call of the round, 8 x 2,359,296 elements
+        x, u = max(leaves, key=lambda xu: xu[0].numel())
+        one_bytes = x.numel() * (9 if bits == 8 else 8.5) + 4 * r
+        one_ms = median_ms(lambda: qops.quantize_pack(x, u, bits))
+        one_plain = median_ms(lambda: quantize_pack_ref(x, u, bits))
+        print(f"[codec-kernel] bits {bits}: largest call {tuple(x.shape)}: "
+              f"median ms kernel {one_ms:.4f}, plain {one_plain:.4f}; bound "
+              f"{one_bytes / memory_rate(name) * 1e3:.4f}")
+        print(f"[codec-kernel] bits {bits}: {len(leaves)} VGG16 leaf shapes "
+              f"x {r} rows (one all zero) + odd/long rows {len(extra)}: "
+              f"codes and scales bitwise equal to the plain version, two "
+              f"launches bitwise equal")
+        print(f"[codec-kernel] bits {bits}: 80-leaf sweep median ms: kernel "
+              f"{ms:.4f}, plain {plain_ms:.4f}; bound {bound:.4f}: "
+              f"{nbytes / 1e9:.4f} GB at {memory_rate(name) / 1e12:.2f} TB/s "
+              f"is {by_bytes * 1e3:.4f}, {ops_ / 1e9:.3f} G ops at "
+              f"{FP32_PEAK / 1e12:.0f} TFLOP/s is {by_ops * 1e3:.4f}; the "
+              f"kernel reads x twice ({(nbytes + 4 * n) / 1e9:.4f} GB)")
+        out[bits] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes" if by_bytes >= by_ops
+                     else "operations"}
+    return {"name": "quantize_pack", "route": "cuda",
+            "source": "src/repro_torch/kernels/codec/csrc/quantize_pack.cu",
+            "replaces": "src/repro/kernels/codec/kernel.py:60",
+            "max_abs_err": 0.0, **out[8], "library_ms": None}
+
+
+class Capture:
+    """Server hook: keeps each round's metrics for the checks below."""
+
+    def __init__(self):
+        self.rounds = []
+
+    def on_round_start(self, server, round_idx, weights):
+        return None
+
+    def on_round_end(self, server, record, metrics):
+        self.rounds.append((record, metrics))
+
+    def on_fit_end(self, server, history):
+        pass
+
+
+def _check_wire_bytes(fed, cap, tag):
+    """Every round: claimed (sel @ codec_unit_bytes) == encoded wire
+    bytes of the round's slot plan == billed uplink; returns the fp32
+    uplink of the same selections beside the billed one."""
+    from repro_torch.core import codec_unit_bytes, encoded_wire_bytes
+    from repro_torch.core.comm import unit_bytes
+    from repro_torch.core.masking import slot_plan
+
+    server = fed.server
+    params = {p: x.cpu() for p, x in fed.params.items()}
+    cub = codec_unit_bytes(server.codec, fed.assign, params, fed.fl)
+    ub = unit_bytes(fed.assign, params)
+    n_slots = fed.fl.resolve_n_slots(fed.assign.n_units)
+    out = []
+    for rec, m in cap.rounds:
+        sel = m["sel"]
+        plans = [slot_plan(fed.assign, s, n_slots, params) for s in sel]
+        valid = {p: torch.stack([pl[1][p] for pl in plans]) for p in params}
+        enc = encoded_wire_bytes(server.codec, fed.assign, params, valid,
+                                 fed.fl)
+        claimed = float((sel.numpy() @ cub).sum())
+        check(claimed == enc == rec.uplink_bytes,
+              f"{tag} round {rec.round}: claimed {claimed}, encoded {enc}, "
+              f"billed {rec.uplink_bytes}")
+        out.append((rec.uplink_bytes, float((sel.numpy() @ ub).sum())))
+    return out
+
+
+def phase_packed_round(dev):
+    from repro_torch import paper_round
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.masked_agg import ops
+
+    fed = paper_round.build(dev, eval_images=256, packed=True, codec="qint8")
+    frozen, cap = FrozenDeltaCheck(fed.assign), Capture()
+    fed.server.add_hook(frozen).add_hook(cap)
+    n_leaves = len(fed.params)
+    torch.cuda.reset_peak_memory_stats()
+
+    qops.reset_launch_counts()
+    ops.reset_launch_counts()
+    hist = fed.fit(ROUNDS, log_every=1)
+    torch.cuda.synchronize()
+    launches = qops.quantize_pack.launches
+    k1 = ops.masked_agg.launches
+
+    check(all(math.isfinite(r.loss) for r in hist), "non-finite loss")
+    check(launches == ROUNDS * n_leaves,
+          f"quantize_pack launched {launches} times in {ROUNDS} rounds of "
+          f"{n_leaves} leaves")
+    check(k1 == 0, f"the packed round launched masked_agg {k1} times")
+    check(frozen.checked > 0, "no frozen unit was checked")
+    wire = _check_wire_bytes(fed, cap, "packed-round")
+    for r, (billed, fp32) in zip(hist, wire):
+        print(f"[packed-round] {r.round}: loss {r.loss:.4f} eval accuracy "
+              f"{r.eval_metric:.4f} {r.seconds:.3f} s uplink {billed:.0f} B "
+              f"qint8 = claimed = encoded; fp32 on the same selections "
+              f"{fp32:.0f} B ({fp32 / billed:.4f}x)")
+    print(f"[packed-round] quantize_pack launches {launches} "
+          f"({launches // ROUNDS} per round), masked_agg launches {k1}; "
+          f"frozen (client, leaf) decoded deltas checked exactly zero: "
+          f"{frozen.checked}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_codec_rounds(dev):
+    from repro_torch import paper_round
+    from repro_torch.core import get_codec
+    from repro_torch.kernels.codec import ops as qops
+
+    fed = paper_round.build(dev, packed=True, codec="qint4")
+    cap = Capture()
+    fed.server.add_hook(FrozenDeltaCheck(fed.assign)).add_hook(cap)
+    qops.reset_launch_counts()
+    (rec,) = fed.fit(1)
+    torch.cuda.synchronize()
+    check(math.isfinite(rec.loss), "qint4: non-finite loss")
+    check(qops.quantize_pack.launches == len(fed.params),
+          f"qint4: quantize_pack launched {qops.quantize_pack.launches} "
+          f"times for {len(fed.params)} leaves")
+    ((billed, fp32),) = _check_wire_bytes(fed, cap, "qint4")
+    print(f"[codec-rounds] qint4: loss {rec.loss:.4f} {rec.seconds:.3f} s "
+          f"uplink {billed:.0f} B = claimed = encoded; fp32 {fp32:.0f} B "
+          f"({fp32 / billed:.4f}x)")
+
+    # topk_ef: record what the codec saw and sent, then hold the residual
+    # identity on the round's own tensors
+    codec = get_codec("topk_ef")
+    seen = []
+
+    def recording(x2, draw, fl=None):
+        xh = type(codec).row_roundtrip(codec, x2, draw, fl)
+        seen.append(x2)
+        return xh
+
+    codec.row_roundtrip = recording
+    try:
+        fed = paper_round.build(dev, packed=True, codec="topk_ef")
+        cap = Capture()
+        fed.server.add_hook(FrozenDeltaCheck(fed.assign)).add_hook(cap)
+        (rec,) = fed.fit(1)
+        torch.cuda.synchronize()
+    finally:
+        del codec.row_roundtrip
+    check(math.isfinite(rec.loss), "topk_ef: non-finite loss")
+    (_, m), = cap.rounds
+    state = fed.server.codec_state
+    sel = m["sel"]
+    weights = torch.as_tensor(rec.effective_weights)
+    n_ok = 0
+    check(len(seen) == len(state), "topk_ef: one codec call per leaf")
+    for (path, res), x2 in zip(state.items(), seen):
+        lu = fed.assign.leaf_units[path]
+        check(res.dtype == torch.float32 and
+              tuple(res.shape) == (sel.shape[0],) + tuple(fed.params[path].shape),
+              f"topk_ef state {path}: {res.dtype} {tuple(res.shape)}")
+        ok = ((sel[:, lu.base] > 0) & (weights > 0)).to(dev)
+        x = x2.reshape(res.shape)
+        dec = m["deltas"][path]
+        check(torch.equal((dec + res)[ok], x[ok]),
+              f"topk_ef {path}: decoded + residual != signal")
+        check(bool((res[~ok] == 0).all()) and bool((dec[~ok] == 0).all()),
+              f"topk_ef {path}: a non-participant row moved")
+        n_ok += int(ok.sum())
+    ((billed, fp32),) = _check_wire_bytes(fed, cap, "topk_ef")
+    ef_bytes = sum(x.numel() * x.element_size() for x in state.values())
+    print(f"[codec-rounds] topk_ef: loss {rec.loss:.4f} {rec.seconds:.3f} s "
+          f"uplink {billed:.0f} B = claimed = encoded; fp32 {fp32:.0f} B; "
+          f"decoded + new residual == signal on {n_ok} (client, leaf) rows; "
+          f"EF state {ef_bytes / 1e6:.1f} MB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -322,11 +565,14 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    row = phase_kernel(dev)
+    k1 = phase_kernel(dev)
     phase_parity(dev)
-    row["launches"] = phase_round(dev)
+    k1["launches"] = phase_round(dev)
+    k2 = phase_codec_kernel(dev)
+    k2["launches"] = phase_packed_round(dev)
+    phase_codec_rounds(dev)
     print(smi)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

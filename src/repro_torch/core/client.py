@@ -12,6 +12,11 @@ stay bit-unchanged) without paying for their weight gradients.
 
 FedProx (``prox_mu > 0``) pulls only the round's *trained* (unmasked)
 layers toward the global model.
+
+``local_update_packed`` is the packed round path's client (DESIGN.md
+§7): it trains only the client's slot rows of every stacked leaf and
+returns slot deltas; ``packed_cohort_fn`` runs it for a client-stacked
+cohort as an ordered loop over clients.
 """
 from __future__ import annotations
 
@@ -19,9 +24,9 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..common import flatten_with_paths
+from ..common import flatten_with_paths, tree_stack
 from ..optim.masked import adam_init, adam_step, sgd_init, sgd_step
-from .masking import apply_mask
+from .masking import UnitAssignment, apply_mask
 
 Tree = Dict[str, torch.Tensor]
 
@@ -82,4 +87,115 @@ def local_update(loss_fn: Callable, global_params: Tree,
     with torch.no_grad():
         delta = {p: trained[p] - x if p in trained else torch.zeros_like(x)
                  for p, x in flatten_with_paths(global_params)}
+    return delta, {"loss_mean": torch.stack(losses).mean()}
+
+
+def packed_cohort_fn(loss_fn: Callable, assign: UnitAssignment, fl,
+                     loss_kwargs: Optional[Dict] = None) -> Callable:
+    """The packed local-training stage of the round step.
+
+    Returns ``cohort(global_params, rows, valid, batches) -> (pdeltas,
+    metrics)``: ``rows``/``valid`` are client-stacked slot plans
+    (leading client axis), and the clients train one after another in
+    their stacked order, as the dense round's loop does.  ``pdeltas``
+    and ``metrics["loss_mean"]`` carry a leading client axis.
+    """
+
+    def cohort(global_params, rows, valid, batches):
+        deltas, losses = [], []
+        for c in range(next(iter(batches.values())).shape[0]):
+            d, m = local_update_packed(
+                loss_fn, global_params, assign,
+                {p: r[c] for p, r in rows.items()},
+                {p: v[c] for p, v in valid.items()},
+                {k: v[c] for k, v in batches.items()}, lr=fl.lr,
+                optimizer=fl.optimizer, prox_mu=fl.prox_mu,
+                loss_kwargs=loss_kwargs)
+            deltas.append(d)
+            losses.append(m["loss_mean"])
+        return tree_stack(deltas), {"loss_mean": torch.stack(losses)}
+
+    return cohort
+
+
+def local_update_packed(loss_fn: Callable, global_params: Tree,
+                        assign: UnitAssignment, rows: Tree, valid: Tree,
+                        batches: Dict[str, torch.Tensor], *,
+                        lr: float = 1e-2, optimizer: str = "adam",
+                        prox_mu: float = 0.0,
+                        loss_kwargs: Optional[Dict] = None
+                        ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
+    """Packed variant of :func:`local_update` (DESIGN.md §7).
+
+    ``rows``/``valid`` come from ``masking.slot_plan``: the client's
+    trained macro rows of every stacked leaf, gathered into fixed-shape
+    ``(L, ...)`` slot buffers.  The trained state — packed params plus
+    freshly initialized optimizer moments — holds only those slots, so
+    frozen stacked rows cost no optimizer memory; the loss sees the full
+    model rebuilt by scattering the slots into a detached copy of the
+    global leaf, so no gradient flows into frozen rows.  Scalar leaves
+    are carried whole with masked grads, as on the dense path.  Leaves
+    with no valid slot take no gradient at all (their delta is zeros,
+    as the reference's masked step leaves them).
+
+    Returns ``(packed_delta, metrics)``: stacked leaves carry ``(L,
+    ...)`` slot deltas (exact zeros on pad slots), scalar leaves
+    full-shape masked deltas.
+    """
+    loss_kwargs = loss_kwargs or {}
+    opt_init, opt_step = ((adam_init, adam_step) if optimizer == "adam"
+                          else (sgd_init, sgd_step))
+    paths = [p for p, _ in flatten_with_paths(global_params)]
+    stacked = {p for p in paths if assign.leaf_units[p].kind == "stacked"}
+    live = [p for p in paths if bool(valid[p].any())]
+    dev = {p: global_params[p].device for p in paths}
+    drows = {p: rows[p].to(device=dev[p], dtype=torch.long)
+             for p in live if p in stacked}
+    dvalid = {p: valid[p].to(dev[p]) for p in live}
+    packed0 = {p: global_params[p].index_select(0, drows[p])
+               if p in stacked else global_params[p] for p in live}
+    trained = dict(packed0)
+    opt_state = opt_init(trained)
+    n_steps = next(iter(batches.values())).shape[0]
+    losses = []
+    for s in range(n_steps):
+        batch = {k: v[s] for k, v in batches.items()}
+        with torch.enable_grad():
+            leaves = {p: trained[p].detach().requires_grad_(True)
+                      for p in live}
+            params = {}
+            for p in paths:
+                if p not in leaves:
+                    params[p] = global_params[p]
+                elif p in stacked:
+                    params[p] = global_params[p].detach().index_copy(
+                        0, drows[p], leaves[p])
+                else:
+                    params[p] = leaves[p]
+            loss, _ = loss_fn(params, batch, **loss_kwargs)
+            if prox_mu > 0.0:
+                # prox over the packed representation: trained slots only
+                diffs = apply_mask(dvalid, {
+                    p: (leaves[p] - packed0[p]).float() for p in live})
+                loss = loss + 0.5 * prox_mu * sum(
+                    torch.sum(torch.square(d)) for d in diffs.values())
+            grads = torch.autograd.grad(loss, [leaves[p] for p in live],
+                                        allow_unused=True)
+        with torch.no_grad():
+            grads = {p: torch.zeros_like(leaves[p]) if g is None else g
+                     for p, g in zip(live, grads)}
+            grads = apply_mask(dvalid, grads)
+            trained, opt_state = opt_step(grads, opt_state, trained, lr=lr,
+                                          mask=dvalid)
+        losses.append(loss.detach())
+    with torch.no_grad():
+        delta = {}
+        for p, x in flatten_with_paths(global_params):
+            if p in trained:
+                delta[p] = trained[p] - packed0[p]
+            elif p in stacked:
+                delta[p] = x.new_zeros((rows[p].shape[0],)
+                                       + tuple(x.shape[1:]))
+            else:
+                delta[p] = torch.zeros_like(x)
     return delta, {"loss_mean": torch.stack(losses).mean()}

@@ -13,12 +13,15 @@ participation-weighted aggregation run eagerly on the round's device.
 
 Topology is a second plugin axis (core/topology.py): ``fl.topology``
 names a registered :class:`Topology` that owns the aggregation stage
-and its byte accounting.  Only ``hub`` is ported so far.
+and its byte accounting.  Only ``hub`` is ported so far.  With
+``fl.packed`` the round trains and aggregates packed slot buffers, and
+``fl.codec`` names a registered uplink codec (core/codecs.py) that
+round-trips the packed deltas before aggregation.
 
 ``FLConfig`` keeps the reference's fields, defaults and validators.
-The switches of engines that are not ported yet (packed path, async,
-cohort, faults, codecs, client sharding, history cap) raise
-:class:`NotPortedError` when set to anything but their default.
+The switches of engines that are not ported yet (async, cohort, faults,
+client sharding, history cap) raise :class:`NotPortedError` when set to
+anything but their default.
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ class FLConfig:
     # kernel when the round runs on a CUDA device and the plain
     # masked_fedavg elsewhere; "on" routes through the kernel's wrapper
     # (its plain version on CPU tensors), "off" the plain masked_fedavg.
+    # The packed path has its own ordered accumulate and ignores this.
     fused_agg: str = "auto"
     # semi-async buffered aggregation (core/async_agg.py, DESIGN.md §8):
     # >0 switches the round loop to FedBuff-style flush rounds — the
@@ -236,6 +240,25 @@ class FLConfig:
             raise ValueError(
                 f"codec_topk must be in (0, 1] (keep fraction per slot "
                 f"row), got {self.codec_topk}")
+        if self.codec != "none":
+            # resolve at config time so typos fail before any round runs
+            from .codecs import resolve_codec
+            cd = resolve_codec(self.codec)
+            if not self.packed:
+                raise ValueError(
+                    "codecs transform packed trained-slot deltas: set "
+                    "packed=True")
+            if self.topology == "gossip":
+                raise ValueError(
+                    "the gossip topology exchanges full model replicas "
+                    "and has no packed uplink; codecs need hub or "
+                    "hierarchical")
+            if cd.stateful and self.uses_cohort_engine():
+                raise ValueError(
+                    "error-feedback codec state is per in-flight client; "
+                    "the chunked cohort engine streams stateless chunks — "
+                    "use qint8/qint4 there, or drop "
+                    "n_registered/cohort_chunk")
         # engines of the reference that the port does not have yet:
         # refuse their switches instead of silently running without them
         defaults = FLConfig.__dataclass_fields__
@@ -269,12 +292,17 @@ class FLConfig:
             return n_train_from_fraction(n_units, self.train_fraction)
         return self.n_train_units
 
+    def resolve_n_slots(self, n_units: int) -> int:
+        """Static slot budget of the packed round path (DESIGN.md §7):
+        the trained-unit count plus the optional always-trained head."""
+        return min(n_units, self.resolve_n_train(n_units)
+                   + (1 if self.always_train_head else 0))
+
 
 # FLConfig switches of engines that are not ported yet
-_UNPORTED_SWITCHES = ("packed", "async_buffer", "n_registered",
-                      "cohort_chunk", "client_shards", "history_cap",
-                      "faults", "max_delta_norm", "client_drop_prob",
-                      "codec")
+_UNPORTED_SWITCHES = ("async_buffer", "n_registered", "cohort_chunk",
+                      "client_shards", "history_cap", "faults",
+                      "max_delta_norm", "client_drop_prob")
 
 
 def build_round_step(loss_fn: Callable, assign: UnitAssignment,

@@ -3,13 +3,13 @@
 A **freeze unit** is the granularity of the paper's layer selection: one
 conv/dense layer for the paper's own models.  Every param leaf maps to
 one unit — either wholly (``scalar`` leaves) or per-index along its
-leading macro dim (``stacked`` leaves; the zoo models' scanned block
-stacks, which wait for a later slice).
+leading macro dim (``stacked`` leaves: the toy MLP's block stacks here,
+the zoo models' scanned blocks once they are ported).
 
 Given a 0/1 selection vector ``sel (U,)``, ``mask_tree`` materializes a
 tree of broadcastable masks: a 0-dim mask for a scalar leaf, ``(n_macro,)``
-for a stacked one.  Slot packing (the packed round path) waits for its
-own slice.
+for a stacked one.  ``slot_plan`` / ``slot_gather`` / ``slot_merge``
+lay out the packed round path's slot buffers (DESIGN.md §7).
 """
 from __future__ import annotations
 
@@ -92,3 +92,72 @@ def unit_param_counts(assign: UnitAssignment, params) -> np.ndarray:
             for u in leaf_unit_ids(lu, shape):
                 counts[u] += per
     return counts
+
+
+# ---------------------------------------------------------------------------
+# slot packing (DESIGN.md §7 — the sparse round step)
+#
+# With a static per-round trained-unit budget ``n_slots`` the selected
+# macro rows of every *stacked* leaf are gathered into fixed-shape
+# ``(L, ...)`` slot buffers (L = min(n_macro, n_slots)), so optimizer
+# moments, weight deltas and the cross-client reduce only ever touch the
+# trained slice of the model.  Scalar leaves participate as whole units
+# and are carried dense.
+
+
+def slot_plan(assign: UnitAssignment, sel_row: torch.Tensor, n_slots: int,
+              params) -> Tuple[Dict[str, torch.Tensor],
+                               Dict[str, torch.Tensor]]:
+    """Per-leaf slot layout for one client's packed round.
+
+    Returns ``(rows, valid)``, two trees keyed like ``params`` on
+    ``sel_row``'s device:
+
+    * stacked leaf: ``rows (L,)`` int64 macro indices with the selected
+      rows first (stable order) and *distinct* unselected pad rows after
+      (the argsort is a permutation, so pad slots never alias a selected
+      row); ``valid (L,)`` float32 is 1 on selected slots, 0 on pads.
+    * scalar leaf: ``rows`` is an empty int64 sentinel and ``valid`` is
+      the leaf's participation scalar ``sel_row[unit]`` — the value
+      ``mask_tree`` gives, so ``valid`` doubles as the grad / optimizer
+      mask tree of the packed representation.
+    """
+    sel_row = sel_row.float()
+    rows, valid = {}, {}
+    for path, p in flatten_with_paths(params):
+        lu = assign.leaf_units[path]
+        if lu.kind == "scalar":
+            rows[path] = torch.zeros((0,), dtype=torch.int64,
+                                     device=sel_row.device)
+            valid[path] = sel_row[lu.base]
+            continue
+        ids = torch.as_tensor(leaf_unit_ids(lu, p.shape),
+                              device=sel_row.device)
+        leaf_sel = sel_row[ids]
+        n_keep = min(p.shape[0], n_slots)
+        # stable: selected rows first, each group in index order
+        order = torch.argsort(-leaf_sel, stable=True)
+        rows[path] = order[:n_keep]
+        valid[path] = leaf_sel[rows[path]]
+    return rows, valid
+
+
+def slot_gather(assign: UnitAssignment, tree, rows):
+    """Stacked leaves -> their ``(L, ...)`` slot rows; scalar leaves whole."""
+    return {p: x if assign.leaf_units[p].kind == "scalar"
+            else x.index_select(0, rows[p])
+            for p, x in flatten_with_paths(tree)}
+
+
+def slot_merge(assign: UnitAssignment, base, packed, rows):
+    """Inverse of :func:`slot_gather`: write slot rows into ``base``.
+
+    Out of place: stacked leaves scatter their packed rows into a copy
+    of the full-shape base leaf (rows are distinct by construction, so
+    a plain copy is exact — pad slots rewrite their own unchanged
+    value); scalar leaves pass through from ``packed``.  With a detached
+    ``base`` no gradient reaches the frozen stacked rows.
+    """
+    return {p: packed[p] if assign.leaf_units[p].kind == "scalar"
+            else b.index_copy(0, rows[p], packed[p])
+            for p, b in flatten_with_paths(base)}

@@ -16,8 +16,13 @@ the global params are untouched and the ``RoundRecord`` carries
 ``skipped=True`` with zero participants.
 
 The server owns one CPU ``torch.Generator`` seeded from ``seed``; the
-round's selection and the straggler draws come from it.  Checkpointing
-(``Checkpointer``) waits for the port of ``ckpt/store.py``.
+round's selection and the straggler draws come from it.  Under a
+stochastic uplink codec it also owns a generator on the round's device
+(seeded from ``seed`` and ``CODEC_KEY_TAG``) that draws the
+stochastic-rounding uniforms where the codec runs, and under a stateful
+codec the per-client error-feedback residual, which it threads through
+the round step.  Checkpointing (``Checkpointer``) waits for the port of
+``ckpt/store.py``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from ..common import Device, resolve_device
-from . import comm
+from . import codecs, comm
 from .federation import FLConfig
 from .masking import UnitAssignment
 from .topology import Topology, resolve_topology
@@ -97,7 +102,9 @@ class CommAccounting(ServerHook):
     def on_round_end(self, server, record, metrics):
         if record.skipped or metrics is None:
             return
-        ub = server.unit_bytes()
+        # bill at wire width: the codec's encoded per-unit byte table
+        # (identical to the fp32 table for codec "none")
+        ub = server.wire_unit_bytes()
         counts = comm.unit_param_counts(server.assign,
                                         server.global_params())
         # bill only clients that actually uploaded: rows zeroed by
@@ -174,6 +181,18 @@ class Server:
         self.history: List[RoundRecord] = []
         self.sel_history: List[np.ndarray] = []
         self._ubytes = None
+        self._wire_ubytes = None
+        # codec axis (core/codecs.py): the per-client error-feedback
+        # residual of a stateful codec (None for stateless ones), and the
+        # device generator of a stochastic codec's rounding uniforms —
+        # drawn where the codec runs, never copied from the host
+        self.codec = codecs.resolve_codec(fl.codec)
+        self.codec_state = codecs.init_codec_state(
+            self.codec, self.params, fl.n_clients)
+        self.codec_generator = None
+        if self.codec.stochastic:
+            self.codec_generator = torch.Generator(
+                device=self.device).manual_seed(seed ^ codecs.CODEC_KEY_TAG)
 
     def global_params(self):
         """The global model (the only server state of a star topology)."""
@@ -183,6 +202,20 @@ class Server:
         if self._ubytes is None:
             self._ubytes = comm.unit_bytes(self.assign, self.global_params())
         return self._ubytes
+
+    def wire_unit_bytes(self) -> np.ndarray:
+        """Per-unit *encoded* uplink bytes under the active codec — what
+        CommAccounting bills (== ``unit_bytes`` for codec ``none``)."""
+        if self._wire_ubytes is None:
+            self._wire_ubytes = codecs.codec_unit_bytes(
+                self.codec, self.assign, self.global_params(), self.fl)
+        return self._wire_ubytes
+
+    def codec_uniform(self, i: int, shape) -> torch.Tensor:
+        """Stochastic-rounding uniforms for flattened leaf ``i``, drawn on
+        the round's device from the server's codec generator."""
+        return torch.rand(shape, generator=self.codec_generator,
+                          device=self.device)
 
     def add_hook(self, hook: ServerHook) -> "Server":
         self.hooks.append(hook)
@@ -211,8 +244,18 @@ class Server:
                 np.zeros((c, self.assign.n_units), np.float32))
             metrics = None
         else:
+            step_kw = {}
+            if self.codec.stochastic:
+                step_kw["uniform"] = self.codec_uniform
+            if self.codec_state is not None:
+                # stateful codec: thread the EF residual through the
+                # step; the new residual rides the metrics back out
+                step_kw["codec_state"] = self.codec_state
             self.params, metrics = self.round_step(
-                self.params, client_batches, weights, self.generator)
+                self.params, client_batches, weights, self.generator,
+                **step_kw)
+            if "codec_state" in metrics:
+                self.codec_state = metrics.pop("codec_state")
             self.sel_history.append(np.asarray(metrics["sel"]))
             ev = None
             if self.eval_fn is not None:
@@ -259,6 +302,12 @@ class Server:
         # run summary matches the per-round records
         hist = np.stack([CommAccounting._mask_dropped(s, rec)
                          for s, rec in zip(self.sel_history, self.history)])
+        sum_kw = {}
+        if self.codec.name != "none":
+            # bill the run at encoded wire width; custom topologies
+            # without the wire_ubytes parameter keep working when no
+            # codec is configured
+            sum_kw["wire_ubytes"] = self.wire_unit_bytes()
         return dict(self.topology.summary(self.assign, self.global_params(),
-                                          hist, self.fl),
+                                          hist, self.fl, **sum_kw),
                     **self._wasted_summary())

@@ -8,8 +8,12 @@ Ported so far: ``hub`` — the paper's FEDn combiner star (the default).
 Its masked aggregate goes through the fused CUDA kernel when
 ``FLConfig.resolve_fused_agg`` says so (``kernels/masked_agg``), with
 each client's delta written straight into the kernel's client-stacked
-tile buffer.  ``hierarchical`` and ``gossip`` are not ported yet and
-:func:`resolve_topology` says so by name.
+tile buffer.  With ``FLConfig.packed`` the round runs on packed slot
+buffers instead (DESIGN.md §7), the uplink codec round-trips the packed
+deltas, and the hub's ``aggregate_packed`` reduces them; that path
+ignores ``fused_agg``, as the reference's does.  ``hierarchical`` and
+``gossip`` are not ported yet and :func:`resolve_topology` says so by
+name.
 """
 from __future__ import annotations
 
@@ -18,12 +22,13 @@ from typing import Callable, ClassVar, Dict, Optional, Type, Union
 import numpy as np
 import torch
 
-from ..common import tree_stack
+from ..common import flatten_with_paths, tree_stack
 from ..kernels.masked_agg import ops as agg_ops
+from . import codecs as _codecs
 from . import comm
-from .aggregation import fedavg, masked_fedavg
-from .client import local_update
-from .masking import UnitAssignment, mask_tree
+from .aggregation import fedavg, masked_fedavg, masked_fedavg_packed
+from .client import local_update, packed_cohort_fn
+from .masking import UnitAssignment, mask_tree, slot_plan
 from .registry import NotPortedError, unknown_name_message
 from .strategies import SelectionContext, resolve_strategy
 
@@ -48,25 +53,75 @@ def _selection_setup(assign: UnitAssignment, fl, strategy):
 
 def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                      loss_kwargs: Optional[Dict], *, strategy,
-                     device: torch.device, fused: bool):
+                     device: torch.device, fused: bool,
+                     aggregate_packed: Optional[Callable] = None):
     """The star-topology skeleton: selection -> masked local training
     (an ordered loop over clients) -> masked FedAvg, fused or plain.
 
+    With ``fl.packed`` (DESIGN.md §7) local training and aggregation run
+    on packed slot buffers instead: ``aggregate_packed(g, pdeltas, rows,
+    valid, sel, weights)`` reduces only the trained slots, and the codec
+    (``fl.codec``) round-trips the packed deltas first.  That branch is
+    taken whatever ``fused`` says.  The round step then takes two more
+    keywords: ``uniform(i, shape)``, the stochastic-rounding draws of a
+    stochastic codec, and ``codec_state``, the error-feedback residual
+    of a stateful one (the new residual comes back in
+    ``metrics["codec_state"]``).
+
     ``metrics["deltas"]`` is the client-stacked delta tree the round
-    aggregated (views into the kernel's tile buffer on the fused path).
+    aggregated (views into the kernel's tile buffer on the fused path;
+    the decoded packed deltas on the packed path).
     """
     strat, ctx = _selection_setup(assign, fl, strategy)
+    use_packed = fl.packed and not strat.dense
+    if use_packed and aggregate_packed is None:
+        raise ValueError(
+            f"topology {fl.topology!r} has no packed aggregation path; "
+            "set FLConfig.packed=False")
+    n_slots = fl.resolve_n_slots(ctx.n_units)
+    packed_cohort = packed_cohort_fn(loss_fn, assign, fl, loss_kwargs)
+    codec_fn = _codecs.build_codec_transform(
+        _codecs.resolve_codec(fl.codec), assign, fl)
     plan = {}
 
+    def packed_step(global_params, client_batches, weights, sel, uniform,
+                    codec_state):
+        plans = [slot_plan(assign, sel[c], n_slots, global_params)
+                 for c in range(fl.n_clients)]
+        paths = [p for p, _ in flatten_with_paths(global_params)]
+        rows = {p: torch.stack([r[p] for r, _ in plans]) for p in paths}
+        valid = {p: torch.stack([v[p] for _, v in plans]) for p in paths}
+        deltas, m = packed_cohort(global_params, rows, valid, client_batches)
+        # the plan on the round's device, moved once per leaf
+        rows = {p: r.to(device) for p, r in rows.items()}
+        valid = {p: v.to(device) for p, v in valid.items()}
+        new_codec_state = None
+        if codec_fn is not None:
+            deltas, new_codec_state = codec_fn(deltas, rows, valid, weights,
+                                               uniform, codec_state)
+        new_params = aggregate_packed(global_params, deltas, rows, valid,
+                                      sel, weights)
+        metrics = {"loss_mean": m["loss_mean"].mean(),
+                   "loss_per_client": m["loss_mean"],
+                   "sel": sel,
+                   "deltas": deltas}
+        if new_codec_state is not None:
+            metrics["codec_state"] = new_codec_state
+        return new_params, metrics
+
     def round_step(global_params, client_batches, weights,
-                   gen: Optional[torch.Generator]):
+                   gen: Optional[torch.Generator], *, uniform=None,
+                   codec_state=None):
         sel = strat.select(gen, ctx)
         if fl.always_train_head:
             sel[:, -1] = 1.0
         weights = torch.as_tensor(weights, dtype=torch.float32).cpu()
+        if use_packed:
+            return packed_step(global_params, client_batches, weights, sel,
+                               uniform, codec_state)
         n = fl.n_clients
-        packed = fused and not strat.dense
-        if packed:
+        fused_tiles = fused and not strat.dense
+        if fused_tiles:
             if "plan" not in plan:
                 plan["plan"] = agg_ops.build_agg_plan(assign, global_params)
             d_t = agg_ops.new_tile_buffer(plan["plan"], (n,), device=device)
@@ -81,7 +136,7 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                 optimizer=fl.optimizer, prox_mu=fl.prox_mu,
                 loss_kwargs=loss_kwargs)
             losses.append(m["loss_mean"])
-            if packed:
+            if fused_tiles:
                 # straight into the kernel's client plane: no stacked copy
                 agg_ops.pack_into(plan["plan"], d, d_t[c])
             else:
@@ -89,7 +144,7 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
         if strat.dense:
             deltas = tree_stack(deltas)
             new_params = fedavg(global_params, deltas, weights)
-        elif packed:
+        elif fused_tiles:
             new_params = agg_ops.masked_combine_packed(
                 global_params, d_t, sel * weights[:, None], plan["plan"])
             deltas = agg_ops.unpack(plan["plan"], d_t, global_params)
@@ -127,8 +182,11 @@ class Topology:
         raise NotImplementedError
 
     def summary(self, assign: UnitAssignment, params,
-                sel_history: np.ndarray, fl) -> Dict[str, float]:
-        """Run-level comm summary over ``sel_history (rounds, C, U)``."""
+                sel_history: np.ndarray, fl,
+                wire_ubytes: Optional[np.ndarray] = None
+                ) -> Dict[str, float]:
+        """Run-level comm summary over ``sel_history (rounds, C, U)``;
+        ``wire_ubytes`` bills the uplink at a codec's encoded width."""
         raise NotImplementedError
 
     def __repr__(self):
@@ -187,15 +245,19 @@ class Hub(Topology):
 
     def build_round_step(self, loss_fn, assign, fl, loss_kwargs=None, *,
                          strategy=None, device):
-        return _star_round_step(loss_fn, assign, fl, loss_kwargs,
-                                strategy=strategy, device=device,
-                                fused=fl.resolve_fused_agg(device))
+        return _star_round_step(
+            loss_fn, assign, fl, loss_kwargs, strategy=strategy,
+            device=device, fused=fl.resolve_fused_agg(device),
+            aggregate_packed=lambda g, d, r, v, sel, w:
+                masked_fedavg_packed(g, d, r, v, sel, w, assign))
 
     def round_bytes(self, sel, ubytes, fl):
         return comm.hub_round_bytes(
             sel, ubytes,
             downlink="selected" if fl.synchronized else "full")
 
-    def summary(self, assign, params, sel_history, fl):
-        # the exact Table 4 reproduction
-        return comm.table4_row(assign, params, sel_history)
+    def summary(self, assign, params, sel_history, fl, wire_ubytes=None):
+        # the exact Table 4 reproduction (uplink at codec wire width
+        # when a codec is configured)
+        return comm.table4_row(assign, params, sel_history,
+                               wire_ubytes=wire_ubytes)

@@ -8,6 +8,7 @@ profiles it.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -24,10 +25,13 @@ BATCH = 32
 LOCAL_STEPS = 2
 
 
-def build(device: Device = "cuda", *, eval_images: int = 0) -> Federation:
+def build(device: Device = "cuda", *, eval_images: int = 0,
+          **fl_overrides) -> Federation:
     """The main path's federation on ``device``.  With ``eval_images``
     it also holds out that many ``cifar_like`` images and evaluates
-    accuracy on them after every round."""
+    accuracy on them after every round.  ``fl_overrides`` replace
+    fields of its ``FLConfig`` (``packed=True, codec="qint8"`` runs the
+    packed round with the int8 uplink codec)."""
     dev = resolve_device(device)
     n = N_CLIENTS * BATCH * LOCAL_STEPS
     x_all, y_all = cifar_like(n + eval_images, key=0)
@@ -48,7 +52,8 @@ def build(device: Device = "cuda", *, eval_images: int = 0) -> Federation:
                      functools.partial(pm.init_vgg16, width_mult=WIDTH),
                      functools.partial(pm.vgg16_loss, device=dev),
                      pm.vgg16_units)
-    fl = FLConfig(n_clients=N_CLIENTS, n_train_units=N_TRAIN,
-                  strategy="uniform", topology="hub")
+    fl = dataclasses.replace(
+        FLConfig(n_clients=N_CLIENTS, n_train_units=N_TRAIN,
+                 strategy="uniform", topology="hub"), **fl_overrides)
     return Federation.from_config(spec, fl, data=loader, device=dev,
                                   eval_fn=eval_fn)

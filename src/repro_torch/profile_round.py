@@ -1,10 +1,11 @@
 """Where the time of the paper's hub round goes on the GPU.
 
     PYTHONPATH=src python -m repro_torch.profile_round [--rounds 3]
-        [--out FILE]
+        [--codec qint8] [--out FILE]
 
 Builds the main path's federation (``paper_round.build``, the same one
-chip_smoke.py drives, without evaluation), runs one round to warm up,
+chip_smoke.py drives, without evaluation; with ``--codec`` the packed
+round with that uplink codec), runs one round to warm up,
 then ``--rounds`` rounds without and ``--rounds`` rounds under
 ``torch.profiler``, and prints one JSON object: the card and its power
 limit, the host wall time per round, the device's busy share (device
@@ -34,6 +35,8 @@ def _device_us(evt) -> float:
 def _kind(name: str) -> str:
     if "masked_agg" in name:
         return "masked_agg (K1)"
+    if "quantize_pack" in name or "absmax_partial" in name:
+        return "quantize_pack (K2)"
     if any(k in name for k in ("cudnn", "xmma", "implicit_gemm", "conv",
                                "dgrad", "wgrad", "gemm")):
         return "convolution / matmul"
@@ -42,8 +45,9 @@ def _kind(name: str) -> str:
     return "elementwise / reduction"
 
 
-def profile(rounds: int) -> dict:
-    fed = paper_round.build("cuda")
+def profile(rounds: int, codec: str = "") -> dict:
+    fed = paper_round.build("cuda", **(
+        {"packed": True, "codec": codec} if codec else {}))
     fed.fit(1)                                   # warm-up: cuDNN, kernel build
     clean = [r.seconds for r in fed.fit(rounds)[-rounds:]]   # no profiler
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -75,6 +79,7 @@ def profile(rounds: int) -> dict:
                    "train_units": paper_round.N_TRAIN,
                    "batch": paper_round.BATCH,
                    "local_steps": paper_round.LOCAL_STEPS,
+                   "packed": fed.fl.packed, "codec": fed.fl.codec,
                    "rounds": rounds},
         "round_seconds": clean,
         "round_seconds_profiled": [r.seconds for r in hist[-rounds:]],
@@ -92,9 +97,11 @@ def profile(rounds: int) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--codec", default="",
+                    help="profile the packed round with this uplink codec")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     a = ap.parse_args(argv)
-    text = json.dumps(profile(a.rounds), indent=1)
+    text = json.dumps(profile(a.rounds, a.codec), indent=1)
     print(text)
     if a.out:
         with open(a.out, "w") as f:

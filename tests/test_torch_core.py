@@ -120,9 +120,10 @@ def test_flconfig_validators_match_reference(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"packed": True}, {"async_buffer": 2}, {"n_registered": 8},
-    {"cohort_chunk": 2}, {"client_shards": 2}, {"history_cap": 3},
-    {"faults": "crash:0.1"}, {"codec": "qint8", "packed": True},
+    {"max_delta_norm": 1.0, "packed": True}, {"async_buffer": 2},
+    {"n_registered": 8}, {"cohort_chunk": 2}, {"client_shards": 2},
+    {"history_cap": 3}, {"faults": "crash:0.1"},
+    {"faults": "nan:0.1", "packed": True, "codec": "qint8"},
 ])
 def test_unported_engines_raise(kw):
     rfed.FLConfig(n_clients=4, **kw)               # valid in the reference

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernel on a card, against its plain version.
+"""The hand-written CUDA kernels on a card, against their plain versions.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU (this
 file imports neither JAX nor the reference, so it also runs on a GPU
@@ -89,3 +89,63 @@ def test_fused_tree_matches_plain_on_card(dev):
     ref = masked_fedavg(params, deltas, sel, w, assign)
     for k in ref:
         torch.testing.assert_close(got[k], ref[k], atol=TOL, rtol=TOL)
+
+
+# -- K2: quantize-pack -------------------------------------------------------
+
+def _qcase(dev, r, p, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.05 * torch.randn(r, p, generator=gen, device=dev)
+    u = torch.rand(r, p, generator=gen, device=dev)
+    x[r // 2] = 0.0                                   # an all-zero row
+    return x, u
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("r,p", [(1, 1), (8, 10), (3, 4097), (8, 8192),
+                                 (2, 8193), (8, 2_359_296), (5, 30_001)])
+def test_quantize_pack_matches_plain_bitwise(dev, bits, r, p):
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.codec.ref import quantize_pack_ref
+    x, u = _qcase(dev, r, p)
+    before = qops.quantize_pack.launches
+    codes, scale = qops.quantize_pack(x, u, bits)
+    torch.cuda.synchronize()
+    assert qops.quantize_pack.launches == before + 1
+    want_codes, want_scale = quantize_pack_ref(x, u, bits)
+    assert codes.dtype == want_codes.dtype and codes.shape == want_codes.shape
+    assert torch.equal(codes, want_codes)
+    assert torch.equal(scale, want_scale)
+    again = qops.quantize_pack(x, u, bits)           # bitwise repeatable
+    assert torch.equal(again[0], codes) and torch.equal(again[1], scale)
+    if bits == 4 and r > 1:
+        assert bool((codes[r // 2] == 0x88).all())
+
+
+def test_quantize_pack_reads_unaligned_rows(dev):
+    # a view starting one float in: no 16-byte loads, same codes
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.codec.ref import quantize_pack_ref
+    x, u = _qcase(dev, 4, 4097)
+    xs = torch.zeros(4 * 4096 + 1, device=dev)[1:].view(4, 4096)
+    us = torch.zeros(4 * 4096 + 1, device=dev)[1:].view(4, 4096)
+    xs.copy_(x[:, :4096])
+    us.copy_(u[:, :4096])
+    for bits in (8, 4):
+        got = qops.quantize_pack(xs, us, bits)
+        want = quantize_pack_ref(xs, us, bits)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("bad", ["strided", "float64", "device"])
+def test_quantize_pack_wrapper_raises(dev, bad):
+    from repro_torch.kernels.codec import ops as qops
+    x, u = _qcase(dev, 4, 256)
+    if bad == "strided":
+        x = torch.zeros(4, 512, device=dev)[:, ::2]
+    elif bad == "float64":
+        u = u.double()
+    else:
+        u = u.cpu()
+    with pytest.raises(ValueError, match="quantize_pack"):
+        qops.quantize_pack(x, u, 8)
