@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in seven phases, and any failure exits
+nothing of the ``repro`` package) in ten phases, and any failure exits
 non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
@@ -43,6 +43,28 @@ non-zero:
 7. codec-rounds — one round each with ``qint4`` and ``topk_ef``; the
    latter holds ``decoded + new residual == signal`` exactly on the
    rows of participating clients.
+8. decode-kernel — ``paged_decode_attention`` (K3) on qwen3's heads
+   (16 query heads over 8 KV heads of 128) at the serving shape (8
+   sequences of 129-175 tokens) and at 8 x 4,096 tokens, pages
+   scattered by a random permutation, valid lengths ragged, fp32 and
+   bf16: within 2e-5 of its plain version in fp32 and 3e-2 of the fp32
+   plain version on the same bf16 inputs, bitwise repeatable, and the
+   same output bitwise when the trash page and every page the tables do
+   not reach are NaN; median device times (L2 flushed) of the kernel,
+   the plain version and a gather + ``scaled_dot_product_attention``
+   yardstick beside the bound in bytes.
+9. serve — qwen3-1.7b at full width in fp32 (random weights) through
+   ``DecodeEngine`` (``repro_torch/serve_workload.py``): 8 slots over
+   16-token pages, 16 requests of 128 prompt tokens, request i
+   generating ``32 + i % 16`` tokens.  Checks the parameter count, that
+   every request finishes with its token count, one decode input
+   signature, and K3 launched once per layer per decode step; prints
+   tokens/s, decode ms per step, TTFT, latency, preemptions, peak pages
+   and memory.
+10. serve-parity — the same requests through the engine (K3) against
+   ``static_generate`` (dense cache, plain attention) on the card: every
+   logits row within 1e-3, and equal token streams except at a step
+   whose static top-2 logit gap is below that tolerance (printed).
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -547,6 +569,241 @@ def phase_codec_rounds(dev):
           f"EF state {ef_bytes / 1e6:.1f} MB")
 
 
+
+# -- K3 and the serving path ---------------------------------------------------
+
+QWEN3_PARAMS = 1_720_574_976     # the reference's init at full width
+LOGIT_TOL = 1e-3                 # card: continuous (K3) vs static (plain)
+FLUSH_FLOATS = 16 << 20          # 64 MB: more than the H100's 50 MB L2
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Median device time of ``fn`` with L2 flushed before each call.
+
+    The host enqueues every (flush, event, call, event) behind a GPU sleep,
+    so the window between the events holds the device work of ``fn``
+    alone, not the host's enqueue."""
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(100_000_000)
+    for a, b in evs:
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in evs]))
+
+
+def _paged_case(dev, b, mp, lo, hi, dtype, seed, h=16, hkv=8, hd=128, ps=16):
+    """qwen3's heads; sequence i owns mp pages scattered over the pool by a
+    random permutation (8 pages nobody owns, page 0 the trash page);
+    ragged valid lengths in [lo, hi]; table entries past them -> 0."""
+    n_pages = 1 + b * mp + 8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, 1, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(n_pages, ps, hkv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(n_pages, ps, hkv, hd, generator=gen, device=dev).to(dtype)
+    rng = np.random.default_rng(seed)
+    valid = rng.integers(lo, hi + 1, b)
+    owned = rng.permutation(np.arange(1, n_pages))[:b * mp].reshape(b, mp)
+    pt = np.where(np.arange(mp)[None] * ps < valid[:, None], owned, 0)
+    return (q, k, v, torch.as_tensor(pt, dtype=torch.int32, device=dev),
+            torch.as_tensor(valid, dtype=torch.int32, device=dev))
+
+
+def _sdpa(q, k, v, pt, valid):
+    """Yardstick (never called by the port): gather the pages, then one
+    scaled_dot_product_attention with GQA and the valid mask."""
+    import torch.nn.functional as F
+    b, _, h, hd = q.shape
+    ps, hkv = k.shape[1], k.shape[2]
+    s = pt.shape[1] * ps
+    kd = k[pt.long()].reshape(b, s, hkv, hd).transpose(1, 2)
+    vd = v[pt.long()].reshape(b, s, hkv, hd).transpose(1, 2)
+    mask = (torch.arange(s, device=q.device)[None] < valid[:, None])
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), kd, vd, attn_mask=mask[:, None, None, :],
+        enable_gqa=True).transpose(1, 2)
+
+
+def phase_decode_kernel(dev):
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_ref
+    from repro_torch import serve_workload as sw
+
+    name = torch.cuda.get_device_name(0)
+    max_len = sw.PROMPT_LEN + sw.GEN + sw.GEN_SPREAD - 1 + 8
+    mp_serve = -(-max_len // sw.PAGE_SIZE)
+    shapes = {  # the serving shape: 128-token prompts plus 1..47 tokens
+        "serving": (sw.N_SLOTS, mp_serve, sw.PROMPT_LEN + 1,
+                    sw.PROMPT_LEN + sw.GEN + sw.GEN_SPREAD - 1),
+        "long": (8, 256, 3072, 4096)}
+    row = None
+    for shape, (b, mp, lo, hi) in shapes.items():
+        for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 3e-2)):
+            q, k, v, pt, valid = _paged_case(dev, b, mp, lo, hi, dtype, 1)
+            out = fops.paged_decode_attention(q, k, v, pt, valid)
+            want = paged_decode_ref(q.float(), k.float(), v.float(), pt,
+                                    valid)
+            torch.cuda.synchronize()
+            err = float((out.float() - want).abs().max())
+            tag = f"[decode-kernel] {shape} {str(dtype)[6:]}"
+            check(out.dtype == dtype and err <= tol,
+                  f"{tag}: max abs err vs plain {err} > {tol}")
+            check(torch.equal(out, fops.paged_decode_attention(
+                q, k, v, pt, valid)), f"{tag}: not bitwise repeatable")
+            owned = torch.zeros(k.shape[0], dtype=torch.bool, device=dev)
+            owned[pt.long().flatten()] = True
+            owned[0] = False
+            kn, vn = k.clone(), v.clone()
+            kn[~owned] = float("nan")
+            vn[~owned] = float("nan")
+            nan_out = fops.paged_decode_attention(q, kn, vn, pt, valid)
+            check(bool(torch.isfinite(nan_out).all()) and
+                  torch.equal(nan_out, out),
+                  f"{tag}: NaN in the trash page or unowned pages reached "
+                  f"the output")
+            lib = _sdpa(q, k, v, pt, valid)
+            lib_err = float((lib.float() - want).abs().max())
+            check(lib_err <= (1e-3 if dtype == torch.float32 else 5e-2),
+                  f"{tag}: the sdpa yardstick disagrees by {lib_err}")
+            ms = device_ms(lambda: fops.paged_decode_attention(
+                q, k, v, pt, valid))
+            plain_ms = device_ms(lambda: paged_decode_ref(q, k, v, pt, valid))
+            library_ms = device_ms(lambda: _sdpa(q, k, v, pt, valid))
+            ntok = int(valid.sum())
+            h, hd = q.shape[2], q.shape[3]
+            hkv, ps = k.shape[2], k.shape[1]
+            pages = int(((valid + ps - 1) // ps).sum())
+            nbytes = (q.element_size() * (2 * ntok * hkv * hd + 2 * b * h * hd)
+                      + 4 * (pages + b))
+            flops = 4 * ntok * h * hd
+            by_bytes, by_ops = nbytes / memory_rate(name), flops / FP32_PEAK
+            bound = max(by_bytes, by_ops) * 1e3
+            print(f"{tag}: B={b} H={h} Hkv={hkv} hd={hd} pages of {ps}, "
+                  f"table width {mp}, valid {int(valid.min())}..."
+                  f"{int(valid.max())} ({ntok} tokens): max abs err vs plain "
+                  f"{err:.3e} (tol {tol}), sdpa yardstick {lib_err:.3e}; "
+                  f"bitwise repeatable; NaN trash/unowned pages never read")
+            print(f"{tag}: median device ms (L2 flushed): kernel {ms:.4f}, "
+                  f"plain {plain_ms:.4f}, gather + sdpa {library_ms:.4f}; "
+                  f"bound {bound:.4f}: {nbytes / 1e6:.2f} MB at "
+                  f"{memory_rate(name) / 1e12:.2f} TB/s is "
+                  f"{by_bytes * 1e3:.4f}, {flops / 1e9:.3f} GFLOP at "
+                  f"{FP32_PEAK / 1e12:.0f} TFLOP/s is {by_ops * 1e3:.4f}")
+            if shape == "serving" and dtype == torch.float32:
+                row = {"name": "flash_decode_paged", "route": "cuda",
+                       "source": "src/repro_torch/kernels/flash_decode/csrc/"
+                                 "flash_decode_paged.cu",
+                       "replaces": "src/repro/kernels/flash_decode/kernel.py"
+                                   ":111",
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound,
+                       "bound_by": "bytes" if by_bytes >= by_ops
+                       else "operations",
+                       "library_ms": library_ms}
+    return row
+
+
+def phase_serve(dev):
+    from repro_torch import serve_workload as sw
+    from repro_torch.common import param_count
+    from repro_torch.kernels.flash_decode import ops as fops
+
+    t0 = time.perf_counter()
+    w = sw.build(dev)
+    torch.cuda.synchronize()
+    n = param_count(w.params)
+    check(n == QWEN3_PARAMS, f"qwen3-1.7b has {n} params, expected "
+          f"{QWEN3_PARAMS}")
+    check(all(x.dtype == torch.float32 and x.device == dev
+              for x in w.params.values()), "params are not fp32 on the card")
+    print(f"[serve] {sw.ARCH} at full width: {w.cfg.n_layers} layers, d_model "
+          f"{w.cfg.d_model}, {w.cfg.n_heads} heads / {w.cfg.n_kv_heads} KV "
+          f"heads of {w.cfg.head_dim}, vocab {w.cfg.padded_vocab}, {n} fp32 "
+          f"params ({n * 4 / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    sw.engine(w, n_requests=2, gen=3).run()          # warm-up, not measured
+    eng = sw.engine(w)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fops.reset_launch_counts()
+    res = eng.run()
+    torch.cuda.synchronize()
+    launches = fops.paged_decode_attention.launches
+
+    st = eng.stats()
+    check(launches == w.cfg.n_layers * st["n_decode_steps"],
+          f"K3 launched {launches} times in {st['n_decode_steps']} decode "
+          f"steps of {w.cfg.n_layers} layers")
+    check(all(len(res[i]) == g for i, g in enumerate(w.gens)),
+          "a request did not finish with its requested token count")
+    check(eng.decode_cache_size == 1,
+          f"decode step saw {eng.decode_cache_size} input signatures")
+    print(f"[serve] {st['n_requests']} requests of {sw.PROMPT_LEN} prompt "
+          f"tokens over {w.serve.n_slots} slots (pages of "
+          f"{w.serve.page_size}), {st['total_tokens']} tokens in "
+          f"{st['wall_s']:.3f} s: {st['tokens_per_sec']:.1f} tok/s; decode "
+          f"{st['decode_ms_per_step']:.3f} ms per step over "
+          f"{st['n_decode_steps']} steps; TTFT p50 {st['ttft_p50_s']:.3f} s "
+          f"p99 {st['ttft_p99_s']:.3f} s; latency p50 "
+          f"{st['latency_p50_s']:.3f} s p99 {st['latency_p99_s']:.3f} s; "
+          f"{st['n_preemptions']} preemptions; peak pages "
+          f"{st['peak_pages']}/{st['n_pages'] - 1}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[serve] flash_decode_paged (K3) launches {launches} = "
+          f"{w.cfg.n_layers} x {st['n_decode_steps']} decode steps; every "
+          f"request finished with its requested token count; decode input "
+          f"signatures {eng.decode_cache_size}")
+    return w, launches
+
+
+def phase_serve_parity(w):
+    """The continuous engine (paged decode through K3) against the static
+    loop (dense cache, plain attention) on the same prompts, on the card.
+    Logits rows agree to LOGIT_TOL; tokens agree, except at a step where
+    the static loop's top-2 logit gap is below LOGIT_TOL (a near tie
+    that rounding may break either way), after which that request's
+    streams are no longer comparable."""
+    from repro_torch import serve_workload as sw
+    from repro_torch.serve.engine import static_generate
+
+    eng = sw.engine(w, record_logits=True)
+    res = eng.run()
+    out, rows = static_generate(w.cfg, w.params, w.prompts, max(w.gens),
+                                max_len=eng.layout.max_len,
+                                collect_logits=True, device=w.device)
+    worst, compared, diverged = 0.0, 0, []
+    for i, g in enumerate(w.gens):
+        mine = np.stack(eng.logits_rows[i])
+        check(mine.shape[0] == g, f"request {i}: {mine.shape[0]} rows")
+        for t in range(g):
+            err = float(np.abs(mine[t] - rows[t][i]).max())
+            check(err <= LOGIT_TOL, f"request {i} step {t}: logits differ "
+                  f"by {err} > {LOGIT_TOL}")
+            worst = max(worst, err)
+            compared += 1
+            if res[i][t] != out[i][t]:
+                top2 = np.sort(rows[t][i])[-2:]
+                gap = float(top2[1] - top2[0])
+                check(gap < LOGIT_TOL, f"request {i} step {t}: tokens "
+                      f"{res[i][t]} vs {out[i][t]} with a top-2 gap {gap}")
+                diverged.append((i, t, gap))
+                print(f"[serve-parity] request {i} diverges at step {t}: "
+                      f"static top-2 gap {gap:.3e} < {LOGIT_TOL}")
+                break
+    print(f"[serve-parity] continuous (K3) vs static (plain) on the card: "
+          f"{compared} logits rows of {len(w.gens)} requests, max abs err "
+          f"{worst:.3e} (tol {LOGIT_TOL}); token streams equal"
+          + (f" up to {len(diverged)} near-tie divergence(s)" if diverged
+             else ""))
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -571,8 +828,11 @@ def main() -> int:
     k2 = phase_codec_kernel(dev)
     k2["launches"] = phase_packed_round(dev)
     phase_codec_rounds(dev)
+    k3 = phase_decode_kernel(dev)
+    w, k3["launches"] = phase_serve(dev)
+    phase_serve_parity(w)
     print(smi)
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,20 @@
+"""qwen3-1.7b [dense] — 28L d_model=2048 16H (GQA kv=8) d_ff=6144
+vocab=151936 — qk_norm, GQA, no qkv bias.  [hf:Qwen/Qwen3-8B family card]"""
+from .base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="qwen3-1.7b",
+    family="dense",
+    n_layers=28,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=6144,
+    vocab=151936,
+    head_dim=128,
+    source="hf:Qwen/Qwen3-8B",
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+    fl_clients_single_pod=16,
+))

@@ -1,0 +1,191 @@
+"""Paged flash decode through the hand-written CUDA kernel (K3).
+
+:func:`paged_decode_attention` is the serving decode step's attention, in
+the model layout of ``repro.kernels.flash_decode.ops``: ``q (B,1,H,hd)``,
+pools ``(P, ps, Hkv, hd)`` (one layer's view of the engine's pool),
+``page_table (B, MP)`` int32, ``valid_len (B,)`` int32.  It checks
+device, dtype, shape, strides and alignment, launches the CUDA kernel
+(``csrc/flash_decode_paged.cu``) for CUDA tensors, counting each call
+that launches in ``paged_decode_attention.launches``, and runs the plain
+version (``ref.paged_decode_ref``) only for CPU tensors.  The kernel
+reads the pool in place through its strides: unlike the TPU wrapper,
+which copies the whole layer pool into ``(Hkv, P, ps, hd)`` on every
+call, nothing is copied.
+
+:func:`flash_decode_paged` takes the reference kernel's own layout
+(``q (BH,1,hd)``, pools ``(Hkv,P,ps,hd)``, ``valid_len (BH,)``), as
+strided views onto the same launch, so that tests can hold it against
+``repro.kernels.flash_decode.kernel.flash_decode_paged``.
+
+At ``valid_len == 0`` the kernel returns zeros and the plain version
+the mean of V (see ``ref.py``); the model never passes 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from pathlib import Path
+
+import torch
+
+from .. import _build
+from .ref import flash_decode_paged_ref, paged_decode_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode_paged.cu"
+HEAD_DIMS = (32, 64, 128, 256)
+N_REPS = (1, 2, 4, 8)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = _build.load(SOURCE)
+    fn = lib.flash_decode_paged
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        + [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, q, k_pool, v_pool, page_table, valid_len):
+    for tname, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                     ("page_table", page_table), ("valid_len", valid_len)):
+        if t.device != q.device:
+            raise ValueError(f"{name}: {tname} is on {t.device}, expected "
+                             f"{q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{name}: q must be float32 or bfloat16, got "
+                         f"{q.dtype}")
+    for tname, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name}: {tname} is {t.dtype}, q is {q.dtype}")
+    for tname, t in (("page_table", page_table), ("valid_len", valid_len)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: {tname} must be int32, got {t.dtype}")
+    if tuple(k_pool.shape) != tuple(v_pool.shape) or \
+            tuple(k_pool.stride()) != tuple(v_pool.stride()):
+        raise ValueError(f"{name}: k_pool and v_pool differ in shape or "
+                         f"strides: {tuple(k_pool.shape)} "
+                         f"{tuple(k_pool.stride())} vs {tuple(v_pool.shape)} "
+                         f"{tuple(v_pool.stride())}")
+    if page_table.ndim != 2:
+        raise ValueError(f"{name}: page_table must be (B, MP), got "
+                         f"{tuple(page_table.shape)}")
+
+
+def _launch(name, q, k_pool, v_pool, page_table, valid_len, out, *, b, h,
+            hkv, hd, ps, q_s, p_s, o_s, v_s):
+    """Shared launch of both layouts; ``*_s`` are element strides:
+    q/o ``(b, h)``, pools ``(page, token, kv head)``, valid ``(b, h)``."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+    if h % hkv or h // hkv not in N_REPS:
+        raise ValueError(f"{name}: {h} query heads over {hkv} KV heads: the "
+                         f"group size must be one of {N_REPS}")
+    ept = hd // 32
+    for tname, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {tname} must be contiguous in "
+                             f"head_dim, strides {tuple(t.stride())}")
+        if t.data_ptr() % (ept * t.element_size()):
+            raise ValueError(f"{name}: {tname} is not aligned to "
+                             f"{ept * t.element_size()} bytes")
+    if any(s % ept for s in (*q_s, *p_s)):
+        raise ValueError(f"{name}: strides {q_s} (q), {p_s} (pools) must be "
+                         f"multiples of head_dim/32 = {ept}")
+    if not page_table.is_contiguous():
+        raise ValueError(f"{name}: page_table must be contiguous")
+    mp = page_table.shape[1]
+    if mp * ps >= 2 ** 31 or b * hkv >= 2 ** 31:
+        raise ValueError(f"{name}: {b} x {mp} pages of {ps} is too large")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                        page_table.data_ptr(), valid_len.data_ptr(),
+                        out.data_ptr(), _DTYPES[q.dtype], hd, h // hkv, b,
+                        hkv, mp, ps, *q_s, *p_s, *o_s, *v_s,
+                        1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError {err}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           valid_len: torch.Tensor) -> torch.Tensor:
+    """Single-token attention through a page table (the serving decode
+    step's hot op).
+
+    q (B,1,H,hd); pools (P, ps, Hkv, hd); page_table (B, MP) int32;
+    valid_len (B,) int32 — callers pre-clamp it to the ring allocation
+    for sliding-window layers.  Returns (B,1,H,hd) in q's dtype.  CUDA
+    tensors launch the kernel (or raise); CPU tensors run the plain
+    version.
+    """
+    name = "paged_decode_attention"
+    _check(name, q, k_pool, v_pool, page_table, valid_len)
+    if q.ndim != 4 or q.shape[1] != 1 or k_pool.ndim != 4:
+        raise ValueError(f"{name}: q must be (B,1,H,hd) and pools (P,ps,Hkv,"
+                         f"hd), got {tuple(q.shape)}, {tuple(k_pool.shape)}")
+    b, _, h, hd = q.shape
+    _, ps, hkv, hd_k = k_pool.shape
+    if hd_k != hd or tuple(page_table.shape[:1]) != (b,) or \
+            tuple(valid_len.shape) != (b,):
+        raise ValueError(f"{name}: shapes disagree: q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)}, page_table "
+                         f"{tuple(page_table.shape)}, valid_len "
+                         f"{tuple(valid_len.shape)}")
+    if q.device.type == "cpu":
+        return paged_decode_ref(q, k_pool, v_pool, page_table, valid_len)
+    out = torch.empty((b, 1, h, hd), dtype=q.dtype, device=q.device)
+    ks = k_pool.stride()
+    return _launch(name, q, k_pool, v_pool, page_table, valid_len, out, b=b,
+                   h=h, hkv=hkv, hd=hd, ps=ps,
+                   q_s=(q.stride(0), q.stride(2)), p_s=(ks[0], ks[1], ks[2]),
+                   o_s=(h * hd, hd), v_s=(valid_len.stride(0), 0))
+
+
+paged_decode_attention.launches = 0
+
+
+def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, page_table: torch.Tensor,
+                       valid_len: torch.Tensor) -> torch.Tensor:
+    """The reference kernel's layout: q (BH,1,hd); pools (Hkv,P,ps,hd);
+    page_table (B,MP) int32; valid_len (BH,) int32, one valid length per
+    query head.  Returns (BH,1,hd).  The same launch as
+    :func:`paged_decode_attention`, on strided views."""
+    name = "flash_decode_paged"
+    _check(name, q, k_pool, v_pool, page_table, valid_len)
+    if q.ndim != 3 or q.shape[1] != 1 or k_pool.ndim != 4:
+        raise ValueError(f"{name}: q must be (BH,1,hd) and pools (Hkv,P,ps,"
+                         f"hd), got {tuple(q.shape)}, {tuple(k_pool.shape)}")
+    bh, _, hd = q.shape
+    hkv, _, ps, hd_k = k_pool.shape
+    b = page_table.shape[0]
+    if hd_k != hd or b == 0 or bh % b or tuple(valid_len.shape) != (bh,):
+        raise ValueError(f"{name}: shapes disagree: q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)}, page_table "
+                         f"{tuple(page_table.shape)}, valid_len "
+                         f"{tuple(valid_len.shape)}")
+    if q.device.type == "cpu":
+        return flash_decode_paged_ref(q, k_pool, v_pool, page_table,
+                                      valid_len)
+    h = bh // b
+    out = torch.empty((bh, 1, hd), dtype=q.dtype, device=q.device)
+    ks = k_pool.stride()
+    vs = valid_len.stride(0)
+    return _launch(name, q, k_pool, v_pool, page_table, valid_len, out, b=b,
+                   h=h, hkv=hkv, hd=hd, ps=ps,
+                   q_s=(h * q.stride(0), q.stride(0)),
+                   p_s=(ks[1], ks[2], ks[0]), o_s=(h * hd, hd),
+                   v_s=(h * vs, vs))
+
+
+def reset_launch_counts() -> None:
+    paged_decode_attention.launches = 0

@@ -1,2 +1,60 @@
-"""The paper's own models, in PyTorch (VGG16 so far), and the toy
-stacked-block MLP the round-step tests use."""
+"""Models of the port: the paper's own (VGG16 so far, ``paper_models``),
+the toy stacked-block MLP the round-step tests use (``toy``), and the
+zoo's dense transformer family (``transformer``), one API across
+families as in ``repro.models``.
+
+``get_model(cfg)`` dispatches on ``cfg.family``.  Only ``dense`` is
+ported; the other families raise ``NotPortedError``.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+from ..core.registry import NotPortedError
+from . import transformer
+
+
+class ModelApi(NamedTuple):
+    init_params: Callable
+    forward: Callable
+    loss_fn: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode_step: Callable
+    # paged serving contract — None for families without it
+    init_paged_cache: Optional[Callable] = None
+    commit_prefill: Optional[Callable] = None
+    decode_step_paged: Optional[Callable] = None
+
+
+_FAMILY = {"dense": transformer}
+
+
+def get_model(cfg) -> ModelApi:
+    if cfg.family not in _FAMILY:
+        raise NotPortedError(f"{cfg.name}: the {cfg.family!r} model family is "
+                             f"not ported yet (ported: {sorted(_FAMILY)})")
+    mod = _FAMILY[cfg.family]
+    return ModelApi(
+        init_params=lambda gen, dtype=None: mod.init_params(cfg, gen, dtype),
+        forward=lambda params, tokens, **kw: mod.forward(
+            cfg, params, tokens, **kw),
+        loss_fn=lambda params, batch, **kw: mod.loss_fn(
+            cfg, params, batch, **kw),
+        init_cache=lambda batch_size, max_len, dtype=None, device="cuda":
+            mod.init_cache(cfg, batch_size, max_len, dtype, device),
+        prefill=lambda params, tokens, **kw: mod.prefill(
+            cfg, params, tokens, **kw),
+        decode_step=lambda params, cache, token: mod.decode_step(
+            cfg, params, cache, token),
+        init_paged_cache=lambda n_slots, n_pages, page_size, dtype=None,
+            device="cuda": mod.init_paged_cache(
+                cfg, n_slots, n_pages, page_size, dtype, device),
+        commit_prefill=lambda paged, cache, slots, page_tables, page_size:
+            mod.commit_prefill(cfg, paged, cache, slots, page_tables,
+                               page_size=page_size),
+        decode_step_paged=lambda params, paged, token, steps, page_tables,
+            page_size: mod.decode_step_paged(
+                cfg, params, paged, token, steps, page_tables,
+                page_size=page_size),
+    )

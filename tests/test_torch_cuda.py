@@ -149,3 +149,113 @@ def test_quantize_pack_wrapper_raises(dev, bad):
         u = u.cpu()
     with pytest.raises(ValueError, match="quantize_pack"):
         qops.quantize_pack(x, u, 8)
+
+
+# -- K3: paged flash decode ----------------------------------------------------
+
+def _pcase(dev, b, h, hkv, hd, n_pages, ps, mp, dtype=torch.float32, seed=0):
+    """Scattered pages: sequence i owns a random set of physical pages
+    (never page 0); entries past its valid length point at the trash page
+    0; valid lengths cut mid-page."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, 1, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(n_pages, ps, hkv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(n_pages, ps, hkv, hd, generator=gen, device=dev).to(dtype)
+    rng = np.random.default_rng(seed)
+    owned = rng.permutation(np.arange(1, n_pages))[:b * mp].reshape(b, mp)
+    valid = rng.integers(1, mp * ps + 1, b)
+    valid[0] = mp * ps                               # one full table
+    pt = np.where(np.arange(mp)[None] * ps < valid[:, None], owned, 0)
+    return (q, k, v, torch.as_tensor(pt, dtype=torch.int32, device=dev),
+            torch.as_tensor(valid, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("h,hkv,hd", [(4, 4, 64), (4, 2, 64), (8, 1, 32),
+                                      (16, 8, 128), (16, 2, 128),
+                                      (4, 1, 256)])
+def test_paged_decode_matches_plain(dev, h, hkv, hd):
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_ref
+    q, k, v, pt, valid = _pcase(dev, 3, h, hkv, hd, 40, 16, 6)
+    before = fops.paged_decode_attention.launches
+    out = fops.paged_decode_attention(q, k, v, pt, valid)
+    torch.cuda.synchronize()
+    assert fops.paged_decode_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    torch.testing.assert_close(out, paged_decode_ref(q, k, v, pt, valid),
+                               atol=TOL, rtol=0)
+    assert torch.equal(out, fops.paged_decode_attention(q, k, v, pt, valid))
+
+
+def test_paged_decode_bf16(dev):
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_ref
+    q, k, v, pt, valid = _pcase(dev, 4, 16, 8, 128, 64, 16, 8,
+                                dtype=torch.bfloat16)
+    out = fops.paged_decode_attention(q, k, v, pt, valid)
+    assert out.dtype == torch.bfloat16
+    want = paged_decode_ref(q.float(), k.float(), v.float(), pt, valid)
+    assert float((out.float() - want).abs().max()) < 3e-2
+
+
+def test_paged_decode_nan_trash_never_leaks(dev):
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_ref
+    q, k, v, pt, valid = _pcase(dev, 3, 4, 2, 64, 40, 16, 6)
+    owned = set(pt.unique().tolist())
+    unowned = [p for p in range(40) if p not in owned]
+    clean = (k.clone(), v.clone())
+    for pool in (k, v):
+        pool[0] = float("nan")                       # the trash page
+        pool[unowned] = float("nan")
+    out = fops.paged_decode_attention(q, k, v, pt, valid)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, paged_decode_ref(q, *clean, pt, valid),
+                               atol=TOL, rtol=0)
+
+
+def test_paged_decode_kernel_layout_and_strided_pool(dev):
+    # the reference kernel's (Hkv, P, ps, hd) layout with per-head valid
+    # lengths, and the model layout read from a layer view of a stacked pool
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import (flash_decode_paged_ref,
+                                                      paged_decode_ref)
+    q, k, v, pt, valid = _pcase(dev, 3, 8, 2, 64, 40, 16, 6)
+    qk = q[:, 0].reshape(24, 1, 64)
+    kk, vk = k.permute(2, 0, 1, 3).contiguous(), v.permute(2, 0, 1, 3).contiguous()
+    vh = (valid.repeat_interleave(8)
+          - torch.arange(24, device=dev) % 3).clamp(min=1)
+    out = fops.flash_decode_paged(qk, kk, vk, pt, vh.to(torch.int32))
+    torch.testing.assert_close(
+        out, flash_decode_paged_ref(qk, kk, vk, pt, vh.to(torch.int32)),
+        atol=TOL, rtol=0)
+    stacked = torch.stack([torch.zeros_like(k), k, torch.zeros_like(k)])
+    vstacked = torch.stack([torch.zeros_like(v), v, torch.zeros_like(v)])
+    torch.testing.assert_close(
+        fops.paged_decode_attention(q, stacked[1], vstacked[1], pt, valid),
+        paged_decode_ref(q, k, v, pt, valid), atol=TOL, rtol=0)
+
+
+def test_paged_decode_valid_zero_gives_zeros(dev):
+    from repro_torch.kernels.flash_decode import ops as fops
+    q, k, v, pt, valid = _pcase(dev, 2, 4, 2, 64, 20, 16, 4)
+    valid[1] = 0
+    out = fops.paged_decode_attention(q, k, v, pt, valid)
+    assert bool((out[1] == 0).all())
+
+
+@pytest.mark.parametrize("bad", ["table_int64", "head_dim", "group",
+                                 "device"])
+def test_paged_decode_wrapper_raises(dev, bad):
+    from repro_torch.kernels.flash_decode import ops as fops
+    q, k, v, pt, valid = _pcase(dev, 2, 4, 2, 64, 20, 16, 4)
+    if bad == "table_int64":
+        pt = pt.long()
+    elif bad == "head_dim":
+        q, k, v = q[..., :48], k[..., :48], v[..., :48]
+    elif bad == "group":
+        q = torch.cat([q, q[:, :, :2]], dim=2)       # 6 heads over 2 -> 3
+    else:
+        valid = valid.cpu()
+    with pytest.raises(ValueError, match="paged_decode_attention"):
+        fops.paged_decode_attention(q, k, v, pt, valid)
