@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in ten phases, and any failure exits
-non-zero:
+nothing of the ``repro`` package) in twelve phases, and any failure
+exits non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
    the checkout with ``nvcc`` (``repro_torch/kernels/_build.py``).
@@ -65,6 +65,29 @@ non-zero:
    ``static_generate`` (dense cache, plain attention) on the card: every
    logits row within 1e-3, and equal token streams except at a step
    whose static top-2 logit gap is below that tolerance (printed).
+11. attention-kernels — ``flash_attention`` (K5 forward, K6 backward)
+   at full attention width in ``train_4k`` (B=2, S=4,096, causal; 16
+   query heads over 8 KV heads): qwen3-1.7b (head dim 128), a gemma3-12b
+   local layer (head dim 256, window 1,024) and a global one, fp32 and
+   bf16.  One ``torch.autograd.grad`` of ``(flash_attention(q, k, v) *
+   g).sum()`` per case must launch the forward, dQ and dK/dV kernels
+   once each; o, lse, dq, dk and dv are held to the plain versions (fp32:
+   2e-5 on o and lse, 5e-4 on gradients; bf16 against the fp32 plain
+   version on the same inputs: 3e-2, relative to the largest gradient);
+   two runs bitwise equal; median device times of the forward, backward
+   and both, of the plain version and of ``scaled_dot_product_attention``
+   with GQA (the cuDNN / PyTorch kernels it ran are named) beside the
+   bound in operations.
+12. decode-dense — ``decode_attention`` (K4, launched on K3's kernel)
+   at qwen3-1.7b width in ``decode_32k`` (8 caches of 32,768 positions,
+   ragged valid lengths, fp32 and bf16), on a gemma3-12b ring cache
+   (1,024 slots, window 1,024, valid lengths beyond it; also through
+   ``flash_decode`` in the reference kernel's layout, and valid length 0
+   giving zeros) and on a cache of 1,000 positions with ``blk_k`` 512
+   (positions 512.. never read): within 2e-5 of the plain version (3e-2
+   for bf16), one K3 launch per call, bitwise repeatable; median device
+   times of the kernel, the plain version and a masked
+   ``scaled_dot_product_attention`` beside the bound in bytes.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -804,6 +827,350 @@ def phase_serve_parity(w):
           + (f" up to {len(diverged)} near-tie divergence(s)" if diverged
              else ""))
 
+
+# -- K4, K5, K6: the attention kernels' entry points ---------------------------
+
+TRAIN_B, TRAIN_S = 2, 4096       # launch/shapes.py train_4k at batch 2
+DECODE_S = 32_768                # launch/shapes.py decode_32k
+ATTN_ITERS = 10
+
+
+def _allowed_pairs(s, causal, window):
+    """Allowed (query, key) pairs of one (batch, head) at Sq = Sk = s."""
+    i = np.arange(s)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    hi = i if causal else np.full_like(i, s - 1)
+    return int((hi - lo + 1).clip(min=0).sum())
+
+
+def _attn_configs():
+    from repro_torch.configs.base import get_config
+    qwen, gemma = get_config("qwen3-1.7b"), get_config("gemma3-12b")
+    return [("qwen3-1.7b", qwen, 0),
+            ("gemma3-12b local", gemma, gemma.sliding_window),
+            ("gemma3-12b global", gemma, 0)]
+
+
+def _sdpa_attn(q, k, v, window):
+    """Yardstick (never called by the port): one scaled_dot_product_attention
+    with GQA in the model layout, causal, or an explicit window mask."""
+    import torch.nn.functional as F
+    s = q.shape[1]
+    args = dict(enable_gqa=True)
+    if window > 0:
+        i = torch.arange(s, device=q.device)
+        args["attn_mask"] = (i[None] <= i[:, None]) & \
+            (i[None] > i[:, None] - window)
+    else:
+        args["is_causal"] = True
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        **args).transpose(1, 2)
+
+
+def _sdpa_backend(q, k, v, g, window):
+    """Names of the CUDA kernels one SDPA forward + backward ran."""
+    from torch.profiler import ProfilerActivity, profile
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = _sdpa_attn(qs, ks, vs, window)
+        torch.autograd.grad(o, (qs, ks, vs), g)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if any(w in e.key.lower() for w in
+                           ("attention", "fmha", "flash", "sdpa", "cudnn",
+                            "softmax"))})
+    return ", ".join(n[:60] for n in names) or "no attention kernel named"
+
+
+def phase_attention_kernels(dev):
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+
+    name = torch.cuda.get_device_name(0)
+    b, s = TRAIN_B, TRAIN_S
+    rows, driven = {}, {"fwd": 0, "dq": 0, "dkv": 0}
+    for cfg_name, cfg, window in _attn_configs():
+        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"[attention-kernels] {cfg_name} {str(dtype)[6:]}"
+            gen = torch.Generator(device=dev).manual_seed(hd + window)
+            q, g = (torch.randn(b, s, h, hd, generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, s, hkv, hd, generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+
+            def train(q=q, k=k, v=v, g=g, window=window):
+                qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+                o = aops.flash_attention(qs, ks, vs, True, window)
+                return (o.detach(),) + torch.autograd.grad(
+                    (o * g).sum(), (qs, ks, vs))
+
+            aops.reset_launch_counts()        # the main path's call
+            got = train()
+            torch.cuda.synchronize()
+            step = dict(aops.LAUNCHES)
+            check(step == {"fwd": 1, "dq": 1, "dkv": 1},
+                  f"{tag}: launches {step}, expected one of each")
+            for key in driven:
+                driven[key] += step[key]
+            _, lse = aops.attention_fwd(q, k, v, causal=True, window=window)
+            again = train()
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"{tag}: two launches are not bitwise equal")
+            qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+            o_ref, lse_ref = flash_attention_fwd_ref(qf, kf, vf, causal=True,
+                                                     window=window)
+            want = (o_ref,) + flash_attention_bwd_ref(
+                qf, kf, vf, o_ref, lse_ref, gf, causal=True, window=window)
+            errs = {n: float((x.float() - y).abs().max()) for n, x, y in
+                    zip(("o", "dq", "dk", "dv"), got, want)}
+            errs["lse"] = float((lse - lse_ref).abs().max())
+            for n, err in errs.items():
+                if dtype == torch.float32:
+                    tol = TOL if n in ("o", "lse") else 5e-4
+                else:
+                    ref = lse_ref if n == "lse" else want[("o", "dq", "dk",
+                                                           "dv").index(n)]
+                    tol = 3e-2 * (1.0 if n in ("o", "lse") else
+                                  max(1.0, float(ref.abs().max())))
+                check(err <= tol, f"{tag}: {n} max abs err vs plain {err} > "
+                      f"{tol}")
+            del want, got, again
+            pairs = b * h * _allowed_pairs(s, True, window)
+            esz = q.element_size()
+            fwd_ops, bwd_ops = 4 * hd * pairs, 10 * hd * pairs
+            fwd_bytes = esz * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * s
+            bwd_bytes = esz * (4 * q.numel() + 4 * k.numel()) + 8 * b * h * s
+            o, lse = aops.attention_fwd(q, k, v, causal=True, window=window)
+            t = {
+                "fwd": device_ms(lambda: aops.attention_fwd(
+                    q, k, v, causal=True, window=window), ATTN_ITERS),
+                "bwd": device_ms(lambda: aops.attention_bwd(
+                    q, k, v, o, lse, g, causal=True, window=window),
+                    ATTN_ITERS),
+                "train": device_ms(train, ATTN_ITERS),
+                "plain_fwd": device_ms(lambda: flash_attention_fwd_ref(
+                    q, k, v, causal=True, window=window), ATTN_ITERS),
+                "plain_bwd": device_ms(lambda: flash_attention_bwd_ref(
+                    q, k, v, o, lse, g, causal=True, window=window),
+                    ATTN_ITERS)}
+            lib = _sdpa_attn(q, k, v, window)
+            lib_err = float((lib.float() - o_ref).abs().max())
+            check(lib_err <= (1e-3 if dtype == torch.float32 else 5e-2),
+                  f"{tag}: the sdpa yardstick disagrees by {lib_err}")
+            qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+            lib_o = _sdpa_attn(qs, ks, vs, window)
+
+            def lib_train():
+                qs_, ks_, vs_ = (x.detach().requires_grad_()
+                                 for x in (q, k, v))
+                return torch.autograd.grad(
+                    (_sdpa_attn(qs_, ks_, vs_, window) * g).sum(),
+                    (qs_, ks_, vs_))
+
+            t["lib_fwd"] = device_ms(lambda: _sdpa_attn(q, k, v, window),
+                                     ATTN_ITERS)
+            t["lib_bwd"] = device_ms(lambda: torch.autograd.grad(
+                lib_o, (qs, ks, vs), g, retain_graph=True), ATTN_ITERS)
+            t["lib_train"] = device_ms(lib_train, ATTN_ITERS)
+            backend = _sdpa_backend(q, k, v, g, window)
+            del lib, lib_o, qs, ks, vs, o_ref, lse_ref
+            bound = {}
+            for part, ops_, nbytes in (("fwd", fwd_ops, fwd_bytes),
+                                       ("bwd", bwd_ops, bwd_bytes)):
+                by_bytes = nbytes / memory_rate(name)
+                by_ops = ops_ / FP32_PEAK
+                bound[part] = (max(by_bytes, by_ops) * 1e3,
+                               "bytes" if by_bytes >= by_ops
+                               else "operations", by_ops, by_bytes)
+            print(f"{tag}: B={b} S={s} H={h} Hkv={hkv} hd={hd} causal "
+                  f"window={window}: max abs err vs plain "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                  + f"; sdpa yardstick o {lib_err:.3e}; launches fwd 1, dQ "
+                  f"1, dK/dV 1 per call; two launches bitwise equal")
+            print(f"{tag}: median device ms (L2 flushed): kernel fwd "
+                  f"{t['fwd']:.4f}, bwd {t['bwd']:.4f}, fwd+bwd "
+                  f"{t['train']:.4f}; plain fwd {t['plain_fwd']:.4f}, bwd "
+                  f"{t['plain_bwd']:.4f}; sdpa fwd {t['lib_fwd']:.4f}, bwd "
+                  f"{t['lib_bwd']:.4f}, fwd+bwd {t['lib_train']:.4f} "
+                  f"[{backend}]")
+            print(f"{tag}: bound fwd {bound['fwd'][0]:.4f} ms "
+                  f"({fwd_ops / 1e9:.2f} GFLOP at {FP32_PEAK / 1e12:.0f} "
+                  f"TFLOP/s fp32; {fwd_bytes / 1e6:.1f} MB at "
+                  f"{memory_rate(name) / 1e12:.2f} TB/s is "
+                  f"{bound['fwd'][3] * 1e3:.4f}), bwd {bound['bwd'][0]:.4f} "
+                  f"ms ({bwd_ops / 1e9:.2f} GFLOP); at the 989 TFLOP/s bf16 "
+                  f"tensor-core rate fwd {fwd_ops / 989e12 * 1e3:.4f}, bwd "
+                  f"{bwd_ops / 989e12 * 1e3:.4f}; kernel at "
+                  f"{bound['fwd'][0] / t['fwd']:.1%} (fwd) and "
+                  f"{bound['bwd'][0] / t['bwd']:.1%} (bwd) of the bound")
+            if cfg_name == "qwen3-1.7b" and dtype == torch.float32:
+                src = "src/repro_torch/kernels/flash_attention/csrc/" \
+                      "flash_attention.cu"
+                rows["fwd"] = {
+                    "name": "flash_attention_fwd", "route": "cuda",
+                    "source": src,
+                    "replaces": "src/repro/kernels/flash_attention/kernel.py"
+                                ":82",
+                    "max_abs_err": max(errs["o"], errs["lse"]),
+                    "ms": t["fwd"], "plain_ms": t["plain_fwd"],
+                    "bound_ms": bound["fwd"][0],
+                    "bound_by": bound["fwd"][1], "library_ms": t["lib_fwd"]}
+                rows["bwd"] = {
+                    "name": "flash_attention_bwd", "route": "cuda",
+                    "source": src,
+                    "replaces": "src/repro/kernels/flash_attention/kernel.py"
+                                ":231",
+                    "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
+                    "ms": t["bwd"], "plain_ms": t["plain_bwd"],
+                    "bound_ms": bound["bwd"][0],
+                    "bound_by": bound["bwd"][1], "library_ms": t["lib_bwd"]}
+            del q, k, v, g, o, lse
+            torch.cuda.empty_cache()
+    check(driven["fwd"] == 2 * len(_attn_configs()),
+          f"[attention-kernels] launches {driven}")
+    rows["fwd"]["launches"] = driven["fwd"]
+    rows["bwd"]["launches"] = driven["dq"] + driven["dkv"]
+    return rows["fwd"], rows["bwd"]
+
+
+def _sdpa_decode(q, k, v, valid):
+    """Yardstick (never called by the port): gather-free SDPA over the
+    dense cache with a validity mask and GQA."""
+    import torch.nn.functional as F
+    s = k.shape[1]
+    mask = torch.arange(s, device=q.device)[None] < valid[:, None]
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask[:, None, None, :], enable_gqa=True).transpose(1, 2)
+
+
+def phase_decode_dense(dev):
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import (decode_attention_ref,
+                                                      dense_span,
+                                                      flash_decode_ref)
+
+    name = torch.cuda.get_device_name(0)
+    qwen, gemma = get_config("qwen3-1.7b"), get_config("gemma3-12b")
+    w = gemma.sliding_window
+    cases = [  # tag, config, B, S, window, valid range, blk_k, dtypes
+        ("decode_32k", qwen, 8, DECODE_S, 0, (1, DECODE_S), 512,
+         (torch.float32, torch.bfloat16)),
+        ("gemma3 ring", gemma, 8, w, w, (1, 4 * w), 512, (torch.float32,)),
+        ("S=1000", qwen, 4, 1000, 0, (1, 1000), 512, (torch.float32,))]
+    row, launches = None, 0
+    for tag0, cfg, b, s, window, (lo, hi), blk, dtypes in cases:
+        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        for dtype in dtypes:
+            tag = f"[decode-dense] {tag0} {str(dtype)[6:]}"
+            gen = torch.Generator(device=dev).manual_seed(s)
+            q = torch.randn(b, 1, h, hd, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(b, s, hkv, hd, generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            vals = np.random.default_rng(s).integers(lo, hi + 1, b)
+            vals[0], vals[-1] = lo, hi
+            valid = torch.as_tensor(vals, dtype=torch.int32, device=dev)
+            fops.reset_launch_counts()        # the main path's call
+            out = fops.decode_attention(q, k, v, valid, window=window,
+                                        blk_k=blk)
+            torch.cuda.synchronize()
+            n = fops.paged_decode_attention.launches
+            check(n == 1, f"{tag}: decode_attention launched K3's kernel "
+                  f"{n} times")
+            launches += n
+            want = decode_attention_ref(q.float(), k.float(), v.float(),
+                                        valid, window=window, blk_k=blk)
+            err = float((out.float() - want).abs().max())
+            tol = TOL if dtype == torch.float32 else 3e-2
+            check(out.dtype == dtype and err <= tol,
+                  f"{tag}: max abs err vs plain {err} > {tol}")
+            check(torch.equal(out, fops.decode_attention(
+                q, k, v, valid, window=window, blk_k=blk)),
+                f"{tag}: not bitwise repeatable")
+            span = dense_span(s, blk)
+            eff = valid.clamp(max=window) if window else valid
+            eff = eff.clamp(max=span)
+            extra = ""
+            if tag0 == "gemma3 ring":
+                # the reference kernel's layout, one valid length per head
+                n_rep = h // hkv
+                qk = q[:, 0].reshape(b * h, 1, hd)
+                kk = k.permute(0, 2, 1, 3).reshape(b * hkv, s, hd)
+                vk = v.permute(0, 2, 1, 3).reshape(b * hkv, s, hd)
+                vh = eff.repeat_interleave(h)
+                before = fops.paged_decode_attention.launches
+                got = fops.flash_decode(qk, kk, vk, vh, blk_k=blk)
+                check(fops.paged_decode_attention.launches == before + 1,
+                      f"{tag}: flash_decode did not launch K3's kernel")
+                kerr = float((got - flash_decode_ref(qk, kk, vk, vh))
+                             .abs().max())
+                check(kerr <= TOL, f"{tag}: flash_decode (kernel layout) "
+                      f"max abs err {kerr}")
+                zero = valid.clone()
+                zero[1] = 0
+                z = fops.decode_attention(q, k, v, zero, window=window)
+                check(bool((z[1] == 0).all()),
+                      f"{tag}: valid_len 0 did not give zeros")
+                extra = (f"; flash_decode (kernel layout, {n_rep} heads per "
+                         f"KV head) err {kerr:.3e}; valid_len 0 gives zeros")
+            if tag0 == "S=1000":
+                kn, vn = k.clone(), v.clone()
+                kn[:, span:] = float("nan")
+                vn[:, span:] = float("nan")
+                nan_out = fops.decode_attention(q, kn, vn, valid, blk_k=blk)
+                check(torch.equal(nan_out, out), f"{tag}: a position at or "
+                      f"past {span} was read")
+                extra = (f"; positions {span}..{s - 1} never read (NaN "
+                         f"there changes nothing)")
+            print(f"{tag}: B={b} S={s} H={h} Hkv={hkv} hd={hd} window "
+                  f"{window} blk_k {blk} (reads {span}), valid "
+                  f"{int(valid.min())}...{int(valid.max())}: max abs err vs "
+                  f"plain {err:.3e} (tol {tol}); bitwise repeatable{extra}")
+            if tag0 != "decode_32k":
+                continue
+            lib = _sdpa_decode(q, k, v, valid)
+            lib_err = float((lib.float() - want).abs().max())
+            check(lib_err <= (1e-3 if dtype == torch.float32 else 5e-2),
+                  f"{tag}: the sdpa yardstick disagrees by {lib_err}")
+            del want, lib
+            ms = device_ms(lambda: fops.decode_attention(q, k, v, valid))
+            plain_ms = device_ms(lambda: decode_attention_ref(q, k, v, valid),
+                                 ATTN_ITERS)
+            library_ms = device_ms(lambda: _sdpa_decode(q, k, v, valid))
+            ntok = int(eff.sum())
+            nbytes = (q.element_size() * (2 * ntok * hkv * hd
+                                          + 2 * b * h * hd) + 4 * b)
+            flops = 4 * ntok * h * hd
+            by_bytes, by_ops = nbytes / memory_rate(name), flops / FP32_PEAK
+            bound = max(by_bytes, by_ops) * 1e3
+            print(f"{tag}: median device ms (L2 flushed): kernel {ms:.4f}, "
+                  f"plain {plain_ms:.4f}, masked sdpa {library_ms:.4f}; "
+                  f"bound {bound:.4f}: {nbytes / 1e9:.3f} GB at "
+                  f"{memory_rate(name) / 1e12:.2f} TB/s is "
+                  f"{by_bytes * 1e3:.4f}, {flops / 1e9:.3f} GFLOP is "
+                  f"{by_ops * 1e3:.4f}; kernel at {bound / ms:.1%} of the "
+                  f"bound; sdpa yardstick err {lib_err:.3e}")
+            if dtype == torch.float32:
+                row = {"name": "flash_decode", "route": "cuda",
+                       "source": "src/repro_torch/kernels/flash_decode/csrc/"
+                                 "flash_decode_paged.cu",
+                       "replaces": "src/repro/kernels/flash_decode/kernel.py"
+                                   ":163",
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound,
+                       "bound_by": "bytes" if by_bytes >= by_ops
+                       else "operations",
+                       "library_ms": library_ms}
+            del q, k, v
+            torch.cuda.empty_cache()
+    row["launches"] = launches
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -831,8 +1198,10 @@ def main() -> int:
     k3 = phase_decode_kernel(dev)
     w, k3["launches"] = phase_serve(dev)
     phase_serve_parity(w)
+    k5, k6 = phase_attention_kernels(dev)
+    k4 = phase_decode_dense(dev)
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,15 @@
 //
 // Replaces: src/repro/kernels/flash_decode/kernel.py::flash_decode_paged
 // (Pallas body _paged_decode_kernel), the attention of the serving
-// engine's decode step (models/transformer.py::decode_step_paged).
+// engine's decode step (models/transformer.py::decode_step_paged), and
+// kernel.py::flash_decode (body _decode_kernel), the dense decode over a
+// contiguous cache.  The two Pallas bodies are the same online-softmax
+// combine and differ only in how a program finds its K/V rows, so this
+// one source serves both: a dense cache (B, S, Hkv, hd) is a pool of B
+// pages of (S // blk_k) * blk_k tokens behind the table [[0], [1], ...],
+// read through the cache's own strides (ops.py::decode_attention and
+// ::flash_decode).  The page size also reproduces the dense kernel's
+// contract that positions at or past (S // blk_k) * blk_k are never read.
 //
 // For sequence b and query head h (KV head h / n_rep, as _repeat_kv lays
 // out grouped-query attention), with K and V read through page_table[b]:

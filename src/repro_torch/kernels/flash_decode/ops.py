@@ -1,4 +1,5 @@
-"""Paged flash decode through the hand-written CUDA kernel (K3).
+"""Flash decode through the hand-written CUDA kernel (K3), paged and
+dense (K4).
 
 :func:`paged_decode_attention` is the serving decode step's attention, in
 the model layout of ``repro.kernels.flash_decode.ops``: ``q (B,1,H,hd)``,
@@ -17,6 +18,17 @@ call, nothing is copied.
 strided views onto the same launch, so that tests can hold it against
 ``repro.kernels.flash_decode.kernel.flash_decode_paged``.
 
+:func:`decode_attention` (model layout: caches ``(B, S, Hkv, hd)``) and
+:func:`flash_decode` (the reference kernel's layout: ``(BHkv, S, hd)``)
+are K4, the dense decode of ``repro.kernels.flash_decode``, launched on
+the same kernel: a dense cache is a pool of B pages of
+``(S // blk_k)·blk_k`` tokens behind the table ``[[0], [1], ...]``, read
+through the cache's own strides.  As in the reference, ``window > 0``
+clamps valid lengths to the window (a ring cache), and positions at or
+past ``(S // blk_k)·blk_k`` are never read (its grid has ``S // blk_k``
+blocks).  Their launches count in ``paged_decode_attention.launches``
+too, the one counter of K3's kernel.
+
 At ``valid_len == 0`` the kernel returns zeros and the plain version
 the mean of V (see ``ref.py``); the model never passes 0.
 """
@@ -30,7 +42,8 @@ from pathlib import Path
 import torch
 
 from .. import _build
-from .ref import flash_decode_paged_ref, paged_decode_ref
+from .ref import (decode_attention_ref, dense_span, flash_decode_paged_ref,
+                  flash_decode_ref, paged_decode_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode_paged.cu"
 HEAD_DIMS = (32, 64, 128, 256)
@@ -49,9 +62,11 @@ def _kernel():
 
 
 def _check(name, q, k_pool, v_pool, page_table, valid_len):
+    """Devices, dtypes and pool layout; ``page_table`` None for the dense
+    decode (the wrapper makes its own)."""
     for tname, t in (("k_pool", k_pool), ("v_pool", v_pool),
                      ("page_table", page_table), ("valid_len", valid_len)):
-        if t.device != q.device:
+        if t is not None and t.device != q.device:
             raise ValueError(f"{name}: {tname} is on {t.device}, expected "
                              f"{q.device}")
     if q.dtype not in _DTYPES:
@@ -61,7 +76,7 @@ def _check(name, q, k_pool, v_pool, page_table, valid_len):
         if t.dtype != q.dtype:
             raise ValueError(f"{name}: {tname} is {t.dtype}, q is {q.dtype}")
     for tname, t in (("page_table", page_table), ("valid_len", valid_len)):
-        if t.dtype != torch.int32:
+        if t is not None and t.dtype != torch.int32:
             raise ValueError(f"{name}: {tname} must be int32, got {t.dtype}")
     if tuple(k_pool.shape) != tuple(v_pool.shape) or \
             tuple(k_pool.stride()) != tuple(v_pool.stride()):
@@ -69,7 +84,7 @@ def _check(name, q, k_pool, v_pool, page_table, valid_len):
                          f"strides: {tuple(k_pool.shape)} "
                          f"{tuple(k_pool.stride())} vs {tuple(v_pool.shape)} "
                          f"{tuple(v_pool.stride())}")
-    if page_table.ndim != 2:
+    if page_table is not None and page_table.ndim != 2:
         raise ValueError(f"{name}: page_table must be (B, MP), got "
                          f"{tuple(page_table.shape)}")
 
@@ -185,6 +200,78 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                    q_s=(h * q.stride(0), q.stride(0)),
                    p_s=(ks[1], ks[2], ks[0]), o_s=(h * hd, hd),
                    v_s=(h * vs, vs))
+
+
+def _identity_table(n, device):
+    """(n, 1) int32 table [[0], [1], ...]: sequence i is page i."""
+    return torch.arange(n, dtype=torch.int32, device=device).reshape(n, 1)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid_len: torch.Tensor, *,
+                     window: int = 0, blk_k: int = 512) -> torch.Tensor:
+    """Single-token attention over a dense cache (K4), model layout.
+
+    q (B,1,H,hd); caches (B,S,Hkv,hd); valid_len (B,) int32.  ``window >
+    0`` means the cache is a ring buffer of that size: valid lengths are
+    clamped to it.  Returns (B,1,H,hd) in q's dtype.  CUDA tensors launch
+    K3's kernel (or raise); CPU tensors run the plain version.
+    """
+    name = "decode_attention"
+    _check(name, q, k_cache, v_cache, None, valid_len)
+    if q.ndim != 4 or q.shape[1] != 1 or k_cache.ndim != 4:
+        raise ValueError(f"{name}: q must be (B,1,H,hd) and caches "
+                         f"(B,S,Hkv,hd), got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}")
+    b, _, h, hd = q.shape
+    _, s, hkv, hd_k = k_cache.shape
+    if hd_k != hd or k_cache.shape[0] != b or tuple(valid_len.shape) != (b,):
+        raise ValueError(f"{name}: shapes disagree: q {tuple(q.shape)}, "
+                         f"caches {tuple(k_cache.shape)}, valid_len "
+                         f"{tuple(valid_len.shape)}")
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, valid_len,
+                                    window=window, blk_k=blk_k)
+    if window > 0:
+        valid_len = torch.clamp(valid_len, max=window)
+    out = torch.empty((b, 1, h, hd), dtype=q.dtype, device=q.device)
+    ks = k_cache.stride()
+    return _launch(name, q, k_cache, v_cache, _identity_table(b, q.device),
+                   valid_len, out, b=b, h=h, hkv=hkv, hd=hd,
+                   ps=dense_span(s, blk_k), q_s=(q.stride(0), q.stride(2)),
+                   p_s=(ks[0], ks[1], ks[2]), o_s=(h * hd, hd),
+                   v_s=(valid_len.stride(0), 0))
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid_len: torch.Tensor, *, blk_k: int = 512) -> torch.Tensor:
+    """The reference kernel's layout: q (BH,1,hd); k/v (BHkv,S,hd);
+    valid_len (BH,) int32, one per query head.  Returns (BH,1,hd).  Each
+    KV head is launched as a sequence of its own, its n_rep query heads
+    as that sequence's heads."""
+    name = "flash_decode"
+    _check(name, q, k, v, None, valid_len)
+    if q.ndim != 3 or q.shape[1] != 1 or k.ndim != 3:
+        raise ValueError(f"{name}: q must be (BH,1,hd) and k/v (BHkv,S,hd), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}")
+    bh, _, hd = q.shape
+    bhkv, s, hd_k = k.shape
+    if hd_k != hd or bhkv == 0 or bh % bhkv or \
+            tuple(valid_len.shape) != (bh,):
+        raise ValueError(f"{name}: shapes disagree: q {tuple(q.shape)}, k/v "
+                         f"{tuple(k.shape)}, valid_len "
+                         f"{tuple(valid_len.shape)}")
+    span = dense_span(s, blk_k)
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k[:, :span], v[:, :span], valid_len)
+    n_rep = bh // bhkv
+    out = torch.empty((bh, 1, hd), dtype=q.dtype, device=q.device)
+    vs = valid_len.stride(0)
+    return _launch(name, q, k, v, _identity_table(bhkv, q.device), valid_len,
+                   out, b=bhkv, h=n_rep, hkv=1, hd=hd, ps=span,
+                   q_s=(n_rep * q.stride(0), q.stride(0)),
+                   p_s=(k.stride(0), k.stride(1), 0), o_s=(n_rep * hd, hd),
+                   v_s=(n_rep * vs, vs))
 
 
 def reset_launch_counts() -> None:

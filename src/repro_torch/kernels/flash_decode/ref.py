@@ -1,4 +1,4 @@
-"""Plain PyTorch version of paged flash decode.
+"""Plain PyTorch versions of flash decode, paged (K3) and dense (K4).
 
 :func:`paged_decode_ref` is the function the CUDA kernel (K3) computes,
 in the model layout: gather each sequence's pages into a dense cache,
@@ -11,6 +11,13 @@ the dense decode bitwise.
 :func:`flash_decode_paged_ref` is the same function in the reference
 kernel's layout (``repro.kernels.flash_decode.ref``), where each query
 head carries its own valid length.
+
+:func:`decode_attention_ref` is what the dense decode (K4, launched on
+K3's kernel) computes, in the model layout: the reference wrapper's
+window clamp, then only the first ``(S // blk_k)·blk_k`` cache positions
+(the Pallas kernel's grid stops at ``S // blk_k`` blocks), then the
+dense decode.  :func:`flash_decode_ref` is the dense oracle in the
+reference kernel's layout (``repro.kernels.flash_decode.ref``).
 
 At ``valid_len == 0`` every score is masked and this version returns
 the mean of V over the gathered positions, while the kernel (as the
@@ -77,3 +84,29 @@ def flash_decode_paged_ref(q, k_pool, v_pool, page_table, valid_len):
 
     o = _dense_decode(q[:, :, None], dense(k_pool), dense(v_pool), valid_len)
     return o[:, :, 0]
+
+
+def decode_attention_ref(q, k_cache, v_cache, valid_len, *, window=0,
+                         blk_k=512):
+    """Model layout: q (B,1,H,hd); caches (B,S,Hkv,hd); valid_len (B,).
+    ``window > 0`` clamps valid lengths to it (a ring cache); positions at
+    or past ``(S // min(blk_k, S))·min(blk_k, S)`` are never read."""
+    if window > 0:
+        valid_len = torch.clamp(valid_len, max=window)
+    span = dense_span(k_cache.shape[1], blk_k)
+    return _dense_decode(q, k_cache[:, :span], v_cache[:, :span], valid_len)
+
+
+def dense_span(s, blk_k):
+    """Cache positions the reference's dense decode reads: whole blocks."""
+    blk = min(blk_k, s)
+    return (s // blk) * blk if blk > 0 else 0
+
+
+def flash_decode_ref(q, k, v, valid_len):
+    """Kernel layout (BH,1,hd), (BHkv,S,hd), valid_len (BH,) -> (BH,1,hd):
+    each query head is its own sequence over its group's cache."""
+    n_rep = q.shape[0] // k.shape[0]
+    kq = k.repeat_interleave(n_rep, dim=0)[:, :, None]
+    vq = v.repeat_interleave(n_rep, dim=0)[:, :, None]
+    return _dense_decode(q[:, :, None], kq, vq, valid_len)[:, :, 0]

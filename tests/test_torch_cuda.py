@@ -259,3 +259,201 @@ def test_paged_decode_wrapper_raises(dev, bad):
         valid = valid.cpu()
     with pytest.raises(ValueError, match="paged_decode_attention"):
         fops.paged_decode_attention(q, k, v, pt, valid)
+
+
+# -- K4: dense flash decode on K3's kernel -------------------------------------
+
+def _dcase(dev, b, s, h, hkv, hd, dtype=torch.float32, seed=0, hi=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, 1, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, hkv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, hkv, hd, generator=gen, device=dev).to(dtype)
+    valid = np.random.default_rng(seed).integers(1, (hi or s) + 1, b)
+    valid[0] = hi or s
+    return q, k, v, torch.as_tensor(valid, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("b,s,h,hkv,hd,blk,window", [
+    (2, 512, 4, 4, 64, 128, 0), (3, 512, 4, 2, 64, 256, 0),
+    (1, 1024, 8, 1, 32, 128, 0), (4, 256, 2, 2, 128, 64, 0),
+    (3, 256, 16, 8, 256, 512, 256),          # a ring: valid beyond the window
+    (3, 1000, 16, 8, 128, 256, 0)])          # S not a multiple of blk_k
+def test_dense_decode_matches_plain(dev, b, s, h, hkv, hd, blk, window):
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    q, k, v, valid = _dcase(dev, b, s, h, hkv, hd,
+                            hi=3 * s if window else None)
+    before = fops.paged_decode_attention.launches
+    out = fops.decode_attention(q, k, v, valid, window=window, blk_k=blk)
+    torch.cuda.synchronize()
+    assert fops.paged_decode_attention.launches == before + 1
+    want = decode_attention_ref(q, k, v, valid, window=window, blk_k=blk)
+    torch.testing.assert_close(out, want, atol=TOL, rtol=0)
+    assert torch.equal(out, fops.decode_attention(q, k, v, valid,
+                                                  window=window, blk_k=blk))
+
+
+def test_dense_decode_reads_whole_blocks_only(dev):
+    # positions at or past (S // blk_k) * blk_k are never read: NaN there
+    # leaves the output equal to the truncated cache's
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.models.attention import decode_attend
+    q, k, v, valid = _dcase(dev, 3, 1000, 4, 2, 64)
+    clean = fops.decode_attention(q, k[:, :768], v[:, :768], valid,
+                                 blk_k=256)
+    k[:, 768:] = float("nan")
+    v[:, 768:] = float("nan")
+    out = fops.decode_attention(q, k, v, valid, blk_k=256)
+    assert torch.equal(out, clean)
+    torch.testing.assert_close(
+        out, decode_attend(q, k[:, :768], v[:, :768], valid.clamp(max=768)),
+        atol=TOL, rtol=0)
+
+
+def test_dense_decode_bf16_and_kernel_layout(dev):
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import (decode_attention_ref,
+                                                      flash_decode_ref)
+    q, k, v, valid = _dcase(dev, 4, 640, 16, 8, 128, dtype=torch.bfloat16)
+    out = fops.decode_attention(q, k, v, valid)
+    assert out.dtype == torch.bfloat16
+    want = decode_attention_ref(q.float(), k.float(), v.float(), valid)
+    assert float((out.float() - want).abs().max()) < 3e-2
+    # the reference kernel's layout, one valid length per query head
+    qk = q[:, 0].reshape(64, 1, 128).float()
+    kk = k.float().permute(0, 2, 1, 3).reshape(32, 640, 128)
+    vk = v.float().permute(0, 2, 1, 3).reshape(32, 640, 128)
+    vh = (valid.repeat_interleave(16)
+          - torch.arange(64, device=dev) % 7).clamp(min=1).to(torch.int32)
+    got = fops.flash_decode(qk, kk, vk, vh, blk_k=128)
+    torch.testing.assert_close(got, flash_decode_ref(qk, kk, vk, vh),
+                               atol=TOL, rtol=0)
+
+
+def test_dense_decode_valid_zero_gives_zeros(dev):
+    from repro_torch.kernels.flash_decode import ops as fops
+    q, k, v, valid = _dcase(dev, 3, 256, 4, 2, 64)
+    valid[1] = 0
+    assert bool((fops.decode_attention(q, k, v, valid)[1] == 0).all())
+
+
+# -- K5, K6: flash attention forward and backward -----------------------------
+
+def _acase(dev, b, s, h, hkv, hd, dtype=torch.float32, seed=0, sk=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, sk or s, hkv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, sk or s, hkv, hd, generator=gen, device=dev).to(dtype)
+    g = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+    return q, k, v, g
+
+
+def _grads(fa, q, k, v, g, causal, window):
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    o = fa(qs, ks, vs, causal, window, 32, 32)
+    return (o.detach(),) + torch.autograd.grad((o * g).sum(), (qs, ks, vs))
+
+
+ATTN = [  # (b, s, h, hkv, hd, causal, window)
+    (2, 160, 4, 2, 64, True, 0),         # ragged last tile, GQA 2:1
+    (2, 160, 4, 2, 64, True, 48),
+    (1, 256, 8, 1, 32, False, 0),        # MQA
+    (1, 128, 4, 4, 128, False, 0),
+    (2, 96, 4, 2, 256, True, 32),
+    (1, 128, 2, 1, 256, False, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,hd,causal,window", ATTN)
+def test_flash_attention_matches_plain(dev, dtype, b, s, h, hkv, hd, causal,
+                                       window):
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    q, k, v, g = _acase(dev, b, s, h, hkv, hd, dtype)
+    aops.reset_launch_counts()
+    o, dq, dk, dv = _grads(aops.flash_attention, q, k, v, g, causal, window)
+    torch.cuda.synchronize()
+    assert aops.LAUNCHES == {"fwd": 1, "dq": 1, "dkv": 1}
+    assert o.dtype == dq.dtype == dk.dtype == dtype
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    o_ref, lse_ref = flash_attention_fwd_ref(qf, kf, vf, causal=causal,
+                                             window=window)
+    want = (o_ref,) + flash_attention_bwd_ref(qf, kf, vf, o_ref, lse_ref, gf,
+                                              causal=causal, window=window)
+    _, lse = aops.attention_fwd(q, k, v, causal=causal, window=window)
+    for name, got, ref in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), want):
+        err = float((got.float() - ref).abs().max())
+        if dtype == torch.float32:
+            assert err < (TOL if name == "o" else 5e-4), (name, err)
+        else:
+            assert err < 3e-2 * max(1.0, float(ref.abs().max())), (name, err)
+    torch.testing.assert_close(lse, lse_ref, atol=TOL if dtype ==
+                               torch.float32 else 3e-2, rtol=0)
+    again = _grads(aops.flash_attention, q, k, v, g, causal, window)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, (o, dq, dk, dv)))
+
+
+def test_flash_attention_fully_masked_rows(dev):
+    # non-causal window with Sq > Sk + window - 1: rows with no allowed key
+    # get the mean of V, as the dense reference softmax gives
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.models.attention import attend_reference
+    q, k, v, _ = _acase(dev, 1, 256, 4, 2, 64, sk=64)
+    o, lse = aops.attention_fwd(q, k, v, causal=False, window=32)
+    want = attend_reference(q, k, v, causal=False, window=32)
+    torch.testing.assert_close(o, want, atol=TOL, rtol=0)
+    assert bool((lse[:, :, 100:] == -1e30).all())
+
+
+def test_flash_attention_kernel_layout_and_strided_views(dev):
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    b, s, h, hkv, hd = 2, 128, 4, 2, 64
+    # q, k, v as views of one fused projection (B, S, H + 2 Hkv, hd)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn(b, s, h + 2 * hkv, hd, generator=gen, device=dev)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+    o, lse = aops.attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, causal=True)
+    torch.testing.assert_close(o, o_ref, atol=TOL, rtol=0)
+    # kernel layout (BH, S, hd) against the same launches' plain versions
+    qk = q.permute(0, 2, 1, 3).reshape(b * h, s, hd)
+    kk = k.permute(0, 2, 1, 3).reshape(b * hkv, s, hd)
+    vk = v.permute(0, 2, 1, 3).reshape(b * hkv, s, hd)
+    ok_, lk = aops.flash_attention_fwd(qk, kk, vk, causal=True, window=64)
+    om, lm = flash_attention_fwd_ref(q, k, v, causal=True, window=64)
+    torch.testing.assert_close(ok_, om.permute(0, 2, 1, 3).reshape(b * h, s,
+                                                                   hd),
+                               atol=TOL, rtol=0)
+    torch.testing.assert_close(lk, lm.reshape(b * h, s), atol=TOL, rtol=0)
+    do = torch.randn(b * h, s, hd, generator=gen, device=dev)
+    dq, dk, dv = aops.flash_attention_bwd(qk, kk, vk, ok_, lk, do,
+                                          causal=True, window=64)
+    dom = do.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+    want = flash_attention_bwd_ref(q, k, v, om, lm, dom, causal=True,
+                                   window=64)
+    torch.testing.assert_close(dq, want[0].permute(0, 2, 1, 3).reshape(
+        b * h, s, hd), atol=5e-4, rtol=0)
+    for got, ref in zip((dk, dv), want[1:]):
+        torch.testing.assert_close(got, ref.permute(0, 2, 1, 3).reshape(
+            b * hkv, s, hd), atol=5e-4, rtol=0)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "misaligned", "device",
+                                 "blocks"])
+def test_flash_attention_wrapper_raises(dev, bad):
+    from repro_torch.kernels.flash_attention import ops as aops
+    q, k, v, _ = _acase(dev, 1, 64, 2, 1, 64)
+    if bad == "head_dim":
+        q, k, v = q[..., :48], k[..., :48], v[..., :48]
+    elif bad == "misaligned":
+        q = torch.zeros(64 * 2 * 64 + 1, device=dev)[1:].view(1, 64, 2, 64)
+    elif bad == "device":
+        v = v.cpu()
+    with pytest.raises(ValueError):
+        if bad == "blocks":
+            aops.flash_attention(q, k, v, True, 0, 48, 48)
+        else:
+            aops.attention_fwd(q, k, v)

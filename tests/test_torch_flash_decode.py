@@ -1,6 +1,7 @@
-"""The port's paged flash decode (K3's plain version and its wrappers'
-CPU path) against the reference's Pallas kernel in interpret mode and
-its gather oracle, on the same numpy inputs.
+"""The port's flash decode, paged (K3's plain version and its wrappers'
+CPU path) and dense (K4: ``decode_attention``, ``flash_decode``), against
+the reference's Pallas kernels in interpret mode and its oracles, on the
+same numpy inputs.
 
 On CPU tensors ``ops.flash_decode_paged`` / ``ops.paged_decode_attention``
 run the plain version (``kernels/flash_decode/ref.py``); the CUDA kernel
@@ -14,11 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_decode.kernel import flash_decode as r_dense_kernel
 from repro.kernels.flash_decode.kernel import flash_decode_paged as r_kernel
+from repro.kernels.flash_decode.ops import decode_attention as r_dense
 from repro.kernels.flash_decode.ops import paged_decode_attention as r_paged
 from repro.kernels.flash_decode.ref import flash_decode_paged_ref as r_ref
 from repro_torch.kernels.flash_decode import ops
-from repro_torch.kernels.flash_decode.ref import (flash_decode_paged_ref,
+from repro_torch.kernels.flash_decode.ref import (decode_attention_ref,
+                                                  flash_decode_paged_ref,
+                                                  flash_decode_ref,
                                                   paged_decode_ref)
 from repro_torch.models.attention import decode_attend, decode_attend_paged
 
@@ -144,3 +149,119 @@ def test_wrapper_validates_on_cpu(bad):
         vp = vp[:8]
     with pytest.raises(ValueError, match="paged_decode_attention"):
         ops.paged_decode_attention(q, kp, vp, pt, valid)
+
+
+# -- K4: the dense decode ------------------------------------------------------
+
+def _dense(b, s, h, hkv, hd, seed, hi=None, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, 1, h, hd)).astype(dtype)
+    k = rng.standard_normal((b, s, hkv, hd)).astype(dtype)
+    v = rng.standard_normal((b, s, hkv, hd)).astype(dtype)
+    valid = rng.integers(1, (hi or s) + 1, b).astype(np.int32)
+    valid[0] = hi or s
+    return q, k, v, valid
+
+
+@pytest.mark.parametrize("b,s,h,hkv,hd,blk,window,hi", [
+    (2, 512, 4, 4, 64, 128, 0, None),
+    (2, 512, 4, 2, 64, 256, 0, None),      # GQA
+    (1, 1024, 8, 1, 32, 128, 0, None),     # MQA
+    (2, 256, 4, 2, 64, 64, 256, 700),      # ring: valid beyond the window
+    (3, 200, 4, 2, 64, 64, 0, None),       # S not a multiple of blk_k
+    (3, 200, 4, 2, 64, 512, 0, None)])     # blk_k > S
+def test_dense_decode_matches_reference(b, s, h, hkv, hd, blk, window, hi):
+    q, k, v, valid = _dense(b, s, h, hkv, hd, seed=s + blk + window, hi=hi)
+    want = np.asarray(r_dense(*(jnp.asarray(x) for x in (q, k, v, valid)),
+                              window=window, blk_k=blk))
+    tq, tk, tv, tvl = _t(q, k, v, valid)
+    got = ops.decode_attention(tq, tk, tv, tvl, window=window, blk_k=blk)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    assert torch.equal(got, decode_attention_ref(tq, tk, tv, tvl,
+                                                 window=window, blk_k=blk))
+
+
+def test_dense_decode_reads_whole_blocks_only():
+    """Positions at or past (S // blk_k)·blk_k are never read, as in the
+    reference kernel (its grid has S // blk_k blocks): NaN there changes
+    nothing, and the result is the decode of the truncated cache."""
+    q, k, v, valid = _dense(3, 200, 4, 2, 64, seed=11)
+    k[:, 192:] = np.nan
+    v[:, 192:] = np.nan
+    want = np.asarray(r_dense(*(jnp.asarray(x) for x in (q, k, v, valid)),
+                              blk_k=64))
+    tq, tk, tv, tvl = _t(q, k, v, valid)
+    got = ops.decode_attention(tq, tk, tv, tvl, blk_k=64)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    assert torch.equal(got, decode_attend(tq, tk[:, :192], tv[:, :192],
+                                          tvl.clamp(max=192)))
+
+
+def test_dense_decode_ring_matches_ring_attend():
+    """A full ring of ``window`` slots: the clamp valid -> min(valid,
+    window) equals the model's ring decode."""
+    from repro_torch.models.attention import decode_attend_ring
+    q, k, v, _ = _dense(2, 256, 4, 4, 64, seed=12)
+    step = torch.as_tensor([400, 90], dtype=torch.int32)
+    tq, tk, tv = _t(q, k, v)
+    got = ops.decode_attention(tq, tk, tv, step, window=256, blk_k=64)
+    torch.testing.assert_close(
+        got, decode_attend_ring(tq, tk, tv, step, window=256), atol=TOL,
+        rtol=0)
+
+
+@pytest.mark.parametrize("s,blk", [(512, 128), (200, 64)])
+def test_flash_decode_kernel_layout_matches_reference(s, blk):
+    """The reference kernel's layout with one valid length per query
+    head, against its Pallas kernel and (on whole blocks) its oracle."""
+    h, hkv, b, hd = 4, 2, 2, 64
+    rng = np.random.default_rng(s)
+    q = rng.standard_normal((b * h, 1, hd)).astype(np.float32)
+    k = rng.standard_normal((b * hkv, s, hd)).astype(np.float32)
+    v = rng.standard_normal((b * hkv, s, hd)).astype(np.float32)
+    valid = rng.integers(1, s + 1, b * h).astype(np.int32)
+    want = np.asarray(r_dense_kernel(*(jnp.asarray(x)
+                                       for x in (q, k, v, valid)),
+                                     blk_k=blk, interpret=True))
+    got = ops.flash_decode(*_t(q, k, v, valid), blk_k=blk)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    span = (s // blk) * blk
+    oracle = flash_decode_ref(*_t(q, k[:, :span], v[:, :span],
+                                  np.minimum(valid, span)))
+    torch.testing.assert_close(got, oracle, atol=TOL, rtol=0)
+
+
+def test_dense_decode_bf16_against_fp32_reference():
+    q, k, v, valid = _dense(2, 512, 4, 2, 64, seed=13)
+    qb, kb, vb = (torch.as_tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    got = ops.decode_attention(qb, kb, vb, torch.as_tensor(valid))
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(r_dense(*(jnp.asarray(x.float().numpy())
+                                for x in (qb, kb, vb)),
+                              jnp.asarray(valid)))
+    assert float(np.abs(got.float().numpy() - want).max()) < 3e-2
+
+
+@pytest.mark.parametrize("bad", ["valid_int64", "cache_dtype", "valid_shape",
+                                 "batch", "kernel_layout_groups"])
+def test_dense_wrapper_validates_on_cpu(bad):
+    q, k, v, valid = _t(*_dense(2, 128, 4, 2, 64, seed=14))
+    name = "decode_attention"
+    if bad == "valid_int64":
+        valid = valid.long()
+    elif bad == "cache_dtype":
+        v = v.double()
+    elif bad == "valid_shape":
+        valid = valid[:1]
+    elif bad == "batch":
+        k, v = k[:1], v[:1]
+    else:
+        name = "flash_decode"
+    with pytest.raises(ValueError, match=name):
+        if bad == "kernel_layout_groups":      # 8 query heads over 3
+            kv = torch.zeros(3, 128, 64)
+            ops.flash_decode(q.reshape(8, 1, 64), kv, kv, valid.repeat(4))
+        else:
+            ops.decode_attention(q, k, v, valid)
