@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in twelve phases, and any failure
+nothing of the ``repro`` package) in fifteen phases, and any failure
 exits non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
@@ -88,6 +88,33 @@ exits non-zero:
    for bf16), one K3 launch per call, bitwise repeatable; median device
    times of the kernel, the plain version and a masked
    ``scaled_dot_product_attention`` beside the bound in bytes.
+13. wkv-kernel — ``wkv`` (K7, the chunked RWKV-6 scan, in the model
+   layout the prefill passes) at rwkv6-3b's width (40 heads of 64): the
+   serving prefill's shape (8 prompts x 128 tokens), ``prefill_32k`` at
+   batch 1 (32,768 tokens), and odd lengths 145 (chunk 5) and 127 (chunk
+   1); r, k, v ~ N(0, 1), log-decay -|N(0, 1)|, u ~ 0.1 N(0, 1).  fp32
+   within 1e-4 of the plain chunked version (o and state), and at the
+   serving shape within 1e-3 of the per-token oracle; bf16 r/k/v (fp32
+   log-decay, as a bf16 model passes it) against the fp32 plain version
+   on the same bf16-rounded inputs, 1e-2 x max|o| on o and 1e-4 on the
+   fp32 state; log-decay -50 gives finite output; one launch per call,
+   bitwise repeatable; median device times (L2 flushed) of the kernel and
+   the plain version beside the bound.
+14. serve-rwkv6 — rwkv6-3b at full width in fp32 (random weights) under
+   ``[serve]``'s traffic (``serve_workload.build(arch="rwkv6-3b")``).
+   The qwen3 workload is freed first.  Checks the parameter count, every
+   request's token count, one decode input signature, K7 launched once
+   per layer per prefill call and K3 never; prints tokens/s, decode ms
+   per step, TTFT, latency, preemptions, the state and peak memory.
+15. serve-rwkv6-parity — the engine against ``static_generate`` on the
+   card, as ``[serve-parity]`` (logits 1e-3, tokens equal barring near
+   ties), with 16 slots so that the engine prefills and decodes in the
+   static loop's batch: this model's logits move by more than 1e-3 with
+   the batch alone (the plain forward's, batch 8 against 16: printed,
+   with the 8-slot engine's distance from the static loop); and the
+   prefill's last-position logits (scan on K7) against ``forward``'s
+   (the plain ``chunked_linear_scan``) for the first 8 prompts in one
+   batch, within 1e-3.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -787,21 +814,31 @@ def phase_serve(dev):
     return w, launches
 
 
-def phase_serve_parity(w):
-    """The continuous engine (paged decode through K3) against the static
-    loop (dense cache, plain attention) on the same prompts, on the card.
-    Logits rows agree to LOGIT_TOL; tokens agree, except at a step where
-    the static loop's top-2 logit gap is below LOGIT_TOL (a near tie
-    that rounding may break either way), after which that request's
-    streams are no longer comparable."""
-    from repro_torch import serve_workload as sw
+def _static(w):
+    """The static loop over every prompt of ``w``: (tokens, logits rows)."""
     from repro_torch.serve.engine import static_generate
+    from repro_torch.serve.paged_cache import build_layout
+    max_len = build_layout(w.cfg, w.serve.page_size, w.serve.max_len).max_len
+    return static_generate(w.cfg, w.params, w.prompts, max(w.gens),
+                           max_len=max_len, collect_logits=True,
+                           device=w.device)
 
-    eng = sw.engine(w, record_logits=True)
+
+def phase_serve_parity(w, tag="serve-parity",
+                       what="continuous (K3) vs static (plain)", static=None,
+                       **overrides):
+    """The continuous engine (qwen3: paged decode through K3) against the
+    static loop (dense cache, plain attention) on the same prompts, on the
+    card.  Logits rows agree to LOGIT_TOL; tokens agree, except at a step
+    where the static loop's top-2 logit gap is below LOGIT_TOL (a near
+    tie that rounding may break either way), after which that request's
+    streams are no longer comparable.  ``overrides`` replace the engine's
+    ServeConfig fields; ``static`` is a finished static run."""
+    from repro_torch import serve_workload as sw
+
+    eng = sw.engine(w, record_logits=True, **overrides)
     res = eng.run()
-    out, rows = static_generate(w.cfg, w.params, w.prompts, max(w.gens),
-                                max_len=eng.layout.max_len,
-                                collect_logits=True, device=w.device)
+    out, rows = static or _static(w)
     worst, compared, diverged = 0.0, 0, []
     for i, g in enumerate(w.gens):
         mine = np.stack(eng.logits_rows[i])
@@ -818,10 +855,10 @@ def phase_serve_parity(w):
                 check(gap < LOGIT_TOL, f"request {i} step {t}: tokens "
                       f"{res[i][t]} vs {out[i][t]} with a top-2 gap {gap}")
                 diverged.append((i, t, gap))
-                print(f"[serve-parity] request {i} diverges at step {t}: "
+                print(f"[{tag}] request {i} diverges at step {t}: "
                       f"static top-2 gap {gap:.3e} < {LOGIT_TOL}")
                 break
-    print(f"[serve-parity] continuous (K3) vs static (plain) on the card: "
+    print(f"[{tag}] {what} on the card: "
           f"{compared} logits rows of {len(w.gens)} requests, max abs err "
           f"{worst:.3e} (tol {LOGIT_TOL}); token streams equal"
           + (f" up to {len(diverged)} near-tie divergence(s)" if diverged
@@ -1171,6 +1208,242 @@ def phase_decode_dense(dev):
     return row
 
 
+# -- K7 and the rwkv6 serving path ----------------------------------------------
+
+RWKV_PARAMS = 3_073_395_200      # the reference's init at full width
+PREFILL_32K = 32_768             # launch/shapes.py prefill_32k, at batch 1
+WKV_TOL = 1e-4                   # K7 vs its plain chunked version, fp32
+WKV_ORACLE_TOL = 1e-3            # K7 vs the per-token oracle, fp32
+
+
+def _wkv_inputs(dev, b, s, h, dk, seed):
+    """Model layout (B, S, H, dk): r, k, v ~ N(0, 1), log-decay
+    -|N(0, 1)|; u ~ 0.1 N(0, 1) of (H, dk)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v, d = (torch.randn(b, s, h, dk, generator=gen, device=dev)
+                  for _ in range(4))
+    return r, k, v, -d.abs(), 0.1 * torch.randn(h, dk, generator=gen,
+                                                 device=dev)
+
+
+def _fold(x):
+    """(B, S, H, d) -> the kernel layout (B*H, S, d)."""
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d)
+
+
+def phase_wkv_kernel(dev):
+    from repro_torch import serve_workload as sw
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_scan_chunked_ref,
+                                                    rwkv6_scan_ref)
+    from repro_torch.models.linear_scan import chunk_len
+
+    name = torch.cuda.get_device_name(0)
+    cfg = get_config("rwkv6-3b")
+    h, dk = cfg.n_heads, cfg.head_dim
+    cases = [  # tag, B, S, timed
+        ("serving", sw.N_SLOTS, sw.PROMPT_LEN, True),
+        ("prefill_32k", 1, PREFILL_32K, True),
+        ("S=145", sw.N_SLOTS, 145, False),
+        ("S=127", sw.N_SLOTS, 127, False)]
+    row = None
+    for tag0, b, s, timed in cases:
+        chunk = chunk_len(s, 16)
+        r, k, v, ld, u = _wkv_inputs(dev, b, s, h, dk, seed=s)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"[wkv-kernel] {tag0} {str(dtype)[6:]}"
+            rr, kk, vv = (x.to(dtype) for x in (r, k, v))
+            wops.reset_launch_counts()
+            o, st = wops.wkv(rr, kk, vv, ld, u, chunk=chunk)
+            torch.cuda.synchronize()
+            n = wops.rwkv6_scan.launches
+            check(n == 1, f"{tag}: wkv launched K7 {n} times")
+            folded = [_fold(x) for x in (rr, kk, vv, ld)]
+            uu = u.repeat(b, 1)
+            want_o, want_st = rwkv6_scan_chunked_ref(
+                *(x.float() for x in folded), uu, chunk=chunk)
+            err = float((_fold(o).float() - want_o).abs().max())
+            err_st = float((st.reshape(b * h, dk, dk) - want_st).abs().max())
+            tol = WKV_TOL if dtype == torch.float32 else \
+                1e-2 * float(want_o.abs().max())
+            check(o.dtype == dtype and err <= tol and err_st <= WKV_TOL,
+                  f"{tag}: max abs err vs plain o {err} (tol {tol}), state "
+                  f"{err_st} (tol {WKV_TOL})")
+            again = wops.wkv(rr, kk, vv, ld, u, chunk=chunk)
+            check(torch.equal(again[0], o) and torch.equal(again[1], st),
+                  f"{tag}: not bitwise repeatable")
+            extra = ""
+            if tag0 == "serving" and dtype == torch.float32:
+                oo, ost = rwkv6_scan_ref(*folded, uu)
+                err_or = max(float((_fold(o) - oo).abs().max()),
+                             float((st.reshape(b * h, dk, dk) - ost)
+                                   .abs().max()))
+                check(err_or <= WKV_ORACLE_TOL, f"{tag}: max abs err vs the "
+                      f"per-token oracle {err_or} > {WKV_ORACLE_TOL}")
+                strong = wops.wkv(rr, kk, vv, torch.full_like(ld, -50.0), u,
+                                  chunk=chunk)
+                check(all(bool(torch.isfinite(x).all()) for x in strong),
+                      f"{tag}: log-decay -50 gave a non-finite output")
+                extra = (f"; per-token oracle {err_or:.3e} (tol "
+                         f"{WKV_ORACLE_TOL}); log-decay -50 finite")
+            print(f"{tag}: B={b} S={s} H={h} dk=dv={dk} chunk {chunk}: max "
+                  f"abs err vs plain o {err:.3e} (tol {tol:.3e}), state "
+                  f"{err_st:.3e}; max|o| {float(want_o.abs().max()):.2f}; "
+                  f"one launch, bitwise repeatable{extra}")
+            del want_o, want_st, again
+            if timed:
+                iters = ATTN_ITERS if s <= 1024 else 3
+                ms = device_ms(lambda: wops.wkv(rr, kk, vv, ld, u,
+                                                chunk=chunk), iters)
+                plain_ms = device_ms(lambda: rwkv6_scan_chunked_ref(
+                    *folded, uu, chunk=chunk), iters, warmup=1)
+                esz, dsz = rr.element_size(), ld.element_size()
+                tokens = b * s * h
+                nbytes = (tokens * dk * (4 * esz + dsz) + 4 * h * dk
+                          + 4 * b * h * dk * dk)
+                flops = tokens * 2 * (2 * chunk * dk + 2 * dk * dk)
+                by_bytes = nbytes / memory_rate(name)
+                by_ops = flops / FP32_PEAK
+                bound = max(by_bytes, by_ops) * 1e3
+                print(f"{tag}: median device ms (L2 flushed): kernel "
+                      f"{ms:.4f}, plain {plain_ms:.4f}; bound {bound:.4f}: "
+                      f"{nbytes / 1e6:.1f} MB at {memory_rate(name) / 1e12:.2f}"
+                      f" TB/s is {by_bytes * 1e3:.4f}, {flops / 1e9:.3f} GFLOP"
+                      f" at {FP32_PEAK / 1e12:.0f} TFLOP/s is "
+                      f"{by_ops * 1e3:.4f}; kernel at {bound / ms:.1%} of "
+                      f"the bound; no single PyTorch call computes this "
+                      f"recurrence")
+                if tag0 == "serving" and dtype == torch.float32:
+                    row = {"name": "rwkv6_scan", "route": "cuda",
+                           "source": "src/repro_torch/kernels/rwkv6_scan/"
+                                     "csrc/rwkv6_scan.cu",
+                           "replaces": "src/repro/kernels/rwkv6_scan/"
+                                       "kernel.py:66",
+                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound,
+                           "bound_by": "bytes" if by_bytes >= by_ops
+                           else "operations",
+                           "library_ms": None}
+            del o, st, folded
+        del r, k, v, ld
+        torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve_rwkv6(dev):
+    from repro_torch import serve_workload as sw
+    from repro_torch.common import param_count
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+
+    t0 = time.perf_counter()
+    w = sw.build(dev, arch="rwkv6-3b")
+    torch.cuda.synchronize()
+    n = param_count(w.params)
+    check(n == RWKV_PARAMS, f"rwkv6-3b has {n} params, expected "
+          f"{RWKV_PARAMS}")
+    check(all(x.dtype == torch.float32 and x.device == dev
+              for x in w.params.values()), "params are not fp32 on the card")
+    cfg = w.cfg
+    print(f"[serve-rwkv6] {cfg.name} at full width: {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} WKV heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}, {n} "
+          f"fp32 params ({n * 4 / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    sw.engine(w, n_requests=2, gen=3).run()          # warm-up, not measured
+    eng = sw.engine(w)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    wops.reset_launch_counts()
+    fops.reset_launch_counts()
+    res = eng.run()
+    torch.cuda.synchronize()
+    launches = wops.rwkv6_scan.launches
+    k3 = fops.paged_decode_attention.launches
+
+    st = eng.stats()
+    check(launches == cfg.n_layers * st["n_prefill_calls"],
+          f"K7 launched {launches} times in {st['n_prefill_calls']} prefill "
+          f"calls of {cfg.n_layers} layers")
+    check(k3 == 0, f"K3 launched {k3} times on an attention-free model")
+    check(all(len(res[i]) == g for i, g in enumerate(w.gens)),
+          "a request did not finish with its requested token count")
+    check(eng.decode_cache_size == 1,
+          f"decode step saw {eng.decode_cache_size} input signatures")
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in eng.paged.values())
+    print(f"[serve-rwkv6] {st['n_requests']} requests of {sw.PROMPT_LEN} "
+          f"prompt tokens over {w.serve.n_slots} slots, "
+          f"{st['total_tokens']} tokens in {st['wall_s']:.3f} s: "
+          f"{st['tokens_per_sec']:.1f} tok/s; decode "
+          f"{st['decode_ms_per_step']:.3f} ms per step over "
+          f"{st['n_decode_steps']} steps; {st['n_prefill_calls']} prefill "
+          f"calls; TTFT p50 {st['ttft_p50_s']:.3f} s p99 "
+          f"{st['ttft_p99_s']:.3f} s; latency p50 {st['latency_p50_s']:.3f} "
+          f"s p99 {st['latency_p99_s']:.3f} s; {st['n_preemptions']} "
+          f"preemptions; state {state_bytes / 1e6:.1f} MB "
+          f"({state_bytes / w.serve.n_slots / 1e6:.2f} MB per slot); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[serve-rwkv6] rwkv6_scan (K7) launches {launches} = "
+          f"{cfg.n_layers} x {st['n_prefill_calls']} prefill calls; K3 "
+          f"launches {k3}; every request finished with its requested token "
+          f"count; decode input signatures {eng.decode_cache_size}")
+    return w, launches
+
+
+def phase_serve_rwkv6_parity(w):
+    """The engine against the static loop (as ``[serve-parity]``), then the
+    serving prefill's last-position logits (scan on K7) against the
+    training forward's (the plain ``chunked_linear_scan``)."""
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.models import get_model
+
+    from repro_torch import serve_workload as sw
+
+    static = _static(w)
+    n_req = len(w.gens)
+    phase_serve_parity(w, "serve-rwkv6-parity", f"continuous over {n_req} "
+                       f"slots (the static loop's batch) vs static, both "
+                       f"prefill on K7", static=static, n_slots=n_req)
+    # the main path's 8 slots batch differently from the static loop (a
+    # prefill of 8, then of 1; decode over 8 rows): reported, with what
+    # batching alone moves on the plain path
+    eng = sw.engine(w, record_logits=True)
+    res = eng.run()
+    out, rows = static
+    drift = max(float(np.abs(np.stack(eng.logits_rows[i])
+                             - np.stack([r[i] for r in rows[:g]])).max())
+                for i, g in enumerate(w.gens))
+    same = sum(np.array_equal(res[i], out[i][:g])
+               for i, g in enumerate(w.gens))
+    model = get_model(w.cfg)
+    n = eng.serve.n_slots
+    prompts = torch.as_tensor(w.prompts, device=w.device)
+    with torch.no_grad():
+        wops.reset_launch_counts()
+        pre, _ = model.prefill(w.params, prompts[:n], last_only=True)
+        check(wops.rwkv6_scan.launches == w.cfg.n_layers,
+              f"prefill launched K7 {wops.rwkv6_scan.launches} times")
+        full, _, _ = model.forward(w.params, prompts[:n])
+        err = float((pre[:, -1] - full[:, -1]).abs().max())
+        wide, _, _ = model.forward(w.params, prompts)
+        batching = float((wide[:n, -1] - full[:, -1]).abs().max())
+    print(f"[serve-rwkv6-parity] the main path's {n}-slot engine vs static "
+          f"(not checked): logits rows differ by up to {drift:.3e}, "
+          f"{same}/{n_req} token streams equal; the plain forward's "
+          f"last-position logits of the same {n} prompts in a batch of "
+          f"{n} vs of {n_req} differ by {batching:.3e}")
+    check(err <= LOGIT_TOL, f"prefill (K7) vs forward (plain scan) "
+          f"last-position logits differ by {err} > {LOGIT_TOL}")
+    print(f"[serve-rwkv6-parity] prefill (scan on K7) vs forward (plain "
+          f"chunked_linear_scan) on {n} prompts of {prompts.shape[1]} "
+          f"tokens, one batch: last-position logits max abs err {err:.3e} "
+          f"(tol {LOGIT_TOL})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1198,10 +1471,15 @@ def main() -> int:
     k3 = phase_decode_kernel(dev)
     w, k3["launches"] = phase_serve(dev)
     phase_serve_parity(w)
+    del w                                 # free qwen3 before rwkv6's build
+    torch.cuda.empty_cache()
     k5, k6 = phase_attention_kernels(dev)
     k4 = phase_decode_dense(dev)
+    k7 = phase_wkv_kernel(dev)
+    w, k7["launches"] = phase_serve_rwkv6(dev)
+    phase_serve_rwkv6_parity(w)
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -170,4 +170,4 @@ def list_configs() -> Tuple[str, ...]:
 
 def _ensure_loaded():
     # import side-effect registration of every config module the port has
-    from . import gemma3_12b, qwen3_1_7b  # noqa: F401
+    from . import gemma3_12b, qwen3_1_7b, rwkv6_3b  # noqa: F401

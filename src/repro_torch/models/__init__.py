@@ -1,17 +1,17 @@
 """Models of the port: the paper's own (VGG16 so far, ``paper_models``),
 the toy stacked-block MLP the round-step tests use (``toy``), and the
-zoo's dense transformer family (``transformer``), one API across
-families as in ``repro.models``.
+zoo's dense transformer family (``transformer``) and RWKV-6 (``rwkv6``,
+the ``ssm`` family), one API across families as in ``repro.models``.
 
-``get_model(cfg)`` dispatches on ``cfg.family``.  Only ``dense`` is
-ported; the other families raise ``NotPortedError``.
+``get_model(cfg)`` dispatches on ``cfg.family``.  ``dense`` and ``ssm``
+are ported; the other families raise ``NotPortedError``.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
 from ..core.registry import NotPortedError
-from . import transformer
+from . import rwkv6, transformer
 
 
 class ModelApi(NamedTuple):
@@ -27,7 +27,7 @@ class ModelApi(NamedTuple):
     decode_step_paged: Optional[Callable] = None
 
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "ssm": rwkv6}
 
 
 def get_model(cfg) -> ModelApi:

@@ -1,16 +1,22 @@
 """Where the time of a serving decode step goes on the GPU.
 
-    PYTHONPATH=src python -m repro_torch.profile_serve [--out FILE]
+    PYTHONPATH=src python -m repro_torch.profile_serve [--arch ARCH]
+        [--out FILE]
 
-Builds the serving workload (``serve_workload.build``: qwen3-1.7b at full
-width in fp32, 8 slots, 16 requests of 128 prompt tokens, the one
-``chip_smoke.py`` drives) and runs it through ``DecodeEngine`` after a
-warm-up, twice without and twice under ``torch.profiler``: once in full
-and once with every request cut to its first token, which runs the same
-prefills and no decode step.  The differences divided by the full run's
-decode steps give, per decode step: the device time, by kernel kind, and
-the kernel launches; the device's busy share is that device time over
-the host time of a decode step in the full run without the profiler.
+Builds the serving workload (``serve_workload.build``: qwen3-1.7b, or
+``--arch`` such as rwkv6-3b, at full width in fp32, 8 slots, 16 requests
+of 128 prompt tokens, the one ``chip_smoke.py`` drives) and, after a
+warm-up, runs it through ``DecodeEngine`` once without and once under
+``torch.profiler``, recording every prefill call the engine makes (its
+tokens and keywords).  It then replays those prefill calls alone (each
+with its greedy first-token argmax), once without and once under the
+profiler.  The full run's device time less the replay's, divided by the
+decode steps, gives per decode step: the device time, by kernel kind,
+and the kernel launches; the device's busy share is that device time
+over the host time of a decode step in the full run without the
+profiler.  The replay's device time, by kind, is the prefills'.  What
+the replay leaves out (the prefill states' commits into the slot rows or
+pages, and host-side sampling) counts toward the decode steps.
 Prints one JSON object; needs a GPU.
 """
 from __future__ import annotations
@@ -24,12 +30,16 @@ import time
 import torch
 
 from . import serve_workload as sw
+from .configs.base import list_configs
+from .models import get_model
 from .profile_round import _device_us
 
 
 def _kind(name: str) -> str:
     if "paged_decode_kernel" in name:
         return "flash_decode_paged (K3)"
+    if "wkv_kernel" in name:
+        return "rwkv6_scan (K7)"
     if any(k in name for k in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
                                "splitK", "dot_kernel")):
         return "matmul"
@@ -38,17 +48,18 @@ def _kind(name: str) -> str:
     return "elementwise / reduction"
 
 
-def _run(w, gen=None, profile=False) -> dict:
-    eng = sw.engine(w, gen=gen)
+def _profiled(fn, profile: bool) -> dict:
+    """Run ``fn`` (synchronised) and, under the profiler, sum its device
+    kernels: total, launches, by kind and the top ten."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     prof = torch.profiler.profile(activities=acts) if profile else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with prof or contextlib.nullcontext():
-        eng.run()
+        ret = fn()
         torch.cuda.synchronize()
-    out = {"wall_s": time.perf_counter() - t0, "stats": eng.stats()}
+    out = {"wall_s": time.perf_counter() - t0, "ret": ret}
     if prof is not None:
         device = [e for e in prof.key_averages()
                   if e.self_cpu_time_total == 0 and _device_us(e) > 0]
@@ -65,12 +76,39 @@ def _run(w, gen=None, profile=False) -> dict:
     return out
 
 
-def profile() -> dict:
-    w = sw.build("cuda")
+def _serve(w, calls: list):
+    """The workload through a fresh engine whose prefill calls are
+    appended to ``calls``; returns the engine's stats."""
+    eng = sw.engine(w)
+    inner = eng.model.prefill
+
+    def prefill(params, tokens, **kw):
+        calls.append((tokens.clone(), kw))
+        return inner(params, tokens, **kw)
+
+    eng.model = eng.model._replace(prefill=prefill)
+    eng.run()
+    return eng.stats()
+
+
+@torch.no_grad()
+def _replay(w, calls: list) -> None:
+    model = get_model(w.cfg)
+    for tokens, kw in calls:
+        logits, _ = model.prefill(w.params, tokens, **kw)
+        torch.argmax(logits[:, -1], dim=-1)
+
+
+def profile(arch: str = sw.ARCH) -> dict:
+    w = sw.build("cuda", arch=arch)
     sw.engine(w, n_requests=2, gen=3).run()                 # warm-up
-    full, pre = _run(w), _run(w, gen=1)
-    pfull, ppre = _run(w, profile=True), _run(w, gen=1, profile=True)
-    steps = full["stats"]["n_decode_steps"]
+    calls: list = []
+    full = _profiled(lambda: _serve(w, calls), False)
+    pfull = _profiled(lambda: _serve(w, []), True)
+    pre = _profiled(lambda: _replay(w, calls), False)
+    ppre = _profiled(lambda: _replay(w, calls), True)
+    stats = full["ret"]
+    steps = stats["n_decode_steps"]
     kinds = {k: (pfull["kinds_us"].get(k, 0.0)
                  - ppre["kinds_us"].get(k, 0.0)) * 1e-3 / steps
              for k in pfull["kinds_us"]}
@@ -81,33 +119,37 @@ def profile() -> dict:
         timeout=60, check=True).stdout.strip()
     return {
         "card": smi, "torch": torch.__version__,
-        "config": {"arch": sw.ARCH, "slots": sw.N_SLOTS,
+        "config": {"arch": arch, "slots": sw.N_SLOTS,
                    "page_size": sw.PAGE_SIZE, "requests": sw.N_REQUESTS,
                    "prompt_len": sw.PROMPT_LEN, "gen": sw.GEN,
                    "gen_spread": sw.GEN_SPREAD},
         "decode_steps": steps,
-        "tokens_per_sec": full["stats"]["tokens_per_sec"],
-        "decode_ms_per_step_host": full["stats"]["decode_ms_per_step"],
-        "wall_s": {"full": full["wall_s"], "first_token_only": pre["wall_s"],
+        "prefill_calls": len(calls),
+        "tokens_per_sec": stats["tokens_per_sec"],
+        "decode_ms_per_step_host": stats["decode_ms_per_step"],
+        "wall_s": {"full": full["wall_s"], "prefill_replay": pre["wall_s"],
                    "full_profiled": pfull["wall_s"],
-                   "first_token_only_profiled": ppre["wall_s"]},
+                   "prefill_replay_profiled": ppre["wall_s"]},
         "prefill_device_ms": ppre["device_us"] * 1e-3,
+        "prefill_device_ms_by_kind": {k: v * 1e-3 for k, v in
+                                      ppre["kinds_us"].items()},
         "device_ms_per_decode_step": dev_ms,
         "device_ms_per_decode_step_by_kind": kinds,
         "launches_per_decode_step":
             (pfull["launches"] - ppre["launches"]) / steps,
         # device time of a step over its host time without the profiler
         # (the profiler's own cost, ~20 us a launch, inflates its wall)
-        "decode_busy_share": dev_ms / full["stats"]["decode_ms_per_step"],
+        "decode_busy_share": dev_ms / stats["decode_ms_per_step"],
         "top_device_full_run": pfull["top"],
     }
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default=sw.ARCH, choices=list_configs())
     ap.add_argument("--out", default=None, help="also write the JSON here")
     a = ap.parse_args(argv)
-    text = json.dumps(profile(), indent=1)
+    text = json.dumps(profile(a.arch), indent=1)
     print(text)
     if a.out:
         with open(a.out, "w") as f:

@@ -87,6 +87,12 @@ class ServeConfig:
     record_logits: bool = False  # keep per-request logits rows (tests)
 
 
+def _attn_kw(cfg, attn_impl: str) -> Dict[str, str]:
+    """The prefill's attention keyword: none for the attention-free
+    ``ssm`` family, as in the reference."""
+    return {"attn_impl": attn_impl} if cfg.family != "ssm" else {}
+
+
 def _signature(*tensors) -> tuple:
     return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
 
@@ -128,6 +134,7 @@ class DecodeEngine:
         self._next_rid = 0
         self.logits_rows: Dict[int, List[np.ndarray]] = {}
         self.n_decode_steps = 0
+        self.n_prefill_calls = 0
         self.decode_seconds = 0.0    # host wall time of decode micro-runs
         self._decode_signatures: set = set()
         self._tables_cache = None
@@ -185,6 +192,7 @@ class DecodeEngine:
                                    if steps else 0.0),
             "n_preemptions": self.scheduler.n_preemptions,
             "n_decode_steps": steps,
+            "n_prefill_calls": self.n_prefill_calls,
             "peak_pages": self.allocator.peak_in_use,
             "n_pages": self.allocator.n_pages,
         }
@@ -203,9 +211,10 @@ class DecodeEngine:
         return sample_tokens(row, noise, temperature=t)
 
     def _prefill(self, tokens, rids, gidx):
+        self.n_prefill_calls += 1
         logits, cache = self.model.prefill(
             self.params, tokens, max_len=self.layout.max_len, last_only=True,
-            attn_impl=self.serve.attn_impl)
+            **_attn_kw(self.cfg, self.serve.attn_impl))
         row = logits[:, -1]
         return self._sample(row, rids, gidx), row, cache
 
@@ -348,7 +357,7 @@ def static_generate(cfg, params, prompts, gen: int, *, max_len: int,
         return sample_tokens(row, g, temperature=temperature)
 
     logits, cache = model.prefill(params, prompts, max_len=max_len,
-                                  last_only=True, attn_impl=attn_impl)
+                                  last_only=True, **_attn_kw(cfg, attn_impl))
     row = logits[:, -1]
     tok = sample(row, 0)
     toks, rows = [tok], [row]

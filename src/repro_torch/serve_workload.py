@@ -1,13 +1,17 @@
-"""The serving path's workload: qwen3-1.7b at full width, defined once.
+"""The serving path's workload, defined once: a model at full width
+under one traffic mix.
 
-28 layers, d_model 2,048, 16 query heads over 8 KV heads of 128,
-vocab 151,936, qk-norm, rope theta 1e6, tied embeddings, fp32 (the
-config's ``param_dtype``), random weights from ``seed``.  Served by the
-continuous-batching ``DecodeEngine`` with 8 decode slots over 16-token
-pages: 16 requests of 128 prompt tokens, request i generating
-``32 + i % 16`` tokens, greedy, so two waves of requests share the
-slots and finish at staggered steps.  ``chip_smoke.py`` drives it and
-``profile_serve.py`` profiles it.
+The model is ``ARCH``, qwen3-1.7b (28 layers, d_model 2,048, 16 query
+heads over 8 KV heads of 128, vocab 151,936, qk-norm, rope theta 1e6,
+tied embeddings), unless the caller names another, as ``rwkv6-3b`` (32
+layers, d_model 2,560, 40 WKV heads of 64, d_ff 8,960, vocab 65,536,
+untied head; the prefill's scan runs on kernel K7).  Weights are fp32
+(the config's ``param_dtype``), random from ``seed``.  The traffic is
+the same for every model: the continuous-batching ``DecodeEngine`` with
+8 decode slots over 16-token pages, 16 requests of 128 prompt tokens,
+request i generating ``32 + i % 16`` tokens, greedy, so two waves of
+requests share the slots and finish at staggered steps.
+``chip_smoke.py`` drives it and ``profile_serve.py`` profiles it.
 """
 from __future__ import annotations
 
@@ -40,13 +44,13 @@ class Workload(NamedTuple):
     device: torch.device
 
 
-def build(device: Device = "cuda", *, seed: int = 0,
+def build(device: Device = "cuda", *, arch: str = ARCH, seed: int = 0,
           **serve_overrides) -> Workload:
-    """Params on ``device`` (drawn there from ``seed``), prompts from a
-    CPU generator seeded ``seed + 1``, and the engine's ``ServeConfig``
-    (``serve_overrides`` replace its fields)."""
+    """``arch``'s params on ``device`` (drawn there from ``seed``),
+    prompts from a CPU generator seeded ``seed + 1``, and the engine's
+    ``ServeConfig`` (``serve_overrides`` replace its fields)."""
     dev = resolve_device(device)
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     params = get_model(cfg).init_params(
         torch.Generator(device=dev).manual_seed(seed))
     prompts = torch.randint(0, cfg.vocab, (N_REQUESTS, PROMPT_LEN),

@@ -457,3 +457,141 @@ def test_flash_attention_wrapper_raises(dev, bad):
             aops.flash_attention(q, k, v, True, 0, 48, 48)
         else:
             aops.attention_fwd(q, k, v)
+
+
+# -- K7: the chunked RWKV-6 WKV scan -------------------------------------------
+
+def _wcase(dev, shape, dk, dv, dtype=torch.float32, seed=0, decay=None):
+    """r, k, v ~ N(0, 1), log_decay = -|N(0, 1)| (or ``decay``),
+    u ~ 0.1 N(0, 1); ``shape`` is (BH, S) or (B, S, H)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(last):
+        return torch.randn(*shape, last, generator=gen, device=dev)
+
+    r, k, v = randn(dk), randn(dk), randn(dv)
+    ld = -randn(dk).abs() if decay is None else torch.full(
+        (*shape, dk), decay, device=dev)
+    u_rows = shape[0] if len(shape) == 2 else shape[2]
+    u = 0.1 * torch.randn(u_rows, dk, generator=gen, device=dev)
+    return tuple(x.to(dtype) for x in (r, k, v, ld, u))
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,chunk", [
+    (4, 127, 64, 64, 1), (3, 145, 64, 64, 5), (2, 60, 32, 48, 15),
+    (6, 128, 64, 64, 16), (2, 128, 16, 40, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_matches_plain(dev, bh, s, dk, dv, chunk, dtype):
+    """fp32: within 1e-4 of the plain chunked version (the reference's
+    kernel-vs-substrate bar).  bf16: held to the fp32 plain version on the
+    same bf16-rounded inputs, 1e-2 x max|o| on o (o is rounded to bf16)
+    and 1e-4 on the fp32 state."""
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_chunked_ref
+    r, k, v, ld, u = _wcase(dev, (bh, s), dk, dv, dtype)
+    before = wops.rwkv6_scan.launches
+    o, st = wops.rwkv6_scan(r, k, v, ld, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wops.rwkv6_scan.launches == before + 1
+    assert o.dtype == dtype and st.dtype == torch.float32
+    want_o, want_st = rwkv6_scan_chunked_ref(
+        *(x.float() for x in (r, k, v, ld, u)), chunk=chunk)
+    tol_o = 1e-4 if dtype == torch.float32 else \
+        1e-2 * float(want_o.abs().max())
+    torch.testing.assert_close(o.float(), want_o, atol=tol_o, rtol=0)
+    torch.testing.assert_close(st, want_st, atol=1e-4, rtol=0)
+    again = wops.rwkv6_scan(r, k, v, ld, u, chunk=chunk)
+    assert torch.equal(again[0], o) and torch.equal(again[1], st)
+
+
+def test_wkv_model_layout_matches_oracle(dev):
+    """wkv in the model layout (strided, no fold copy), bf16 r/k/v with an
+    fp32 log-decay as a bf16 model passes them; the fp32 case within
+    1e-3 of the per-token oracle."""
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    b, s, h, dk = 2, 96, 3, 64
+    r, k, v, ld, u = _wcase(dev, (b, s, h), dk, dk)
+    o, st = wops.wkv(r, k, v, ld, u, chunk=16)
+
+    def fold(x):
+        return x.transpose(1, 2).reshape(b * h, s, -1)
+
+    want_o, want_st = rwkv6_scan_ref(fold(r), fold(k), fold(v), fold(ld),
+                                     u.repeat(b, 1))
+    torch.testing.assert_close(fold(o), want_o, atol=1e-3, rtol=0)
+    torch.testing.assert_close(st.reshape(b * h, dk, dk), want_st, atol=1e-3,
+                               rtol=0)
+    ob, stb = wops.wkv(r.bfloat16(), k.bfloat16(), v.bfloat16(), ld, u,
+                       chunk=16)
+    assert ob.dtype == torch.bfloat16
+    o32, st32 = wops.wkv(r.bfloat16().float(), k.bfloat16().float(),
+                         v.bfloat16().float(), ld, u, chunk=16)
+    torch.testing.assert_close(ob.float(), o32,
+                               atol=1e-2 * float(o32.abs().max()), rtol=0)
+    torch.testing.assert_close(stb, st32, atol=1e-4, rtol=0)
+
+
+def test_rwkv6_scan_strong_decay_finite(dev):
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    r, k, v, ld, u = _wcase(dev, (2, 64), 64, 64, decay=-50.0)
+    o, st = wops.rwkv6_scan(r, k, v, ld, u, chunk=16)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(st).all())
+
+
+def test_rwkv6_scan_never_runs_plain_on_card(dev, monkeypatch):
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(wops, "rwkv6_scan_chunked_ref", plain)
+    r, k, v, ld, u = _wcase(dev, (2, 32, 2), 64, 64)
+    wops.wkv(r, k, v, ld, u)
+    wops.rwkv6_scan(*_wcase(dev, (2, 32), 64, 64))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bad", ["chunk", "divides", "dk", "device",
+                                 "grad"])
+def test_rwkv6_scan_wrapper_raises(dev, bad):
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    r, k, v, ld, u = _wcase(dev, (2, 64), 64, 64)
+    chunk = 16
+    if bad == "chunk":
+        chunk = 64
+    elif bad == "divides":
+        chunk = 24
+    elif bad == "dk":
+        r, k, v, ld, u = _wcase(dev, (2, 64), 128, 64)
+    elif bad == "device":
+        u = u.cpu()
+    else:
+        r.requires_grad_()
+    with pytest.raises(RuntimeError if bad == "grad" else ValueError):
+        wops.rwkv6_scan(r, k, v, ld, u, chunk=chunk)
+
+
+def test_rwkv6_prefill_runs_k7_on_card(dev):
+    """The reduced model's prefill launches K7 once per layer and agrees
+    with forward (plain chunked_linear_scan) on the last position."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.models import get_model
+    cfg = get_config("rwkv6-3b").reduced()
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init_params(gen)
+    for name in ("u", "decay_base", "ln_b"):     # zeros at init
+        leaf = params[f"blocks/sub0/wkv/{name}"]
+        leaf.copy_(0.5 * torch.randn(leaf.shape, generator=gen, device=dev))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 45)), device=dev)
+    with torch.no_grad():
+        wops.reset_launch_counts()
+        logits, cache = model.prefill(params, tokens, max_len=64,
+                                      last_only=True)
+        assert wops.rwkv6_scan.launches == cfg.n_layers
+        full, _, _ = model.forward(params, tokens)
+    torch.testing.assert_close(logits[:, -1], full[:, -1], atol=1e-4, rtol=0)
+    assert cache["subs/sub0/wkv"].dtype == torch.float32

@@ -1,6 +1,8 @@
 """The port's serving engine (paged continuous batching) against the
-reference's ``repro.serve`` on reduced qwen3-1.7b, and against its own
-static loop; the host-side paging and scheduling units.
+reference's ``repro.serve`` on reduced qwen3-1.7b and reduced rwkv6-3b
+(the ``ssm`` family: slot-row states, no pages; its prefill's scan is
+K7's plain version on the CPU), and against its own static loop; the
+host-side paging and scheduling units.
 
 * Greedy streams of the port's engine equal the reference engine's, and
   its per-step logits rows agree within 1e-4 (fp32 math in another
@@ -331,3 +333,189 @@ def test_scheduler_preempts_most_recent_and_requeues_front():
     assert victim.rid == 2 and victim.resume_pending == 22
     assert list(victim.prefill_tokens) == [0] * 16 + [11]
     assert tb.pages_held(2) == 0
+
+
+# ---------------------------------------------------------------------------
+# rwkv6-3b (ssm): slot-row state, prefill through K7's entry point
+# ---------------------------------------------------------------------------
+
+RWKV = "rwkv6-3b"
+
+
+def _rwkv_reference_params(rcfg, seed=0):
+    """The reference's init with ``u``, ``decay_base``, ``ln_b`` and the
+    mu vectors (zeros / 0.5 at init) redrawn from a numpy seed, so the
+    bonus term and the lerps are exercised."""
+    rp = jax.tree_util.tree_map(np.asarray, r_get_model(rcfg).init_params(
+        jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed + 100)
+    blk = rp["blocks"]["sub0"]
+    for group, names in (("wkv", ("u", "decay_base", "ln_b", "mu_r", "mu_k",
+                                  "mu_v", "mu_w", "mu_g")),
+                         ("cmix", ("mu_k", "mu_r"))):
+        for name in names:
+            x = blk[group][name]
+            blk[group][name] = (0.5 * rng.standard_normal(x.shape)
+                                ).astype(x.dtype)
+    return rp
+
+
+@pytest.fixture(scope="module")
+def rwkv_ref():
+    """Reduced rwkv6: the reference engine's greedy streams and logits
+    rows, its static loop's sampled streams, and its Gumbel rows."""
+    rcfg = r_get_config(RWKV).reduced()
+    np_rp = _rwkv_reference_params(rcfg)
+    rp = jax.tree_util.tree_map(jnp.asarray, np_rp)
+    prompts = np.random.default_rng(1).integers(0, rcfg.vocab, (N, PROMPT),
+                                                dtype=np.int32)
+    eng = RDecodeEngine(rcfg, rp, RServeConfig(
+        n_slots=N, max_len=MAX_LEN, page_size=16, record_logits=True))
+    for i in range(N):
+        eng.submit(prompts[i], GEN)
+    greedy = eng.run()
+    sampled = r_static_generate(rcfg, rp, jnp.asarray(prompts), GEN,
+                                max_len=MAX_LEN, temperature=TEMP, seed=SEED)
+    gumbel = {}
+    base = jax.random.PRNGKey(SEED)
+    for rid in range(N):
+        for g in range(GEN):
+            k = jax.random.fold_in(jax.random.fold_in(base, rid), g)
+            gumbel[rid, g] = np.array(jax.random.gumbel(
+                k, (rcfg.padded_vocab,), jnp.float32))
+    return {"cfg": get_config(RWKV).reduced(), "prompts": prompts,
+            "params": from_reference(np_rp), "greedy": greedy,
+            "rows": eng.logits_rows, "sampled": sampled, "gumbel": gumbel}
+
+
+def test_rwkv6_greedy_streams_match_reference_engine(rwkv_ref):
+    eng = _engine(rwkv_ref["cfg"], rwkv_ref["params"], n_slots=N,
+                  record_logits=True)
+    assert eng.layout.subs == () and eng.layout.has_state
+    for i in range(N):
+        eng.submit(rwkv_ref["prompts"][i], GEN)
+    res = eng.run()
+    for i in range(N):
+        assert np.array_equal(res[i], rwkv_ref["greedy"][i]), f"request {i}"
+        np.testing.assert_allclose(np.stack(eng.logits_rows[i]),
+                                   np.stack(rwkv_ref["rows"][i]), atol=TOL,
+                                   rtol=0, err_msg=f"request {i}")
+    assert eng.decode_cache_size == 1
+    assert eng.stats()["n_prefill_calls"] == 1
+
+
+def test_rwkv6_sampled_streams_match_reference(rwkv_ref):
+    noise = _injected(rwkv_ref["gumbel"])
+    out = static_generate(rwkv_ref["cfg"], rwkv_ref["params"],
+                          rwkv_ref["prompts"], GEN, max_len=MAX_LEN,
+                          temperature=TEMP, seed=SEED, device="cpu",
+                          gumbel=noise)
+    assert np.array_equal(out, rwkv_ref["sampled"])
+    eng = _engine(rwkv_ref["cfg"], rwkv_ref["params"], n_slots=N,
+                  temperature=TEMP, seed=SEED, gumbel=noise)
+    for i in range(N):
+        eng.submit(rwkv_ref["prompts"][i], GEN)
+    res = eng.run()
+    for i in range(N):
+        assert np.array_equal(res[i], rwkv_ref["sampled"][i]), f"request {i}"
+
+
+def test_rwkv6_continuous_bitwise_equals_static(rwkv_ref):
+    eng = _engine(rwkv_ref["cfg"], rwkv_ref["params"], n_slots=N,
+                  record_logits=True)
+    for i in range(N):
+        eng.submit(rwkv_ref["prompts"][i], GEN)
+    res = eng.run()
+    out, rows = static_generate(rwkv_ref["cfg"], rwkv_ref["params"],
+                                rwkv_ref["prompts"], GEN,
+                                max_len=eng.layout.max_len,
+                                collect_logits=True, device="cpu")
+    for i in range(N):
+        assert np.array_equal(res[i], out[i])
+        assert np.array_equal(np.stack(eng.logits_rows[i]),
+                              np.stack([r[i] for r in rows]))
+
+
+def _solo_streams_equal(cfg, params, prompts, specs, eng, res):
+    for i, (pl, g) in enumerate(specs):
+        solo = static_generate(cfg, params, prompts[i][:pl][None], g,
+                               max_len=eng.layout.max_len, rids=[i],
+                               device="cpu")
+        assert np.array_equal(res[i], solo[0]), f"request {i}"
+
+
+def test_rwkv6_mixed_prompt_lengths_match_solo_runs():
+    """Prompt lengths 16, 21, 8, 17, 24 and 5 take scan chunks 16, 7, 8,
+    1, 12 and 5 in the prefill; admitted mid-flight over 3 slots, every
+    stream equals a solo static run of that request."""
+    cfg, params, prompts = _port_setup(RWKV, n_prompts=6)
+    specs = [(16, 8), (21, 4), (8, 10), (17, 3), (24, 6), (5, 5)]
+    eng = _engine(cfg, params, n_slots=3)
+    for i, (pl, g) in enumerate(specs):
+        eng.submit(prompts[i][:pl], g)
+    res = eng.run()
+    _solo_streams_equal(cfg, params, prompts, specs, eng, res)
+    assert eng.decode_cache_size == 1
+    assert eng.stats()["n_prefill_calls"] >= 4
+
+
+class _PreemptingEngine(DecodeEngine):
+    """Preempts the most recently admitted running slot after the first
+    decode micro-run: the ssm state has no pages, so a dry pool never
+    forces it.  The victim resumes by re-prefilling prompt + generated."""
+
+    def _decode_one_step(self):
+        super()._decode_one_step()
+        sched = self.scheduler
+        if sched.n_preemptions == 0 and sched.running_slots():
+            victim = max(sched.running_slots(),
+                         key=lambda s: sched.slots[s].admit_seq)
+            sched.preempt(victim)
+
+
+def test_rwkv6_preemption_recovers_streams():
+    cfg, params, prompts = _port_setup(RWKV, n_prompts=4)
+    specs = [(16, 10), (24, 6), (8, 12), (16, 4)]
+    eng = _PreemptingEngine(cfg, params, ServeConfig(
+        n_slots=2, max_len=MAX_LEN, page_size=16), device="cpu")
+    for i, (pl, g) in enumerate(specs):
+        eng.submit(prompts[i][:pl], g)
+    res = eng.run()
+    assert eng.scheduler.n_preemptions == 1
+    _solo_streams_equal(cfg, params, prompts, specs, eng, res)
+    assert eng.decode_cache_size == 1
+
+
+def test_rwkv6_eos_frees_slot_early():
+    cfg, params, prompts = _port_setup(RWKV, n_prompts=4)
+    probe = _engine(cfg, params, n_slots=2)
+    for i in range(2):
+        probe.submit(prompts[i], 6)
+    eos = int(probe.run()[0][2])
+    eng = _engine(cfg, params, n_slots=2, eos_id=eos)
+    for i in range(4):
+        eng.submit(prompts[i], 6)
+    res = eng.run()
+    first = int(np.flatnonzero(res[0] == eos)[0])
+    assert res[0][-1] == eos and len(res[0]) == first + 1 <= 3
+    assert all(len(res[i]) <= 6 for i in range(4))
+    assert eng.decode_cache_size == 1
+
+
+def test_ssm_prefill_gets_no_attn_impl():
+    """The engine and the static loop pass ``attn_impl`` to the dense
+    family's prefill only, as the reference's engine does."""
+    seen = []
+    for arch in (RWKV, "qwen3-1.7b"):
+        cfg, params, prompts = _port_setup(arch, n_prompts=1, prompt_len=8)
+        eng = _engine(cfg, params, n_slots=1)
+        inner = eng.model.prefill
+
+        def prefill(p, tokens, inner=inner, **kw):
+            seen.append((arch, "attn_impl" in kw))
+            return inner(p, tokens, **kw)
+
+        eng.model = eng.model._replace(prefill=prefill)
+        eng.submit(prompts[0], 2)
+        eng.run()
+    assert seen == [(RWKV, False), ("qwen3-1.7b", True)]

@@ -59,7 +59,7 @@ def _close(got, want, what):
 
 
 def test_configs_match_reference():
-    assert set(list_configs()) == {"qwen3-1.7b", "gemma3-12b"}
+    assert set(list_configs()) == {"qwen3-1.7b", "gemma3-12b", "rwkv6-3b"}
     for name in list_configs():
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(r_get_config(name))
