@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in fifteen phases, and any failure
+nothing of the ``repro`` package) in sixteen phases, and any failure
 exits non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
@@ -28,22 +28,27 @@ exits non-zero:
    round, exact-zero deltas on every client's frozen units, and
    ``comm_summary()`` equal to Table 4's formula on the recorded
    selections.
-5. codec-kernel — ``quantize_pack`` (K2) at bits 8 and 4 on every one
+5. round-repeat — the same federation built twice from the same seed
+   (``paper_round.build``), 2 rounds each: every parameter and every
+   ``sel_history`` row bitwise equal between the two, and equal
+   ``comm_summary()`` (``common/device.py`` turns on cuDNN's
+   deterministic algorithms).
+6. codec-kernel — ``quantize_pack`` (K2) at bits 8 and 4 on every one
    of the 80 VGG16 leaf shapes with 8 rows (one of them all zero), plus
    odd and long rows, against its plain PyTorch version on the same
    ``x`` and ``u``: codes and scales equal bitwise, and two launches
    bitwise equal; median times of the 80-leaf sweep (one round's
    calls) for the kernel and the plain version beside the bound.
-6. packed-round — the same federation with ``packed=True,
+7. packed-round — the same federation with ``packed=True,
    codec="qint8"``, 3 rounds: finite losses, K2 launched once per leaf
    per round and K1 never, decoded deltas of frozen (client, leaf)
    pairs exactly zero, and in every round ``sel @ codec_unit_bytes`` ==
    ``encoded_wire_bytes`` of the round's slot plan == the billed uplink,
    beside the fp32 uplink of the same selections.
-7. codec-rounds — one round each with ``qint4`` and ``topk_ef``; the
+8. codec-rounds — one round each with ``qint4`` and ``topk_ef``; the
    latter holds ``decoded + new residual == signal`` exactly on the
    rows of participating clients.
-8. decode-kernel — ``paged_decode_attention`` (K3) on qwen3's heads
+9. decode-kernel — ``paged_decode_attention`` (K3) on qwen3's heads
    (16 query heads over 8 KV heads of 128) at the serving shape (8
    sequences of 129-175 tokens) and at 8 x 4,096 tokens, pages
    scattered by a random permutation, valid lengths ragged, fp32 and
@@ -53,7 +58,7 @@ exits non-zero:
    not reach are NaN; median device times (L2 flushed) of the kernel,
    the plain version and a gather + ``scaled_dot_product_attention``
    yardstick beside the bound in bytes.
-9. serve — qwen3-1.7b at full width in fp32 (random weights) through
+10. serve — qwen3-1.7b at full width in fp32 (random weights) through
    ``DecodeEngine`` (``repro_torch/serve_workload.py``): 8 slots over
    16-token pages, 16 requests of 128 prompt tokens, request i
    generating ``32 + i % 16`` tokens.  Checks the parameter count, that
@@ -61,24 +66,31 @@ exits non-zero:
    signature, and K3 launched once per layer per decode step; prints
    tokens/s, decode ms per step, TTFT, latency, preemptions, peak pages
    and memory.
-10. serve-parity — the same requests through the engine (K3) against
+11. serve-parity — the same requests through the engine (K3) against
    ``static_generate`` (dense cache, plain attention) on the card: every
    logits row within 1e-3, and equal token streams except at a step
    whose static top-2 logit gap is below that tolerance (printed).
-11. attention-kernels — ``flash_attention`` (K5 forward, K6 backward)
+12. attention-kernels — ``flash_attention`` (K5 forward, K6 backward)
    at full attention width in ``train_4k`` (B=2, S=4,096, causal; 16
    query heads over 8 KV heads): qwen3-1.7b (head dim 128), a gemma3-12b
    local layer (head dim 256, window 1,024) and a global one, fp32 and
-   bf16.  One ``torch.autograd.grad`` of ``(flash_attention(q, k, v) *
-   g).sum()`` per case must launch the forward, dQ and dK/dV kernels
-   once each; o, lse, dq, dk and dv are held to the plain versions (fp32:
-   2e-5 on o and lse, 5e-4 on gradients; bf16 against the fp32 plain
-   version on the same inputs: 3e-2, relative to the largest gradient);
-   two runs bitwise equal; median device times of the forward, backward
-   and both, of the plain version and of ``scaled_dot_product_attention``
-   with GQA (the cuDNN / PyTorch kernels it ran are named) beside the
-   bound in operations.
-12. decode-dense — ``decode_attention`` (K4, launched on K3's kernel)
+   bf16 (fp32 on the SIMT kernels of ``flash_attention.cu``, bf16 on the
+   tensor-core kernels of ``flash_attention_sm90.cu``).  One
+   ``torch.autograd.grad`` of ``(flash_attention(q, k, v) * g).sum()``
+   per case must launch the forward, dQ and dK/dV kernels once each; o,
+   lse, dq, dk and dv are held to the plain versions (fp32: 2e-5 on o and
+   lse, 5e-4 on gradients; bf16 against the fp32 plain version on the
+   same inputs: 3e-2, relative to the largest gradient, and element by
+   element against the plain version that rounds P and dS to bf16 where
+   the kernels do, at ``ref.rounding_error_ratio``'s bar, lse at
+   LSE_EMU_TOL; wrong outputs planted in one head, a key tile left out or
+   one head's share of dK/dV, must fail that bar); two runs bitwise
+   equal; median device times of the forward,
+   backward and both, of the plain version and of
+   ``scaled_dot_product_attention`` with GQA (the cuDNN / PyTorch kernels
+   it ran are named) beside the bound in operations (fp32 at 67 TFLOP/s,
+   bf16 at the tensor cores' 989 TFLOP/s) and the kernel's share of it.
+13. decode-dense — ``decode_attention`` (K4, launched on K3's kernel)
    at qwen3-1.7b width in ``decode_32k`` (8 caches of 32,768 positions,
    ragged valid lengths, fp32 and bf16), on a gemma3-12b ring cache
    (1,024 slots, window 1,024, valid lengths beyond it; also through
@@ -88,7 +100,7 @@ exits non-zero:
    for bf16), one K3 launch per call, bitwise repeatable; median device
    times of the kernel, the plain version and a masked
    ``scaled_dot_product_attention`` beside the bound in bytes.
-13. wkv-kernel — ``wkv`` (K7, the chunked RWKV-6 scan, in the model
+14. wkv-kernel — ``wkv`` (K7, the chunked RWKV-6 scan, in the model
    layout the prefill passes) at rwkv6-3b's width (40 heads of 64): the
    serving prefill's shape (8 prompts x 128 tokens), ``prefill_32k`` at
    batch 1 (32,768 tokens), and odd lengths 145 (chunk 5) and 127 (chunk
@@ -100,21 +112,23 @@ exits non-zero:
    fp32 state; log-decay -50 gives finite output; one launch per call,
    bitwise repeatable; median device times (L2 flushed) of the kernel and
    the plain version beside the bound.
-14. serve-rwkv6 — rwkv6-3b at full width in fp32 (random weights) under
+15. serve-rwkv6 — rwkv6-3b at full width in fp32 (random weights) under
    ``[serve]``'s traffic (``serve_workload.build(arch="rwkv6-3b")``).
    The qwen3 workload is freed first.  Checks the parameter count, every
    request's token count, one decode input signature, K7 launched once
    per layer per prefill call and K3 never; prints tokens/s, decode ms
    per step, TTFT, latency, preemptions, the state and peak memory.
-15. serve-rwkv6-parity — the engine against ``static_generate`` on the
+16. serve-rwkv6-parity — the engine against ``static_generate`` on the
    card, as ``[serve-parity]`` (logits 1e-3, tokens equal barring near
    ties), with 16 slots so that the engine prefills and decodes in the
    static loop's batch: this model's logits move by more than 1e-3 with
-   the batch alone (the plain forward's, batch 8 against 16: printed,
-   with the 8-slot engine's distance from the static loop); and the
-   prefill's last-position logits (scan on K7) against ``forward``'s
-   (the plain ``chunked_linear_scan``) for the first 8 prompts in one
-   batch, within 1e-3.
+   the batch alone (the plain forward's, batch 8 against 16: printed);
+   the main path's 8-slot engine against ``slotted_generate``, the plain
+   loop that batches as the engine does (a prefill of the first 8
+   prompts, then one per freed slot; every decode step over 8 rows), at
+   the same 1e-3; and the prefill's last-position logits (scan on K7)
+   against ``forward``'s (the plain ``chunked_linear_scan``) for the
+   first 8 prompts in one batch, within 1e-3.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -144,6 +158,8 @@ ROUNDS = 3
 TOL = 2e-5
 PARITY_TOL = 1e-5        # float32 optimizer/aggregation rounding on float64 params
 FP32_PEAK = 67e12            # H100 SXM, float32 outside the tensor cores
+BF16_PEAK = 989e12           # H100 SXM, bf16 dense on the tensor cores
+REPEAT_ROUNDS = 2
 
 
 def check(cond, msg):
@@ -389,6 +405,34 @@ def phase_round(dev):
           f"reduction vs full {summ['reduction_vs_full']:.4f}; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
+
+
+def phase_round_repeat(dev):
+    """Two federations built from the same seed fit the same rounds: every
+    parameter and every selection row bitwise equal, the same bill."""
+    from repro_torch import paper_round
+
+    feds = []
+    for _ in range(2):
+        fed = paper_round.build(dev)
+        fed.fit(REPEAT_ROUNDS)
+        torch.cuda.synchronize()
+        feds.append(fed)
+    a, b = feds
+    diff = [p for p in a.params if not torch.equal(a.params[p], b.params[p])]
+    check(not diff, f"{len(diff)} of {len(a.params)} parameters differ "
+          f"between two identical runs, e.g. {diff[:3]}")
+    sel_a, sel_b = a.server.sel_history, b.server.sel_history
+    check(len(sel_a) == len(sel_b) == REPEAT_ROUNDS and
+          all(np.array_equal(x, y) for x, y in zip(sel_a, sel_b)),
+          "sel_history differs between two identical runs")
+    check(a.comm_summary() == b.comm_summary(),
+          f"comm_summary differs: {a.comm_summary()} vs {b.comm_summary()}")
+    print(f"[round-repeat] two federations from the same seed, "
+          f"{REPEAT_ROUNDS} rounds each: {len(a.params)} parameters and "
+          f"{len(sel_a)} sel_history rows bitwise equal, comm_summary equal "
+          f"(cudnn.deterministic {torch.backends.cudnn.deterministic}, "
+          f"cudnn.benchmark {torch.backends.cudnn.benchmark})")
 
 
 def _vgg_leaf_sizes():
@@ -870,6 +914,13 @@ def phase_serve_parity(w, tag="serve-parity",
 TRAIN_B, TRAIN_S = 2, 4096       # launch/shapes.py train_4k at batch 2
 DECODE_S = 32_768                # launch/shapes.py decode_32k
 ATTN_ITERS = 10
+# bf16 kernels vs the plain version that rounds P and dS to bf16 where they
+# do (ref.py round_to): o, dq, dk, dv element by element at
+# ref.rounding_error_ratio's bar (2^-7 of the value + 2^-5 of its row's rms
+# + 2^-16 of the largest value), lse at LSE_EMU_TOL; planted wrong outputs
+# (one key tile or one query head's share left out) must fail that bar
+LSE_EMU_TOL = 1e-5
+ATTN_OUTS = ("o", "dq", "dk", "dv")
 
 
 def _allowed_pairs(s, causal, window):
@@ -886,6 +937,43 @@ def _attn_configs():
     return [("qwen3-1.7b", qwen, 0),
             ("gemma3-12b local", gemma, gemma.sliding_window),
             ("gemma3-12b global", gemma, 0)]
+
+
+def _planted_wrong(q, k, v, g, o, lse, want, window):
+    """Wrong outputs a faulty bf16 kernel could give, each in batch 0 and
+    the last query head, from the rounding plain version's ``want`` (o, dq,
+    dk, dv) and lse: the forward and dQ with the key tile at S/2 left
+    out, dK and dV without that head's share in the last key tile."""
+    s, hd = q.shape[1], q.shape[3]
+    hh, kvh = q.shape[2] - 1, k.shape[2] - 1
+    qh, kh, vh, gh = (x[0, :, i].float() for x, i in
+                      ((q, hh), (k, kvh), (v, kvh), (g, hh)))
+    i = torch.arange(s, device=q.device)
+    mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window
+                                      if window > 0 else True)
+    sc = qh @ kh.T / math.sqrt(hd)
+    p = torch.where(mask, torch.exp(sc - lse[0, hh][:, None]), 0.0)
+    dlt = (o[0, :, hh].float() * gh).sum(-1)
+    ds = p * (gh @ vh.T - dlt[:, None]) / math.sqrt(hd)
+    tile, last, r0 = slice(s // 2, s // 2 + 64), slice(s - 64, s), s // 2
+    mask[:, tile] = False
+    s2 = torch.where(mask, sc, -1e30)[r0:]
+    wrong = {}
+    for n, rows, val in (
+            ("o", r0, torch.softmax(s2, -1) @ vh),
+            ("lse", r0, torch.logsumexp(s2, -1)),
+            ("dq", 0, want[1][0, :, hh].float() - ds[:, tile] @ kh[tile]),
+            ("dk", last, want[2][0, last, kvh].float() - ds[:, last].T @ qh),
+            ("dv", last, want[3][0, last, kvh].float() - p[:, last].T @ gh)):
+        x = (lse if n == "lse" else want[ATTN_OUTS.index(n)]).clone()
+        if n == "lse":
+            x[0, hh, rows:] = val
+        elif isinstance(rows, slice):
+            x[0, rows, kvh] = val.to(x.dtype)
+        else:
+            x[0, rows:, hh] = val.to(x.dtype)
+        wrong[n] = x
+    return wrong
 
 
 def _sdpa_attn(q, k, v, window):
@@ -923,7 +1011,8 @@ def _sdpa_backend(q, k, v, g, window):
 def phase_attention_kernels(dev):
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_bwd_ref, flash_attention_fwd_ref)
+        flash_attention_bwd_ref, flash_attention_fwd_ref,
+        rounding_error_ratio)
 
     name = torch.cuda.get_device_name(0)
     b, s = TRAIN_B, TRAIN_S
@@ -962,18 +1051,49 @@ def phase_attention_kernels(dev):
             want = (o_ref,) + flash_attention_bwd_ref(
                 qf, kf, vf, o_ref, lse_ref, gf, causal=True, window=window)
             errs = {n: float((x.float() - y).abs().max()) for n, x, y in
-                    zip(("o", "dq", "dk", "dv"), got, want)}
+                    zip(ATTN_OUTS, got, want)}
             errs["lse"] = float((lse - lse_ref).abs().max())
+            mean = {n: float((x.float() - y).abs().mean()) for n, x, y in
+                    zip(ATTN_OUTS, got, want)}
             for n, err in errs.items():
                 if dtype == torch.float32:
                     tol = TOL if n in ("o", "lse") else 5e-4
                 else:
-                    ref = lse_ref if n == "lse" else want[("o", "dq", "dk",
-                                                           "dv").index(n)]
+                    ref = lse_ref if n == "lse" else want[ATTN_OUTS.index(n)]
                     tol = 3e-2 * (1.0 if n in ("o", "lse") else
                                   max(1.0, float(ref.abs().max())))
                 check(err <= tol, f"{tag}: {n} max abs err vs plain {err} > "
                       f"{tol}")
+            emu, planted = {}, {}
+            if dtype == torch.bfloat16:
+                # P and dS rounded as the kernels do; the backward from the
+                # kernel's own o and lse, so that each kernel is held alone
+                o_emu, lse_emu = flash_attention_fwd_ref(
+                    qf, kf, vf, causal=True, window=window,
+                    round_to=torch.bfloat16)
+                want = (o_emu.to(dtype),) + flash_attention_bwd_ref(
+                    q, k, v, got[0], lse, g, causal=True, window=window,
+                    round_to=torch.bfloat16)
+                for n, x, y in zip(ATTN_OUTS, got, want):
+                    emu[n] = rounding_error_ratio(x, y)
+                    mean[n + " rounding"] = float((x.float() - y.float())
+                                                  .abs().mean())
+                    check(emu[n] <= 1.0, f"{tag}: {n} vs the bf16-rounding "
+                          f"plain version at {emu[n]:.3f} of the bar")
+                emu["lse"] = float((lse - lse_emu).abs().max()) / LSE_EMU_TOL
+                check(emu["lse"] <= 1.0, f"{tag}: lse vs the bf16-rounding "
+                      f"plain version at {emu['lse']:.3f} of the bar")
+                # the same bars must see a kernel that is wrong by a
+                # typical amount in a small part of its output
+                for n, x in _planted_wrong(q, k, v, g, got[0], lse, want,
+                                           window).items():
+                    planted[n] = (float((x - lse_emu).abs().max())
+                                  / LSE_EMU_TOL if n == "lse" else
+                                  rounding_error_ratio(
+                                      x, want[ATTN_OUTS.index(n)]))
+                    check(planted[n] > 1.0, f"{tag}: a planted wrong {n} "
+                          f"passes the bar ({planted[n]:.3f} of it)")
+                del o_emu, lse_emu
             del want, got, again
             pairs = b * h * _allowed_pairs(s, True, window)
             esz = q.element_size()
@@ -1015,16 +1135,25 @@ def phase_attention_kernels(dev):
             backend = _sdpa_backend(q, k, v, g, window)
             del lib, lib_o, qs, ks, vs, o_ref, lse_ref
             bound = {}
+            peak = FP32_PEAK if dtype == torch.float32 else BF16_PEAK
             for part, ops_, nbytes in (("fwd", fwd_ops, fwd_bytes),
                                        ("bwd", bwd_ops, bwd_bytes)):
                 by_bytes = nbytes / memory_rate(name)
-                by_ops = ops_ / FP32_PEAK
+                by_ops = ops_ / peak
                 bound[part] = (max(by_bytes, by_ops) * 1e3,
                                "bytes" if by_bytes >= by_ops
                                else "operations", by_ops, by_bytes)
             print(f"{tag}: B={b} S={s} H={h} Hkv={hkv} hd={hd} causal "
                   f"window={window}: max abs err vs plain "
                   + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                  + (f"; vs the bf16-rounding plain version, share of the "
+                     "bar: " + ", ".join(f"{n} {e:.4f}" for n, e in
+                                         emu.items())
+                     + "; planted wrong outputs: " + ", ".join(
+                         f"{n} {e:.2f}" for n, e in planted.items())
+                     if emu else "")
+                  + "; mean abs err " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                                  mean.items())
                   + f"; sdpa yardstick o {lib_err:.3e}; launches fwd 1, dQ "
                   f"1, dK/dV 1 per call; two launches bitwise equal")
             print(f"{tag}: median device ms (L2 flushed): kernel fwd "
@@ -1034,15 +1163,28 @@ def phase_attention_kernels(dev):
                   f"{t['lib_bwd']:.4f}, fwd+bwd {t['lib_train']:.4f} "
                   f"[{backend}]")
             print(f"{tag}: bound fwd {bound['fwd'][0]:.4f} ms "
-                  f"({fwd_ops / 1e9:.2f} GFLOP at {FP32_PEAK / 1e12:.0f} "
-                  f"TFLOP/s fp32; {fwd_bytes / 1e6:.1f} MB at "
+                  f"({fwd_ops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} "
+                  f"TFLOP/s {str(dtype)[6:]}; {fwd_bytes / 1e6:.1f} MB at "
                   f"{memory_rate(name) / 1e12:.2f} TB/s is "
                   f"{bound['fwd'][3] * 1e3:.4f}), bwd {bound['bwd'][0]:.4f} "
-                  f"ms ({bwd_ops / 1e9:.2f} GFLOP); at the 989 TFLOP/s bf16 "
-                  f"tensor-core rate fwd {fwd_ops / 989e12 * 1e3:.4f}, bwd "
-                  f"{bwd_ops / 989e12 * 1e3:.4f}; kernel at "
+                  f"ms ({bwd_ops / 1e9:.2f} GFLOP); kernel at "
                   f"{bound['fwd'][0] / t['fwd']:.1%} (fwd) and "
-                  f"{bound['bwd'][0] / t['bwd']:.1%} (bwd) of the bound")
+                  f"{bound['bwd'][0] / t['bwd']:.1%} (bwd) of the bound; "
+                  f"sdpa at {bound['fwd'][0] / t['lib_fwd']:.1%} and "
+                  f"{bound['bwd'][0] / t['lib_bwd']:.1%}; kernel / sdpa "
+                  f"{t['fwd'] / t['lib_fwd']:.2f}x (fwd), "
+                  f"{t['bwd'] / t['lib_bwd']:.2f}x (bwd)")
+            if cfg_name == "qwen3-1.7b" and dtype == torch.bfloat16:
+                for part in ("fwd", "bwd"):
+                    rows[part].update({
+                        "bf16_source": "src/repro_torch/kernels/"
+                                       "flash_attention/csrc/"
+                                       "flash_attention_sm90.cu",
+                        "bf16_ms": t[part], "bf16_bound_ms": bound[part][0],
+                        "bf16_library_ms": t[f"lib_{part}"],
+                        "bf16_max_abs_err": (
+                            max(errs["o"], errs["lse"]) if part == "fwd"
+                            else max(errs["dq"], errs["dk"], errs["dv"]))})
             if cfg_name == "qwen3-1.7b" and dtype == torch.float32:
                 src = "src/repro_torch/kernels/flash_attention/csrc/" \
                       "flash_attention.cu"
@@ -1394,33 +1536,38 @@ def phase_serve_rwkv6(dev):
     return w, launches
 
 
+def _slotted(w):
+    """``slotted_generate`` over every prompt of ``w`` at the engine's slot
+    count, as ``phase_serve_parity`` reads a finished static run: (tokens
+    by request, logits rows by step, each {request: row})."""
+    from repro_torch.serve.engine import slotted_generate
+    from repro_torch.serve.paged_cache import build_layout
+    max_len = build_layout(w.cfg, w.serve.page_size, w.serve.max_len).max_len
+    toks, rows = slotted_generate(w.cfg, w.params, w.prompts, w.gens,
+                                  n_slots=w.serve.n_slots, max_len=max_len,
+                                  device=w.device)
+    return toks, [{i: r[t] for i, r in enumerate(rows) if t < len(r)}
+                  for t in range(max(w.gens))]
+
+
 def phase_serve_rwkv6_parity(w):
-    """The engine against the static loop (as ``[serve-parity]``), then the
-    serving prefill's last-position logits (scan on K7) against the
-    training forward's (the plain ``chunked_linear_scan``)."""
+    """The engine against the static loop at the static loop's batch (as
+    ``[serve-parity]``); the main path's engine against the loop that
+    batches as it does; then the serving prefill's last-position logits
+    (scan on K7) against the training forward's (the plain
+    ``chunked_linear_scan``)."""
     from repro_torch.kernels.rwkv6_scan import ops as wops
     from repro_torch.models import get_model
 
-    from repro_torch import serve_workload as sw
-
-    static = _static(w)
-    n_req = len(w.gens)
+    n_req, n = len(w.gens), w.serve.n_slots
     phase_serve_parity(w, "serve-rwkv6-parity", f"continuous over {n_req} "
                        f"slots (the static loop's batch) vs static, both "
-                       f"prefill on K7", static=static, n_slots=n_req)
-    # the main path's 8 slots batch differently from the static loop (a
-    # prefill of 8, then of 1; decode over 8 rows): reported, with what
-    # batching alone moves on the plain path
-    eng = sw.engine(w, record_logits=True)
-    res = eng.run()
-    out, rows = static
-    drift = max(float(np.abs(np.stack(eng.logits_rows[i])
-                             - np.stack([r[i] for r in rows[:g]])).max())
-                for i, g in enumerate(w.gens))
-    same = sum(np.array_equal(res[i], out[i][:g])
-               for i, g in enumerate(w.gens))
+                       f"prefill on K7", n_slots=n_req)
+    phase_serve_parity(w, "serve-rwkv6-parity", f"continuous over {n} slots "
+                       f"(the main path) vs slotted_generate (the same "
+                       f"batching: a prefill of {n}, then of 1 per freed "
+                       f"slot; decode over {n} rows)", static=_slotted(w))
     model = get_model(w.cfg)
-    n = eng.serve.n_slots
     prompts = torch.as_tensor(w.prompts, device=w.device)
     with torch.no_grad():
         wops.reset_launch_counts()
@@ -1431,11 +1578,10 @@ def phase_serve_rwkv6_parity(w):
         err = float((pre[:, -1] - full[:, -1]).abs().max())
         wide, _, _ = model.forward(w.params, prompts)
         batching = float((wide[:n, -1] - full[:, -1]).abs().max())
-    print(f"[serve-rwkv6-parity] the main path's {n}-slot engine vs static "
-          f"(not checked): logits rows differ by up to {drift:.3e}, "
-          f"{same}/{n_req} token streams equal; the plain forward's "
-          f"last-position logits of the same {n} prompts in a batch of "
-          f"{n} vs of {n_req} differ by {batching:.3e}")
+    print(f"[serve-rwkv6-parity] why each engine is held to a loop of its "
+          f"own batching: the plain forward's last-position logits of the "
+          f"same {n} prompts in a batch of {n} vs of {n_req} differ by "
+          f"{batching:.3e}")
     check(err <= LOGIT_TOL, f"prefill (K7) vs forward (plain scan) "
           f"last-position logits differ by {err} > {LOGIT_TOL}")
     print(f"[serve-rwkv6-parity] prefill (scan on K7) vs forward (plain "
@@ -1465,6 +1611,7 @@ def main() -> int:
     k1 = phase_kernel(dev)
     phase_parity(dev)
     k1["launches"] = phase_round(dev)
+    phase_round_repeat(dev)
     k2 = phase_codec_kernel(dev)
     k2["launches"] = phase_packed_round(dev)
     phase_codec_rounds(dev)

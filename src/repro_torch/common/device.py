@@ -25,4 +25,11 @@ def resolve_device(device: Device = "cuda") -> torch.device:
         # convolutions and matmuls to keep the card on the same arithmetic
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        # cuDNN's default convolution algorithms are not deterministic, so
+        # two identical FL rounds on VGG16 came out different; its
+        # deterministic ones make them bitwise equal (chip_smoke.py
+        # [round-repeat]).  No other op of the round needed it: under
+        # torch.use_deterministic_algorithms(True, warn_only=True) nothing
+        # warned, so that switch (and CUBLAS_WORKSPACE_CONFIG) is not set
+        torch.backends.cudnn.deterministic = True
     return dev

@@ -1,4 +1,4 @@
-// Flash attention forward and backward for Hopper (sm_90a): blockwise
+// Flash attention forward and backward in fp32 for Hopper (sm_90a): blockwise
 // causal / sliding-window grouped-query attention with an online softmax,
 // and the recompute backward from the saved per-row logsumexp.
 //
@@ -24,7 +24,8 @@
 //               dk_j = sum_{h in group} sum_i ds_ij q_i,
 //               dv_j = sum_{h in group} sum_i p_ij do_i.
 // Everything is computed in fp32 (the Pallas bodies cast their blocks to
-// f32, kernel.py:53-55); inputs and outputs are fp32 or bf16, lse fp32.
+// f32, kernel.py:53-55); inputs, outputs and lse are fp32.  bf16 goes to
+// flash_attention_sm90.cu (tensor cores), never here.
 // Masked scores are the finite -1e30 of the reference, never -inf: a row
 // accumulates exp(0) = 1 per masked entry until its first allowed score,
 // whose correction exp(-1e30 - m) = 0 then wipes them (kernel.py:65-69);
@@ -61,9 +62,8 @@
 // (B, S, H, hd) needs no transpose.  Tiles: 64 x 64 up to head_dim 128;
 // at 256, key tiles of 32 (forward, dQ) and 32 x 32 (dK/dV) keep shared
 // memory within the 227 KB a block may use and the accumulators in
-// registers.  wgmma, TMA and bf16 tensor cores are not used here.
+// registers.  fp32 has no tensor-core route while TF32 is off.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -91,14 +91,7 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ void bf16x2_to(unsigned int w, float* x) {
-  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w);
-  const float2 f = __bfloat1622float2(h);
-  x[0] = f.x;
-  x[1] = f.y;
-}
-
-// 16 bytes of a row: 4 floats or 8 bf16 values, as fp32
+// 16 bytes of a row: 4 floats
 __device__ __forceinline__ void load16(const float* p, float* x) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
   x[0] = v.x;
@@ -106,18 +99,8 @@ __device__ __forceinline__ void load16(const float* p, float* x) {
   x[2] = v.z;
   x[3] = v.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* x) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  bf16x2_to(v.x, x);
-  bf16x2_to(v.y, x + 2);
-  bf16x2_to(v.z, x + 4);
-  bf16x2_to(v.w, x + 6);
-}
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ bool tile_runs(const Params& p, int q0, int q1,
                                           int k0, int k1) {
@@ -579,9 +562,9 @@ int by_head_dim(int which, int head_dim, const Params& p,
 // strides: 8 x 3 element strides in the order of ptrs, (batch, sequence,
 // head) for the tensors and (batch, head, sequence) for lse and delta;
 // head_dim is contiguous and every row start is 16-byte aligned (the
-// Python wrapper checks both).  dtype 0 = float32, 1 = bfloat16 for q, k,
-// v, dO and the outputs; lse and delta are float32.  head_dim in {32, 64,
-// 128, 256}, heads a multiple of kv_heads.  Returns cudaGetLastError()
+// Python wrapper checks both).  dtype 0 = float32 (bfloat16, 1, is
+// flash_attention_sm90.cu's); lse and delta are float32.  head_dim in
+// {32, 64, 128, 256}, heads a multiple of kv_heads.  Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for what it does not take.
 extern "C" int flash_attention(int which, const void* const* ptrs,
                                const int64_t* dims, const int64_t* strides,
@@ -613,6 +596,5 @@ extern "C" int flash_attention(int which, const void* const* ptrs,
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return by_head_dim<float>(which, head_dim, p, s);
-  if (dtype == 1) return by_head_dim<__nv_bfloat16>(which, head_dim, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,11 +18,15 @@ against ``repro.kernels.flash_attention.kernel``.  Unlike the Pallas
 ``flash_attention_bwd``, which returns dK/dV per query head, this one
 returns them summed over each group, ``(BHkv, Sk, hd)``.
 
-Dispatch is by device: CUDA tensors launch the kernels (or raise), CPU
-tensors run the plain versions (``ref.py``).  Every tensor is read
-through its strides, so the reference wrapper's transposes into the
-kernel layout are not copied.  ``blk_q``/``blk_k`` only set the
-contract: the reference computes ``Sq // blk_q`` query blocks after
+Dispatch is by device, then by dtype: CPU tensors run the plain
+versions (``ref.py``); CUDA tensors launch the kernels or raise, fp32
+ones the SIMT kernels of ``csrc/flash_attention.cu`` and bf16 ones the
+tensor-core kernels of ``csrc/flash_attention_sm90.cu``
+(:data:`SOURCES`), each source its own library with the same C entry
+point.  Every tensor is read through its strides, so the reference
+wrapper's transposes into the kernel layout are not copied.
+``blk_q``/``blk_k`` only set the contract: the reference computes
+``Sq // blk_q`` query blocks after
 clamping the block to the length and leaves rows past them unwritten,
 so a length that is not a multiple of its block raises ``ValueError``.
 The kernels use their own tiles.  Launches are counted in
@@ -41,7 +45,9 @@ from torch.autograd.function import once_differentiable
 from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {torch.float32: _CSRC / "flash_attention.cu",
+           torch.bfloat16: _CSRC / "flash_attention_sm90.cu"}
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD, _DQ, _DKV = 0, 1, 2
@@ -49,8 +55,8 @@ LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load(SOURCE).flash_attention
+def _kernel(source: Path):
+    fn = _build.load(source).flash_attention
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_void_p]
@@ -143,10 +149,14 @@ def _launch(name, which, q, k, v, *, do=None, lse=None, delta=None,
     flat = (ctypes.c_int64 * 24)(*strides)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(which, ctypes.cast(ptrs, ctypes.c_void_p),
-                        ctypes.cast(dims, ctypes.c_void_p),
-                        ctypes.cast(flat, ctypes.c_void_p), _DTYPES[q.dtype],
-                        1.0 / math.sqrt(hd), stream)
+        err = _kernel(SOURCES[q.dtype])(
+            which, ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(dims, ctypes.c_void_p),
+            ctypes.cast(flat, ctypes.c_void_p), _DTYPES[q.dtype],
+            1.0 / math.sqrt(hd), stream)
+    if err < 0:     # the bf16 kernels' TMA descriptors
+        raise RuntimeError(f"{name}: no tensor map: cuTensorMapEncodeTiled "
+                           f"gave CUresult {-err} (999: not found)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {err}")

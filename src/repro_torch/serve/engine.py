@@ -372,3 +372,83 @@ def static_generate(cfg, params, prompts, gen: int, *, max_len: int,
     if collect_logits:
         return out, [r.cpu().numpy() for r in rows]
     return out
+
+
+@torch.no_grad()
+def slotted_generate(cfg, params, prompts, gens, *, n_slots: int,
+                     max_len: int, device: Device = "cuda"):
+    """Greedy generation batched as ``DecodeEngine`` batches it, without
+    the engine's scheduler, page tables or paged cache: the engine's
+    oracle at its own batch shapes, for a state-space model (``ssm``
+    family, whose decode never reads a position, so rows at different
+    steps share one dense cache).
+
+    Requests are admitted first come, first served into the lowest free
+    slots; those admitted at one point with one prompt length are
+    prefilled as one batch and their states written into their slot rows
+    of an ``n_slots``-row cache.  Every decode step then runs over all
+    ``n_slots`` rows (a free row decodes token 0; rows never mix), and a
+    request that has its ``gens[i]`` tokens frees its slot for the next
+    admission.  On the card a row's numbers depend on the batch shapes,
+    not on the other rows, so this reproduces the engine's.  No EOS, no
+    preemption (the engine runs none on a slot-row state).
+
+    Returns ``(tokens, rows)``: per request its generated tokens (int32)
+    and its logits rows, one (V,) array per token.
+    """
+    if cfg.family != "ssm":
+        raise ValueError(f"slotted_generate: {cfg.family} family: its dense "
+                         f"cache keeps one position for every row")
+    dev = resolve_device(device)
+    model = get_model(cfg)
+    prompts = [np.asarray(x, np.int32) for x in prompts]
+    cache = model.init_cache(n_slots, max_len, device=dev)
+    queue = list(range(len(gens)))
+    slots: List[Optional[int]] = [None] * n_slots
+    toks = [[] for _ in gens]
+    rows = [[] for _ in gens]
+
+    def take(i, tok, row):
+        toks[i].append(int(tok))
+        rows[i].append(row)
+        return len(toks[i]) >= gens[i]
+
+    while queue or any(r is not None for r in slots):
+        while queue and None in slots:           # admission, as admit_group
+            plen = len(prompts[queue[0]])
+            group = []
+            while queue and None in slots and len(prompts[queue[0]]) == plen:
+                slot = slots.index(None)
+                slots[slot] = queue.pop(0)
+                group.append(slot)
+            req = [slots[s] for s in group]
+            logits, pre = model.prefill(
+                params, torch.as_tensor(np.stack([prompts[i] for i in req]),
+                                        device=dev),
+                max_len=max_len, last_only=True, **_attn_kw(cfg, "reference"))
+            idx = torch.as_tensor(group, dtype=torch.long, device=dev)
+            for key, x in cache.items():
+                if key != "step":
+                    x[:, idx] = pre[key].to(x.dtype)
+            row = logits[:, -1]
+            tok = sample_tokens(row, None, temperature=0.0).cpu().numpy()
+            row = row.cpu().numpy()
+            for j, s in enumerate(group):
+                if take(slots[s], tok[j], row[j]):
+                    slots[s] = None
+        if not any(r is not None for r in slots):
+            continue
+        last = np.zeros((n_slots, 1), np.int32)
+        for s, i in enumerate(slots):
+            if i is not None:
+                last[s, 0] = toks[i][-1]
+        logits, cache = model.decode_step(params, cache,
+                                          torch.as_tensor(last, device=dev))
+        row = logits[:, -1]
+        tok = sample_tokens(row, None, temperature=0.0).cpu().numpy()
+        row = row.cpu().numpy()
+        for s, i in enumerate(slots):
+            if i is not None and take(i, tok[s], row[s]):
+                slots[s] = None
+    return ([np.asarray(t, np.int32) for t in toks],
+            [np.stack(r) for r in rows])

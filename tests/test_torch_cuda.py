@@ -360,21 +360,34 @@ ATTN = [  # (b, s, h, hkv, hd, causal, window)
     (1, 256, 8, 1, 32, False, 0),        # MQA
     (1, 128, 4, 4, 128, False, 0),
     (2, 96, 4, 2, 256, True, 32),
-    (1, 128, 2, 1, 256, False, 0)]
+    (1, 128, 2, 1, 256, False, 0),
+    (1, 512, 2, 1, 256, True, 128)]     # the window skips whole tiles
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,hkv,hd,causal,window", ATTN)
 def test_flash_attention_matches_plain(dev, dtype, b, s, h, hkv, hd, causal,
-                                       window):
+                                       window, monkeypatch):
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_bwd_ref, flash_attention_fwd_ref)
+        flash_attention_bwd_ref, flash_attention_fwd_ref,
+        rounding_error_ratio)
+
+    def plain(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
     q, k, v, g = _acase(dev, b, s, h, hkv, hd, dtype)
+    sources, kernel = [], aops._kernel
+    monkeypatch.setattr(aops, "_kernel", lambda src: sources.append(src.name)
+                        or kernel(src))
+    monkeypatch.setattr(aops, "flash_attention_fwd_ref", plain)
+    monkeypatch.setattr(aops, "flash_attention_bwd_ref", plain)
     aops.reset_launch_counts()
     o, dq, dk, dv = _grads(aops.flash_attention, q, k, v, g, causal, window)
     torch.cuda.synchronize()
     assert aops.LAUNCHES == {"fwd": 1, "dq": 1, "dkv": 1}
+    # fp32 on the SIMT kernels, bf16 on the tensor-core ones
+    assert sources == [aops.SOURCES[dtype].name] * 3
     assert o.dtype == dq.dtype == dk.dtype == dtype
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
     o_ref, lse_ref = flash_attention_fwd_ref(qf, kf, vf, causal=causal,
@@ -390,55 +403,91 @@ def test_flash_attention_matches_plain(dev, dtype, b, s, h, hkv, hd, causal,
             assert err < 3e-2 * max(1.0, float(ref.abs().max())), (name, err)
     torch.testing.assert_close(lse, lse_ref, atol=TOL if dtype ==
                                torch.float32 else 3e-2, rtol=0)
+    if dtype == torch.bfloat16:   # element by element, P and dS rounded
+        o_emu, lse_emu = flash_attention_fwd_ref(
+            qf, kf, vf, causal=causal, window=window, round_to=dtype)
+        want = (o_emu.to(dtype),) + flash_attention_bwd_ref(
+            q, k, v, o, lse, g, causal=causal, window=window, round_to=dtype)
+        for name, got, ref in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                                  want):
+            assert rounding_error_ratio(got, ref) <= 1.0, name
+        torch.testing.assert_close(lse, lse_emu, atol=1e-5, rtol=0)
     again = _grads(aops.flash_attention, q, k, v, g, causal, window)
     assert all(torch.equal(a, b_) for a, b_ in zip(again, (o, dq, dk, dv)))
 
 
-def test_flash_attention_fully_masked_rows(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fully_masked_rows(dev, dtype):
     # non-causal window with Sq > Sk + window - 1: rows with no allowed key
     # get the mean of V, as the dense reference softmax gives
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.models.attention import attend_reference
-    q, k, v, _ = _acase(dev, 1, 256, 4, 2, 64, sk=64)
+    q, k, v, _ = _acase(dev, 1, 256, 4, 2, 64, dtype=dtype, sk=64)
     o, lse = aops.attention_fwd(q, k, v, causal=False, window=32)
-    want = attend_reference(q, k, v, causal=False, window=32)
-    torch.testing.assert_close(o, want, atol=TOL, rtol=0)
+    want = attend_reference(q.float(), k.float(), v.float(), causal=False,
+                            window=32)
+    torch.testing.assert_close(o.float(), want, rtol=0, atol=TOL if dtype ==
+                               torch.float32 else 3e-2)
     assert bool((lse[:, :, 100:] == -1e30).all())
 
 
-def test_flash_attention_kernel_layout_and_strided_views(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_layout_and_strided_views(dev, dtype):
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_ref)
     b, s, h, hkv, hd = 2, 128, 4, 2, 64
+    fp32 = dtype == torch.float32
+
+    def close(got, want, grad=False):   # bf16: the bars of the test above
+        tol = (5e-4 if grad else TOL) if fp32 else 3e-2 * (
+            max(1.0, float(want.abs().max())) if grad else 1.0)
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+
     # q, k, v as views of one fused projection (B, S, H + 2 Hkv, hd)
     gen = torch.Generator(device=dev).manual_seed(3)
-    qkv = torch.randn(b, s, h + 2 * hkv, hd, generator=gen, device=dev)
+    qkv = torch.randn(b, s, h + 2 * hkv, hd, generator=gen,
+                      device=dev).to(dtype)
     q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+    qf, kf, vf = q.float(), k.float(), v.float()
     o, lse = aops.attention_fwd(q, k, v, causal=True)
-    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, causal=True)
-    torch.testing.assert_close(o, o_ref, atol=TOL, rtol=0)
+    o_ref, lse_ref = flash_attention_fwd_ref(qf, kf, vf, causal=True)
+    close(o, o_ref)
     # kernel layout (BH, S, hd) against the same launches' plain versions
     qk = q.permute(0, 2, 1, 3).reshape(b * h, s, hd)
     kk = k.permute(0, 2, 1, 3).reshape(b * hkv, s, hd)
     vk = v.permute(0, 2, 1, 3).reshape(b * hkv, s, hd)
     ok_, lk = aops.flash_attention_fwd(qk, kk, vk, causal=True, window=64)
-    om, lm = flash_attention_fwd_ref(q, k, v, causal=True, window=64)
-    torch.testing.assert_close(ok_, om.permute(0, 2, 1, 3).reshape(b * h, s,
-                                                                   hd),
-                               atol=TOL, rtol=0)
-    torch.testing.assert_close(lk, lm.reshape(b * h, s), atol=TOL, rtol=0)
-    do = torch.randn(b * h, s, hd, generator=gen, device=dev)
+    om, lm = flash_attention_fwd_ref(qf, kf, vf, causal=True, window=64)
+    close(ok_, om.permute(0, 2, 1, 3).reshape(b * h, s, hd))
+    close(lk, lm.reshape(b * h, s))
+    do = torch.randn(b * h, s, hd, generator=gen, device=dev).to(dtype)
     dq, dk, dv = aops.flash_attention_bwd(qk, kk, vk, ok_, lk, do,
                                           causal=True, window=64)
-    dom = do.reshape(b, h, s, hd).permute(0, 2, 1, 3)
-    want = flash_attention_bwd_ref(q, k, v, om, lm, dom, causal=True,
+    dom = do.float().reshape(b, h, s, hd).permute(0, 2, 1, 3)
+    want = flash_attention_bwd_ref(qf, kf, vf, om, lm, dom, causal=True,
                                    window=64)
-    torch.testing.assert_close(dq, want[0].permute(0, 2, 1, 3).reshape(
-        b * h, s, hd), atol=5e-4, rtol=0)
+    close(dq, want[0].permute(0, 2, 1, 3).reshape(b * h, s, hd), grad=True)
     for got, ref in zip((dk, dv), want[1:]):
-        torch.testing.assert_close(got, ref.permute(0, 2, 1, 3).reshape(
-            b * hkv, s, hd), atol=5e-4, rtol=0)
+        close(got, ref.permute(0, 2, 1, 3).reshape(b * hkv, s, hd),
+              grad=True)
+
+
+def test_dense_round_is_bitwise_repeatable(dev):
+    """The paper's hub round (VGG16 at full width) built twice from the
+    same seed: two rounds each give bitwise equal parameters, selections
+    and bill (cuDNN's deterministic algorithms, common/device.py)."""
+    from repro_torch import paper_round
+    runs = []
+    for _ in range(2):
+        fed = paper_round.build(dev)
+        fed.fit(2)
+        runs.append(fed)
+    a, b = runs
+    assert all(torch.equal(a.params[p], b.params[p]) for p in a.params)
+    assert all(np.array_equal(x, y) for x, y in
+               zip(a.server.sel_history, b.server.sel_history))
+    assert a.comm_summary() == b.comm_summary()
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "misaligned", "device",

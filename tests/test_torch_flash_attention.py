@@ -22,10 +22,12 @@ from repro.kernels.flash_attention.kernel import (
     flash_attention_bwd as r_bwd, flash_attention_fwd as r_fwd)
 from repro.kernels.flash_attention.ops import flash_attention as r_attn
 from repro.kernels.flash_attention.ref import flash_attention_ref as r_ref
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_fwd_ref,
-                                                     flash_attention_ref)
+                                                     flash_attention_ref,
+                                                     rounding_error_ratio)
 from repro_torch.models.attention import attend_reference
 
 TOL, BF16_TOL, GRAD_TOL = 2e-5, 3e-2, 5e-4
@@ -237,3 +239,86 @@ def test_wrapper_validates_on_cpu(bad):
         o, lse = ops.attention_fwd(q, k, v)
         with pytest.raises(ValueError, match="lse has shape"):
             ops.attention_bwd(q, k, v, o, lse[:, :2], g)
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_bf16_rounding_points_fit_the_bar(name):
+    """The plain version rounding P and dS to bf16 where the bf16 kernels
+    do (``round_to``), on bf16 inputs, against the reference's fp32
+    oracle (its dense softmax and ``jax.vjp`` of it) on the same inputs,
+    at the kernels' bf16 bars: 3e-2 on o, 3e-2 x max(1, max|ref|) on the
+    gradients.  Rounding P and dS must move the result, or the argument
+    does nothing."""
+    b, s, h, hkv, hd, _, causal, window = CASES[name]
+    q, k, v, g = (torch.tensor(x).to(torch.bfloat16).float()
+                  for x in _inputs(name))
+    o, lse = flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                     round_to=torch.bfloat16)
+    grads = flash_attention_bwd_ref(q, k, v, o, lse, g, causal=causal,
+                                    window=window, round_to=torch.bfloat16)
+    o32, lse32 = flash_attention_fwd_ref(q, k, v, causal=causal,
+                                         window=window)
+    assert not torch.equal(o, o32)
+    assert torch.equal(lse, lse32)           # the row sums stay fp32
+    assert not torch.equal(grads[0], flash_attention_bwd_ref(
+        q, k, v, o32, lse32, g, causal=causal, window=window)[0])
+    qk, kk, vk, gk = (jnp.asarray(_kernel_layout(x.numpy()))
+                      for x in (q, k, v, g))
+    want_o, vjp = jax.vjp(lambda q_, k_, v_: r_ref(
+        q_, k_, v_, causal=causal, window=window), qk, kk, vk)
+    assert float(np.abs(_kernel_layout(o.numpy()) - np.asarray(want_o))
+                 .max()) < BF16_TOL
+    for what, got, want in zip("qkv", grads, vjp(gk)):
+        want = np.asarray(want)
+        err = float(np.abs(_kernel_layout(got.numpy()) - want).max())
+        assert err < BF16_TOL * max(1.0, float(np.abs(want).max())), what
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_rounding_bar_passes_rounding_noise_and_fails_a_wrong_tile(name):
+    """``rounding_error_ratio``, the element-by-element bar that holds the
+    bf16 kernels to the rounding plain version: the whole effect of
+    rounding P and dS (the unrounded version) stays within it, while one
+    query head whose rows lose their oldest 32 keys, or dK/dV of the last
+    32 keys without one query head's share, fall outside it."""
+    b, s, h, hkv, hd, _, causal, window = CASES[name]
+    q, k, v, g = (torch.tensor(x).to(torch.bfloat16).float()
+                  for x in _inputs(name))
+    o, lse = flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                     round_to=torch.bfloat16)
+    want = [o] + list(flash_attention_bwd_ref(
+        q, k, v, o, lse, g, causal=causal, window=window,
+        round_to=torch.bfloat16))
+    want = [x.to(torch.bfloat16) for x in want]
+    o32, _ = flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
+    plain = [o32] + list(flash_attention_bwd_ref(
+        q, k, v, o, lse, g, causal=causal, window=window))
+    for got, ref in zip(plain, want):
+        assert rounding_error_ratio(got, ref) <= 1.0
+    last = h - 1                              # its KV head is the last one
+    o_narrow, _ = flash_attention_fwd_ref(
+        q[:, :, last:], k[:, :, -1:], v[:, :, -1:], causal=causal,
+        window=(window or s) - 32)
+    wrong = want[0].clone()
+    wrong[:, :, last] = o_narrow[:, :, 0].to(torch.bfloat16)
+    assert rounding_error_ratio(wrong, want[0]) > 1.0
+    g0 = g.clone()
+    g0[:, :, last] = 0
+    _, dk0, dv0 = flash_attention_bwd_ref(q, k, v, o, lse, g0, causal=causal,
+                                          window=window,
+                                          round_to=torch.bfloat16)
+    for i, part in ((2, dk0), (3, dv0)):
+        wrong = want[i].clone()
+        wrong[:, -32:] = part[:, -32:].to(torch.bfloat16)
+        assert rounding_error_ratio(wrong, want[i]) > 1.0
+
+
+def test_dtype_selects_the_source():
+    """bf16 goes to the tensor-core source, fp32 to the SIMT one; both are
+    among the sources the build compiles, each into its own library."""
+    assert ops.SOURCES[torch.bfloat16].name == "flash_attention_sm90.cu"
+    assert ops.SOURCES[torch.float32].name == "flash_attention.cu"
+    assert set(ops.SOURCES) == set(ops._DTYPES)
+    built = _build.kernel_sources()
+    assert all(src in built for src in ops.SOURCES.values())
+    assert len({_build.library_path(src) for src in ops.SOURCES.values()}) == 2

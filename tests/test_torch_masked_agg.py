@@ -160,8 +160,8 @@ def test_cpu_path_does_not_count_launches():
 
 def test_build_is_lazy_and_names_nvcc(monkeypatch, tmp_path):
     assert [s.name for s in _build.kernel_sources()] == [
-        "quantize_pack.cu", "flash_attention.cu", "flash_decode_paged.cu",
-        "masked_agg.cu", "rwkv6_scan.cu"]
+        "quantize_pack.cu", "flash_attention.cu", "flash_attention_sm90.cu",
+        "flash_decode_paged.cu", "masked_agg.cu", "rwkv6_scan.cu"]
     lib = _build.library_path(ops.SOURCE)
     assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
     assert lib == _build.library_path(ops.SOURCE)     # content-addressed

@@ -30,7 +30,8 @@ from repro_torch.configs.base import get_config
 from repro_torch.convert import from_reference
 from repro_torch.models import get_model
 from repro_torch.serve.engine import (DecodeEngine, ServeConfig, gumbel_rows,
-                                      sample_tokens, static_generate)
+                                      sample_tokens, slotted_generate,
+                                      static_generate)
 from repro_torch.serve.paged_cache import (PageAllocator, PagedTables,
                                            build_layout)
 from repro_torch.serve.scheduler import Request, Scheduler
@@ -519,3 +520,36 @@ def test_ssm_prefill_gets_no_attn_impl():
         eng.submit(prompts[0], 2)
         eng.run()
     assert seen == [(RWKV, False), ("qwen3-1.7b", True)]
+
+
+def test_rwkv6_slotted_reference_matches_engine():
+    """The same-batching reference (``slotted_generate``) against the
+    engine over fewer slots than requests, as the serving workload runs
+    it: a first wave prefilled as one batch, later prompts admitted alone
+    as slots free (two of length 16 together, once), every decode step
+    over all slots.  The same batch shapes give the same numbers."""
+    cfg, params, prompts = _port_setup(RWKV, n_prompts=7)
+    specs = [(24, 5), (24, 7), (24, 3), (24, 6), (16, 4), (16, 2), (24, 1)]
+    eng = _engine(cfg, params, n_slots=3, record_logits=True)
+    for i, (pl, g) in enumerate(specs):
+        eng.submit(prompts[i][:pl], g)
+    res = eng.run()
+    toks, rows = slotted_generate(
+        cfg, params, [prompts[i][:pl] for i, (pl, _) in enumerate(specs)],
+        [g for _, g in specs], n_slots=3, max_len=eng.layout.max_len,
+        device="cpu")
+    assert eng.stats()["n_prefill_calls"] == 5
+    for i, (_, g) in enumerate(specs):
+        assert np.array_equal(res[i], toks[i]), f"request {i}"
+        mine = np.stack(eng.logits_rows[i])
+        assert mine.shape == rows[i].shape == (g, cfg.padded_vocab)
+        np.testing.assert_allclose(mine, rows[i], atol=1e-6, rtol=0,
+                                   err_msg=f"request {i}")
+
+
+def test_slotted_generate_is_for_state_space_models():
+    cfg, params, prompts = _port_setup("qwen3-1.7b", n_prompts=1,
+                                       prompt_len=8)
+    with pytest.raises(ValueError, match="one position"):
+        slotted_generate(cfg, params, prompts, [2], n_slots=1, max_len=16,
+                         device="cpu")
