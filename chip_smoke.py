@@ -53,11 +53,18 @@ exits non-zero:
    sequences of 129-175 tokens) and at 8 x 4,096 tokens, pages
    scattered by a random permutation, valid lengths ragged, fp32 and
    bf16: within 2e-5 of its plain version in fp32 and 3e-2 of the fp32
-   plain version on the same bf16 inputs, bitwise repeatable, and the
+   plain version on the same bf16 inputs; bf16 also element by element
+   (|x - y| <= 2^-8|y| + ``ref.BF16_ATOL``), with two planted wrong
+   outputs (each long sequence's last split, or last tile, left out)
+   that must fail that bar; bitwise repeatable, and the
    same output bitwise when the trash page and every page the tables do
-   not reach are NaN; median device times (L2 flushed) of the kernel,
-   the plain version and a gather + ``scaled_dot_product_attention``
-   yardstick beside the bound in bytes.
+   not reach are NaN; the first call of each case runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the wrapper never reads
+   ``valid_len`` back); prints each case's split plan (splits, tokens
+   per split, blocks, workspace bytes); median device times (L2 flushed)
+   of the kernel, the plain version and a gather +
+   ``scaled_dot_product_attention`` yardstick beside the bound in bytes,
+   and the kernel's share of it.
 10. serve — qwen3-1.7b at full width in fp32 (random weights) through
    ``DecodeEngine`` (``repro_torch/serve_workload.py``): 8 slots over
    16-token pages, 16 requests of 128 prompt tokens, request i
@@ -97,9 +104,14 @@ exits non-zero:
    ``flash_decode`` in the reference kernel's layout, and valid length 0
    giving zeros) and on a cache of 1,000 positions with ``blk_k`` 512
    (positions 512.. never read): within 2e-5 of the plain version (3e-2
-   for bf16), one K3 launch per call, bitwise repeatable; median device
+   for bf16, and bf16 element by element with planted wrong outputs, as
+   in 9), one K3 launch per call, bitwise repeatable, the first call
+   of each case with no host sync (as in 9); prints each case's split
+   plan, and at ``decode_32k`` requires more than one split per
+   (sequence, KV head) and at least one block per SM; median device
    times of the kernel, the plain version and a masked
-   ``scaled_dot_product_attention`` beside the bound in bytes.
+   ``scaled_dot_product_attention`` beside the bound in bytes, and the
+   kernel's share of it.
 14. wkv-kernel — ``wkv`` (K7, the chunked RWKV-6 scan, in the model
    layout the prefill passes) at rwkv6-3b's width (40 heads of 64): the
    serving prefill's shape (8 prompts x 128 tokens), ``prefill_32k`` at
@@ -725,6 +737,52 @@ def _sdpa(q, k, v, pt, valid):
         enable_gqa=True).transpose(1, 2)
 
 
+def _no_sync(fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``: a host sync inside
+    raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _bf16_bar(tag, out, want, valid, pl, plain):
+    """The bf16 output ``out`` held element by element to ``want``, the
+    fp32 plain version (``ref.bf16_error_ratio``), and two wrong outputs
+    that must fail that bar: ``plain(lengths)`` rounded to bf16 with the
+    last split's span, or the last ring tile, of every sequence longer
+    than it left out (what a combine that dropped a working split's
+    partial, or a block that skipped its last tile, would give).  Returns
+    the line to print."""
+    from repro_torch.kernels.flash_decode.ref import (BF16_ATOL, BF16_REL,
+                                                      bf16_error_ratio)
+    ratio = bf16_error_ratio(out, want)
+    excess = float(((out.float() - want).abs() - BF16_REL * want.abs()).max())
+    check(ratio <= 1.0, f"{tag}: bf16 output outside the element-wise bar "
+          f"({ratio:.3f} of it; largest excess over 2^-8|y| {excess:.3e})")
+    planted = {}
+    for what, n in (("split", pl.span), ("tile", pl.tile)):
+        short = torch.where(valid > n, valid - n, valid)
+        planted[what] = bf16_error_ratio(plain(short).to(torch.bfloat16),
+                                         want)
+        check(planted[what] > 1.0, f"{tag}: the output with each sequence's "
+              f"last {what} ({n} tokens) left out passes the element-wise "
+              f"bar ({planted[what]:.3f} of it)")
+    return (f"{tag}: element by element vs fp32 plain, |x-y| <= 2^-8|y| + "
+            f"{BF16_ATOL:.3e}: kernel at {ratio:.4f} of the bar (largest "
+            f"excess over 2^-8|y| {excess:.3e}); planted, last split "
+            f"({pl.span} tokens) left out {planted['split']:.1f}x, last tile "
+            f"({pl.tile}) left out {planted['tile']:.1f}x")
+
+
+def _plan_text(pl):
+    return (f"plan {pl.n_splits} split(s) x {pl.span} tokens (tiles of "
+            f"{pl.tile}), {pl.blocks} blocks, workspace "
+            f"{pl.workspace_bytes} B")
+
+
 def phase_decode_kernel(dev):
     from repro_torch.kernels.flash_decode import ops as fops
     from repro_torch.kernels.flash_decode.ref import paged_decode_ref
@@ -741,14 +799,23 @@ def phase_decode_kernel(dev):
     for shape, (b, mp, lo, hi) in shapes.items():
         for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 3e-2)):
             q, k, v, pt, valid = _paged_case(dev, b, mp, lo, hi, dtype, 1)
-            out = fops.paged_decode_attention(q, k, v, pt, valid)
-            want = paged_decode_ref(q.float(), k.float(), v.float(), pt,
-                                    valid)
+            out = _no_sync(lambda: fops.paged_decode_attention(
+                q, k, v, pt, valid))
+            kf, vf = k.float(), v.float()
+            want = paged_decode_ref(q.float(), kf, vf, pt, valid)
             torch.cuda.synchronize()
             err = float((out.float() - want).abs().max())
             tag = f"[decode-kernel] {shape} {str(dtype)[6:]}"
             check(out.dtype == dtype and err <= tol,
                   f"{tag}: max abs err vs plain {err} > {tol}")
+            h, hd = q.shape[2], q.shape[3]
+            hkv, ps = k.shape[2], k.shape[1]
+            pl = fops.plan(b, hkv, h // hkv, mp, ps, hd, dtype, dev)
+            bar = (_bf16_bar(tag, out, want, valid, pl,
+                             lambda vl: paged_decode_ref(q.float(), kf, vf,
+                                                         pt, vl))
+                   if dtype == torch.bfloat16 else None)
+            del kf, vf
             check(torch.equal(out, fops.paged_decode_attention(
                 q, k, v, pt, valid)), f"{tag}: not bitwise repeatable")
             owned = torch.zeros(k.shape[0], dtype=torch.bool, device=dev)
@@ -771,8 +838,6 @@ def phase_decode_kernel(dev):
             plain_ms = device_ms(lambda: paged_decode_ref(q, k, v, pt, valid))
             library_ms = device_ms(lambda: _sdpa(q, k, v, pt, valid))
             ntok = int(valid.sum())
-            h, hd = q.shape[2], q.shape[3]
-            hkv, ps = k.shape[2], k.shape[1]
             pages = int(((valid + ps - 1) // ps).sum())
             nbytes = (q.element_size() * (2 * ntok * hkv * hd + 2 * b * h * hd)
                       + 4 * (pages + b))
@@ -784,14 +849,19 @@ def phase_decode_kernel(dev):
                   f"{int(valid.max())} ({ntok} tokens): max abs err vs plain "
                   f"{err:.3e} (tol {tol}), sdpa yardstick {lib_err:.3e}; "
                   f"bitwise repeatable; NaN trash/unowned pages never read")
+            if bar:
+                print(bar)
+            print(f"{tag}: {_plan_text(pl)}; no host sync")
             print(f"{tag}: median device ms (L2 flushed): kernel {ms:.4f}, "
                   f"plain {plain_ms:.4f}, gather + sdpa {library_ms:.4f}; "
                   f"bound {bound:.4f}: {nbytes / 1e6:.2f} MB at "
                   f"{memory_rate(name) / 1e12:.2f} TB/s is "
                   f"{by_bytes * 1e3:.4f}, {flops / 1e9:.3f} GFLOP at "
-                  f"{FP32_PEAK / 1e12:.0f} TFLOP/s is {by_ops * 1e3:.4f}")
+                  f"{FP32_PEAK / 1e12:.0f} TFLOP/s is {by_ops * 1e3:.4f}; "
+                  f"kernel at {bound / ms:.1%} of the bound")
             if shape == "serving" and dtype == torch.float32:
                 row = {"name": "flash_decode_paged", "route": "cuda",
+                       "splits": pl.n_splits,
                        "source": "src/repro_torch/kernels/flash_decode/csrc/"
                                  "flash_decode_paged.cu",
                        "replaces": "src/repro/kernels/flash_decode/kernel.py"
@@ -1254,15 +1324,16 @@ def phase_decode_dense(dev):
             vals[0], vals[-1] = lo, hi
             valid = torch.as_tensor(vals, dtype=torch.int32, device=dev)
             fops.reset_launch_counts()        # the main path's call
-            out = fops.decode_attention(q, k, v, valid, window=window,
-                                        blk_k=blk)
+            out = _no_sync(lambda: fops.decode_attention(
+                q, k, v, valid, window=window, blk_k=blk))
             torch.cuda.synchronize()
             n = fops.paged_decode_attention.launches
             check(n == 1, f"{tag}: decode_attention launched K3's kernel "
                   f"{n} times")
             launches += n
-            want = decode_attention_ref(q.float(), k.float(), v.float(),
-                                        valid, window=window, blk_k=blk)
+            kf, vf = k.float(), v.float()
+            want = decode_attention_ref(q.float(), kf, vf, valid,
+                                        window=window, blk_k=blk)
             err = float((out.float() - want).abs().max())
             tol = TOL if dtype == torch.float32 else 3e-2
             check(out.dtype == dtype and err <= tol,
@@ -1271,6 +1342,19 @@ def phase_decode_dense(dev):
                 q, k, v, valid, window=window, blk_k=blk)),
                 f"{tag}: not bitwise repeatable")
             span = dense_span(s, blk)
+            pl = fops.plan(b, hkv, h // hkv, 1, span, hd, dtype, dev)
+            if dtype == torch.bfloat16:
+                print(_bf16_bar(tag, out, want, valid, pl,
+                                lambda vl: decode_attention_ref(
+                                    q.float(), kf, vf, vl, window=window,
+                                    blk_k=blk)))
+            del kf, vf
+            if tag0 == "decode_32k":
+                n_sm = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                check(pl.n_splits > 1 and pl.blocks >= n_sm,
+                      f"{tag}: the split path is not live: {_plan_text(pl)} "
+                      f"on {n_sm} SMs")
             eff = valid.clamp(max=window) if window else valid
             eff = eff.clamp(max=span)
             extra = ""
@@ -1309,6 +1393,7 @@ def phase_decode_dense(dev):
                   f"{window} blk_k {blk} (reads {span}), valid "
                   f"{int(valid.min())}...{int(valid.max())}: max abs err vs "
                   f"plain {err:.3e} (tol {tol}); bitwise repeatable{extra}")
+            print(f"{tag}: {_plan_text(pl)}; no host sync")
             if tag0 != "decode_32k":
                 continue
             lib = _sdpa_decode(q, k, v, valid)
@@ -1335,6 +1420,7 @@ def phase_decode_dense(dev):
                   f"bound; sdpa yardstick err {lib_err:.3e}")
             if dtype == torch.float32:
                 row = {"name": "flash_decode", "route": "cuda",
+                       "splits": pl.n_splits,
                        "source": "src/repro_torch/kernels/flash_decode/csrc/"
                                  "flash_decode_paged.cu",
                        "replaces": "src/repro/kernels/flash_decode/kernel.py"

@@ -29,6 +29,15 @@ past ``(S // blk_k)·blk_k`` are never read (its grid has ``S // blk_k``
 blocks).  Their launches count in ``paged_decode_attention.launches``
 too, the one counter of K3's kernel.
 
+Every launch runs the split plan of :func:`_plan_splits`: one block per
+(sequence, KV head, split of ``span`` tokens), worked out on the host
+from the batch, the KV heads, the table's capacity and the card's SM
+count, never from ``valid_len`` (reading it would sync the decode step
+on the card).  With more than one split the wrapper allocates the fp32
+workspace of the partials and the C entry point enqueues the combine
+kernel behind the split kernel; a call still counts once in
+``paged_decode_attention.launches``.
+
 At ``valid_len == 0`` the kernel returns zeros and the plain version
 the mean of V (see ``ref.py``); the model never passes 0.
 """
@@ -38,6 +47,7 @@ import ctypes
 import functools
 import math
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,16 +59,81 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode_paged.cu"
 HEAD_DIMS = (32, 64, 128, 256)
 N_REPS = (1, 2, 4, 8)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCKS_PER_SM = 4       # the plan's aim were every sequence full length
+MIN_TILES = 2           # a split spans at least this many ring tiles
+SPLIT_BYTES = 1 << 20   # and at most this many bytes of K and V
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = _build.load(SOURCE)
     fn = lib.flash_decode_paged
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
         + [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tile_tokens(head_dim: int, elem: int) -> int:
+    """Tokens of one ring stage, as the kernel's ``Shape::TILE``: a lane
+    holds 16 bytes of a row, a warp step covers ``32 / lanes per row``
+    tokens, and 4 warps take 4 steps each."""
+    lanes = min(head_dim * elem // 16, 32)
+    return 16 * (32 // lanes)
+
+
+def _plan_splits(batch: int, n_kv_heads: int, max_pages: int,
+                 page_size: int, n_sm: int, tile: int, row_bytes: int,
+                 n_splits: Optional[int] = None) -> tuple:
+    """``(n_splits, span)``: blocks per (sequence, KV head) and the tokens
+    each covers, from ints the host holds (``row_bytes``: one token's K
+    row of one KV head).  Aims at ``BLOCKS_PER_SM`` blocks per SM were
+    every sequence as long as the table allows; no split spans more than
+    ``SPLIT_BYTES`` of K and V (so that the last wave of a ragged batch,
+    where a few blocks stream alone, stays short) or fewer than
+    ``MIN_TILES`` tiles.  ``n_splits`` forces a count instead.  ``span``
+    is a multiple of ``tile`` (and of small pages), and ``n_splits *
+    span`` covers the table."""
+    cap = max_pages * page_size
+    granule = math.lcm(tile, page_size) if page_size <= 64 else tile
+    if n_splits is None:
+        want = -(-BLOCKS_PER_SM * n_sm // max(batch * n_kv_heads, 1))
+        span = min(-(-cap // want), SPLIT_BYTES // (2 * row_bytes))
+        span = max(MIN_TILES * tile, span)
+    else:
+        span = -(-cap // max(n_splits, 1))
+    span = max(granule, -(-span // granule) * granule)
+    return max(1, -(-cap // span)), span
+
+
+class Plan(NamedTuple):
+    n_splits: int
+    span: int           # tokens per split
+    tile: int           # tokens per ring stage
+    blocks: int         # of the split kernel
+    workspace_bytes: int
+
+
+def plan(batch, n_kv_heads, n_rep, max_pages, page_size, head_dim, dtype,
+         device, n_splits=None) -> Plan:
+    """The launch's split plan for these shapes on ``device`` (a CUDA
+    device: the SM count is the card's)."""
+    elem = torch.finfo(dtype).bits // 8
+    tile = _tile_tokens(head_dim, elem)
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    splits, span = _plan_splits(batch, n_kv_heads, max_pages, page_size,
+                                _sm_count(index), tile, head_dim * elem,
+                                n_splits)
+    groups = batch * n_kv_heads
+    ws = 4 * groups * splits * n_rep * (head_dim + 2) if splits > 1 else 0
+    return Plan(splits, span, tile, groups * splits, ws)
 
 
 def _check(name, q, k_pool, v_pool, page_table, valid_len):
@@ -90,9 +165,10 @@ def _check(name, q, k_pool, v_pool, page_table, valid_len):
 
 
 def _launch(name, q, k_pool, v_pool, page_table, valid_len, out, *, b, h,
-            hkv, hd, ps, q_s, p_s, o_s, v_s):
+            hkv, hd, ps, q_s, p_s, o_s, v_s, splits=None):
     """Shared launch of both layouts; ``*_s`` are element strides:
-    q/o ``(b, h)``, pools ``(page, token, kv head)``, valid ``(b, h)``."""
+    q/o ``(b, h)``, pools ``(page, token, kv head)``, valid ``(b, h)``.
+    ``splits`` forces the plan's split count (tests only)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     if hd not in HEAD_DIMS:
@@ -100,28 +176,34 @@ def _launch(name, q, k_pool, v_pool, page_table, valid_len, out, *, b, h,
     if h % hkv or h // hkv not in N_REPS:
         raise ValueError(f"{name}: {h} query heads over {hkv} KV heads: the "
                          f"group size must be one of {N_REPS}")
-    ept = hd // 32
+    vec = 16 // q.element_size()       # elements of one 16-byte load
     for tname, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: {tname} must be contiguous in "
                              f"head_dim, strides {tuple(t.stride())}")
-        if t.data_ptr() % (ept * t.element_size()):
-            raise ValueError(f"{name}: {tname} is not aligned to "
-                             f"{ept * t.element_size()} bytes")
-    if any(s % ept for s in (*q_s, *p_s)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must be aligned to 16 bytes "
+                             f"(the kernel's load width), its address is "
+                             f"{t.data_ptr() % 16} bytes past")
+    if any(s % vec for s in (*q_s, *p_s)):
         raise ValueError(f"{name}: strides {q_s} (q), {p_s} (pools) must be "
-                         f"multiples of head_dim/32 = {ept}")
+                         f"multiples of {vec} elements (16 bytes, the "
+                         f"kernel's load width)")
     if not page_table.is_contiguous():
         raise ValueError(f"{name}: page_table must be contiguous")
     mp = page_table.shape[1]
-    if mp * ps >= 2 ** 31 or b * hkv >= 2 ** 31:
+    pl = plan(b, hkv, h // hkv, mp, ps, hd, q.dtype, q.device, splits)
+    if pl.n_splits * pl.span >= 2 ** 31 or pl.blocks >= 2 ** 31:
         raise ValueError(f"{name}: {b} x {mp} pages of {ps} is too large")
+    ws = (torch.empty(pl.workspace_bytes // 4, dtype=torch.float32,
+                      device=q.device) if pl.n_splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                         page_table.data_ptr(), valid_len.data_ptr(),
-                        out.data_ptr(), _DTYPES[q.dtype], hd, h // hkv, b,
-                        hkv, mp, ps, *q_s, *p_s, *o_s, *v_s,
+                        out.data_ptr(), ws.data_ptr() if ws is not None
+                        else None, _DTYPES[q.dtype], hd, h // hkv, b, hkv,
+                        mp, ps, pl.n_splits, pl.span, *q_s, *p_s, *o_s, *v_s,
                         1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "

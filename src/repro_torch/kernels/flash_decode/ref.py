@@ -19,9 +19,16 @@ window clamp, then only the first ``(S // blk_k)·blk_k`` cache positions
 dense decode.  :func:`flash_decode_ref` is the dense oracle in the
 reference kernel's layout (``repro.kernels.flash_decode.ref``).
 
-At ``valid_len == 0`` every score is masked and this version returns
-the mean of V over the gathered positions, while the kernel (as the
-TPU kernel) returns zeros; the model never passes 0 (it attends over
+:func:`split_decode_ref` is the kernel's split-and-combine written out
+plainly: each split's partial ``(m, l, acc)`` with the ``-1e30`` mask,
+merged in split order as the combine kernel merges them.
+
+:func:`bf16_error_ratio` is the bar a bf16 kernel output is held to,
+element by element, against the fp32 plain version on the same inputs.
+
+At ``valid_len == 0`` every score is masked and the dense versions
+above return the mean of V over the gathered positions, while the
+kernel (as the TPU kernel) and :func:`split_decode_ref` return zeros; the model never passes 0 (it attends over
 ``steps + 1`` positions).
 """
 from __future__ import annotations
@@ -31,6 +38,8 @@ import math
 import torch
 
 NEG_INF = -1e30
+BF16_REL = 2.0 ** -8    # bf16's round to nearest, relative to the value
+BF16_ATOL = 2.0 ** -18  # fp32's order of sums and exp (chip readings)
 
 
 def _dense_decode(q, k_cache, v_cache, valid_len):
@@ -110,3 +119,74 @@ def flash_decode_ref(q, k, v, valid_len):
     kq = k.repeat_interleave(n_rep, dim=0)[:, :, None]
     vq = v.repeat_interleave(n_rep, dim=0)[:, :, None]
     return _dense_decode(q[:, :, None], kq, vq, valid_len)[:, :, 0]
+
+
+def split_decode_ref(q, k_pool, v_pool, page_table, valid_len, n_splits,
+                     span=None):
+    """Model layout: q (B,1,H,hd); pools (P, ps, Hkv, hd); page_table
+    (B, MP); valid_len (B,), or (B, H) for one length per query head ->
+    (B,1,H,hd) in q's dtype, computed in fp32.
+
+    The table's ``MP * ps`` positions fall into spans of ``span`` tokens
+    (the kernel's split plan, ``ops.plan``), or of ``ceil(MP * ps /
+    n_splits)`` when ``span`` is None.  A split that starts at or past its
+    (sequence, KV head) group's longest valid length is skipped, as the
+    kernel's blocks skip it; the others give per query head ``m`` (the
+    largest unmasked score, ``-1e30`` if none), ``l = sum p`` and ``acc =
+    sum p v`` with ``p = exp(s - m)`` at unmasked positions and 0
+    elsewhere (masked K and V rows are zeroed first, so NaN there never
+    mixes in).  They merge in split order: ``M = max m``, ``L = sum l
+    exp(m - M)``, ``A = sum acc exp(m - M)``, ``o = A / max(L, 1e-30)``,
+    so ``valid_len == 0`` gives zeros."""
+    b, _, h, hd = q.shape
+    hkv = k_pool.shape[2]
+    n_rep = h // hkv
+    kd = _gather(k_pool, page_table).float().repeat_interleave(n_rep, dim=2)
+    vd = _gather(v_pool, page_table).float().repeat_interleave(n_rep, dim=2)
+    s = kd.shape[1]
+    valid = valid_len.reshape(b, -1).expand(b, h).long()
+    tmax = valid.reshape(b, hkv, n_rep).amax(-1).repeat_interleave(n_rep, 1)
+    mask = torch.arange(s, device=q.device)[None, None] < valid[..., None]
+    keep = mask.transpose(1, 2)[..., None]                   # (B, S, H, 1)
+    kd = torch.where(keep, kd, torch.zeros((), device=q.device))
+    vd = torch.where(keep, vd, torch.zeros((), device=q.device))
+    scores = torch.einsum("bhd,bshd->bhs", q[:, 0].float(), kd) \
+        * (1.0 / math.sqrt(hd))
+    scores = torch.where(mask, scores, torch.full((), NEG_INF,
+                                                  device=q.device))
+    if span is None:
+        span = -(-s // n_splits)
+    parts = []
+    for lo in range(0, s, span):
+        sl = slice(lo, lo + span)
+        m = scores[..., sl].amax(-1)                         # (B, H)
+        p = torch.where(mask[..., sl], torch.exp(scores[..., sl]
+                                                 - m[..., None]),
+                        torch.zeros((), device=q.device))
+        parts.append((lo < tmax, m, p.sum(-1),
+                      torch.einsum("bhs,bshd->bhd", p, vd[:, sl])))
+    neg = torch.full((b, h), NEG_INF, device=q.device)
+    big = neg
+    for work, m, _, _ in parts:
+        big = torch.where(work, torch.maximum(big, m), big)
+    tot_l = torch.zeros((b, h), device=q.device)
+    tot_a = torch.zeros((b, h, hd), device=q.device)
+    for work, m, l, a in parts:
+        c = torch.where(work, torch.exp(m - big), torch.zeros_like(m))
+        tot_l = tot_l + l * c
+        tot_a = tot_a + a * c[..., None]
+    o = tot_a / torch.clamp(tot_l, min=1e-30)[..., None]
+    return o[:, None].to(q.dtype)
+
+
+def bf16_error_ratio(got, want, atol=BF16_ATOL):
+    """How far a bf16 kernel output ``got`` lies from ``want``, the plain
+    version in fp32 on the same bf16 inputs, as a share of the bar: the
+    largest, over elements, of ``|got - want| / (2^-8·|want| + atol)``.
+    The kernel accumulates in fp32 as the plain version does, so the two
+    differ by the output's own rounding to bf16 (at most 2^-8 of the
+    value, rounding to nearest) and by the order of fp32 sums and the
+    exponentials (``atol``, a few times the largest such difference read
+    on the card).  <= 1 passes; NaN fails."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (BF16_REL * want.abs() + atol)).max())

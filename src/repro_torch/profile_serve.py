@@ -36,7 +36,7 @@ from .profile_round import _device_us
 
 
 def _kind(name: str) -> str:
-    if "paged_decode_kernel" in name:
+    if "paged_decode" in name:       # split and combine kernels
         return "flash_decode_paged (K3)"
     if "wkv_kernel" in name:
         return "rwkv6_scan (K7)"

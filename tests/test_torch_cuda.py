@@ -337,6 +337,164 @@ def test_dense_decode_valid_zero_gives_zeros(dev):
     assert bool((fops.decode_attention(q, k, v, valid)[1] == 0).all())
 
 
+# -- K3/K4: the split-KV plan and the combine ----------------------------------
+
+def _force_splits(monkeypatch, fops, n):
+    """Every launch of the module with the plan's split count forced to n
+    (the private ``_launch``'s keyword; the public wrappers have none)."""
+    import functools
+    monkeypatch.setattr(fops, "_launch",
+                        functools.partial(fops._launch, splits=n))
+
+
+SPLITS = [  # (h, hkv, hd, dtype, forced splits): n_rep 1, 2 and 8
+    (8, 8, 64, torch.float32, 3), (16, 8, 128, torch.float32, 4),
+    (8, 1, 128, torch.float32, 5), (4, 2, 32, torch.float32, 2),
+    (16, 8, 128, torch.bfloat16, 4), (16, 8, 256, torch.bfloat16, 3),
+    (4, 4, 256, torch.float32, 6)]
+
+
+@pytest.mark.parametrize("h,hkv,hd,dtype,splits", SPLITS)
+def test_paged_decode_splits_match_plain(dev, monkeypatch, h, hkv, hd, dtype,
+                                         splits):
+    """A forced split count > 1 on ragged lengths (1, the full table and
+    between; splits wholly past the short ones): fp32 within 2e-5 of the
+    plain version and of the plain split-and-combine at the plan's own
+    split boundaries, bf16 within 3e-2 of both in fp32 on the same inputs
+    and inside ``ref.bf16_error_ratio``'s element-wise bar; one counted
+    launch per call; two calls bitwise equal."""
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import (bf16_error_ratio,
+                                                      paged_decode_ref,
+                                                      split_decode_ref)
+    b, mp, ps = 4, 12, 16
+    q, k, v, pt, valid = _pcase(dev, b, h, hkv, hd, 80, ps, mp, dtype=dtype,
+                                seed=7)
+    valid[1] = 1
+    pl = fops.plan(b, hkv, h // hkv, mp, ps, hd, dtype, dev, splits)
+    assert pl.n_splits > 1 and pl.workspace_bytes > 0
+    _force_splits(monkeypatch, fops, splits)
+    before = fops.paged_decode_attention.launches
+    out = fops.paged_decode_attention(q, k, v, pt, valid)
+    torch.cuda.synchronize()
+    assert fops.paged_decode_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    want = paged_decode_ref(q.float(), k.float(), v.float(), pt, valid)
+    tol = TOL if dtype == torch.float32 else 3e-2
+    assert float((out.float() - want).abs().max()) <= tol
+    split = split_decode_ref(q.float(), k.float(), v.float(), pt, valid,
+                             pl.n_splits, span=pl.span)
+    assert float((out.float() - split).abs().max()) <= tol
+    if dtype == torch.bfloat16:       # element by element, as chip_smoke
+        assert bf16_error_ratio(out, want) <= 1.0
+        assert bf16_error_ratio(out, split) <= 1.0
+    assert torch.equal(out, fops.paged_decode_attention(q, k, v, pt, valid))
+
+
+def test_paged_decode_splits_kernel_layout_per_head(dev, monkeypatch):
+    """The reference kernel's layout, one valid length per query head (0,
+    1 and the full table among them), with splits."""
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import flash_decode_paged_ref
+    q, k, v, pt, valid = _pcase(dev, 3, 8, 2, 64, 40, 16, 6, seed=8)
+    qk = q[:, 0].reshape(24, 1, 64)
+    kk = k.permute(2, 0, 1, 3).contiguous()
+    vk = v.permute(2, 0, 1, 3).contiguous()
+    vh = (valid.repeat_interleave(8)
+          - torch.arange(24, device=dev) % 3).clamp(min=1).to(torch.int32)
+    vh[1], vh[9], vh[2] = 1, 0, 6 * 16
+    pt[0] = pt[0].clamp(min=1)        # head 2 reads sequence 0's whole table
+    _force_splits(monkeypatch, fops, 3)
+    out = fops.flash_decode_paged(qk, kk, vk, pt, vh)
+    assert bool((out[9] == 0).all())
+    keep = vh > 0
+    torch.testing.assert_close(
+        out[keep], flash_decode_paged_ref(qk, kk, vk, pt, vh)[keep],
+        atol=TOL, rtol=0)
+
+
+def test_paged_decode_splits_nan_trash_never_leaks(dev, monkeypatch):
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_ref
+    q, k, v, pt, valid = _pcase(dev, 4, 16, 8, 128, 64, 16, 12,
+                                dtype=torch.bfloat16, seed=9)
+    valid[2] = 1
+    pt[2, 1:] = 0
+    owned = set(pt.unique().tolist())
+    unowned = [p for p in range(64) if p not in owned]
+    _force_splits(monkeypatch, fops, 4)
+    clean = fops.paged_decode_attention(q, k, v, pt, valid)
+    for pool in (k, v):
+        pool[0] = float("nan")                       # the trash page
+        pool[unowned] = float("nan")
+    out = fops.paged_decode_attention(q, k, v, pt, valid)
+    assert bool(torch.isfinite(out).all()) and torch.equal(out, clean)
+
+
+def test_dense_decode_splits_match_plain(dev, monkeypatch):
+    """K4 with splits: S not a multiple of blk_k (positions past the last
+    whole block NaN, never read), and a ring."""
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    _force_splits(monkeypatch, fops, 5)
+    q, k, v, valid = _dcase(dev, 3, 1000, 16, 8, 128)
+    k[:, 768:] = float("nan")
+    v[:, 768:] = float("nan")
+    out = fops.decode_attention(q, k, v, valid, blk_k=256)
+    torch.testing.assert_close(
+        out, decode_attention_ref(q, k[:, :768], v[:, :768], valid,
+                                  blk_k=256), atol=TOL, rtol=0)
+    q, k, v, valid = _dcase(dev, 3, 256, 16, 8, 256, hi=768)
+    torch.testing.assert_close(
+        fops.decode_attention(q, k, v, valid, window=256, blk_k=512),
+        decode_attention_ref(q, k, v, valid, window=256, blk_k=512),
+        atol=TOL, rtol=0)
+
+
+def test_decode_wrappers_do_not_sync(dev):
+    """One call of each wrapper, the wrapper's own plan (more than one
+    split here), under ``set_sync_debug_mode("error")``: none reads
+    ``valid_len`` or anything else back to the host."""
+    from repro_torch.kernels.flash_decode import ops as fops
+    q, k, v, pt, valid = _pcase(dev, 3, 8, 2, 64, 200, 16, 64)
+    assert fops.plan(3, 2, 4, 64, 16, 64, q.dtype, dev).n_splits > 1
+    qk = q[:, 0].reshape(24, 1, 64)
+    kk = k.permute(2, 0, 1, 3).contiguous()
+    vk = v.permute(2, 0, 1, 3).contiguous()
+    vh = valid.repeat_interleave(8)
+    qd, kd, vd, vd_len = _dcase(dev, 2, 512, 4, 2, 64)
+    kd3 = kd.permute(0, 2, 1, 3).reshape(4, 512, 64).contiguous()
+    vd3 = vd.permute(0, 2, 1, 3).reshape(4, 512, 64).contiguous()
+    qd3, vd3_len = qd[:, 0].reshape(8, 1, 64), vd_len.repeat_interleave(4)
+    fops._kernel()                       # the first load builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fops.paged_decode_attention(q, k, v, pt, valid)
+        fops.flash_decode_paged(qk, kk, vk, pt, vh)
+        fops.decode_attention(qd, kd, vd, vd_len, window=256, blk_k=128)
+        fops.flash_decode(qd3, kd3, vd3, vd3_len, blk_k=128)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_paged_decode_rejects_8_byte_offset(dev):
+    """bf16 pools 8 bytes past a 16-byte boundary: the kernel loads 16
+    bytes a lane, so the wrapper raises and launches nothing."""
+    from repro_torch.kernels.flash_decode import ops as fops
+    q, k, v, pt, valid = _pcase(dev, 2, 16, 8, 128, 20, 16, 4,
+                                dtype=torch.bfloat16)
+    buf_k = torch.zeros(k.numel() + 4, dtype=k.dtype, device=dev)
+    buf_v = torch.zeros(v.numel() + 4, dtype=v.dtype, device=dev)
+    k8, v8 = buf_k[4:].view(k.shape), buf_v[4:].view(v.shape)
+    assert k8.data_ptr() % 16 == 8
+    before = fops.paged_decode_attention.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        fops.paged_decode_attention(q, k8, v8, pt, valid)
+    assert fops.paged_decode_attention.launches == before
+
+
 # -- K5, K6: flash attention forward and backward -----------------------------
 
 def _acase(dev, b, s, h, hkv, hd, dtype=torch.float32, seed=0, sk=None):

@@ -265,3 +265,154 @@ def test_dense_wrapper_validates_on_cpu(bad):
             ops.flash_decode(q.reshape(8, 1, 64), kv, kv, valid.repeat(4))
         else:
             ops.decode_attention(q, k, v, valid)
+
+
+# -- the kernel's split-and-combine, written out plainly -----------------------
+
+H_SPLIT, HKV_SPLIT = 4, 2
+# per query head (B=3 x H=4): 0, 1 and the full capacity 64 among the rest
+VALID_HEADS = np.asarray([40, 1, 33, 64, 17, 0, 9, 16, 64, 60, 1, 0],
+                         np.int32)
+
+
+@pytest.fixture(scope="module")
+def split_case():
+    """Kernel-layout inputs and the reference Pallas kernel's outputs
+    (interpret mode), once per module: valid lengths per sequence
+    (``VALID``) and per query head (``VALID_HEADS``)."""
+    q, k, v, valid = _kernel_layout(H_SPLIT, HKV_SPLIT, seed=21)
+    want = {}
+    for tag, vl in (("seq", valid), ("heads", VALID_HEADS)):
+        want[tag] = np.asarray(r_kernel(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), jnp.asarray(PT),
+                                        jnp.asarray(vl), interpret=True))
+    return q, k, v, valid, want
+
+
+def _model_layout(q, k, v):
+    """(BH,1,hd), (Hkv,P,ps,hd) -> (B,1,H,hd), (P,ps,Hkv,hd)."""
+    b = PT.shape[0]
+    tq = torch.as_tensor(q).reshape(b, 1, -1, q.shape[-1])
+    return (tq, torch.as_tensor(k).permute(1, 2, 0, 3),
+            torch.as_tensor(v).permute(1, 2, 0, 3))
+
+
+# 1 split; 2; 3 and 5 do not divide the table's 64 positions; at 8, the
+# splits past 17 and 40 are wholly past those sequences' lengths
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 5, 8])
+def test_split_ref_matches_reference_kernel(split_case, n_splits):
+    from repro_torch.kernels.flash_decode.ref import split_decode_ref
+    q, k, v, valid, want = split_case
+    tq, tk, tv = _model_layout(q, k, v)
+    tpt, tvl = _t(PT, VALID)
+    got = split_decode_ref(tq, tk, tv, tpt, tvl, n_splits)
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    np.testing.assert_allclose(got.reshape(want["seq"].shape).numpy(),
+                               want["seq"], atol=TOL, rtol=0)
+    torch.testing.assert_close(got, paged_decode_ref(tq, tk, tv, tpt, tvl),
+                               atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("n_splits", [1, 3, 8])
+def test_split_ref_per_head_lengths(split_case, n_splits):
+    """One valid length per query head (the kernel layout's), among them
+    1, the full capacity and 0: zeros at 0, as the Pallas kernel gives."""
+    from repro_torch.kernels.flash_decode.ref import split_decode_ref
+    q, k, v, _, want = split_case
+    tq, tk, tv = _model_layout(q, k, v)
+    b = PT.shape[0]
+    heads = torch.as_tensor(VALID_HEADS).reshape(b, H_SPLIT)
+    got = split_decode_ref(tq, tk, tv, torch.as_tensor(PT), heads, n_splits)
+    flat = got.reshape(want["heads"].shape).numpy()
+    np.testing.assert_allclose(flat, want["heads"], atol=TOL, rtol=0)
+    zero = VALID_HEADS == 0
+    assert not flat[zero].any()
+    oracle = flash_decode_paged_ref(*_t(q, k, v, PT, VALID_HEADS)).numpy()
+    np.testing.assert_allclose(flat[~zero], oracle[~zero], atol=TOL, rtol=0)
+
+
+def test_split_ref_nan_past_valid_never_mixes_in(split_case):
+    """NaN in the trash page 0 (behind table entries past each valid
+    length) leaves every split's partial finite."""
+    from repro_torch.kernels.flash_decode.ref import split_decode_ref
+    q, k, v, _, want = split_case
+    k, v = k.copy(), v.copy()
+    k[:, 0] = np.nan
+    v[:, 0] = np.nan
+    tq, tk, tv = _model_layout(q, k, v)
+    got = split_decode_ref(tq, tk, tv, *_t(PT, VALID), 3)
+    np.testing.assert_allclose(got.reshape(want["seq"].shape).numpy(),
+                               want["seq"], atol=TOL, rtol=0)
+
+
+# (batch, KV heads, table pages, page size, SMs, tile, K row bytes):
+# decode_32k's dense "page" (fp32 and bf16), the long paged case, the
+# serving shape, one small sequence, a page larger than a tile, few SMs
+PLAN_CASES = [(8, 8, 1, 32_768, 132, 16, 512), (8, 8, 1, 32_768, 132, 32, 256),
+              (8, 8, 256, 16, 132, 32, 256), (8, 8, 12, 16, 132, 16, 512),
+              (1, 1, 1, 16, 132, 16, 512), (2, 4, 10, 48, 132, 32, 128),
+              (3, 2, 4, 16, 8, 64, 128)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+@pytest.mark.parametrize("forced", [None, 3])
+def test_plan_splits(case, forced):
+    b, hkv, mp, ps, n_sm, tile, row = case
+    n, span = ops._plan_splits(b, hkv, mp, ps, n_sm, tile, row, forced)
+    assert type(n) is int and type(span) is int
+    assert n >= 1 and span % tile == 0
+    if ps <= 64:
+        assert span % ps == 0                # whole small pages
+    cap = mp * ps
+    assert n * span >= cap > (n - 1) * span  # covers the table, no idle tail
+    assert (n, span) == ops._plan_splits(b, hkv, mp, ps, n_sm, tile, row,
+                                         forced)
+    if forced is None:
+        assert 2 * span * row <= max(ops.SPLIT_BYTES, 2 * tile * row)
+        if cap == 32_768:                    # decode_32k: the split path
+            assert n > 1 and b * hkv * n >= n_sm
+
+
+# spans the plan gives (multiples of the 16-token page), not dividing 64
+@pytest.mark.parametrize("span", [16, 48, 32])
+def test_split_ref_at_the_plans_span(split_case, span):
+    """Split boundaries at a given span, as the kernel's plan sets them."""
+    from repro_torch.kernels.flash_decode.ref import split_decode_ref
+    q, k, v, valid, want = split_case
+    tq, tk, tv = _model_layout(q, k, v)
+    got = split_decode_ref(tq, tk, tv, *_t(PT, VALID), -(-64 // span),
+                           span=span)
+    np.testing.assert_allclose(got.reshape(want["seq"].shape).numpy(),
+                               want["seq"], atol=TOL, rtol=0)
+
+
+def _truncate_bf16(x):
+    """fp32 -> bf16 by dropping the low 16 bits (rounding toward zero)."""
+    bits = x.float().contiguous().view(torch.int32) & ~0xFFFF
+    return bits.view(torch.float32).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("wrong", ["last 16 tokens", "last 32 tokens",
+                                   "truncated"])
+def test_bf16_bar_passes_rounding_and_fails_wrong_outputs(split_case, wrong):
+    """``ref.bf16_error_ratio``: the fp32 plain output rounded to bf16 is
+    inside the bar; outputs a faulty bf16 kernel could give are not: each
+    sequence's last tile or split left out (``chip_smoke.py``'s planted
+    outputs), or the output truncated to bf16 instead of rounded."""
+    from repro_torch.kernels.flash_decode.ref import bf16_error_ratio
+    q, k, v, _, _ = split_case
+    tq, tk, tv = (x.to(torch.bfloat16).float()
+                  for x in _model_layout(q, k, v))
+    pt, valid = _t(PT, VALID)
+    want = paged_decode_ref(tq, tk, tv, pt, valid)
+    assert bf16_error_ratio(want.to(torch.bfloat16), want) <= 1.0
+    if wrong == "truncated":
+        bad = _truncate_bf16(want)
+    else:
+        n = int(wrong.split()[1])
+        short = torch.where(valid > n, valid - n, valid)
+        bad = paged_decode_ref(tq, tk, tv, pt, short).to(torch.bfloat16)
+    assert bf16_error_ratio(bad, want) > 1.0
+    nan = want.to(torch.bfloat16)
+    nan[0, 0, 0, 0] = float("nan")
+    assert not bf16_error_ratio(nan, want) <= 1.0
