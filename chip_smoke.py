@@ -91,7 +91,8 @@ exits non-zero:
    element against the plain version that rounds P and dS to bf16 where
    the kernels do, at ``ref.rounding_error_ratio``'s bar, lse at
    LSE_EMU_TOL; wrong outputs planted in one head, a key tile left out or
-   one head's share of dK/dV, must fail that bar); two runs bitwise
+   one head's share of dK/dV, must fail that bar, and in fp32 the same
+   wrong gradients must fail 5e-4); two runs bitwise
    equal; median device times of the forward,
    backward and both, of the plain version and of
    ``scaled_dot_product_attention`` with GQA (the cuDNN / PyTorch kernels
@@ -114,16 +115,22 @@ exits non-zero:
    kernel's share of it.
 14. wkv-kernel — ``wkv`` (K7, the chunked RWKV-6 scan, in the model
    layout the prefill passes) at rwkv6-3b's width (40 heads of 64): the
-   serving prefill's shape (8 prompts x 128 tokens), ``prefill_32k`` at
-   batch 1 (32,768 tokens), and odd lengths 145 (chunk 5) and 127 (chunk
-   1); r, k, v ~ N(0, 1), log-decay -|N(0, 1)|, u ~ 0.1 N(0, 1).  fp32
-   within 1e-4 of the plain chunked version (o and state), and at the
-   serving shape within 1e-3 of the per-token oracle; bf16 r/k/v (fp32
-   log-decay, as a bf16 model passes it) against the fp32 plain version
-   on the same bf16-rounded inputs, 1e-2 x max|o| on o and 1e-4 on the
-   fp32 state; log-decay -50 gives finite output; one launch per call,
-   bitwise repeatable; median device times (L2 flushed) of the kernel and
-   the plain version beside the bound.
+   serving prefill's shape (8 prompts x 128 tokens), one prompt of 128
+   (the engine's later prefills), ``prefill_32k`` at batch 1 (32,768
+   tokens), and odd lengths 145 (chunk 5) and 127 (chunk 1); r, k, v ~
+   N(0, 1), log-decay -|N(0, 1)|, u ~ 0.1 N(0, 1).  Prints each case's
+   segment plan (segments, blocks, kernels a call).  fp32 within 1e-4 of
+   the plain chunked version (o and state), and at the serving shape
+   within 1e-3 of the per-token oracle; bf16 r/k/v (fp32 log-decay, as a
+   bf16 model passes it) against the fp32 plain version on the same
+   bf16-rounded inputs, 1e-2 x max|o| on o, element by element at
+   ``ref.bf16_error_ratio``'s bar (|x - y| <= 2^-8|y| + ``ref.BF16_ATOL``)
+   and 1e-4 on the fp32 state; where a row has several segments, two
+   planted wrong outputs (the carry dropped at the middle segment, its
+   last chunk left out of the carry) must fail the same bars; log-decay
+   -50 gives finite output; one counted call, bitwise repeatable; median
+   device times (L2 flushed) of the kernel and the plain version beside
+   the bound.
 15. serve-rwkv6 — rwkv6-3b at full width in fp32 (random weights) under
    ``[serve]``'s traffic (``serve_workload.build(arch="rwkv6-3b")``).
    The qwen3 workload is freed first.  Checks the parameter count, every
@@ -1135,6 +1142,16 @@ def phase_attention_kernels(dev):
                 check(err <= tol, f"{tag}: {n} max abs err vs plain {err} > "
                       f"{tol}")
             emu, planted = {}, {}
+            if dtype == torch.float32:
+                # gradients with one key tile (or one head's share of the
+                # last key tile) left out must fail the fp32 bar of 5e-4
+                for n, x in _planted_wrong(q, k, v, g, got[0], lse, want,
+                                           window).items():
+                    if n in ("dq", "dk", "dv"):
+                        planted[n] = float((x.float() - want[ATTN_OUTS.index(
+                            n)]).abs().max()) / 5e-4
+                        check(planted[n] > 1.0, f"{tag}: a planted wrong {n} "
+                              f"passes the 5e-4 bar ({planted[n]:.3f} of it)")
             if dtype == torch.bfloat16:
                 # P and dS rounded as the kernels do; the backward from the
                 # kernel's own o and lse, so that each kernel is held alone
@@ -1218,10 +1235,9 @@ def phase_attention_kernels(dev):
                   + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
                   + (f"; vs the bf16-rounding plain version, share of the "
                      "bar: " + ", ".join(f"{n} {e:.4f}" for n, e in
-                                         emu.items())
-                     + "; planted wrong outputs: " + ", ".join(
-                         f"{n} {e:.2f}" for n, e in planted.items())
-                     if emu else "")
+                                         emu.items()) if emu else "")
+                  + "; planted wrong outputs, share of the bar: " + ", ".join(
+                      f"{n} {e:.2f}" for n, e in planted.items())
                   + "; mean abs err " + ", ".join(f"{n} {e:.3e}" for n, e in
                                                   mean.items())
                   + f"; sdpa yardstick o {lib_err:.3e}; launches fwd 1, dQ "
@@ -1460,11 +1476,37 @@ def _fold(x):
     return x.transpose(1, 2).reshape(b * h, s, d)
 
 
+def _wkv_planted(folded, uu, chunk, segment, dtype):
+    """Wrong outputs a faulty segmented K7 could give, from the plain
+    segmented version: the carried state dropped at the middle segment's
+    start, and the middle segment's last chunk left out of its local
+    state (so of the carry into the next one); rounded to ``dtype``."""
+    from repro_torch.kernels.rwkv6_scan.ref import (carry, segment_outputs,
+                                                    segment_states)
+    f32 = [x.float() for x in folded]
+    loc, a = segment_states(*f32, uu, chunk=chunk, segment=segment)
+    m = loc.shape[1] // 2
+    s_in = carry(loc, a)
+    s_in[:, m] = 0.0
+    dropped, _ = segment_outputs(*f32, uu, s_in, chunk=chunk,
+                                 segment=segment)
+    lo = m * segment
+    short = [x[:, lo:lo + segment - chunk] for x in f32]
+    loc[:, m] = segment_states(*short, uu, chunk=chunk,
+                               segment=segment - chunk)[0][:, 0]
+    missing, _ = segment_outputs(*f32, uu, carry(loc, a), chunk=chunk,
+                                 segment=segment)
+    return {"carry dropped": dropped.to(dtype),
+            "last chunk left out": missing.to(dtype)}
+
+
 def phase_wkv_kernel(dev):
     from repro_torch import serve_workload as sw
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.rwkv6_scan import ops as wops
-    from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_scan_chunked_ref,
+    from repro_torch.kernels.rwkv6_scan.ref import (BF16_ATOL,
+                                                    bf16_error_ratio,
+                                                    rwkv6_scan_chunked_ref,
                                                     rwkv6_scan_ref)
     from repro_torch.models.linear_scan import chunk_len
 
@@ -1473,6 +1515,7 @@ def phase_wkv_kernel(dev):
     h, dk = cfg.n_heads, cfg.head_dim
     cases = [  # tag, B, S, timed
         ("serving", sw.N_SLOTS, sw.PROMPT_LEN, True),
+        ("one prompt", 1, sw.PROMPT_LEN, True),
         ("prefill_32k", 1, PREFILL_32K, True),
         ("S=145", sw.N_SLOTS, 145, False),
         ("S=127", sw.N_SLOTS, 127, False)]
@@ -1480,6 +1523,11 @@ def phase_wkv_kernel(dev):
     for tag0, b, s, timed in cases:
         chunk = chunk_len(s, 16)
         r, k, v, ld, u = _wkv_inputs(dev, b, s, h, dk, seed=s)
+        pl = wops.plan(b * h, s, chunk, dk, dev)
+        print(f"[wkv-kernel] {tag0}: plan {pl.n_seg} segment(s) of "
+              f"{pl.seg_len} tokens, {pl.blocks} blocks a walk, "
+              f"{pl.kernels} kernel(s) a call, workspace "
+              f"{pl.workspace_bytes / 1e6:.1f} MB")
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"[wkv-kernel] {tag0} {str(dtype)[6:]}"
             rr, kk, vv = (x.to(dtype) for x in (r, k, v))
@@ -1499,10 +1547,33 @@ def phase_wkv_kernel(dev):
             check(o.dtype == dtype and err <= tol and err_st <= WKV_TOL,
                   f"{tag}: max abs err vs plain o {err} (tol {tol}), state "
                   f"{err_st} (tol {WKV_TOL})")
+            extra = ""
+            if dtype == torch.bfloat16:
+                # element by element: o's own rounding (2^-8 of the value)
+                # plus fp32's order of sums (BF16_ATOL)
+                ratio = bf16_error_ratio(_fold(o), want_o)
+                check(ratio <= 1.0, f"{tag}: o vs the fp32 plain version at "
+                      f"{ratio:.4f} of the element-wise bar")
+                extra = (f"; element-wise bar |x - y| <= 2^-8|y| + "
+                         f"{BF16_ATOL:.3e}: {ratio:.4f} of it")
+            if pl.n_seg > 1:
+                # the same bars must see a kernel that loses the carry or a
+                # chunk at one segment boundary
+                planted = {}
+                for pname, x in _wkv_planted(folded, uu, chunk, pl.seg_len,
+                                             dtype).items():
+                    planted[pname] = (
+                        float((x.float() - want_o).abs().max()) / WKV_TOL
+                        if dtype == torch.float32 else
+                        bf16_error_ratio(x, want_o))
+                    check(planted[pname] > 1.0, f"{tag}: planted wrong "
+                          f"output ({pname}) passes the bar at "
+                          f"{planted[pname]:.3f} of it")
+                extra += "; planted wrong outputs, share of the bar: " + \
+                    ", ".join(f"{n_} {x:.1f}" for n_, x in planted.items())
             again = wops.wkv(rr, kk, vv, ld, u, chunk=chunk)
             check(torch.equal(again[0], o) and torch.equal(again[1], st),
                   f"{tag}: not bitwise repeatable")
-            extra = ""
             if tag0 == "serving" and dtype == torch.float32:
                 oo, ost = rwkv6_scan_ref(*folded, uu)
                 err_or = max(float((_fold(o) - oo).abs().max()),
@@ -1514,12 +1585,12 @@ def phase_wkv_kernel(dev):
                                   chunk=chunk)
                 check(all(bool(torch.isfinite(x).all()) for x in strong),
                       f"{tag}: log-decay -50 gave a non-finite output")
-                extra = (f"; per-token oracle {err_or:.3e} (tol "
-                         f"{WKV_ORACLE_TOL}); log-decay -50 finite")
+                extra += (f"; per-token oracle {err_or:.3e} (tol "
+                          f"{WKV_ORACLE_TOL}); log-decay -50 finite")
             print(f"{tag}: B={b} S={s} H={h} dk=dv={dk} chunk {chunk}: max "
                   f"abs err vs plain o {err:.3e} (tol {tol:.3e}), state "
                   f"{err_st:.3e}; max|o| {float(want_o.abs().max()):.2f}; "
-                  f"one launch, bitwise repeatable{extra}")
+                  f"one counted call, bitwise repeatable{extra}")
             del want_o, want_st, again
             if timed:
                 iters = ATTN_ITERS if s <= 1024 else 3

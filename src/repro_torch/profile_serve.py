@@ -38,7 +38,7 @@ from .profile_round import _device_us
 def _kind(name: str) -> str:
     if "paged_decode" in name:       # split and combine kernels
         return "flash_decode_paged (K3)"
-    if "wkv_kernel" in name:
+    if "walk_kernel" in name or "carry_kernel" in name:   # K7's passes
         return "rwkv6_scan (K7)"
     if any(k in name for k in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
                                "splitK", "dot_kernel")):

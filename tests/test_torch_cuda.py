@@ -631,6 +631,46 @@ def test_flash_attention_kernel_layout_and_strided_views(dev, dtype):
               grad=True)
 
 
+BWD_FP32 = [  # (b, sq, sk, h, hkv, causal, window)
+    (2, 200, 200, 4, 2, True, 0),        # ragged last tile, interior tiles
+    (1, 320, 320, 4, 1, True, 96),       # the window's edge, skipped tiles
+    (1, 192, 130, 2, 2, False, 48),      # Sq != Sk, rows with no key
+    (1, 136, 264, 4, 2, False, 0)]       # Sq < Sk, every tile full width
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,causal,window", BWD_FP32)
+def test_flash_attention_fp32_backward_tiles(dev, hd, b, sq, sk, h, hkv,
+                                             causal, window):
+    """K6 in fp32 where its heavy-first tile order, the branch-free path
+    of interior tiles, masked diagonal and window-edge tiles and ragged
+    last tiles meet (lengths not a multiple of 64): o and lse within 2e-5
+    of the plain forward, dq, dk, dv within 5e-4 of the plain backward;
+    two backward calls bitwise equal."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    q, k, v, g = _acase(dev, b, sq, h, hkv, hd, sk=sk, seed=hd + sq)
+    o, lse = aops.attention_fwd(q, k, v, causal=causal, window=window)
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, causal=causal,
+                                             window=window)
+    torch.testing.assert_close(o, o_ref, atol=TOL, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=TOL, rtol=0)
+    aops.reset_launch_counts()
+    got = aops.attention_bwd(q, k, v, o, lse, g, causal=causal,
+                             window=window)
+    torch.cuda.synchronize()
+    assert aops.LAUNCHES == {"fwd": 0, "dq": 1, "dkv": 1}
+    want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, g, causal=causal,
+                                   window=window)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = float((x - y).abs().max())
+        assert err < 5e-4, (name, err)
+    again = aops.attention_bwd(q, k, v, o, lse, g, causal=causal,
+                               window=window)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
 def test_dense_round_is_bitwise_repeatable(dev):
     """The paper's hub round (VGG16 at full width) built twice from the
     same seed: two rounds each give bitwise equal parameters, selections
@@ -711,6 +751,72 @@ def test_rwkv6_scan_matches_plain(dev, bh, s, dk, dv, chunk, dtype):
     assert torch.equal(again[0], o) and torch.equal(again[1], st)
 
 
+def _k7_close(o, st, want_o, want_st, dtype):
+    """The K7 bars: fp32 1e-4 on o and state; bf16 o 1e-2 x max|o| and
+    element by element at ``ref.bf16_error_ratio``, the state 1e-4."""
+    from repro_torch.kernels.rwkv6_scan.ref import bf16_error_ratio
+    tol_o = 1e-4 if dtype == torch.float32 else \
+        1e-2 * float(want_o.abs().max())
+    torch.testing.assert_close(o.float(), want_o, atol=tol_o, rtol=0)
+    torch.testing.assert_close(st, want_st, atol=1e-4, rtol=0)
+    if dtype == torch.bfloat16:
+        assert bf16_error_ratio(o, want_o) <= 1.0
+
+
+@pytest.mark.parametrize("bh,s,chunk", [(1, 4096, 16), (2, 4095, 15)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_plan_segments_match_plain(dev, bh, s, chunk, dtype):
+    """Few rows of a long sequence: the plan itself cuts each row into
+    several segments (three launches, one counted call), held to the
+    plain chunked version and to the plain segmented version at the
+    plan's own segments; two calls bitwise equal."""
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.kernels.rwkv6_scan.ref import (
+        rwkv6_scan_chunked_ref, rwkv6_scan_segmented_ref)
+    r, k, v, ld, u = _wcase(dev, (bh, s), 64, 64, dtype, seed=s)
+    pl = wops.plan(bh, s, chunk, 64, dev)
+    assert pl.n_seg > 1 and pl.kernels == 3 and pl.seg_len % chunk == 0
+    before = wops.rwkv6_scan.launches
+    o, st = wops.rwkv6_scan(r, k, v, ld, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wops.rwkv6_scan.launches == before + 1
+    f32 = [x.float() for x in (r, k, v, ld, u)]
+    _k7_close(o, st, *rwkv6_scan_chunked_ref(*f32, chunk=chunk), dtype)
+    _k7_close(o, st, *rwkv6_scan_segmented_ref(*f32, chunk=chunk,
+                                               segment=pl.seg_len), dtype)
+    again = wops.rwkv6_scan(r, k, v, ld, u, chunk=chunk)
+    assert torch.equal(again[0], o) and torch.equal(again[1], st)
+
+
+@pytest.mark.parametrize("segments,b,s,chunk,dv", [
+    (2, 2, 128, 16, 64), (3, 1, 145, 5, 64), (5, 2, 127, 1, 32),
+    (4, 1, 96, 8, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_forced_segments_match_plain(dev, monkeypatch, segments, b, s,
+                                         chunk, dv, dtype):
+    """``wkv`` in the model layout with the segment count forced small
+    (the private ``_launch``'s keyword), odd chunks and a second column
+    tile included: within the K7 bars of the plain chunked version."""
+    import functools
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_chunked_ref
+    assert wops.plan(b * 3, s, chunk, dv, dev, segments).n_seg > 1
+    monkeypatch.setattr(wops, "_launch",
+                        functools.partial(wops._launch, segments=segments))
+    r, k, v, ld, u = _wcase(dev, (b, s, 3), 64, dv, dtype, seed=segments)
+    o, st = wops.wkv(r, k, v, ld, u, chunk=chunk)
+
+    def fold(x):
+        return x.transpose(1, 2).reshape(b * 3, s, -1).float()
+
+    want_o, want_st = rwkv6_scan_chunked_ref(
+        fold(r), fold(k), fold(v), fold(ld), u.float().repeat(b, 1),
+        chunk=chunk)
+    _k7_close(fold(o), st.reshape(b * 3, 64, dv), want_o, want_st, dtype)
+    again = wops.wkv(r, k, v, ld, u, chunk=chunk)
+    assert torch.equal(again[0], o) and torch.equal(again[1], st)
+
+
 def test_wkv_model_layout_matches_oracle(dev):
     """wkv in the model layout (strided, no fold copy), bf16 r/k/v with an
     fp32 log-decay as a bf16 model passes them; the fp32 case within
@@ -760,12 +866,14 @@ def test_rwkv6_scan_never_runs_plain_on_card(dev, monkeypatch):
 
 
 @pytest.mark.parametrize("bad", ["chunk", "divides", "dk", "device",
-                                 "grad"])
+                                 "grad", "misaligned"])
 def test_rwkv6_scan_wrapper_raises(dev, bad):
     from repro_torch.kernels.rwkv6_scan import ops as wops
     r, k, v, ld, u = _wcase(dev, (2, 64), 64, 64)
     chunk = 16
-    if bad == "chunk":
+    if bad == "misaligned":          # rows 4 bytes past a 16-byte boundary
+        r = torch.zeros(r.numel() + 1, device=dev)[1:].view(r.shape)
+    elif bad == "chunk":
         chunk = 64
     elif bad == "divides":
         chunk = 24

@@ -6,6 +6,8 @@ its ``wkv``), its per-token oracle and its chunked substrate, on the
 same numpy inputs, at the reference's own shapes and bars
 (``tests/test_kernels_rwkv6.py``): 1e-3 against the per-token oracle,
 1e-4 against the chunked forms."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +19,8 @@ from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref as r_oracle
 from repro.models.linear_scan import chunked_linear_scan as r_chunked
 from repro_torch.kernels.rwkv6_scan import ops
 from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_scan_chunked_ref,
-                                                rwkv6_scan_ref)
+                                                rwkv6_scan_ref,
+                                                rwkv6_scan_segmented_ref)
 
 ORACLE_TOL = 1e-3
 CHUNKED_TOL = 1e-4
@@ -175,3 +178,89 @@ def test_chunk_32_at_the_floor_overflows_in_both():
         o_k, _ = r_wkv(*(jnp.asarray(x) for x in ins), chunk=chunk)
         assert bool(torch.isfinite(o).all()) == finite
         assert bool(np.isfinite(np.asarray(o_k)).all()) == finite
+
+
+# -- the segmented form the CUDA kernel computes ------------------------------
+
+SEGMENTED = {  # chunk -> (S, segments: one chunk, several chunks, whole row)
+    16: (64, (16, 48, 64)), 5: (45, (5, 15, 45)), 1: (17, (1, 5, 17))}
+
+
+@functools.lru_cache(maxsize=None)
+def _segmented_case(chunk, bf16):
+    """Kernel-layout inputs (torch) and the reference's Pallas kernel
+    (interpret mode) on them, computed once per (chunk, dtype)."""
+    s = SEGMENTED[chunk][0]
+    r, k, v, ld, u = _inputs(1, s, 3, 16, 24, seed=chunk)
+    folded = [_fold(x) for x in (r, k, v, ld)] + [u]
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    o_k, st_k = r_rwkv6_scan(*(jnp.asarray(x).astype(jdt) for x in folded),
+                             chunk=chunk, interpret=True)
+    ins = _t(folded)
+    if bf16:
+        ins = tuple(x.to(torch.bfloat16) for x in ins)
+    return ins, np.asarray(o_k, np.float32), np.asarray(st_k, np.float32)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("chunk", sorted(SEGMENTED))
+@pytest.mark.parametrize("which", [0, 1, 2],
+                         ids=["one_chunk", "several", "whole_row"])
+def test_segmented_matches_reference_kernel(which, chunk, bf16):
+    """``rwkv6_scan_segmented_ref`` (pass 1, carry, pass 3, as the CUDA
+    kernel runs them) against the reference's Pallas kernel in interpret
+    mode on the same inputs: segments of one chunk, of several (the last
+    one shorter where the row is not a multiple) and of the whole row, at
+    chunks 16, 5 and 1.  The file's bars: 1e-4 in fp32 (kernel vs
+    substrate), 1e-2 x max|o| on bf16 outputs (one bf16 rounding of the
+    largest output) and 1e-4 on the fp32 state; the whole-row case is
+    the chunked version bitwise."""
+    ins, o_k, st_k = _segmented_case(chunk, bf16)
+    segment = SEGMENTED[chunk][1][which]
+    o, st = rwkv6_scan_segmented_ref(*ins, chunk=chunk, segment=segment)
+    assert o.dtype == ins[0].dtype and st.dtype == torch.float32
+    tol = 1e-2 * float(np.abs(o_k).max()) if bf16 else CHUNKED_TOL
+    assert _max(o.float(), o_k) < tol
+    assert _max(st, st_k) < CHUNKED_TOL
+    if segment >= ins[0].shape[1]:
+        o_c, st_c = rwkv6_scan_chunked_ref(*ins, chunk=chunk)
+        assert torch.equal(o, o_c) and torch.equal(st, st_c)
+
+
+PLANS = [  # (tag, rows x column tiles, S, chunk, fills the card)
+    ("serving", 320, 128, 16, True), ("prefill_32k", 40, 32768, 16, True),
+    ("S=145", 320, 145, 5, True), ("S=127", 320, 127, 1, True),
+    ("one_prompt", 40, 128, 16, True), ("bh2_4096", 2, 4096, 16, True),
+    ("bh1_4095", 1, 4095, 15, False), ("one_chunk", 1, 16, 16, False)]
+
+
+@pytest.mark.parametrize("tag,rows,s,chunk,fills", PLANS,
+                         ids=[p[0] for p in PLANS])
+def test_segment_plan(tag, rows, s, chunk, fills):
+    """The K7 plan on a 132-SM card: segments hold whole chunks, every
+    chunk lies in exactly one segment, none is empty, the blocks fill the
+    card where the row has chunks enough, and rows that fill the card
+    alone are not split."""
+    n_sm = 132
+    n_seg, seg_len = ops._plan_segments(rows, s, chunk, n_sm)
+    assert seg_len % chunk == 0 and seg_len >= chunk
+    owner = [j * chunk // seg_len for j in range(s // chunk)]
+    assert owner == sorted(owner) and set(owner) == set(range(n_seg))
+    assert (n_seg - 1) * seg_len < s <= n_seg * seg_len
+    if rows >= ops.MIN_ROW_BLOCKS * n_sm:
+        assert n_seg == 1
+    else:
+        assert seg_len >= min(ops.MIN_SEG_CHUNKS * chunk, s)
+    assert (rows * n_seg >= n_sm) == fills
+    if tag == "prefill_32k":
+        assert n_seg > 1
+
+
+@pytest.mark.parametrize("forced", [1, 2, 3, 5, 64])
+def test_segment_plan_forced(forced):
+    """A forced segment count (the card tests' knob) is clamped to the
+    chunks and still covers the row with whole chunks."""
+    n_seg, seg_len = ops._plan_segments(8, 145, 5, 132, n_seg=forced)
+    assert n_seg == min(forced, 29)
+    assert seg_len % 5 == 0 and (n_seg - 1) * seg_len < 145 <= \
+        n_seg * seg_len
