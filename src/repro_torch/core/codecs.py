@@ -25,6 +25,13 @@ Contract (``build_codec_transform``):
   ``uniform(i, shape)`` callable (``i`` the flattened leaf index), so a
   test can feed it the reference's own draws.  The ``Server`` passes
   draws from a generator on the round's device.
+* The transform runs in two phases: it prepares leaves' rows, hands
+  them to :meth:`Codec.rows_roundtrip`, then decodes, masks and updates
+  the residual leaf by leaf.  A codec that overrides ``rows_roundtrip``
+  gets every leaf in one call (the quantizing codecs encode the whole
+  round in one grouped kernel call, drawing each leaf's uniforms in leaf
+  order as the per-leaf path did); one that keeps the default gets one
+  leaf a call, so it holds one leaf's prepared rows at a time.
 * Stateful codecs (``stateful = True``, i.e. ``topk_ef``) thread a
   per-client error-feedback residual tree (leaves ``(C, *param)``,
   float32) through the round step: residual rows are gathered into
@@ -36,13 +43,14 @@ Contract (``build_codec_transform``):
 from __future__ import annotations
 
 import math
-from typing import Callable, ClassVar, Dict, Optional, Type, Union
+from typing import (Callable, ClassVar, Dict, List, NamedTuple, Optional,
+                    Type, Union)
 
 import numpy as np
 import torch
 
 from ..common import flatten_with_paths
-from ..kernels.codec.ops import quantize_pack
+from ..kernels.codec.ops import quantize_pack, quantize_pack_group
 from ..kernels.codec.ref import dequantize_unpack
 from .masking import UnitAssignment
 from .registry import unknown_name_message
@@ -66,6 +74,14 @@ class Codec:
                       fl=None) -> torch.Tensor:
         """decode(encode(x2)) for ``(R, P)`` float32 rows."""
         raise NotImplementedError
+
+    def rows_roundtrip(self, xs: List[torch.Tensor],
+                       draws: List[Optional[Draw]],
+                       fl=None) -> List[torch.Tensor]:
+        """decode(encode(x)) for each leaf's ``(R, P)`` float32 rows in
+        ``xs``, ``draws[i]`` leaf i's uniforms (None for deterministic
+        codecs).  The default runs :meth:`row_roundtrip` leaf by leaf."""
+        return [self.row_roundtrip(x, d, fl) for x, d in zip(xs, draws)]
 
 
 class UnknownCodecError(KeyError):
@@ -137,6 +153,13 @@ class _QuantCodec(Codec):
     def row_roundtrip(self, x2, draw, fl=None):
         packed, scale = quantize_pack(x2, draw(tuple(x2.shape)), self.bits)
         return dequantize_unpack(packed, scale, self.bits, x2.shape[1])
+
+    def rows_roundtrip(self, xs, draws, fl=None):
+        # uniforms leaf by leaf in leaf order, then one grouped encode
+        us = [d(tuple(x.shape)) for x, d in zip(xs, draws)]
+        return [dequantize_unpack(packed, scale, self.bits, x.shape[1])
+                for (packed, scale), x in
+                zip(quantize_pack_group(xs, us, self.bits), xs)]
 
 
 @register_codec
@@ -286,54 +309,84 @@ def build_codec_transform(codec: Codec, assign: UnitAssignment, fl):
             raise ValueError(f"codec {codec.name!r} rounds stochastically: "
                              f"pass uniform(i, shape)")
         out, new_res = {}, {}
-        for i, (path, d) in enumerate(flatten_with_paths(pdeltas)):
-            draw = (lambda shape, i=i: uniform(i, shape)) \
-                if codec.stochastic else None
-            res = None if state is None else state[path]
-            out[path], new_res[path] = _leaf_roundtrip(
-                codec, fl, assign.leaf_units[path].kind, d, rows[path],
-                valid[path], res, weights, draw, decay)
+
+        def roundtrip(part, first):
+            # prepare, one rows_roundtrip call, finish; ``first``: the
+            # flattened index of part's first leaf
+            leaves = [_leaf_prepare(
+                assign.leaf_units[path].kind, d, rows[path], valid[path],
+                None if state is None else state[path], decay)
+                for path, d in part]
+            draws = [(lambda shape, i=i: uniform(i, shape))
+                     if codec.stochastic else None
+                     for i in range(first, first + len(part))]
+            xhs = codec.rows_roundtrip([lf.x2 for lf in leaves], draws, fl)
+            for (path, _), lf, xh in zip(part, leaves, xhs):
+                out[path], new_res[path] = _leaf_finish(
+                    lf, xh, None if state is None else state[path], weights)
+
+        flat = list(flatten_with_paths(pdeltas))
+        # a codec with its own rows_roundtrip takes the round in one call;
+        # the default takes one leaf a call, so one leaf's rows live at once
+        step = 1 if type(codec).rows_roundtrip is Codec.rows_roundtrip \
+            else max(len(flat), 1)
+        for first in range(0, len(flat), step):
+            roundtrip(flat[first:first + step], first)
         return out, (None if state is None else new_res)
 
     return transform
 
 
-def _leaf_roundtrip(codec, fl, kind, d, r, v, res, weights, draw, decay):
-    """Round-trip one client-stacked leaf; returns (decoded, new_res)."""
+class _Leaf(NamedTuple):
+    """One client-stacked leaf between the two phases of the transform."""
+    x: torch.Tensor            # the signal, leaf-shaped, pads zeroed
+    x2: torch.Tensor           # the same as (rows, P) for the codec
+    vm: torch.Tensor           # validity, broadcast over the leaf
+    rr: Optional[torch.Tensor]  # stacked + residual: its slot rows
+    r: Optional[torch.Tensor]  # stacked + residual: the slot plan (C, L)
+
+
+def _leaf_prepare(kind, d, r, v, res, decay) -> _Leaf:
+    """The rows one client-stacked leaf ships: pads zeroed and, under a
+    residual, the decayed residual added."""
     c = d.shape[0]
     dev = d.device
     vm = _expand(v.to(device=dev, dtype=d.dtype), d.ndim)   # (C[, L], 1...)
-    w = _expand(weights.float().to(dev), d.ndim)
     decay_b = None if res is None else _expand(
         torch.ones(c, device=dev) if decay is None else decay.to(dev),
         d.ndim)
     if kind == "scalar":
         p = int(np.prod(d.shape[1:]))
         x = d * vm if res is None else (d + decay_b * res) * vm
-        xh = codec.row_roundtrip(x.reshape(c, p), draw, fl)
-        xh = xh.reshape(d.shape) * vm                       # pads: exact 0
-        if res is None:
-            return xh, None
-        ok = (vm > 0) & (w > 0)
-        return xh, torch.where(ok, x - xh, res)
+        return _Leaf(x, x.reshape(c, p), vm, None, None)
     # stacked leaf: d (C, L, ...), r (C, L), v (C, L)
     l = d.shape[1]
     p = int(np.prod(d.shape[2:]))
+    rr = None
     if res is not None:
         r = r.to(device=dev, dtype=torch.long)
-        ci = torch.arange(c, device=dev)[:, None]
-        rr = res[ci, r]                                     # (C, L, ...)
+        rr = res[torch.arange(c, device=dev)[:, None], r]   # (C, L, ...)
         x = (d + decay_b * rr) * vm
     else:
         x = d * vm
-    xh = codec.row_roundtrip(x.reshape(c * l, p), draw, fl)
-    xh = xh.reshape(d.shape) * vm                           # pads: exact 0
+    return _Leaf(x, x.reshape(c * l, p), vm, rr, r)
+
+
+def _leaf_finish(lf: _Leaf, xh, res, weights):
+    """Decoded rows back to the leaf (pads exact 0) and, under a
+    residual, the new residual; returns (decoded, new_res)."""
+    x, vm = lf.x, lf.vm
+    xh = xh.reshape(x.shape) * vm                           # pads: exact 0
     if res is None:
         return xh, None
+    w = _expand(weights.float().to(x.device), x.ndim)
     ok = (vm > 0) & (w > 0)
-    upd = torch.where(ok, x - xh, rr)
+    if lf.rr is None:                                       # scalar leaf
+        return xh, torch.where(ok, x - xh, res)
+    upd = torch.where(ok, x - xh, lf.rr)
     new_res = res.clone()
-    new_res[ci, r] = upd              # rows of a client are distinct
+    ci = torch.arange(x.shape[0], device=x.device)[:, None]
+    new_res[ci, lf.r] = upd           # rows of a client are distinct
     return xh, new_res
 
 

@@ -1,9 +1,10 @@
 """Plain PyTorch version of the codec kernel, and the decode half.
 
-``quantize_pack_ref`` is the function the CUDA kernel computes, op for
-op as the reference's ``kernels/codec/ref.py``: the wrapper runs it for
-CPU tensors, and ``chip_smoke.py`` holds the kernel to it bitwise on
-the card.  ``dequantize_unpack`` is the decode half used inside the
+``quantize_pack_ref`` is the function the CUDA kernel computes for one
+leaf, op for op as the reference's ``kernels/codec/ref.py``, and
+``quantize_pack_group_ref`` the same for a list of leaves, as the
+kernel takes them: the wrapper runs it for CPU tensors, and
+``chip_smoke.py`` holds the kernel to it bitwise on the card.  ``dequantize_unpack`` is the decode half used inside the
 round step — cheap elementwise work, so it stays plain torch.
 """
 from __future__ import annotations
@@ -43,6 +44,12 @@ def quantize_pack_ref(x: torch.Tensor, u: torch.Tensor, bits: int):
         return q.to(torch.int8), scale
     pairs = (q.to(torch.int32) + 8).reshape(x.shape[0], -1, 2)
     return (pairs[:, :, 0] | (pairs[:, :, 1] << 4)).to(torch.uint8), scale
+
+
+def quantize_pack_group_ref(xs, us, bits: int):
+    """``[(packed, scale)]`` of :func:`quantize_pack_ref` for each leaf
+    ``(xs[i], us[i])``, in leaf order."""
+    return [quantize_pack_ref(x, u, bits) for x, u in zip(xs, us)]
 
 
 def dequantize_unpack(packed: torch.Tensor, scale: torch.Tensor, bits: int,

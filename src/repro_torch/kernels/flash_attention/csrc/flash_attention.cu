@@ -42,22 +42,23 @@
 // TFLOP/s of fp32 outside the tensor cores, and 344 GFLOP backward, 5.13
 // ms; the inputs are ~67 MB, ~0.02 ms at 3.35 TB/s.
 //
-// Design (SIMT fp32: TF32 is off, so no tensor cores).  Forward: a block
-// of 256 threads owns (batch, query head, 64 query rows); key tiles are
-// staged in shared memory as fp32 rows padded by 4 floats, so 16-byte reads
-// of eight consecutive rows hit distinct banks.  Threads form a 16 x 16
-// grid: thread (rg, cg) computes the scores of rows rg*R..rg*R+R-1 against
-// columns cg, cg+16, ... with float4 reads along head_dim, and owns the
-// output elements of its rows in columns (m*16 + cg)*4..+3; the 16
-// threads of a row are one half-warp, so row maxima and sums are warp
-// shuffles.  Tiles: 64 x 64 up to head_dim 128, key tiles of 32 at 256.
+// Design (SIMT fp32: TF32 is off, so no tensor cores).  What caps a SIMT
+// product here is shared memory, not the FMA pipe: an SM's shared memory
+// hands out 32 floats a cycle against 128 FMAs, so a thread tile must do
+// 4 FMAs per float it loads to run at the FMA rate.  Every kernel streams
+// the tiles it does not own through a cp.async ring, so that the next
+// chunk lands while the current one is multiplied, and skips the tiles
+// that causality and the window leave out whole; only tiles on the
+// diagonal, the window's edge or a ragged end test allowed().  Forward
+// (see "forward" below): a block owns 128 query rows (64 at head dim
+// 256) and walks its key tiles of 128 with 8 x 8 thread tiles (8 x 4 in
+// the scores at 256).
 // Backward: two kernels on one pipeline (see "backward" below): dQ per
 // query tile, and dK/dV per key tile with the n_rep query heads of its
 // group summed in fp32 registers, so dK/dV are written once per KV head in
 // (B, Sk, Hkv, hd), with no per-query-head intermediates, no reduction
 // pass and no atomics (dQ recomputes S and dP: 7 products where the bound
-// counts 5).  Tiles that causality and the window leave out are skipped
-// whole.  Every sum runs in a fixed order, so two runs are bitwise equal.
+// counts 5).  Every sum runs in a fixed order, so two runs are bitwise equal.
 // Every tensor is read and written through its (batch, sequence, head)
 // element strides with head_dim contiguous, so the model layout
 // (B, S, H, hd) needs no transpose.
@@ -69,6 +70,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;   // the reference's masked score
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
 // the order of the pointers and strides the host passes
 enum Slot { kQ, kK, kV, kDO, kLse, kDelta, kOut0, kOut1 };
@@ -89,17 +91,6 @@ struct Params {
   float scale;
 };
 
-// 16 bytes of a row: 4 floats
-__device__ __forceinline__ void load16(const float* p, float* x) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
 __device__ __forceinline__ bool tile_runs(const Params& p, int q0, int q1,
                                           int k0, int k1) {
   // the Pallas kernels' block skip (kernel.py:45-49), at this kernel's
@@ -111,293 +102,9 @@ __device__ __forceinline__ bool allowed(const Params& p, int i, int j) {
   return (!p.causal || j <= i) && (p.window <= 0 || j > i - p.window);
 }
 
-// Stage ROWS rows of head_dim HD (rows row0.. of a tensor whose rows are
-// row_stride elements apart, from base) in shared memory as fp32 rows of
-// HD + 4; rows at or past n are zeros.
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void load_tile(float* sm, const T* base,
-                                          int64_t row_stride, int row0,
-                                          int n) {
-  constexpr int VE = 16 / sizeof(T);
-  constexpr int VPR = HD / VE;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += kThreads) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * VE;
-    float x[VE];
-    if (row0 + r < n) {
-      load16(base + static_cast<int64_t>(row0 + r) * row_stride + c, x);
-    } else {
-#pragma unroll
-      for (int u = 0; u < VE; ++u) x[u] = 0.f;
-    }
-    float* dst = sm + r * (HD + 4) + c;
-#pragma unroll
-    for (int u = 0; u < VE; u += 4)
-      *reinterpret_cast<float4*>(dst + u) =
-          make_float4(x[u], x[u + 1], x[u + 2], x[u + 3]);
-  }
-}
-
-// s[i][j] = a[ra + i] . b[cb + 16 j] over HD, rows of shared tiles with
-// leading dimension HD + 4.
-template <int HD, int R, int C>
-__device__ __forceinline__ void dots(const float* sa, const float* sb, int ra,
-                                     int cb, float (&s)[R][C]) {
-  constexpr int LD = HD + 4;
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < C; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 a[R], b[C];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      a[i] = *reinterpret_cast<const float4*>(sa + (ra + i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < C; ++j)
-      b[j] = *reinterpret_cast<const float4*>(sb + (cb + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        float x = s[i][j];
-        x = fmaf(a[i].x, b[j].x, x);
-        x = fmaf(a[i].y, b[j].y, x);
-        x = fmaf(a[i].z, b[j].z, x);
-        x = fmaf(a[i].w, b[j].w, x);
-        s[i][j] = x;
-      }
-  }
-}
-
-// Columns a thread owns of a head_dim-wide output row: EPT = HD / 16 of
-// them, in VEC-wide groups at (m * 16 + cg) * VEC.
-template <int HD>
-struct Cols {
-  static constexpr int EPT = HD / 16;
-  static constexpr int VEC = EPT >= 4 ? 4 : EPT;
-  static constexpr int NV = EPT / VEC;
-  __device__ static __forceinline__ int col(int cg, int e) {
-    return ((e / VEC) * 16 + cg) * VEC + e % VEC;
-  }
-};
-
-// acc[i][e] += sum_{c < NC} w[ra + i][c] * b[c][col(e)], w a shared tile
-// of leading dimension LDW, b one of leading dimension HD + 4.
-template <int HD, int R, int NC, int LDW>
-__device__ __forceinline__ void accum(const float* sw, const float* sb, int ra,
-                                      int cg,
-                                      float (&acc)[R][Cols<HD>::EPT]) {
-  using C = Cols<HD>;
-  constexpr int LD = HD + 4;
-#pragma unroll 2
-  for (int c = 0; c < NC; c += 4) {
-    float4 w[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      w[i] = *reinterpret_cast<const float4*>(sw + (ra + i) * LDW + c);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      float bv[C::EPT];
-      const float* row = sb + (c + cc) * LD;
-#pragma unroll
-      for (int m = 0; m < C::NV; ++m) {
-        const float* src = row + (m * 16 + cg) * C::VEC;
-        if constexpr (C::VEC == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(src);
-          bv[4 * m] = t.x;
-          bv[4 * m + 1] = t.y;
-          bv[4 * m + 2] = t.z;
-          bv[4 * m + 3] = t.w;
-        } else {
-          const float2 t = *reinterpret_cast<const float2*>(src);
-          bv[2 * m] = t.x;
-          bv[2 * m + 1] = t.y;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float wi = cc == 0 ? w[i].x : cc == 1 ? w[i].y
-                       : cc == 2 ? w[i].z : w[i].w;
-#pragma unroll
-        for (int e = 0; e < C::EPT; ++e) acc[i][e] = fmaf(wi, bv[e], acc[i][e]);
-      }
-    }
-  }
-}
-
-// reductions over the 16 threads of a row (one half-warp)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // ---------------------------------------------------------------------------
-// forward: one block per (query tile, query head, batch)
+// the cp.async pipeline that every kernel here streams its tiles through
 // ---------------------------------------------------------------------------
-
-template <typename T, int HD, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(Params p) {
-  constexpr int LD = HD + 4, LDP = BK + 4, R = BQ / 16, C = BK / 16;
-  constexpr int EPT = Cols<HD>::EPT;
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * LD;
-
-  const int h = blockIdx.y, b = blockIdx.z, g = h / p.n_rep;
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
-  const int q0 = blockIdx.x * BQ, q1 = min(q0 + BQ, p.sq) - 1;
-  const T* qb = static_cast<const T*>(p.q) + b * p.st[kQ][0] + h * p.st[kQ][2];
-  const T* kb = static_cast<const T*>(p.k) + b * p.st[kK][0] + g * p.st[kK][2];
-  const T* vb = static_cast<const T*>(p.v) + b * p.st[kV][0] + g * p.st[kV][2];
-  load_tile<T, HD, BQ>(sQ, qb, p.st[kQ][1], q0, p.sq);
-
-  float m[R], l[R], acc[R][EPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) acc[i][e] = 0.f;
-  }
-  // a query row with no allowed key averages V over every key
-  const bool every = p.window > 0 && q1 - p.window >= p.sk - 1;
-  const int nk = (p.sk + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK, k1 = min(k0 + BK, p.sk) - 1;
-    if (!every && !tile_runs(p, q0, q1, k0, k1)) continue;
-    __syncthreads();                  // the last tile's readers are done
-    load_tile<T, HD, BK>(sK, kb, p.st[kK][1], k0, p.sk);
-    load_tile<T, HD, BK>(sV, vb, p.st[kV][1], k0, p.sk);
-    __syncthreads();
-    float s[R][C];
-    dots<HD, R, C>(sQ, sK, rg * R, cg, s);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qi = q0 + rg * R + i;
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        const int kj = k0 + cg + 16 * j;
-        const float x = s[i][j] * p.scale;
-        s[i][j] = kj < p.sk && allowed(p, qi, kj) ? x : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max(mx);
-      const float corr = expf(m[i] - mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        const int kj = k0 + cg + 16 * j;
-        const float pij = kj < p.sk ? expf(s[i][j] - mx) : 0.f;
-        psum += pij;
-        sP[(rg * R + i) * LDP + cg + 16 * j] = pij;
-      }
-      l[i] = l[i] * corr + row_sum(psum);
-#pragma unroll
-      for (int e = 0; e < EPT; ++e) acc[i][e] *= corr;
-      m[i] = mx;
-    }
-    __syncthreads();
-    accum<HD, R, BK, LDP>(sP, sV, rg * R, cg, acc);
-  }
-
-  T* ob = static_cast<T*>(p.out0) + b * p.st[kOut0][0] + h * p.st[kOut0][2];
-  float* lb = p.lse + b * p.st[kLse][0] + h * p.st[kLse][1];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qi = q0 + rg * R + i;
-    if (qi >= p.sq) continue;
-    const float ll = fmaxf(l[i], 1e-30f);
-    T* orow = ob + qi * p.st[kOut0][1];
-#pragma unroll
-    for (int e = 0; e < EPT; ++e)
-      store(orow + Cols<HD>::col(cg, e), acc[i][e] / ll);
-    if (cg == 0) lb[qi * p.st[kLse][2]] = m[i] + logf(ll);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: dQ and dK/dV on one pipeline
-// ---------------------------------------------------------------------------
-//
-// A block of 256 threads owns BM = 64 rows (queries for dQ, keys for
-// dK/dV) and streams the other side's rows in tiles of BN = 64 ("items":
-// key tiles for dQ; (query head of the group, query tile) for dK/dV).  The
-// block's own tiles (Q and dO, or K and V) stay in shared memory; the
-// streamed ones (K and V, or Q and dO) arrive in depth chunks of DC = 32
-// columns through a cp.async ring, two chunks in flight while one is
-// multiplied.  At head dim 128 an item's chunks stay in the ring until its
-// products have read them; at 256 (and below 128) the products stream
-// them again (a second pass through L2: at 256 the full streamed tiles
-// would not fit beside the own ones).  Per item:
-//   scores   group 0 (threads 0-127): S = A0 B0^T, group 1: dP = A1 B1^T
-//            (A the own tiles, B the streamed chunk; depth hd, chunk by
-//            chunk), each thread 8 rows x 4 columns of the 64 x 64 tile;
-//            both are written to shared memory, transposed [streamed][own];
-//   softmax  all 256 threads, 16 elements each: P = exp(S scale - lse) (0
-//            where masked; only tiles on the diagonal or the window's edge
-//            test allowed()), dS = P (dP - delta) scale, in place;
-//   products dQ += dS K (group g: key-chunk pair g when resident, else
-//            chunk 2p + g of each streamed pair); dV += P^T dO (group 0)
-//            and dK += dS^T Q (group 1); each thread 8 rows x 4 columns
-//            of a chunk pair (resident) or 4 x 4 of a chunk, summed in
-//            registers over every item (dK/dV over the GQA group too).
-// Per 16-byte shared-memory read: 10.7 FMAs in the scores, 10.7 or 8 in
-// the products.  An SM's shared memory hands out 32 floats a cycle
-// against 128 FMAs, so these tile shapes cap the phases at 67% (and 50%)
-// of the FMA rate; larger tiles need more streamed rows than fp32 fits.
-// Registers at head dim 256: 128 accumulators for dK/dV (one of dK and
-// dV per thread: the two products are split between the warp groups,
-// the head dim is not), 64 for dQ.  Blocks are issued heaviest first:
-// dQ's last query tiles, dK/dV's first key tiles (the tile is the
-// slowest grid index).  No atomics, fixed orders: bitwise repeatable.
-
-constexpr int kBM = 64, kBN = 64;
-constexpr int kLdX = kBM + 4;                 // P / dS rows: [streamed][own]
-
-// A thread's 8 own rows: ra..ra+3 and ra+8..ra+11, ra = (rg / 2) * 16 +
-// (rg % 2) * 4, so that the two row groups of a warp read disjoint banks.
-__device__ __forceinline__ int own_row(int ra, int i) {
-  return ra + (i & 3) + (i >> 2) * 8;
-}
-
-template <int HD>
-struct Bwd {
-  static constexpr int LD = HD + 4;           // own tiles
-  static constexpr int DC = HD >= 64 ? 32 : 16;
-  static constexpr int NC = HD / DC;          // depth chunks
-  static constexpr int LDC = DC + 4;
-  static constexpr int CPT = DC / 8;          // product columns a thread
-  static constexpr int STAGE = 2 * kBN * LDC; // floats: two chunk tiles
-  // At head dim 128 an item's chunks stay in the ring until its products
-  // have read them (NC slots + 2 in flight); at 256 they would not fit
-  // beside the own tiles, so the products stream them again (and below
-  // 128 the shared memory is not worth the second tile shape).
-  static constexpr bool RESIDENT = HD == 128;
-  static constexpr int AHEAD = 2;             // stages in flight
-  static constexpr int SLOTS = RESIDENT ? NC + AHEAD : AHEAD + 1;
-  // products: with resident chunks a thread takes 8 rows x 4 columns of
-  // a chunk pair (2.67 FMAs a loaded float); streamed, 4 rows x CPT
-  // columns of one chunk (2)
-  static constexpr int PR = RESIDENT ? 8 : 4;
-  static constexpr int PC = RESIDENT ? 4 : CPT;
-  // unrolling of the score and product loops, by measurement (the
-  // registers left beside 128 accumulators at 256 favour short loops)
-  static constexpr int SCORE_UNROLL = HD <= 128 ? 4 : 1;
-  static constexpr int PRODUCT_UNROLL = HD <= 128 ? 8 : 2;
-};
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
@@ -448,7 +155,409 @@ __device__ __forceinline__ void stage_stats(float* sm, const float* base,
 }
 
 // s[i][j] += a[own_row(ra, i)] . b[cb + 16 j] over one chunk of DC columns
-// (a: own tile of leading dimension LD at column c0; b: chunk tile)
+
+
+// A thread's 8 own rows: ra..ra+3 and ra+8..ra+11, ra = (rg / 2) * 16 +
+// (rg % 2) * 4, so that the two row groups of a warp read disjoint banks.
+__device__ __forceinline__ int own_row(int ra, int i) {
+  return ra + (i & 3) + (i >> 2) * 8;
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (query tile, query head, batch)
+// ---------------------------------------------------------------------------
+//
+// A block of 256 threads owns BQ query rows, whose Q stays in shared
+// memory, and walks the key tiles that run (all of them when a row of the
+// tile has no allowed key), BK keys a tile, in ascending order.  Per key
+// tile it streams K in depth chunks of DC columns and then V in chunks of
+// VK whole rows through one cp.async ring, AHEAD stages in flight:
+//   scores   S = Q K^T, each thread SR x SC (8 x 8; 8 x 4 at head dim
+//            256) of the BQ x BK tile,
+//            rows own_row(ra, i), columns cg + NCG j, summed over the K
+//            chunks in registers;
+//   softmax  the online softmax in the same registers: the NCG threads
+//            of a row (one half-warp, or a warp at 256) reduce its max
+//            and sum by shuffles; P goes to shared memory transposed,
+//            [key][query], and each row's rescale factor beside it; only
+//            tiles on the diagonal, the window's edge or the ragged end
+//            test allowed();
+//   products O = O corr + P V, each thread PR consecutive rows x PC
+//            columns (8 x 8 at head dims 128 and 256), over the V chunks.
+// Per 16-byte shared-memory read both products do 16 FMAs at 8 x 8, so
+// their operands no longer cap them below the FMA rate (4 x 4 tiles
+// did 8; 8 x 4 does 10.7).  Tiles: BQ x BK = 128 x 128 up to head dim
+// 128 (Q, P and four ring slots: 205 KB); 64 x 128 at 256, three slots
+// (197 KB; key tiles of 256 with 8 x 8 scores were slower: the keys a
+// window's edge and the diagonal waste grow with the tile).  Blocks are
+// issued heaviest first (the last query tiles under causal masking).  Every sum
+// runs in a fixed order: bitwise repeatable.
+
+template <int HD>
+struct Fwd {
+  static constexpr int BQ = HD <= 128 ? 128 : 64;   // query rows
+  static constexpr int BK = 128;                    // keys a tile
+  static constexpr int NCG = HD <= 128 ? 16 : 32;   // threads of a row
+  static constexpr int DC = 32;                     // K chunk: columns
+  static constexpr int VK = 32;                     // V chunk: rows
+  static constexpr int PR = HD <= 32 ? 4 : 8;       // product rows
+  static constexpr int AHEAD = HD <= 128 ? 3 : 2;   // stages in flight
+  static constexpr int SC = BK / NCG;               // score columns
+  static constexpr int SR = BQ * NCG / kThreads;    // score rows
+  static constexpr int PCG = kThreads / (BQ / PR);  // product col groups
+  static constexpr int PC = HD / PCG;               // product columns
+  static constexpr int NC = HD / DC, NV = BK / VK;  // chunks a tile
+  static constexpr int LDQ = HD + 4, LDK = DC + 4, LDP = BQ + 4;
+  static constexpr int SLOT = BK * LDK > VK * LDQ ? BK * LDK : VK * LDQ;
+  static constexpr int SLOTS = AHEAD + 1;
+  static constexpr int SMEM = (BQ * LDQ + BK * LDP + SLOTS * SLOT + 3 * BQ)
+                              * static_cast<int>(sizeof(float));
+  static_assert(SR == 8 && PC % 4 == 0 && HD % DC == 0 && BK % VK == 0,
+                "forward tile shapes");
+};
+
+// reductions over the W threads that share a row (W = 16 or 32, lanes
+// aligned to W)
+template <int W>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int off = W / 2; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+template <int W>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = W / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// s[i][j] += q[own_row(ra, i)] . k[cg + NCG j] over one K chunk of DC
+// columns (q: resident at column c0; k: the chunk)
+template <int HD>
+__device__ __forceinline__ void fwd_scores(
+    const float* sq, const float* sk, int ra, int cg, int c0,
+    float (&s)[Fwd<HD>::SR][Fwd<HD>::SC]) {
+  using F = Fwd<HD>;
+#pragma unroll
+  for (int d = 0; d < F::DC; d += 4) {
+    float4 b[F::SC];
+#pragma unroll
+    for (int j = 0; j < F::SC; ++j)
+      b[j] = *reinterpret_cast<const float4*>(sk + (cg + F::NCG * j) * F::LDK
+                                              + d);
+#pragma unroll
+    for (int i = 0; i < F::SR; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(
+          sq + own_row(ra, i) * F::LDQ + c0 + d);
+#pragma unroll
+      for (int j = 0; j < F::SC; ++j) {
+        float x = s[i][j];
+        x = fmaf(a.x, b[j].x, x);
+        x = fmaf(a.y, b[j].y, x);
+        x = fmaf(a.z, b[j].z, x);
+        x = fmaf(a.w, b[j].w, x);
+        s[i][j] = x;
+      }
+    }
+  }
+}
+
+// The online softmax of one key tile on this thread's scores, in place
+// and in base 2: s becomes P = 2^(S log2(e) - m), masked scores -1e30;
+// each row's running max m (base 2) and sum l live in sM and sL (written
+// by the row's first thread), and its factor 2^(m_old - m_new) goes to
+// sCorr.  full: every (row, key) of the tile is allowed and in range, so
+// nothing is tested.
+template <int HD>
+__device__ __forceinline__ void fwd_softmax(
+    const Params& p, float (&s)[Fwd<HD>::SR][Fwd<HD>::SC], float* sM,
+    float* sL, float* sCorr, int q0, int k0, int ra, int cg, bool full) {
+  using F = Fwd<HD>;
+  const float c = p.scale * kLog2e;
+#pragma unroll
+  for (int i = 0; i < F::SR; ++i) {
+    const int r = own_row(ra, i), qi = q0 + r;
+    const float m_old = sM[r], l_old = sL[r];
+    float mx = m_old;
+#pragma unroll
+    for (int j = 0; j < F::SC; ++j) {
+      const int kj = k0 + cg + F::NCG * j;
+      const float x = s[i][j] * c;
+      s[i][j] = full || (kj < p.sk && allowed(p, qi, kj)) ? x : kNegInf;
+      mx = fmaxf(mx, s[i][j]);
+    }
+    mx = group_max<F::NCG>(mx);
+    const float corr = exp2f(m_old - mx);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < F::SC; ++j) {
+      const int kj = k0 + cg + F::NCG * j;
+      s[i][j] = full || kj < p.sk ? exp2f(s[i][j] - mx) : 0.f;
+      psum += s[i][j];
+    }
+    const float l = l_old * corr + group_sum<F::NCG>(psum);
+    __syncwarp();                      // the row's threads have read m, l
+    if (cg == 0) {
+      sM[r] = mx;
+      sL[r] = l;
+      sCorr[r] = corr;
+    }
+  }
+}
+
+// This thread's P into sP transposed, [key][query]
+template <int HD>
+__device__ __forceinline__ void fwd_put(
+    const float (&s)[Fwd<HD>::SR][Fwd<HD>::SC], float* sP, int ra, int cg) {
+  using F = Fwd<HD>;
+#pragma unroll
+  for (int j = 0; j < F::SC; ++j) {
+    float* dst = sP + (cg + F::NCG * j) * F::LDP + ra;
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    *reinterpret_cast<float4*>(dst + 8) =
+        make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+  }
+}
+
+// acc[i][e] += sum_n P[n][pr + i] V[n][col(e)] over one V chunk of VK
+// rows (sp: P's rows of these keys; columns (m PCG + cgp) 4 + e % 4)
+template <int HD>
+__device__ __forceinline__ void fwd_products(
+    const float* sp, const float* sv, int pr, int cgp,
+    float (&acc)[Fwd<HD>::PR][Fwd<HD>::PC]) {
+  using F = Fwd<HD>;
+#pragma unroll 16
+  for (int n = 0; n < F::VK; ++n) {
+    float xs[F::PR], bv[F::PC];
+#pragma unroll
+    for (int i = 0; i < F::PR; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(sp + n * F::LDP + pr
+                                                        + i);
+      xs[i] = x.x;
+      xs[i + 1] = x.y;
+      xs[i + 2] = x.z;
+      xs[i + 3] = x.w;
+    }
+#pragma unroll
+    for (int c = 0; c < F::PC; c += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(
+          sv + n * F::LDQ + ((c / 4) * F::PCG + cgp) * 4);
+      bv[c] = t.x;
+      bv[c + 1] = t.y;
+      bv[c + 2] = t.z;
+      bv[c + 3] = t.w;
+    }
+#pragma unroll
+    for (int i = 0; i < F::PR; ++i)
+#pragma unroll
+      for (int e = 0; e < F::PC; ++e) acc[i][e] = fmaf(xs[i], bv[e], acc[i][e]);
+  }
+}
+
+// blockIdx.x = rank * heads * batch + head-and-batch, query tiles issued
+// last first
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Params p) {
+  using F = Fwd<HD>;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sP = sQ + F::BQ * F::LDQ;                  // [key][query]
+  float* ring = sP + F::BK * F::LDP;
+  float* sCorr = ring + F::SLOTS * F::SLOT;         // per row: rescale,
+  float* sM = sCorr + F::BQ;                        // running max (base 2)
+  float* sL = sM + F::BQ;                           // and running sum
+
+  const int hb = blockIdx.x % (p.heads * p.batch);
+  const int h = hb % p.heads, b = hb / p.heads, g = h / p.n_rep;
+  const int nq = (p.sq + F::BQ - 1) / F::BQ, nk = (p.sk + F::BK - 1) / F::BK;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x / (p.heads * p.batch));
+  const int q0 = qt * F::BQ, q1 = min(q0 + F::BQ, p.sq) - 1;
+  const int tid = threadIdx.x;
+  const int rg = tid / F::NCG, cg = tid % F::NCG;  // scores
+  const int ra = (rg >> 1) * 16 + (rg & 1) * 4;
+  const int pr = (tid / F::PCG) * F::PR, cgp = tid % F::PCG;  // products
+
+  // the key tiles that run, an interval; every tile when a row of this
+  // query tile has no allowed key (it averages V over every key)
+  const bool every = p.window > 0 && q1 - p.window >= p.sk - 1;
+  int kt_lo = 0, kt_hi = nk - 1;
+  if (!every) {
+    if (p.causal) kt_hi = min(kt_hi, q1 / F::BK);
+    while (kt_lo <= kt_hi &&
+           !tile_runs(p, q0, q1, kt_lo * F::BK,
+                      min(kt_lo * F::BK + F::BK, p.sk) - 1))
+      ++kt_lo;
+  }
+  const int n_tiles = max(0, kt_hi - kt_lo + 1);
+  constexpr int SPT = F::NC + F::NV;                // stages a tile
+  const int n_stages = n_tiles * SPT;
+
+  const float* kb = static_cast<const float*>(p.k) + b * p.st[kK][0] +
+                    g * p.st[kK][2];
+  const float* vb = static_cast<const float*>(p.v) + b * p.st[kV][0] +
+                    g * p.st[kV][2];
+  auto issue = [&](int idx) {
+    if (idx < n_stages) {
+      const int k0 = (kt_lo + idx / SPT) * F::BK, m = idx % SPT;
+      float* st = ring + (idx % F::SLOTS) * F::SLOT;
+      if (m < F::NC)
+        stage_rows<F::BK, F::DC, F::LDK>(st, kb, p.st[kK][1], k0, p.sk,
+                                         m * F::DC);
+      else
+        stage_rows<F::VK, HD, F::LDQ>(st, vb, p.st[kV][1],
+                                      k0 + (m - F::NC) * F::VK, p.sk, 0);
+    }
+    cp_async_commit();
+  };
+
+  stage_rows<F::BQ, HD, F::LDQ>(
+      sQ, static_cast<const float*>(p.q) + b * p.st[kQ][0] + h * p.st[kQ][2],
+      p.st[kQ][1], q0, p.sq, 0);
+#pragma unroll
+  for (int i = 0; i < F::AHEAD; ++i) issue(i);
+
+  if (tid < F::BQ) {
+    sM[tid] = kNegInf;
+    sL[tid] = 0.f;
+  }
+  float acc[F::PR][F::PC];
+#pragma unroll
+  for (int i = 0; i < F::PR; ++i)
+#pragma unroll
+    for (int e = 0; e < F::PC; ++e) acc[i][e] = 0.f;
+
+  int seq = 0;
+  auto next = [&]() -> const float* {          // the next stage, landed
+    cp_async_wait<F::AHEAD - 1>();
+    __syncthreads();
+    issue(seq + F::AHEAD);
+    return ring + (seq++ % F::SLOTS) * F::SLOT;
+  };
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = (kt_lo + t) * F::BK;
+    float s[F::SR][F::SC];
+#pragma unroll
+    for (int i = 0; i < F::SR; ++i)
+#pragma unroll
+      for (int j = 0; j < F::SC; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < F::NC; ++c) {
+      const float* st = next();
+      fwd_scores<HD>(sQ, st, ra, cg, c * F::DC, s);
+    }
+    const bool full = q0 + F::BQ <= p.sq && k0 + F::BK <= p.sk &&
+                      (!p.causal || k0 + F::BK - 1 <= q0) &&
+                      (p.window <= 0 || k0 > q0 + F::BQ - 1 - p.window);
+    fwd_softmax<HD>(p, s, sM, sL, sCorr, q0, k0, ra, cg, full);
+    fwd_put<HD>(s, sP, ra, cg);
+#pragma unroll 1
+    for (int c = 0; c < F::NV; ++c) {
+      const float* st = next();                // also: P and sCorr written
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < F::PR; ++i) {
+          const float corr = sCorr[pr + i];
+#pragma unroll
+          for (int e = 0; e < F::PC; ++e) acc[i][e] *= corr;
+        }
+      }
+      fwd_products<HD>(sP + c * F::VK * F::LDP, st, pr, cgp, acc);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                             // the last tile's m and l
+
+  // lse in natural units; a row with no allowed key keeps -1e30
+  if (tid < F::BQ && q0 + tid < p.sq) {
+    const float mt = sM[tid];
+    p.lse[b * p.st[kLse][0] + h * p.st[kLse][1] + (q0 + tid) * p.st[kLse][2]]
+        = (mt == kNegInf ? mt : mt * kLn2) + logf(fmaxf(sL[tid], 1e-30f));
+  }
+  float* ob = static_cast<float*>(p.out0) + b * p.st[kOut0][0] +
+              h * p.st[kOut0][2];
+#pragma unroll
+  for (int i = 0; i < F::PR; ++i) {
+    const int qi = q0 + pr + i;
+    if (qi >= p.sq) continue;
+    const float ll = fmaxf(sL[pr + i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < F::PC; c += 4)
+      *reinterpret_cast<float4*>(ob + qi * p.st[kOut0][1] +
+                                 ((c / 4) * F::PCG + cgp) * 4) =
+          make_float4(acc[i][c] / ll, acc[i][c + 1] / ll, acc[i][c + 2] / ll,
+                      acc[i][c + 3] / ll);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: dQ and dK/dV on one pipeline
+// ---------------------------------------------------------------------------
+//
+// A block of 256 threads owns BM = 64 rows (queries for dQ, keys for
+// dK/dV) and streams the other side's rows in tiles of BN = 64 ("items":
+// key tiles for dQ; (query head of the group, query tile) for dK/dV).  The
+// block's own tiles (Q and dO, or K and V) stay in shared memory; the
+// streamed ones (K and V, or Q and dO) arrive in depth chunks of DC = 32
+// columns through a cp.async ring, two chunks in flight while one is
+// multiplied.  At head dim 128 an item's chunks stay in the ring until its
+// products have read them; at 256 (and below 128) the products stream
+// them again (a second pass through L2: at 256 the full streamed tiles
+// would not fit beside the own ones).  Per item:
+//   scores   group 0 (threads 0-127): S = A0 B0^T, group 1: dP = A1 B1^T
+//            (A the own tiles, B the streamed chunk; depth hd, chunk by
+//            chunk), each thread 8 rows x 4 columns of the 64 x 64 tile;
+//            both are written to shared memory, transposed [streamed][own];
+//   softmax  all 256 threads, 16 elements each: P = exp(S scale - lse) (0
+//            where masked; only tiles on the diagonal or the window's edge
+//            test allowed()), dS = P (dP - delta) scale, in place;
+//   products dQ += dS K (group g: key-chunk pair g when resident, else
+//            chunk 2p + g of each streamed pair); dV += P^T dO (group 0)
+//            and dK += dS^T Q (group 1); each thread 8 rows x 4 columns
+//            of a chunk pair (resident) or 4 x 4 of a chunk, summed in
+//            registers over every item (dK/dV over the GQA group too).
+// Per 16-byte shared-memory read: 10.7 FMAs in the scores, 10.7 or 8 in
+// the products.  An SM's shared memory hands out 32 floats a cycle
+// against 128 FMAs, so these tile shapes cap the phases at 67% (and 50%)
+// of the FMA rate; larger tiles need more streamed rows than fp32 fits.
+// Registers at head dim 256: 128 accumulators for dK/dV (one of dK and
+// dV per thread: the two products are split between the warp groups,
+// the head dim is not), 64 for dQ.  Blocks are issued heaviest first:
+// dQ's last query tiles, dK/dV's first key tiles (the tile is the
+// slowest grid index).  No atomics, fixed orders: bitwise repeatable.
+
+constexpr int kBM = 64, kBN = 64;
+constexpr int kLdX = kBM + 4;                 // P / dS rows: [streamed][own]
+
+template <int HD>
+struct Bwd {
+  static constexpr int LD = HD + 4;           // own tiles
+  static constexpr int DC = HD >= 64 ? 32 : 16;
+  static constexpr int NC = HD / DC;          // depth chunks
+  static constexpr int LDC = DC + 4;
+  static constexpr int CPT = DC / 8;          // product columns a thread
+  static constexpr int STAGE = 2 * kBN * LDC; // floats: two chunk tiles
+  // At head dim 128 an item's chunks stay in the ring until its products
+  // have read them (NC slots + 2 in flight); at 256 they would not fit
+  // beside the own tiles, so the products stream them again (and below
+  // 128 the shared memory is not worth the second tile shape).
+  static constexpr bool RESIDENT = HD == 128;
+  static constexpr int AHEAD = 2;             // stages in flight
+  static constexpr int SLOTS = RESIDENT ? NC + AHEAD : AHEAD + 1;
+  // products: with resident chunks a thread takes 8 rows x 4 columns of
+  // a chunk pair (2.67 FMAs a loaded float); streamed, 4 rows x CPT
+  // columns of one chunk (2)
+  static constexpr int PR = RESIDENT ? 8 : 4;
+  static constexpr int PC = RESIDENT ? 4 : CPT;
+  // unrolling of the score and product loops, by measurement (the
+  // registers left beside 128 accumulators at 256 favour short loops)
+  static constexpr int SCORE_UNROLL = HD <= 128 ? 4 : 1;
+  static constexpr int PRODUCT_UNROLL = HD <= 128 ? 8 : 2;
+};
+
+
 template <int DC, int LD, int LDC, int UNROLL>
 __device__ __forceinline__ void score_chunk(const float* sa, const float* sb,
                                             int ra, int cb, int c0,
@@ -864,15 +973,15 @@ int run(Kern kern, dim3 grid, int smem, const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(int which, const Params& p, cudaStream_t stream) {
-  constexpr int LD = HD + 4;
-  constexpr int BQ = 64, BK = HD <= 128 ? 64 : 32;       // forward
   constexpr int F = sizeof(float);
   if (which == 0) {
-    const dim3 grid((p.sq + BQ - 1) / BQ, p.heads, p.batch);
-    const int smem = ((BQ + 2 * BK) * LD + BQ * (BK + 4)) * F;
-    return run(fwd_kernel<T, HD, BQ, BK>, grid, smem, p, stream);
+    using W = Fwd<HD>;
+    const int64_t blocks =
+        static_cast<int64_t>((p.sq + W::BQ - 1) / W::BQ) * p.heads * p.batch;
+    return run(fwd_kernel<HD>, dim3(static_cast<unsigned>(blocks)), W::SMEM,
+               p, stream);
   }
   using B = Bwd<HD>;
   const int ring = B::SLOTS * B::STAGE;
@@ -893,14 +1002,13 @@ int launch(int which, const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
 int by_head_dim(int which, int head_dim, const Params& p,
                 cudaStream_t stream) {
   switch (head_dim) {
-    case 32: return launch<T, 32>(which, p, stream);
-    case 64: return launch<T, 64>(which, p, stream);
-    case 128: return launch<T, 128>(which, p, stream);
-    case 256: return launch<T, 256>(which, p, stream);
+    case 32: return launch<32>(which, p, stream);
+    case 64: return launch<64>(which, p, stream);
+    case 128: return launch<128>(which, p, stream);
+    case 256: return launch<256>(which, p, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -947,6 +1055,6 @@ extern "C" int flash_attention(int which, const void* const* ptrs,
     for (int d = 0; d < 3; ++d) p.st[t][d] = strides[3 * t + d];
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return by_head_dim<float>(which, head_dim, p, s);
+  if (dtype == 0) return by_head_dim(which, head_dim, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

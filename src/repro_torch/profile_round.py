@@ -9,8 +9,9 @@ round with that uplink codec), runs one round to warm up,
 then ``--rounds`` rounds without and ``--rounds`` rounds under
 ``torch.profiler``, and prints one JSON object: the card and its power
 limit, the host wall time per round, the device's busy share (device
-kernel time over the profiled wall time), the kernel launches per round
-and the kernels that take the most device time.  Needs a GPU.
+kernel time over the profiled wall time), the kernel launches per round,
+the device time and launches per round by kind (K1, K2 and the library
+kernels) and the kernels that take the most device time.  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ def _device_us(evt) -> float:
 def _kind(name: str) -> str:
     if "masked_agg" in name:
         return "masked_agg (K1)"
-    if "quantize_pack" in name or "absmax_partial" in name:
+    if "quantize_pack" in name:             # quantize_pack_group_kernel
         return "quantize_pack (K2)"
     if any(k in name for k in ("cudnn", "xmma", "implicit_gemm", "conv",
                                "dgrad", "wgrad", "gemm")):
@@ -64,9 +65,12 @@ def profile(rounds: int, codec: str = "") -> dict:
     device_us = sum(_device_us(e) for e in device)
     launches = sum(e.count for e in device)
     by_kind: dict = {}
+    launches_by_kind: dict = {}
     for e in device:
         kind = _kind(e.key)
         by_kind[kind] = by_kind.get(kind, 0.0) + _device_us(e) * 1e-3 / rounds
+        launches_by_kind[kind] = launches_by_kind.get(kind, 0) \
+            + e.count / rounds
     top = sorted(device, key=_device_us, reverse=True)[:12]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -88,6 +92,7 @@ def profile(rounds: int, codec: str = "") -> dict:
         "device_ms_per_round": device_us * 1e-3 / rounds,
         "kernel_launches_per_round": launches / rounds,
         "device_ms_per_round_by_kind": by_kind,
+        "kernel_launches_per_round_by_kind": launches_by_kind,
         "top_device": [{"name": e.key[:80], "count": e.count,
                         "device_ms": _device_us(e) * 1e-3}
                        for e in top],

@@ -30,7 +30,7 @@ from repro.models.toy import init_toy_mlp as r_init_toy
 from repro.models.toy import toy_batches as r_toy_batches
 from repro.models.toy import toy_loss as r_toy_loss
 from repro.models.toy import toy_units as r_toy_units
-from repro_torch.common import flatten, unflatten
+from repro_torch.common import flatten, flatten_with_paths, unflatten
 from repro_torch.convert import from_reference
 from repro_torch.core import (Federation, FLConfig, NotPortedError, Replay,
                               codecs, masking)
@@ -115,6 +115,56 @@ def test_quantize_pack_wrapper_checks():
         ops.quantize_pack(x.double(), x.double(), 8)
     with pytest.raises(ValueError, match="same"):
         ops.quantize_pack(x, x[:, :4], 8)
+
+
+# -- the grouped wrapper -------------------------------------------------------
+
+def _group_leaves(bits):
+    """Mixed leaves as one round hands them over: 1-element rows, an odd
+    P, an all-zero row, short rows, and long rows of several 8192-element
+    chunks (one of them one-hot, its max in the third chunk)."""
+    rng = np.random.default_rng(40 + bits)
+    shapes = [(3, 1), (2, 4097), (5, 10), (2, 3 * 8192 + 1), (1, 8192),
+              (4, 33)]
+    leaves = [((rng.standard_normal(s) * 0.05).astype(np.float32),
+               rng.random(s, dtype=np.float32)) for s in shapes]
+    leaves[1][0][1] = 0.0
+    leaves[3][0][0] = 0.0
+    leaves[3][0][0, 20_000] = -0.9
+    return leaves
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_pack_group_equals_reference_bitwise(bits):
+    leaves = _group_leaves(bits)
+    got = ops.quantize_pack_group([torch.as_tensor(x) for x, _ in leaves],
+                                  [torch.as_tensor(u) for _, u in leaves],
+                                  bits)
+    assert len(got) == len(leaves)
+    for i, ((x, u), (codes, scale)) in enumerate(zip(leaves, got)):
+        want = r_quantize_pack(jnp.asarray(x), jnp.asarray(u), bits,
+                               interpret=True)
+        for g, w, name in zip((codes, scale), want, ("codes", "scale")):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=f"leaf {i} {name}")
+            assert g.numpy().dtype == np.asarray(w).dtype
+    if bits == 4:
+        assert (got[1][0][1] == 0x88).all()          # the all-zero row
+
+
+def test_quantize_pack_group_wrapper_checks():
+    x = torch.zeros(2, 8)
+    assert ops.quantize_pack_group([], [], 8) == []
+    with pytest.raises(ValueError, match="bits"):
+        ops.quantize_pack_group([x], [x], 2)
+    with pytest.raises(ValueError, match="2 x leaves but 1 u"):
+        ops.quantize_pack_group([x, x], [x], 8)
+    with pytest.raises(ValueError, match="leaf 1: x and u must be the same"):
+        ops.quantize_pack_group([x, x, x], [x, x[:, :4], x], 8)
+    with pytest.raises(ValueError, match="leaf 2: u must be float32"):
+        ops.quantize_pack_group([x, x, x], [x, x, x.double()], 4)
+    with pytest.raises(ValueError, match="leaf 1: rows must not be empty"):
+        ops.quantize_pack_group([x, x[:, :0]], [x, x[:, :0]], 8)
 
 
 # -- slot plan ----------------------------------------------------------------
@@ -245,6 +295,102 @@ def test_codec_transform_equals_reference_bitwise(toy_setup, name):
         assert torch.equal(torch.where(active, got[path] + res1, 0.0),
                            torch.where(active, x, 0.0)), path
         assert torch.equal(new[path][1], state[path][1]), path
+
+
+def _transform_inputs(toy_setup, name):
+    """The port's transform inputs on the toy MLP: a selection with a
+    client that trained nothing, a dropped client, and under topk_ef a
+    non-zero residual."""
+    tp, ta = toy_setup["tp"], toy_setup["assign"]
+    fl = FLConfig(n_clients=C, train_fraction=0.5, packed=True, codec=name,
+                  codec_topk=0.25)
+    n_slots = fl.resolve_n_slots(ta.n_units)
+    rng = np.random.default_rng(5)
+    sel = np.zeros((C, ta.n_units), np.float32)
+    for c in range(C - 1):
+        sel[c, rng.choice(ta.n_units, n_slots, replace=False)] = 1.0
+    r_rows, r_valid, payload = _packed_payload(toy_setup, sel, n_slots, 9)
+    weights = np.ones(C, np.float32)
+    weights[1] = 0.0
+    codec = codecs.get_codec(name)
+    state = None
+    if codec.stateful:
+        state = {p: torch.as_tensor(rng.standard_normal(
+            (C,) + tuple(x.shape)).astype(np.float32)) for p, x in tp.items()}
+    args = ({p: torch.as_tensor(x) for p, x in payload.items()}, _t(r_rows),
+            _t(r_valid), torch.as_tensor(weights))
+    return fl, codec, args, state
+
+
+def _uniform(i, shape):
+    return torch.rand(shape, generator=torch.Generator().manual_seed(100 + i))
+
+
+@pytest.mark.parametrize("name", ["qint8", "qint4", "topk_ef"])
+def test_rows_roundtrip_default_is_the_per_leaf_loop(toy_setup, name,
+                                                     monkeypatch):
+    """A codec that overrides rows_roundtrip gets one call over every
+    leaf, and gives bitwise what it gives with rows_roundtrip put back to
+    Codec's default, which the transform calls one leaf at a time; the
+    default is row_roundtrip leaf by leaf."""
+    ta = toy_setup["assign"]
+    fl, codec, args, state = _transform_inputs(toy_setup, name)
+    calls, grouped = [], type(codec).rows_roundtrip
+    default = codecs.Codec.rows_roundtrip
+
+    def spy(self, xs, draws, fl=None):
+        calls.append(len(xs))
+        return grouped(self, xs, draws, fl)
+
+    monkeypatch.setattr(type(codec), "rows_roundtrip", spy)
+    got, new = codecs.build_codec_transform(codec, ta, fl)(
+        *args, _uniform, state)
+    assert calls == [len(args[0])]
+
+    def default_spy(self, xs, draws, fl=None):
+        calls.append(len(xs))
+        return default(self, xs, draws, fl)
+
+    calls.clear()
+    monkeypatch.setattr(codecs.Codec, "rows_roundtrip", default_spy)
+    monkeypatch.setattr(type(codec), "rows_roundtrip", default_spy)
+    want, want_new = codecs.build_codec_transform(codec, ta, fl)(
+        *args, _uniform, state)
+    assert calls == [1] * len(args[0])
+    for path in want:
+        assert torch.equal(got[path], want[path]), path
+        if state is not None:
+            assert torch.equal(new[path], want_new[path]), path
+    assert (new is None) == (want_new is None) == (state is None)
+    xs = [torch.randn(3, 7), torch.randn(2, 9), torch.zeros(1, 4)]
+    draws = [(lambda shape, i=i: _uniform(i, shape))
+             if codec.stochastic else None for i in range(len(xs))]
+    for a, b in zip(default(codec, xs, draws, fl),
+                    [codec.row_roundtrip(x, d, fl) for x, d in
+                     zip(xs, draws)]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["qint8", "qint4"])
+def test_grouped_transform_draws_uniforms_in_leaf_order(toy_setup, name):
+    """One grouped encode a round still draws uniform(i, shape) leaf by
+    leaf in leaf order, each leaf's (rows, P), so the generator's stream
+    is the per-leaf path's."""
+    ta = toy_setup["assign"]
+    fl, codec, args, state = _transform_inputs(toy_setup, name)
+    seen = []
+
+    def uniform(i, shape):
+        seen.append((i, tuple(shape)))
+        return _uniform(i, shape)
+
+    codecs.build_codec_transform(codec, ta, fl)(*args, uniform, state)
+    want = []
+    for i, (path, d) in enumerate(flatten_with_paths(args[0])):
+        lead = 1 if ta.leaf_units[path].kind == "scalar" else 2
+        want.append((i, (int(np.prod(d.shape[:lead])),
+                         int(np.prod(d.shape[lead:])))))
+    assert seen == want
 
 
 def test_none_codec_builds_no_transform(toy_setup):

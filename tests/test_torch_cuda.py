@@ -108,10 +108,10 @@ def test_quantize_pack_matches_plain_bitwise(dev, bits, r, p):
     from repro_torch.kernels.codec import ops as qops
     from repro_torch.kernels.codec.ref import quantize_pack_ref
     x, u = _qcase(dev, r, p)
-    before = qops.quantize_pack.launches
+    before = qops.quantize_pack_group.launches
     codes, scale = qops.quantize_pack(x, u, bits)
     torch.cuda.synchronize()
-    assert qops.quantize_pack.launches == before + 1
+    assert qops.quantize_pack_group.launches == before + 1
     want_codes, want_scale = quantize_pack_ref(x, u, bits)
     assert codes.dtype == want_codes.dtype and codes.shape == want_codes.shape
     assert torch.equal(codes, want_codes)
@@ -149,6 +149,117 @@ def test_quantize_pack_wrapper_raises(dev, bad):
         u = u.cpu()
     with pytest.raises(ValueError, match="quantize_pack"):
         qops.quantize_pack(x, u, 8)
+
+
+def _qgroup(dev, shapes, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = [0.05 * torch.randn(r, p, generator=gen, device=dev)
+          for r, p in shapes]
+    us = [torch.rand(r, p, generator=gen, device=dev) for r, p in shapes]
+    return xs, us
+
+
+def _same_codes(got, xs, us, bits):
+    """Each leaf's codes and scales bitwise equal to the plain version's
+    (a NaN scale equal to a NaN)."""
+    from repro_torch.kernels.codec.ref import quantize_pack_ref
+    assert len(got) == len(xs)
+    for i, ((codes, scale), x, u) in enumerate(zip(got, xs, us)):
+        want_codes, want_scale = quantize_pack_ref(x, u, bits)
+        assert codes.dtype == want_codes.dtype, i
+        assert codes.shape == want_codes.shape, i
+        assert torch.equal(codes, want_codes), i
+        torch.testing.assert_close(scale, want_scale, rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+_QWIDTHS = [1, 2, 3, 10, 255, 4096, 4097, 8192, 8193, 30_001]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n", [1, 7, 80, 200])
+def test_quantize_pack_group_matches_plain_bitwise(dev, bits, n):
+    """K2 over n mixed leaves in one launch: every leaf bitwise equal to
+    the plain version, an all-zero row packing to zeros (0x88 at 4 bits),
+    and two launches bitwise equal."""
+    from repro_torch.kernels.codec import ops as qops
+    rng = np.random.default_rng(n)
+    shapes = [(int(rng.integers(1, 9)), int(rng.choice(_QWIDTHS)))
+              for _ in range(n)]
+    xs, us = _qgroup(dev, shapes, seed=n)
+    xs[n // 2][0] = 0.0
+    before = qops.quantize_pack_group.launches
+    got = qops.quantize_pack_group(xs, us, bits)
+    torch.cuda.synchronize()
+    assert qops.quantize_pack_group.launches == before + 1
+    _same_codes(got, xs, us, bits)
+    zero = got[n // 2][0][0]
+    assert bool((zero == (0 if bits == 8 else 0x88)).all())
+    again = qops.quantize_pack_group(xs, us, bits)
+    assert all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_pack_group_long_odd_and_nan_rows(dev, bits):
+    """Rows of 288 chunks (VGG16's largest leaves) beside small ones, an
+    unaligned leaf (no 16-byte loads), and a row holding a NaN and an
+    infinity (the max keeps the NaN; NaN codes pack as the plain version's
+    cast gives), in one launch: rows of 1 chunk, rows of 5 that wait in
+    place for their maxima (x read once) and rows of 288 that take two
+    visits (maxima first, then quantize)."""
+    from repro_torch.kernels.codec import ops as qops
+    xs, us = _qgroup(dev, [(8, 2_359_296), (3, 5), (2, 40_000), (4, 4097)])
+    xs[2][0, 123] = float("nan")
+    xs[2][1, 9] = float("inf")
+    xs[3][1, 4000] = float("-inf")
+    flat = torch.zeros(4 * 4096 + 1, device=dev)[1:].view(4, 4096)
+    flat.copy_(0.05 * torch.randn(4, 4096, device=dev))
+    xs.append(flat)
+    us.append(torch.zeros(4 * 4096 + 1, device=dev)[1:].view(4, 4096)
+              .uniform_())
+    assert xs[-1].data_ptr() % 16 and xs[-1].is_contiguous()
+    before = qops.quantize_pack_group.launches
+    got = qops.quantize_pack_group(xs, us, bits)
+    torch.cuda.synchronize()
+    assert qops.quantize_pack_group.launches == before + 1
+    _same_codes(got, xs, us, bits)
+    assert bool(got[2][1][0].isnan()) and bool(got[2][1][1].isinf())
+
+
+def test_quantize_pack_group_longer_than_one_launch(dev):
+    """A list longer than one launch's parameter struct is cut into
+    launches of whole leaves, each with its own ticket."""
+    from repro_torch.kernels.codec import ops as qops
+    n = qops.MAX_LEAVES + 44
+    rng = np.random.default_rng(3)
+    shapes = [(int(rng.integers(1, 5)), int(rng.choice(_QWIDTHS[:7])))
+              for _ in range(n)]
+    xs, us = _qgroup(dev, shapes, seed=3)
+    for bits in (8, 4):
+        before = qops.quantize_pack_group.launches
+        got = qops.quantize_pack_group(xs, us, bits)
+        torch.cuda.synchronize()
+        assert qops.quantize_pack_group.launches == before + 2
+        _same_codes(got, xs, us, bits)
+
+
+@pytest.mark.parametrize("bad", ["strided", "float64", "device", "shape"])
+def test_quantize_pack_group_wrapper_raises(dev, bad):
+    from repro_torch.kernels.codec import ops as qops
+    xs, us = _qgroup(dev, [(4, 256)] * 3)
+    if bad == "strided":
+        xs[1] = torch.zeros(4, 512, device=dev)[:, ::2]
+    elif bad == "float64":
+        us[1] = us[1].double()
+    elif bad == "device":
+        us[1] = us[1].cpu()
+    else:
+        us[1] = us[1][:, :128]
+    before = qops.quantize_pack_group.launches
+    with pytest.raises(ValueError, match="quantize_pack leaf 1"):
+        qops.quantize_pack_group(xs, us, 8)
+    assert qops.quantize_pack_group.launches == before
 
 
 # -- K3: paged flash decode ----------------------------------------------------
@@ -669,6 +780,44 @@ def test_flash_attention_fp32_backward_tiles(dev, hd, b, sq, sk, h, hkv,
     again = aops.attention_bwd(q, k, v, o, lse, g, causal=causal,
                                window=window)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+FWD_FP32 = [  # (b, sq, sk, h, hkv, causal, window)
+    (2, 300, 300, 4, 2, True, 0),        # diagonal, interior, ragged tiles
+    (1, 600, 600, 4, 1, True, 200),      # the window's edge, skipped tiles
+    (1, 300, 170, 2, 2, False, 60),      # Sq != Sk, rows with no key
+    (1, 136, 600, 4, 2, False, 0),       # Sq < Sk, a ragged last key tile
+    (1, 257, 257, 2, 1, False, 0)]       # one row past a tile
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,causal,window", FWD_FP32)
+def test_flash_attention_fp32_forward_tiles(dev, hd, b, sq, sk, h, hkv,
+                                            causal, window):
+    """K5 in fp32 at its tiles (128 x 128 up to head dim 128, 64 x 128 at
+    256) where its heavy-first order, interior tiles without masks,
+    masked diagonal and window-edge tiles and ragged ends meet: o and lse
+    within 2e-5 of the plain forward, rows with no allowed key the mean of
+    V with lse -1e30, one launch, two launches bitwise equal."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_ref
+    q, k, v, _ = _acase(dev, b, sq, h, hkv, hd, sk=sk, seed=hd + sq)
+    aops.reset_launch_counts()
+    o, lse = aops.attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert aops.LAUNCHES == {"fwd": 1, "dq": 0, "dkv": 0}
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, causal=causal,
+                                             window=window)
+    torch.testing.assert_close(o, o_ref, atol=TOL, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=TOL, rtol=0)
+    if window > 0 and sq > sk + window - 1:
+        none = slice(sk + window - 1, sq)
+        assert bool((lse[:, :, none] == -1e30).all())
+        mean = v.mean(1).repeat_interleave(h // hkv, dim=1)   # (B, H, hd)
+        torch.testing.assert_close(o[:, none], mean[:, None].expand_as(
+            o[:, none]), atol=TOL, rtol=0)
+    again = aops.attention_fwd(q, k, v, causal=causal, window=window)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
 
 
 def test_dense_round_is_bitwise_repeatable(dev):
