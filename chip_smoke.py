@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in sixteen phases, and any failure
-exits non-zero:
+nothing of the ``repro`` package) in twenty-one phases, in the order
+below except that 17-21 run after 8, and any failure exits non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
    the checkout with ``nvcc`` (``repro_torch/kernels/_build.py``).
@@ -160,10 +160,46 @@ exits non-zero:
    against ``forward``'s (the plain ``chunked_linear_scan``) for the
    first 8 prompts in one batch, within 1e-3.
 
+17. paper-tasks — the paper's IMDB CNN-LSTM (2,638,966 params, 2 of 4
+   units a round) and CASA LSTM (68,962 params, 3 of 6) at full width
+   (``repro_torch/paper_tasks.py``: 10 clients, batch 16, 2 local steps,
+   Adam at 3e-3, the LSTM on cuDNN), 3 hub rounds each: finite losses,
+   one K1 launch per round, exact-zero deltas on every frozen (client,
+   leaf), ``comm_summary()`` equal to Table 4's formula; held-out
+   accuracy, round seconds and peak memory; then each task built twice
+   from one seed, 2 rounds each: parameters and ``sel_history`` bitwise
+   equal.
+18. paper-tasks-parity — one round of each task on the card (K1)
+   against the same round on the CPU (plain aggregation), the model in
+   float64 and the selection replayed, at PARITY_TOL.
+19. hier-round — VGG16 at full width under 2 edge aggregators of 4
+   clients (``paper_round.build(topology="hierarchical", n_edges=2)``),
+   3 rounds: one K1 launch per round over the 2 edge planes, the billed
+   uplink equal to ``hierarchical_round_bytes`` (the edge->hub WAN) and
+   not above the flat hub's on the same selections in any round, below
+   it over the run; the fused two-stage aggregate on the last round's
+   deltas within 2e-5 of the plain ``hierarchical_masked_fedavg``.  Then
+   the same federation with ``packed=True, codec="qint8"``, 2 rounds:
+   one grouped K2 launch per round and K1 never, the bill equal to the
+   per-edge union at wire width, frozen decoded deltas exactly zero.
+20. gossip-round — VGG16 at full width on a ring of 8 replicas, 2
+   rounds: K1 never, the bill equal to ``gossip_round_bytes``, and the
+   replicas' mean after mixing within 1e-6 (relative to the largest
+   entry) of the trained replicas' mean; the state's size and peak
+   memory.
+21. k1-plans — K1 at the IMDB and CASA hub plans (10 clients, random
+   deltas, a unit nobody selected, a client of weight 0) and at the
+   hierarchical hub combine (the 2 edge planes of 19's last round)
+   against its plain version at 2e-5, bitwise repeatable; device medians
+   (L2 flushed) of the kernel, the plain version and a ``torch.bmm``
+   yardstick beside the bound in bytes.
+
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
 the card's name and power limit (as ``nvidia-smi`` reports them) and a
-JSON line of per-kernel numbers; the last line is
+JSON line of per-kernel numbers (K1's and K2's launches summed over the
+paths that ran them, each path's count in ``launches_by_path``, K1's
+other plans in ``plans``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -242,11 +278,56 @@ def phase_build():
     print(f"[build] {len(logs)} kernel source(s) in {secs:.2f} s")
 
 
+def _k1_case(dev, params, assign, c):
+    """K1's inputs at ``params``' tile plan for ``c`` clients: random
+    deltas, unit 1 selected by nobody, client ``c // 2`` of weight 0;
+    zero padding, so that whole tile buffers can be compared."""
+    from repro_torch.kernels.masked_agg import ops
+
+    plan = ops.build_agg_plan(assign, params)
+    rng = np.random.default_rng(0)
+    sel = torch.as_tensor(rng.integers(0, 2, (c, assign.n_units)),
+                          dtype=torch.float32)
+    sel[:, 1] = 0.0                                  # a unit nobody selected
+    weights = torch.as_tensor(rng.uniform(0.5, 2.0, c), dtype=torch.float32)
+    weights[c // 2] = 0.0                            # a client of weight 0
+    dgen = torch.Generator(device=dev).manual_seed(0)
+    deltas = {p: 0.05 * torch.randn((c,) + tuple(x.shape), generator=dgen,
+                                    device=dev)
+              for p, x in params.items()}
+    g_t = ops.pack_into(plan, params,
+                        ops.new_tile_buffer(plan, device=dev).zero_())
+    d_t = ops.pack_into(plan, deltas,
+                        ops.new_tile_buffer(plan, (c,), device=dev).zero_())
+    w_t = ops.row_weights(plan, sel * weights[:, None], dev)
+    return plan, sel, weights, deltas, g_t, d_t, w_t
+
+
+def _k1_check(tag, g_t, d_t, w_t, still=None):
+    """K1 against its plain version at TOL, bitwise repeatable, and the
+    tile rows ``still`` (a unit nobody selected) unchanged; returns the
+    max abs error and the plain output."""
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.masked_agg.ref import masked_agg_ref
+
+    out_k = ops.masked_agg(g_t, d_t, w_t)
+    out_p = masked_agg_ref(g_t, d_t, w_t)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    check(torch.allclose(out_k, out_p, atol=TOL, rtol=TOL),
+          f"{tag}: kernel vs plain: max abs err {err}")
+    check(torch.equal(out_k, ops.masked_agg(g_t, d_t, w_t)),
+          f"{tag}: kernel is not bitwise repeatable")
+    if still is not None:
+        check(torch.equal(out_k[still], g_t[still]),
+              f"{tag}: a unit nobody selected changed")
+    return err, out_p
+
+
 def phase_kernel(dev):
     from repro_torch.core import build_units_flat
     from repro_torch.core.aggregation import masked_fedavg
     from repro_torch.kernels.masked_agg import ops
-    from repro_torch.kernels.masked_agg.ref import masked_agg_ref
     from repro_torch.models import paper_models as pm
     from repro_torch.paper_round import N_CLIENTS, WIDTH
 
@@ -254,39 +335,14 @@ def phase_kernel(dev):
     params = {p: x.to(dev) for p, x in
               pm.init_vgg16(gen, width_mult=WIDTH).items()}
     assign = build_units_flat(params, pm.vgg16_units(params))
-    plan = ops.build_agg_plan(assign, params)
-    c, u = N_CLIENTS, assign.n_units
-    rng = np.random.default_rng(0)
-    sel = torch.as_tensor(rng.integers(0, 2, (c, u)), dtype=torch.float32)
-    sel[:, 5] = 0.0                                  # a unit nobody selected
-    weights = torch.as_tensor(rng.uniform(0.5, 2.0, c), dtype=torch.float32)
-    weights[c // 2] = 0.0                            # a client of weight 0
+    c = N_CLIENTS
+    plan, sel, weights, deltas, g_t, d_t, w_t = _k1_case(dev, params,
+                                                         assign, c)
     ragged = [s for s in plan.segments if s.n % plan.tile]
     check(ragged, "no leaf off the tile multiple in the plan")
-    dgen = torch.Generator(device=dev).manual_seed(0)
-    deltas = {p: 0.05 * torch.randn((c,) + tuple(x.shape), generator=dgen,
-                                    device=dev)
-              for p, x in params.items()}
-
-    # zero padding, so that whole tile buffers can be compared below
-    g_t = ops.pack_into(plan, params,
-                        ops.new_tile_buffer(plan, device=dev).zero_())
-    d_t = ops.pack_into(plan, deltas,
-                        ops.new_tile_buffer(plan, (c,), device=dev).zero_())
-    w_t = ops.row_weights(plan, sel * weights[:, None], dev)
     t, tile = g_t.shape
-
-    out_k = ops.masked_agg(g_t, d_t, w_t)
-    out_p = masked_agg_ref(g_t, d_t, w_t)
-    torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
-    check(torch.allclose(out_k, out_p, atol=TOL, rtol=TOL),
-          f"kernel vs plain: max abs err {err}")
-    check(torch.equal(out_k, ops.masked_agg(g_t, d_t, w_t)),
-          "kernel is not bitwise repeatable")
-    nobody = torch.as_tensor(plan.row_unit == 5, device=dev)
-    check(torch.equal(out_k[nobody], g_t[nobody]),
-          "a unit nobody selected changed")
+    err, out_p = _k1_check("kernel", g_t, d_t, w_t, torch.as_tensor(
+        plan.row_unit == 1, device=dev))
     tree_k = ops.masked_fedavg_fused(params, deltas, sel, weights, assign,
                                      plan=plan)
     tree_p = masked_fedavg(params, deltas, sel, weights, assign)
@@ -298,6 +354,29 @@ def phase_kernel(dev):
           f"{err:.3e}, tree-level vs masked_fedavg {tree_err:.3e} "
           f"(tol {TOL})")
 
+    m = _k1_measure(g_t, d_t, w_t, out_p, median_ms)
+    print(f"[kernel] median ms: kernel {m['ms']:.4f}, plain "
+          f"{m['plain_ms']:.4f}, torch.bmm {m['library_ms']:.4f}; bound "
+          f"{m['bound_ms']:.4f}: {m['text']}")
+    return {"name": "masked_agg", "route": "cuda",
+            "source": "src/repro_torch/kernels/masked_agg/csrc/masked_agg.cu",
+            "replaces": "src/repro/kernels/masked_agg/kernel.py:41",
+            "max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"]}
+
+
+def _k1_measure(g_t, d_t, w_t, out_p, timer):
+    """K1's time, its plain version's and a ``torch.bmm`` yardstick's on
+    the same (T, tile) / (C, T, tile) / (T, C) inputs (``timer`` is
+    ``median_ms`` or ``device_ms``), beside the bound: bytes (each input
+    read once, the output written once) over the memory rate, or FLOPs
+    over the fp32 peak."""
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.masked_agg.ref import masked_agg_ref
+
+    t, tile = g_t.shape
+    c = d_t.shape[0]
     d_tct = d_t.permute(1, 0, 2).contiguous()        # (T, C, tile)
 
     def library():
@@ -312,24 +391,18 @@ def phase_kernel(dev):
     flops = 2 * c * t * tile
     name = torch.cuda.get_device_name(0)
     by_bytes, by_ops = nbytes / memory_rate(name), flops / FP32_PEAK
-    bound = max(by_bytes, by_ops) * 1e3
     launches0 = ops.masked_agg.launches
-    ms = median_ms(lambda: ops.masked_agg(g_t, d_t, w_t))
-    plain_ms = median_ms(lambda: masked_agg_ref(g_t, d_t, w_t))
-    library_ms = median_ms(library)
+    ms = timer(lambda: ops.masked_agg(g_t, d_t, w_t))
+    plain_ms = timer(lambda: masked_agg_ref(g_t, d_t, w_t))
+    library_ms = timer(library)
     check(ops.masked_agg.launches > launches0, "timing did not launch")
-    print(f"[kernel] median ms: kernel {ms:.4f}, plain {plain_ms:.4f}, "
-          f"torch.bmm {library_ms:.4f}; bound {bound:.4f}: "
-          f"{nbytes / 1e6:.1f} MB at {memory_rate(name) / 1e12:.2f} TB/s "
-          f"is {by_bytes * 1e3:.4f}, {flops / 1e9:.2f} GFLOP at "
-          f"{FP32_PEAK / 1e12:.0f} TFLOP/s is {by_ops * 1e3:.4f}")
-    return {"name": "masked_agg", "route": "cuda",
-            "source": "src/repro_torch/kernels/masked_agg/csrc/masked_agg.cu",
-            "replaces": "src/repro/kernels/masked_agg/kernel.py:41",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": library_ms}
+            "text": f"{nbytes / 1e6:.1f} MB at "
+                    f"{memory_rate(name) / 1e12:.2f} TB/s is "
+                    f"{by_bytes * 1e3:.4f}, {flops / 1e9:.2f} GFLOP at "
+                    f"{FP32_PEAK / 1e12:.0f} TFLOP/s is {by_ops * 1e3:.4f}"}
 
 
 def phase_parity(dev):
@@ -780,6 +853,315 @@ def phase_codec_rounds(dev):
           f"{peak / 2**30:.2f} GiB")
 
 
+
+# -- the paper's other tasks and topologies ------------------------------------
+
+def phase_paper_tasks(dev):
+    """IMDB and CASA at full width (``repro_torch/paper_tasks.py``), 3 hub
+    rounds each through K1, then each built twice for 2 rounds."""
+    from repro_torch import paper_tasks
+    from repro_torch.core.comm import table4_row
+    from repro_torch.kernels.masked_agg import ops
+
+    launches = {}
+    for task in paper_tasks.TASKS:
+        fed = paper_tasks.build(task, dev)
+        frozen = FrozenDeltaCheck(fed.assign)
+        fed.server.add_hook(frozen)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        hist = fed.fit(ROUNDS)
+        torch.cuda.synchronize()
+        n = ops.masked_agg.launches
+        check(all(math.isfinite(r.loss) for r in hist),
+              f"{task}: non-finite loss")
+        check(n == ROUNDS, f"{task}: masked_agg launched {n} times in "
+              f"{ROUNDS} rounds")
+        check(frozen.checked > 0, f"{task}: no frozen unit was checked")
+        summ = fed.comm_summary()
+        t4 = table4_row(fed.assign, fed.params,
+                        np.stack(fed.server.sel_history))
+        check(all(summ[k] == v for k, v in t4.items()),
+              f"{task}: comm_summary {summ} != table4_row {t4}")
+        for r in hist:
+            print(f"[paper-tasks] {task} {r.round}: loss {r.loss:.4f} eval "
+                  f"accuracy {r.eval_metric:.4f} {r.seconds:.3f} s uplink "
+                  f"{r.uplink_bytes:.0f} B")
+        n_params = sum(x.numel() for x in fed.params.values())
+        print(f"[paper-tasks] {task}: {n_params} params, "
+              f"{fed.fl.n_train_units} of {fed.assign.n_units} units a round, "
+              f"{fed.fl.n_clients} clients; masked_agg launches {n}; "
+              f"frozen (client, leaf) deltas exactly zero: {frozen.checked}; "
+              f"comm_summary == table4_row; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        launches[task] = n
+
+        feds = []
+        for _ in range(2):
+            f = paper_tasks.build(task, dev, evaluate=False)
+            f.fit(REPEAT_ROUNDS)
+            torch.cuda.synchronize()
+            feds.append(f)
+        a, b = feds
+        diff = [p for p in a.params
+                if not torch.equal(a.params[p], b.params[p])]
+        check(not diff, f"{task}: {len(diff)} parameters differ between two "
+              f"identical runs, e.g. {diff[:3]}")
+        check(all(np.array_equal(x, y) for x, y in
+                  zip(a.server.sel_history, b.server.sel_history)),
+              f"{task}: sel_history differs between two identical runs")
+        print(f"[paper-tasks] {task}: built twice from one seed, "
+              f"{REPEAT_ROUNDS} rounds each: {len(a.params)} parameters and "
+              f"sel_history bitwise equal")
+    return launches
+
+
+def phase_paper_tasks_parity(dev):
+    """One round of each task on the card (K1) against the same round on
+    the CPU (plain aggregation), the model in float64 and the selection
+    replayed, as ``[parity]`` does for VGG16."""
+    from repro_torch import paper_tasks
+    from repro_torch.core import Replay
+
+    for task in paper_tasks.TASKS:
+        n_units = {"imdb": 4, "casa": 6}[task]
+        sel = np.zeros((paper_tasks.N_CLIENTS, n_units), np.float32)
+        rng = np.random.default_rng(3)
+        for row in sel:
+            row[rng.choice(n_units, paper_tasks.N_TRAIN[task],
+                           replace=False)] = 1.0
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            fed = paper_tasks.build(task, d, evaluate=False,
+                                    dtype=torch.float64,
+                                    strategy=Replay([sel]))
+            fed.fit(1)
+            out[d.type] = {p: v.cpu() for p, v in fed.params.items()}
+        err = {p: float((out["cuda"][p] - out["cpu"][p]).abs().max())
+               for p in out["cpu"]}
+        worst = max(err, key=err.get)
+        check(err[worst] <= PARITY_TOL,
+              f"{task} parity {worst}: card vs CPU max abs err "
+              f"{err[worst]} > {PARITY_TOL}")
+        print(f"[paper-tasks-parity] {task}: one hub round in float64, "
+              f"{paper_tasks.N_CLIENTS} clients: card (kernel) vs CPU (plain) "
+              f"max abs err {err[worst]:.3e} at {worst} (tol {PARITY_TOL})")
+
+
+class StateBefore:
+    """Server hook: keeps a copy of the server state at a round's start."""
+
+    def __init__(self):
+        self.states = []
+
+    def on_round_start(self, server, round_idx, weights):
+        self.states.append({p: x.clone() for p, x in server.params.items()})
+        return None
+
+    def on_round_end(self, server, record, metrics):
+        pass
+
+    def on_fit_end(self, server, history):
+        pass
+
+
+def phase_hier_round(dev):
+    """VGG16 at full width under 2 edge aggregators of 4 clients: 3 dense
+    rounds (K1 once a round, over the E planes of the hub combine), then
+    2 packed qint8 rounds (K2 once a round, K1 never).  Returns K1's and
+    K2's launches and the hub combine's K1 inputs from the last round."""
+    from repro_torch import paper_round
+    from repro_torch.core import codec_unit_bytes
+    from repro_torch.core.aggregation import (hierarchical_edge_partials,
+                                              hierarchical_masked_fedavg)
+    from repro_torch.core.comm import (edge_membership, hub_round_bytes,
+                                       hierarchical_round_bytes, unit_bytes)
+    from repro_torch.core.topology import _fused_hier_aggregate
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.masked_agg import ops
+
+    fed = paper_round.build(dev, topology="hierarchical", n_edges=2)
+    check(fed.fl.resolve_fused_agg(fed.device), "fused_agg did not resolve on")
+    frozen, cap = FrozenDeltaCheck(fed.assign), Capture()
+    fed.server.add_hook(frozen).add_hook(cap)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    hist = fed.fit(ROUNDS)
+    torch.cuda.synchronize()
+    k1 = ops.masked_agg.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(r.loss) for r in hist), "non-finite loss")
+    check(k1 == ROUNDS, f"masked_agg launched {k1} times in {ROUNDS} "
+          f"hierarchical rounds")
+    check(frozen.checked > 0, "no frozen unit was checked")
+    params = {p: x.cpu() for p, x in fed.params.items()}
+    ub = unit_bytes(fed.assign, params)
+    mem_np = edge_membership(fed.fl.n_clients, 2)
+    billed, flat = [], []
+    for rec, m in cap.rounds:
+        sel = m["sel"].numpy()
+        want = hierarchical_round_bytes(sel, ub, mem_np)["uplink"]
+        check(rec.uplink_bytes == want, f"round {rec.round}: billed "
+              f"{rec.uplink_bytes} != hierarchical_round_bytes {want}")
+        hub = hub_round_bytes(sel, ub)["uplink"]
+        check(rec.uplink_bytes <= hub, f"round {rec.round}: edge->hub "
+              f"{rec.uplink_bytes} above the flat hub's {hub}")
+        billed.append(rec.uplink_bytes)
+        flat.append(hub)
+    check(sum(billed) < sum(flat), "edge->hub bytes not below the flat hub")
+    for r, b, f in zip(hist, billed, flat):
+        print(f"[hier-round] {r.round}: loss {r.loss:.4f} {r.seconds:.3f} s "
+              f"edge->hub uplink {b:.0f} B = hierarchical_round_bytes; flat "
+              f"hub on the same selections {f:.0f} B ({b / f:.4f})")
+
+    # the fused two-stage aggregate on the last round's deltas against the
+    # plain hierarchical_masked_fedavg (K1 launches here are not counted)
+    _, m = cap.rounds[-1]
+    mem = torch.as_tensor(mem_np)
+    w = torch.as_tensor(cap.rounds[-1][0].effective_weights)
+    g = fed.params
+    fused = _fused_hier_aggregate(fed.assign, mem)(g, m["deltas"], m["sel"],
+                                                   w)
+    plain = hierarchical_masked_fedavg(g, m["deltas"], m["sel"], w,
+                                       fed.assign, mem)
+    agg_err = max(float((fused[p] - plain[p]).abs().max()) for p in g)
+    check(all(torch.allclose(fused[p], plain[p], atol=TOL, rtol=TOL)
+              for p in g), f"fused hierarchical vs plain: {agg_err}")
+    means, e_den = hierarchical_edge_partials(m["deltas"], m["sel"], w,
+                                              fed.assign, mem)
+    plan = ops.build_agg_plan(fed.assign, g)
+    g_t = ops.pack_into(plan, g, ops.new_tile_buffer(plan, device=dev)
+                        .zero_())
+    d_t = ops.pack_into(plan, means, ops.new_tile_buffer(
+        plan, (2,), device=dev).zero_())
+    w_t = ops.row_weights(plan, e_den, dev)
+    print(f"[hier-round] masked_agg launches {k1} (one a round over E=2 edge "
+          f"planes, T={plan.n_rows}); frozen (client, leaf) deltas exactly "
+          f"zero: {frozen.checked}; fused two-stage aggregate vs "
+          f"hierarchical_masked_fedavg on round {hist[-1].round}'s deltas: "
+          f"max abs err {agg_err:.3e} (tol {TOL}); peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    del fed, frozen, cap, fused, plain, means, m
+    torch.cuda.empty_cache()
+
+    fed = paper_round.build(dev, topology="hierarchical", n_edges=2,
+                            packed=True, codec="qint8")
+    frozen, cap = FrozenDeltaCheck(fed.assign), Capture()
+    fed.server.add_hook(frozen).add_hook(cap)
+    qops.reset_launch_counts()
+    ops.reset_launch_counts()
+    hist = fed.fit(REPEAT_ROUNDS)
+    torch.cuda.synchronize()
+    k2 = qops.quantize_pack_group.launches
+    check(all(math.isfinite(r.loss) for r in hist), "packed: non-finite loss")
+    check(k2 == REPEAT_ROUNDS, f"quantize_pack launched {k2} times in "
+          f"{REPEAT_ROUNDS} packed hierarchical rounds")
+    check(ops.masked_agg.launches == 0, f"the packed hierarchical round "
+          f"launched masked_agg {ops.masked_agg.launches} times")
+    check(frozen.checked > 0, "packed: no frozen unit was checked")
+    cub = codec_unit_bytes(fed.server.codec, fed.assign, params, fed.fl)
+    for rec, m in cap.rounds:
+        sel = m["sel"].numpy()
+        want = hierarchical_round_bytes(sel, cub, mem_np)["uplink"]
+        check(rec.uplink_bytes == want, f"packed round {rec.round}: billed "
+              f"{rec.uplink_bytes} != the per-edge union at wire width {want}")
+        fp32 = hierarchical_round_bytes(sel, ub, mem_np)["uplink"]
+        print(f"[hier-round] packed qint8 {rec.round}: loss {rec.loss:.4f} "
+              f"{rec.seconds:.3f} s edge->hub uplink {rec.uplink_bytes:.0f} B "
+              f"= per-edge union at wire width; fp32 {fp32:.0f} B")
+    print(f"[hier-round] packed qint8: quantize_pack launches {k2}, "
+          f"masked_agg 0; frozen decoded deltas exactly zero: "
+          f"{frozen.checked}")
+    del fed
+    torch.cuda.empty_cache()
+    return k1, k2, (g_t, d_t, w_t)
+
+
+def phase_gossip_round(dev):
+    """VGG16 at full width on a ring of 8 replicas, 2 rounds: no K1, the
+    gossip bill, and mixing that keeps the replicas' fp32 mean."""
+    from repro_torch import paper_round
+    from repro_torch.core.comm import gossip_round_bytes, unit_bytes
+    from repro_torch.kernels.masked_agg import ops
+
+    fed = paper_round.build(dev, topology="gossip")
+    before, cap = StateBefore(), Capture()
+    fed.server.add_hook(before).add_hook(cap)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    hist = fed.fit(REPEAT_ROUNDS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(r.loss) for r in hist), "non-finite loss")
+    check(ops.masked_agg.launches == 0,
+          f"gossip launched masked_agg {ops.masked_agg.launches} times")
+    ub = unit_bytes(fed.assign, {p: x.cpu() for p, x in fed.params.items()})
+    for rec, m in cap.rounds:
+        want = gossip_round_bytes(m["sel"].numpy(), ub)["uplink"]
+        check(rec.uplink_bytes == want, f"round {rec.round}: billed "
+              f"{rec.uplink_bytes} != gossip_round_bytes {want}")
+    # the last round: trained replicas (updates of clients of weight > 0
+    # applied) against the mixed ones the server now holds
+    rec, m = cap.rounds[-1]
+    keep = torch.as_tensor(rec.effective_weights, device=dev) > 0
+    worst = 0.0
+    for p, x in before.states[-1].items():
+        trained = torch.where(keep.reshape((-1,) + (1,) * (x.ndim - 1)),
+                              x + m["deltas"][p], x)
+        diff = float((fed.server.params[p].double().mean(0)
+                      - trained.double().mean(0)).abs().max())
+        scale = max(float(trained.abs().max()), 1e-30)
+        worst = max(worst, diff / scale)
+    check(worst <= 1e-6, f"mixing moved the replica mean by {worst} relative")
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in fed.server.params.values())
+    for r in hist:
+        print(f"[gossip-round] {r.round}: loss {r.loss:.4f} {r.seconds:.3f} s "
+              f"peer bytes {r.uplink_bytes:.0f} B = gossip_round_bytes")
+    print(f"[gossip-round] masked_agg launches 0; replica mean before vs "
+          f"after mixing: max {worst:.3e} relative to the largest entry "
+          f"(tol 1e-6); state {fed.fl.n_clients} replicas, "
+          f"{state_bytes / 1e6:.1f} MB; peak memory {peak / 2**30:.2f} GiB")
+    del fed, before, cap
+    torch.cuda.empty_cache()
+
+
+def phase_k1_plans(dev, hier_inputs):
+    """K1 at the IMDB and CASA hub plans (10 clients) and at the
+    hierarchical hub combine (VGG16, 2 edge planes from ``[hier-round]``):
+    against its plain version, device medians (L2 flushed) beside the
+    bound and a ``torch.bmm`` yardstick."""
+    from repro_torch import paper_tasks
+    from repro_torch.core import build_units_flat
+    from repro_torch.models import paper_models as pm
+
+    out = []
+    cases = []
+    for task in paper_tasks.TASKS:
+        init = {"imdb": pm.init_imdb, "casa": pm.init_casa}[task]
+        units = {"imdb": pm.imdb_units, "casa": pm.casa_units}[task]
+        params = {p: x.to(dev) for p, x in
+                  init(torch.Generator().manual_seed(0)).items()}
+        assign = build_units_flat(params, units(params))
+        plan, *_, g_t, d_t, w_t = _k1_case(dev, params, assign,
+                                           paper_tasks.N_CLIENTS)
+        cases.append((task, g_t, d_t, w_t, torch.as_tensor(
+            plan.row_unit == 1, device=dev)))
+    cases.append(("vgg16 hierarchical combine", *hier_inputs, None))
+    for tag, g_t, d_t, w_t, still in cases:
+        err, out_p = _k1_check(tag, g_t, d_t, w_t, still)
+        m = _k1_measure(g_t, d_t, w_t, out_p, device_ms)
+        t, _ = g_t.shape
+        print(f"[k1-plans] {tag}: T={t} planes={d_t.shape[0]}: max abs err "
+              f"{err:.3e}; device median ms kernel {m['ms']:.4f}, plain "
+              f"{m['plain_ms']:.4f}, torch.bmm {m['library_ms']:.4f}; bound "
+              f"{m['bound_ms']:.4f} (the kernel at "
+              f"{m['bound_ms'] / m['ms']:.1%} of it): {m['text']}")
+        out.append({"plan": tag, "rows": t, "planes": int(d_t.shape[0]),
+                    "max_abs_err": err, "ms": m["ms"],
+                    "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                    "library_ms": m["library_ms"]})
+    return out
 
 # -- K3 and the serving path ---------------------------------------------------
 
@@ -1869,11 +2251,23 @@ def main() -> int:
     phase_build()
     k1 = phase_kernel(dev)
     phase_parity(dev)
-    k1["launches"] = phase_round(dev)
+    k1_paths = {"hub vgg16": phase_round(dev)}
     phase_round_repeat(dev)
     k2 = phase_codec_kernel(dev)
-    k2["launches"] = phase_packed_round(dev)
+    k2_paths = {"hub vgg16 packed qint8": phase_packed_round(dev)}
     phase_codec_rounds(dev)
+    k1_paths.update(phase_paper_tasks(dev))
+    phase_paper_tasks_parity(dev)
+    (k1_paths["hierarchical vgg16"],
+     k2_paths["hierarchical vgg16 packed qint8"], hier) = phase_hier_round(dev)
+    phase_gossip_round(dev)
+    k1["plans"] = phase_k1_plans(dev, hier)
+    del hier
+    torch.cuda.empty_cache()
+    k1_paths.update({"hierarchical vgg16 packed qint8": 0, "gossip vgg16": 0})
+    for k, paths in ((k1, k1_paths), (k2, k2_paths)):
+        k["launches"] = sum(paths.values())
+        k["launches_by_path"] = paths
     k3 = phase_decode_kernel(dev)
     w, k3["launches"] = phase_serve(dev)
     phase_serve_parity(w)

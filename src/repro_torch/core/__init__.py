@@ -1,10 +1,12 @@
 """The paper's contribution, in PyTorch: federated partial-layer freezing.
 
 strategies — pluggable layer-selection strategies + registry (Alg. 2 line 3)
-topology   — pluggable federation topologies + registry (hub so far)
+topology   — pluggable federation topologies + registry (hub,
+             hierarchical, gossip)
 freezing   — functional wrappers over the strategy registry
 masking    — freeze units over param trees, mask trees, slot packing
-aggregation— FedAvg / participation-weighted masked FedAvg (dense + packed)
+aggregation— FedAvg / participation-weighted masked FedAvg (dense + packed,
+             flat and two-stage)
 client     — ClientUpdate (Alg. 2): masked and packed local training
 federation — FLConfig + the federated round step
 server     — round orchestration (Alg. 1) + composable ServerHooks
@@ -29,4 +31,5 @@ from .strategies import (Replay, SelectionContext,  # noqa: F401
                          UnknownStrategyError, get_strategy,
                          register_strategy, resolve_strategy)
 from .topology import (Topology, UnknownTopologyError,  # noqa: F401
-                       get_topology, register_topology, resolve_topology)
+                       get_topology, register_topology, resolve_topology,
+                       ring_mixing_matrix)

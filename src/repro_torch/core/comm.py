@@ -3,9 +3,9 @@
 Byte counts are exact functions of the unit assignment and the selection
 matrix — no simulation noise.  Pure numpy, copied from
 ``repro.core.comm`` so the port's byte counts equal the reference's
-exactly.  Ported so far: the hub accounting the paper reports and the
-edge membership; the hierarchical, buffered and gossip formulas wait for
-their topologies.
+exactly.  Ported: the hub accounting the paper reports, the edge
+membership and the hierarchical and gossip rounds; the buffered
+(async) formulas wait for the async engine.
 
 * **hub** (the paper's FEDn combiner): per round,
     uplink_c   = Σ_u sel_cu · unit_bytes_u      (only trained layers ship)
@@ -16,7 +16,7 @@ their topologies.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -75,6 +75,67 @@ def edge_membership(n_clients: int, n_edges: int) -> np.ndarray:
     for e, grp in enumerate(np.array_split(np.arange(n_clients), n_edges)):
         mem[e, grp] = 1.0
     return mem
+
+
+def hierarchical_round_bytes(sel: np.ndarray, ubytes: np.ndarray,
+                             membership: np.ndarray,
+                             include_downlink: bool = False,
+                             downlink: str = "full") -> Dict[str, float]:
+    """Two-stage accounting: client->edge (LAN) and edge->hub (WAN).
+
+    Each edge uploads one partial aggregate per unit in its selection
+    *union* — a unit trained by several of the edge's clients crosses
+    the WAN once, which is where hierarchical beats the flat hub.
+    ``uplink`` is the WAN (edge->hub) term.
+    """
+    sel = np.asarray(sel)
+    membership = np.asarray(membership)
+    n_edges, n_clients = membership.shape
+    total_model = float(ubytes.sum())
+    client_edge = float((sel @ ubytes).sum())
+    # per-edge selection union: (E, U)
+    union = (membership @ sel > 0).astype(np.float64)
+    edge_hub = float((union @ ubytes).sum())
+    if downlink == "full":
+        down = total_model * (n_edges + n_clients)
+    elif downlink == "selected":
+        gu = sel.max(axis=0) if sel.shape[0] else np.zeros(sel.shape[1])
+        down = float(gu @ ubytes) * (n_edges + n_clients)
+    else:
+        raise ValueError(f"downlink must be 'full' or 'selected', "
+                         f"got {downlink!r}")
+    out = {"uplink": edge_hub,
+           "uplink_frac": _safe_frac(edge_hub, total_model * n_edges),
+           "edge_hub_uplink": edge_hub,
+           "client_edge_uplink": client_edge,
+           "downlink": down}
+    out["total"] = edge_hub + client_edge + (down if include_downlink
+                                             else 0.0)
+    return out
+
+
+def gossip_round_bytes(sel: np.ndarray, ubytes: np.ndarray,
+                       degree: Optional[int] = None) -> Dict[str, float]:
+    """Peer-exchange accounting for one gossip round.
+
+    Every client ships its FULL replica to each of its ``degree``
+    out-neighbours (ring default: 2, capped by C-1); the mixing step
+    blends all entries of a replica, so selection cannot shrink the
+    payload — ``uplink_frac`` is 1 by construction and ``sel`` only
+    informs ``trained_params`` elsewhere.
+    """
+    sel = np.asarray(sel)
+    n_clients = sel.shape[0]
+    if degree is None:
+        degree = min(2, max(n_clients - 1, 0))
+    total_model = float(ubytes.sum())
+    payload = total_model * n_clients * degree
+    return {"uplink": payload,
+            "uplink_frac": 1.0 if n_clients > 1 else 0.0,
+            "peer_bytes": payload,
+            "degree": float(degree),
+            "downlink": 0.0,
+            "total": payload}
 
 
 def table4_row(assign: UnitAssignment, params, sel_history,

@@ -13,7 +13,7 @@ participation-weighted aggregation run eagerly on the round's device.
 
 Topology is a second plugin axis (core/topology.py): ``fl.topology``
 names a registered :class:`Topology` that owns the aggregation stage
-and its byte accounting.  Only ``hub`` is ported so far.  With
+and its byte accounting (``hub``, ``hierarchical``, ``gossip``).  With
 ``fl.packed`` the round trains and aggregates packed slot buffers, and
 ``fl.codec`` names a registered uplink codec (core/codecs.py) that
 round-trips the packed deltas before aggregation.
@@ -285,6 +285,16 @@ class FLConfig:
         raise ValueError(
             f"fused_agg must be 'auto', 'on' or 'off', got "
             f"{self.fused_agg!r}")
+
+    def resolve_n_edges(self) -> int:
+        """Edge-aggregator count of the hierarchical topology:
+        ``n_edges``, or ~sqrt(n_clients) when it is None."""
+        if self.n_edges is not None:
+            if not 1 <= self.n_edges <= self.n_clients:
+                raise ValueError(f"n_edges={self.n_edges} out of range "
+                                 f"for {self.n_clients} clients")
+            return self.n_edges
+        return max(1, round(self.n_clients ** 0.5))
 
     def resolve_n_train(self, n_units: int) -> int:
         if self.train_fraction is not None:

@@ -151,9 +151,14 @@ class RoundLogger(ServerHook):
 
 
 class Server:
-    """Owns the global params (on ``device``), the generator, the hooks
-    and the run history.  ``global_params()`` is the single-model view
-    that ``eval_fn`` sees and accounting sizes against."""
+    """Owns the topology state (on ``device``), the generator, the hooks
+    and the run history.
+
+    ``params`` is the topology *state*: the single global model for star
+    topologies (hub, hierarchical), the stacked per-client replicas for
+    gossip.  ``global_params()`` is always the single-model view (what
+    ``eval_fn`` sees and what accounting sizes against).  Plain model
+    params are lifted into state by ``Topology.init_state``."""
 
     def __init__(self, round_step: Callable, assign: UnitAssignment,
                  fl: FLConfig, params, *, eval_fn: Optional[Callable] = None,
@@ -169,9 +174,9 @@ class Server:
                                          else fl.topology)
         # own the state outright: a caller-held reference to the init
         # params must not alias the server's
-        self.params = {p: torch.as_tensor(x).detach().to(self.device,
-                                                          copy=True)
-                       for p, x in params.items()}
+        self.params = self.topology.init_state(
+            {p: torch.as_tensor(x).detach().to(self.device, copy=True)
+             for p, x in params.items()}, fl)
         self.eval_fn = eval_fn
         self.generator = torch.Generator().manual_seed(seed)
         self.hooks: List[ServerHook] = [CommAccounting()]
@@ -188,15 +193,15 @@ class Server:
         # drawn where the codec runs, never copied from the host
         self.codec = codecs.resolve_codec(fl.codec)
         self.codec_state = codecs.init_codec_state(
-            self.codec, self.params, fl.n_clients)
+            self.codec, self.global_params(), fl.n_clients)
         self.codec_generator = None
         if self.codec.stochastic:
             self.codec_generator = torch.Generator(
                 device=self.device).manual_seed(seed ^ codecs.CODEC_KEY_TAG)
 
     def global_params(self):
-        """The global model (the only server state of a star topology)."""
-        return self.params
+        """Single-model view of the topology state."""
+        return self.topology.global_params(self.params, self.fl)
 
     def unit_bytes(self) -> np.ndarray:
         if self._ubytes is None:

@@ -7,13 +7,13 @@ loader -> ``build_round_step`` -> ``Server`` once::
     fed.fit(rounds=20, log_every=1)
     fed.comm_summary()
 
-``spec`` is a :class:`ModelSpec` — the paper's VGG16 lives in
-``repro_torch.models.paper_models``; the zoo ``ArchConfig`` path waits
-for the zoo models.  Strategy and topology are registered plugin names
-in ``fl.strategy`` / ``fl.topology``; pass ``strategy=`` /
-``topology=`` to override either with an instance (a replay strategy in
-the parity tests, for one).  The run lives on ``device`` — the GPU
-unless the caller asks for the CPU.
+``spec`` is a :class:`ModelSpec` — the paper's VGG16, IMDB and CASA
+models live in ``repro_torch.models.paper_models``; the zoo
+``ArchConfig`` path waits for the zoo models. Strategy and topology are
+registered plugin names in ``fl.strategy`` / ``fl.topology``; pass
+``strategy=`` / ``topology=`` to override either with an instance (a
+replay strategy in the parity tests, for one). The run lives on
+``device`` — the GPU unless the caller asks for the CPU.
 """
 from __future__ import annotations
 

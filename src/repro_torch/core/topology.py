@@ -4,16 +4,26 @@ A **topology** owns the aggregation stage of the round step and its
 exact byte accounting (``round_bytes``/``summary``; core/comm.py has
 the formulas).  Adding one is a subclass + ``@register_topology``.
 
-Ported so far: ``hub`` — the paper's FEDn combiner star (the default).
-Its masked aggregate goes through the fused CUDA kernel when
-``FLConfig.resolve_fused_agg`` says so (``kernels/masked_agg``), with
-each client's delta written straight into the kernel's client-stacked
-tile buffer.  With ``FLConfig.packed`` the round runs on packed slot
-buffers instead (DESIGN.md §7), the uplink codec round-trips the packed
-deltas, and the hub's ``aggregate_packed`` reduces them; that path
-ignores ``fused_agg``, as the reference's does.  ``hierarchical`` and
-``gossip`` are not ported yet and :func:`resolve_topology` says so by
-name.
+Registered plugins:
+
+* ``hub`` — the paper's FEDn combiner star (the default).  Its masked
+  aggregate goes through the fused CUDA kernel when
+  ``FLConfig.resolve_fused_agg`` says so (``kernels/masked_agg``), with
+  each client's delta written straight into the kernel's client-stacked
+  tile buffer.
+* ``hierarchical`` — clients partitioned under ``FLConfig.n_edges``
+  edge aggregators; two-stage masked FedAvg (per-edge partial means,
+  then the hub combine, which runs through the fused kernel over the E
+  edge planes when ``fused_agg`` resolves on).  Only the per-edge
+  selection *union* crosses the edge->hub WAN link.
+* ``gossip`` — hubless peer averaging over a doubly-stochastic ring
+  mixing matrix; the per-client replicas are the server state
+  (``stateful = True``) and no aggregation kernel runs.
+
+With ``FLConfig.packed`` the star topologies run on packed slot buffers
+instead (DESIGN.md §7), the uplink codec round-trips the packed deltas,
+and the topology's ``aggregate_packed`` reduces them; that path ignores
+``fused_agg``, as the reference's does.
 """
 from __future__ import annotations
 
@@ -26,14 +36,33 @@ from ..common import flatten_with_paths, tree_stack
 from ..kernels.masked_agg import ops as agg_ops
 from . import codecs as _codecs
 from . import comm
-from .aggregation import fedavg, masked_fedavg, masked_fedavg_packed
+from .aggregation import (fedavg, hierarchical_edge_partials,
+                          hierarchical_masked_fedavg,
+                          hierarchical_masked_fedavg_packed, masked_fedavg,
+                          masked_fedavg_packed)
 from .client import local_update, packed_cohort_fn
 from .masking import UnitAssignment, mask_tree, slot_plan
-from .registry import NotPortedError, unknown_name_message
+from .registry import unknown_name_message
 from .strategies import SelectionContext, resolve_strategy
 
-# topologies of the reference that wait for a later slice
-_NOT_PORTED = ("gossip", "hierarchical")
+
+def ring_mixing_matrix(n: int) -> np.ndarray:
+    """Doubly-stochastic Metropolis weights on a ring of ``n`` peers.
+
+    n=1 -> identity; n=2 -> exact pair averaging; n>=3 -> 1/3 self +
+    1/3 to each ring neighbour.  Rows AND columns sum to one, so the
+    uniform average of the replicas is invariant under mixing.
+    """
+    if n < 1:
+        raise ValueError("ring needs at least one peer")
+    if n == 1:
+        return np.ones((1, 1), np.float32)
+    if n == 2:
+        return np.full((2, 2), 0.5, np.float32)
+    w = np.eye(n, dtype=np.float32) / 3.0
+    w += np.roll(np.eye(n, dtype=np.float32), 1, axis=1) / 3.0
+    w += np.roll(np.eye(n, dtype=np.float32), -1, axis=1) / 3.0
+    return w
 
 
 def _selection_setup(assign: UnitAssignment, fl, strategy):
@@ -53,10 +82,20 @@ def _selection_setup(assign: UnitAssignment, fl, strategy):
 
 def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                      loss_kwargs: Optional[Dict], *, strategy,
-                     device: torch.device, fused: bool,
+                     device: torch.device, fused: bool = False,
+                     aggregate: Optional[Callable] = None,
+                     aggregate_dense: Optional[Callable] = None,
                      aggregate_packed: Optional[Callable] = None):
     """The star-topology skeleton: selection -> masked local training
-    (an ordered loop over clients) -> masked FedAvg, fused or plain.
+    (an ordered loop over clients) -> an aggregation stage.
+
+    ``aggregate(global_params, deltas, sel, weights)`` is a topology's
+    own masked aggregate over the client-stacked deltas, and
+    ``aggregate_dense`` the dense (``full``-strategy) one (``fedavg``
+    when None).  Without ``aggregate`` the round takes the hub's masked
+    FedAvg: through the fused kernel (``fused``), each client's delta
+    written straight into the kernel's tile planes, or the plain
+    ``masked_fedavg``.
 
     With ``fl.packed`` (DESIGN.md §7) local training and aggregation run
     on packed slot buffers instead: ``aggregate_packed(g, pdeltas, rows,
@@ -73,6 +112,8 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
     the decoded packed deltas on the packed path).
     """
     strat, ctx = _selection_setup(assign, fl, strategy)
+    if aggregate_dense is None:
+        aggregate_dense = lambda g, d, sel, w: fedavg(g, d, w)  # noqa: E731
     use_packed = fl.packed and not strat.dense
     if use_packed and aggregate_packed is None:
         raise ValueError(
@@ -120,7 +161,7 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
             return packed_step(global_params, client_batches, weights, sel,
                                uniform, codec_state)
         n = fl.n_clients
-        fused_tiles = fused and not strat.dense
+        fused_tiles = fused and not strat.dense and aggregate is None
         if fused_tiles:
             if "plan" not in plan:
                 plan["plan"] = agg_ops.build_agg_plan(assign, global_params)
@@ -143,7 +184,10 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                 deltas.append(d)
         if strat.dense:
             deltas = tree_stack(deltas)
-            new_params = fedavg(global_params, deltas, weights)
+            new_params = aggregate_dense(global_params, deltas, sel, weights)
+        elif aggregate is not None:
+            deltas = tree_stack(deltas)
+            new_params = aggregate(global_params, deltas, sel, weights)
         elif fused_tiles:
             new_params = agg_ops.masked_combine_packed(
                 global_params, d_t, sel * weights[:, None], plan["plan"])
@@ -162,15 +206,46 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
     return round_step
 
 
+def _fused_hier_aggregate(assign: UnitAssignment, mem: torch.Tensor
+                          ) -> Callable:
+    """Two-stage masked FedAvg with the hub combine through the fused
+    kernel: per-edge partial means (stage 1, plain PyTorch) packed into
+    an ``(E, T, tile)`` buffer, then one K1 launch over the E planes with
+    the per-edge weight mass ``e_den (E, U)`` as ``wsel``.  The tiling
+    plan is built once, at the first call."""
+    plan = {}
+
+    def aggregate(g, d, sel, w):
+        if "plan" not in plan:
+            plan["plan"] = agg_ops.build_agg_plan(assign, g)
+        means, e_den = hierarchical_edge_partials(d, sel, w, assign, mem)
+        dev = next(iter(g.values())).device
+        d_t = agg_ops.pack_into(plan["plan"], means, agg_ops.new_tile_buffer(
+            plan["plan"], (mem.shape[0],), device=dev))
+        return agg_ops.masked_combine_packed(g, d_t, e_den, plan["plan"])
+
+    return aggregate
+
+
 class Topology:
     """Base class for federation-topology plugins.
 
     Subclasses set ``name`` and implement ``build_round_step``
-    (aggregation stage) and ``round_bytes``/``summary`` (exact
-    accounting).
+    (aggregation stage) and ``round_bytes`` (exact accounting; the
+    run-level ``summary`` is derived from it).  ``stateful`` declares
+    that the server state is not a single global model —
+    ``init_state``/``global_params`` convert between the two (identity
+    for star topologies).
     """
 
     name: ClassVar[str] = ""
+    stateful: ClassVar[bool] = False
+
+    def init_state(self, params, fl):
+        return params
+
+    def global_params(self, state, fl):
+        return state
 
     def build_round_step(self, loss_fn: Callable, assign: UnitAssignment,
                          fl, loss_kwargs: Optional[Dict] = None, *,
@@ -186,8 +261,26 @@ class Topology:
                 wire_ubytes: Optional[np.ndarray] = None
                 ) -> Dict[str, float]:
         """Run-level comm summary over ``sel_history (rounds, C, U)``;
-        ``wire_ubytes`` bills the uplink at a codec's encoded width."""
-        raise NotImplementedError
+        the same core keys for every topology.
+
+        ``wire_ubytes`` (the codec-encoded per-unit byte table) bills
+        the per-round uplink at wire width; the ``reduction_vs_full``
+        denominator stays the fp32 full-model round.
+        """
+        ub = comm.unit_bytes(assign, params)
+        wub = ub if wire_ubytes is None else wire_ubytes
+        counts = comm.unit_param_counts(assign, params)
+        hist = np.asarray(sel_history)
+        per_round = [self.round_bytes(s, wub, fl)["uplink"] for s in hist]
+        per_round_params = np.einsum("rcu,u->r", hist, counts)
+        full = self.round_bytes(np.ones_like(hist[0]), ub, fl)["uplink"]
+        return {
+            "avg_uplink_bytes": float(np.mean(per_round)),
+            "avg_trained_params": float(per_round_params.mean()),
+            "total_uplink_bytes": float(np.sum(per_round)),
+            "reduction_vs_full": 1.0 - float(np.mean(per_round)) / full
+            if full else 0.0,
+        }
 
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name!r})"
@@ -219,11 +312,6 @@ def get_topology(name: str) -> Topology:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in _NOT_PORTED:
-            raise NotPortedError(
-                f"topology {name!r} is not ported to repro_torch yet "
-                f"(not yet ported: {', '.join(_NOT_PORTED)}; "
-                f"registered: {', '.join(sorted(_REGISTRY))})") from None
         raise UnknownTopologyError(unknown_name_message(
             "topology", name, _REGISTRY)) from None
 
@@ -261,3 +349,118 @@ class Hub(Topology):
         # when a codec is configured)
         return comm.table4_row(assign, params, sel_history,
                                wire_ubytes=wire_ubytes)
+
+
+@register_topology
+class Hierarchical(Topology):
+    """Edge aggregators between clients and hub (FLConfig.n_edges).
+
+    Clients are partitioned into contiguous edge groups; each edge
+    reduces its clients' masked deltas into per-unit partial aggregates
+    and only the per-edge selection union crosses the edge->hub WAN
+    link — ``round_bytes`` reports that WAN term as ``uplink``.  The
+    ``full`` strategy takes the same two-stage aggregate.
+    """
+    name = "hierarchical"
+
+    def build_round_step(self, loss_fn, assign, fl, loss_kwargs=None, *,
+                         strategy=None, device):
+        mem = torch.as_tensor(comm.edge_membership(fl.n_clients,
+                                                   fl.resolve_n_edges()))
+        if fl.resolve_fused_agg(device):
+            agg = _fused_hier_aggregate(assign, mem)
+        else:
+            agg = lambda g, d, sel, w: hierarchical_masked_fedavg(  # noqa
+                g, d, sel, w, assign, mem)
+        return _star_round_step(
+            loss_fn, assign, fl, loss_kwargs, strategy=strategy,
+            device=device, aggregate=agg, aggregate_dense=agg,
+            aggregate_packed=lambda g, d, r, v, sel, w:
+                hierarchical_masked_fedavg_packed(g, d, r, v, sel, w,
+                                                  assign, mem))
+
+    def round_bytes(self, sel, ubytes, fl):
+        mem = comm.edge_membership(fl.n_clients, fl.resolve_n_edges())
+        return comm.hierarchical_round_bytes(
+            sel, ubytes, mem,
+            downlink="selected" if fl.synchronized else "full")
+
+
+@register_topology
+class Gossip(Topology):
+    """Hubless peer averaging over a doubly-stochastic ring.
+
+    The server state is the stacked per-client replicas (leading C axis)
+    carried across rounds.  Per round each client runs masked local
+    training from its OWN replica, then the replicas mix: ``x' = W @ x``
+    in fp32 with the ring Metropolis matrix W.  W is doubly stochastic,
+    so the uniform replica average — ``global_params`` — is preserved by
+    mixing and drifts only through local training.  Client data weights
+    reweight nothing here; zero-weight clients (stragglers) train (their
+    loss is reported, as in the reference) but their update is not
+    applied, and they still mix.  No aggregation kernel runs.
+    """
+    name = "gossip"
+    stateful = True
+
+    def init_state(self, params, fl):
+        c = fl.n_clients
+        return {p: x.unsqueeze(0).repeat((c,) + (1,) * x.ndim)
+                for p, x in params.items()}
+
+    def global_params(self, state, fl):
+        return {p: x.float().mean(0).to(x.dtype) for p, x in state.items()}
+
+    def build_round_step(self, loss_fn, assign, fl, loss_kwargs=None, *,
+                         strategy=None, device):
+        if fl.packed:
+            raise ValueError(
+                "packed round path: gossip mixing blends full replicas, "
+                "so there is nothing to pack — use hub or hierarchical")
+        strat, ctx = _selection_setup(assign, fl, strategy)
+        mix = torch.as_tensor(ring_mixing_matrix(fl.n_clients),
+                              device=device)
+
+        def round_step(state, client_batches, weights,
+                       gen: Optional[torch.Generator]):
+            sel = strat.select(gen, ctx)
+            if fl.always_train_head:
+                sel[:, -1] = 1.0
+            active = torch.as_tensor(weights, dtype=torch.float32).cpu() > 0
+            losses, deltas = [], []
+            for c in range(fl.n_clients):
+                params_c = {p: x[c] for p, x in state.items()}
+                d, m = local_update(
+                    loss_fn, params_c, mask_tree(assign, sel[c], params_c),
+                    {k: v[c] for k, v in client_batches.items()}, lr=fl.lr,
+                    optimizer=fl.optimizer, prox_mu=fl.prox_mu,
+                    loss_kwargs=loss_kwargs)
+                losses.append(m["loss_mean"])
+                deltas.append(d)
+            deltas = tree_stack(deltas)
+            keep = active.to(device)
+            mixed = {}
+            for p, x in state.items():
+                upd = keep.reshape((-1,) + (1,) * (x.ndim - 1))
+                trained = torch.where(upd, x + deltas[p].to(x.dtype), x)
+                mixed[p] = torch.tensordot(
+                    mix, trained.float(), dims=([1], [0])).to(x.dtype)
+            per_client = torch.stack(losses)
+            return mixed, {"loss_mean": per_client.mean(),
+                           "loss_per_client": per_client,
+                           "sel": sel, "deltas": deltas}
+
+        return round_step
+
+    def round_bytes(self, sel, ubytes, fl):
+        return comm.gossip_round_bytes(sel, ubytes)
+
+    def summary(self, assign, params, sel_history, fl, wire_ubytes=None):
+        # codecs are rejected for gossip at config time (no packed
+        # uplink), so wire_ubytes can only be the fp32 table here
+        out = Topology.summary(self, assign, params, sel_history, fl,
+                               wire_ubytes)
+        hist = np.asarray(sel_history)
+        ub = comm.unit_bytes(assign, params)
+        out["degree"] = comm.gossip_round_bytes(hist[0], ub)["degree"]
+        return out

@@ -1,2 +1,3 @@
 from .synthetic import cifar_like, imdb_like, casa_like  # noqa: F401
-from .partition import iid_partition, FederatedLoader  # noqa: F401
+from .partition import (iid_partition, dirichlet_partition,  # noqa: F401
+                        FederatedLoader)

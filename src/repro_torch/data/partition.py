@@ -1,4 +1,4 @@
-"""Client data partitioning (IID) + round loaders.
+"""Client data partitioning (IID and Dirichlet Non-IID) + round loaders.
 
 Pure numpy, copied from ``repro.data.partition`` so both packages build
 the same shards and round batches (held array-equal in the tests).
@@ -16,6 +16,29 @@ def iid_partition(n: int, n_clients: int, *, key: int = 0) -> List[np.ndarray]:
     idx = rng.permutation(n)
     per = n // n_clients
     return [idx[c * per:(c + 1) * per] for c in range(n_clients)]
+
+
+def dirichlet_partition(labels: np.ndarray, n_clients: int, *,
+                        alpha: float = 0.5, key: int = 0,
+                        min_per_client: int = 8) -> List[np.ndarray]:
+    """Label-skewed Non-IID shards (CASA-style heterogeneity)."""
+    rng = np.random.default_rng(key)
+    classes = np.unique(labels)
+    shards: List[List[int]] = [[] for _ in range(n_clients)]
+    for c in classes:
+        idx = np.where(labels == c)[0]
+        rng.shuffle(idx)
+        props = rng.dirichlet(np.full(n_clients, alpha))
+        cuts = (np.cumsum(props) * len(idx)).astype(int)[:-1]
+        for shard, part in zip(shards, np.split(idx, cuts)):
+            shard.extend(part.tolist())
+    out = []
+    for shard in shards:
+        if len(shard) < min_per_client:  # top up from the global pool
+            extra = rng.integers(0, len(labels), min_per_client - len(shard))
+            shard = shard + extra.tolist()
+        out.append(np.asarray(shard))
+    return out
 
 
 class FederatedLoader:

@@ -1,7 +1,8 @@
-"""Models of the port: the paper's own (VGG16 so far, ``paper_models``),
-the toy stacked-block MLP the round-step tests use (``toy``), and the
-zoo's dense transformer family (``transformer``) and RWKV-6 (``rwkv6``,
-the ``ssm`` family), one API across families as in ``repro.models``.
+"""Models of the port: the paper's own (VGG16, the IMDB CNN-LSTM and the
+CASA LSTM, ``paper_models``), the toy stacked-block MLP the round-step
+tests use (``toy``), and the zoo's dense transformer family
+(``transformer``) and RWKV-6 (``rwkv6``, the ``ssm`` family), one API
+across families as in ``repro.models``.
 
 ``get_model(cfg)`` dispatches on ``cfg.family``.  ``dense`` and ``ssm``
 are ported; the other families raise ``NotPortedError``.

@@ -1,11 +1,14 @@
-"""Where the time of the paper's hub round goes on the GPU.
+"""Where the time of the paper's federated rounds goes on the GPU.
 
     PYTHONPATH=src python -m repro_torch.profile_round [--rounds 3]
+        [--model vgg16|imdb|casa] [--topology hub|hierarchical|gossip]
         [--codec qint8] [--out FILE]
 
-Builds the main path's federation (``paper_round.build``, the same one
-chip_smoke.py drives, without evaluation; with ``--codec`` the packed
-round with that uplink codec), runs one round to warm up,
+Builds the federation chip_smoke.py drives, without evaluation: VGG16
+from ``paper_round.build`` (8 clients), IMDB or CASA from
+``paper_tasks.build`` (10 clients), under the topology asked for
+(``hierarchical`` with 2 edges); with ``--codec`` the packed round with
+that uplink codec.  It runs one round to warm up,
 then ``--rounds`` rounds without and ``--rounds`` rounds under
 ``torch.profiler``, and prints one JSON object: the card and its power
 limit, the host wall time per round, the device's busy share (device
@@ -22,7 +25,10 @@ import time
 
 import torch
 
-from . import paper_round
+from . import paper_round, paper_tasks
+
+MODELS = ("vgg16", "imdb", "casa")
+TOPOLOGIES = ("hub", "hierarchical", "gossip")
 
 
 def _device_us(evt) -> float:
@@ -38,6 +44,8 @@ def _kind(name: str) -> str:
         return "masked_agg (K1)"
     if "quantize_pack" in name:             # quantize_pack_group_kernel
         return "quantize_pack (K2)"
+    if any(k in name for k in ("RNN", "LSTM", "rnn", "lstm")):
+        return "lstm (cuDNN)"
     if any(k in name for k in ("cudnn", "xmma", "implicit_gemm", "conv",
                                "dgrad", "wgrad", "gemm")):
         return "convolution / matmul"
@@ -46,9 +54,21 @@ def _kind(name: str) -> str:
     return "elementwise / reduction"
 
 
-def profile(rounds: int, codec: str = "") -> dict:
-    fed = paper_round.build("cuda", **(
-        {"packed": True, "codec": codec} if codec else {}))
+def build(model: str = "vgg16", topology: str = "hub", codec: str = ""):
+    """The profiled federation on the card."""
+    kw = {"topology": topology}
+    if topology == "hierarchical":
+        kw["n_edges"] = 2
+    if codec:
+        kw.update(packed=True, codec=codec)
+    if model == "vgg16":
+        return paper_round.build("cuda", **kw)
+    return paper_tasks.build(model, "cuda", evaluate=False, **kw)
+
+
+def profile(rounds: int, codec: str = "", model: str = "vgg16",
+            topology: str = "hub") -> dict:
+    fed = build(model, topology, codec)
     fed.fit(1)                                   # warm-up: cuDNN, kernel build
     clean = [r.seconds for r in fed.fit(rounds)[-rounds:]]   # no profiler
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -78,11 +98,14 @@ def profile(rounds: int, codec: str = "") -> dict:
         timeout=60, check=True).stdout.strip()
     return {
         "card": smi, "torch": torch.__version__,
-        "config": {"width": paper_round.WIDTH,
-                   "clients": paper_round.N_CLIENTS,
-                   "train_units": paper_round.N_TRAIN,
-                   "batch": paper_round.BATCH,
-                   "local_steps": paper_round.LOCAL_STEPS,
+        "config": {"model": model, "topology": topology,
+                   "clients": fed.fl.n_clients,
+                   "edges": fed.fl.resolve_n_edges()
+                   if topology == "hierarchical" else None,
+                   "train_units": fed.fl.n_train_units,
+                   "units": fed.assign.n_units,
+                   "batch": fed.loader.batch_size,
+                   "local_steps": fed.loader.steps,
                    "packed": fed.fl.packed, "codec": fed.fl.codec,
                    "rounds": rounds},
         "round_seconds": clean,
@@ -102,11 +125,14 @@ def profile(rounds: int, codec: str = "") -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--model", default="vgg16", choices=MODELS)
+    ap.add_argument("--topology", default="hub", choices=TOPOLOGIES)
     ap.add_argument("--codec", default="",
                     help="profile the packed round with this uplink codec")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     a = ap.parse_args(argv)
-    text = json.dumps(profile(a.rounds, a.codec), indent=1)
+    text = json.dumps(profile(a.rounds, a.codec, a.model, a.topology),
+                      indent=1)
     print(text)
     if a.out:
         with open(a.out, "w") as f:

@@ -85,14 +85,18 @@ def test_unknown_names_match_reference_message():
         topology.get_topology("nope")
     with pytest.raises(rtopo.UnknownTopologyError) as ref:
         rtopo.get_topology("nope")
-    assert str(got.value) == "unknown topology 'nope'; registered: hub"
+    assert str(got.value) == \
+        "unknown topology 'nope'; registered: gossip, hierarchical, hub"
     assert str(ref.value).startswith("unknown topology 'nope'")
 
 
-@pytest.mark.parametrize("name", ["gossip", "hierarchical"])
-def test_unported_topologies_are_named(name):
-    with pytest.raises(NotPortedError, match=name):
-        topology.resolve_topology(name)
+@pytest.mark.parametrize("name", ["hub", "hierarchical", "gossip"])
+def test_topologies_resolve(name):
+    got, ref = topology.resolve_topology(name), rtopo.resolve_topology(name)
+    assert got.name == ref.name == name
+    assert type(got).__name__ == type(ref).__name__
+    assert got.stateful == ref.stateful == (name == "gossip")
+    assert topology.get_topology(name) is got
 
 
 def test_flconfig_fields_and_defaults_equal_reference():

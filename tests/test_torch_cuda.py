@@ -837,6 +837,69 @@ def test_dense_round_is_bitwise_repeatable(dev):
     assert a.comm_summary() == b.comm_summary()
 
 
+@pytest.mark.parametrize("task", ["imdb", "casa"])
+def test_paper_task_round_is_bitwise_repeatable(dev, task):
+    """IMDB and CASA (the LSTM on cuDNN, the embedding's backward) built
+    twice from the same seed: two rounds each give bitwise equal
+    parameters, selections and bill, with one K1 launch a round."""
+    from repro_torch import paper_tasks
+    runs = []
+    for _ in range(2):
+        fed = paper_tasks.build(task, dev, evaluate=False)
+        before = ops.masked_agg.launches
+        fed.fit(2)
+        torch.cuda.synchronize()
+        assert ops.masked_agg.launches == before + 2
+        runs.append(fed)
+    a, b = runs
+    assert all(torch.equal(a.params[p], b.params[p]) for p in a.params)
+    assert all(np.array_equal(x, y) for x, y in
+               zip(a.server.sel_history, b.server.sel_history))
+    assert a.comm_summary() == b.comm_summary()
+
+
+def test_kernel_two_edge_planes_match_plain(dev):
+    """K1 as the hierarchical hub combine: E = 2 planes of edge means."""
+    g, d, w = _case(dev, 1293, 2, 2048)
+    before = ops.masked_agg.launches
+    out = ops.masked_agg(g, d, w)
+    torch.cuda.synchronize()
+    assert ops.masked_agg.launches == before + 1
+    torch.testing.assert_close(out, masked_agg_ref(g, d, w), atol=TOL,
+                               rtol=TOL)
+    assert torch.equal(out[1293 // 2], g[1293 // 2])
+
+
+def test_hierarchical_fused_aggregate_matches_plain(dev):
+    """The two-stage aggregate through K1 against the plain
+    ``hierarchical_masked_fedavg`` on CASA's leaves, 10 clients in 2
+    edges, a zero-weight client and a unit nobody trained."""
+    from repro_torch.core import build_units_flat
+    from repro_torch.core.aggregation import hierarchical_masked_fedavg
+    from repro_torch.core.comm import edge_membership
+    from repro_torch.core.topology import _fused_hier_aggregate
+    from repro_torch.models import paper_models as pm
+    params = {p: x.to(dev) for p, x in
+              pm.init_casa(torch.Generator().manual_seed(0)).items()}
+    assign = build_units_flat(params, pm.casa_units(params))
+    rng = np.random.default_rng(0)
+    sel = torch.as_tensor(rng.integers(0, 2, (10, 6)), dtype=torch.float32)
+    sel[:, 2] = 0.0
+    w = torch.as_tensor(rng.uniform(0.5, 2.0, 10), dtype=torch.float32)
+    w[3] = 0.0
+    gen = torch.Generator(device=dev).manual_seed(1)
+    deltas = {p: torch.randn((10,) + tuple(x.shape), generator=gen,
+                             device=dev) for p, x in params.items()}
+    mem = torch.as_tensor(edge_membership(10, 2))
+    before = ops.masked_agg.launches
+    fused = _fused_hier_aggregate(assign, mem)(params, deltas, sel, w)
+    assert ops.masked_agg.launches == before + 1
+    plain = hierarchical_masked_fedavg(params, deltas, sel, w, assign, mem)
+    for p in params:
+        torch.testing.assert_close(fused[p], plain[p], atol=TOL, rtol=TOL)
+    assert torch.equal(fused["dense1/w"], params["dense1/w"])
+
+
 @pytest.mark.parametrize("bad", ["head_dim", "misaligned", "device",
                                  "blocks"])
 def test_flash_attention_wrapper_raises(dev, bad):
