@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in twenty-one phases, in the order
-below except that 17-21 run after 8, and any failure exits non-zero:
+nothing of the ``repro`` package) in twenty-four phases, in the order
+below except that 17-20, then 22-24, then 21 run after 8, and any
+failure exits non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
    the checkout with ``nvcc`` (``repro_torch/kernels/_build.py``).
@@ -193,6 +194,33 @@ below except that 17-21 run after 8, and any failure exits non-zero:
    against its plain version at 2e-5, bitwise repeatable; device medians
    (L2 flushed) of the kernel, the plain version and a ``torch.bmm``
    yardstick beside the bound in bytes.
+22. scored-round — VGG16 at full width under the scored strategies
+   (``paper_round.build(strategy=...)``): ``score_weighted``,
+   ``depth_dropout`` and ``successive`` 4 hub rounds each, and
+   ``score_weighted`` on 2 edges for 2 rounds.  Each round: one K1
+   launch; the per-client telemetry ``unit_sqnorm`` exactly zero on
+   every frozen unit and positive on every trained one; after the state
+   update ``sel_state.counts`` equal to the column sums of the active
+   clients' selections so far and every unit trained so far with a
+   positive score; the bill equal to Table 4 (hub) or
+   ``hierarchical_round_bytes``.  Then one ``score_weighted`` round of
+   VGG16 width 0.125 in float64 (its cross-entropy too) on the card (K1)
+   and on the CPU with the same injected Gumbel noise and live state,
+   with Adam and with SGD: selections equal, parameters within
+   PARITY_TOL, telemetry within NORM_RTOL.
+23. scored-packed — the ``score_weighted`` hub round packed with qint8,
+   4 rounds: one K2 launch a round and K1 never, 22's telemetry and
+   state checks; each round's dense telemetry on the packed run's own
+   params, batches and selections within NORM_RTOL (relative) of the
+   packed run's.
+24. ckpt-resume — ``score_weighted`` hub, packed ``topk_ef`` (the
+   error-feedback residual), packed qint8 (the codec's device
+   generator) and gossip (8 stacked replicas), VGG16 at full width: 4
+   rounds straight against 2 rounds, ``Federation.save``, a new
+   ``Federation`` restored, 2 more rounds: state, ``sel_state``, codec
+   state, ``sel_history`` and ``comm_summary()`` bitwise equal; the
+   checkpoint's bytes and the save and restore wall times beside the
+   card's name and power limit.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -204,6 +232,7 @@ other plans in ``plans``); the last line is
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -1124,6 +1153,354 @@ def phase_gossip_round(dev):
           f"{state_bytes / 1e6:.1f} MB; peak memory {peak / 2**30:.2f} GiB")
     del fed, before, cap
     torch.cuda.empty_cache()
+
+
+# -- scored selection and checkpoints ------------------------------------------
+
+SCORED_ROUNDS = 4
+NORM_RTOL = 1e-5         # telemetry: card vs CPU, and packed vs dense
+
+
+class ScoredCheck:
+    """Server hook: every round's telemetry is exactly zero on frozen
+    units and positive on trained ones; after the state update (which
+    runs before this hook) ``counts`` equal the column sums of the
+    active clients' selections so far and every unit trained so far has
+    a positive score.  Keeps (sel, unit_sqnorm) of each round on the
+    CPU."""
+
+    def __init__(self):
+        self.rounds = []
+        self.counts = None
+
+    def on_round_start(self, server, round_idx, weights):
+        return None
+
+    def on_round_end(self, server, record, metrics):
+        sel = metrics["sel"].float()
+        sq = metrics["unit_sqnorm"].cpu()
+        check(tuple(sq.shape) == tuple(sel.shape),
+              f"round {record.round}: unit_sqnorm {tuple(sq.shape)}")
+        check(bool((sq[sel == 0] == 0).all()),
+              f"round {record.round}: telemetry on a frozen unit")
+        check(bool((sq[sel > 0] > 0).all()),
+              f"round {record.round}: a trained unit has no telemetry")
+        active = torch.as_tensor(record.effective_weights) > 0
+        add = (sel * active[:, None].float()).sum(0)
+        self.counts = add if self.counts is None else self.counts + add
+        st = server.sel_state
+        check(torch.equal(st.counts, self.counts),
+              f"round {record.round}: sel_state.counts {st.counts} != the "
+              f"active selections' column sums {self.counts}")
+        check(bool((st.scores[st.counts > 0] > 0).all()),
+              f"round {record.round}: a trained unit has score 0")
+        check(int(st.round) == record.round + 1,
+              f"round {record.round}: sel_state.round {int(st.round)}")
+        self.rounds.append((sel, sq))
+
+    def on_fit_end(self, server, history):
+        pass
+
+
+def _xent64(params, batch, *, device):
+    """VGG16's cross-entropy in the params' dtype.  ``vgg16_loss`` takes
+    it in float32 (as the reference does); with Adam's first step
+    (lr / (1 + eps / |g|)) that float32 rounding moves a parameter
+    whose gradient lies near eps by more than PARITY_TOL (1.12e-5 at
+    conv12/w on one scored selection), so this check keeps the whole
+    gradient in float64."""
+    from repro_torch.models import paper_models as pm
+    logits = pm.vgg16_apply(params, batch["x"], device=device)
+    y = torch.as_tensor(batch["y"], device=logits.device).long()
+    return torch.nn.functional.cross_entropy(logits, y), {}
+
+
+def _scored_parity(dev):
+    """One score_weighted hub round, VGG16 width 0.125 in float64 (the
+    loss too: ``_xent64``), on the card (K1) and on the CPU with the same
+    injected Gumbel noise and the same live state, with Adam and with
+    SGD: selections equal, parameters within PARITY_TOL, telemetry
+    within NORM_RTOL.  Returns the worst readings."""
+    from repro_torch.core import (FLConfig, SelectionState, build_round_step,
+                                  build_units_flat, get_strategy)
+    from repro_torch.data import cifar_like
+    from repro_torch.models import paper_models as pm
+
+    c = 3
+    params = pm.init_vgg16(torch.Generator().manual_seed(1),
+                           dtype=torch.float64, width_mult=0.125)
+    assign = build_units_flat(params, pm.vgg16_units(params))
+    u = assign.n_units
+    x, y = cifar_like(c * 4, key=3)
+    batches = {"x": x.reshape(c, 1, 4, 32, 32, 3), "y": y.reshape(c, 1, 4)}
+    rng = np.random.default_rng(4)
+    state = SelectionState(
+        torch.as_tensor(rng.uniform(0.1, 3.0, u), dtype=torch.float32),
+        torch.ones(u), torch.tensor(3, dtype=torch.int32))
+    noise = [torch.as_tensor(-np.log(-np.log(rng.uniform(1e-6, 1.0, u))),
+                             dtype=torch.float32) for _ in range(c)]
+    readings = []
+    for opt in ("adam", "sgd"):
+        out = []
+        for d in (dev, torch.device("cpu")):
+            strat = type(get_strategy("score_weighted"))()
+            it = iter(noise)
+            strat.gumbel = lambda gen, n: next(it)
+            fl = FLConfig(n_clients=c, n_train_units=7, optimizer=opt)
+            step = build_round_step(functools.partial(_xent64, device=d),
+                                    assign, fl, strategy=strat, device=d)
+            new, m = step({p: v.to(d) for p, v in params.items()},
+                          {k: torch.as_tensor(v, device=d)
+                           for k, v in batches.items()},
+                          torch.ones(c), None, sel_state=state)
+            out.append(({p: v.cpu() for p, v in new.items()}, m["sel"],
+                        m["unit_sqnorm"].cpu()))
+        (p_c, sel_c, sq_c), (p_h, sel_h, sq_h) = out
+        check(torch.equal(sel_c, sel_h),
+              "scored parity: selections differ between card and CPU")
+        err = {p: float((p_c[p] - p_h[p]).abs().max()) for p in params}
+        worst = max(err, key=err.get)
+        check(err[worst] <= PARITY_TOL, f"scored parity ({opt}) {worst}: "
+              f"card vs CPU max abs err {err[worst]} > {PARITY_TOL}")
+        rel = float(((sq_c - sq_h).abs() / sq_h.clamp_min(1e-30))
+                    [sq_h > 0].max())
+        check(rel <= NORM_RTOL and torch.equal(sq_c == 0, sq_h == 0),
+              f"scored parity ({opt}): telemetry card vs CPU relative err "
+              f"{rel}")
+        readings.append((opt, err[worst], worst, rel))
+    return readings
+
+
+def phase_scored_round(dev):
+    """VGG16 at full width under the three scored strategies (4 hub rounds
+    each) and ``score_weighted`` on the hierarchical topology (2 rounds):
+    one K1 launch a round, the telemetry and state checks of
+    ``ScoredCheck``, the bill equal to Table 4 (hub) or
+    ``hierarchical_round_bytes``; then a float64 card-vs-CPU scored
+    round.  Returns K1's launches by path."""
+    from repro_torch import paper_round
+    from repro_torch.core.comm import (edge_membership,
+                                       hierarchical_round_bytes, table4_row,
+                                       unit_bytes)
+    from repro_torch.kernels.masked_agg import ops
+
+    paths = {}
+    runs = [(name, "hub", SCORED_ROUNDS, {}) for name in
+            ("score_weighted", "depth_dropout", "successive")]
+    runs.append(("score_weighted", "hierarchical", REPEAT_ROUNDS,
+                 {"topology": "hierarchical", "n_edges": 2}))
+    for name, topo, rounds, kw in runs:
+        fed = paper_round.build(dev, strategy=name, **kw)
+        check(fed.server.strategy.name == name and
+              fed.server.sel_state is not None,
+              f"{name}: the server holds no selection state")
+        hook = ScoredCheck()
+        fed.server.add_hook(hook)
+        ops.reset_launch_counts()
+        hist = fed.fit(rounds)
+        torch.cuda.synchronize()
+        k1 = ops.masked_agg.launches
+        check(all(math.isfinite(r.loss) for r in hist), f"{name}: loss")
+        check(k1 == rounds, f"{name} {topo}: masked_agg launched {k1} times "
+              f"in {rounds} rounds")
+        params = {p: x.cpu() for p, x in fed.params.items()}
+        hist_sel = np.stack(fed.server.sel_history)
+        if topo == "hub":
+            summ, t4 = fed.comm_summary(), table4_row(fed.assign, params,
+                                                      hist_sel)
+            check(all(summ[k] == v for k, v in t4.items()),
+                  f"{name}: comm_summary {summ} != table4_row {t4}")
+        else:
+            mem = edge_membership(fed.fl.n_clients, 2)
+            ub = unit_bytes(fed.assign, params)
+            for rec, sel in zip(hist, hist_sel):
+                want = hierarchical_round_bytes(sel, ub, mem)["uplink"]
+                check(rec.uplink_bytes == want, f"{name} hierarchical round "
+                      f"{rec.round}: billed {rec.uplink_bytes} != {want}")
+        st = fed.server.sel_state
+        trained = int((st.counts > 0).sum())
+        print(f"[scored-round] {name} {topo}: rounds "
+              + ", ".join(f"{r.round} loss {r.loss:.4f} {r.seconds:.3f} s"
+                          for r in hist)
+              + f"; masked_agg launches {k1}; telemetry exact zero on every "
+              f"frozen unit, positive on every trained one; sel_state.counts "
+              f"== active selections' column sums ({float(st.counts.sum()):.0f}"
+              f"); {trained} of {fed.assign.n_units} units trained so far, "
+              f"all with a positive score (max {float(st.scores.max()):.4e});"
+              f" bill == {'Table 4' if topo == 'hub' else 'hierarchical_round_bytes'}")
+        paths[f"{topo} vgg16 {name}"] = k1
+        del fed, hook
+        torch.cuda.empty_cache()
+    for opt, err, worst, rel in _scored_parity(dev):
+        print(f"[scored-round] parity ({opt}): one score_weighted hub round, "
+              f"VGG16 width 0.125 in float64 (loss too), 3 clients, the same "
+              f"injected Gumbel noise and state: selections equal; card (K1) "
+              f"vs CPU max abs err {err:.3e} at {worst} (tol {PARITY_TOL}); "
+              f"telemetry relative err {rel:.3e} (tol {NORM_RTOL})")
+    return paths
+
+
+class _Telemetry:
+    """Server hook: each round's starting params (cloned), selection and
+    telemetry (on the CPU)."""
+
+    def __init__(self):
+        self.before, self.rounds = [], []
+
+    def on_round_start(self, server, round_idx, weights):
+        self.before.append({p: x.clone() for p, x in server.params.items()})
+        return None
+
+    def on_round_end(self, server, record, metrics):
+        self.rounds.append((metrics["sel"].clone(),
+                            metrics["unit_sqnorm"].cpu()))
+
+    def on_fit_end(self, server, history):
+        pass
+
+
+def phase_scored_packed(dev):
+    """The score_weighted hub round packed with qint8, 4 rounds: one K2
+    launch a round and K1 never; then each round's dense telemetry on
+    the packed run's own params, batches and selections against the
+    packed run's, within NORM_RTOL.  Returns K2's launches."""
+    from repro_torch import paper_round
+    from repro_torch.core import Replay, build_round_step
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.models import paper_models as pm
+
+    fed = paper_round.build(dev, strategy="score_weighted", packed=True,
+                            codec="qint8")
+    tel, chk = _Telemetry(), ScoredCheck()
+    fed.server.add_hook(tel).add_hook(chk)
+    qops.reset_launch_counts()
+    ops.reset_launch_counts()
+    hist = fed.fit(SCORED_ROUNDS)
+    torch.cuda.synchronize()
+    k2, k1 = qops.quantize_pack_group.launches, ops.masked_agg.launches
+    check(all(math.isfinite(r.loss) for r in hist), "scored packed: loss")
+    check(k2 == SCORED_ROUNDS, f"scored packed: quantize_pack launched {k2} "
+          f"times in {SCORED_ROUNDS} rounds")
+    check(k1 == 0, f"scored packed: masked_agg launched {k1} times")
+
+    class ScoredReplay(Replay):
+        stateful = True                  # the dense step then reports norms
+
+    fl = dataclasses.replace(fed.fl, packed=False, codec="none")
+    step = build_round_step(
+        functools.partial(pm.vgg16_loss, device=dev), fed.assign, fl,
+        strategy=ScoredReplay([s.numpy() for s, _ in tel.rounds]),
+        device=dev)
+    weights = torch.as_tensor(fed.loader.weights())
+    worst = 0.0
+    for r, (sel, sq_p) in enumerate(tel.rounds):
+        batches = {k: torch.as_tensor(v, device=dev)
+                   for k, v in fed.loader.round_batches(r).items()}
+        _, m = step(tel.before[r], batches, weights, None)
+        sq_d = m["unit_sqnorm"].cpu()
+        check(torch.equal(m["sel"], sel), f"round {r}: replay differs")
+        check(torch.equal(sq_d == 0, sq_p == 0),
+              f"round {r}: packed and dense telemetry zero on other units")
+        rel = float(((sq_p - sq_d).abs() / sq_d.clamp_min(1e-30))
+                    [sq_d > 0].max())
+        check(rel <= NORM_RTOL, f"round {r}: packed vs dense telemetry "
+              f"relative err {rel} > {NORM_RTOL}")
+        worst = max(worst, rel)
+    for r in hist:
+        print(f"[scored-packed] {r.round}: loss {r.loss:.4f} "
+              f"{r.seconds:.3f} s uplink {r.uplink_bytes:.0f} B qint8")
+    print(f"[scored-packed] score_weighted packed qint8: quantize_pack "
+          f"launches {k2} (one a round), masked_agg 0; telemetry and state "
+          f"checks as [scored-round]; dense telemetry on the same params, "
+          f"batches and selections: max relative err {worst:.3e} (tol "
+          f"{NORM_RTOL})")
+    del fed, tel, chk, step
+    torch.cuda.empty_cache()
+    return k2
+
+
+def _same_state(a, b):
+    return set(a) == set(b) and all(torch.equal(a[p], b[p]) for p in a)
+
+
+def phase_ckpt_resume(dev, smi):
+    """Four runs of VGG16 at full width (score_weighted hub; packed
+    topk_ef, with its error-feedback residual; packed qint8, with its
+    device generator; gossip, 8 stacked replicas), each 4 rounds straight
+    against 2 rounds, ``Federation.save``, a new ``Federation`` restored,
+    2 more rounds: the state, the selection state, the codec state,
+    ``sel_history`` and ``comm_summary()`` bitwise equal.  Prints each
+    checkpoint's bytes and the save and restore wall times."""
+    import shutil
+    import tempfile
+    from repro_torch import paper_round
+
+    runs = [("score_weighted hub", {"strategy": "score_weighted"}),
+            ("packed topk_ef", {"packed": True, "codec": "topk_ef"}),
+            ("packed qint8", {"packed": True, "codec": "qint8"}),
+            ("gossip", {"topology": "gossip"})]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        for tag, kw in runs:
+            full = paper_round.build(dev, **kw)
+            full.fit(SCORED_ROUNDS)
+            half = paper_round.build(dev, **kw)
+            half.fit(SCORED_ROUNDS // 2)
+            path = os.path.join(tmp, tag.replace(" ", "_"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            half.save(path)
+            t_save = time.perf_counter() - t0
+            nbytes = os.path.getsize(path + ".npz") \
+                + os.path.getsize(path + ".json")
+            del half
+            torch.cuda.empty_cache()
+            resumed = paper_round.build(dev, **kw)
+            t0 = time.perf_counter()
+            meta = resumed.restore(path)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            check(meta["round"] == SCORED_ROUNDS // 2,
+                  f"{tag}: restored round {meta['round']}")
+            resumed.fit(SCORED_ROUNDS - SCORED_ROUNDS // 2)
+            torch.cuda.synchronize()
+            a, b = full.server, resumed.server
+            check(_same_state(a.params, b.params),
+                  f"{tag}: resumed state differs from the uninterrupted run")
+            check((a.sel_state is None) == (b.sel_state is None) and
+                  (a.sel_state is None or all(
+                      torch.equal(x, y) for x, y in zip(a.sel_state,
+                                                        b.sel_state))),
+                  f"{tag}: sel_state differs")
+            check((a.codec_state is None) == (b.codec_state is None) and
+                  (a.codec_state is None or
+                   _same_state(a.codec_state, b.codec_state)),
+                  f"{tag}: codec state differs")
+            check(len(a.sel_history) == len(b.sel_history) == SCORED_ROUNDS
+                  and all(np.array_equal(x, y) for x, y in
+                          zip(a.sel_history, b.sel_history)),
+                  f"{tag}: sel_history differs")
+            check(full.comm_summary() == resumed.comm_summary(),
+                  f"{tag}: comm_summary differs")
+            extra = []
+            if a.sel_state is not None:
+                extra.append("sel_state")
+            if a.codec_state is not None:
+                extra.append("EF residual")
+            if a.codec_generator is not None:
+                extra.append("codec generator")
+            print(f"[ckpt-resume] {tag}: {SCORED_ROUNDS} rounds straight == "
+                  f"{SCORED_ROUNDS // 2} + save + restore into a new "
+                  f"Federation + {SCORED_ROUNDS - SCORED_ROUNDS // 2}, "
+                  f"bitwise: state ({len(a.params)} leaves), "
+                  + ", ".join(extra + ["sel_history", "comm_summary"])
+                  + f"; checkpoint {nbytes} B, save {t_save:.3f} s, restore "
+                  f"{t_restore:.3f} s ({smi})")
+            del full, resumed, a, b
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_k1_plans(dev, hier_inputs):
@@ -2261,6 +2638,10 @@ def main() -> int:
     (k1_paths["hierarchical vgg16"],
      k2_paths["hierarchical vgg16 packed qint8"], hier) = phase_hier_round(dev)
     phase_gossip_round(dev)
+    k1_paths.update(phase_scored_round(dev))
+    k2_paths["hub vgg16 packed qint8 score_weighted"] = \
+        phase_scored_packed(dev)
+    phase_ckpt_resume(dev, smi)
     k1["plans"] = phase_k1_plans(dev, hier)
     del hier
     torch.cuda.empty_cache()

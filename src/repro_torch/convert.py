@@ -74,6 +74,13 @@ def from_reference(np_params: Mapping[str, Any], *, conv_spatial: int = 2
 def to_reference(params: Mapping[str, torch.Tensor], *,
                  conv_spatial: int = 2) -> Dict[str, Any]:
     """The port's flat tree -> reference params (numpy, nested)."""
+    return unflatten(to_reference_flat(params, conv_spatial=conv_spatial))
+
+
+def to_reference_flat(params: Mapping[str, torch.Tensor], *,
+                      conv_spatial: int = 2) -> Dict[str, np.ndarray]:
+    """The port's flat tree -> the reference's layout as a flat numpy
+    tree, keyed by the same paths (what a checkpoint stores)."""
     axes = _TO_REF[_spatial(conv_spatial)]
     out = {}
     for path, leaf in params.items():
@@ -81,4 +88,19 @@ def to_reference(params: Mapping[str, torch.Tensor], *,
         if is_conv_kernel(path):
             x = _transpose(x, path, axes)
         out[path] = x
-    return unflatten(out)
+    return out
+
+
+def reference_shape(path: str, shape, *, conv_spatial: int = 2) -> tuple:
+    """The shape a port leaf of ``shape`` at ``path`` has in the
+    reference's layout."""
+    shape = tuple(shape)
+    if not is_conv_kernel(path):
+        return shape
+    axes = _TO_REF[_spatial(conv_spatial)]
+    k = len(axes)
+    if len(shape) < k:
+        raise ValueError(
+            f"{path}: a conv kernel of spatial rank {k - 2} has at least "
+            f"{k} axes, got shape {shape}")
+    return shape[:len(shape) - k] + tuple(shape[a] for a in axes)

@@ -17,6 +17,11 @@ layers toward the global model.
 §7): it trains only the client's slot rows of every stacked leaf and
 returns slot deltas; ``packed_cohort_fn`` runs it for a client-stacked
 cohort as an ordered loop over clients.
+
+``norm_hook`` (DESIGN.md §11) accumulates per-unit squared gradient
+norms over the local steps — the scored selection's live telemetry —
+from the masked gradients (prox term included) the step already has.
+With ``norm_hook=None`` nothing of it runs.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ import torch
 
 from ..common import flatten_with_paths, tree_stack
 from ..optim.masked import adam_init, adam_step, sgd_init, sgd_step
-from .masking import UnitAssignment, apply_mask
+from .masking import NormHook, UnitAssignment, apply_mask, packed_norm_hook
 
 Tree = Dict[str, torch.Tensor]
 
@@ -34,13 +39,17 @@ Tree = Dict[str, torch.Tensor]
 def local_update(loss_fn: Callable, global_params: Tree,
                  mask: Optional[Tree], batches: Dict[str, torch.Tensor], *,
                  lr: float = 1e-2, optimizer: str = "adam",
-                 prox_mu: float = 0.0, loss_kwargs: Optional[Dict] = None
+                 prox_mu: float = 0.0, loss_kwargs: Optional[Dict] = None,
+                 norm_hook: Optional[NormHook] = None
                  ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
     """One client's round.  ``batches`` leaves have a leading (steps,) dim.
 
     ``mask`` is a tree of 0/1 masks (``core.masking.mask_tree``), or
     None for unmasked (dense) training.  Returns ``(delta, metrics)``
-    where delta = trained - global (exact zeros on frozen units).
+    where delta = trained - global (exact zeros on frozen units).  With
+    ``norm_hook``, metrics also carries ``unit_sqnorm``: (U,) float32
+    per-unit squared gradient norms summed over the local steps, on the
+    params' device (frozen units: exact zeros).
     """
     loss_kwargs = loss_kwargs or {}
     opt_init, opt_step = ((adam_init, adam_step) if optimizer == "adam"
@@ -54,6 +63,7 @@ def local_update(loss_fn: Callable, global_params: Tree,
         dmask = {p: mask[p].to(global_params[p].device) for p in live}
     trained = {p: global_params[p] for p in live}
     opt_state = opt_init(trained)
+    nacc = _norm_acc(norm_hook, global_params)
     n_steps = next(iter(batches.values())).shape[0]
     losses = []
     for s in range(n_steps):
@@ -81,39 +91,64 @@ def local_update(loss_fn: Callable, global_params: Tree,
                      for p, g in zip(live, grads)}
             if dmask is not None:
                 grads = apply_mask(dmask, grads)
+            if norm_hook is not None and grads:
+                nacc = nacc + norm_hook.fn(grads)
             trained, opt_state = opt_step(grads, opt_state, trained, lr=lr,
                                           mask=dmask)
         losses.append(loss.detach())
     with torch.no_grad():
         delta = {p: trained[p] - x if p in trained else torch.zeros_like(x)
                  for p, x in flatten_with_paths(global_params)}
-    return delta, {"loss_mean": torch.stack(losses).mean()}
+    metrics = {"loss_mean": torch.stack(losses).mean()}
+    if norm_hook is not None:
+        metrics["unit_sqnorm"] = nacc
+    return delta, metrics
+
+
+def _norm_acc(norm_hook: Optional[NormHook], global_params: Tree):
+    """The zero (U,) telemetry accumulator on the params' device."""
+    if norm_hook is None:
+        return None
+    dev = next(iter(global_params.values())).device
+    return torch.zeros((norm_hook.n_units,), dtype=torch.float32,
+                       device=dev)
 
 
 def packed_cohort_fn(loss_fn: Callable, assign: UnitAssignment, fl,
-                     loss_kwargs: Optional[Dict] = None) -> Callable:
+                     loss_kwargs: Optional[Dict] = None, *,
+                     scoring: bool = False) -> Callable:
     """The packed local-training stage of the round step.
 
     Returns ``cohort(global_params, rows, valid, batches) -> (pdeltas,
     metrics)``: ``rows``/``valid`` are client-stacked slot plans
     (leading client axis), and the clients train one after another in
     their stacked order, as the dense round's loop does.  ``pdeltas``
-    and ``metrics["loss_mean"]`` carry a leading client axis.
+    and ``metrics["loss_mean"]`` carry a leading client axis, and with
+    ``scoring`` ``metrics["unit_sqnorm"]`` is the (C, U) telemetry of
+    each client's packed norm hook.
     """
+    cache: dict = {}
 
     def cohort(global_params, rows, valid, batches):
-        deltas, losses = [], []
+        deltas, losses, norms = [], [], []
         for c in range(next(iter(batches.values())).shape[0]):
+            rows_c = {p: r[c] for p, r in rows.items()}
             d, m = local_update_packed(
-                loss_fn, global_params, assign,
-                {p: r[c] for p, r in rows.items()},
+                loss_fn, global_params, assign, rows_c,
                 {p: v[c] for p, v in valid.items()},
                 {k: v[c] for k, v in batches.items()}, lr=fl.lr,
                 optimizer=fl.optimizer, prox_mu=fl.prox_mu,
-                loss_kwargs=loss_kwargs)
+                loss_kwargs=loss_kwargs,
+                norm_hook=packed_norm_hook(assign, rows_c, cache)
+                if scoring else None)
             deltas.append(d)
             losses.append(m["loss_mean"])
-        return tree_stack(deltas), {"loss_mean": torch.stack(losses)}
+            if scoring:
+                norms.append(m["unit_sqnorm"])
+        metrics = {"loss_mean": torch.stack(losses)}
+        if scoring:
+            metrics["unit_sqnorm"] = torch.stack(norms)
+        return tree_stack(deltas), metrics
 
     return cohort
 
@@ -123,7 +158,8 @@ def local_update_packed(loss_fn: Callable, global_params: Tree,
                         batches: Dict[str, torch.Tensor], *,
                         lr: float = 1e-2, optimizer: str = "adam",
                         prox_mu: float = 0.0,
-                        loss_kwargs: Optional[Dict] = None
+                        loss_kwargs: Optional[Dict] = None,
+                        norm_hook: Optional[NormHook] = None
                         ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
     """Packed variant of :func:`local_update` (DESIGN.md §7).
 
@@ -140,7 +176,9 @@ def local_update_packed(loss_fn: Callable, global_params: Tree,
 
     Returns ``(packed_delta, metrics)``: stacked leaves carry ``(L,
     ...)`` slot deltas (exact zeros on pad slots), scalar leaves
-    full-shape masked deltas.
+    full-shape masked deltas.  ``norm_hook`` (a ``packed_norm_hook`` of
+    this client's rows) reduces the packed gradients, as
+    :func:`local_update`'s does the dense ones.
     """
     loss_kwargs = loss_kwargs or {}
     opt_init, opt_step = ((adam_init, adam_step) if optimizer == "adam"
@@ -156,6 +194,7 @@ def local_update_packed(loss_fn: Callable, global_params: Tree,
                if p in stacked else global_params[p] for p in live}
     trained = dict(packed0)
     opt_state = opt_init(trained)
+    nacc = _norm_acc(norm_hook, global_params)
     n_steps = next(iter(batches.values())).shape[0]
     losses = []
     for s in range(n_steps):
@@ -185,6 +224,8 @@ def local_update_packed(loss_fn: Callable, global_params: Tree,
             grads = {p: torch.zeros_like(leaves[p]) if g is None else g
                      for p, g in zip(live, grads)}
             grads = apply_mask(dvalid, grads)
+            if norm_hook is not None and grads:
+                nacc = nacc + norm_hook.fn(grads)
             trained, opt_state = opt_step(grads, opt_state, trained, lr=lr,
                                           mask=dvalid)
         losses.append(loss.detach())
@@ -198,4 +239,7 @@ def local_update_packed(loss_fn: Callable, global_params: Tree,
                                        + tuple(x.shape[1:]))
             else:
                 delta[p] = torch.zeros_like(x)
-    return delta, {"loss_mean": torch.stack(losses).mean()}
+    metrics = {"loss_mean": torch.stack(losses).mean()}
+    if norm_hook is not None:
+        metrics["unit_sqnorm"] = nacc
+    return delta, metrics

@@ -26,6 +26,7 @@ anything but their default.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Dict, Optional, Union
 
 import torch
@@ -318,16 +319,44 @@ _UNPORTED_SWITCHES = ("async_buffer", "n_registered", "cohort_chunk",
 def build_round_step(loss_fn: Callable, assign: UnitAssignment,
                      fl: FLConfig, loss_kwargs: Optional[Dict] = None,
                      *, strategy: Union[str, SelectionStrategy, None] = None,
+                     scores=None,
                      topology: Union[str, Topology, None] = None,
                      device: Device = "cuda"):
     """Returns the round_step function for ``device``.
 
     ``strategy`` overrides ``fl.strategy`` and ``topology`` overrides
     ``fl.topology`` with a name or an instance (e.g. one constructed in
-    user code and never registered).
+    user code and never registered).  ``scores`` are static per-unit
+    scores for the selection context (the deprecated ``weighted``
+    strategy reads them); a stateful strategy's live scores come from
+    the ``sel_state`` the server passes each round.
     """
     dev = resolve_device(device)
     topo = resolve_topology(topology if topology is not None
                             else fl.topology)
     return topo.build_round_step(loss_fn, assign, fl, loss_kwargs,
-                                 strategy=strategy, device=dev)
+                                 strategy=strategy, scores=scores,
+                                 device=dev)
+
+
+def build_fullmodel_round_step(loss_fn: Callable, fl: FLConfig,
+                               loss_kwargs: Optional[Dict] = None,
+                               assign: Optional[UnitAssignment] = None,
+                               *, device: Device = "cuda"):
+    """Deprecated shim: the conventional FedAvg baseline is the
+    registered ``full`` strategy on the unified path.
+
+    ``assign`` is optional for call-site compatibility; without it the
+    selection matrix in the metrics is (C, 1), a single pseudo-unit
+    covering the whole model.
+    """
+    warnings.warn(
+        "build_fullmodel_round_step is deprecated; use "
+        "build_round_step with FLConfig(strategy='full') or "
+        "Federation.from_config instead", DeprecationWarning, stacklevel=2)
+    if assign is None:
+        assign = UnitAssignment(1, None, ("model",))
+    fl = dataclasses.replace(fl, strategy="full",
+                             n_train_units=assign.n_units,
+                             prox_mu=0.0, always_train_head=False)
+    return build_round_step(loss_fn, assign, fl, loss_kwargs, device=device)

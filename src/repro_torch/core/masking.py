@@ -9,11 +9,13 @@ the zoo models' scanned blocks once they are ported).
 Given a 0/1 selection vector ``sel (U,)``, ``mask_tree`` materializes a
 tree of broadcastable masks: a 0-dim mask for a scalar leaf, ``(n_macro,)``
 for a stacked one.  ``slot_plan`` / ``slot_gather`` / ``slot_merge``
-lay out the packed round path's slot buffers (DESIGN.md §7).
+lay out the packed round path's slot buffers (DESIGN.md §7), and
+``unit_sqnorm`` / ``unit_sqnorm_packed`` reduce the scored selection's
+gradient-norm telemetry (DESIGN.md §11).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,3 +163,93 @@ def slot_merge(assign: UnitAssignment, base, packed, rows):
     return {p: packed[p] if assign.leaf_units[p].kind == "scalar"
             else b.index_copy(0, rows[p], packed[p])
             for p, b in flatten_with_paths(base)}
+
+
+# ---------------------------------------------------------------------------
+# gradient-norm telemetry (DESIGN.md §11 — scored selection)
+#
+# The scored selection engine needs per-unit gradient norms out of the
+# round step: they are reduced from the (masked) gradients local training
+# has already computed and accumulated into one (U,) float32 vector per
+# client.  Leaves that take no gradient (frozen for the whole round)
+# contribute nothing, so a frozen unit's bin stays exactly 0.0.  On a card
+# the whole-leaf norms of a step are one multi-tensor reduction
+# (``torch._foreach_norm``) and the per-unit sums a fixed-order reduction
+# over a cached unit-by-leaf 0/1 matrix: no atomics, so the telemetry is
+# bitwise repeatable.
+
+
+class NormHook(NamedTuple):
+    """Per-step gradient-norm accumulator of local training:
+    ``fn(grads) -> (n_units,)`` float32 per-unit squared-norm
+    contributions on the gradients' device."""
+    n_units: int
+    fn: Callable
+
+
+def _unit_sums(assign: UnitAssignment, units, sq: torch.Tensor,
+               cache=None) -> torch.Tensor:
+    """(U,) sums of the per-leaf squares ``sq`` (L,) into their units."""
+    key = (tuple(units), sq.device)
+    onehot = None if cache is None else cache.get(key)
+    if onehot is None:
+        m = np.zeros((assign.n_units, len(units)), np.float32)
+        m[np.asarray(units), np.arange(len(units))] = 1.0
+        onehot = torch.as_tensor(m).to(sq.device)
+        if cache is not None:
+            cache[key] = onehot
+    return (onehot * sq).sum(1)
+
+
+def _scalar_sq(grads, paths) -> torch.Tensor:
+    """(L,) float32 squared norms of whole leaves."""
+    norms = torch._foreach_norm([grads[p].float() for p in paths])
+    return torch.stack(norms).square()
+
+
+def unit_sqnorm(assign: UnitAssignment, grads, cache=None) -> torch.Tensor:
+    """(U,) float32 per-unit squared norms of a (masked) gradient tree;
+    ``grads`` may hold any subset of the leaves (those local training
+    differentiates).  Frozen units' bins stay exactly 0.0."""
+    return unit_sqnorm_packed(assign, grads, None, cache)
+
+
+def unit_sqnorm_packed(assign: UnitAssignment, grads, rows,
+                       cache=None) -> torch.Tensor:
+    """Packed-path twin of :func:`unit_sqnorm`: stacked leaves hold
+    ``(L, ...)`` slot gradients and each slot's squared norm goes to its
+    macro row's unit (``rows`` from ``slot_plan``; pad slots carry
+    masked-zero gradients).  With ``rows=None`` stacked leaves are
+    full-shape (the dense path)."""
+    paths = [p for p, _ in flatten_with_paths(grads)]
+    dev = grads[paths[0]].device if paths else torch.device("cpu")
+    scalar = [p for p in paths if assign.leaf_units[p].kind == "scalar"]
+    acc = torch.zeros((assign.n_units,), dtype=torch.float32, device=dev)
+    if scalar:
+        acc = acc + _unit_sums(assign, [assign.leaf_units[p].base
+                                        for p in scalar],
+                               _scalar_sq(grads, scalar), cache)
+    for p in paths:
+        lu = assign.leaf_units[p]
+        if lu.kind == "scalar":
+            continue
+        g = grads[p].float()
+        rows_sq = torch.square(g).reshape(g.shape[0], -1).sum(1)
+        macro = torch.arange(g.shape[0], device=dev) if rows is None \
+            else rows[p].to(device=dev, dtype=torch.long)
+        # distinct macro rows: one write per unit, no accumulation order
+        idx = lu.base + lu.stride * macro
+        acc[idx] += rows_sq
+    return acc
+
+
+def dense_norm_hook(assign: UnitAssignment) -> NormHook:
+    cache: dict = {}
+    return NormHook(assign.n_units,
+                    lambda g: unit_sqnorm(assign, g, cache))
+
+
+def packed_norm_hook(assign: UnitAssignment, rows, cache=None) -> NormHook:
+    """``rows`` is one client's slot plan."""
+    return NormHook(assign.n_units,
+                    lambda g: unit_sqnorm_packed(assign, g, rows, cache))

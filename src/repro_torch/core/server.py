@@ -9,6 +9,7 @@ Hook call order per round::
 
     on_round_start(server, round_idx, weights) -> weights   (may reweight)
     ... round step ...
+    (the scored selection state takes the round's telemetry)
     on_round_end(server, record, metrics)                   (may annotate)
 
 If every client drops (all weights zero) the round is a recorded no-op:
@@ -21,14 +22,20 @@ stochastic uplink codec it also owns a generator on the round's device
 (seeded from ``seed`` and ``CODEC_KEY_TAG``) that draws the
 stochastic-rounding uniforms where the codec runs, and under a stateful
 codec the per-client error-feedback residual, which it threads through
-the round step.  Checkpointing (``Checkpointer``) waits for the port of
-``ckpt/store.py``.
+the round step.
+
+Under a stateful (scored) strategy the server owns its
+``SelectionState`` (DESIGN.md §11): it passes it to the round step as
+``sel_state`` and folds the round's gradient-norm telemetry into it
+before the end-of-round hooks run, so a ``Checkpointer`` saves the
+post-round state.  ``Checkpointer`` writes the reference's checkpoint
+format (``repro_torch/ckpt``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -37,6 +44,8 @@ from ..common import Device, resolve_device
 from . import codecs, comm
 from .federation import FLConfig
 from .masking import UnitAssignment
+from .strategies import (NormTelemetry, SelectionContext, SelectionStrategy,
+                         resolve_strategy)
 from .topology import Topology, resolve_topology
 
 
@@ -52,6 +61,12 @@ class RoundRecord:
     skipped: bool = False
     # the round's post-hook client weights (dropped clients are 0)
     effective_weights: Optional[List[float]] = None
+    # the reference's buffered-async flush annotations: zero on the
+    # synchronous rounds the port runs (kept so that one package's
+    # checkpointed history restores into the other's records)
+    staleness_mean: float = 0.0
+    staleness_max: float = 0.0
+    sim_time: float = 0.0
     # bytes that left a client without landing in the aggregate (the
     # fault engine fills this; always 0 until it is ported)
     wasted_bytes: float = 0.0
@@ -104,12 +119,22 @@ class CommAccounting(ServerHook):
             return
         # bill at wire width: the codec's encoded per-unit byte table
         # (identical to the fp32 table for codec "none")
+        sel = np.asarray(metrics["sel"])
+        if server.assign.leaf_units is None:
+            # the deprecated no-assign shim (one pseudo-unit): the whole
+            # fp32 model ships for every participating client
+            n_up = float(self._mask_dropped(np.ones((sel.shape[0], 1),
+                                                    sel.dtype), record).sum())
+            n = sum(x.numel() for x in server.global_params().values())
+            record.uplink_bytes = 4.0 * n * n_up
+            record.trained_params = float(n) * n_up
+            return
         ub = server.wire_unit_bytes()
         counts = comm.unit_param_counts(server.assign,
                                         server.global_params())
         # bill only clients that actually uploaded: rows zeroed by
         # straggler dropout (effective weight 0) ship nothing
-        sel = self._mask_dropped(np.asarray(metrics["sel"]), record)
+        sel = self._mask_dropped(sel, record)
         record.uplink_bytes = server.topology.round_bytes(
             sel, ub, server.fl)["uplink"]
         record.trained_params = float(np.einsum("cu,u->", sel, counts))
@@ -150,6 +175,29 @@ class RoundLogger(ServerHook):
         print(line)
 
 
+class Checkpointer(ServerHook):
+    """Persist restartable server state every ``every`` rounds (and at
+    fit end), in the reference's format (``repro_torch.ckpt``)."""
+
+    def __init__(self, path: str, every: int = 0):
+        self.path = path
+        self.every = every
+
+    def _save(self, server, pending_record=None):
+        from ..ckpt import save_server_state
+        save_server_state(self.path, server, pending_record=pending_record)
+
+    def on_round_end(self, server, record, metrics):
+        # end hooks run before history.append, so the in-flight record
+        # rides along as pending_record: without it the checkpoint would
+        # pair post-round params with pre-round history
+        if self.every and (record.round + 1) % self.every == 0:
+            self._save(server, pending_record=record)
+
+    def on_fit_end(self, server, history):
+        self._save(server)
+
+
 class Server:
     """Owns the topology state (on ``device``), the generator, the hooks
     and the run history.
@@ -158,14 +206,21 @@ class Server:
     topologies (hub, hierarchical), the stacked per-client replicas for
     gossip.  ``global_params()`` is always the single-model view (what
     ``eval_fn`` sees and what accounting sizes against).  Plain model
-    params are lifted into state by ``Topology.init_state``."""
+    params are lifted into state by ``Topology.init_state``.
+
+    The selection strategy is ``strategy`` when given, else the one
+    ``build_round_step`` attached to the step (``selection_strategy``),
+    else ``fl.strategy``.  ``conv_spatial`` is the conv kernels' spatial rank
+    (2 for VGG16, 1 for IMDB), which a checkpoint's layout conversion
+    needs (``convert.py``)."""
 
     def __init__(self, round_step: Callable, assign: UnitAssignment,
                  fl: FLConfig, params, *, eval_fn: Optional[Callable] = None,
                  seed: int = 0, dropout_rate: float = 0.0,
                  hooks: Sequence[ServerHook] = (),
                  topology: Optional[Topology] = None,
-                 device: Device = "cuda"):
+                 strategy: Union[str, SelectionStrategy, None] = None,
+                 conv_spatial: int = 2, device: Device = "cuda"):
         self.device = resolve_device(device)
         self.round_step = round_step
         self.assign = assign
@@ -178,7 +233,24 @@ class Server:
             {p: torch.as_tensor(x).detach().to(self.device, copy=True)
              for p, x in params.items()}, fl)
         self.eval_fn = eval_fn
+        self.conv_spatial = conv_spatial
         self.generator = torch.Generator().manual_seed(seed)
+        # the scored-selection engine: the strategy instance the round
+        # step selects with (an explicit strategy= override may differ
+        # from fl.strategy), and its state (None when stateless: the
+        # round step is then called exactly as before)
+        baked = getattr(round_step, "selection_strategy", None)
+        if strategy is not None:
+            self.strategy = resolve_strategy(strategy, fl.synchronized)
+        elif baked is not None:
+            self.strategy = baked
+        else:
+            self.strategy = resolve_strategy(fl.strategy, fl.synchronized)
+        self.sel_ctx = SelectionContext(
+            n_clients=fl.n_clients, n_units=assign.n_units,
+            n_train=fl.resolve_n_train(assign.n_units),
+            score_ema=fl.score_ema)
+        self.sel_state = self.strategy.init_state(self.sel_ctx)
         self.hooks: List[ServerHook] = [CommAccounting()]
         if dropout_rate > 0.0:
             self.hooks.append(StragglerDropout(dropout_rate))
@@ -256,6 +328,8 @@ class Server:
                 # stateful codec: thread the EF residual through the
                 # step; the new residual rides the metrics back out
                 step_kw["codec_state"] = self.codec_state
+            if self.sel_state is not None:
+                step_kw["sel_state"] = self.sel_state
             self.params, metrics = self.round_step(
                 self.params, client_batches, weights, self.generator,
                 **step_kw)
@@ -269,11 +343,39 @@ class Server:
                               time.perf_counter() - t0, 0.0, 0.0,
                               n_participants=n_part,
                               effective_weights=eff_w)
+        # fold the round's telemetry into the selection state BEFORE the
+        # end-of-round hooks, so a Checkpointer saves the post-round state
+        self.update_sel_state(self._round_telemetry(r, metrics, eff_w))
         for hook in self.hooks:
             hook.on_round_end(self, rec, metrics)
         rec.seconds = time.perf_counter() - t0
         self.history.append(rec)
         return rec
+
+    def _round_telemetry(self, round_idx: int, metrics: Optional[Dict],
+                         eff_w: Sequence[float]):
+        """One round's NormTelemetry, or None (stateless strategy,
+        skipped round, or off-cadence under ``FLConfig.score_every``).
+        Dropped clients (effective weight 0) shipped nothing and
+        contribute no telemetry, matching the aggregation."""
+        if self.sel_state is None or metrics is None \
+                or round_idx % self.fl.score_every != 0:
+            return None
+        active = (torch.as_tensor(eff_w, dtype=torch.float32) > 0).float()
+        sq = metrics["unit_sqnorm"].float().cpu()
+        sel = torch.as_tensor(metrics["sel"], dtype=torch.float32).cpu()
+        counts = (sel * active[:, None]).sum(0)
+        # synchronous participants all carry weight 1, so the weighted
+        # and raw counts coincide (staleness confidence 1)
+        return NormTelemetry(unit_sqnorm=(sq * active[:, None]).sum(0),
+                             unit_count=counts, unit_raw_count=counts)
+
+    def update_sel_state(self, telemetry) -> None:
+        """Advance the scored-selection state one round (no-op for
+        stateless strategies)."""
+        if self.sel_state is not None:
+            self.sel_state = self.strategy.update_state(
+                self.sel_state, self.sel_ctx, telemetry)
 
     def run(self, rounds: int, batch_fn: Callable[[int], Dict],
             weights=None, log_every: int = 0) -> List[RoundRecord]:
@@ -307,6 +409,14 @@ class Server:
         # run summary matches the per-round records
         hist = np.stack([CommAccounting._mask_dropped(s, rec)
                          for s, rec in zip(self.sel_history, self.history)])
+        if self.assign.leaf_units is None:         # the no-assign shim
+            per_round = [r.uplink_bytes for r in self.history]
+            return dict({"avg_uplink_bytes": float(np.mean(per_round)),
+                         "avg_trained_params": float(np.mean(
+                             [r.trained_params for r in self.history])),
+                         "total_uplink_bytes": float(np.sum(per_round)),
+                         "reduction_vs_full": 0.0},
+                        **self._wasted_summary())
         sum_kw = {}
         if self.codec.name != "none":
             # bill the run at encoded wire width; custom topologies

@@ -14,6 +14,14 @@ registered plugin names in ``fl.strategy`` / ``fl.topology``; pass
 ``strategy=`` / ``topology=`` to override either with an instance (a
 replay strategy in the parity tests, for one). The run lives on
 ``device`` — the GPU unless the caller asks for the CPU.
+
+Scored selection (DESIGN.md §11) needs no knob beyond the strategy
+name: a stateful strategy (``score_weighted``, ``depth_dropout``,
+``successive``) makes the ``Server`` own a ``SelectionState``, turns on
+the gradient-norm telemetry in the round step, and checkpoints carry
+the state.  ``save`` / ``restore`` write and read the reference's
+checkpoint format (``repro_torch.ckpt``); a resumed run continues
+bitwise.
 """
 from __future__ import annotations
 
@@ -38,12 +46,15 @@ class ModelSpec:
     ``init_params(gen)`` draws CPU params from a ``torch.Generator``;
     ``unit_order`` is either the explicit freeze-unit order (top-level
     param keys) or a callable ``params -> order`` (e.g.
-    ``paper_models.vgg16_units``).
+    ``paper_models.vgg16_units``).  ``conv_spatial`` is the spatial rank
+    of the model's conv kernels (2 for VGG16, 1 for IMDB's conv1d),
+    which checkpoints need to convert layouts (``convert.py``).
     """
     name: str
     init_params: Callable[[torch.Generator], Dict[str, torch.Tensor]]
     loss_fn: Callable                               # (params, batch) -> (loss, aux)
     unit_order: Union[Sequence[str], Callable[[Any], Sequence[str]]]
+    conv_spatial: int = 2
 
 
 class Federation:
@@ -56,8 +67,9 @@ class Federation:
                  dropout_rate: float = 0.0,
                  hooks: Sequence[ServerHook] = (),
                  strategy: Union[str, SelectionStrategy, None] = None,
+                 scores=None,
                  topology: Union[str, Topology, None] = None,
-                 device: Device = "cuda"):
+                 conv_spatial: int = 2, device: Device = "cuda"):
         self.device = resolve_device(device)
         self.fl = fl
         self.assign = assign
@@ -65,13 +77,14 @@ class Federation:
         self.topology = resolve_topology(topology if topology is not None
                                          else fl.topology)
         round_step = build_round_step(loss_fn, assign, fl, loss_kwargs,
-                                      strategy=strategy,
+                                      strategy=strategy, scores=scores,
                                       topology=self.topology,
                                       device=self.device)
         self.server = Server(round_step, assign, fl, params,
                              eval_fn=eval_fn, seed=seed,
                              dropout_rate=dropout_rate, hooks=hooks,
-                             topology=self.topology, device=self.device)
+                             topology=self.topology, strategy=strategy,
+                             conv_spatial=conv_spatial, device=self.device)
 
     # -- construction -----------------------------------------------------
 
@@ -87,7 +100,7 @@ class Federation:
         array dicts (then ``batch_size``/``steps_per_round`` apply), or
         None (supply batches to ``run_round`` yourself).  Remaining
         ``kwargs`` go to the constructor (hooks, dropout_rate,
-        strategy, topology).
+        strategy, scores, topology).
         """
         dev = resolve_device(device)
         if not isinstance(cfg, ModelSpec):
@@ -105,7 +118,8 @@ class Federation:
                                      key=seed)
         return cls(loss_fn=cfg.loss_fn, params=params, assign=assign, fl=fl,
                    loader=loader, eval_fn=eval_fn, loss_kwargs=loss_kwargs,
-                   seed=seed, device=dev, **kwargs)
+                   seed=seed, conv_spatial=cfg.conv_spatial, device=dev,
+                   **kwargs)
 
     # -- the run ----------------------------------------------------------
 
@@ -137,10 +151,26 @@ class Federation:
     def comm_summary(self) -> Dict[str, float]:
         return self.server.comm_summary()
 
+    # -- state ------------------------------------------------------------
+
     @property
     def params(self):
+        """Single-model view (the mean replica under gossip)."""
         return self.server.global_params()
+
+    @property
+    def state(self):
+        """The raw topology state the server carries across rounds."""
+        return self.server.params
 
     @property
     def history(self) -> List[RoundRecord]:
         return self.server.history
+
+    def save(self, path: str, extra: Optional[Dict] = None) -> None:
+        from ..ckpt import save_server_state
+        save_server_state(path, self.server, extra=extra)
+
+    def restore(self, path: str) -> Dict:
+        from ..ckpt import restore_server_state
+        return restore_server_state(path, self.server)

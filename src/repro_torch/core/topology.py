@@ -24,10 +24,19 @@ With ``FLConfig.packed`` the star topologies run on packed slot buffers
 instead (DESIGN.md §7), the uplink codec round-trips the packed deltas,
 and the topology's ``aggregate_packed`` reduces them; that path ignores
 ``fused_agg``, as the reference's does.
+
+Stateful (scored) strategies (DESIGN.md §11) add two wires to every
+topology's round step, both absent for stateless strategies: the
+``sel_state`` keyword threads the server's live ``SelectionState`` into
+the selection context, and ``metrics["unit_sqnorm"]`` carries the (C, U)
+per-client gradient-norm telemetry of the local-update norm hook.  The
+aggregation (K1 on the dense hub and the hierarchical combine, K2 on the
+packed path) is the same under every strategy.
 """
 from __future__ import annotations
 
-from typing import Callable, ClassVar, Dict, Optional, Type, Union
+import dataclasses
+from typing import Callable, ClassVar, Dict, Optional, Tuple, Type, Union
 
 import numpy as np
 import torch
@@ -41,7 +50,7 @@ from .aggregation import (fedavg, hierarchical_edge_partials,
                           hierarchical_masked_fedavg_packed, masked_fedavg,
                           masked_fedavg_packed)
 from .client import local_update, packed_cohort_fn
-from .masking import UnitAssignment, mask_tree, slot_plan
+from .masking import UnitAssignment, dense_norm_hook, mask_tree, slot_plan
 from .registry import unknown_name_message
 from .strategies import SelectionContext, resolve_strategy
 
@@ -65,7 +74,7 @@ def ring_mixing_matrix(n: int) -> np.ndarray:
     return w
 
 
-def _selection_setup(assign: UnitAssignment, fl, strategy):
+def _selection_setup(assign: UnitAssignment, fl, strategy, scores=None):
     """Resolve the strategy, validate n_train, build the selection
     context (shared preamble of every topology's round step)."""
     strat = resolve_strategy(strategy if strategy is not None
@@ -75,13 +84,25 @@ def _selection_setup(assign: UnitAssignment, fl, strategy):
         raise ValueError(
             f"n_train={n_train} out of range for {assign.n_units} units; "
             "set FLConfig.n_train_units or train_fraction")
+    if scores is not None:
+        scores = torch.as_tensor(np.asarray(scores, np.float32))
     ctx = SelectionContext(n_clients=fl.n_clients, n_units=assign.n_units,
-                           n_train=n_train)
+                           n_train=n_train, scores=scores,
+                           score_ema=fl.score_ema)
     return strat, ctx
 
 
+def _live_ctx(ctx: SelectionContext, sel_state) -> SelectionContext:
+    """The build-time context with the round's live selection state
+    swapped in, when the server threads one."""
+    if sel_state is None:
+        return ctx
+    return dataclasses.replace(ctx, scores=sel_state.scores,
+                               state=sel_state)
+
+
 def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
-                     loss_kwargs: Optional[Dict], *, strategy,
+                     loss_kwargs: Optional[Dict], *, strategy, scores=None,
                      device: torch.device, fused: bool = False,
                      aggregate: Optional[Callable] = None,
                      aggregate_dense: Optional[Callable] = None,
@@ -109,9 +130,14 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
 
     ``metrics["deltas"]`` is the client-stacked delta tree the round
     aggregated (views into the kernel's tile buffer on the fused path;
-    the decoded packed deltas on the packed path).
+    the decoded packed deltas on the packed path).  A stateful strategy
+    adds the ``sel_state`` keyword and ``metrics["unit_sqnorm"]`` (module
+    docstring).  The step carries the strategy it selects with as
+    ``round_step.selection_strategy``.
     """
-    strat, ctx = _selection_setup(assign, fl, strategy)
+    strat, ctx = _selection_setup(assign, fl, strategy, scores)
+    scoring = strat.stateful
+    hook = dense_norm_hook(assign) if scoring else None
     if aggregate_dense is None:
         aggregate_dense = lambda g, d, sel, w: fedavg(g, d, w)  # noqa: E731
     use_packed = fl.packed and not strat.dense
@@ -120,7 +146,8 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
             f"topology {fl.topology!r} has no packed aggregation path; "
             "set FLConfig.packed=False")
     n_slots = fl.resolve_n_slots(ctx.n_units)
-    packed_cohort = packed_cohort_fn(loss_fn, assign, fl, loss_kwargs)
+    packed_cohort = packed_cohort_fn(loss_fn, assign, fl, loss_kwargs,
+                                     scoring=scoring)
     codec_fn = _codecs.build_codec_transform(
         _codecs.resolve_codec(fl.codec), assign, fl)
     plan = {}
@@ -146,14 +173,16 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                    "loss_per_client": m["loss_mean"],
                    "sel": sel,
                    "deltas": deltas}
+        if scoring:
+            metrics["unit_sqnorm"] = m["unit_sqnorm"]
         if new_codec_state is not None:
             metrics["codec_state"] = new_codec_state
         return new_params, metrics
 
     def round_step(global_params, client_batches, weights,
-                   gen: Optional[torch.Generator], *, uniform=None,
-                   codec_state=None):
-        sel = strat.select(gen, ctx)
+                   gen: Optional[torch.Generator], *, sel_state=None,
+                   uniform=None, codec_state=None):
+        sel = strat.select(gen, _live_ctx(ctx, sel_state))
         if fl.always_train_head:
             sel[:, -1] = 1.0
         weights = torch.as_tensor(weights, dtype=torch.float32).cpu()
@@ -166,7 +195,7 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
             if "plan" not in plan:
                 plan["plan"] = agg_ops.build_agg_plan(assign, global_params)
             d_t = agg_ops.new_tile_buffer(plan["plan"], (n,), device=device)
-        losses, deltas = [], []
+        losses, deltas, norms = [], [], []
         for c in range(n):
             # the dense (full) strategy trains every unit unmasked
             mask = None if strat.dense else \
@@ -175,8 +204,10 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                 loss_fn, global_params, mask,
                 {k: v[c] for k, v in client_batches.items()}, lr=fl.lr,
                 optimizer=fl.optimizer, prox_mu=fl.prox_mu,
-                loss_kwargs=loss_kwargs)
+                loss_kwargs=loss_kwargs, norm_hook=hook)
             losses.append(m["loss_mean"])
+            if scoring:
+                norms.append(m["unit_sqnorm"])
             if fused_tiles:
                 # straight into the kernel's client plane: no stacked copy
                 agg_ops.pack_into(plan["plan"], d, d_t[c])
@@ -201,8 +232,11 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                    "loss_per_client": per_client,
                    "sel": sel,
                    "deltas": deltas}
+        if scoring:
+            metrics["unit_sqnorm"] = torch.stack(norms)
         return new_params, metrics
 
+    round_step.selection_strategy = strat
     return round_step
 
 
@@ -249,7 +283,7 @@ class Topology:
 
     def build_round_step(self, loss_fn: Callable, assign: UnitAssignment,
                          fl, loss_kwargs: Optional[Dict] = None, *,
-                         strategy=None, device: torch.device):
+                         strategy=None, scores=None, device: torch.device):
         raise NotImplementedError
 
     def round_bytes(self, sel: np.ndarray, ubytes: np.ndarray,
@@ -308,6 +342,14 @@ def register_topology(obj: Union[Type[Topology], Topology], *,
     return obj
 
 
+def unregister_topology(name: str):
+    _REGISTRY.pop(name, None)
+
+
+def registered_topologies() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
 def get_topology(name: str) -> Topology:
     try:
         return _REGISTRY[name]
@@ -332,10 +374,10 @@ class Hub(Topology):
     name = "hub"
 
     def build_round_step(self, loss_fn, assign, fl, loss_kwargs=None, *,
-                         strategy=None, device):
+                         strategy=None, scores=None, device):
         return _star_round_step(
             loss_fn, assign, fl, loss_kwargs, strategy=strategy,
-            device=device, fused=fl.resolve_fused_agg(device),
+            scores=scores, device=device, fused=fl.resolve_fused_agg(device),
             aggregate_packed=lambda g, d, r, v, sel, w:
                 masked_fedavg_packed(g, d, r, v, sel, w, assign))
 
@@ -364,7 +406,7 @@ class Hierarchical(Topology):
     name = "hierarchical"
 
     def build_round_step(self, loss_fn, assign, fl, loss_kwargs=None, *,
-                         strategy=None, device):
+                         strategy=None, scores=None, device):
         mem = torch.as_tensor(comm.edge_membership(fl.n_clients,
                                                    fl.resolve_n_edges()))
         if fl.resolve_fused_agg(device):
@@ -374,7 +416,8 @@ class Hierarchical(Topology):
                 g, d, sel, w, assign, mem)
         return _star_round_step(
             loss_fn, assign, fl, loss_kwargs, strategy=strategy,
-            device=device, aggregate=agg, aggregate_dense=agg,
+            scores=scores, device=device, aggregate=agg,
+            aggregate_dense=agg,
             aggregate_packed=lambda g, d, r, v, sel, w:
                 hierarchical_masked_fedavg_packed(g, d, r, v, sel, w,
                                                   assign, mem))
@@ -399,6 +442,13 @@ class Gossip(Topology):
     reweight nothing here; zero-weight clients (stragglers) train (their
     loss is reported, as in the reference) but their update is not
     applied, and they still mix.  No aggregation kernel runs.
+
+    A withheld update leaves the replica untouched (``torch.where``),
+    where the reference adds ``delta * 0``: the two agree on finite
+    deltas up to the sign of a zero, and a NaN delta of a zero-weight
+    client leaves the port's replicas finite where the reference's
+    replica takes the NaN and the mix spreads it (a parity limit,
+    ``tests/test_torch_topology.py``).
     """
     name = "gossip"
     stateful = True
@@ -412,31 +462,35 @@ class Gossip(Topology):
         return {p: x.float().mean(0).to(x.dtype) for p, x in state.items()}
 
     def build_round_step(self, loss_fn, assign, fl, loss_kwargs=None, *,
-                         strategy=None, device):
+                         strategy=None, scores=None, device):
         if fl.packed:
             raise ValueError(
                 "packed round path: gossip mixing blends full replicas, "
                 "so there is nothing to pack — use hub or hierarchical")
-        strat, ctx = _selection_setup(assign, fl, strategy)
+        strat, ctx = _selection_setup(assign, fl, strategy, scores)
         mix = torch.as_tensor(ring_mixing_matrix(fl.n_clients),
                               device=device)
+        scoring = strat.stateful
+        hook = dense_norm_hook(assign) if scoring else None
 
         def round_step(state, client_batches, weights,
-                       gen: Optional[torch.Generator]):
-            sel = strat.select(gen, ctx)
+                       gen: Optional[torch.Generator], *, sel_state=None):
+            sel = strat.select(gen, _live_ctx(ctx, sel_state))
             if fl.always_train_head:
                 sel[:, -1] = 1.0
             active = torch.as_tensor(weights, dtype=torch.float32).cpu() > 0
-            losses, deltas = [], []
+            losses, deltas, norms = [], [], []
             for c in range(fl.n_clients):
                 params_c = {p: x[c] for p, x in state.items()}
                 d, m = local_update(
                     loss_fn, params_c, mask_tree(assign, sel[c], params_c),
                     {k: v[c] for k, v in client_batches.items()}, lr=fl.lr,
                     optimizer=fl.optimizer, prox_mu=fl.prox_mu,
-                    loss_kwargs=loss_kwargs)
+                    loss_kwargs=loss_kwargs, norm_hook=hook)
                 losses.append(m["loss_mean"])
                 deltas.append(d)
+                if scoring:
+                    norms.append(m["unit_sqnorm"])
             deltas = tree_stack(deltas)
             keep = active.to(device)
             mixed = {}
@@ -446,10 +500,14 @@ class Gossip(Topology):
                 mixed[p] = torch.tensordot(
                     mix, trained.float(), dims=([1], [0])).to(x.dtype)
             per_client = torch.stack(losses)
-            return mixed, {"loss_mean": per_client.mean(),
-                           "loss_per_client": per_client,
-                           "sel": sel, "deltas": deltas}
+            metrics = {"loss_mean": per_client.mean(),
+                       "loss_per_client": per_client,
+                       "sel": sel, "deltas": deltas}
+            if scoring:
+                metrics["unit_sqnorm"] = torch.stack(norms)
+            return mixed, metrics
 
+        round_step.selection_strategy = strat
         return round_step
 
     def round_bytes(self, sel, ubytes, fl):

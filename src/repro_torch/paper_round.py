@@ -25,13 +25,15 @@ BATCH = 32
 LOCAL_STEPS = 2
 
 
-def build(device: Device = "cuda", *, eval_images: int = 0,
+def build(device: Device = "cuda", *, eval_images: int = 0, strategy=None,
           **fl_overrides) -> Federation:
     """The main path's federation on ``device``.  With ``eval_images``
     it also holds out that many ``cifar_like`` images and evaluates
-    accuracy on them after every round.  ``fl_overrides`` replace
-    fields of its ``FLConfig`` (``packed=True, codec="qint8"`` runs the
-    packed round with the int8 uplink codec)."""
+    accuracy on them after every round.  ``strategy`` overrides the
+    selection with a registered name or an instance (``"score_weighted"``,
+    a ``Replay``), and ``fl_overrides`` replace fields of its
+    ``FLConfig`` (``packed=True, codec="qint8"`` runs the packed round
+    with the int8 uplink codec)."""
     dev = resolve_device(device)
     n = N_CLIENTS * BATCH * LOCAL_STEPS
     x_all, y_all = cifar_like(n + eval_images, key=0)
@@ -56,4 +58,4 @@ def build(device: Device = "cuda", *, eval_images: int = 0,
         FLConfig(n_clients=N_CLIENTS, n_train_units=N_TRAIN,
                  strategy="uniform", topology="hub"), **fl_overrides)
     return Federation.from_config(spec, fl, data=loader, device=dev,
-                                  eval_fn=eval_fn)
+                                  eval_fn=eval_fn, strategy=strategy)

@@ -41,6 +41,8 @@ LR = 3e-3
 IMDB_DATA = 4000
 # units trained per round by default: half of each model's (6 and 4)
 N_TRAIN = {"casa": 3, "imdb": 2}
+# spatial rank of the conv kernels (IMDB's conv1d; CASA has none)
+CONV_SPATIAL = {"casa": 2, "imdb": 1}
 
 _MODEL = {"casa": (pm.init_casa, pm.casa_apply, pm.casa_loss, pm.casa_units),
           "imdb": (pm.init_imdb, pm.imdb_apply, pm.imdb_loss, pm.imdb_units)}
@@ -84,7 +86,8 @@ def build(task: str, device: Device = "cuda", *, n_train: int = 0,
             return pm.accuracy(apply(p, xt, device=dev), yt)
 
     spec = ModelSpec(task, functools.partial(init, dtype=dtype),
-                     functools.partial(loss, device=dev), units)
+                     functools.partial(loss, device=dev), units,
+                     conv_spatial=CONV_SPATIAL[task])
     fl = dataclasses.replace(
         FLConfig(n_clients=N_CLIENTS, n_train_units=n_train or N_TRAIN[task],
                  lr=LR), **fl_overrides)

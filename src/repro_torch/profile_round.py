@@ -2,19 +2,24 @@
 
     PYTHONPATH=src python -m repro_torch.profile_round [--rounds 3]
         [--model vgg16|imdb|casa] [--topology hub|hierarchical|gossip]
-        [--codec qint8] [--out FILE]
+        [--codec qint8] [--strategy NAME] [--out FILE]
 
 Builds the federation chip_smoke.py drives, without evaluation: VGG16
 from ``paper_round.build`` (8 clients), IMDB or CASA from
 ``paper_tasks.build`` (10 clients), under the topology asked for
 (``hierarchical`` with 2 edges); with ``--codec`` the packed round with
-that uplink codec.  It runs one round to warm up,
-then ``--rounds`` rounds without and ``--rounds`` rounds under
-``torch.profiler``, and prints one JSON object: the card and its power
-limit, the host wall time per round, the device's busy share (device
-kernel time over the profiled wall time), the kernel launches per round,
-the device time and launches per round by kind (K1, K2 and the library
-kernels) and the kernels that take the most device time.  Needs a GPU.
+that uplink codec; with ``--strategy`` that selection strategy.  It runs
+one round to warm up, then ``--rounds`` rounds without and ``--rounds``
+rounds under ``torch.profiler``, and prints one JSON object: the card
+and its power limit, the host wall time per round, the device's busy
+share (device kernel time over the profiled wall time), the kernel
+launches per round, the device time and launches per round by kind (K1,
+K2 and the library kernels) and the kernels that take the most device
+time.  Under a scored strategy it then measures the same again on a
+second federation that replays the first one's selections with a
+stateless ``Replay``: the same training without the gradient-norm
+telemetry and the state update ("without_telemetry"), so the
+difference is their cost.  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import time
 import torch
 
 from . import paper_round, paper_tasks
+from .core import Replay
 
 MODELS = ("vgg16", "imdb", "casa")
 TOPOLOGIES = ("hub", "hierarchical", "gossip")
@@ -44,6 +50,8 @@ def _kind(name: str) -> str:
         return "masked_agg (K1)"
     if "quantize_pack" in name:             # quantize_pack_group_kernel
         return "quantize_pack (K2)"
+    if "LpNorm" in name:                    # the scored telemetry's norms
+        return "norm telemetry (foreach_norm)"
     if any(k in name for k in ("RNN", "LSTM", "rnn", "lstm")):
         return "lstm (cuDNN)"
     if any(k in name for k in ("cudnn", "xmma", "implicit_gemm", "conv",
@@ -54,9 +62,11 @@ def _kind(name: str) -> str:
     return "elementwise / reduction"
 
 
-def build(model: str = "vgg16", topology: str = "hub", codec: str = ""):
-    """The profiled federation on the card."""
-    kw = {"topology": topology}
+def build(model: str = "vgg16", topology: str = "hub", codec: str = "",
+          strategy=None):
+    """The profiled federation on the card (``strategy``: a name or an
+    instance overriding the selection)."""
+    kw = {"topology": topology, "strategy": strategy or None}
     if topology == "hierarchical":
         kw["n_edges"] = 2
     if codec:
@@ -66,9 +76,8 @@ def build(model: str = "vgg16", topology: str = "hub", codec: str = ""):
     return paper_tasks.build(model, "cuda", evaluate=False, **kw)
 
 
-def profile(rounds: int, codec: str = "", model: str = "vgg16",
-            topology: str = "hub") -> dict:
-    fed = build(model, topology, codec)
+def _measure(fed, rounds: int) -> dict:
+    """One warm-up round, ``rounds`` clean and ``rounds`` profiled."""
     fed.fit(1)                                   # warm-up: cuDNN, kernel build
     clean = [r.seconds for r in fed.fit(rounds)[-rounds:]]   # no profiler
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -92,22 +101,7 @@ def profile(rounds: int, codec: str = "", model: str = "vgg16",
         launches_by_kind[kind] = launches_by_kind.get(kind, 0) \
             + e.count / rounds
     top = sorted(device, key=_device_us, reverse=True)[:12]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
     return {
-        "card": smi, "torch": torch.__version__,
-        "config": {"model": model, "topology": topology,
-                   "clients": fed.fl.n_clients,
-                   "edges": fed.fl.resolve_n_edges()
-                   if topology == "hierarchical" else None,
-                   "train_units": fed.fl.n_train_units,
-                   "units": fed.assign.n_units,
-                   "batch": fed.loader.batch_size,
-                   "local_steps": fed.loader.steps,
-                   "packed": fed.fl.packed, "codec": fed.fl.codec,
-                   "rounds": rounds},
         "round_seconds": clean,
         "round_seconds_profiled": [r.seconds for r in hist[-rounds:]],
         "profiled_wall_s": wall,
@@ -122,6 +116,36 @@ def profile(rounds: int, codec: str = "", model: str = "vgg16",
     }
 
 
+def profile(rounds: int, codec: str = "", model: str = "vgg16",
+            topology: str = "hub", strategy: str = "") -> dict:
+    fed = build(model, topology, codec, strategy)
+    measured = _measure(fed, rounds)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    out = {
+        "card": smi, "torch": torch.__version__,
+        "config": {"model": model, "topology": topology,
+                   "clients": fed.fl.n_clients,
+                   "edges": fed.fl.resolve_n_edges()
+                   if topology == "hierarchical" else None,
+                   "strategy": fed.server.strategy.name,
+                   "train_units": fed.fl.n_train_units,
+                   "units": fed.assign.n_units,
+                   "batch": fed.loader.batch_size,
+                   "local_steps": fed.loader.steps,
+                   "packed": fed.fl.packed, "codec": fed.fl.codec,
+                   "rounds": rounds},
+        **measured,
+    }
+    if fed.server.sel_state is not None:
+        twin = build(model, topology, codec,
+                     Replay(fed.server.sel_history))
+        out["without_telemetry"] = _measure(twin, rounds)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
@@ -129,10 +153,12 @@ def main(argv=None) -> None:
     ap.add_argument("--topology", default="hub", choices=TOPOLOGIES)
     ap.add_argument("--codec", default="",
                     help="profile the packed round with this uplink codec")
+    ap.add_argument("--strategy", default="",
+                    help="selection strategy (default: the federation's)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     a = ap.parse_args(argv)
-    text = json.dumps(profile(a.rounds, a.codec, a.model, a.topology),
-                      indent=1)
+    text = json.dumps(profile(a.rounds, a.codec, a.model, a.topology,
+                              a.strategy), indent=1)
     print(text)
     if a.out:
         with open(a.out, "w") as f:

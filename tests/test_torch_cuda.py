@@ -858,6 +858,74 @@ def test_paper_task_round_is_bitwise_repeatable(dev, task):
     assert a.comm_summary() == b.comm_summary()
 
 
+@pytest.mark.parametrize("strategy,topology", [
+    ("score_weighted", "hub"), ("depth_dropout", "hub"),
+    ("successive", "hub"), ("score_weighted", "hierarchical")])
+def test_scored_round_launches_k1_once_a_round(dev, strategy, topology):
+    """The paper's round (VGG16 at full width) under a scored strategy:
+    one K1 launch a round on the hub and the hierarchical combine, the
+    telemetry exact zero on frozen units, the state's counts the active
+    selections' column sums."""
+    from repro_torch import paper_round
+    kw = {"n_edges": 2} if topology == "hierarchical" else {}
+    fed = paper_round.build(dev, strategy=strategy, topology=topology, **kw)
+    seen = []
+
+    class Keep:
+        def on_round_start(self, server, r, weights):
+            return None
+
+        def on_round_end(self, server, record, metrics):
+            seen.append((metrics["sel"], metrics["unit_sqnorm"].cpu()))
+
+        def on_fit_end(self, server, history):
+            pass
+
+    fed.server.add_hook(Keep())
+    before = ops.masked_agg.launches
+    fed.fit(2)
+    torch.cuda.synchronize()
+    assert ops.masked_agg.launches == before + 2
+    counts = sum(sel.sum(0) for sel, _ in seen)
+    assert torch.equal(fed.server.sel_state.counts, counts)
+    for sel, sq in seen:
+        assert bool((sq[sel == 0] == 0).all()) and bool((sq[sel > 0] > 0)
+                                                        .all())
+
+
+@pytest.mark.parametrize("kw", [{"strategy": "score_weighted"},
+                                {"packed": True, "codec": "qint8"},
+                                {"packed": True, "codec": "topk_ef"},
+                                {"topology": "gossip"}],
+                         ids=["scored", "qint8", "topk_ef", "gossip"])
+def test_kill_resume_is_bitwise_on_card(dev, tmp_path, kw):
+    """VGG16 at full width: 4 rounds straight against 2, save, a new
+    Federation restored, 2 more: bitwise equal state, selection state,
+    codec state, selections and bill."""
+    from repro_torch import paper_round
+    full = paper_round.build(dev, **kw)
+    full.fit(4)
+    half = paper_round.build(dev, **kw)
+    half.fit(2)
+    path = str(tmp_path / "ck")
+    half.save(path)
+    resumed = paper_round.build(dev, **kw)
+    resumed.restore(path)
+    resumed.fit(2)
+    torch.cuda.synchronize()
+    a, b = full.server, resumed.server
+    assert all(torch.equal(a.params[p], b.params[p]) for p in a.params)
+    if a.sel_state is not None:
+        assert all(torch.equal(x, y) for x, y in zip(a.sel_state,
+                                                     b.sel_state))
+    if a.codec_state is not None:
+        assert all(torch.equal(a.codec_state[p], b.codec_state[p])
+                   for p in a.codec_state)
+    assert all(np.array_equal(x, y) for x, y in
+               zip(a.sel_history, b.sel_history))
+    assert full.comm_summary() == resumed.comm_summary()
+
+
 def test_kernel_two_edge_planes_match_plain(dev):
     """K1 as the hierarchical hub combine: E = 2 planes of edge means."""
     g, d, w = _case(dev, 1293, 2, 2048)

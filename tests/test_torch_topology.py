@@ -369,6 +369,66 @@ def test_gossip_mixing_preserves_the_replica_mean(toy_setup, ref_rounds):
             <= 1e-6 * scale, path
 
 
+def _nan_for(client_x):
+    """A loss that is NaN on the batch whose inputs are ``client_x`` (one
+    client's) and the toy loss elsewhere, for either package."""
+    def make(base, xp):
+        def loss(params, batch, **kw):
+            val, aux = base(params, batch, **kw)
+            hit = xp.all(batch["x"] == xp.asarray(client_x))
+            # times NaN, so the gradients are NaN too (a where() would
+            # leave them zero)
+            return val * xp.where(hit, xp.asarray(float("nan")),
+                                  xp.asarray(1.0)), aux
+        return loss
+    return make
+
+
+@pytest.mark.parametrize("delta", ["finite", "nan"])
+def test_gossip_zero_weight_update_is_withheld(toy_setup, delta):
+    """Gossip with a client of weight 0 (client 1).  Finite deltas: the
+    port's replicas equal the reference's within TOL.  A NaN delta on
+    the zero-weight client (its loss is NaN): the port keeps that
+    replica as it was, so every replica stays finite after the mix; the
+    reference adds ``delta * 0`` = NaN to it and the ring mix spreads
+    it.  The parity limit is pinned here; the reference is unchanged."""
+    rfl = RFLConfig(fused_agg="off", **_fl_kw("gossip"))
+    fl = FLConfig(**_fl_kw("gossip"))
+    key = jax.random.PRNGKey(11)
+    r_loss, t_loss = r_toy_loss, tloss
+    if delta == "nan":
+        make = _nan_for(np.asarray(toy_setup["batches"]["x"])[1, 0])
+        r_loss = make(r_toy_loss, jnp)
+        t_loss = make(tloss, torch)
+    rtopo_g = rtopo.get_topology("gossip")
+    rstep = rtopo_g.build_round_step(r_loss, toy_setup["r_assign"], rfl)
+    rnew, rm = rstep(rtopo_g.init_state(toy_setup["rp"], rfl),
+                     toy_setup["batches"], jnp.asarray(W), key)
+    want = _np_flat(rnew)
+    topo = topology.get_topology("gossip")
+    step = build_round_step(t_loss, toy_setup["assign"], fl,
+                            strategy=Replay([np.asarray(rm["sel"])]),
+                            device="cpu")
+    new, m = step(topo.init_state(dict(toy_setup["tp"]), fl), toy_setup["tb"],
+                  torch.as_tensor(W), None)
+    assert W[1] == 0.0
+    if delta == "finite":
+        _close(new, want, TOL, "gossip")
+        return
+    # the zero-weight client trained to NaN in both packages
+    assert np.isnan(float(m["loss_per_client"][1]))
+    assert any(bool(torch.isnan(d[1]).any()) for d in m["deltas"].values())
+    assert all(bool(torch.isfinite(x).all()) for x in new.values())
+    assert any(not np.isfinite(w).all() for w in want.values())
+    # the finite clients' replicas are the reference's finite round:
+    # rerun the reference without the NaN loss for the comparison
+    fnew, _ = rtopo_g.build_round_step(
+        r_toy_loss, toy_setup["r_assign"], rfl)(
+        rtopo_g.init_state(toy_setup["rp"], rfl), toy_setup["batches"],
+        jnp.asarray(W), key)
+    _close(new, _np_flat(fnew), TOL, "gossip nan")
+
+
 def test_gossip_rejects_packed_rounds(toy_setup):
     fl = FLConfig(n_clients=C, topology="gossip", packed=True)
     with pytest.raises(ValueError, match="nothing to pack") as got:
