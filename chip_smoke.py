@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in twenty-four phases, in the order
-below except that 17-20, then 22-24, then 21 run after 8, and any
+nothing of the ``repro`` package) in twenty-eight phases, in the order
+below except that 17-20, then 22-28, then 21 run after 8, and any
 failure exits non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
@@ -221,13 +221,49 @@ failure exits non-zero:
    state, ``sel_history`` and ``comm_summary()`` bitwise equal; the
    checkpoint's bytes and the save and restore wall times beside the
    card's name and power limit.
+25. async-round — VGG16 at full width under the buffered-async engine
+   (``paper_round.build(async_buffer=4, client_delay_dist="pareto:1.2",
+   packed=True, codec="qint8")``: 8 clients, FedBuff buffer 4, the
+   reference's heavy-tailed delays), 3 flushes on the hub, then on 2
+   edges: one grouped K2 launch per dispatch (the whole cohort at the
+   start, then the one client that reported back), K1 never, every
+   flush's bill equal to ``buffered_hub_round_bytes`` /
+   ``buffered_hierarchical_round_bytes`` exactly, finite; each flush's
+   seconds, staleness, entries and bytes.  A zero-staleness flush
+   (delay ``none``, buffer 8) bitwise equal to the synchronous packed
+   qint8 round; VGG16 width 0.125 in float64 (``_xent64``) on the card
+   and the CPU, one flush under Adam and three under SGD: the same
+   schedule, params within PARITY_TOL; K2 at the single-client dispatch shape (80 leaves
+   x 1 row) against its plain version, bitwise, with its device and wall
+   medians beside its byte bound.
+26. cohort-round — the cohort engine: 1,000 registered clients (each
+   with one round's images), a cohort of 8, ``loss_proportional``
+   sampling, qint8, ``crash:0.1`` (crashed members resampled), 2 rounds
+   in chunks of 4 and in one chunk of 8: one K2 launch a chunk, the two
+   runs bitwise equal (params, selections, losses, bill, fleet EMAs);
+   one ``uniform`` round; R == C (8 registered) bitwise equal to the
+   synchronous packed round.
+27. chaos — ``crash:0.25`` on the dense hub (K1 one launch a round, the
+   crashed clients' weights zero exactly where the injector drew them),
+   ``nan``/``inf``/``bitflip`` corruption on the packed qint8 hub behind
+   the validation gate (``max_delta_norm``): the quarantine vector equal
+   to the injected plan in every round, params finite; the async mix
+   ``crash:0.1,nan:0.05,bitflip:0.05,duplicate:0.1,torn:0.05`` with 10%
+   in-transit loss: quarantined entries equal to the corrupted or torn
+   ones, wasted bytes billed; zero-rate chaos bitwise equal to clean.
+28. engine-resume — ``run_with_restarts`` (``kill:0.5``, a
+   ``Checkpointer`` every round) against the uninterrupted run, bitwise,
+   for the async engine, the cohort engine and ``history_cap=2`` on a
+   6-round dense hub run (whose capped bill equals Table 4 of every
+   round's selections).
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
 the card's name and power limit (as ``nvidia-smi`` reports them) and a
 JSON line of per-kernel numbers (K1's and K2's launches summed over the
 paths that ran them, each path's count in ``launches_by_path``, K1's
-other plans in ``plans``); the last line is
+other plans in ``plans``, K2's single-client dispatch in
+``dispatch_1client``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2608,6 +2644,459 @@ def phase_serve_rwkv6_parity(w):
           f"(tol {LOGIT_TOL})")
 
 
+# -- the round engines (async, cohort, faults) on the VGG16 round --------------
+
+ENGINE_ROUNDS = 3        # flushes or rounds of each engine run
+# the reference's benchmarks/async_bench.py default: heavy-tailed delays
+ASYNC_KW = dict(packed=True, codec="qint8", async_buffer=4,
+                client_delay_dist="pareto:1.2")
+ASYNC_FAULTS = "crash:0.1,nan:0.05,bitflip:0.05,duplicate:0.1,torn:0.05"
+SYNC_DELTA_FAULTS = "nan:0.15,inf:0.05,bitflip:0.1"
+# far above a clean VGG16 delta's norm (at most sqrt(14.7 M) x 2 lr),
+# far below a flipped exponent bit's (values x 2^128)
+MAX_DELTA_NORM = 1e4
+COHORT_KW = dict(packed=True, codec="qint8", n_registered=1000)
+
+
+def _flush_seqs(eng):
+    """Wrap the async engine's buffer flush to record each flush's
+    (client, seq) entries, in the flush's own (client, seq) order."""
+    seen = []
+    flush = eng.buffer.flush
+
+    def recording(global_params, version):
+        seen.append(sorted((e.client, e.seq) for e in eng.buffer.entries))
+        return flush(global_params, version)
+    eng.buffer.flush = recording
+    return seen
+
+
+def _check_flush_bytes(fed, cap, tag):
+    """Every flush's bill equals ``buffered_hub_round_bytes`` /
+    ``buffered_hierarchical_round_bytes`` of its entries (weight-0
+    entries masked) at the codec's wire width, exactly."""
+    from repro_torch.core import comm
+    srv, fl = fed.server, fed.fl
+    wub = srv.wire_unit_bytes()
+    for rec, m in cap.rounds:
+        es = np.asarray(m["entry_sel"]) * (np.asarray(
+            rec.effective_weights) > 0)[:, None]
+        if fl.topology == "hierarchical":
+            want = comm.buffered_hierarchical_round_bytes(
+                es, m["entry_clients"], wub, comm.edge_membership(
+                    fl.n_clients, fl.resolve_n_edges()))["uplink"]
+        else:
+            want = comm.buffered_hub_round_bytes(es, wub)["uplink"]
+        check(rec.uplink_bytes == want, f"{tag} flush {rec.round}: billed "
+              f"{rec.uplink_bytes} != buffered bytes {want}")
+
+
+def _finite(fed):
+    return all(bool(torch.isfinite(x).all()) for x in fed.params.values())
+
+
+def _async_run(dev, tag, phase="async-round", **kw):
+    """One async VGG16 run of ENGINE_ROUNDS flushes: K2 launched once per
+    dispatch (the engine's dispatch counter), K1 never, bills exact;
+    prints under ``[phase]``.  Returns (federation, capture, flush
+    entries, K2 launches)."""
+    from repro_torch import paper_round
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.masked_agg import ops as aops
+
+    fed = paper_round.build(dev, **dict(ASYNC_KW, **kw))
+    cap = Capture()
+    fed.server.add_hook(cap)
+    eng = fed.server.async_engine
+    seqs = _flush_seqs(eng)
+    qops.reset_launch_counts()
+    aops.reset_launch_counts()
+    hist = fed.fit(ENGINE_ROUNDS)
+    torch.cuda.synchronize()
+    k2 = qops.quantize_pack_group.launches
+    check(k2 == eng._codec_dispatch and k2 > 1,
+          f"async {tag}: quantize_pack launched {k2} times for "
+          f"{eng._codec_dispatch} dispatches")
+    check(aops.masked_agg.launches == 0, f"async {tag}: K1 launched")
+    check(all(math.isfinite(r.loss) for r in hist) and _finite(fed),
+          f"async {tag}: non-finite loss or params")
+    _check_flush_bytes(fed, cap, f"async {tag}")
+    for r in hist:
+        print(f"[{phase}] {tag} flush {r.round}: {r.seconds:.3f} s, "
+              f"staleness mean {r.staleness_mean:.2f} max "
+              f"{r.staleness_max:.0f}, {len(r.effective_weights)} entries "
+              f"({r.n_participants} clients), uplink {r.uplink_bytes:.0f} B "
+              f"qint8 == buffered bytes, wasted {r.wasted_bytes:.0f} B, "
+              f"t_sim {r.sim_time:.2f}")
+    print(f"[{phase}] {tag}: {eng._codec_dispatch} dispatches "
+          f"({fed.fl.n_clients} at start, then one client each), K2 "
+          f"launches {k2} (one grouped launch a dispatch), masked_agg 0")
+    return fed, cap, seqs, k2
+
+
+def _k2_dispatch_timing(dev, smi):
+    """K2 at the single-client dispatch shape (one row of every VGG16
+    leaf, one launch): codes bitwise the plain version's; device median
+    (L2 flushed), wall median with the host, the plain version's, and
+    the bound (x and uniforms read once, codes and scales written once,
+    over the memory rate)."""
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.codec.ref import quantize_pack_group_ref
+
+    sizes = _vgg_leaf_sizes()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xs = [0.01 * torch.randn(1, p, generator=gen, device=dev) for p in sizes]
+    us = [torch.rand(1, p, generator=gen, device=dev) for p in sizes]
+    got = qops.quantize_pack_group(xs, us, 8)
+    want = quantize_pack_group_ref(xs, us, 8)
+    torch.cuda.synchronize()
+    check(all(_same_codes(g, w) for g, w in zip(got, want)),
+          "quantize_pack at the dispatch shape differs from the plain version")
+    n = sum(sizes)
+    nbytes = 8 * n + n + 4 * len(sizes)
+    by_bytes = nbytes / memory_rate(torch.cuda.get_device_name(0))
+    by_ops = 7 * n / FP32_PEAK
+    bound = max(by_bytes, by_ops) * 1e3
+    ms = device_ms(lambda: qops.quantize_pack_group(xs, us, 8))
+    wall = median_ms(lambda: qops.quantize_pack_group(xs, us, 8))
+    plain = median_ms(lambda: quantize_pack_group_ref(xs, us, 8), iters=10)
+    print(f"[async-round] K2 at one client's dispatch ({len(sizes)} leaves "
+          f"x 1 row, {n} elements, int8): codes bitwise the plain version's; "
+          f"median ms device {ms:.4f} (L2 flushed), wall {wall:.4f}, plain "
+          f"{plain:.4f}; bound {bound:.4f} ({nbytes / 1e6:.2f} MB, bytes): "
+          f"kernel at {bound / ms:.1%} of it ({smi})")
+    return {"ms": ms, "wall_ms": wall, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _async_parity(dev, optimizer, flushes):
+    """Async flushes of VGG16 width 0.125 in float64 (``_xent64``), 3
+    clients, buffer 2, heavy-tailed delays, on the card and on the CPU:
+    the same schedule, flushed clients and staleness, parameters within
+    PARITY_TOL.  Returns the worst error and its leaf.
+
+    The flush accumulates in float32, as on the main path, so after the
+    first flush both devices train from float32-rounded parameters that
+    may differ in their last bit; Adam's first step (lr / (1 + eps /
+    |g|)) amplifies that on gradients near eps, so the check runs one
+    flush under Adam and several only under SGD."""
+    from repro_torch.core import FLConfig, Federation, build_units_flat
+    from repro_torch.data import cifar_like
+    from repro_torch.models import paper_models as pm
+
+    c = 3
+    params = pm.init_vgg16(torch.Generator().manual_seed(1),
+                           dtype=torch.float64, width_mult=0.125)
+    assign = build_units_flat(params, pm.vgg16_units(params))
+    x, y = cifar_like(c * 4, key=3)
+    batches = {"x": x.reshape(c, 1, 4, 32, 32, 3), "y": y.reshape(c, 1, 4)}
+    out = []
+    for d in (dev, torch.device("cpu")):
+        fl = FLConfig(n_clients=c, n_train_units=7, async_buffer=2,
+                      client_delay_dist="pareto:1.2", optimizer=optimizer)
+        fed = Federation(loss_fn=functools.partial(_xent64, device=d),
+                         params=params, assign=assign, fl=fl, seed=3,
+                         device=d)
+        b = {k: torch.as_tensor(v, device=d) for k, v in batches.items()}
+        fed.server.run(flushes, lambda w: b)
+        out.append(({p: v.cpu() for p, v in fed.params.items()},
+                    fed.server.async_engine.flush_clients,
+                    [(r.staleness_mean, r.sim_time) for r in fed.history]))
+    (pc, fc, sc), (ph, fh, sh) = out
+    check(sc == sh and all(np.array_equal(a, b) for a, b in zip(fc, fh)),
+          "async parity: schedules differ between card and CPU")
+    err = {p: float((pc[p] - ph[p]).abs().max()) for p in pc}
+    worst = max(err, key=err.get)
+    check(err[worst] <= PARITY_TOL, f"async parity {worst}: card vs CPU "
+          f"max abs err {err[worst]} > {PARITY_TOL}")
+    return err[worst], worst
+
+
+def phase_async_round(dev, smi):
+    """VGG16 at full width under the buffered-async engine (8 clients,
+    buffer 4, pareto:1.2, qint8), hub then 2 edges; the zero-staleness
+    flush against the synchronous packed round, bitwise; a float64
+    card-vs-CPU flush; K2 at the single-client dispatch shape.  Returns
+    K2's launches by path and its dispatch-shape timing."""
+    from repro_torch import paper_round
+
+    k2 = {}
+    for tag, kw in (("hub", {}),
+                    ("hierarchical", {"topology": "hierarchical",
+                                      "n_edges": 2})):
+        fed, _, _, k2[f"async {tag} vgg16 qint8"] = _async_run(dev, tag, **kw)
+        del fed
+        torch.cuda.empty_cache()
+    sync = paper_round.build(dev, packed=True, codec="qint8")
+    (rs,) = sync.fit(1)
+    az = paper_round.build(dev, packed=True, codec="qint8", async_buffer=8,
+                           client_delay_dist="none")
+    (ra,) = az.fit(1)
+    torch.cuda.synchronize()
+    diff = [p for p in sync.params if not torch.equal(sync.params[p],
+                                                      az.params[p])]
+    check(not diff, f"zero-staleness flush differs from the sync round at "
+          f"{len(diff)} leaves, e.g. {diff[:3]}")
+    check(ra.staleness_max == 0.0 and ra.uplink_bytes == rs.uplink_bytes,
+          "zero-staleness flush: staleness or bill differ")
+    print(f"[async-round] zero staleness (delay none, buffer 8 = C): the "
+          f"flush == the sync packed qint8 round bitwise ({len(sync.params)} "
+          f"leaves), uplink {ra.uplink_bytes:.0f} B both; {ra.seconds:.3f} s "
+          f"against {rs.seconds:.3f} s")
+    del sync, az
+    torch.cuda.empty_cache()
+    for opt, flushes in (("adam", 1), ("sgd", 3)):
+        err, at = _async_parity(dev, opt, flushes)
+        print(f"[async-round] parity ({opt}): {flushes} flush(es) of VGG16 "
+              f"width 0.125 in float64, card vs CPU: same schedule, max "
+              f"abs err {err:.3e} at {at} (tol {PARITY_TOL})")
+    return k2, _k2_dispatch_timing(dev, smi)
+
+
+def phase_cohort_round(dev):
+    """VGG16 at full width in the cohort engine: 1,000 registered
+    clients, a cohort of 8 in chunks of 4 and of 8 (one chunk), the
+    ``loss_proportional`` sampler, qint8, ``crash:0.1`` (resampling):
+    one K2 launch a chunk, the two chunkings bitwise equal; the
+    ``uniform`` sampler; R == C against the synchronous packed round,
+    bitwise.  Returns K2's launches by path."""
+    from repro_torch import paper_round
+    from repro_torch.kernels.codec import ops as qops
+
+    runs, k2 = {}, {}
+    for chunk in (4, 8):
+        fed = paper_round.build(dev, cohort_chunk=chunk, faults="crash:0.1",
+                                client_sampler="loss_proportional",
+                                **COHORT_KW)
+        eng = fed.server.cohort_engine
+        qops.reset_launch_counts()
+        hist = fed.fit(2)
+        torch.cuda.synchronize()
+        launches = qops.quantize_pack_group.launches
+        chunks = sum(eng.n_chunks for r in hist if not r.skipped)
+        check(launches == chunks, f"cohort chunk {chunk}: quantize_pack "
+              f"launched {launches} times for {chunks} chunks")
+        check(all(math.isfinite(r.loss) for r in hist) and _finite(fed),
+              f"cohort chunk {chunk}: non-finite loss or params")
+        for r in hist:
+            print(f"[cohort-round] chunk {chunk} round {r.round}: "
+                  f"{r.seconds:.3f} s, {r.n_participants} participants of "
+                  f"1,000 registered, loss {r.loss:.4f}, uplink "
+                  f"{r.uplink_bytes:.0f} B qint8; K2 {launches // 2} "
+                  f"launches a round ({eng.n_chunks} chunks of {chunk})")
+        k2[f"cohort 1000 chunk {chunk} vgg16 qint8"] = launches
+        runs[chunk] = ({p: x.clone() for p, x in fed.params.items()},
+                       list(fed.server.sel_history), fed.comm_summary(),
+                       [r.loss for r in hist], eng.fleet)
+        del fed, eng
+        torch.cuda.empty_cache()
+    (pa, sa, ca, la, fa), (pb, sb, cb, lb, fb) = runs[4], runs[8]
+    check(all(torch.equal(pa[p], pb[p]) for p in pa) and la == lb
+          and ca == cb and all(np.array_equal(x, y) for x, y in zip(sa, sb))
+          and np.array_equal(fa.loss_ema, fb.loss_ema)
+          and np.array_equal(fa.counts, fb.counts),
+          "cohort: chunks of 4 and of 8 differ")
+    print(f"[cohort-round] chunks of 4 == one chunk of 8, bitwise: "
+          f"{len(pa)} leaves, selections, losses, bill, fleet EMAs "
+          f"({int(fa.counts.sum())} participations over "
+          f"{int((fa.counts > 0).sum())} fleet members)")
+    fed = paper_round.build(dev, cohort_chunk=4, **COHORT_KW)
+    qops.reset_launch_counts()
+    (rec,) = fed.fit(1)
+    torch.cuda.synchronize()
+    check(qops.quantize_pack_group.launches == 2 and _finite(fed),
+          "cohort uniform sampler: K2 launches or params")
+    k2["cohort 1000 chunk 4 vgg16 qint8 uniform"] = 2
+    print(f"[cohort-round] uniform sampler, chunk 4: {rec.seconds:.3f} s, "
+          f"K2 2 launches")
+    del fed
+    sync = paper_round.build(dev, packed=True)
+    sync.fit(2)
+    eng = paper_round.build(dev, packed=True, n_registered=8, cohort_chunk=4)
+    eng.fit(2)
+    torch.cuda.synchronize()
+    check(all(torch.equal(sync.params[p], eng.params[p]) for p in sync.params)
+          and [r.loss for r in sync.history] == [r.loss for r in eng.history]
+          and sync.comm_summary() == eng.comm_summary(),
+          "cohort R == C differs from the synchronous packed round")
+    print(f"[cohort-round] R == C (8 registered, chunks of 4) == the sync "
+          f"packed round, 2 rounds, bitwise: params, losses, bill")
+    del sync, eng
+    torch.cuda.empty_cache()
+    return k2
+
+
+def phase_chaos(dev):
+    """Faults on the VGG16 round: crashes on the dense hub (K1, the
+    crashed clients' weights zeroed); NaN / Inf / exponent-flip
+    corruption on the packed qint8 hub behind the gate; the async chaos
+    mix; zero-rate chaos against clean, bitwise.  Returns K1's and K2's
+    launches by path."""
+    from repro_torch import paper_round
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.masked_agg import ops as aops
+
+    fed = paper_round.build(dev, faults="crash:0.25")
+    aops.reset_launch_counts()
+    hist = fed.fit(ENGINE_ROUNDS)
+    torch.cuda.synchronize()
+    inj = fed.server.fault_injector
+    k1 = aops.masked_agg.launches
+    crashed = 0
+    for r in hist:
+        want = inj.crash_mask(r.round, range(fed.fl.n_clients))
+        check(np.array_equal(np.asarray(r.effective_weights) == 0, want),
+              f"chaos crash round {r.round}: zeroed weights != crash mask")
+        crashed += int(want.sum())
+    check(k1 == sum(not r.skipped for r in hist) and crashed > 0,
+          f"chaos crash: K1 launched {k1} times, {crashed} crashes")
+    check(_finite(fed), "chaos crash: non-finite params")
+    print(f"[chaos] dense hub crash:0.25, {ENGINE_ROUNDS} rounds: {crashed} "
+          f"crashed clients zeroed as the injector drew them, K1 launches "
+          f"{k1} (one a round), params finite; round s "
+          + ", ".join(f"{r.seconds:.3f}" for r in hist))
+    del fed
+    fed = paper_round.build(dev, packed=True, codec="qint8",
+                            faults=SYNC_DELTA_FAULTS,
+                            max_delta_norm=MAX_DELTA_NORM)
+    cap = Capture()
+    fed.server.add_hook(cap)
+    qops.reset_launch_counts()
+    hist = fed.fit(ENGINE_ROUNDS)
+    torch.cuda.synchronize()
+    k2 = {"hub vgg16 packed qint8 delta faults": qops.quantize_pack_group
+          .launches}
+    inj = fed.server.fault_injector
+    hits = 0
+    for rec, m in cap.rounds:
+        want = inj.corrupt_plan(rec.round, range(fed.fl.n_clients))["mode"]
+        got = np.asarray(m["quarantined"]) > 0
+        check(np.array_equal(got, want != 0), f"chaos round {rec.round}: "
+              f"quarantined {got.astype(int)} != injected {want}")
+        hits += int(got.sum())
+    check(hits > 0 and _finite(fed) and
+          k2["hub vgg16 packed qint8 delta faults"] == ENGINE_ROUNDS,
+          f"chaos delta faults: {hits} quarantined, K2 {k2}")
+    print(f"[chaos] packed qint8 hub {SYNC_DELTA_FAULTS}, max_delta_norm "
+          f"{MAX_DELTA_NORM:g}: quarantined == injected in every round "
+          f"({hits} uploads), params finite, wasted "
+          + ", ".join(f"{r.wasted_bytes:.0f}" for r in hist)
+          + f" B, K2 {ENGINE_ROUNDS} launches")
+    del fed, cap
+    fed, cap, seqs, k2["async hub vgg16 qint8 chaos"] = _async_run(
+        dev, "async", "chaos", client_drop_prob=0.1, faults=ASYNC_FAULTS,
+        max_delta_norm=MAX_DELTA_NORM)
+    inj = fed.server.fault_injector
+    hits = 0
+    for (rec, m), entries in zip(cap.rounds, seqs):
+        want = np.asarray([inj.corrupt_async(c, s)[0] != 0 or inj.torn(c, s)
+                           for c, s in entries])
+        got = np.asarray(m["quarantined"]) > 0
+        check(np.array_equal(got, want), f"async chaos flush {rec.round}: "
+              f"quarantined {got.astype(int)} != injected {want.astype(int)}")
+        hits += int(got.sum())
+    wasted = fed.comm_summary()["total_wasted_bytes"]
+    check(wasted > 0, "async chaos: no wasted bytes")
+    print(f"[chaos] async {ASYNC_FAULTS}, drop 0.1: quarantined == "
+          f"corrupted or torn in every flush ({hits} entries), params "
+          f"finite, {wasted:.0f} B wasted in all")
+    del fed, cap
+    runs = []
+    for faults in ("", "crash:0,nan:0,kill:0"):
+        fed = paper_round.build(dev, packed=True, codec="qint8",
+                                faults=faults)
+        fed.fit(2)
+        torch.cuda.synchronize()
+        runs.append(({p: x.clone() for p, x in fed.params.items()},
+                     fed.comm_summary(), [r.loss for r in fed.history]))
+        del fed
+    (pa, ca, la), (pb, cb, lb) = runs
+    check(all(torch.equal(pa[p], pb[p]) for p in pa) and ca == cb
+          and la == lb, "zero-rate chaos differs from the clean run")
+    print(f"[chaos] zero-rate chaos (crash:0,nan:0,kill:0) == clean, packed "
+          f"qint8, 2 rounds, bitwise: {len(pa)} leaves, losses, bill")
+    torch.cuda.empty_cache()
+    return {"hub vgg16 crash:0.25": k1}, k2
+
+
+def phase_engine_resume(dev, smi):
+    """Kill + resume through ``run_with_restarts`` (``kill:0.5``, a
+    ``Checkpointer`` every round) against the uninterrupted run, VGG16
+    at full width: the async engine (3 flushes), the cohort engine
+    (1,000 registered, chunks of 4, 3 rounds) and ``history_cap=2`` on
+    the dense hub (6 rounds, whose capped bill also equals Table 4 of
+    every round's selections); all bitwise."""
+    import shutil
+    import tempfile
+    from repro_torch import paper_round
+    from repro_torch.core import Checkpointer, run_with_restarts
+    from repro_torch.core.comm import table4_row
+
+    cases = [("async", ASYNC_KW, ENGINE_ROUNDS),
+             ("cohort", dict(COHORT_KW, cohort_chunk=4), ENGINE_ROUNDS),
+             ("history_cap", dict(history_cap=2), 6)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    try:
+        for tag, kw, rounds in cases:
+            full = paper_round.build(dev, **kw)
+            cap = Capture()
+            full.server.add_hook(cap)
+            full.fit(rounds)
+            path = os.path.join(tmp, tag)
+
+            def make(inc, kw=kw, path=path):
+                return paper_round.build(
+                    dev, faults="kill:0.5", incarnation=inc,
+                    hooks=[Checkpointer(path, every=1)], **kw)
+
+            t0 = time.perf_counter()
+            fed = run_with_restarts(make, rounds, path)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            restarts = fed.server.fault_injector.incarnation
+            check(restarts > 0, f"{tag}: kill:0.5 never fired")
+            check(_same_state(full.params, fed.params), f"{tag}: resumed "
+                  f"params differ from the uninterrupted run")
+            # a Checkpointer saves between a round's append and its
+            # history_cap trim (as the reference's does), so a run killed
+            # right after a save keeps a row more than the cap until its
+            # next round: compare the rows both kept, and that each run
+            # accounts for every round once
+            sa, sb = full.server.sel_history, fed.server.sel_history
+            k = min(len(sa), len(sb))
+            check([r.loss for r in full.history] ==
+                  [r.loss for r in fed.history] and k > 0 and
+                  all(np.array_equal(a, b) for a, b in zip(sa[-k:],
+                                                           sb[-k:])) and
+                  all(s._sel_base + len(s.sel_history) == rounds
+                      for s in (full.server, fed.server)) and
+                  full.comm_summary() == fed.comm_summary(),
+                  f"{tag}: losses, selections or bill differ")
+            extra = ""
+            if tag == "history_cap":
+                srv = full.server
+                check(srv._sel_base == rounds - 2 and
+                      len(srv.sel_history) == 2, "history_cap: retention")
+                t4 = table4_row(full.assign, full.params, np.stack(
+                    [np.asarray(m["sel"]) for _, m in cap.rounds]))
+                summ = full.comm_summary()
+                check(all(math.isclose(summ[k], v, rel_tol=1e-12)
+                          for k, v in t4.items()),
+                      f"history_cap: {summ} != table4_row {t4}")
+                extra = (f"; 2 of {rounds} selection rows kept, bill == "
+                         f"Table 4 of all {rounds} rounds")
+            nbytes = os.path.getsize(path + ".npz")
+            print(f"[engine-resume] {tag}: {rounds} rounds straight == "
+                  f"{restarts} kills + resumes (kill:0.5, checkpoint every "
+                  f"round, {nbytes} B), bitwise: params, losses, "
+                  f"selections, bill{extra}; {secs:.2f} s with restarts "
+                  f"({smi})")
+            del full, fed, cap
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2642,6 +3131,13 @@ def main() -> int:
     k2_paths["hub vgg16 packed qint8 score_weighted"] = \
         phase_scored_packed(dev)
     phase_ckpt_resume(dev, smi)
+    k2_async, k2["dispatch_1client"] = phase_async_round(dev, smi)
+    k2_paths.update(k2_async)
+    k2_paths.update(phase_cohort_round(dev))
+    k1_chaos, k2_chaos = phase_chaos(dev)
+    k1_paths.update(k1_chaos)
+    k2_paths.update(k2_chaos)
+    phase_engine_resume(dev, smi)
     k1["plans"] = phase_k1_plans(dev, hier)
     del hier
     torch.cuda.empty_cache()

@@ -14,15 +14,20 @@ at any byte leaves either the previous complete checkpoint or the new
 one.  Restores verify the CRC32 and the format version and raise typed
 errors (:class:`CorruptCheckpointError`, :class:`CheckpointVersionError`).
 
-Server state covers the synchronous engine: params (the topology state:
-gossip's client-stacked replicas), history, ``sel_history``, the scored
-``SelectionState`` and a stateful codec's error-feedback residual.  The
-reference's round key (threefry words) has no torch twin, so the port
-never writes ``key``: it writes its CPU generator's state, and a
-stochastic codec's device generator's state, under fields of their own
-(``torch_generator``, ``torch_codec_generator``).  A restore without them
-keeps the generators the caller seeded, as the reference's restore keeps
-its caller's key when a file has no ``key``.
+Server state covers params (the topology state: gossip's
+client-stacked replicas), history, ``sel_history``, the scored
+``SelectionState``, a stateful codec's error-feedback residual, the
+round engines' state (``async``: the buffer, in-flight dispatches and
+per-client tags; ``cohort``: the fleet EMAs and a mid-round partial
+aggregate) and ``history_cap``'s folded totals (``sel_base``,
+``comm_totals``), all in the reference's fields and array paths
+(``async_arrays/buffer/<i>/pdelta/...``).  The reference's round key
+(threefry words) has no torch twin, so the port never writes ``key``: it
+writes its CPU generator's state, and a stochastic codec's device
+generator's state, under fields of their own (``torch_generator``,
+``torch_codec_generator``).  A restore without them keeps the generators
+the caller seeded, as the reference's restore keeps its caller's key
+when a file has no ``key``.
 """
 from __future__ import annotations
 
@@ -32,25 +37,17 @@ import json
 import os
 import zipfile
 import zlib
-from typing import Any, Dict, Mapping, NamedTuple, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from ..common import flatten, sorted_tree
+from ..common import TensorSpec, flatten, sorted_tree
 from ..convert import from_reference, reference_shape, to_reference_flat
 
 # bump when the on-disk layout changes incompatibly; readers accept
 # anything <= their own version (manifests without one are version 0)
 FORMAT_VERSION = 1
-
-# reference manifest fields of engines the port does not have yet
-_UNPORTED_STATE = {
-    "async": "the buffered-async engine (FLConfig.async_buffer)",
-    "cohort": "the cohort engine (FLConfig.n_registered/cohort_chunk)",
-    "sel_base": "history_cap retention (FLConfig.history_cap)",
-}
-
 
 class CheckpointError(RuntimeError):
     """Base class for typed checkpoint-restore failures."""
@@ -63,12 +60,6 @@ class CorruptCheckpointError(CheckpointError):
 
 class CheckpointVersionError(CheckpointError):
     """The checkpoint was written by a newer format than this reader."""
-
-
-class _Spec(NamedTuple):
-    """Shape and dtype of a leaf a restore expects."""
-    shape: tuple
-    dtype: Any
 
 
 def _npz_path(path: str) -> str:
@@ -232,16 +223,43 @@ def save_server_state(path: str, server, extra: Optional[Dict] = None,
     if server.codec_generator is not None:
         meta["torch_codec_generator"] = _b64_state(server.codec_generator)
     meta.update(extra or {})
+    if server._sel_base:
+        # history_cap trimming active: the folded accounting totals are
+        # part of the restartable state (comm_summary reads them)
+        meta["sel_base"] = int(server._sel_base)
+        meta["comm_totals"] = {k: (int(v) if k == "rounds" else float(v))
+                               for k, v in server._comm_totals.items()}
     cs = server.conv_spatial
     tree = to_reference_flat(server.params, conv_spatial=cs)
     wrapped = False
+    engine = server.async_engine
+    if engine is not None and engine.started:
+        # buffered-async runs carry live state beyond the params: the
+        # buffer's packed deltas, in-flight dispatches, per-client round
+        # tags and the current version's selection
+        async_meta, async_arrays = engine.checkpoint_state()
+        meta["async"] = async_meta
+        tree = {"params": tree,
+                "async_arrays": _async_to_ref(async_arrays, cs)}
+        wrapped = True
+    cohort = server.cohort_engine
+    if cohort is not None and cohort.started:
+        # cohort-engine runs carry the fleet's per-client EMAs and, at a
+        # mid-round chunk boundary, the in-flight partial aggregate
+        cohort_meta, cohort_arrays = cohort.checkpoint_state()
+        meta["cohort"] = cohort_meta
+        if not wrapped:
+            tree = {"params": tree}
+            wrapped = True
+        tree["cohort_arrays"] = _cohort_to_ref(cohort_arrays, cs)
     if server.codec_state is not None:
         # the per-client error-feedback residuals are part of the run's
         # trajectory: a resume without them would drop folded-back error
-        tree = {"params": tree,
-                "codec_state": to_reference_flat(server.codec_state,
-                                                 conv_spatial=cs)}
-        wrapped = True
+        if not wrapped:
+            tree = {"params": tree}
+            wrapped = True
+        tree["codec_state"] = to_reference_flat(server.codec_state,
+                                                conv_spatial=cs)
         meta["codec_state"] = True
     if server.sel_state is not None:
         if not wrapped:
@@ -252,10 +270,11 @@ def save_server_state(path: str, server, extra: Optional[Dict] = None,
     save_pytree(path, tree, metadata=meta)
 
 
-def _ref_spec(tree, conv_spatial: int) -> Dict[str, _Spec]:
+def _ref_spec(tree, conv_spatial: int) -> Dict[str, TensorSpec]:
     """Reference-layout shapes of a port tree (no copies)."""
-    return {p: _Spec(reference_shape(p, x.shape, conv_spatial=conv_spatial),
-                     x.dtype) for p, x in tree.items()}
+    return {p: TensorSpec(reference_shape(p, x.shape,
+                                          conv_spatial=conv_spatial),
+                          x.dtype) for p, x in tree.items()}
 
 
 def _to_port(loaded, like, conv_spatial: int):
@@ -267,17 +286,94 @@ def _to_port(loaded, like, conv_spatial: int):
             for p, x in like.items()}
 
 
+# the round engines' arrays: a list of buffered updates is stored as the
+# reference's jax path does it, index by index (``buffer/0/...``); slot
+# deltas and partial aggregates are parameter-shaped, so their conv
+# kernels cross layouts like the params
+
+
+def _entry_to_ref(a, cs: int) -> Dict[str, Any]:
+    out = {"pdelta": to_reference_flat(a["pdelta"], conv_spatial=cs),
+           "rows": {p: _numpy(x).astype(np.int32)
+                    for p, x in a["rows"].items()},
+           "valid": {p: _numpy(x) for p, x in a["valid"].items()},
+           "sel_row": _numpy(a["sel_row"])}
+    if "unit_sqnorm" in a:
+        out["unit_sqnorm"] = _numpy(a["unit_sqnorm"])
+    return out
+
+
+def _async_to_ref(arrays, cs: int) -> Dict[str, Any]:
+    return {"sel": _numpy(arrays["sel"]),
+            **{k: {str(i): _entry_to_ref(e, cs)
+                   for i, e in enumerate(arrays[k])}
+               for k in ("buffer", "inflight")}}
+
+
+def _async_ref_template(tpl, cs: int) -> Dict[str, Any]:
+    def entry(e):
+        return dict(e, pdelta=_ref_spec(e["pdelta"], cs))
+    return {"sel": tpl["sel"],
+            **{k: {str(i): entry(e) for i, e in enumerate(tpl[k])}
+               for k in ("buffer", "inflight")}}
+
+
+def _async_to_port(loaded, cs: int) -> Dict[str, Any]:
+    def entry(e):
+        return dict(e, pdelta=from_reference(
+            {p: x.numpy() for p, x in e["pdelta"].items()},
+            conv_spatial=cs))
+    return {"sel": loaded["sel"],
+            **{k: [entry(loaded[k][str(i)]) for i in range(len(loaded[k]))]
+               for k in ("buffer", "inflight")}}
+
+
+def _cohort_to_ref(arrays, cs: int) -> Dict[str, Any]:
+    out = {"fleet": {k: _numpy(v) for k, v in arrays["fleet"].items()}}
+    if "partial" in arrays:
+        pa = {k: _numpy(v) for k, v in arrays["partial"].items()
+              if k != "acc"}
+        if "acc" in arrays["partial"]:
+            pa["acc"] = to_reference_flat(arrays["partial"]["acc"],
+                                          conv_spatial=cs)
+        out["partial"] = pa
+    return out
+
+
+def _cohort_ref_template(tpl, cs: int) -> Dict[str, Any]:
+    out = dict(tpl)
+    if "partial" in tpl and "acc" in tpl["partial"]:
+        out["partial"] = dict(tpl["partial"],
+                              acc=_ref_spec(tpl["partial"]["acc"], cs))
+    return out
+
+
+def _cohort_to_port(loaded, cs: int) -> Dict[str, Any]:
+    out = dict(loaded)
+    if "partial" in loaded and "acc" in loaded["partial"]:
+        out["partial"] = dict(loaded["partial"], acc=from_reference(
+            {p: x.numpy() for p, x in loaded["partial"]["acc"].items()},
+            conv_spatial=cs))
+    return out
+
+
 def restore_server_state(path: str, server) -> Dict:
     """Restore params (= topology state), history, selection history,
-    the scored selection state, a stateful codec's residual and the
-    generators, so a resumed ``fit`` continues bitwise."""
+    the scored selection state, a stateful codec's residual, the round
+    engines' state, ``history_cap``'s totals and the generators, so a
+    resumed ``fit`` continues bitwise."""
     meta = load_metadata(path)
-    for field, engine in _UNPORTED_STATE.items():
-        if field in meta:
-            raise ValueError(
-                f"checkpoint holds {field!r} state of {engine}, which "
-                "repro_torch has not ported yet; restore it with the "
-                "reference package")
+    engine = server.async_engine
+    cohort = server.cohort_engine
+    if "async" in meta and engine is None:
+        raise ValueError(
+            "checkpoint holds buffered-async state; restore it into "
+            "a Federation configured with FLConfig.async_buffer > 0")
+    if "cohort" in meta and cohort is None:
+        raise ValueError(
+            "checkpoint holds cohort-engine state; restore it into a "
+            "Federation configured with the original "
+            "FLConfig.n_registered/cohort_chunk")
     scored = bool(meta.get("sel_state"))
     sel_state = server.sel_state
     if scored and sel_state is None:
@@ -301,19 +397,37 @@ def restore_server_state(path: str, server) -> Dict:
             "codec state; restore with the original FLConfig.codec")
     cs = server.conv_spatial
     template: Dict[str, Any] = _ref_spec(server.params, cs)
-    if scored or codec_saved:
+    wrapped = "async" in meta or "cohort" in meta or scored or codec_saved
+    if wrapped:
         template = {"params": template}
+        if "async" in meta:
+            template["async_arrays"] = _async_ref_template(
+                engine.arrays_template(meta["async"]), cs)
+        if "cohort" in meta:
+            template["cohort_arrays"] = _cohort_ref_template(
+                cohort.arrays_template(meta["cohort"]), cs)
         if scored:
             template["sel_state"] = dict(sel_state._asdict())
         if codec_saved:
             template["codec_state"] = _ref_spec(codec_state, cs)
     tree = load_pytree(path, template)
-    params = tree["params"] if (scored or codec_saved) else tree
+    params = tree["params"] if wrapped else tree
     server.params = _to_port(params, server.params, cs)
     if codec_saved:
         server.codec_state = _to_port(tree["codec_state"], codec_state, cs)
+    if "async" in meta:
+        engine.restore_state(meta["async"],
+                             _async_to_port(tree["async_arrays"], cs))
+    if "cohort" in meta:
+        cohort.restore_state(meta["cohort"],
+                             _cohort_to_port(tree["cohort_arrays"], cs))
     if scored:
         server.sel_state = type(sel_state)(**tree["sel_state"])
+    if "sel_base" in meta:
+        server._sel_base = int(meta["sel_base"])
+        server._comm_totals = {
+            k: (int(v) if k == "rounds" else float(v))
+            for k, v in meta["comm_totals"].items()}
     if "history" in meta:
         from ..core.server import RoundRecord
         server.history = [RoundRecord(**r) for r in meta["history"]]

@@ -11,12 +11,19 @@ unit order match the reference wherever they reach output.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 Tree = Dict[str, Any]
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor that is not materialized: a restore
+    template's leaf, or one of a buffered update's slot buffers."""
+    shape: tuple
+    dtype: Any
 
 
 def path_key(path: str) -> Tuple[str, ...]:

@@ -12,10 +12,16 @@ client     — ClientUpdate (Alg. 2): masked and packed local training
 federation — FLConfig + the federated round step
 server     — round orchestration (Alg. 1) + composable ServerHooks
              (accounting, stragglers, logging, Checkpointer)
+async_agg  — FedBuff-style semi-async buffered rounds + staleness registry
+cohort     — fleet-scale chunk-streamed cohort engine + sampler registry
 session    — the Federation facade (from_config -> fit/evaluate/comm)
-comm       — exact transfer-byte accounting (Table 4)
+comm       — exact transfer-byte accounting (Table 4), per topology
+faults     — seeded fault-injection chaos axis + fault-tolerant defenses
 codecs     — uplink compression codec axis over packed trained-slot deltas
 """
+from . import (freezing, masking, aggregation, client, federation,  # noqa: F401
+               server, comm, strategies, session, topology, async_agg,
+               cohort, faults, codecs)
 from .codecs import (Codec, UnknownCodecError, available_codecs,  # noqa: F401
                      build_codec_transform, codec_unit_bytes,
                      encoded_wire_bytes, get_codec, init_codec_state,
@@ -43,3 +49,20 @@ from .topology import (Topology, UnknownTopologyError,  # noqa: F401
                        get_topology, register_topology,
                        registered_topologies, resolve_topology,
                        ring_mixing_matrix, unregister_topology)
+from .async_agg import (AsyncRoundEngine, BufferedAggregator,  # noqa: F401
+                        BufferedUpdate, DelayScheduler,
+                        UnknownStalenessError, build_cohort_step,
+                        get_staleness, register_staleness,
+                        registered_staleness, staleness_weights,
+                        unregister_staleness)
+from .cohort import (ClientSampler, CohortContext, CohortEngine,  # noqa: F401
+                     FleetState, UnknownClientSamplerError,
+                     build_cohort_programs, fleet_init,
+                     get_client_sampler, register_client_sampler,
+                     registered_client_samplers, resolve_client_sampler,
+                     unregister_client_sampler)
+from .faults import (ChaosHook, ClientCrashed, Fault, FaultInjector,  # noqa: F401
+                     ServerKilled, UnknownFaultError, chaos_inject,
+                     get_fault, parse_faults, register_fault,
+                     registered_faults, run_with_restarts,
+                     unregister_fault)

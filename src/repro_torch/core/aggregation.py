@@ -17,7 +17,11 @@
   plus a ``(C, L)`` slot->row index, and the combiner accumulates
   client uploads one by one in client order (into its edge's partial
   under hierarchical).  Both are composed from ``packed_acc_init`` /
-  ``packed_accumulate`` / ``packed_finalize``.
+  ``packed_accumulate`` / ``packed_finalize``, which the async flush and
+  the chunk-streamed cohort round also run.
+* ``gate_packed_updates`` — the validation gate of the fault axis
+  (DESIGN.md §14): quarantines non-finite or oversized packed uploads
+  before the accumulate sees them.
 
 All take client deltas stacked along a leading client axis and an
 ``(E, C)`` 0/1 edge membership where they are per edge.  The fused CUDA
@@ -172,6 +176,64 @@ def packed_finalize(assign: UnitAssignment, global_params, acc: Tree,
                           torch.zeros_like(num))
         out[path] = (g.float() + upd).to(g.dtype)
     return out
+
+
+def gate_packed_updates(assign: UnitAssignment, packed_deltas: Tree,
+                        valid: Tree, weights: torch.Tensor,
+                        max_norm: float = 0.0
+                        ) -> Tuple[Tree, torch.Tensor, torch.Tensor]:
+    """Packed-delta validation gate (DESIGN.md §14): quarantine hostile
+    uploads *before* the accumulate sees them.
+
+    A client is quarantined when any element of its **valid** slot rows
+    is non-finite, or (``max_norm > 0``) when its valid-slot delta
+    sqnorm exceeds ``max_norm**2`` across all leaves.  Returns
+    ``(clean_deltas, gated_weights, quarantined)``:
+
+    * ``clean_deltas`` — quarantined clients' rows zeroed, and every
+      non-finite element zeroed everywhere: the accumulate adds padding
+      rows and non-participating scalar leaves with weight 0, and
+      ``0 * NaN`` would still poison the numerator;
+    * ``gated_weights`` — ``weights * ok`` (on ``weights``' device):
+      quarantined clients leave the per-unit denominators, so surviving
+      weights renormalize exactly as if the client had never uploaded;
+    * ``quarantined`` — (C,) float32 0/1 per client, on ``weights``'
+      device.
+
+    Fault-free inputs make every select take its first branch
+    (``where(True, d, 0) == d``; ``w * 1.0 == w``), so an
+    enabled-but-untripped gate is BITWISE transparent.
+    """
+    ok, sq = None, None
+    for path, d in flatten_with_paths(packed_deltas):
+        if not d.is_floating_point():
+            continue
+        c = d.shape[0]
+        v = valid[path].to(d.device)
+        vb = (v != 0).reshape(tuple(v.shape) + (1,) * (d.ndim - v.ndim))
+        fin = torch.isfinite(d)
+        # client health is judged on valid rows only: garbage in
+        # weight-0 padding does not incriminate the upload
+        finite = (fin | ~vb).reshape(c, -1).all(dim=1)
+        df = torch.where(vb & fin, d.float(), torch.zeros((), device=d.device))
+        s = (df * df).reshape(c, -1).sum(dim=1)
+        ok = finite if ok is None else ok & finite
+        sq = s if sq is None else sq + s
+    if ok is None:
+        ok = torch.ones(weights.shape[0], dtype=torch.bool)
+        sq = torch.zeros(weights.shape[0])
+    if max_norm > 0.0:
+        ok = ok & (sq <= torch.tensor(max_norm, dtype=torch.float32) ** 2)
+    cleaned = {}
+    for path, d in flatten_with_paths(packed_deltas):
+        if not d.is_floating_point():
+            cleaned[path] = d
+            continue
+        keep = ok.to(d.device).reshape((d.shape[0],) + (1,) * (d.ndim - 1))
+        cleaned[path] = torch.where(keep & torch.isfinite(d), d,
+                                    torch.zeros_like(d))
+    okf = ok.to(device=weights.device, dtype=torch.float32)
+    return cleaned, weights * okf, 1.0 - okf
 
 
 def masked_fedavg_packed(global_params: Tree, packed_deltas: Tree,

@@ -37,8 +37,10 @@ Contract (``build_codec_transform``):
   float32) through the round step: residual rows are gathered into
   slot space, added, the transmitted part subtracted, and the rows
   scattered back.  Dropped clients (``weights == 0``) keep their
-  residual untouched — they never uploaded.  Checkpointing the residual
-  waits for the port of ``ckpt/store.py``.
+  residual untouched — they never uploaded.  Checkpoints carry the
+  residual (``ckpt/store.py``).  The async engine threads a ``decay``
+  (C,) through the transform: a residual ages by the model versions
+  since its client last transmitted.
 """
 from __future__ import annotations
 

@@ -3,9 +3,8 @@
 Byte counts are exact functions of the unit assignment and the selection
 matrix — no simulation noise.  Pure numpy, copied from
 ``repro.core.comm`` so the port's byte counts equal the reference's
-exactly.  Ported: the hub accounting the paper reports, the edge
-membership and the hierarchical and gossip rounds; the buffered
-(async) formulas wait for the async engine.
+exactly: the hub accounting the paper reports, the edge membership,
+the hierarchical and gossip rounds, and the buffered (async) flushes.
 
 * **hub** (the paper's FEDn combiner): per round,
     uplink_c   = Σ_u sel_cu · unit_bytes_u      (only trained layers ship)
@@ -13,6 +12,13 @@ membership and the hierarchical and gossip rounds; the buffered
   The paper's Table 4 reports the 10-client uplink sum.  With
   ``downlink="selected"`` the server broadcasts only the units the round
   updated (exact: aggregation changes *only* units somebody trained).
+
+* **buffered** (semi-async rounds, DESIGN.md §8): per *flush* rather
+  than per synchronous round.  ``buffered_hub_round_bytes`` bills one
+  packed upload per buffered update; ``buffered_hierarchical_round_
+  bytes`` bills client->edge LAN per update but edge->hub WAN only at
+  flush time — one partial aggregate per unit in the edge's buffered
+  union, i.e. only flushed deltas cross the WAN.
 """
 from __future__ import annotations
 
@@ -108,6 +114,73 @@ def hierarchical_round_bytes(sel: np.ndarray, ubytes: np.ndarray,
            "uplink_frac": _safe_frac(edge_hub, total_model * n_edges),
            "edge_hub_uplink": edge_hub,
            "client_edge_uplink": client_edge,
+           "downlink": down}
+    out["total"] = edge_hub + client_edge + (down if include_downlink
+                                             else 0.0)
+    return out
+
+
+def buffered_hub_round_bytes(entry_sel: np.ndarray, ubytes: np.ndarray,
+                             include_downlink: bool = False,
+                             downlink: str = "full") -> Dict[str, float]:
+    """Per-flush accounting for semi-async buffered rounds on the hub.
+
+    ``entry_sel (B, U)`` has one row per *buffered update* in the flush
+    (a client appears once per contributed update, not once per round).
+    Each update crossed the client->hub WAN when its client reported
+    back, carrying only its packed trained slots; each completing
+    client then re-pulls the current global model, so downlink is one
+    model per entry (``"selected"``: only the flush's selection union —
+    aggregation changed nothing else).
+    """
+    entry_sel = np.asarray(entry_sel)
+    # per-entry math is the hub round formula with entries as the
+    # leading axis (a client appears once per buffered update)
+    out = hub_round_bytes(entry_sel, ubytes, include_downlink, downlink)
+    out["n_entries"] = float(entry_sel.shape[0])
+    return out
+
+
+def buffered_hierarchical_round_bytes(entry_sel: np.ndarray,
+                                      client_ids: np.ndarray,
+                                      ubytes: np.ndarray,
+                                      membership: np.ndarray,
+                                      include_downlink: bool = False,
+                                      downlink: str = "full"
+                                      ) -> Dict[str, float]:
+    """Per-flush accounting for buffered rounds under edge aggregators.
+
+    Clients stream their packed updates to their edge over the LAN as
+    they complete; the edge *buffers* them and, at flush time, forwards
+    ONE partial aggregate per unit in its buffered selection union —
+    only flushed deltas ever cross the edge->hub WAN (``uplink``), so a
+    unit trained by several buffered updates of one edge crosses once.
+    """
+    entry_sel = np.asarray(entry_sel)
+    client_ids = np.asarray(client_ids, np.int64)
+    membership = np.asarray(membership)
+    n_edges = membership.shape[0]
+    n_entries = entry_sel.shape[0]
+    total_model = float(ubytes.sum())
+    client_edge = float((entry_sel @ ubytes).sum())
+    entry_mem = membership[:, client_ids] if n_entries \
+        else np.zeros((n_edges, 0), membership.dtype)        # (E, B)
+    union = (entry_mem @ entry_sel > 0).astype(np.float64)   # (E, U)
+    edge_hub = float((union @ ubytes).sum())
+    if downlink == "full":
+        down = total_model * (n_edges + n_entries)
+    elif downlink == "selected":
+        gu = entry_sel.max(axis=0) if n_entries \
+            else np.zeros(entry_sel.shape[1])
+        down = float(gu @ ubytes) * (n_edges + n_entries)
+    else:
+        raise ValueError(f"downlink must be 'full' or 'selected', "
+                         f"got {downlink!r}")
+    out = {"uplink": edge_hub,
+           "uplink_frac": _safe_frac(edge_hub, total_model * n_edges),
+           "edge_hub_uplink": edge_hub,
+           "client_edge_uplink": client_edge,
+           "n_entries": float(n_entries),
            "downlink": down}
     out["total"] = edge_hub + client_edge + (down if include_downlink
                                              else 0.0)

@@ -19,9 +19,12 @@ and its byte accounting (``hub``, ``hierarchical``, ``gossip``).  With
 round-trips the packed deltas before aggregation.
 
 ``FLConfig`` keeps the reference's fields, defaults and validators.
-The switches of engines that are not ported yet (async, cohort, faults,
-client sharding, history cap) raise :class:`NotPortedError` when set to
-anything but their default.
+The round engines' switches (``async_buffer``, ``n_registered``,
+``cohort_chunk``, ``history_cap``, ``faults``, ``max_delta_norm``,
+``client_drop_prob``) drive the ports of ``core/async_agg.py``,
+``core/cohort.py`` and ``core/faults.py``.  ``client_shards`` splits a
+cohort over a device mesh, which is not ported yet: it raises
+:class:`NotPortedError` when set.
 """
 from __future__ import annotations
 
@@ -260,7 +263,32 @@ class FLConfig:
                     "the chunked cohort engine streams stateless chunks — "
                     "use qint8/qint4 there, or drop "
                     "n_registered/cohort_chunk")
-        # engines of the reference that the port does not have yet:
+        if self.faults or self.max_delta_norm:
+            # fail at config time, not rounds later: parse the spec and
+            # check each fault's seam has a round path that can host it
+            from .faults import parse_faults
+            parsed = parse_faults(self.faults)
+            if any(f.seam == "delta" for f in parsed) \
+                    or self.max_delta_norm > 0.0:
+                if not self.packed:
+                    raise ValueError(
+                        "delta faults and max_delta_norm run inside the "
+                        "packed scatter-accumulate: set packed=True")
+                if self.topology == "gossip":
+                    raise ValueError(
+                        "delta faults need a packed aggregation path; "
+                        "the gossip topology has none")
+            if any(f.seam == "delivery" for f in parsed) \
+                    and not self.async_buffer:
+                raise ValueError(
+                    "delivery faults (duplicate, torn) perturb the "
+                    "BufferedAggregator: set async_buffer > 0")
+            if any(f.name == "torn" for f in parsed) and not self.packed:
+                raise ValueError(
+                    "torn delivery corrupts packed payload bytes; the "
+                    "validation gate that catches it runs on the packed "
+                    "path: set packed=True")
+        # features of the reference that the port does not have yet:
         # refuse their switches instead of silently running without them
         defaults = FLConfig.__dataclass_fields__
         for name in _UNPORTED_SWITCHES:
@@ -272,8 +300,8 @@ class FLConfig:
                     f"{defaults[name].default!r})")
 
     def uses_cohort_engine(self) -> bool:
-        """Whether the reference would attach the chunk-streaming
-        CohortEngine (not ported yet) instead of the synchronous loop."""
+        """Whether Federation attaches the chunk-streaming CohortEngine
+        (core/cohort.py) instead of the plain synchronous loop."""
         return bool(self.n_registered or self.cohort_chunk)
 
     def resolve_fused_agg(self, device: Device) -> bool:
@@ -310,10 +338,10 @@ class FLConfig:
                    + (1 if self.always_train_head else 0))
 
 
-# FLConfig switches of engines that are not ported yet
-_UNPORTED_SWITCHES = ("async_buffer", "n_registered", "cohort_chunk",
-                      "client_shards", "history_cap", "faults",
-                      "max_delta_norm", "client_drop_prob")
+# FLConfig switches of features that are not ported yet: client_shards
+# splits the cohort over a (client,) device mesh (ROADMAP queue 1, the
+# mesh and sharding item)
+_UNPORTED_SWITCHES = ("client_shards",)
 
 
 def build_round_step(loss_fn: Callable, assign: UnitAssignment,

@@ -144,6 +144,18 @@ def slot_plan(assign: UnitAssignment, sel_row: torch.Tensor, n_slots: int,
     return rows, valid
 
 
+def cohort_slot_plans(assign: UnitAssignment, sel: torch.Tensor,
+                      n_slots: int, params):
+    """:func:`slot_plan` of every client row of ``sel (K, U)``, stacked
+    along a leading client axis: ``(rows, valid)`` trees of ``(K, L)``
+    (stacked leaves) or ``(K, 0)`` / ``(K,)`` (scalar leaves) on
+    ``sel``'s device — the packed local training's input."""
+    plans = [slot_plan(assign, s, n_slots, params) for s in sel]
+    paths = [p for p, _ in flatten_with_paths(params)]
+    return ({p: torch.stack([r[p] for r, _ in plans]) for p in paths},
+            {p: torch.stack([v[p] for _, v in plans]) for p in paths})
+
+
 def slot_gather(assign: UnitAssignment, tree, rows):
     """Stacked leaves -> their ``(L, ...)`` slot rows; scalar leaves whole."""
     return {p: x if assign.leaf_units[p].kind == "scalar"

@@ -16,6 +16,15 @@ If every client drops (all weights zero) the round is a recorded no-op:
 the global params are untouched and the ``RoundRecord`` carries
 ``skipped=True`` with zero participants.
 
+Three engines can own the round loop instead of ``run_round``
+(attached by the ``Federation`` facade): the buffered-async engine
+(``core/async_agg.py``: one record per buffer flush), the
+chunk-streamed cohort engine (``core/cohort.py``) and, beside either,
+the fault injector (``core/faults.py``), whose delta-corruption plan
+``run_round`` threads into the packed round step.  ``history_cap``
+folds old selection rows into running byte totals (``_trim_history``),
+so ``comm_summary`` stays exact with O(cap * cohort) memory.
+
 The server owns one CPU ``torch.Generator`` seeded from ``seed``; the
 round's selection and the straggler draws come from it.  Under a
 stochastic uplink codec it also owns a generator on the round's device
@@ -61,14 +70,13 @@ class RoundRecord:
     skipped: bool = False
     # the round's post-hook client weights (dropped clients are 0)
     effective_weights: Optional[List[float]] = None
-    # the reference's buffered-async flush annotations: zero on the
-    # synchronous rounds the port runs (kept so that one package's
-    # checkpointed history restores into the other's records)
+    # buffered-async flush annotations (zero on synchronous rounds)
     staleness_mean: float = 0.0
     staleness_max: float = 0.0
     sim_time: float = 0.0
-    # bytes that left a client without landing in the aggregate (the
-    # fault engine fills this; always 0 until it is ported)
+    # bytes that crossed the WAN (or left a client) without landing in
+    # the aggregate: quarantined uploads, duplicate deliveries, updates
+    # lost in transit (DESIGN.md §14)
     wasted_bytes: float = 0.0
     # every client dropped: the round was a recorded no-op (loss 0.0)
     dropped: bool = False
@@ -118,7 +126,33 @@ class CommAccounting(ServerHook):
         if record.skipped or metrics is None:
             return
         # bill at wire width: the codec's encoded per-unit byte table
-        # (identical to the fp32 table for codec "none")
+        # (identical to the fp32 table for codec "none").  Wasted bytes
+        # (quarantine/duplicates) use the same table
+        if "entry_sel" in metrics:
+            # buffered-async flush: one entry per buffered update, the
+            # topology's buffered byte math
+            ub = server.wire_unit_bytes()
+            counts = comm.unit_param_counts(server.assign,
+                                            server.global_params())
+            entry_sel = self._mask_dropped(np.asarray(metrics["entry_sel"]),
+                                           record)
+            clients = np.asarray(metrics["entry_clients"])
+            record.uplink_bytes = server.topology.buffered_round_bytes(
+                entry_sel, clients, ub, server.fl)["uplink"]
+            record.trained_params = float(np.einsum("cu,u->", entry_sel,
+                                                    counts))
+            # wasted: bytes the engine saw leave a client but never
+            # aggregate (duplicates, in-transit loss) plus entries the
+            # validation gate quarantined at flush time
+            wasted = float(metrics.get("dropped_bytes", 0.0))
+            quar = metrics.get("quarantined")
+            if quar is not None:
+                qm = (np.asarray(quar) > 0).astype(entry_sel.dtype)
+                wasted += server.topology.buffered_round_bytes(
+                    entry_sel * qm[:, None], clients, ub,
+                    server.fl)["uplink"]
+            record.wasted_bytes = wasted
+            return
         sel = np.asarray(metrics["sel"])
         if server.assign.leaf_units is None:
             # the deprecated no-assign shim (one pseudo-unit): the whole
@@ -138,6 +172,13 @@ class CommAccounting(ServerHook):
         record.uplink_bytes = server.topology.round_bytes(
             sel, ub, server.fl)["uplink"]
         record.trained_params = float(np.einsum("cu,u->", sel, counts))
+        quar = metrics.get("quarantined")
+        if quar is not None:
+            # quarantined clients uploaded (billed above) but their
+            # deltas were discarded by the validation gate
+            qm = (np.asarray(quar) > 0).astype(sel.dtype)
+            record.wasted_bytes = server.topology.round_bytes(
+                sel * qm[:, None], ub, server.fl)["uplink"]
 
     @staticmethod
     def _mask_dropped(sel: np.ndarray, record) -> np.ndarray:
@@ -171,6 +212,11 @@ class RoundLogger(ServerHook):
         if record.eval_metric is not None:
             line += f" eval={record.eval_metric:.4f}"
         line += f" uplink={record.uplink_bytes/1e6:.1f}MB"
+        if record.wasted_bytes > 0.0:
+            line += f" wasted={record.wasted_bytes/1e6:.1f}MB"
+        if record.sim_time > 0.0:          # buffered-async flush
+            line += (f" t_sim={record.sim_time:.1f}"
+                     f" stale={record.staleness_mean:.2f}")
         line += f" {record.seconds:.3f}s"
         print(line)
 
@@ -270,6 +316,21 @@ class Server:
         if self.codec.stochastic:
             self.codec_generator = torch.Generator(
                 device=self.device).manual_seed(seed ^ codecs.CODEC_KEY_TAG)
+        # fault axis (core/faults.py): set by the Federation facade when
+        # FLConfig.faults is non-empty; owns every seeded fault draw
+        # (numpy SeedSequence domain — never the server's generators)
+        self.fault_injector = None
+        # buffered-async engine (core/async_agg.py); attached by the
+        # Federation facade when FLConfig.async_buffer > 0
+        self.async_engine = None
+        # chunk-streamed cohort engine (core/cohort.py); attached when
+        # FLConfig.n_registered/cohort_chunk switch the round loop over
+        self.cohort_engine = None
+        # history_cap retention (DESIGN.md §13): rounds trimmed off the
+        # front of sel_history fold their byte/param totals here so
+        # comm_summary stays exact while memory stays O(cap * cohort)
+        self._sel_base = 0
+        self._comm_totals = {"uplink": 0.0, "trained": 0.0, "rounds": 0}
 
     def global_params(self):
         """Single-model view of the topology state."""
@@ -300,6 +361,16 @@ class Server:
 
     def run_round(self, client_batches, weights=None) -> RoundRecord:
         """client_batches: tree with (C, steps, ...) leaves."""
+        if self.async_engine is not None:
+            raise RuntimeError(
+                "server is in buffered-async mode (FLConfig.async_buffer "
+                "> 0); a synchronous round would desync the engine's "
+                "version/key bookkeeping — use run()/Federation.fit")
+        if self.cohort_engine is not None:
+            raise RuntimeError(
+                "server is in cohort-engine mode (FLConfig.n_registered/"
+                "cohort_chunk); a plain round would desync the engine's "
+                "fleet/key bookkeeping — use run()/Federation.fit")
         t0 = time.perf_counter()
         r = len(self.history)
         c = self.fl.n_clients
@@ -322,6 +393,12 @@ class Server:
             metrics = None
         else:
             step_kw = {}
+            inj = self.fault_injector
+            if inj is not None and inj.has_delta:
+                plan = inj.corrupt_plan(r, range(c))
+                step_kw["fault_plan"] = {
+                    "mode": torch.as_tensor(plan["mode"]),
+                    "scale": torch.as_tensor(plan["scale"])}
             if self.codec.stochastic:
                 step_kw["uniform"] = self.codec_uniform
             if self.codec_state is not None:
@@ -350,7 +427,38 @@ class Server:
             hook.on_round_end(self, rec, metrics)
         rec.seconds = time.perf_counter() - t0
         self.history.append(rec)
+        self._trim_history()
         return rec
+
+    def _trim_history(self) -> None:
+        """Enforce ``FLConfig.history_cap``: fold selection rows older
+        than the cap into running uplink/params totals and drop them,
+        bounding accounting memory at O(cap * cohort) for long fits
+        while keeping ``comm_summary`` exact."""
+        cap = self.fl.history_cap
+        if not cap:
+            return
+        while len(self.sel_history) > cap:
+            s = self.sel_history.pop(0)
+            i = self._sel_base
+            rec = self.history[i] if i < len(self.history) else None
+            eff = rec.effective_weights if rec is not None else None
+            if eff is not None and len(eff) == s.shape[0]:
+                s = s * (np.asarray(eff, np.float32) > 0
+                         ).astype(s.dtype)[:, None]
+            if s.shape[1] == self.assign.n_units:
+                counts = comm.unit_param_counts(self.assign,
+                                                self.global_params())
+                self._comm_totals["uplink"] += self.topology.round_bytes(
+                    s, self.wire_unit_bytes(), self.fl)["uplink"]
+                self._comm_totals["trained"] += float(
+                    np.einsum("cu,u->", s, counts))
+                self._comm_totals["rounds"] += 1
+            if rec is not None:
+                # the O(cohort) weight list already served accounting;
+                # null it so long fits keep O(1) state per old round
+                rec.effective_weights = None
+            self._sel_base += 1
 
     def _round_telemetry(self, round_idx: int, metrics: Optional[Dict],
                          eff_w: Sequence[float]):
@@ -377,8 +485,33 @@ class Server:
             self.sel_state = self.strategy.update_state(
                 self.sel_state, self.sel_ctx, telemetry)
 
+    def attach_async_engine(self, engine) -> "Server":
+        """Switch the server to buffered-async rounds: ``run`` drives
+        the engine's flush loop (one history record per flush) and
+        ``comm_summary`` uses its per-flush buffered accounting."""
+        self.async_engine = engine
+        return self
+
+    def attach_cohort_engine(self, engine) -> "Server":
+        """Switch the server to chunk-streamed cohort rounds
+        (core/cohort.py): ``run`` drives the engine's round loop; its
+        records are ordinary sync records, so accounting and summary
+        need no special casing."""
+        self.cohort_engine = engine
+        return self
+
     def run(self, rounds: int, batch_fn: Callable[[int], Dict],
             weights=None, log_every: int = 0) -> List[RoundRecord]:
+        if self.async_engine is not None:
+            # buffered-async mode: batch_fn is indexed by each client's
+            # own dispatch window, not a shared round counter
+            return self.async_engine.run(rounds, batch_fn, weights=weights,
+                                         log_every=log_every)
+        if self.cohort_engine is not None:
+            # cohort-engine mode: batch_fn(round_idx, client_ids) loads
+            # one chunk of the sampled cohort at a time
+            return self.cohort_engine.run(rounds, batch_fn, weights=weights,
+                                          log_every=log_every)
         extra = [RoundLogger(log_every, total=len(self.history) + rounds,
                              base=len(self.history))] \
             if log_every else []
@@ -394,12 +527,18 @@ class Server:
         return self.history
 
     def _wasted_summary(self) -> Dict[str, float]:
+        """Fault-accounting columns (DESIGN.md §14), from the per-round
+        records CommAccounting already filled."""
         per_round = [r.wasted_bytes for r in self.history]
         total = float(np.sum(per_round)) if per_round else 0.0
         return {"total_wasted_bytes": total,
                 "avg_wasted_bytes": total / max(1, len(per_round))}
 
     def comm_summary(self) -> Dict[str, float]:
+        if self.async_engine is not None and self.async_engine.started:
+            return self.async_engine.comm_summary()
+        if self._sel_base:
+            return dict(self._capped_summary(), **self._wasted_summary())
         if not self.sel_history:
             return {"avg_uplink_bytes": 0.0, "avg_trained_params": 0.0,
                     "total_uplink_bytes": 0.0, "reduction_vs_full": 0.0,
@@ -426,3 +565,42 @@ class Server:
         return dict(self.topology.summary(self.assign, self.global_params(),
                                           hist, self.fl, **sum_kw),
                     **self._wasted_summary())
+
+    def _capped_summary(self) -> Dict[str, float]:
+        """``comm_summary`` with ``history_cap`` trimming active: the
+        folded totals of trimmed rounds plus the retained window,
+        through the same per-round ``Topology.round_bytes`` math — the
+        result matches the uncapped summary up to float accumulation
+        order."""
+        ub = self.unit_bytes()
+        wub = self.wire_unit_bytes()
+        counts = comm.unit_param_counts(self.assign, self.global_params())
+        up = self._comm_totals["uplink"]
+        tp = self._comm_totals["trained"]
+        n = self._comm_totals["rounds"]
+        for i, s in enumerate(self.sel_history):
+            rec_i = self._sel_base + i
+            eff = self.history[rec_i].effective_weights \
+                if rec_i < len(self.history) else None
+            if eff is not None and len(eff) == s.shape[0]:
+                s = s * (np.asarray(eff, np.float32) > 0
+                         ).astype(s.dtype)[:, None]
+            up += self.topology.round_bytes(s, wub, self.fl)["uplink"]
+            tp += float(np.einsum("cu,u->", s, counts))
+            n += 1
+        if not n:
+            return {"avg_uplink_bytes": 0.0, "avg_trained_params": 0.0,
+                    "total_uplink_bytes": 0.0, "reduction_vs_full": 0.0}
+        # full-model uplink is a per-round constant given the cohort
+        # shape, so the reduction needs no retained history
+        c = self.sel_history[0].shape[0] if self.sel_history \
+            else self.fl.n_clients
+        full = self.topology.round_bytes(
+            np.ones((c, self.assign.n_units), np.float32), ub,
+            self.fl)["uplink"]
+        return {
+            "avg_uplink_bytes": up / n,
+            "avg_trained_params": tp / n,
+            "total_uplink_bytes": up,
+            "reduction_vs_full": 1.0 - (up / n) / full if full else 0.0,
+        }

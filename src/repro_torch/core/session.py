@@ -22,6 +22,14 @@ the gradient-norm telemetry in the round step, and checkpoints carry
 the state.  ``save`` / ``restore`` write and read the reference's
 checkpoint format (``repro_torch.ckpt``); a resumed run continues
 bitwise.
+
+The round engines attach here, in the reference's order: the fault
+injector (``fl.faults``, ``core/faults.py``), the buffered-async engine
+(``fl.async_buffer``, with the validation gate wrapped around its flush
+when ``faults.gate_enabled``), the chunk-streamed cohort engine
+(``fl.n_registered`` / ``fl.cohort_chunk``) and last the ``ChaosHook``,
+so an injected kill fires after a user ``Checkpointer`` saved.
+``incarnation`` feeds the kill draw (``faults.run_with_restarts``).
 """
 from __future__ import annotations
 
@@ -69,7 +77,8 @@ class Federation:
                  strategy: Union[str, SelectionStrategy, None] = None,
                  scores=None,
                  topology: Union[str, Topology, None] = None,
-                 conv_spatial: int = 2, device: Device = "cuda"):
+                 conv_spatial: int = 2, device: Device = "cuda",
+                 incarnation: int = 0):
         self.device = resolve_device(device)
         self.fl = fl
         self.assign = assign
@@ -85,6 +94,58 @@ class Federation:
                              dropout_rate=dropout_rate, hooks=hooks,
                              topology=self.topology, strategy=strategy,
                              conv_spatial=conv_spatial, device=self.device)
+        # fault-injection chaos axis (DESIGN.md §14): the injector is a
+        # pure function of (seed, incarnation, coordinates), so a
+        # restarted process with incarnation+1 replays a *different*
+        # kill schedule while the training streams stay identical
+        injector = None
+        if fl.faults:
+            from .faults import FaultInjector
+            injector = FaultInjector(fl.faults, seed=seed,
+                                     incarnation=incarnation)
+        self.server.fault_injector = injector
+        if fl.async_buffer:
+            # semi-async buffered rounds (DESIGN.md §8): the engine owns
+            # the simulated-delay scheduler, per-version selections and
+            # the FedBuff-style buffer; one fit "round" = one flush
+            from .async_agg import AsyncRoundEngine, build_cohort_step
+            from .faults import gate_enabled
+            select_fn, cohort_fn, _ = build_cohort_step(
+                loss_fn, assign, fl, loss_kwargs, strategy=strategy,
+                scores=scores)
+            base_flush = self.topology.build_buffered_flush(assign, fl)
+            flush_fn, gated = base_flush, False
+            if gate_enabled(fl):
+                from .aggregation import gate_packed_updates
+
+                def flush_fn(g, pdeltas, rows, valid, sel, weights,
+                             clients, _base=base_flush):
+                    pdeltas, gw, quar = gate_packed_updates(
+                        assign, pdeltas, valid, weights,
+                        fl.max_delta_norm)
+                    return _base(g, pdeltas, rows, valid, sel, gw,
+                                 clients), quar
+                gated = True
+            self.server.attach_async_engine(AsyncRoundEngine(
+                self.server, assign, fl, select_fn=select_fn,
+                cohort_fn=cohort_fn, flush_fn=flush_fn,
+                seed=seed, gated=gated))
+        if fl.uses_cohort_engine():
+            # fleet-scale cohort engine (DESIGN.md §13): samples the
+            # round's cohort out of n_registered clients and streams it
+            # through the round in cohort_chunk-sized chunks (mutually
+            # exclusive with async_buffer — FLConfig validates)
+            from .cohort import CohortEngine, build_cohort_programs
+            programs = build_cohort_programs(
+                loss_fn, assign, fl, loss_kwargs, strategy=strategy,
+                scores=scores, topology=self.topology)
+            self.server.attach_cohort_engine(CohortEngine(
+                self.server, assign, fl, programs=programs, seed=seed))
+        if injector is not None:
+            # appended LAST so a user Checkpointer hook has already
+            # saved the round before an injected kill can raise
+            from .faults import ChaosHook
+            self.server.hooks.append(ChaosHook(injector))
 
     # -- construction -----------------------------------------------------
 
@@ -125,13 +186,31 @@ class Federation:
 
     def fit(self, rounds: int, *, log_every: int = 0,
             weights=None) -> List[RoundRecord]:
-        """Run ``rounds`` federated rounds off the attached loader."""
+        """Run ``rounds`` federated rounds off the attached loader.
+
+        In buffered-async mode (``fl.async_buffer > 0``) a "round" is
+        one buffer flush, and the loader is indexed by each client's own
+        dispatch window (the engine carries per-client counters across
+        ``fit`` calls and restores), not a shared round counter.  In
+        cohort-engine mode the loader holds the registered fleet and
+        serves one chunk of sampled clients at a time.
+        """
         if self.loader is None:
             raise ValueError("Federation has no data attached; pass "
                              "data= to from_config or use run_round")
         if weights is None:
             weights = torch.as_tensor(self.loader.weights())
-        base = len(self.server.history)
+        if self.server.cohort_engine is not None:
+            # indexed by absolute round (resume-safe): no history base
+            def chunk(r, ids):
+                return {k: torch.as_tensor(v, device=self.device)
+                        for k, v in self.loader.client_batches(
+                            r, ids).items()}
+
+            return self.server.run(rounds, chunk, weights=weights,
+                                   log_every=log_every)
+        base = 0 if self.server.async_engine is not None \
+            else len(self.server.history)
 
         def batches(r):
             return {k: torch.as_tensor(v, device=self.device)

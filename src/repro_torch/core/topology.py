@@ -23,7 +23,17 @@ Registered plugins:
 With ``FLConfig.packed`` the star topologies run on packed slot buffers
 instead (DESIGN.md §7), the uplink codec round-trips the packed deltas,
 and the topology's ``aggregate_packed`` reduces them; that path ignores
-``fused_agg``, as the reference's does.
+``fused_agg``, as the reference's does.  The fault axis (core/faults.py)
+rides that branch too: delta corruption and the validation gate run
+between the codec and the aggregate.
+
+The star topologies also supply the round engines' aggregation stages:
+``build_buffered_flush`` (the async engine's flush over a buffer of
+packed updates) and ``build_chunk_agg`` (the cohort engine's
+init/accumulate/finalize over chunks), both on the packed primitives of
+core/aggregation.py, and ``buffered_round_bytes``, a flush's bill.
+Gossip has no global model to buffer against and keeps the base class's
+``ValueError``.
 
 Stateful (scored) strategies (DESIGN.md §11) add two wires to every
 topology's round step, both absent for stateless strategies: the
@@ -41,16 +51,20 @@ from typing import Callable, ClassVar, Dict, Optional, Tuple, Type, Union
 import numpy as np
 import torch
 
-from ..common import flatten_with_paths, tree_stack
+from ..common import tree_stack
 from ..kernels.masked_agg import ops as agg_ops
 from . import codecs as _codecs
 from . import comm
-from .aggregation import (fedavg, hierarchical_edge_partials,
+from . import faults as _faults
+from .aggregation import (fedavg, gate_packed_updates,
+                          hierarchical_edge_partials,
                           hierarchical_masked_fedavg,
                           hierarchical_masked_fedavg_packed, masked_fedavg,
-                          masked_fedavg_packed)
+                          masked_fedavg_packed, packed_acc_init,
+                          packed_accumulate, packed_finalize)
 from .client import local_update, packed_cohort_fn
-from .masking import UnitAssignment, dense_norm_hook, mask_tree, slot_plan
+from .masking import (UnitAssignment, cohort_slot_plans, dense_norm_hook,
+                      mask_tree)
 from .registry import unknown_name_message
 from .strategies import SelectionContext, resolve_strategy
 
@@ -126,7 +140,12 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
     keywords: ``uniform(i, shape)``, the stochastic-rounding draws of a
     stochastic codec, and ``codec_state``, the error-feedback residual
     of a stateful one (the new residual comes back in
-    ``metrics["codec_state"]``).
+    ``metrics["codec_state"]``).  When ``fl.faults`` names a delta fault
+    the ``fault_plan`` keyword (``{"mode": (C,), "scale": (C,)}``, zeros
+    and ones when omitted) corrupts the decoded deltas through
+    ``faults.chaos_inject``, and when the gate is on
+    (``faults.gate_enabled``) ``gate_packed_updates`` quarantines bad
+    uploads before the aggregate (``metrics["quarantined"]``).
 
     ``metrics["deltas"]`` is the client-stacked delta tree the round
     aggregated (views into the kernel's tile buffer on the fused path;
@@ -145,6 +164,16 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
         raise ValueError(
             f"topology {fl.topology!r} has no packed aggregation path; "
             "set FLConfig.packed=False")
+    # the fault axis: delta corruption + the validation gate run in the
+    # packed branch only — both bitwise identities when untripped, so a
+    # zero-rate chaos config keeps the plain round's numbers exactly
+    inject_on = _faults.delta_faults_configured(fl)
+    gate_on = _faults.gate_enabled(fl)
+    if (inject_on or gate_on) and not use_packed:
+        raise ValueError(
+            "delta faults / the validation gate run inside the packed "
+            "scatter-accumulate; set FLConfig.packed=True (or drop "
+            "delta faults and max_delta_norm)")
     n_slots = fl.resolve_n_slots(ctx.n_units)
     packed_cohort = packed_cohort_fn(loss_fn, assign, fl, loss_kwargs,
                                      scoring=scoring)
@@ -153,12 +182,9 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
     plan = {}
 
     def packed_step(global_params, client_batches, weights, sel, uniform,
-                    codec_state):
-        plans = [slot_plan(assign, sel[c], n_slots, global_params)
-                 for c in range(fl.n_clients)]
-        paths = [p for p, _ in flatten_with_paths(global_params)]
-        rows = {p: torch.stack([r[p] for r, _ in plans]) for p in paths}
-        valid = {p: torch.stack([v[p] for _, v in plans]) for p in paths}
+                    codec_state, fault_plan):
+        rows, valid = cohort_slot_plans(assign, sel, n_slots,
+                                        global_params)
         deltas, m = packed_cohort(global_params, rows, valid, client_batches)
         # the plan on the round's device, moved once per leaf
         rows = {p: r.to(device) for p, r in rows.items()}
@@ -167,6 +193,17 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
         if codec_fn is not None:
             deltas, new_codec_state = codec_fn(deltas, rows, valid, weights,
                                                uniform, codec_state)
+        quarantined = None
+        if inject_on:
+            if fault_plan is None:
+                fault_plan = {"mode": torch.zeros(fl.n_clients,
+                                                  dtype=torch.int32),
+                              "scale": torch.ones(fl.n_clients)}
+            deltas = _faults.chaos_inject(deltas, fault_plan["mode"],
+                                          fault_plan["scale"])
+        if gate_on:
+            deltas, weights, quarantined = gate_packed_updates(
+                assign, deltas, valid, weights, fl.max_delta_norm)
         new_params = aggregate_packed(global_params, deltas, rows, valid,
                                       sel, weights)
         metrics = {"loss_mean": m["loss_mean"].mean(),
@@ -175,20 +212,22 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                    "deltas": deltas}
         if scoring:
             metrics["unit_sqnorm"] = m["unit_sqnorm"]
+        if quarantined is not None:
+            metrics["quarantined"] = quarantined
         if new_codec_state is not None:
             metrics["codec_state"] = new_codec_state
         return new_params, metrics
 
     def round_step(global_params, client_batches, weights,
                    gen: Optional[torch.Generator], *, sel_state=None,
-                   uniform=None, codec_state=None):
+                   uniform=None, codec_state=None, fault_plan=None):
         sel = strat.select(gen, _live_ctx(ctx, sel_state))
         if fl.always_train_head:
             sel[:, -1] = 1.0
         weights = torch.as_tensor(weights, dtype=torch.float32).cpu()
         if use_packed:
             return packed_step(global_params, client_batches, weights, sel,
-                               uniform, codec_state)
+                               uniform, codec_state, fault_plan)
         n = fl.n_clients
         fused_tiles = fused and not strat.dense and aggregate is None
         if fused_tiles:
@@ -286,9 +325,46 @@ class Topology:
                          strategy=None, scores=None, device: torch.device):
         raise NotImplementedError
 
+    def build_buffered_flush(self, assign: UnitAssignment, fl):
+        """The topology's buffered-async aggregation stage (DESIGN.md
+        §8): ``flush(global, pdeltas, rows, valid, sel, weights,
+        client_ids) -> new_global`` over a stacked ``(B, ...)`` buffer
+        of packed updates — the same accumulate as the sync packed
+        round, so a zero-staleness flush is bitwise the sync round.
+        Star topologies implement this; stateful ones (gossip) have no
+        global model to buffer against.
+        """
+        raise ValueError(
+            f"topology {self.name!r} has no buffered-async path; set "
+            "FLConfig.async_buffer=0 or use hub/hierarchical")
+
+    def build_chunk_agg(self, assign: UnitAssignment, fl):
+        """The topology's chunk-streamed aggregation stage (DESIGN.md
+        §13): ``(init, accumulate, finalize)`` over the packed carry
+        primitives of core/aggregation.py.  ``init(global) -> acc``;
+        ``accumulate(acc, pdeltas, rows, valid, weights, positions) ->
+        acc`` folds one chunk of packed uploads (``positions`` are the
+        chunk's cohort positions, in order); ``finalize(global, acc,
+        sel, weights) -> new_global`` applies the full-cohort
+        denominators.  Streaming any chunking of the cohort in order
+        reproduces the single-shot packed aggregate bitwise.
+        """
+        raise ValueError(
+            f"topology {self.name!r} has no chunked cohort path; set "
+            "FLConfig.cohort_chunk=0/n_registered=0 or use "
+            "hub/hierarchical")
+
     def round_bytes(self, sel: np.ndarray, ubytes: np.ndarray,
                     fl) -> Dict[str, float]:
         raise NotImplementedError
+
+    def buffered_round_bytes(self, entry_sel: np.ndarray,
+                             client_ids: np.ndarray, ubytes: np.ndarray,
+                             fl) -> Dict[str, float]:
+        """Per-flush byte math for buffered async rounds (one
+        ``entry_sel`` row per buffered update)."""
+        raise ValueError(
+            f"topology {self.name!r} has no buffered-async accounting")
 
     def summary(self, assign: UnitAssignment, params,
                 sel_history: np.ndarray, fl,
@@ -381,9 +457,33 @@ class Hub(Topology):
             aggregate_packed=lambda g, d, r, v, sel, w:
                 masked_fedavg_packed(g, d, r, v, sel, w, assign))
 
+    def build_buffered_flush(self, assign, fl):
+        def flush(g, pdeltas, rows, valid, sel, weights, client_ids):
+            return masked_fedavg_packed(g, pdeltas, rows, valid, sel,
+                                        weights, assign)
+        return flush
+
+    def build_chunk_agg(self, assign, fl):
+        def init(g):
+            return packed_acc_init(assign, g)
+
+        def accumulate(acc, pdeltas, rows, valid, weights, positions):
+            return packed_accumulate(assign, acc, pdeltas, rows, valid,
+                                     weights)
+
+        def finalize(g, acc, sel, weights):
+            return packed_finalize(assign, g, acc, sel, weights)
+
+        return init, accumulate, finalize
+
     def round_bytes(self, sel, ubytes, fl):
         return comm.hub_round_bytes(
             sel, ubytes,
+            downlink="selected" if fl.synchronized else "full")
+
+    def buffered_round_bytes(self, entry_sel, client_ids, ubytes, fl):
+        return comm.buffered_hub_round_bytes(
+            entry_sel, ubytes,
             downlink="selected" if fl.synchronized else "full")
 
     def summary(self, assign, params, sel_history, fl, wire_ubytes=None):
@@ -422,10 +522,47 @@ class Hierarchical(Topology):
                 hierarchical_masked_fedavg_packed(g, d, r, v, sel, w,
                                                   assign, mem))
 
+    def build_buffered_flush(self, assign, fl):
+        mem = torch.as_tensor(comm.edge_membership(fl.n_clients,
+                                                   fl.resolve_n_edges()))
+
+        def flush(g, pdeltas, rows, valid, sel, weights, client_ids):
+            # (E, B) membership: entry j reduces at its client's edge
+            ids = torch.as_tensor(np.asarray(client_ids), dtype=torch.long)
+            return hierarchical_masked_fedavg_packed(
+                g, pdeltas, rows, valid, sel, weights, assign, mem[:, ids])
+        return flush
+
+    def build_chunk_agg(self, assign, fl):
+        mem = torch.as_tensor(comm.edge_membership(
+            fl.n_clients, fl.resolve_n_edges()))
+        edge_of = mem.argmax(0)                               # (C,)
+
+        def init(g):
+            return packed_acc_init(assign, g, n_edges=mem.shape[0])
+
+        def accumulate(acc, pdeltas, rows, valid, weights, positions):
+            # each chunk client lands in its edge's stage-1 partial
+            pos = torch.as_tensor(np.asarray(positions), dtype=torch.long)
+            return packed_accumulate(assign, acc, pdeltas, rows, valid,
+                                     weights, edge_idx=edge_of[pos])
+
+        def finalize(g, acc, sel, weights):
+            return packed_finalize(assign, g, acc, sel, weights,
+                                   membership=mem)
+
+        return init, accumulate, finalize
+
     def round_bytes(self, sel, ubytes, fl):
         mem = comm.edge_membership(fl.n_clients, fl.resolve_n_edges())
         return comm.hierarchical_round_bytes(
             sel, ubytes, mem,
+            downlink="selected" if fl.synchronized else "full")
+
+    def buffered_round_bytes(self, entry_sel, client_ids, ubytes, fl):
+        mem = comm.edge_membership(fl.n_clients, fl.resolve_n_edges())
+        return comm.buffered_hierarchical_round_bytes(
+            entry_sel, client_ids, ubytes, mem,
             downlink="selected" if fl.synchronized else "full")
 
 

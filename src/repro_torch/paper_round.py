@@ -4,7 +4,9 @@ VGG16 at full width (14,736,714 params), 8 clients each training 7 of
 its 14 units per round with the ``uniform`` strategy, hub topology,
 ``cifar_like`` data split by ``iid_partition``, batch 32, 2 local steps.
 ``chip_smoke.py`` drives this federation and ``profile_round.py``
-profiles it.
+profiles it.  With ``n_registered`` set (the cohort engine) the loader
+holds that many registered clients, each with one round's worth of
+images (batch x local steps), and a round trains a cohort of 8 of them.
 """
 from __future__ import annotations
 
@@ -25,20 +27,33 @@ BATCH = 32
 LOCAL_STEPS = 2
 
 
+@functools.lru_cache(maxsize=2)
+def _dataset(n_clients: int, eval_images: int):
+    """``cifar_like`` images for ``n_clients`` shards of one round's worth
+    each (plus ``eval_images`` held out) and the shards; cached, since a
+    1,000-client fleet's 64,000 images take seconds to draw."""
+    n = n_clients * BATCH * LOCAL_STEPS
+    x_all, y_all = cifar_like(n + eval_images, key=0)
+    return x_all, y_all, iid_partition(n, n_clients, key=1)
+
+
 def build(device: Device = "cuda", *, eval_images: int = 0, strategy=None,
-          **fl_overrides) -> Federation:
+          hooks=(), incarnation: int = 0, **fl_overrides) -> Federation:
     """The main path's federation on ``device``.  With ``eval_images``
     it also holds out that many ``cifar_like`` images and evaluates
     accuracy on them after every round.  ``strategy`` overrides the
     selection with a registered name or an instance (``"score_weighted"``,
     a ``Replay``), and ``fl_overrides`` replace fields of its
     ``FLConfig`` (``packed=True, codec="qint8"`` runs the packed round
-    with the int8 uplink codec)."""
+    with the int8 uplink codec; ``async_buffer``, ``n_registered`` /
+    ``cohort_chunk``, ``faults`` switch the round engines on).
+    ``hooks`` and ``incarnation`` go to the ``Federation`` (a
+    ``Checkpointer``; the kill draw's restart count)."""
     dev = resolve_device(device)
-    n = N_CLIENTS * BATCH * LOCAL_STEPS
-    x_all, y_all = cifar_like(n + eval_images, key=0)
+    n_data = max(N_CLIENTS, fl_overrides.get("n_registered", 0))
+    x_all, y_all, shards = _dataset(n_data, eval_images)
+    n = n_data * BATCH * LOCAL_STEPS
     x, y = x_all[:n], y_all[:n]
-    shards = iid_partition(n, N_CLIENTS, key=1)
     loader = FederatedLoader([{"x": x[s], "y": y[s]} for s in shards],
                              batch_size=BATCH, steps_per_round=LOCAL_STEPS,
                              key=0)
@@ -58,4 +73,5 @@ def build(device: Device = "cuda", *, eval_images: int = 0, strategy=None,
         FLConfig(n_clients=N_CLIENTS, n_train_units=N_TRAIN,
                  strategy="uniform", topology="hub"), **fl_overrides)
     return Federation.from_config(spec, fl, data=loader, device=dev,
-                                  eval_fn=eval_fn, strategy=strategy)
+                                  eval_fn=eval_fn, strategy=strategy,
+                                  hooks=hooks, incarnation=incarnation)

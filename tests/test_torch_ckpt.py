@@ -462,12 +462,33 @@ def test_mismatch_raises_reference_errors(tmp_path, toy_setup, saved, into,
 
 @pytest.mark.parametrize("field", ["async", "cohort", "sel_base"])
 def test_unported_engine_state_is_refused(tmp_path, toy_setup, field):
+    """Engine state restores only into a Federation running that engine:
+    the reference's ValueError, word for word, otherwise.  ``history_cap``
+    totals (``sel_base``) need no engine and restore into any server."""
     fed = _fed(toy_setup, {}, seed=0)
     path = str(tmp_path / field)
-    fed.save(path, extra={field: {"anything": 1}})
-    with pytest.raises(ValueError, match=f"{field}.*not ported") as e:
-        _fed(toy_setup, {}, seed=0).restore(path)
-    assert "reference package" in str(e.value)
+    totals = {"uplink": 123.5, "trained": 77.0, "rounds": 3}
+    extra = {field: {"anything": 1}} if field != "sel_base" else \
+        {"sel_base": 3, "comm_totals": totals}
+    fed.save(path, extra=extra)
+    into = _fed(toy_setup, {}, seed=0)
+    if field == "sel_base":
+        into.restore(path)
+        assert into.server._sel_base == 3
+        assert into.server._comm_totals == totals
+        return
+    with pytest.raises(ValueError) as got:
+        into.restore(path)
+    rp = jax.tree_util.tree_map(jnp.asarray, unflatten(
+        {p: x.numpy() for p, x in toy_setup["p"].items()}))
+    from repro.models.toy import toy_units as r_toy_units
+    rfl = RFLConfig(n_clients=C, train_fraction=0.5)
+    rsrv = RServer(r_build_round_step(lambda p, b: (0.0, {}),
+                                      r_toy_units(rp), rfl),
+                   r_toy_units(rp), rfl, rp)
+    with pytest.raises(ValueError) as want:
+        r_restore(path, rsrv)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("task,rank", [("imdb", 1), ("casa", 2)])
@@ -475,3 +496,172 @@ def test_paper_task_federation_carries_its_conv_rank(task, rank):
     from repro_torch import paper_tasks
     fed = paper_tasks.build(task, "cpu", evaluate=False)
     assert fed.server.conv_spatial == rank
+
+
+# -- the round engines' state and history_cap, across the packages ------------
+
+ENGINES = {
+    "async": dict(async_buffer=2, client_delay_dist="pareto:1.5"),
+    "async-qint8-hierarchical": dict(async_buffer=3, packed=True,
+                                     codec="qint8", topology="hierarchical",
+                                     n_edges=2,
+                                     client_delay_dist="exponential"),
+    "async-topk_ef-scored": dict(async_buffer=2, packed=True,
+                                 codec="topk_ef", strategy="score_weighted",
+                                 client_delay_dist="pareto:1.5"),
+    "cohort-midround": dict(n_registered=8, cohort_chunk=2, packed=True,
+                            codec="qint8"),
+    "cohort-hierarchical-scored": dict(n_registered=8, cohort_chunk=2,
+                                       topology="hierarchical", n_edges=2,
+                                       strategy="score_weighted"),
+    "history_cap": dict(history_cap=2, packed=True),
+}
+
+
+def _engine_run(fed, kw, batches, ids_of):
+    """Two rounds (flushes), and for a cohort run one more chunk, so the
+    checkpoint holds a mid-round partial aggregate."""
+    srv = fed.server
+    if srv.cohort_engine is not None:
+        bf = lambda r, ids: ids_of(batches, ids)          # noqa: E731
+        srv.run(2, bf)
+        srv.cohort_engine.begin_round()
+        srv.cohort_engine.step_chunk(bf)
+    else:
+        srv.run(4 if kw.get("history_cap") else 2, lambda r: ids_of(
+            batches, np.arange(C)))
+
+
+def _engine_view(srv, ref: bool, cs: int = 2):
+    """A server's engine and history_cap state as flat numpy arrays in
+    the reference's layout, plus the engines' metadata."""
+    from repro.common.pytree import flatten_with_paths as r_flat
+    from repro_torch.ckpt import store
+    out = {"sel_base": srv._sel_base, "totals": dict(srv._comm_totals),
+           "summary": srv.comm_summary()}
+    for name, conv in (("async_engine", store._async_to_ref),
+                       ("cohort_engine", store._cohort_to_ref)):
+        eng = getattr(srv, name)
+        if eng is None:
+            continue
+        meta, arrays = eng.checkpoint_state()
+        flat = {p: np.asarray(x) for p, x in r_flat(arrays)} if ref else \
+            {p: np.asarray(x) for p, x in flatten(conv(arrays, cs)).items()}
+        out[name] = (meta, flat)
+    return out
+
+
+def _assert_same_view(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        if k.endswith("_engine"):
+            (ma, fa), (mb, fb) = a[k], b[k]
+            assert json.loads(json.dumps(ma)) == json.loads(json.dumps(mb))
+            assert fa.keys() == fb.keys() and fa
+            for p in fa:
+                assert np.array_equal(fa[p], fb[p]), (k, p)
+        else:
+            assert a[k] == b[k], k
+
+
+@pytest.fixture(scope="module")
+def toy8():
+    rp = jax.tree_util.tree_map(np.asarray, __import__(
+        "repro.models.toy", fromlist=["x"]).init_toy_mlp(
+            jax.random.PRNGKey(0), n_blocks=4, d=8, hidden=16, out=4))
+    rng = np.random.default_rng(3)
+    batches = {"x": rng.normal(size=(8, 1, 2, 8)).astype(np.float32),
+               "y": rng.normal(size=(8, 1, 2, 4)).astype(np.float32)}
+    return rp, batches
+
+
+def _ref_fed(rp, kw, seed=3):
+    from repro.core import Federation as RFederation
+    from repro.models.toy import toy_loss as r_toy_loss
+    from repro.models.toy import toy_units as r_toy_units
+    return RFederation(loss_fn=r_toy_loss, params=jax.tree_util.tree_map(
+        jnp.asarray, rp), assign=r_toy_units(rp), seed=seed,
+        fl=RFLConfig(n_clients=C, train_fraction=0.5, fused_agg="off", **kw))
+
+
+def _port_fed(rp, kw, seed=3):
+    tp = from_reference(rp)
+    return Federation(loss_fn=tloss, params=tp, assign=toy.toy_units(tp),
+                      fl=FLConfig(n_clients=C, train_fraction=0.5, **kw),
+                      seed=seed, device="cpu")
+
+
+@pytest.mark.parametrize("case", list(ENGINES))
+def test_reference_engine_checkpoint_restores_into_port(tmp_path, toy8,
+                                                        case):
+    rp, batches = toy8
+    kw = ENGINES[case]
+    ref = _ref_fed(rp, kw)
+    _engine_run(ref, kw, {k: jnp.asarray(v) for k, v in batches.items()},
+                lambda b, ids: jax.tree_util.tree_map(
+                    lambda x: x[np.asarray(ids)], b))
+    path = str(tmp_path / "ref")
+    r_save(path, ref.server)
+    port = _port_fed(rp, kw, seed=0)
+    meta = restore_server_state(path, port.server)
+    assert ("async" in meta) == ("async_buffer" in kw)
+    assert ("cohort" in meta) == ("n_registered" in kw)
+    assert ("sel_base" in meta) == ("history_cap" in kw)
+    _assert_same_view(_engine_view(port.server, ref=False),
+                      _engine_view(ref.server, ref=True))
+
+
+@pytest.mark.parametrize("case", list(ENGINES))
+def test_port_engine_checkpoint_restores_into_reference(tmp_path, toy8,
+                                                        case):
+    rp, batches = toy8
+    kw = ENGINES[case]
+    port = _port_fed(rp, kw)
+    _engine_run(port, kw, {k: torch.as_tensor(v) for k, v in
+                           batches.items()},
+                lambda b, ids: {k: v[torch.as_tensor(np.asarray(ids))]
+                                for k, v in b.items()})
+    path = str(tmp_path / "port")
+    save_server_state(path, port.server)
+    ref = _ref_fed(rp, kw, seed=0)
+    meta = r_restore(path, ref.server)
+    assert "key" not in meta
+    _assert_same_view(_engine_view(port.server, ref=False),
+                      _engine_view(ref.server, ref=True))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(async_buffer=2, client_delay_dist="pareto:1.5"),
+    dict(n_registered=6, cohort_chunk=2, packed=True)],
+    ids=["async", "cohort-midround"])
+def test_vgg16_engine_checkpoint_converts_conv_kernels(tmp_path, kw):
+    """VGG16's conv kernels inside buffered slot deltas and a partial
+    aggregate are written channels-last (the reference's layout) and
+    restore into the reference exactly."""
+    rp, tp, units, cs, _ = _cross_case("vgg16")
+    fl_kw = dict(n_clients=C, n_train_units=3, **kw)
+    ta = build_units_flat(tp, units(tp))
+    fed = Federation(loss_fn=functools.partial(pm.vgg16_loss, device="cpu"),
+                     params=tp, assign=ta, fl=FLConfig(**fl_kw), seed=2,
+                     device="cpu")
+    rng = np.random.default_rng(0)
+    b = {"x": torch.as_tensor(rng.normal(size=(6, 1, 2, 32, 32, 3))
+                              .astype(np.float32)),
+         "y": torch.as_tensor(rng.integers(0, 10, (6, 1, 2)))}
+    _engine_run(fed, kw, b, lambda bb, ids: {
+        k: v[torch.as_tensor(np.asarray(ids))] for k, v in bb.items()})
+    path = str(tmp_path / "vgg")
+    save_server_state(path, fed.server)
+    with open(path + ".json") as f:
+        shapes = json.load(f)["shapes"]
+    conv = [k for k in shapes if k.endswith(("pdelta/conv0/w", "acc/conv0/w"))]
+    assert conv and all(shapes[k][-4:] == list(rp["conv0"]["w"].shape)
+                        for k in conv)
+    from repro.core import Federation as RFederation
+    ref = RFederation(loss_fn=lambda p, bb: (0.0, {}),
+                      params=jax.tree_util.tree_map(jnp.asarray, rp),
+                      assign=r_build_units(rp, rpm.vgg16_units(rp)),
+                      fl=RFLConfig(fused_agg="off", **fl_kw), seed=0)
+    r_restore(path, ref.server)
+    _assert_same_view(_engine_view(fed.server, ref=False, cs=cs),
+                      _engine_view(ref.server, ref=True))

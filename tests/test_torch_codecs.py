@@ -32,7 +32,7 @@ from repro.models.toy import toy_loss as r_toy_loss
 from repro.models.toy import toy_units as r_toy_units
 from repro_torch.common import flatten, flatten_with_paths, unflatten
 from repro_torch.convert import from_reference
-from repro_torch.core import (Federation, FLConfig, NotPortedError, Replay,
+from repro_torch.core import (Federation, FLConfig, Replay,
                               codecs, masking)
 from repro_torch.kernels.codec import ops
 from repro_torch.kernels.codec.ref import dequantize_unpack, quantize_pack_ref
@@ -510,9 +510,11 @@ def test_flconfig_codec_validators_match_reference(kw):
                                 {"max_delta_norm": 1.0},
                                 {"cohort_chunk": 2, "codec": "qint4"}])
 def test_unported_engines_still_raise_with_codecs(kw):
-    rfed.FLConfig(**dict(_SYNC, **kw))               # valid in the reference
-    with pytest.raises(NotPortedError, match="not ported"):
-        FLConfig(**dict(_SYNC, **kw))
+    """The fault and cohort switches beside a codec: the port builds the
+    config the reference builds (they are ported now)."""
+    ref = rfed.FLConfig(**dict(_SYNC, **kw))         # valid in the reference
+    got = FLConfig(**dict(_SYNC, **kw))
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
 
 
 def test_stochastic_codec_needs_uniforms(toy_setup):

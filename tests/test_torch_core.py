@@ -130,9 +130,17 @@ def test_flconfig_validators_match_reference(kw):
     {"faults": "nan:0.1", "packed": True, "codec": "qint8"},
 ])
 def test_unported_engines_raise(kw):
-    rfed.FLConfig(n_clients=4, **kw)               # valid in the reference
-    with pytest.raises(NotPortedError, match="not ported"):
-        federation.FLConfig(n_clients=4, **kw)
+    """Every engine switch the reference accepts builds the same config
+    in the port, except ``client_shards`` (a device mesh, not ported):
+    it still raises ``NotPortedError``."""
+    ref = rfed.FLConfig(n_clients=4, **kw)         # valid in the reference
+    if "client_shards" in kw:
+        with pytest.raises(NotPortedError, match="not ported"):
+            federation.FLConfig(n_clients=4, **kw)
+        return
+    got = federation.FLConfig(n_clients=4, **kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert got.uses_cohort_engine() == ref.uses_cohort_engine()
 
 
 @pytest.mark.parametrize("mode,device,want", [

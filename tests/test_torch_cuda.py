@@ -1190,3 +1190,68 @@ def test_rwkv6_prefill_runs_k7_on_card(dev):
         full, _, _ = model.forward(params, tokens)
     torch.testing.assert_close(logits[:, -1], full[:, -1], atol=1e-4, rtol=0)
     assert cache["subs/sub0/wkv"].dtype == torch.float32
+
+
+# -- the round engines on the card (toy MLP, K2 under qint8) --------------------
+
+def _engine_setup(dev):
+    import functools
+    from repro_torch.models import toy
+    p = toy.init_toy_mlp(torch.Generator().manual_seed(0), n_blocks=4, d=16,
+                         hidden=32, out=4)
+    b = toy.toy_batches(torch.Generator().manual_seed(1), n_clients=8,
+                        steps=2, batch=4, d=16, out=4)
+    return (p, toy.toy_units(p), {k: v.to(dev) for k, v in b.items()},
+            functools.partial(toy.toy_loss, device=dev))
+
+
+def test_async_zero_staleness_flush_is_sync_round_on_card(dev):
+    """One grouped K2 launch per dispatch; a zero-staleness flush (buffer
+    = C) bitwise the synchronous packed qint8 round."""
+    from repro_torch.core import FLConfig, Federation, Server, build_round_step
+    from repro_torch.kernels.codec import ops as qops
+    p, assign, b, loss = _engine_setup(dev)
+    b4 = {k: v[:4] for k, v in b.items()}
+    kw = dict(n_clients=4, train_fraction=0.5, packed=True, codec="qint8")
+    sync_fl = FLConfig(**kw)
+    srv = Server(build_round_step(loss, assign, sync_fl, device=dev), assign,
+                 sync_fl, p, seed=11, device=dev)
+    srv.run_round(b4)
+    fed = Federation(loss_fn=loss, params=p, assign=assign, seed=11,
+                     fl=FLConfig(async_buffer=4, client_delay_dist="none",
+                                 **kw), device=dev)
+    qops.reset_launch_counts()
+    fed.server.run(3, lambda w: b4)
+    torch.cuda.synchronize()
+    assert qops.quantize_pack_group.launches == \
+        fed.server.async_engine._codec_dispatch > 1
+    fed1 = Federation(loss_fn=loss, params=p, assign=assign, seed=11,
+                      fl=FLConfig(async_buffer=4, client_delay_dist="none",
+                                  **kw), device=dev)
+    fed1.server.run(1, lambda w: b4)
+    assert all(torch.equal(srv.params[k], fed1.params[k]) for k in p)
+
+
+def test_cohort_chunkings_bitwise_on_card(dev):
+    """Chunks of 1, 2 and 4 of a cohort of 4 out of 8 registered clients
+    under qint8: one K2 launch a chunk, bitwise the same run."""
+    from repro_torch.core import FLConfig, Federation
+    from repro_torch.kernels.codec import ops as qops
+    p, assign, b, loss = _engine_setup(dev)
+    runs = []
+    for chunk in (4, 2, 1):
+        fed = Federation(loss_fn=loss, params=p, assign=assign, seed=3,
+                         device=dev, fl=FLConfig(
+                             n_clients=4, train_fraction=0.5, packed=True,
+                             codec="qint8", n_registered=8,
+                             cohort_chunk=chunk, faults="crash:0.2"))
+        qops.reset_launch_counts()
+        hist = fed.server.run(2, lambda r, ids: {
+            k: v[torch.as_tensor(np.asarray(ids), device=dev)]
+            for k, v in b.items()})
+        torch.cuda.synchronize()
+        assert qops.quantize_pack_group.launches == \
+            sum(4 // chunk for r in hist if not r.skipped)
+        runs.append(fed)
+    for other in runs[1:]:
+        assert all(torch.equal(runs[0].params[k], other.params[k]) for k in p)
