@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in twenty-eight phases, in the order
+nothing of the ``repro`` package) in thirty-three phases, in the order
 below except that 17-20, then 22-28, then 21 run after 8, and any
 failure exits non-zero:
 
@@ -109,7 +109,13 @@ failure exits non-zero:
    ``scaled_dot_product_attention`` with GQA (the cuDNN / PyTorch kernels
    it ran are named) beside the bound in operations (fp32 at 67 TFLOP/s,
    bf16 at the tensor cores' 989 TFLOP/s), the kernel's share of it and,
-   in fp32, the forward's time against the previous design's.
+   in fp32, the forward's time against the previous design's.  Then the
+   zoo's own shapes at B=1 in fp32 (qwen3-1.7b at S=4,096, gemma3-12b's
+   local and global layers at S=2,048), held and timed the same way but
+   reached through the model's wrapper ``models.attention.attend``
+   (chunked, ``q_chunk`` 1024, a causal window of 1,024 on the local
+   layer) and differentiated through an output projection, so that K6
+   gets the gradient layout a model gives it.
 13. decode-dense — ``decode_attention`` (K4, launched on K3's kernel)
    at qwen3-1.7b width in ``decode_32k`` (8 caches of 32,768 positions,
    ragged valid lengths, fp32 and bf16), on a gemma3-12b ring cache
@@ -257,13 +263,57 @@ failure exits non-zero:
    6-round dense hub run (whose capped bill equals Table 4 of every
    round's selections).
 
+29. zoo-round — the paper's round on qwen3-1.7b at full width
+   (1,720,574,976 fp32 params, 30 units: ``embed``, ``layer0-27``,
+   ``head``) through ``Federation.from_config`` with the pod step's loss
+   keywords (``launch.steps.default_loss_kwargs``: chunked attention,
+   remat per layer): 2 clients training 15 of 30 units (``uniform``,
+   hub, Adam at the launcher's lr 2e-3), 2 local steps of one
+   ``lm_batch`` sequence of ``train_4k``'s 4,096 tokens, 2 rounds.
+   Launches counted against the prediction from the code: K1 once a
+   round; K5 twice per layer and step (the forward and its remat
+   recompute) and K6's dQ and dK/dV once per layer and step (the
+   backward reaches layer 0: every stacked leaf is live).  Frozen
+   (client, unit row) deltas exactly zero, the bill equal to Table 4;
+   each round's seconds, uplink and loss, the peak memory; then one
+   round under ``torch.profiler``: the device's busy share, cuBLAS's
+   share and the kernels' in-run device ms.
+30. zoo-packed — the same with ``packed=True, codec="qint8"``: K2 once a
+   round, K1 never, the same K5/K6 counts (the slots are written into a
+   full-shape leaf that requires grad whole, so the backward reaches
+   layer 0 here too); pads and untrained slots exactly zero; claimed ==
+   encoded == billed bytes; K2's in-run time beside its byte bound.
+31. zoo-train-step — gemma3-12b at full width cut to its first macro
+   block (6 of 48 layers: five of window 1,024, one global; 2.35 B
+   params), ``launch.steps.make_train_step`` at S = 2,048, batch 1, 2
+   steps: K5 12 and K6 6 + 6 a step; the local and the global layers'
+   in-run times from one profiled step.
+32. zoo-parity — qwen3-1.7b at full width cut to 2 layers, one hub round
+   of SGD at rate ZOO_PARITY_LR and S = 1,024 (the chunked route), 2
+   clients, on the card (K5, K6, K1) and on the host CPU (plain
+   versions), same params, batches and replayed selections (each client trains exactly ``n_train_units``
+   = 2 units, both layers trained by some client): every parameter
+   within ZOO_PARITY_TOL, and every macro row of the attention
+   projections (wq, wk, wv, wo) moved by at least 10 x ZOO_PARITY_TOL,
+   so that a wrong K6 gradient could not hide under the tolerance.
+33. train-launcher — ``python -m repro_torch.launch.train --arch
+   qwen3-1.7b --clients 2 --rounds 1 --batch-size 1 --steps-per-round 1
+   --seq 64`` as a subprocess on the card: exit 0, the reference's
+   header line, a JSON comm summary.  Then ``[zoo-kernels]``: K5 and K6
+   at the zoo's shapes (phase 12's B=1 cases: alone, plain and
+   ``scaled_dot_product_attention`` in fp32) beside the in-run times and
+   bounds; K1 at the qwen3 hub plan and K2 over the qwen3 slot rows
+   against their byte bounds.
+
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
 the card's name and power limit (as ``nvidia-smi`` reports them) and a
 JSON line of per-kernel numbers (K1's and K2's launches summed over the
 paths that ran them, each path's count in ``launches_by_path``, K1's
 other plans in ``plans``, K2's single-client dispatch in
-``dispatch_1client``); the last line is
+``dispatch_1client``; K5's and K6's launches those of the zoo's model
+paths, 29-31, with ``[attention-kernels]``' direct calls listed beside
+them; the zoo call sites' numbers in ``zoo``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -745,7 +795,7 @@ def _check_wire_bytes(fed, cap, tag):
     from repro_torch.core.masking import slot_plan
 
     server = fed.server
-    params = {p: x.cpu() for p, x in fed.params.items()}
+    params = {p: x.to("meta") for p, x in fed.params.items()}
     cub = codec_unit_bytes(server.codec, fed.assign, params, fed.fl)
     ub = unit_bytes(fed.assign, params)
     n_slots = fed.fl.resolve_n_slots(fed.assign.n_units)
@@ -1901,12 +1951,49 @@ def _allowed_pairs(s, causal, window):
     return int((hi - lo + 1).clip(min=0).sum())
 
 
+def _attn_bound(name, b, s, h, hkv, hd, window, esz=4, peak=FP32_PEAK):
+    """Causal attention's fwd / bwd bounds at Sq = Sk = s: ``{part: (ms,
+    what bounds it, seconds by operations, seconds by bytes, operations,
+    bytes)}``, each input read once and each output written once."""
+    pairs = b * h * _allowed_pairs(s, True, window)
+    q_n, k_n = b * s * h * hd, b * s * hkv * hd
+    parts = {"fwd": (4 * hd * pairs,
+                     esz * (2 * q_n + 2 * k_n) + 4 * b * h * s),
+             "bwd": (10 * hd * pairs,
+                     esz * (4 * q_n + 4 * k_n) + 8 * b * h * s)}
+    out = {}
+    for part, (ops_, nbytes) in parts.items():
+        by_ops, by_bytes = ops_ / peak, nbytes / memory_rate(name)
+        out[part] = (max(by_ops, by_bytes) * 1e3,
+                     "bytes" if by_bytes >= by_ops else "operations",
+                     by_ops, by_bytes, ops_, nbytes)
+    return out
+
+
 def _attn_configs():
     from repro_torch.configs.base import get_config
     qwen, gemma = get_config("qwen3-1.7b"), get_config("gemma3-12b")
     return [("qwen3-1.7b", qwen, 0),
             ("gemma3-12b local", gemma, gemma.sliding_window),
             ("gemma3-12b global", gemma, 0)]
+
+
+def _attn_cases():
+    """``[attention-kernels]``' cases: (label, cfg, window, B, S, dtype,
+    through ``attend``).  ``train_4k`` at B=2 through ``flash_attention``
+    in fp32 and bf16; then the zoo's shapes at B=1 in fp32 (qwen3 at
+    4,096 tokens, gemma3's local and global layers at its macro block's
+    2,048) through the model's wrapper ``attend`` (chunked, ``q_chunk``
+    1024, as ``steps.default_loss_kwargs``), whose output goes through an
+    output projection as in ``layers.attention_block``, so that K6 gets
+    the gradient layout the model gives it."""
+    cases = [(n, cfg, w, TRAIN_B, TRAIN_S, dt, False)
+             for n, cfg, w in _attn_configs()
+             for dt in (torch.float32, torch.bfloat16)]
+    for n, cfg, w in _attn_configs():
+        s = TRAIN_S if n == ZOO_ARCH else GEMMA_MACRO_S
+        cases.append((f"{n} B=1 S={s}", cfg, w, 1, s, torch.float32, True))
+    return cases
 
 
 def _planted_wrong(q, k, v, g, o, lse, want, window):
@@ -1983,219 +2070,234 @@ def phase_attention_kernels(dev):
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_ref,
         rounding_error_ratio)
+    from repro_torch.models.attention import attend
 
     name = torch.cuda.get_device_name(0)
-    b, s = TRAIN_B, TRAIN_S
-    rows, driven = {}, {"fwd": 0, "dq": 0, "dkv": 0}
-    for cfg_name, cfg, window in _attn_configs():
+    rows, zoo, driven = {}, {}, {"fwd": 0, "dq": 0, "dkv": 0}
+    cases = _attn_cases()
+    for cfg_name, cfg, window, b, s, dtype, via_attend in cases:
         h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        for dtype in (torch.float32, torch.bfloat16):
-            tag = f"[attention-kernels] {cfg_name} {str(dtype)[6:]}"
-            gen = torch.Generator(device=dev).manual_seed(hd + window)
-            q, g = (torch.randn(b, s, h, hd, generator=gen, device=dev)
-                    .to(dtype) for _ in range(2))
-            k, v = (torch.randn(b, s, hkv, hd, generator=gen, device=dev)
-                    .to(dtype) for _ in range(2))
+        tag = f"[attention-kernels] {cfg_name} {str(dtype)[6:]}" + (
+            " through attend" if via_attend else "")
+        gen = torch.Generator(device=dev).manual_seed(
+            s + window if via_attend else hd + window)
+        q, g = (torch.randn(b, s, h, hd, generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, s, hkv, hd, generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        if via_attend:
+            wo = torch.randn(h, hd, cfg.d_model, generator=gen,
+                             device=dev) / math.sqrt(h * hd)
+            gy = torch.randn(b, s, cfg.d_model, generator=gen,
+                             device=dev)
+            # the gradient the projection hands attend's output: the
+            # plain versions take it as their dO
+            g = torch.einsum("bsd,hkd->bshk", gy, wo).contiguous()
 
+            def train(q=q, k=k, v=v, wo=wo, gy=gy, window=window):
+                qs, ks, vs = (x.detach().requires_grad_()
+                              for x in (q, k, v))
+                o = attend(qs, ks, vs, impl="chunked", causal=True,
+                           window=window, q_chunk=1024)
+                return (o.detach(),) + torch.autograd.grad(
+                    torch.einsum("bshk,hkd->bsd", o, wo), (qs, ks, vs),
+                    gy)
+        else:
             def train(q=q, k=k, v=v, g=g, window=window):
-                qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+                qs, ks, vs = (x.detach().requires_grad_()
+                              for x in (q, k, v))
                 o = aops.flash_attention(qs, ks, vs, True, window)
                 return (o.detach(),) + torch.autograd.grad(
                     (o * g).sum(), (qs, ks, vs))
 
-            aops.reset_launch_counts()        # the main path's call
-            got = train()
-            torch.cuda.synchronize()
-            step = dict(aops.LAUNCHES)
-            check(step == {"fwd": 1, "dq": 1, "dkv": 1},
-                  f"{tag}: launches {step}, expected one of each")
-            for key in driven:
-                driven[key] += step[key]
-            _, lse = aops.attention_fwd(q, k, v, causal=True, window=window)
-            again = train()
-            check(all(torch.equal(x, y) for x, y in zip(got, again)),
-                  f"{tag}: two launches are not bitwise equal")
-            qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
-            o_ref, lse_ref = flash_attention_fwd_ref(qf, kf, vf, causal=True,
-                                                     window=window)
-            want = (o_ref,) + flash_attention_bwd_ref(
-                qf, kf, vf, o_ref, lse_ref, gf, causal=True, window=window)
-            errs = {n: float((x.float() - y).abs().max()) for n, x, y in
-                    zip(ATTN_OUTS, got, want)}
-            errs["lse"] = float((lse - lse_ref).abs().max())
-            mean = {n: float((x.float() - y).abs().mean()) for n, x, y in
-                    zip(ATTN_OUTS, got, want)}
-            for n, err in errs.items():
-                if dtype == torch.float32:
-                    tol = TOL if n in ("o", "lse") else 5e-4
-                else:
-                    ref = lse_ref if n == "lse" else want[ATTN_OUTS.index(n)]
-                    tol = 3e-2 * (1.0 if n in ("o", "lse") else
-                                  max(1.0, float(ref.abs().max())))
-                check(err <= tol, f"{tag}: {n} max abs err vs plain {err} > "
-                      f"{tol}")
-            emu, planted = {}, {}
+        aops.reset_launch_counts()        # the main path's call
+        got = train()
+        torch.cuda.synchronize()
+        step = dict(aops.LAUNCHES)
+        check(step == {"fwd": 1, "dq": 1, "dkv": 1},
+              f"{tag}: launches {step}, expected one of each")
+        for key in driven:
+            driven[key] += step[key]
+        _, lse = aops.attention_fwd(q, k, v, causal=True, window=window)
+        again = train()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{tag}: two launches are not bitwise equal")
+        qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+        o_ref, lse_ref = flash_attention_fwd_ref(qf, kf, vf, causal=True,
+                                                 window=window)
+        want = (o_ref,) + flash_attention_bwd_ref(
+            qf, kf, vf, o_ref, lse_ref, gf, causal=True, window=window)
+        errs = {n: float((x.float() - y).abs().max()) for n, x, y in
+                zip(ATTN_OUTS, got, want)}
+        errs["lse"] = float((lse - lse_ref).abs().max())
+        mean = {n: float((x.float() - y).abs().mean()) for n, x, y in
+                zip(ATTN_OUTS, got, want)}
+        for n, err in errs.items():
             if dtype == torch.float32:
-                # o and lse with one key tile left out must fail the fp32
-                # bar of 2e-5, gradients with one key tile (or one head's
-                # share of the last key tile) left out that of 5e-4
-                for n, x in _planted_wrong(q, k, v, g, got[0], lse, want,
-                                           window).items():
-                    ref = lse_ref if n == "lse" else want[ATTN_OUTS.index(n)]
-                    tol = TOL if n in ("o", "lse") else 5e-4
-                    planted[n] = float((x.float() - ref).abs().max()) / tol
-                    check(planted[n] > 1.0, f"{tag}: a planted wrong {n} "
-                          f"passes the {tol} bar ({planted[n]:.3f} of it)")
-            if dtype == torch.bfloat16:
-                # P and dS rounded as the kernels do; the backward from the
-                # kernel's own o and lse, so that each kernel is held alone
-                o_emu, lse_emu = flash_attention_fwd_ref(
-                    qf, kf, vf, causal=True, window=window,
-                    round_to=torch.bfloat16)
-                want = (o_emu.to(dtype),) + flash_attention_bwd_ref(
-                    q, k, v, got[0], lse, g, causal=True, window=window,
-                    round_to=torch.bfloat16)
-                for n, x, y in zip(ATTN_OUTS, got, want):
-                    emu[n] = rounding_error_ratio(x, y)
-                    mean[n + " rounding"] = float((x.float() - y.float())
-                                                  .abs().mean())
-                    check(emu[n] <= 1.0, f"{tag}: {n} vs the bf16-rounding "
-                          f"plain version at {emu[n]:.3f} of the bar")
-                emu["lse"] = float((lse - lse_emu).abs().max()) / LSE_EMU_TOL
-                check(emu["lse"] <= 1.0, f"{tag}: lse vs the bf16-rounding "
-                      f"plain version at {emu['lse']:.3f} of the bar")
-                # the same bars must see a kernel that is wrong by a
-                # typical amount in a small part of its output
-                for n, x in _planted_wrong(q, k, v, g, got[0], lse, want,
-                                           window).items():
-                    planted[n] = (float((x - lse_emu).abs().max())
-                                  / LSE_EMU_TOL if n == "lse" else
-                                  rounding_error_ratio(
-                                      x, want[ATTN_OUTS.index(n)]))
-                    check(planted[n] > 1.0, f"{tag}: a planted wrong {n} "
-                          f"passes the bar ({planted[n]:.3f} of it)")
-                del o_emu, lse_emu
-            del want, got, again
-            pairs = b * h * _allowed_pairs(s, True, window)
-            esz = q.element_size()
-            fwd_ops, bwd_ops = 4 * hd * pairs, 10 * hd * pairs
-            fwd_bytes = esz * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * s
-            bwd_bytes = esz * (4 * q.numel() + 4 * k.numel()) + 8 * b * h * s
-            o, lse = aops.attention_fwd(q, k, v, causal=True, window=window)
-            t = {
-                "fwd": device_ms(lambda: aops.attention_fwd(
-                    q, k, v, causal=True, window=window), ATTN_ITERS),
-                "bwd": device_ms(lambda: aops.attention_bwd(
-                    q, k, v, o, lse, g, causal=True, window=window),
-                    ATTN_ITERS),
-                "train": device_ms(train, ATTN_ITERS),
-                "plain_fwd": device_ms(lambda: flash_attention_fwd_ref(
-                    q, k, v, causal=True, window=window), ATTN_ITERS),
-                "plain_bwd": device_ms(lambda: flash_attention_bwd_ref(
-                    q, k, v, o, lse, g, causal=True, window=window),
-                    ATTN_ITERS)}
-            lib = _sdpa_attn(q, k, v, window)
-            lib_err = float((lib.float() - o_ref).abs().max())
-            check(lib_err <= (1e-3 if dtype == torch.float32 else 5e-2),
-                  f"{tag}: the sdpa yardstick disagrees by {lib_err}")
-            qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-            lib_o = _sdpa_attn(qs, ks, vs, window)
+                tol = TOL if n in ("o", "lse") else 5e-4
+            else:
+                ref = lse_ref if n == "lse" else want[ATTN_OUTS.index(n)]
+                tol = 3e-2 * (1.0 if n in ("o", "lse") else
+                              max(1.0, float(ref.abs().max())))
+            check(err <= tol, f"{tag}: {n} max abs err vs plain {err} > "
+                  f"{tol}")
+        emu, planted = {}, {}
+        if dtype == torch.float32:
+            # o and lse with one key tile left out must fail the fp32
+            # bar of 2e-5, gradients with one key tile (or one head's
+            # share of the last key tile) left out that of 5e-4
+            for n, x in _planted_wrong(q, k, v, g, got[0], lse, want,
+                                       window).items():
+                ref = lse_ref if n == "lse" else want[ATTN_OUTS.index(n)]
+                tol = TOL if n in ("o", "lse") else 5e-4
+                planted[n] = float((x.float() - ref).abs().max()) / tol
+                check(planted[n] > 1.0, f"{tag}: a planted wrong {n} "
+                      f"passes the {tol} bar ({planted[n]:.3f} of it)")
+        if dtype == torch.bfloat16:
+            # P and dS rounded as the kernels do; the backward from the
+            # kernel's own o and lse, so that each kernel is held alone
+            o_emu, lse_emu = flash_attention_fwd_ref(
+                qf, kf, vf, causal=True, window=window,
+                round_to=torch.bfloat16)
+            want = (o_emu.to(dtype),) + flash_attention_bwd_ref(
+                q, k, v, got[0], lse, g, causal=True, window=window,
+                round_to=torch.bfloat16)
+            for n, x, y in zip(ATTN_OUTS, got, want):
+                emu[n] = rounding_error_ratio(x, y)
+                mean[n + " rounding"] = float((x.float() - y.float())
+                                              .abs().mean())
+                check(emu[n] <= 1.0, f"{tag}: {n} vs the bf16-rounding "
+                      f"plain version at {emu[n]:.3f} of the bar")
+            emu["lse"] = float((lse - lse_emu).abs().max()) / LSE_EMU_TOL
+            check(emu["lse"] <= 1.0, f"{tag}: lse vs the bf16-rounding "
+                  f"plain version at {emu['lse']:.3f} of the bar")
+            # the same bars must see a kernel that is wrong by a
+            # typical amount in a small part of its output
+            for n, x in _planted_wrong(q, k, v, g, got[0], lse, want,
+                                       window).items():
+                planted[n] = (float((x - lse_emu).abs().max())
+                              / LSE_EMU_TOL if n == "lse" else
+                              rounding_error_ratio(
+                                  x, want[ATTN_OUTS.index(n)]))
+                check(planted[n] > 1.0, f"{tag}: a planted wrong {n} "
+                      f"passes the bar ({planted[n]:.3f} of it)")
+            del o_emu, lse_emu
+        del want, got, again
+        peak = FP32_PEAK if dtype == torch.float32 else BF16_PEAK
+        bound = _attn_bound(name, b, s, h, hkv, hd, window,
+                            q.element_size(), peak)
+        fwd_ops, fwd_bytes = bound["fwd"][4:]
+        bwd_ops = bound["bwd"][4]
+        o, lse = aops.attention_fwd(q, k, v, causal=True, window=window)
+        t = {
+            "fwd": device_ms(lambda: aops.attention_fwd(
+                q, k, v, causal=True, window=window), ATTN_ITERS),
+            "bwd": device_ms(lambda: aops.attention_bwd(
+                q, k, v, o, lse, g, causal=True, window=window),
+                ATTN_ITERS),
+            "train": device_ms(train, ATTN_ITERS),
+            "plain_fwd": device_ms(lambda: flash_attention_fwd_ref(
+                q, k, v, causal=True, window=window), ATTN_ITERS),
+            "plain_bwd": device_ms(lambda: flash_attention_bwd_ref(
+                q, k, v, o, lse, g, causal=True, window=window),
+                ATTN_ITERS)}
+        lib = _sdpa_attn(q, k, v, window)
+        lib_err = float((lib.float() - o_ref).abs().max())
+        check(lib_err <= (1e-3 if dtype == torch.float32 else 5e-2),
+              f"{tag}: the sdpa yardstick disagrees by {lib_err}")
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_o = _sdpa_attn(qs, ks, vs, window)
 
-            def lib_train():
-                qs_, ks_, vs_ = (x.detach().requires_grad_()
-                                 for x in (q, k, v))
-                return torch.autograd.grad(
-                    (_sdpa_attn(qs_, ks_, vs_, window) * g).sum(),
-                    (qs_, ks_, vs_))
+        def lib_train():
+            qs_, ks_, vs_ = (x.detach().requires_grad_()
+                             for x in (q, k, v))
+            return torch.autograd.grad(
+                (_sdpa_attn(qs_, ks_, vs_, window) * g).sum(),
+                (qs_, ks_, vs_))
 
-            t["lib_fwd"] = device_ms(lambda: _sdpa_attn(q, k, v, window),
-                                     ATTN_ITERS)
-            t["lib_bwd"] = device_ms(lambda: torch.autograd.grad(
-                lib_o, (qs, ks, vs), g, retain_graph=True), ATTN_ITERS)
-            t["lib_train"] = device_ms(lib_train, ATTN_ITERS)
-            backend = _sdpa_backend(q, k, v, g, window)
-            del lib, lib_o, qs, ks, vs, o_ref, lse_ref
-            bound = {}
-            peak = FP32_PEAK if dtype == torch.float32 else BF16_PEAK
-            for part, ops_, nbytes in (("fwd", fwd_ops, fwd_bytes),
-                                       ("bwd", bwd_ops, bwd_bytes)):
-                by_bytes = nbytes / memory_rate(name)
-                by_ops = ops_ / peak
-                bound[part] = (max(by_bytes, by_ops) * 1e3,
-                               "bytes" if by_bytes >= by_ops
-                               else "operations", by_ops, by_bytes)
-            print(f"{tag}: B={b} S={s} H={h} Hkv={hkv} hd={hd} causal "
-                  f"window={window}: max abs err vs plain "
-                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-                  + (f"; vs the bf16-rounding plain version, share of the "
-                     "bar: " + ", ".join(f"{n} {e:.4f}" for n, e in
-                                         emu.items()) if emu else "")
-                  + "; planted wrong outputs, share of the bar: " + ", ".join(
-                      f"{n} {e:.2f}" for n, e in planted.items())
-                  + "; mean abs err " + ", ".join(f"{n} {e:.3e}" for n, e in
-                                                  mean.items())
-                  + f"; sdpa yardstick o {lib_err:.3e}; launches fwd 1, dQ "
-                  f"1, dK/dV 1 per call; two launches bitwise equal")
-            print(f"{tag}: median device ms (L2 flushed): kernel fwd "
-                  f"{t['fwd']:.4f}, bwd {t['bwd']:.4f}, fwd+bwd "
-                  f"{t['train']:.4f}; plain fwd {t['plain_fwd']:.4f}, bwd "
-                  f"{t['plain_bwd']:.4f}; sdpa fwd {t['lib_fwd']:.4f}, bwd "
-                  f"{t['lib_bwd']:.4f}, fwd+bwd {t['lib_train']:.4f} "
-                  f"[{backend}]")
-            print(f"{tag}: bound fwd {bound['fwd'][0]:.4f} ms "
-                  f"({fwd_ops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} "
-                  f"TFLOP/s {str(dtype)[6:]}; {fwd_bytes / 1e6:.1f} MB at "
-                  f"{memory_rate(name) / 1e12:.2f} TB/s is "
-                  f"{bound['fwd'][3] * 1e3:.4f}), bwd {bound['bwd'][0]:.4f} "
-                  f"ms ({bwd_ops / 1e9:.2f} GFLOP); kernel at "
-                  f"{bound['fwd'][0] / t['fwd']:.1%} (fwd) and "
-                  f"{bound['bwd'][0] / t['bwd']:.1%} (bwd) of the bound; "
-                  f"sdpa at {bound['fwd'][0] / t['lib_fwd']:.1%} and "
-                  f"{bound['bwd'][0] / t['lib_bwd']:.1%}; kernel / sdpa "
-                  f"{t['fwd'] / t['lib_fwd']:.2f}x (fwd), "
-                  f"{t['bwd'] / t['lib_bwd']:.2f}x (bwd)"
-                  + (f"; fwd {t['fwd'] / PREVIOUS_MS[cfg_name]:.3f}x the "
-                     f"previous design's {PREVIOUS_MS[cfg_name]} ms"
-                     if dtype == torch.float32 else ""))
-            if cfg_name == "qwen3-1.7b" and dtype == torch.bfloat16:
-                for part in ("fwd", "bwd"):
-                    rows[part].update({
-                        "bf16_source": "src/repro_torch/kernels/"
-                                       "flash_attention/csrc/"
-                                       "flash_attention_sm90.cu",
-                        "bf16_ms": t[part], "bf16_bound_ms": bound[part][0],
-                        "bf16_library_ms": t[f"lib_{part}"],
-                        "bf16_max_abs_err": (
-                            max(errs["o"], errs["lse"]) if part == "fwd"
-                            else max(errs["dq"], errs["dk"], errs["dv"]))})
-            if cfg_name == "qwen3-1.7b" and dtype == torch.float32:
-                src = "src/repro_torch/kernels/flash_attention/csrc/" \
-                      "flash_attention.cu"
-                rows["fwd"] = {
-                    "name": "flash_attention_fwd", "route": "cuda",
-                    "source": src,
-                    "replaces": "src/repro/kernels/flash_attention/kernel.py"
-                                ":82",
-                    "max_abs_err": max(errs["o"], errs["lse"]),
-                    "ms": t["fwd"], "plain_ms": t["plain_fwd"],
-                    "bound_ms": bound["fwd"][0],
-                    "bound_by": bound["fwd"][1], "library_ms": t["lib_fwd"]}
-                rows["bwd"] = {
-                    "name": "flash_attention_bwd", "route": "cuda",
-                    "source": src,
-                    "replaces": "src/repro/kernels/flash_attention/kernel.py"
-                                ":231",
-                    "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
-                    "ms": t["bwd"], "plain_ms": t["plain_bwd"],
-                    "bound_ms": bound["bwd"][0],
-                    "bound_by": bound["bwd"][1], "library_ms": t["lib_bwd"]}
-            del q, k, v, g, o, lse
-            torch.cuda.empty_cache()
-    check(driven["fwd"] == 2 * len(_attn_configs()),
+        t["lib_fwd"] = device_ms(lambda: _sdpa_attn(q, k, v, window),
+                                 ATTN_ITERS)
+        t["lib_bwd"] = device_ms(lambda: torch.autograd.grad(
+            lib_o, (qs, ks, vs), g, retain_graph=True), ATTN_ITERS)
+        t["lib_train"] = device_ms(lib_train, ATTN_ITERS)
+        backend = _sdpa_backend(q, k, v, g, window)
+        del lib, lib_o, qs, ks, vs, o_ref, lse_ref
+        print(f"{tag}: B={b} S={s} H={h} Hkv={hkv} hd={hd} causal "
+              f"window={window}: max abs err vs plain "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + (f"; vs the bf16-rounding plain version, share of the "
+                 "bar: " + ", ".join(f"{n} {e:.4f}" for n, e in
+                                     emu.items()) if emu else "")
+              + "; planted wrong outputs, share of the bar: " + ", ".join(
+                  f"{n} {e:.2f}" for n, e in planted.items())
+              + "; mean abs err " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                              mean.items())
+              + f"; sdpa yardstick o {lib_err:.3e}; launches fwd 1, dQ "
+              f"1, dK/dV 1 per call; two launches bitwise equal")
+        print(f"{tag}: median device ms (L2 flushed): kernel fwd "
+              f"{t['fwd']:.4f}, bwd {t['bwd']:.4f}, fwd+bwd "
+              f"{t['train']:.4f}"
+              + (" (attend and the projection)" if via_attend else "")
+              + f"; plain fwd {t['plain_fwd']:.4f}, bwd "
+              f"{t['plain_bwd']:.4f}; sdpa fwd {t['lib_fwd']:.4f}, bwd "
+              f"{t['lib_bwd']:.4f}, fwd+bwd {t['lib_train']:.4f} "
+              f"[{backend}]")
+        print(f"{tag}: bound fwd {bound['fwd'][0]:.4f} ms "
+              f"({fwd_ops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} "
+              f"TFLOP/s {str(dtype)[6:]}; {fwd_bytes / 1e6:.1f} MB at "
+              f"{memory_rate(name) / 1e12:.2f} TB/s is "
+              f"{bound['fwd'][3] * 1e3:.4f}), bwd {bound['bwd'][0]:.4f} "
+              f"ms ({bwd_ops / 1e9:.2f} GFLOP); kernel at "
+              f"{bound['fwd'][0] / t['fwd']:.1%} (fwd) and "
+              f"{bound['bwd'][0] / t['bwd']:.1%} (bwd) of the bound; "
+              f"sdpa at {bound['fwd'][0] / t['lib_fwd']:.1%} and "
+              f"{bound['bwd'][0] / t['lib_bwd']:.1%}; kernel / sdpa "
+              f"{t['fwd'] / t['lib_fwd']:.2f}x (fwd), "
+              f"{t['bwd'] / t['lib_bwd']:.2f}x (bwd)"
+              + (f"; fwd {t['fwd'] / PREVIOUS_MS[cfg_name]:.3f}x the "
+                 f"previous design's {PREVIOUS_MS[cfg_name]} ms"
+                 if dtype == torch.float32 and not via_attend else ""))
+        if via_attend:
+            zoo[cfg_name] = dict(t, errs=errs, bound=bound)
+        if cfg_name == "qwen3-1.7b" and dtype == torch.bfloat16:
+            for part in ("fwd", "bwd"):
+                rows[part].update({
+                    "bf16_source": "src/repro_torch/kernels/"
+                                   "flash_attention/csrc/"
+                                   "flash_attention_sm90.cu",
+                    "bf16_ms": t[part], "bf16_bound_ms": bound[part][0],
+                    "bf16_library_ms": t[f"lib_{part}"],
+                    "bf16_max_abs_err": (
+                        max(errs["o"], errs["lse"]) if part == "fwd"
+                        else max(errs["dq"], errs["dk"], errs["dv"]))})
+        if cfg_name == "qwen3-1.7b" and dtype == torch.float32:
+            src = "src/repro_torch/kernels/flash_attention/csrc/" \
+                  "flash_attention.cu"
+            rows["fwd"] = {
+                "name": "flash_attention_fwd", "route": "cuda",
+                "source": src,
+                "replaces": "src/repro/kernels/flash_attention/kernel.py"
+                            ":82",
+                "max_abs_err": max(errs["o"], errs["lse"]),
+                "ms": t["fwd"], "plain_ms": t["plain_fwd"],
+                "bound_ms": bound["fwd"][0],
+                "bound_by": bound["fwd"][1], "library_ms": t["lib_fwd"]}
+            rows["bwd"] = {
+                "name": "flash_attention_bwd", "route": "cuda",
+                "source": src,
+                "replaces": "src/repro/kernels/flash_attention/kernel.py"
+                            ":231",
+                "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
+                "ms": t["bwd"], "plain_ms": t["plain_bwd"],
+                "bound_ms": bound["bwd"][0],
+                "bound_by": bound["bwd"][1], "library_ms": t["lib_bwd"]}
+        del q, k, v, g, o, lse
+        torch.cuda.empty_cache()
+    check(driven["fwd"] == len(cases),
           f"[attention-kernels] launches {driven}")
     rows["fwd"]["launches"] = driven["fwd"]
     rows["bwd"]["launches"] = driven["dq"] + driven["dkv"]
-    return rows["fwd"], rows["bwd"]
+    return rows["fwd"], rows["bwd"], zoo
 
 
 def _sdpa_decode(q, k, v, valid):
@@ -3097,6 +3199,520 @@ def phase_engine_resume(dev, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the zoo: the federated round and the training step of the zoo LMs at full
+# width, with kernels K5/K6 inside ``attend`` (phases 29-33)
+# ---------------------------------------------------------------------------
+
+ZOO_ARCH = "qwen3-1.7b"
+ZOO_PARAMS = 1_720_574_976        # the reference's init at full width
+ZOO_CLIENTS, ZOO_STEPS, ZOO_ROUNDS = 2, 2, 2
+ZOO_LR = 2e-3                     # launch/train.py's default
+ZOO_PARITY_TOL = 1e-6             # card vs CPU params after one SGD step
+# the parity round's SGD rate: at the launcher's 2e-3 the first layer's wk
+# moves by under 1e-5, too little for a 1e-6 bar to see a wrong gradient
+ZOO_PARITY_LR = 0.1
+GEMMA_MACRO_S = 2048
+# device kernels of the zoo path, by the names they launch under
+ZOO_KERNELS = {"K1": ("masked_agg_kernel",),
+               "K2": ("quantize_pack_group_kernel",),
+               "K5": ("fwd_kernel",), "K6": ("dq_kernel", "dkv_kernel")}
+
+
+def _free_card(tag):
+    """Collect cyclic garbage (a Federation and its hooks) and return the
+    cached blocks: a full-width zoo round needs most of the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+          f"allocated on the card")
+
+
+def _zoo_counts():
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.masked_agg import ops as kops
+    return {"K1": kops.masked_agg.launches,
+            "K2": qops.quantize_pack_group.launches,
+            "K5": aops.LAUNCHES["fwd"], "K6 dq": aops.LAUNCHES["dq"],
+            "K6 dkv": aops.LAUNCHES["dkv"]}
+
+
+def _zoo_reset():
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.masked_agg import ops as kops
+    for mod in (qops, aops, kops):
+        mod.reset_launch_counts()
+
+
+def _kernel_events(prof):
+    """Device kernel events of a profile in start order: (name, us)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.events() if e.device_type == cuda]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in evs]
+
+
+def _in_run(events):
+    """Per kernel kind: launches and device ms per launch (K6: a dQ and a
+    dK/dV launch per call, ms per call), the device's busy ms and the
+    matmul (cuBLAS gemm) ms."""
+    out = {}
+    for kind, names in ZOO_KERNELS.items():
+        us = [t for n, t in events if any(k in n for k in names)]
+        calls = len(us) // len(names)
+        out[kind] = {"launches": len(us),
+                     "ms": sum(us) / max(calls, 1) / 1e3,
+                     "total_ms": sum(us) / 1e3}
+    out["busy_ms"] = sum(t for _, t in events) / 1e3
+    out["gemm_ms"] = sum(t for n, t in events if "gemm" in n.lower()) / 1e3
+    return out
+
+
+def _zoo_fed(dev, cfg, **fl_kw):
+    """``Federation.from_config`` on a zoo config as the launcher wires it
+    (``lm_batch`` data by ``iid_partition``), with the pod step's loss
+    keywords (chunked attention, remat): one sequence of ``train_4k``'s
+    length per client and local step."""
+    from repro_torch.core import FLConfig, Federation
+    from repro_torch.data import FederatedLoader, iid_partition, lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import SHAPES
+
+    s = SHAPES["train_4k"].seq_len
+    n = ZOO_CLIENTS * ZOO_STEPS * (ZOO_ROUNDS + 1)
+    data = lm_batch(n, s, cfg.vocab, key=0)
+    shards = iid_partition(n, ZOO_CLIENTS, key=1)
+    loader = FederatedLoader([{k: v[i] for k, v in data.items()}
+                              for i in shards], batch_size=1,
+                             steps_per_round=ZOO_STEPS, key=0)
+    fl = FLConfig(n_clients=ZOO_CLIENTS, train_fraction=0.5,
+                  strategy="uniform", topology="hub", lr=ZOO_LR, **fl_kw)
+    return Federation.from_config(cfg, fl, data=loader, device=dev,
+                                  loss_kwargs=steps.default_loss_kwargs(cfg))
+
+
+class ZooFrozenCheck:
+    """Server hook: every client's frozen units ship exact zeros, per
+    macro row of a stacked leaf; on the packed path every slot of a unit
+    the client did not train (``valid`` 0) is exactly zero."""
+
+    def __init__(self, assign, fl):
+        self.assign, self.fl = assign, fl
+        self.checked = self.moved = 0
+
+    def on_round_start(self, server, round_idx, weights):
+        return None
+
+    def on_round_end(self, server, record, metrics):
+        from repro_torch.core.masking import cohort_slot_plans, leaf_unit_ids
+        sel, deltas = metrics["sel"], metrics["deltas"]
+        valid = None
+        if self.fl.packed:
+            like = {p: x.to("meta") for p, x in server.params.items()}
+            _, valid = cohort_slot_plans(
+                self.assign, sel, self.fl.resolve_n_slots(
+                    self.assign.n_units), like)
+        for p, d in deltas.items():
+            lu = self.assign.leaf_units[p]
+            if lu.kind == "scalar":
+                peak = d.flatten(1).abs().amax(1).cpu()[:, None]   # (C, 1)
+                keep = sel[:, [lu.base]] if valid is None \
+                    else valid[p].reshape(-1, 1)
+            else:
+                peak = d.flatten(2).abs().amax(2).cpu()            # (C, L)
+                keep = sel[:, leaf_unit_ids(lu, server.params[p].shape)] \
+                    if valid is None else valid[p]
+            frozen = keep == 0
+            check(bool((peak[frozen] == 0).all()),
+                  f"round {record.round}: {p} has a non-zero delta on a "
+                  f"frozen unit")
+            self.checked += int(frozen.sum())
+            self.moved += int((peak[~frozen] > 0).sum())
+
+    def on_fit_end(self, server, history):
+        pass
+
+
+def _zoo_rounds(dev, smi, tag, packed):
+    """2 rounds of the qwen3-1.7b zoo federation counted, then one more
+    under ``torch.profiler`` for the kernels' in-run device times."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.comm import table4_row
+
+    cfg = get_config(ZOO_ARCH)
+    kw = dict(packed=True, codec="qint8") if packed else {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fed = _zoo_fed(dev, cfg, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in fed.params.values())
+    check(n_params == ZOO_PARAMS, f"{tag}: {n_params} params, expected "
+          f"{ZOO_PARAMS}")
+    n_units = cfg.n_layers + 2
+    check(fed.assign.n_units == n_units and
+          fed.fl.resolve_n_train(n_units) == n_units // 2,
+          f"{tag}: units {fed.assign.n_units}")
+    check(packed or fed.fl.resolve_fused_agg(fed.device),
+          f"{tag}: fused_agg did not resolve on")
+    frozen, cap = ZooFrozenCheck(fed.assign, fed.fl), Capture()
+    fed.server.add_hook(frozen)
+    if packed:
+        fed.server.add_hook(cap)
+    _zoo_reset()
+    secs = []
+    for _ in range(ZOO_ROUNDS):
+        t0 = time.perf_counter()
+        fed.fit(1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = _zoo_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = fed.history
+    check(all(math.isfinite(r.loss) for r in hist), f"{tag}: non-finite loss")
+    steps_ = ZOO_ROUNDS * ZOO_CLIENTS * ZOO_STEPS
+    n_layers = cfg.n_layers
+    # every local step: one K5 per layer in the forward and one in its
+    # remat recompute; K6 (dQ, dK/dV) once per layer in the backward, which
+    # reaches layer 0 on both paths (module docstring, phase 29)
+    want = {"K1": 0 if packed else ZOO_ROUNDS,
+            "K2": ZOO_ROUNDS if packed else 0,
+            "K5": 2 * n_layers * steps_, "K6 dq": n_layers * steps_,
+            "K6 dkv": n_layers * steps_}
+    check(counts == want, f"{tag}: launches {counts}, predicted {want}")
+    check(frozen.checked > 0 and frozen.moved > 0,
+          f"{tag}: frozen {frozen.checked}, moved {frozen.moved}")
+    if packed:
+        wire = _check_wire_bytes(fed, cap, tag)
+        cap.rounds.clear()
+    else:
+        summ = fed.comm_summary()
+        t4 = table4_row(fed.assign, {p: x.to("meta") for p, x in
+                                     fed.params.items()},
+                        np.stack(fed.server.sel_history))
+        check(all(summ[k] == v for k, v in t4.items()),
+              f"{tag}: comm_summary {summ} != table4_row {t4}")
+        wire = [(r.uplink_bytes, r.uplink_bytes) for r in hist]
+    for r, s, (billed, fp32) in zip(hist, secs, wire):
+        print(f"[{tag}] round {r.round}: loss {r.loss:.4f} {s:.3f} s wall "
+              f"({r.seconds:.3f} s in the server) uplink {billed:.0f} B"
+              + (f" (qint8; fp32 on the same selections {fp32:.0f} B)"
+                 if packed else ""))
+    print(f"[{tag}] {cfg.name} full width ({n_params:,} fp32 params, "
+          f"{n_units} units, {n_units // 2} trained a client), "
+          f"{ZOO_CLIENTS} clients x "
+          f"{ZOO_STEPS} local steps of 1 x 4,096 tokens, Adam lr {ZOO_LR}: "
+          f"built in {build_s:.2f} s; launches {counts} == predicted; "
+          f"frozen (client, unit row) deltas exactly zero: {frozen.checked},"
+          f" trained rows that moved: {frozen.moved}; peak memory "
+          f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB"
+          f" on {smi}")
+    # one more round under the profiler: the kernels' device time in-run
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    _zoo_reset()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fed.fit(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    run = _in_run(_kernel_events(prof))
+    del prof
+    run["wall_ms"] = wall * 1e3
+    run["busy_share"] = run["busy_ms"] / run["wall_ms"]
+    if packed:
+        # K2's work in that round: every client's slot rows of every leaf
+        # (x and u read as fp32, int8 codes and an fp32 scale a row written)
+        deltas = cap.rounds[-1][1]["deltas"]
+        n = sum(d.numel() for d in deltas.values())
+        rows = sum(d.shape[0] * (d.shape[1] if fed.assign.leaf_units[p]
+                                 .kind == "stacked" else 1)
+                   for p, d in deltas.items())
+        run["K2"]["elements"], run["K2"]["bytes"] = n, 9 * n + 4 * rows
+        del deltas
+    plan_rows = None
+    if not packed:
+        from repro_torch.kernels.masked_agg import ops as kops
+        plan_rows = kops.build_agg_plan(fed.assign, fed.params).n_rows
+    print(f"[{tag}] profiled round: wall {wall:.3f} s, device busy "
+          f"{run['busy_ms']:.1f} ms ({run['busy_share']:.1%}), cuBLAS gemm "
+          f"{run['gemm_ms']:.1f} ms; in-run device ms: "
+          + ", ".join(f"{k} {run[k]['launches']} launches "
+                      f"{run[k]['total_ms']:.2f} ms ({run[k]['ms']:.4f} a "
+                      f"{'call' if k == 'K6' else 'launch'})"
+                      for k in ZOO_KERNELS if run[k]["launches"]))
+    del fed, frozen, cap
+    _free_card(tag)
+    return counts, run, plan_rows, peak, secs
+
+
+def phase_zoo_round(dev, smi):
+    return _zoo_rounds(dev, smi, "zoo-round", packed=False)
+
+
+def phase_zoo_packed(dev, smi):
+    return _zoo_rounds(dev, smi, "zoo-packed", packed=True)
+
+
+def phase_zoo_train_step(dev, smi):
+    """gemma3-12b at full width cut to one macro block (6 of 48 layers:
+    five local layers of window 1,024 and one global), ``make_train_step``
+    at S = 2,048, batch 1, 2 steps: K5/K6 with the window and without."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+    from repro_torch.optim.masked import adam_init
+
+    full = get_config("gemma3-12b")
+    cfg = full.replace(n_layers=full.global_every)
+    tag = "zoo-train-step"
+    torch.cuda.reset_peak_memory_stats()
+    params = get_model(cfg).init_params(torch.Generator(device=dev)
+                                        .manual_seed(0))
+    n_params = sum(x.numel() for x in params.values())
+    opt = adam_init(params)
+    step = steps.make_train_step(cfg, lr=ZOO_LR)
+    data = lm_batch(3, GEMMA_MACRO_S, cfg.vocab, key=2)
+    batches = [{k: torch.as_tensor(v[i:i + 1], device=dev)
+                for k, v in data.items()} for i in range(3)]
+    _zoo_reset()
+    losses, secs = [], []
+    for b in batches[:2]:
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, b)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+    counts = _zoo_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"K1": 0, "K2": 0, "K5": 2 * 2 * cfg.n_layers,
+            "K6 dq": 2 * cfg.n_layers, "K6 dkv": 2 * cfg.n_layers}
+    check(counts == want, f"{tag}: launches {counts}, predicted {want}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batches[2])
+        float(loss)
+        wall = time.perf_counter() - t0
+    events = _kernel_events(prof)
+    del prof
+    run = _in_run(events)
+    run["wall_ms"] = wall * 1e3
+    run["busy_share"] = run["busy_ms"] / run["wall_ms"]
+    # the forward and its recompute launch K5 layer by layer (5 local, then
+    # the global one); the backward runs K6 from the global layer down
+    fwd = [t for n, t in events if "fwd_kernel" in n]
+    dq = [t for n, t in events if "dq_kernel" in n]
+    dkv = [t for n, t in events if "dkv_kernel" in n]
+    n = cfg.n_layers
+    check(len(fwd) == 2 * n and len(dq) == len(dkv) == n,
+          f"{tag}: profiled launches fwd {len(fwd)}, dq {len(dq)}, dkv "
+          f"{len(dkv)}")
+    fwd, dq, dkv = fwd or [0.0] * 2 * n, dq or [0.0] * n, dkv or [0.0] * n
+    run["K5 local ms"] = float(np.mean([t for i, t in enumerate(fwd)
+                                        if i % n != n - 1])) / 1e3
+    run["K5 global ms"] = float(np.mean(fwd[n - 1::n])) / 1e3
+    bwd = [a + b for a, b in zip(dq, dkv)]
+    run["K6 global ms"] = bwd[0] / 1e3
+    run["K6 local ms"] = float(np.mean(bwd[1:])) / 1e3
+    print(f"[{tag}] {cfg.name} at full width cut to one macro block "
+          f"({cfg.n_layers} of {full.n_layers} layers: window "
+          f"{cfg.sliding_window} x{cfg.n_layers - 1}, global x1; "
+          f"{n_params:,} params), "
+          f"make_train_step at S={GEMMA_MACRO_S}, batch 1, Adam lr {ZOO_LR}:"
+          f" losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + ", step seconds " + ", ".join(f"{x:.3f}" for x in secs)
+          + f"; launches {counts} == predicted; peak memory "
+          f"{peak / 1e9:.2f} GB")
+    print(f"[{tag}] profiled step: wall {wall:.3f} s, device busy "
+          f"{run['busy_share']:.1%}, gemm {run['gemm_ms']:.1f} ms; K5 "
+          f"{run['K5 local ms']:.4f} ms a local launch, "
+          f"{run['K5 global ms']:.4f} ms a global one; K6 "
+          f"{run['K6 local ms']:.4f} / {run['K6 global ms']:.4f} ms a call")
+    del params, opt, step, batches
+    _free_card(tag)
+    return counts, run, peak, secs
+
+
+def phase_zoo_parity(dev):
+    """qwen3-1.7b at full width cut to 2 layers, one hub round of SGD at
+    S = 1,024 (the chunked route), 2 clients, the same params, batches
+    and replayed selections on the card (K5/K6, K1) and on the host CPU
+    (plain versions)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import FLConfig, Replay, build_round_step
+    from repro_torch.core.masking import build_units_zoo
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.masked_agg import ops as kops
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+
+    cfg = get_config(ZOO_ARCH).replace(n_layers=2)
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(4))
+    assign = build_units_zoo(cfg, params)
+    s, c = 1024, 2
+    data = lm_batch(c, s, cfg.vocab, key=5)
+    batches = {k: v.reshape(c, 1, 1, s) for k, v in data.items()}
+    # units embed, layer0, layer1, head: each client trains n_train_units
+    # of them, and every layer is trained by some client
+    n_train = 2
+    sel = np.asarray([[0, 1, 1, 0], [1, 1, 0, 0]], np.float32)
+    check(bool((sel.sum(1) == n_train).all()) and
+          bool(sel[:, 1:3].any(0).all()), f"zoo-parity: selection {sel}")
+    out, secs, losses = {}, {}, {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        fl = FLConfig(n_clients=c, n_train_units=n_train, optimizer="sgd",
+                      lr=ZOO_PARITY_LR)
+        step = build_round_step(model.loss_fn, assign, fl,
+                                steps.default_loss_kwargs(cfg),
+                                strategy=Replay([sel]), device=d)
+        _zoo_reset()
+        t0 = time.perf_counter()
+        new, m = step({p: v.to(d) for p, v in params.items()},
+                      {k: torch.as_tensor(v, device=d)
+                       for k, v in batches.items()}, torch.ones(c), None)
+        losses[side] = float(m["loss_mean"])
+        secs[side] = time.perf_counter() - t0
+        if side == "card":
+            check(aops.LAUNCHES["fwd"] > 0 and kops.masked_agg.launches == 1,
+                  f"zoo-parity: card launches {aops.LAUNCHES}, K1 "
+                  f"{kops.masked_agg.launches}")
+            card_counts = dict(aops.LAUNCHES)
+        out[side] = {p: v.cpu() for p, v in new.items()}
+        del new, m
+    err = {p: float((out["card"][p] - out["cpu"][p]).abs().max())
+           for p in params}
+    moved = {p: float((out["cpu"][p] - params[p]).abs().max())
+             for p in params}
+    worst = max(err, key=err.get)
+    # where a wrong K6 dK/dV (or dQ) lands first: each macro row of the
+    # attention projections must move by well over the tolerance, and its
+    # card-vs-CPU difference is read against its own move
+    rows = {}
+    for p in params:
+        if p.rsplit("/", 1)[-1] in ("wq", "wk", "wv", "wo") and "/attn/" in p:
+            for r in range(params[p].shape[0]):
+                mv = float((out["cpu"][p][r] - params[p][r]).abs().max())
+                er = float((out["card"][p][r] - out["cpu"][p][r]).abs().max())
+                rows[f"{p}[{r}]"] = (mv, er)
+    least = min(rows, key=lambda r: rows[r][0])
+    rel = max(rows, key=lambda r: rows[r][1] / max(rows[r][0], 1e-30))
+    print(f"[zoo-parity] {cfg.name} at full width cut to 2 layers, S={s}, "
+          f"{c} clients, one SGD step at lr {ZOO_PARITY_LR}, selection "
+          f"{sel.tolist()}"
+          f": card (K5/K6 {card_counts}, K1) vs host CPU (plain) max abs err "
+          f"{err[worst]:.3e} at {worst} (tol {ZOO_PARITY_TOL}; the round "
+          f"moved params by up to {max(moved.values()):.3e}); attention "
+          f"projection rows: least move {rows[least][0]:.3e} at {least}, "
+          f"largest difference / move {rows[rel][1] / rows[rel][0]:.3e} at "
+          f"{rel}; per row (move, difference): " + ", ".join(
+              f"{r} {mv:.3e} {er:.3e}" for r, (mv, er) in rows.items())
+          + f"; loss card "
+          f"{losses['card']:.6f} CPU {losses['cpu']:.6f}; seconds card "
+          f"{secs['card']:.2f}, CPU {secs['cpu']:.2f}")
+    check(err[worst] <= ZOO_PARITY_TOL,
+          f"zoo-parity {worst}: card vs CPU max abs err {err[worst]} > "
+          f"{ZOO_PARITY_TOL}")
+    check(len(rows) == 4 * cfg.n_layers, f"zoo-parity: rows {sorted(rows)}")
+    for r, (mv, _) in rows.items():
+        check(mv >= 10 * ZOO_PARITY_TOL, f"zoo-parity {r}: moved by {mv}, "
+              f"under 10 x {ZOO_PARITY_TOL}")
+    del out
+    _free_card("zoo-parity")
+
+
+def phase_train_launcher():
+    """The training launcher as a user runs it, on the card at full width."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           ZOO_ARCH, "--clients", "2", "--rounds", "1", "--batch-size", "1",
+           "--steps-per-round", "1", "--seq", "64"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.perf_counter()
+    got = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         env=env, cwd=root)
+    secs = time.perf_counter() - t0
+    check(got.returncode == 0, f"[train-launcher] exit {got.returncode}: "
+          f"{got.stderr[-3000:]}")
+    out = got.stdout
+    header = next((x for x in out.splitlines() if x.startswith("arch=")), "")
+    check(header == f"arch={ZOO_ARCH} reduced=False units=30 train=15 "
+          f"clients=2 topology=hub", f"[train-launcher] header {header!r}")
+    check("comm summary:" in out, "[train-launcher] no comm summary")
+    summ = json.loads(out[out.index("comm summary:\n") + 14:
+                          out.rindex("}") + 1])
+    check(summ["avg_uplink_bytes"] > 0 and 0 < summ["reduction_vs_full"] < 1,
+          f"[train-launcher] comm summary {summ}")
+    print(f"[train-launcher] {' '.join(cmd[1:])}: exit 0 in {secs:.1f} s; "
+          f"{header}; " + " | ".join(x.strip() for x in out.splitlines()
+                                     if x.startswith("  round"))
+          + f"; comm summary {json.dumps(summ)}")
+
+
+def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
+                    attn_zoo):
+    """The zoo call sites' numbers for the kernels line: in-run device
+    ms beside the bound and, for K5/K6, ``[attention-kernels]``' readings
+    at the same shapes (alone, plain, SDPA, max abs err)."""
+    name = torch.cuda.get_device_name(0)
+    rows = {"K1": {}, "K2": {}, "K5": {}, "K6": {}}
+    k1_bytes = (ZOO_CLIENTS + 2) * plan_rows * 2048 * 4 \
+        + plan_rows * ZOO_CLIENTS * 4
+    rows["K1"]["hub qwen3-1.7b"] = {
+        "T": plan_rows, "C": ZOO_CLIENTS, "in_run_ms": dense_run["K1"]["ms"],
+        "bound_ms": k1_bytes / memory_rate(name) * 1e3, "bound_by": "bytes"}
+    k2_bytes = packed_run["K2"]["bytes"]
+    rows["K2"]["hub qwen3-1.7b packed qint8"] = {
+        "elements": packed_run["K2"]["elements"],
+        "in_run_ms": packed_run["K2"]["ms"],
+        "bound_ms": k2_bytes / memory_rate(name) * 1e3, "bound_by": "bytes"}
+    shapes = [(f"{ZOO_ARCH} B=1 S={TRAIN_S}", dense_run["K5"]["ms"],
+               dense_run["K6"]["ms"]),
+              (f"gemma3-12b local B=1 S={GEMMA_MACRO_S}",
+               gemma_run["K5 local ms"], gemma_run["K6 local ms"]),
+              (f"gemma3-12b global B=1 S={GEMMA_MACRO_S}",
+               gemma_run["K5 global ms"], gemma_run["K6 global ms"])]
+    for label, k5_ms, k6_ms in shapes:
+        t = attn_zoo[label]
+        bound = t["bound"]
+        for kind, part, in_run in (("K5", "fwd", k5_ms), ("K6", "bwd", k6_ms)):
+            outs = ("o", "lse") if part == "fwd" else ("dq", "dk", "dv")
+            rows[kind][label] = {
+                "in_run_ms": in_run, "ms": t[part],
+                "plain_ms": t[f"plain_{part}"], "bound_ms": bound[part][0],
+                "bound_by": bound[part][1],
+                "library_ms": t[f"lib_{part}"],
+                "max_abs_err": max(t["errs"][n] for n in outs)}
+            print(f"[zoo-kernels] {kind} {label}: in-run {in_run:.4f} ms a "
+                  f"call, alone {t[part]:.4f} ms, plain "
+                  f"{t[f'plain_{part}']:.4f} ms, sdpa fp32 "
+                  f"{t[f'lib_{part}']:.4f} ms, bound {bound[part][0]:.4f} "
+                  f"ms ({bound[part][1]}); kernel at "
+                  f"{bound[part][0] / in_run if in_run else math.nan:.1%} "
+                  f"of the bound in-run")
+    k1 = rows["K1"]["hub qwen3-1.7b"]
+    print(f"[zoo-kernels] K1 hub qwen3-1.7b plan T={plan_rows} C="
+          f"{ZOO_CLIENTS}: in-run {k1['in_run_ms']:.4f} ms, bound "
+          f"{k1['bound_ms']:.4f} ms ({k1_bytes / 1e9:.2f} GB at "
+          f"{memory_rate(name) / 1e12:.2f} TB/s) on {smi}")
+    k2 = rows["K2"]["hub qwen3-1.7b packed qint8"]
+    print(f"[zoo-kernels] K2 hub qwen3-1.7b packed qint8, one grouped launch "
+          f"over {k2['elements']:,} slot elements: in-run "
+          f"{k2['in_run_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
+          f"({k2_bytes / 1e9:.2f} GB), kernel at "
+          f"{k2['bound_ms'] / k2['in_run_ms'] if k2['in_run_ms'] else math.nan:.1%}"
+          f" of the bound")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3142,19 +3758,58 @@ def main() -> int:
     del hier
     torch.cuda.empty_cache()
     k1_paths.update({"hierarchical vgg16 packed qint8": 0, "gossip vgg16": 0})
-    for k, paths in ((k1, k1_paths), (k2, k2_paths)):
-        k["launches"] = sum(paths.values())
-        k["launches_by_path"] = paths
     k3 = phase_decode_kernel(dev)
     w, k3["launches"] = phase_serve(dev)
     phase_serve_parity(w)
     del w                                 # free qwen3 before rwkv6's build
     torch.cuda.empty_cache()
-    k5, k6 = phase_attention_kernels(dev)
+    k5, k6, attn_zoo = phase_attention_kernels(dev)
     k4 = phase_decode_dense(dev)
     k7 = phase_wkv_kernel(dev)
     w, k7["launches"] = phase_serve_rwkv6(dev)
     phase_serve_rwkv6_parity(w)
+    del w
+    _free_card("zoo")
+    # the zoo: the round and the train step of the zoo LMs (K1, K2, K5, K6)
+    walls = {}
+
+    def timed(tag, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[tag] = time.perf_counter() - t0
+        return out
+
+    dense, dense_run, plan_rows, _, _ = timed("zoo-round", phase_zoo_round,
+                                              dev, smi)
+    packed, packed_run, _, _, _ = timed("zoo-packed", phase_zoo_packed, dev,
+                                        smi)
+    gemma, gemma_run, _, _ = timed("zoo-train-step", phase_zoo_train_step,
+                                   dev, smi)
+    timed("zoo-parity", phase_zoo_parity, dev)
+    timed("train-launcher", phase_train_launcher)
+    print("[zoo] wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                             walls.items())
+          + f"; phases 29-33 {sum(walls.values()):.1f}")
+    zoo = zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
+                          attn_zoo)
+    k1_paths["hub qwen3-1.7b"] = dense["K1"]
+    k1_paths["hub qwen3-1.7b packed qint8"] = packed["K1"]
+    k2_paths["hub qwen3-1.7b packed qint8"] = packed["K2"]
+    k2_paths["hub qwen3-1.7b"] = dense["K2"]
+    for k, paths in ((k1, k1_paths), (k2, k2_paths)):
+        k["launches"] = sum(paths.values())
+        k["launches_by_path"] = paths
+    zoo_paths = (("hub qwen3-1.7b", dense), ("hub qwen3-1.7b packed qint8",
+                                             packed),
+                 ("train step gemma3-12b macro block", gemma))
+    for k, keys in ((k5, ("K5",)), (k6, ("K6 dq", "K6 dkv"))):
+        paths = {p: sum(c[x] for x in keys) for p, c in zoo_paths}
+        paths["attention-kernels (direct calls)"] = k["launches"]
+        k["launches"] = sum(v for p, v in paths.items()
+                            if not p.startswith("attention-kernels"))
+        k["launches_by_path"] = paths
+    k1["zoo"], k2["zoo"], k5["zoo"], k6["zoo"] = (
+        zoo["K1"], zoo["K2"], zoo["K5"], zoo["K6"])
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,11 @@ reference's ``configs/base.py`` (the port imports nothing of ``repro``).
 
 Every architecture the port registers gets one module in this package
 defining a module-level ``CONFIG: ArchConfig``.  Configs are registered
-by name and selectable from the serving launcher via ``--arch <id>``.
-The port registers qwen3-1.7b (served at full width on the card) and
-gemma3-12b (used only at ``reduced()`` size, for the sliding-window ring
-branch of the decode step).
+by name and selectable from the serving and training launchers via
+``--arch <id>``.  The port registers the dense family's qwen3-1.7b,
+gemma3-12b, qwen2.5-14b (QKV bias) and stablelm-3b (LayerNorm, 25%
+rotary), and the ssm family's rwkv6-3b; the other families' configs
+wait for their models.
 
 ``ArchConfig.reduced()`` returns the smoke-test variant (≤2 layers,
 d_model ≤ 512, ≤4 experts) of the same family, used by tests and CPU
@@ -170,4 +171,5 @@ def list_configs() -> Tuple[str, ...]:
 
 def _ensure_loaded():
     # import side-effect registration of every config module the port has
-    from . import gemma3_12b, qwen3_1_7b, rwkv6_3b  # noqa: F401
+    from . import (  # noqa: F401
+        gemma3_12b, qwen2_5_14b, qwen3_1_7b, rwkv6_3b, stablelm_3b)

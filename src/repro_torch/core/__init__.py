@@ -5,7 +5,8 @@ strategies — pluggable layer-selection strategies + registry (Alg. 2
 topology   — pluggable federation topologies + registry (hub,
              hierarchical, gossip)
 freezing   — functional wrappers over the strategy registry
-masking    — freeze units over param trees, mask trees, slot packing
+masking    — freeze units over param trees (paper models and the zoo),
+             mask trees, slot packing
 aggregation— FedAvg / participation-weighted masked FedAvg (dense + packed,
              flat and two-stage)
 client     — ClientUpdate (Alg. 2): masked and packed local training
@@ -31,7 +32,8 @@ from .federation import (FLConfig, build_fullmodel_round_step,  # noqa: F401
 from .freezing import (n_train_from_fraction, select_clients,  # noqa: F401
                        select_fixed_last, select_uniform, select_weighted)
 from .masking import (LeafUnit, NormHook, UnitAssignment,  # noqa: F401
-                      apply_mask, build_units_flat, dense_norm_hook,
+                      apply_mask, build_units, build_units_flat,
+                      build_units_zoo, dense_norm_hook,
                       mask_tree, packed_norm_hook, slot_gather, slot_merge,
                       slot_plan, unit_param_counts, unit_sqnorm,
                       unit_sqnorm_packed)

@@ -89,13 +89,19 @@ def local_update(loss_fn: Callable, global_params: Tree,
             # as JAX's gradient gives them
             grads = {p: torch.zeros_like(leaves[p]) if g is None else g
                      for p, g in zip(live, grads)}
+            # the step's views of the pre-step params go, so that the
+            # optimizer step (which writes into ``trained``) releases them
+            # leaf by leaf
+            del leaves, params
             if dmask is not None:
                 grads = apply_mask(dmask, grads)
             if norm_hook is not None and grads:
                 nacc = nacc + norm_hook.fn(grads)
             trained, opt_state = opt_step(grads, opt_state, trained, lr=lr,
                                           mask=dmask)
+            del grads
         losses.append(loss.detach())
+    del opt_state
     with torch.no_grad():
         delta = {p: trained[p] - x if p in trained else torch.zeros_like(x)
                  for p, x in flatten_with_paths(global_params)}
@@ -223,12 +229,15 @@ def local_update_packed(loss_fn: Callable, global_params: Tree,
         with torch.no_grad():
             grads = {p: torch.zeros_like(leaves[p]) if g is None else g
                      for p, g in zip(live, grads)}
+            del leaves, params
             grads = apply_mask(dvalid, grads)
             if norm_hook is not None and grads:
                 nacc = nacc + norm_hook.fn(grads)
             trained, opt_state = opt_step(grads, opt_state, trained, lr=lr,
                                           mask=dvalid)
+            del grads
         losses.append(loss.detach())
+    del opt_state
     with torch.no_grad():
         delta = {}
         for p, x in flatten_with_paths(global_params):

@@ -1,10 +1,15 @@
 """Freeze-unit assignment over parameter trees.
 
 A **freeze unit** is the granularity of the paper's layer selection: one
-conv/dense layer for the paper's own models.  Every param leaf maps to
-one unit — either wholly (``scalar`` leaves) or per-index along its
-leading macro dim (``stacked`` leaves: the toy MLP's block stacks here,
-the zoo models' scanned blocks once they are ported).
+transformer layer for the zoo models, one conv/dense layer for the
+paper's own models.  Every param leaf maps to one unit — either wholly
+(``scalar`` leaves like the embedding table) or per-index along its
+leading macro dim (``stacked`` leaves: the zoo models' block stacks and
+the toy MLP's).
+
+Unit ordering is forward order: unit 0 = input embeddings (+ projector /
+enc embeddings), units 1..L = layers (enc layers first for enc-dec),
+unit U-1 = final norm + LM head (``build_units_zoo``).
 
 Given a 0/1 selection vector ``sel (U,)``, ``mask_tree`` materializes a
 tree of broadcastable masks: a 0-dim mask for a scalar leaf, ``(n_macro,)``
@@ -15,6 +20,7 @@ gradient-norm telemetry (DESIGN.md §11).
 """
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -35,6 +41,36 @@ class UnitAssignment(NamedTuple):
     unit_names: Tuple[str, ...]
 
 
+def build_units_zoo(cfg, params) -> UnitAssignment:
+    """Unit map for the model-zoo architectures (stacked macro blocks):
+    sub-layer ``s`` of macro block ``m`` is unit ``1 + n_enc + m *
+    n_subs + s``.  Only the leaf paths of ``params`` are read."""
+    from ..models.transformer import block_layout
+    n_subs = len(block_layout(cfg)) if cfg.family != "audio" else 1
+    n_enc = cfg.n_enc_layers
+    dec_base = 1 + n_enc
+    n_dec = cfg.n_layers
+    head_unit = dec_base + n_dec
+    n_units = head_unit + 1
+
+    def assign(path: str, leaf) -> LeafUnit:
+        m = re.match(r"^blocks/sub(\d+)/", path)
+        if m:
+            return LeafUnit("stacked", dec_base + int(m.group(1)), n_subs)
+        if path.startswith("enc_blocks/"):
+            return LeafUnit("stacked", 1, 1)
+        if path.startswith(("embed/", "enc_embed/", "projector/")):
+            return LeafUnit("scalar", 0, 0)
+        if path.startswith(("final_norm/", "head/", "enc_final_norm/")):
+            return LeafUnit("scalar", head_unit, 0)
+        raise ValueError(f"unassigned param path: {path}")
+
+    leaf_units = tree_map_with_path(assign, params)
+    names = (["embed"] + [f"enc{i}" for i in range(n_enc)] +
+             [f"layer{i}" for i in range(n_dec)] + ["head"])
+    return UnitAssignment(n_units, leaf_units, tuple(names))
+
+
 def build_units_flat(params, unit_order: Sequence[str]) -> UnitAssignment:
     """Unit map for the paper models: each top-level key is one unit."""
     order = {k: i for i, k in enumerate(unit_order)}
@@ -47,6 +83,14 @@ def build_units_flat(params, unit_order: Sequence[str]) -> UnitAssignment:
 
     leaf_units = tree_map_with_path(assign, params)
     return UnitAssignment(len(unit_order), leaf_units, tuple(unit_order))
+
+
+def build_units(cfg_or_order, params) -> UnitAssignment:
+    """A unit order (list/tuple) -> :func:`build_units_flat`; a zoo
+    ``ArchConfig`` -> :func:`build_units_zoo`."""
+    if isinstance(cfg_or_order, (list, tuple)):
+        return build_units_flat(params, cfg_or_order)
+    return build_units_zoo(cfg_or_order, params)
 
 
 def leaf_unit_ids(lu: LeafUnit, shape) -> np.ndarray:

@@ -7,9 +7,11 @@ loader -> ``build_round_step`` -> ``Server`` once::
     fed.fit(rounds=20, log_every=1)
     fed.comm_summary()
 
-``spec`` is a :class:`ModelSpec` — the paper's VGG16, IMDB and CASA
-models live in ``repro_torch.models.paper_models``; the zoo
-``ArchConfig`` path waits for the zoo models. Strategy and topology are
+``spec`` is a zoo ``ArchConfig`` (``repro_torch.configs``: params from
+``get_model(cfg).init_params`` drawn on the run's device, one freeze
+unit per layer from ``build_units_zoo``) or a :class:`ModelSpec` — the
+paper's VGG16, IMDB and CASA models live in
+``repro_torch.models.paper_models``. Strategy and topology are
 registered plugin names in ``fl.strategy`` / ``fl.topology``; pass
 ``strategy=`` / ``topology=`` to override either with an instance (a
 replay strategy in the parity tests, for one). The run lives on
@@ -41,7 +43,7 @@ import torch
 from ..common import Device, resolve_device
 from ..data import FederatedLoader
 from .federation import FLConfig, build_round_step
-from .masking import UnitAssignment, build_units_flat
+from .masking import UnitAssignment, build_units_flat, build_units_zoo
 from .server import RoundRecord, Server, ServerHook
 from .strategies import SelectionStrategy
 from .topology import Topology, resolve_topology
@@ -155,31 +157,50 @@ class Federation:
                     loss_kwargs: Optional[Dict] = None,
                     batch_size: int = 8, steps_per_round: int = 2,
                     device: Device = "cuda", **kwargs) -> "Federation":
-        """Wire a full federated run from a :class:`ModelSpec`.
+        """Wire a full federated run from a config.
 
-        ``data`` is a :class:`FederatedLoader`, or a list of per-client
-        array dicts (then ``batch_size``/``steps_per_round`` apply), or
-        None (supply batches to ``run_round`` yourself).  Remaining
-        ``kwargs`` go to the constructor (hooks, dropout_rate,
-        strategy, scores, topology).
+        ``cfg`` is a zoo ``ArchConfig`` or a :class:`ModelSpec`.  A zoo
+        model's params are drawn on ``device`` from a generator seeded
+        with ``seed``; its ``loss_kwargs`` default to the reference's
+        host default (``attn_impl="reference"``, nothing for the ``ssm``
+        family); launchers pass their own (``launch.steps.
+        default_loss_kwargs``).  ``data`` is a :class:`FederatedLoader`,
+        or a list of per-client array dicts (then
+        ``batch_size``/``steps_per_round`` apply), or None (supply
+        batches to ``run_round`` yourself).  Remaining ``kwargs`` go to
+        the constructor (hooks, dropout_rate, strategy, scores,
+        topology).
         """
         dev = resolve_device(device)
-        if not isinstance(cfg, ModelSpec):
+        conv_spatial = 2
+        if isinstance(cfg, ModelSpec):
+            params = cfg.init_params(torch.Generator().manual_seed(seed))
+            order = cfg.unit_order(params) if callable(cfg.unit_order) \
+                else list(cfg.unit_order)
+            assign = build_units_flat(params, order)
+            loss_fn = cfg.loss_fn
+            conv_spatial = cfg.conv_spatial
+        elif hasattr(cfg, "family"):
+            from ..models import get_model
+            model = get_model(cfg)
+            params = model.init_params(
+                torch.Generator(device=dev).manual_seed(seed))
+            assign = build_units_zoo(cfg, params)
+            loss_fn = model.loss_fn
+            if loss_kwargs is None:
+                loss_kwargs = {} if cfg.family == "ssm" else \
+                    {"attn_impl": "reference"}
+        else:
             raise TypeError(
-                f"cfg must be a ModelSpec (the zoo ArchConfig path is not "
-                f"ported yet), got {type(cfg)}")
-        params = cfg.init_params(torch.Generator().manual_seed(seed))
-        order = cfg.unit_order(params) if callable(cfg.unit_order) \
-            else list(cfg.unit_order)
-        assign = build_units_flat(params, order)
+                f"cfg must be an ArchConfig or ModelSpec, got {type(cfg)}")
         loader = data
         if data is not None and not isinstance(data, FederatedLoader):
             loader = FederatedLoader(list(data), batch_size=batch_size,
                                      steps_per_round=steps_per_round,
                                      key=seed)
-        return cls(loss_fn=cfg.loss_fn, params=params, assign=assign, fl=fl,
+        return cls(loss_fn=loss_fn, params=params, assign=assign, fl=fl,
                    loader=loader, eval_fn=eval_fn, loss_kwargs=loss_kwargs,
-                   seed=seed, conv_spatial=cfg.conv_spatial, device=dev,
+                   seed=seed, conv_spatial=conv_spatial, device=dev,
                    **kwargs)
 
     # -- the run ----------------------------------------------------------

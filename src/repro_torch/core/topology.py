@@ -148,8 +148,10 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
     uploads before the aggregate (``metrics["quarantined"]``).
 
     ``metrics["deltas"]`` is the client-stacked delta tree the round
-    aggregated (views into the kernel's tile buffer on the fused path;
-    the decoded packed deltas on the packed path).  A stateful strategy
+    aggregated: on the fused path every leaf is a view into the kernel's
+    ``(C, T, tile)`` tile buffer (``agg_ops.unpack``; a stacked leaf's
+    view strides over its macro rows' segments, so no delta is copied);
+    on the packed path the decoded packed deltas.  A stateful strategy
     adds the ``sel_state`` keyword and ``metrics["unit_sqnorm"]`` (module
     docstring).  The step carries the strategy it selects with as
     ``round_step.selection_strategy``.

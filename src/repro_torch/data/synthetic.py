@@ -14,10 +14,12 @@ Absolute paper accuracies are not claimable (EXPERIMENTS.md §Paper-claims).
                length-100 int sequences, vocab 20k
 * casa_like  : 30 "homes", Non-IID sizes and label mixes (Dirichlet),
                (100, 36) sensor sequences, 10 activities
+* lm_tokens / lm_batch : Markov token streams for the zoo LMs (the
+               training launcher's data)
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -66,3 +68,28 @@ def casa_like(n_homes: int = 30, *, key: int = 0, num_classes: int = 10,
         x = protos[labels] + rng.normal(0, 0.5, (n, seq, features))
         homes.append((x.astype(np.float32), labels.astype(np.int32)))
     return homes
+
+
+def lm_tokens(n_seqs: int, seq_len: int, vocab: int, *, key: int = 0
+              ) -> np.ndarray:
+    """Markov token streams: next token ~ structured function of current.
+
+    Cheap to sample at any vocab size and gives an LM a learnable signal
+    (per-token bigram successor sets)."""
+    rng = np.random.default_rng(key)
+    # successor rule: t -> (a*t + b + small noise) mod vocab, 4 branches
+    a = np.asarray([1, 3, 7, 11], np.int64)
+    b = rng.integers(0, vocab, 4)
+    x = np.empty((n_seqs, seq_len), np.int64)
+    cur = rng.integers(0, vocab, n_seqs)
+    for t in range(seq_len):
+        x[:, t] = cur
+        branch = rng.integers(0, 4, n_seqs)
+        cur = (a[branch] * cur + b[branch]) % vocab
+    return x.astype(np.int32)
+
+
+def lm_batch(n_seqs: int, seq_len: int, vocab: int, *, key: int = 0
+             ) -> Dict[str, np.ndarray]:
+    toks = lm_tokens(n_seqs, seq_len + 1, vocab, key=key)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -104,8 +104,11 @@ def _check(name, q, k, v, extra=()):
 
 
 def _row_strides(t):
-    """Element strides (batch, sequence, head) of a (B,S,H,hd) tensor."""
-    return (t.stride(0), t.stride(1), t.stride(2))
+    """Element strides (batch, sequence, head) of a (B,S,H,hd) tensor; a
+    dimension of size 1 is never stepped along, so its stride is given as
+    0 (autograd hands over gradients whose size-1 batch dimension has
+    stride 1, which ``contiguous()`` leaves as it is)."""
+    return tuple(0 if t.shape[d] == 1 else t.stride(d) for d in range(3))
 
 
 def _launch(name, which, q, k, v, *, do=None, lse=None, delta=None,

@@ -119,22 +119,26 @@ def new_tile_buffer(plan: AggPlan, lead: Tuple[int, ...] = (), *,
 def unpack(plan: AggPlan, buf: torch.Tensor,
            like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """``(..., T, tile)`` -> tree with ``buf``'s leading dims and the
-    leaf shapes and dtypes of ``like``.  Scalar-unit leaves are views
-    into ``buf``; stacked leaves are stacked copies."""
+    leaf shapes and dtypes of ``like``.  Every float32 leaf is a view
+    into ``buf``: a stacked leaf's macro rows are consecutive segments of
+    equal length (:func:`build_agg_plan`), so its ``(n_macro, ...)``
+    view strides over them and skips each segment's padding."""
     lead = tuple(buf.shape[:-2])
-    pieces: Dict[str, list] = {}
-    for seg, view in _segment_views(plan, buf):
-        pieces.setdefault(seg.path, []).append((seg.macro, view))
+    flat = buf.reshape(lead + (-1,))
+    first = {}
+    for seg in plan.segments:
+        first.setdefault(seg.path, seg)
     out = {}
     for path, shape, _ in plan.leaves:
-        dtype = like[path].dtype
-        macro, first = pieces[path][0]
-        if macro < 0:
-            out[path] = first.view(lead + shape).to(dtype)
+        seg = first[path]
+        start = seg.row * plan.tile
+        if seg.macro < 0:
+            view = flat[..., start:start + seg.n].view(lead + shape)
         else:
-            out[path] = torch.stack([v.view(lead + shape[1:])
-                                     for _, v in pieces[path]],
-                                    dim=len(lead)).to(dtype)
+            span = seg.n_tiles * plan.tile
+            view = flat[..., start:start + shape[0] * span].unflatten(
+                -1, (shape[0], span))[..., :seg.n].view(lead + shape)
+        out[path] = view.to(like[path].dtype)
     return out
 
 

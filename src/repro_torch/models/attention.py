@@ -1,18 +1,32 @@
 """Attention for the dense transformer, in PyTorch.
 
-Mirrors ``repro.models.attention``:
+Mirrors ``repro.models.attention``.  Three implementations share one
+signature; ``attend`` picks one per layer as the reference does:
 
-  * ``attend_reference`` — materializes the (S, S) score matrix; the
-    serving engine and ``static_generate`` prefill with it.
-  * ``attend`` — dispatch by implementation name.  The reference's
-    ``chunked`` and ``windowed`` prefill variants are not ported yet:
-    where ``attend`` would pick one, it raises ``NotPortedError``.
-  * Decode-time single-token attention: ``decode_attend`` (full cache),
-    ``decode_attend_ring`` (ring-buffer sliding-window cache) and
-    ``decode_attend_paged`` (page-table indirection over the shared page
-    pool of the serving engine).  The serving decode step calls
-    ``kernels.flash_decode.ops.paged_decode_attention``, whose kernel
-    (K3) computes what ``decode_attend_paged`` does.
+  * ``attend_reference`` — materializes the (S, S) score matrix; short
+    sequences, the serving engine's and ``static_generate``'s prefill.
+  * ``attend_chunked`` — the reference's flash-structured blockwise
+    attention with an online softmax over (q block, kv block) pairs.
+  * ``attend_windowed`` — sliding-window attention over a gathered KV
+    slab of ``window + q_chunk`` positions per q block.
+
+On CUDA tensors the chunked and windowed branches of ``attend`` run
+kernels K5 (forward) and K6 (backward) through
+``kernels.flash_attention.ops.flash_attention``, which computes the
+same function in one launch per direction; ``q_chunk`` and ``kv_chunk``
+only change the rounding order of the reference's sums, and the kernels
+ignore them.  On CPU tensors those branches run the plain versions
+above.  The card route pads a causal call to a multiple of the kernel's
+128-row block (a padded key sits after every real query, so the padding
+is exact) and refuses what no caller passes: an unaligned non-causal
+call, a non-zero ``q_offset``, a dtype other than fp32 or bf16.
+
+Decode-time single-token attention: ``decode_attend`` (full cache),
+``decode_attend_ring`` (ring-buffer sliding-window cache) and
+``decode_attend_paged`` (page-table indirection over the shared page
+pool of the serving engine).  The serving decode step calls
+``kernels.flash_decode.ops.paged_decode_attention``, whose kernel (K3)
+computes what ``decode_attend_paged`` does.
 
 Masked scores are ``NEG_INF = -1e30``, not ``-inf``, as in the
 reference, and the softmax weights are cast to ``q``'s dtype before the
@@ -23,10 +37,10 @@ from __future__ import annotations
 import math
 
 import torch
-
-from ..core.registry import NotPortedError
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+FLASH_BLOCK = 128       # kernels/flash_attention/ops.py refuses other lengths
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -67,21 +81,153 @@ def attend_reference(q, k, v, *, causal: bool = True, window: int = 0,
     return _softmax_pv(scores, v, q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# chunked (flash-structured blockwise attention)
+# ---------------------------------------------------------------------------
+
+def _fit_chunk(s: int, c: int) -> int:
+    """Largest divisor of s that is <= c (handles 1500-frame encoders)."""
+    c = min(c, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def attend_chunked(q, k, v, *, causal: bool = True, window: int = 0,
+                   q_chunk: int = 1024, kv_chunk: int = 1024,
+                   q_offset: int = 0):
+    """Online-softmax blockwise attention over every (q block, kv block)
+    pair, masked pairs included, in the reference's order of updates.
+
+    Autograd keeps each block pair's probabilities (the reference
+    checkpoints its inner step instead): the plain version serves CPU
+    tensors at test sizes, where the S^2 memory is small.
+    """
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    hkv = k.shape[2]
+    q_chunk = _fit_chunk(sq, q_chunk)
+    kv_chunk = _fit_chunk(sk, kv_chunk)
+    nq, nk = sq // q_chunk, sk // kv_chunk
+    n_rep = h // hkv
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    neg = torch.full((), NEG_INF, device=dev)
+    outs = []
+    for qi in range(nq):
+        q_blk = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        qpos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((b, h, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((b, h, q_chunk), device=dev)
+        acc = torch.zeros((b, h, q_chunk, hd), device=dev)
+        for kj in range(nk):
+            sl = slice(kj * kv_chunk, (kj + 1) * kv_chunk)
+            k_r = _repeat_kv(k[:, sl], n_rep)
+            v_r = _repeat_kv(v[:, sl], n_rep)
+            s = torch.einsum("bqhd,bkhd->bhqk", q_blk, k_r).float()
+            s = s * scale
+            kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
+            msk = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                             device=dev)
+            if causal:
+                msk &= kpos[None, :] <= qpos[:, None]
+            if window > 0:
+                msk &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(msk[None, None], s, neg)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(q.dtype), v_r).float()
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2).to(q.dtype))       # (B, qc, H, hd)
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# sliding window via KV slab gather (sub-quadratic)
+# ---------------------------------------------------------------------------
+
+def attend_windowed(q, k, v, *, window: int, q_chunk: int = 1024,
+                    q_offset: int = 0):
+    """Causal sliding-window attention in O(S · window).
+
+    For each q block, slice the KV slab [qstart - window, qstart + qc)
+    (clamped into the keys) and run dense attention against it.
+    """
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    hkv = k.shape[2]
+    n_rep = h // hkv
+    q_chunk = _fit_chunk(sq, q_chunk)
+    nq = sq // q_chunk
+    slab = window + q_chunk
+    width = min(slab, sk)
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    neg = torch.full((), NEG_INF, device=dev)
+    outs = []
+    for qi in range(nq):
+        q_blk = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        qstart = q_offset + qi * q_chunk
+        start = min(max(qstart - window, 0), max(sk - slab, 0))
+        k_r = _repeat_kv(k[:, start:start + width], n_rep)
+        v_r = _repeat_kv(v[:, start:start + width], n_rep)
+        s = torch.einsum("bqhd,bkhd->bhqk", q_blk, k_r).float() * scale
+        qpos = qstart + torch.arange(q_chunk, device=dev)
+        kpos = start + torch.arange(width, device=dev)
+        msk = (kpos[None, :] <= qpos[:, None]) & \
+              (kpos[None, :] > qpos[:, None] - window)
+        s = torch.where(msk[None, None], s, neg)
+        outs.append(_softmax_pv(s, v_r, q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _attend_kernel(q, k, v, *, causal: bool, window: int, q_offset: int):
+    """The chunked / windowed branch on the card: K5 forward, K6 backward
+    (``flash_attention``), a causal call padded to whole 128-row blocks
+    at the end and sliced back."""
+    from ..kernels.flash_attention.ops import flash_attention
+    if q_offset:
+        raise ValueError(f"attend: q_offset={q_offset} has no kernel route "
+                         f"on {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"attend: {q.dtype} has no kernel route on "
+                         f"{q.device} (float32 or bfloat16)")
+    sq, sk = q.shape[1], k.shape[1]
+    pad_q, pad_k = -sq % FLASH_BLOCK, -sk % FLASH_BLOCK
+    if not (pad_q or pad_k):
+        return flash_attention(q, k, v, causal, window)
+    if not causal or sq != sk:
+        raise ValueError(f"attend: Sq={sq}, Sk={sk} are not multiples of "
+                         f"{FLASH_BLOCK}: only a causal self-attention is "
+                         f"padded on {q.device}")
+    qp, kp, vp = (F.pad(x, (0, 0, 0, 0, 0, pad_q)) for x in (q, k, v))
+    return flash_attention(qp, kp, vp, causal, window)[:, :sq]
+
+
 def attend(q, k, v, *, impl: str = "chunked", causal: bool = True,
            window: int = 0, q_offset: int = 0, q_chunk: int = 1024,
            kv_chunk: int = 1024):
-    """Dispatch by impl name (training/prefill path)."""
+    """Dispatch by impl name (training/prefill path), as the reference:
+    short sequences and ``impl='reference'`` materialize the scores;
+    otherwise a window picks the windowed branch and ``chunked`` the
+    chunked one, which CUDA tensors run on K5/K6."""
     if impl == "reference" or q.shape[1] <= max(q_chunk, 256) // 2:
         return attend_reference(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)
-    if window > 0:
-        raise NotPortedError(
-            "attend: the windowed prefill attention is not ported yet; "
-            "use impl='reference'")
-    if impl == "chunked":
-        raise NotPortedError(
-            "attend: the chunked prefill attention is not ported yet; "
-            "use impl='reference'")
+    if window > 0 or impl == "chunked":
+        if q.device.type == "cuda":
+            return _attend_kernel(q, k, v, causal=causal or window > 0,
+                                  window=window, q_offset=q_offset)
+        if window > 0:
+            return attend_windowed(q, k, v, window=window, q_chunk=q_chunk,
+                                   q_offset=q_offset)
+        return attend_chunked(q, k, v, causal=causal, window=window,
+                              q_chunk=q_chunk, kv_chunk=kv_chunk,
+                              q_offset=q_offset)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

@@ -184,7 +184,11 @@ def init_embed(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    """The table's rows at ``tokens``.  ``F.embedding``'s backward sums
+    the gradients of repeated tokens in a fixed order; the backward of
+    ``table[tokens]`` accumulates them in an order that changes from run
+    to run with threads (CPU) or atomics (the card)."""
+    return F.embedding(tokens.long(), p["table"])
 
 
 def logits_head(params: Params, x: torch.Tensor, tie: bool) -> torch.Tensor:

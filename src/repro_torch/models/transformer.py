@@ -12,7 +12,10 @@ Params are a flat dict keyed by the reference's leaf paths
 caches are flat dicts too: ``{"step", "subs/sub0/k", "subs/sub0/v"}``
 for the dense cache and ``{"pool/k", "pool/v"}`` for the paged pool.
 The decode steps write the new token's K/V into the cache or pool in
-place (the reference returns new arrays) and return it.
+place (the reference returns new arrays) and return it.  ``forward`` and
+``loss_fn`` take the reference's ``remat`` (a checkpoint per macro
+block) and ``unroll``; attention at ``attn_impl="chunked"`` runs the
+kernels K5/K6 on the card (``attention.attend``).
 
 MoE blocks (``SubSpec.moe``), the VLM patch projector (``n_patches``) and
 the sharded MoE dispatch (``moe_mesh``) are not ported yet and raise
@@ -24,6 +27,7 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..common import sorted_tree
 from ..core.registry import NotPortedError
@@ -133,6 +137,21 @@ def _layer(params: Tree, si: int, m: int) -> Dict[str, Tree]:
     return out
 
 
+def _layers(params: Tree, si: int, nm: int):
+    """Per-layer views of sub ``si`` for every macro block, each stacked
+    leaf split once with ``unbind``: its backward stacks the layers'
+    gradients in one tensor, where one ``leaf[m]`` per layer would add up
+    ``nm`` zero-padded full-size gradients."""
+    prefix = f"blocks/sub{si}/"
+    out = [{} for _ in range(nm)]
+    for path, leaf in params.items():
+        if path.startswith(prefix):
+            group, name = path[len(prefix):].split("/", 1)
+            for m, view in enumerate(leaf.unbind(0)):
+                out[m].setdefault(group, {})[name] = view
+    return out
+
+
 # ---------------------------------------------------------------------------
 # forward (training / prefill)
 # ---------------------------------------------------------------------------
@@ -151,8 +170,17 @@ def _apply_sub(cfg, p, spec: SubSpec, x, positions, rope, attn_impl,
 def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
             attn_impl="chunked", q_chunk: int = 1024,
             build_cache: bool = False, cache_len: int = 0,
-            last_only: bool = False, moe_mesh=None):
-    """tokens (B, S) -> (logits (B,S,V), aux_loss, cache_or_None)."""
+            remat: bool = False, last_only: bool = False,
+            unroll: bool = False, moe_mesh=None):
+    """tokens (B, S) -> (logits (B,S,V), aux_loss, cache_or_None).
+
+    ``remat=True`` checkpoints each macro-block while autograd records
+    (``torch.utils.checkpoint``, non-reentrant): its activations are
+    recomputed in the backward pass, the forward's values and gradients
+    unchanged bit for bit.  ``unroll`` is the reference's switch between
+    a rolled and an unrolled ``lax.scan``; the port's loop over macro
+    blocks is always unrolled, so it changes nothing here.
+    """
     layout = block_layout(cfg)
     _check_ported(cfg, layout)
     if patches is not None or moe_mesh is not None:
@@ -162,15 +190,30 @@ def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
     x = L.embed_tokens(_group(params, "embed"), tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=dev).expand(b, s)
-    caches: Dict[str, list] = {}
-    for m in range(n_macro(cfg)):
+
+    nm = n_macro(cfg)
+    subs = [_layers(params, si, nm) for si in range(len(layout))]
+
+    def body(x, m):
+        kvs = []
         for si, spec in enumerate(layout):
-            x, (k, v) = _apply_sub(cfg, _layer(params, si, m), spec, x,
-                                   positions, rope, attn_impl, q_chunk)
-            if build_cache:
+            x, kv = _apply_sub(cfg, subs[si][m], spec, x, positions, rope,
+                               attn_impl, q_chunk)
+            kvs.append(kv)
+        return x, kvs
+
+    caches: Dict[str, list] = {}
+    for m in range(nm):
+        if remat and torch.is_grad_enabled():
+            x, kvs = checkpoint(body, x, m, use_reentrant=False)
+        else:
+            x, kvs = body(x, m)
+        if build_cache:
+            for si, (spec, (k, v)) in enumerate(zip(layout, kvs)):
                 c = _cache_from_prefill(spec, k, v, s, cache_len)
                 caches.setdefault(f"sub{si}/k", []).append(c["k"])
                 caches.setdefault(f"sub{si}/v", []).append(c["v"])
+        del kvs
     if last_only:
         x = x[:, -1:]
     x = L.apply_norm(_group(params, "final_norm"), x)
@@ -183,11 +226,12 @@ def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
 
 
 def loss_fn(cfg, params: Tree, batch, *, attn_impl="chunked",
-            q_chunk: int = 1024, moe_mesh=None):
+            q_chunk: int = 1024, remat: bool = False, unroll: bool = False,
+            moe_mesh=None):
     logits, aux, _ = forward(cfg, params, batch["tokens"],
                              patches=batch.get("patches"),
                              attn_impl=attn_impl, q_chunk=q_chunk,
-                             moe_mesh=moe_mesh)
+                             remat=remat, unroll=unroll, moe_mesh=moe_mesh)
     loss = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
     return loss + aux, {"xent": loss, "aux": aux}
 

@@ -10,6 +10,13 @@ Clients re-initialize optimizer state every round (the paper trains each
 round from the fresh global model with a fresh ADAM), so ``init`` is
 cheap and called per round.  The arithmetic follows the reference term
 by term in float32.
+
+A step writes its results into the ``params`` and state dicts it was
+given, leaf by leaf, and returns those dicts: each old leaf is released
+as soon as its new value exists, so a step holds one leaf's temporaries
+beyond the model, not a second copy of params and moments (a client
+training qwen3-1.7b at full width needs this to fit the card).  The
+tensors themselves are never written in place.
 """
 from __future__ import annotations
 
@@ -53,7 +60,7 @@ def adam_step(grads: Tree, state: AdamState, params: Tree, *,
     tf = np.float32(count)
     c1 = float(np.float32(1.0) - np.float32(b1) ** tf)
     c2 = float(np.float32(1.0) - np.float32(b2) ** tf)
-    p_out, mu, nu = {}, {}, {}
+    p_out, mu, nu = params, state.mu, state.nu
     for path, p in flatten_with_paths(params):
         m, v = state.mu[path], state.nu[path]
         gf = grads[path].float()
@@ -88,7 +95,7 @@ def sgd_init(params: Tree) -> SGDState:
 def sgd_step(grads: Tree, state: SGDState, params: Tree, *,
              lr: float = 1e-2, momentum: float = 0.0,
              mask: Optional[Tree] = None) -> Tuple[Tree, SGDState]:
-    p_out, mom = {}, {}
+    p_out, mom = params, state.momentum
     for path, p in flatten_with_paths(params):
         m = state.momentum[path]
         gf = grads[path].float()

@@ -3,7 +3,9 @@
 crossing the packages both ways (VGG16's conv2d, IMDB's conv1d,
 gossip's client-stacked replicas, the ``topk_ef`` residual, the scored
 ``SelectionState``; every array exact), kill+resume bitwise equal to an
-uninterrupted run inside the port, and the reference's mismatch errors.
+uninterrupted run inside the port, and the reference's mismatch errors;
+for the zoo, a reduced qwen3-1.7b ``Federation.from_config`` run crosses
+both ways and resumes bitwise (hub and packed qint8).
 """
 import functools
 import json
@@ -426,6 +428,82 @@ def test_checkpointer_hook_saves_the_pending_round(tmp_path, toy_setup):
     resumed = _fed(toy_setup, kw, seed=0)
     resumed.restore(path)
     resumed.run_round(toy_setup["b"])
+    _assert_same_run(full, resumed)
+
+
+# -- the zoo: reduced qwen3-1.7b through Federation.from_config -------------------
+
+ZOO_KW = dict(n_clients=2, train_fraction=0.5, lr=2e-3)
+
+
+def _zoo_fed(seed, kw=ZOO_KW):
+    from repro_torch.data import FederatedLoader as TLoader
+    from repro_torch.data import iid_partition, lm_batch
+    cfg = get_config("qwen3-1.7b").reduced()
+    data = lm_batch(16, 16, cfg.vocab, key=seed)
+    shards = iid_partition(16, 2, key=seed + 1)
+    loader = TLoader([{k: v[i] for k, v in data.items()} for i in shards],
+                     batch_size=2, steps_per_round=1, key=seed)
+    return Federation.from_config(cfg, FLConfig(**kw), data=loader,
+                                  seed=seed, device="cpu")
+
+
+def _zoo_ref_server():
+    from repro.configs.base import get_config as r_get_config
+    from repro.core.masking import build_units_zoo as r_build_units_zoo
+    from repro.models import get_model as r_get_model
+    rcfg = r_get_config("qwen3-1.7b").reduced()
+    rp = r_get_model(rcfg).init_params(jax.random.PRNGKey(1))
+    fl = RFLConfig(**ZOO_KW)
+    ra = r_build_units_zoo(rcfg, rp)
+    step = r_build_round_step(lambda p, b: (0.0, {}), ra, fl)
+    return RServer(step, ra, fl, rp, seed=3)
+
+
+def test_zoo_checkpoint_crosses_both_ways(tmp_path):
+    """A trained reduced-qwen3 Federation's checkpoint restores into the
+    reference's server and the reference's back into a fresh port
+    Federation: params and selection history bitwise."""
+    port = _zoo_fed(seed=0)
+    port.fit(2)
+    path = str(tmp_path / "port")
+    port.save(path)
+    ref = _zoo_ref_server()
+    assert r_restore(path, ref)["round"] == 2
+    want = to_reference_flat(port.params)
+    got = _np_flat(ref.params)
+    assert set(got) == set(want)
+    for p in want:
+        np.testing.assert_array_equal(got[p], want[p], err_msg=p)
+    assert all(np.array_equal(a, b) for a, b in
+               zip(ref.sel_history, port.server.sel_history))
+    back = str(tmp_path / "ref")
+    r_save(back, ref)
+    fresh = _zoo_fed(seed=5)
+    assert fresh.restore(back)["round"] == 2
+    assert _equal(fresh.params, from_reference(_np_flat(ref.params)))
+    assert _equal(fresh.params, port.params)
+    assert len(fresh.server.sel_history) == 2
+    assert all(np.array_equal(a, b) for a, b in
+               zip(fresh.server.sel_history, port.server.sel_history))
+
+
+@pytest.mark.parametrize("kw", [ZOO_KW, dict(ZOO_KW, packed=True,
+                                              codec="qint8")],
+                         ids=["hub", "packed-qint8"])
+def test_zoo_kill_resume_bitwise_equals_uninterrupted(tmp_path, kw):
+    full = _zoo_fed(seed=2, kw=kw)
+    full.fit(4)
+    first = _zoo_fed(seed=2, kw=kw)
+    first.fit(2)
+    path = str(tmp_path / "zoo")
+    first.save(path)
+    resumed = _zoo_fed(seed=2, kw=kw)
+    resumed.server.generator.manual_seed(99)
+    if resumed.server.codec_generator is not None:
+        resumed.server.codec_generator.manual_seed(99)
+    assert resumed.restore(path)["round"] == 2
+    resumed.fit(2)
     _assert_same_run(full, resumed)
 
 

@@ -1255,3 +1255,62 @@ def test_cohort_chunkings_bitwise_on_card(dev):
         runs.append(fed)
     for other in runs[1:]:
         assert all(torch.equal(runs[0].params[k], other.params[k]) for k in p)
+
+
+# -- attend's chunked / windowed branches on K5/K6 ------------------------------
+
+
+def _attend_case(dev, s, seed, h=4, hkv=2, hd=64):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, g = (torch.randn(1, s, h, hd, generator=gen, device=dev)
+            for _ in range(2))
+    k, v = (torch.randn(1, s, hkv, hd, generator=gen, device=dev)
+            for _ in range(2))
+    return q, k, v, g
+
+
+def _attend_grads(fn, q, k, v, g):
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    o = fn(qs, ks, vs)
+    return (o.detach(),) + torch.autograd.grad((o * g).sum(), (qs, ks, vs))
+
+
+@pytest.mark.parametrize("s,window,plain", [
+    (1024, 0, "chunked"), (1000, 0, "chunked"), (1024, 256, "windowed"),
+    (1000, 256, "windowed")])
+def test_attend_routes_through_flash_attention(dev, s, window, plain):
+    """``attend`` on CUDA tensors launches K5 once and K6's two kernels
+    once per forward + backward, S=1,000 padded to 1,024 at the end; it
+    matches the plain chunked / windowed version (run on the card's
+    tensors moved to the CPU) at 2e-5 (o) and 5e-4 (gradients)."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.models import attention as A
+    q, k, v, g = _attend_case(dev, s, s + window)
+    aops.reset_launch_counts()
+    got = _attend_grads(lambda q, k, v: A.attend(
+        q, k, v, impl="chunked", window=window, q_chunk=256), q, k, v, g)
+    torch.cuda.synchronize()
+    assert aops.LAUNCHES == {"fwd": 1, "dq": 1, "dkv": 1}
+    fn = (lambda q, k, v: A.attend_windowed(q, k, v, window=window,
+                                            q_chunk=256)) \
+        if plain == "windowed" else \
+        (lambda q, k, v: A.attend_chunked(q, k, v, q_chunk=256,
+                                          kv_chunk=256))
+    want = _attend_grads(fn, *(x.cpu() for x in (q, k, v, g)))
+    for name, x, y in zip(("o", "dq", "dk", "dv"), got, want):
+        tol = TOL if name == "o" else 5e-4
+        err = float((x.cpu() - y).abs().max())
+        assert err <= tol, (name, err)
+
+
+def test_flash_attention_takes_size_one_dims_of_any_stride(dev):
+    """A batch of 1 whose gradient has batch stride 1 (what the model's
+    output projection hands back) launches and matches the same call
+    on contiguous tensors bitwise."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    q, k, v, g = _attend_case(dev, 256, 3)
+    o, lse = aops.attention_fwd(q, k, v)
+    odd = g.as_strided(g.shape, (1,) + g.stride()[1:])
+    want = aops.attention_bwd(q, k, v, o, lse, g)
+    got = aops.attention_bwd(q, k, v, o, lse, odd)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))

@@ -137,6 +137,48 @@ def test_pack_unpack_roundtrip(case):
     assert int(torch.count_nonzero(buf)) <= C * used
 
 
+def test_fused_round_deltas_are_views_of_the_tile_buffer():
+    """The fused hub round's ``metrics["deltas"]`` on the toy MLP's
+    stacked leaves: every leaf a view into the one ``(C, T, tile)`` tile
+    buffer (no second copy of the deltas), bitwise the deltas of the
+    plain round on the same selection."""
+    import functools
+    from repro_torch.core import FLConfig, Replay, build_round_step
+    from repro_torch.models import toy
+    c = 3
+    p = toy.init_toy_mlp(torch.Generator().manual_seed(0), n_blocks=5, d=12,
+                         hidden=20, out=8)
+    assign = toy.toy_units(p)
+    b = toy.toy_batches(torch.Generator().manual_seed(1), n_clients=c,
+                        steps=1, batch=4, d=12, out=8)
+    sel = np.random.default_rng(2).integers(0, 2, (c, assign.n_units))
+    sel[:, 1] = 1                          # block 0 trained by everyone
+    out = {}
+    for fused in ("on", "off"):
+        step = build_round_step(
+            functools.partial(toy.toy_loss, device="cpu"), assign,
+            FLConfig(n_clients=c, n_train_units=3, fused_agg=fused),
+            strategy=Replay([sel]), device="cpu")
+        out[fused] = step(dict(p), b, torch.ones(c), None)
+    deltas = out["on"][1]["deltas"]
+    plan = ops.build_agg_plan(assign, p)
+    buf_bytes = c * plan.n_rows * plan.tile * 4
+    assert {x.untyped_storage().data_ptr() for x in deltas.values()} == \
+        {deltas["blocks/w1"].untyped_storage().data_ptr()}
+    assert all(x.untyped_storage().nbytes() == buf_bytes
+               for x in deltas.values())
+    # a stacked leaf's rows stride over padded segments: not a copy
+    assert not deltas["blocks/w1"].is_contiguous()
+    for path, x in out["off"][1]["deltas"].items():
+        assert deltas[path].shape == x.shape
+        assert torch.equal(deltas[path], x), path
+    # the new params are views into the kernel's output buffer, too
+    new = out["on"][0]
+    assert len({x.untyped_storage().data_ptr() for x in new.values()}) == 1
+    for path, x in out["off"][0].items():
+        torch.testing.assert_close(new[path], x, atol=TOL, rtol=TOL)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "device"])
 def test_wrapper_rejects_bad_inputs(bad):
     g = torch.zeros(4, 8)

@@ -23,7 +23,6 @@ from repro_torch.configs.base import get_config, list_configs
 from repro_torch.convert import from_reference, is_conv_kernel, to_reference
 from repro_torch.core import NotPortedError
 from repro_torch.models import get_model, transformer
-from repro_torch.models.attention import attend
 
 TOL = 1e-4
 PS = 16
@@ -59,7 +58,8 @@ def _close(got, want, what):
 
 
 def test_configs_match_reference():
-    assert set(list_configs()) == {"qwen3-1.7b", "gemma3-12b", "rwkv6-3b"}
+    assert set(list_configs()) == {"qwen3-1.7b", "gemma3-12b", "rwkv6-3b",
+                                   "qwen2.5-14b", "stablelm-3b"}
     for name in list_configs():
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(r_get_config(name))
@@ -243,8 +243,5 @@ def test_paged_decode_equals_dense_decode_bitwise(gemma):
 def test_unported_paths_raise():
     with pytest.raises(NotPortedError, match="moe"):
         get_model(get_config("qwen3-1.7b").replace(family="moe"))
-    q = torch.zeros(1, 600, 4, 32)
-    with pytest.raises(NotPortedError, match="chunked"):
-        attend(q, q, q, impl="chunked")
-    with pytest.raises(NotPortedError, match="windowed"):
-        attend(q, q, q, impl="chunked", window=64)
+    with pytest.raises(NotPortedError, match="hybrid"):
+        get_model(get_config("qwen3-1.7b").replace(family="hybrid"))
