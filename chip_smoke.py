@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in thirty-three phases, in the order
-below except that 17-20, then 22-28, then 21 run after 8, and any
-failure exits non-zero:
+nothing of the ``repro`` package) in thirty-nine phases, in the order
+below except that 17-20, then 22-28, then 21 run after 8, and 34-35
+after 16, and any failure exits non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
    the checkout with ``nvcc`` (``repro_torch/kernels/_build.py``).
@@ -61,7 +61,11 @@ failure exits non-zero:
    signal`` exactly on the rows of participating clients.
 9. decode-kernel — ``paged_decode_attention`` (K3) on qwen3's heads
    (16 query heads over 8 KV heads of 128) at the serving shape (8
-   sequences of 129-175 tokens) and at 8 x 4,096 tokens, pages
+   sequences of 129-175 tokens) and at 8 x 4,096 tokens, on
+   hymba-1.5b's (25 over 5 of 64, a GQA group of 5) at the serving shape
+   and on a ring of 1,024 (8 sequences past it, valid lengths clamped
+   to the ring), and on qwen2.5-14b's (40 over 8 of 128) at the serving
+   shape, pages
    scattered by a random permutation, valid lengths ragged, fp32 and
    bf16: within 2e-5 of its plain version in fp32 and 3e-2 of the fp32
    plain version on the same bf16 inputs; bf16 also element by element
@@ -111,7 +115,9 @@ failure exits non-zero:
    bf16 at the tensor cores' 989 TFLOP/s), the kernel's share of it and,
    in fp32, the forward's time against the previous design's.  Then the
    zoo's own shapes at B=1 in fp32 (qwen3-1.7b at S=4,096, gemma3-12b's
-   local and global layers at S=2,048), held and timed the same way but
+   local and global layers at S=2,048, hymba-1.5b's windowed (1,024) and
+   global layers at S=2,048, head dim 64 in groups of 5), held and timed
+   the same way but
    reached through the model's wrapper ``models.attention.attend``
    (chunked, ``q_chunk`` 1024, a causal window of 1,024 on the local
    layer) and differentiated through an output projection, so that K6
@@ -304,6 +310,39 @@ failure exits non-zero:
    ``scaled_dot_product_attention`` in fp32) beside the in-run times and
    bounds; K1 at the qwen3 hub plan and K2 over the qwen3 slot rows
    against their byte bounds.
+
+34. serve-hymba — hymba-1.5b at full width in fp32 (1,476,611,200
+   params, random weights) through ``DecodeEngine`` under both traffics
+   of ``serve_workload.py``: ``serving`` ([serve]'s: 8 slots, 16
+   requests of 128 prompt tokens, no ring, the prefill on the plain
+   attention) and ``long`` (4 slots, 4 requests of 1,536 tokens
+   generating 64, the windowed sub-layers' caches rings of 1,024 that
+   wrap, the prefill on K5).  Checks the parameter count, the decode
+   steps the traffic gives (84, 63), K3 launched once per layer per
+   decode step, K5 once per layer per prefill call on ``long`` and never
+   on ``serving``, every request's token count, one decode input
+   signature; prints tokens/s, decode ms per step, TTFT, latency and
+   peak memory.
+35. serve-hymba-parity — each traffic's engine against
+   ``static_generate`` on the card, as ``[serve-parity]`` (logits 1e-3,
+   tokens equal barring near ties).
+36. zoo-round-hymba — the paper's round on hymba-1.5b at full width (34
+   units, 17 trained a client), [zoo-round]'s setup at S = 2,048 (past
+   the window, so the windowed and the global layers' K5/K6 do
+   different work): 2 rounds, the second under ``torch.profiler``
+   (device events only).  Launches as the code predicts (K1 2, K5 512,
+   K6 256 + 256), frozen (client, unit row) deltas exactly zero, the
+   bill equal to Table 4, peak memory; the device's busy share, the
+   kernels' in-run times, windowed and global apart.
+37. zoo-parity-hymba — [zoo-parity] on hymba-1.5b at full width cut to
+   one macro block of 2 sub-layers (window cut to 256, one global),
+   S = 640: card vs CPU at ZOO_PARITY_TOL with its per-row move checks.
+38. train-launcher-hymba — [train-launcher] with ``--arch hymba-1.5b
+   --rounds 2``.
+39. k1-qwen3-plan — K1 alone at qwen3-1.7b's hub plan (840,177 rows of
+   2,048, 2 clients) on random tile buffers: against its plain version,
+   device medians of the kernel, the plain version and ``torch.bmm`` with
+   the guard beside the byte bound.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -1655,10 +1694,13 @@ def device_ms(fn, iters=20, warmup=3):
     return float(np.median([a.elapsed_time(b) for a, b in evs]))
 
 
-def _paged_case(dev, b, mp, lo, hi, dtype, seed, h=16, hkv=8, hd=128, ps=16):
-    """qwen3's heads; sequence i owns mp pages scattered over the pool by a
-    random permutation (8 pages nobody owns, page 0 the trash page);
-    ragged valid lengths in [lo, hi]; table entries past them -> 0."""
+def _paged_case(dev, b, mp, lo, hi, dtype, seed, h=16, hkv=8, hd=128, ps=16,
+                ring=False):
+    """qwen3's heads unless given; sequence i owns mp pages scattered over
+    the pool by a random permutation (8 pages nobody owns, page 0 the
+    trash page); ragged valid lengths in [lo, hi], clamped to the table's
+    mp * ps tokens when ``ring`` (a ring allocation past its window, as
+    the model passes it); table entries past them -> 0."""
     n_pages = 1 + b * mp + 8
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, 1, h, hd, generator=gen, device=dev).to(dtype)
@@ -1666,6 +1708,8 @@ def _paged_case(dev, b, mp, lo, hi, dtype, seed, h=16, hkv=8, hd=128, ps=16):
     v = torch.randn(n_pages, ps, hkv, hd, generator=gen, device=dev).to(dtype)
     rng = np.random.default_rng(seed)
     valid = rng.integers(lo, hi + 1, b)
+    if ring:
+        valid = np.minimum(valid, mp * ps)
     owned = rng.permutation(np.arange(1, n_pages))[:b * mp].reshape(b, mp)
     pt = np.where(np.arange(mp)[None] * ps < valid[:, None], owned, 0)
     return (q, k, v, torch.as_tensor(pt, dtype=torch.int32, device=dev),
@@ -1733,22 +1777,42 @@ def _plan_text(pl):
             f"{pl.workspace_bytes} B")
 
 
+def _decode_cases():
+    """``[decode-kernel]``'s cases: (label, B, table width, valid lo, hi,
+    H, Hkv, hd, ring).  qwen3's heads (16 over 8 of 128) at the serving
+    shape and at 8 x 4,096 tokens; hymba-1.5b's (25 over 5 of 64, a GQA
+    group of 5) at the serving shape and on a ring of 1,024 (the
+    windowed sub-layers past the window: 8 sequences of 1,025-1,600
+    tokens, valid lengths clamped to the ring); qwen2.5-14b's (40 over 8
+    of 128, a group of 5) at the serving shape."""
+    from repro_torch import serve_workload as sw
+    from repro_torch.configs.base import get_config
+
+    max_len = sw.PROMPT_LEN + sw.GEN + sw.GEN_SPREAD - 1 + 8
+    serving = (sw.N_SLOTS, -(-max_len // sw.PAGE_SIZE), sw.PROMPT_LEN + 1,
+               sw.PROMPT_LEN + sw.GEN + sw.GEN_SPREAD - 1)
+    hy, q14 = get_config(HYMBA_ARCH), get_config("qwen2.5-14b")
+    hy_heads = (hy.n_heads, hy.n_kv_heads, hy.head_dim)
+    window = hy.sliding_window
+    return [("serving", *serving, 16, 8, 128, False),
+            ("long", 8, 256, 3072, 4096, 16, 8, 128, False),
+            ("hymba serving", *serving, *hy_heads, False),
+            ("hymba ring", 8, window // sw.PAGE_SIZE, window + 1,
+             window + 576, *hy_heads, True),
+            ("qwen2.5-14b serving", *serving, q14.n_heads, q14.n_kv_heads,
+             q14.head_dim, False)]
+
+
 def phase_decode_kernel(dev):
     from repro_torch.kernels.flash_decode import ops as fops
     from repro_torch.kernels.flash_decode.ref import paged_decode_ref
-    from repro_torch import serve_workload as sw
 
     name = torch.cuda.get_device_name(0)
-    max_len = sw.PROMPT_LEN + sw.GEN + sw.GEN_SPREAD - 1 + 8
-    mp_serve = -(-max_len // sw.PAGE_SIZE)
-    shapes = {  # the serving shape: 128-token prompts plus 1..47 tokens
-        "serving": (sw.N_SLOTS, mp_serve, sw.PROMPT_LEN + 1,
-                    sw.PROMPT_LEN + sw.GEN + sw.GEN_SPREAD - 1),
-        "long": (8, 256, 3072, 4096)}
-    row = None
-    for shape, (b, mp, lo, hi) in shapes.items():
+    row, cases = None, {}
+    for shape, b, mp, lo, hi, h, hkv, hd, ring in _decode_cases():
         for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 3e-2)):
-            q, k, v, pt, valid = _paged_case(dev, b, mp, lo, hi, dtype, 1)
+            q, k, v, pt, valid = _paged_case(dev, b, mp, lo, hi, dtype, 1,
+                                             h=h, hkv=hkv, hd=hd, ring=ring)
             out = _no_sync(lambda: fops.paged_decode_attention(
                 q, k, v, pt, valid))
             kf, vf = k.float(), v.float()
@@ -1758,8 +1822,7 @@ def phase_decode_kernel(dev):
             tag = f"[decode-kernel] {shape} {str(dtype)[6:]}"
             check(out.dtype == dtype and err <= tol,
                   f"{tag}: max abs err vs plain {err} > {tol}")
-            h, hd = q.shape[2], q.shape[3]
-            hkv, ps = k.shape[2], k.shape[1]
+            ps = k.shape[1]
             pl = fops.plan(b, hkv, h // hkv, mp, ps, hd, dtype, dev)
             bar = (_bf16_bar(tag, out, want, valid, pl,
                              lambda vl: paged_decode_ref(q.float(), kf, vf,
@@ -1796,7 +1859,9 @@ def phase_decode_kernel(dev):
             bound = max(by_bytes, by_ops) * 1e3
             print(f"{tag}: B={b} H={h} Hkv={hkv} hd={hd} pages of {ps}, "
                   f"table width {mp}, valid {int(valid.min())}..."
-                  f"{int(valid.max())} ({ntok} tokens): max abs err vs plain "
+                  f"{int(valid.max())} ({ntok} tokens"
+                  + (", clamped to the ring" if ring else "")
+                  + f"): max abs err vs plain "
                   f"{err:.3e} (tol {tol}), sdpa yardstick {lib_err:.3e}; "
                   f"bitwise repeatable; NaN trash/unowned pages never read")
             if bar:
@@ -1809,6 +1874,12 @@ def phase_decode_kernel(dev):
                   f"{by_bytes * 1e3:.4f}, {flops / 1e9:.3f} GFLOP at "
                   f"{FP32_PEAK / 1e12:.0f} TFLOP/s is {by_ops * 1e3:.4f}; "
                   f"kernel at {bound / ms:.1%} of the bound")
+            cases[f"{shape} {str(dtype)[6:]}"] = {
+                "B": b, "H": h, "Hkv": hkv, "hd": hd, "splits": pl.n_splits,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                "library_ms": library_ms}
             if shape == "serving" and dtype == torch.float32:
                 row = {"name": "flash_decode_paged", "route": "cuda",
                        "splits": pl.n_splits,
@@ -1821,6 +1892,7 @@ def phase_decode_kernel(dev):
                        "bound_by": "bytes" if by_bytes >= by_ops
                        else "operations",
                        "library_ms": library_ms}
+    row["cases"] = cases
     return row
 
 
@@ -1929,6 +2001,119 @@ def phase_serve_parity(w, tag="serve-parity",
              else ""))
 
 
+# -- hymba-1.5b: the hybrid family served (K3 at a GQA group of 5, K5) -------
+
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_PARAMS = 1_476_611_200     # the reference's init at full width
+# the scheduler's decode steps under each traffic of serve_workload.py: a
+# function of the traffic alone (slots, prompt and generation lengths,
+# pages of 16: a micro-run stops at a finish or a page boundary), the
+# same for every model (qwen3-1.7b's serving run takes 84;
+# tests/test_torch_hymba.py counts both on the reduced model)
+HYMBA_STEPS = {"serving": 84, "long": 63}
+
+
+def phase_serve_hymba(dev):
+    """hymba-1.5b at full width through ``DecodeEngine`` under both
+    traffics of ``serve_workload.py``: ``serving`` (8 slots, 16 requests
+    of 128 prompt tokens, no ring; the prefill on the plain attention)
+    and ``long`` (4 slots, 4 requests of 1,536 tokens: the windowed
+    sub-layers' caches are rings of 1,024; the prefill on K5)."""
+    from repro_torch import serve_workload as sw
+    from repro_torch.common import param_count
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_decode import ops as fops
+
+    out, params = {}, None
+    for traffic in ("serving", "long"):
+        tag = f"[serve-hymba] {traffic}"
+        t0 = time.perf_counter()
+        w = sw.build(dev, arch=HYMBA_ARCH, traffic=traffic, params=params)
+        torch.cuda.synchronize()
+        cfg, t = w.cfg, w.traffic
+        if params is None:
+            n = param_count(w.params)
+            check(n == HYMBA_PARAMS, f"{HYMBA_ARCH} has {n} params, "
+                  f"expected {HYMBA_PARAMS}")
+            check(all(x.dtype == torch.float32 and x.device == dev
+                      for x in w.params.values()),
+                  "params are not fp32 on the card")
+            print(f"{tag}: {cfg.name} at full width: {cfg.n_layers} layers "
+                  f"({cfg.n_layers // cfg.global_every} macro blocks of "
+                  f"{cfg.global_every - 1} windowed ({cfg.sliding_window}) "
+                  f"and 1 global), d_model {cfg.d_model}, {cfg.n_heads} "
+                  f"heads / {cfg.n_kv_heads} KV heads of {cfg.head_dim} "
+                  f"beside {cfg.n_heads} SSM heads, d_ff {cfg.d_ff}, vocab "
+                  f"{cfg.padded_vocab}, {n} fp32 params ({n * 4 / 1e9:.2f} "
+                  f"GB) drawn on the card in {time.perf_counter() - t0:.2f}"
+                  f" s")
+            sw.engine(w, n_requests=2, gen=3).run()  # warm-up, not measured
+        params = w.params
+        eng = sw.engine(w)
+        rings = [s.ring for s in eng.layout.subs]
+        check(rings == [traffic == "long"] * (cfg.global_every - 1) + [False],
+              f"{tag}: ring subs {rings}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fops.reset_launch_counts()
+        aops.reset_launch_counts()
+        res = eng.run()
+        torch.cuda.synchronize()
+        k3 = fops.paged_decode_attention.launches
+        k5 = aops.LAUNCHES["fwd"]
+        st = eng.stats()
+        steps_ = st["n_decode_steps"]
+        want_k5 = cfg.n_layers * st["n_prefill_calls"] \
+            if t.attn_impl == "chunked" else 0
+        check(steps_ == HYMBA_STEPS[traffic],
+              f"{tag}: {steps_} decode steps, predicted "
+              f"{HYMBA_STEPS[traffic]}")
+        check(k3 == cfg.n_layers * steps_, f"{tag}: K3 launched {k3} times "
+              f"in {steps_} decode steps of {cfg.n_layers} layers")
+        check(k5 == want_k5 and aops.LAUNCHES["dq"] == 0,
+              f"{tag}: K5 launched {k5} times in {st['n_prefill_calls']} "
+              f"prefill calls, predicted {want_k5}")
+        check(all(len(res[i]) == g for i, g in enumerate(w.gens)),
+              f"{tag}: a request did not finish with its token count")
+        check(eng.decode_cache_size == 1,
+              f"{tag}: decode step saw {eng.decode_cache_size} input "
+              f"signatures")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{tag}: {st['n_requests']} requests of {t.prompt_len} "
+              f"prompt tokens over {w.serve.n_slots} slots (pages of "
+              f"{w.serve.page_size}, max_len {eng.layout.max_len}, ring "
+              f"subs {sum(rings)} of {len(rings)}), prefill attention "
+              f"{t.attn_impl}: {st['total_tokens']} tokens in "
+              f"{st['wall_s']:.3f} s: {st['tokens_per_sec']:.1f} tok/s; "
+              f"decode {st['decode_ms_per_step']:.3f} ms per step over "
+              f"{steps_} steps; {st['n_prefill_calls']} prefill calls; "
+              f"TTFT p50 {st['ttft_p50_s']:.3f} s p99 {st['ttft_p99_s']:.3f}"
+              f" s; latency p50 {st['latency_p50_s']:.3f} s p99 "
+              f"{st['latency_p99_s']:.3f} s; {st['n_preemptions']} "
+              f"preemptions; peak pages {st['peak_pages']}/"
+              f"{st['n_pages'] - 1}; peak memory {peak / 2**30:.2f} GiB")
+        print(f"{tag}: flash_decode_paged (K3) launches {k3} = "
+              f"{cfg.n_layers} x {steps_} decode steps; flash_attention_fwd"
+              f" (K5) launches {k5} = {cfg.n_layers} x "
+              f"{st['n_prefill_calls']} prefill calls"
+              + (" (the plain attention)" if not want_k5 else "")
+              + f"; every request finished with its requested token count;"
+              f" decode input signatures {eng.decode_cache_size}")
+        out[traffic] = (w, {"K3": k3, "K5": k5}, st, peak)
+        del eng
+    return out
+
+
+def phase_serve_hymba_parity(runs):
+    """Each traffic's engine (K3; K5 in the long prefill) against
+    ``static_generate`` (dense cache, plain attention) on the card."""
+    for traffic, (w, *_rest) in runs.items():
+        phase_serve_parity(
+            w, "serve-hymba-parity", f"{HYMBA_ARCH} {traffic}: continuous "
+            f"(K3" + (", K5 prefill" if w.serve.attn_impl == "chunked"
+                      else "") + ") vs static (plain)")
+
+
 # -- K4, K5, K6: the attention kernels' entry points ---------------------------
 
 TRAIN_B, TRAIN_S = 2, 4096       # launch/shapes.py train_4k at batch 2
@@ -1993,7 +2178,19 @@ def _attn_cases():
     for n, cfg, w in _attn_configs():
         s = TRAIN_S if n == ZOO_ARCH else GEMMA_MACRO_S
         cases.append((f"{n} B=1 S={s}", cfg, w, 1, s, torch.float32, True))
+    for n, cfg, w in _hymba_attn_configs():
+        cases.append((f"{n} B=1 S={HYMBA_S}", cfg, w, 1, HYMBA_S,
+                      torch.float32, True))
     return cases
+
+
+def _hymba_attn_configs():
+    """hymba-1.5b's two attention layers (25 heads over 5 of 64, a GQA
+    group of 5): a windowed one (1,024) and the global one."""
+    from repro_torch.configs.base import get_config
+    hy = get_config(HYMBA_ARCH)
+    return [(f"{HYMBA_ARCH} local", hy, hy.sliding_window),
+            (f"{HYMBA_ARCH} global", hy, 0)]
 
 
 def _planted_wrong(q, k, v, g, o, lse, want, window):
@@ -3248,11 +3445,14 @@ def _zoo_reset():
 
 
 def _kernel_events(prof):
-    """Device kernel events of a profile in start order: (name, us)."""
+    """Device kernel events of a profile in start order: (name, us), read
+    off the profiler's raw results (its Python event tree takes minutes
+    to build for a round of ~10^6 launches)."""
     cuda = torch.autograd.DeviceType.CUDA
-    evs = [e for e in prof.events() if e.device_type == cuda]
-    evs.sort(key=lambda e: e.time_range.start)
-    return [(e.name, e.time_range.elapsed_us()) for e in evs]
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == cuda]
+    evs.sort(key=lambda e: e.start_ns())
+    return [(e.name(), e.duration_ns() / 1e3) for e in evs]
 
 
 def _in_run(events):
@@ -3271,17 +3471,17 @@ def _in_run(events):
     return out
 
 
-def _zoo_fed(dev, cfg, **fl_kw):
+def _zoo_fed(dev, cfg, s=None, **fl_kw):
     """``Federation.from_config`` on a zoo config as the launcher wires it
     (``lm_batch`` data by ``iid_partition``), with the pod step's loss
-    keywords (chunked attention, remat): one sequence of ``train_4k``'s
-    length per client and local step."""
+    keywords (chunked attention, remat): one sequence of ``s`` tokens
+    (``train_4k``'s length unless given) per client and local step."""
     from repro_torch.core import FLConfig, Federation
     from repro_torch.data import FederatedLoader, iid_partition, lm_batch
     from repro_torch.launch import steps
     from repro_torch.launch.shapes import SHAPES
 
-    s = SHAPES["train_4k"].seq_len
+    s = s or SHAPES["train_4k"].seq_len
     n = ZOO_CLIENTS * ZOO_STEPS * (ZOO_ROUNDS + 1)
     data = lm_batch(n, s, cfg.vocab, key=0)
     shards = iid_partition(n, ZOO_CLIENTS, key=1)
@@ -3540,11 +3740,194 @@ def phase_zoo_train_step(dev, smi):
     return counts, run, peak, secs
 
 
-def phase_zoo_parity(dev):
-    """qwen3-1.7b at full width cut to 2 layers, one hub round of SGD at
-    S = 1,024 (the chunked route), 2 clients, the same params, batches
-    and replayed selections on the card (K5/K6, K1) and on the host CPU
-    (plain versions)."""
+HYMBA_S = 2048                    # past the window: local != global work
+
+
+def phase_zoo_round_hymba(dev, smi):
+    """The paper's round on hymba-1.5b at full width (34 units: embed,
+    layer0-31, head; 17 trained a client), 2 clients x 2 local steps of
+    one ``lm_batch`` sequence of HYMBA_S tokens, Adam at 2e-3, hub, with
+    the pod step's loss keywords (chunked attention, remat per macro
+    block): 2 rounds, the second under ``torch.profiler`` (device events
+    only: the SSM scan's state loop launches ~10^5 kernels a round)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.comm import table4_row
+
+    tag = "zoo-round-hymba"
+    cfg = get_config(HYMBA_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fed = _zoo_fed(dev, cfg, s=HYMBA_S)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in fed.params.values())
+    check(n_params == HYMBA_PARAMS, f"{tag}: {n_params} params, expected "
+          f"{HYMBA_PARAMS}")
+    n_units = cfg.n_layers + 2
+    check(fed.assign.n_units == n_units and
+          fed.fl.resolve_n_train(n_units) == n_units // 2 and
+          fed.fl.resolve_fused_agg(fed.device),
+          f"{tag}: units {fed.assign.n_units}, fused_agg off")
+    frozen = ZooFrozenCheck(fed.assign, fed.fl)
+    fed.server.add_hook(frozen)
+    _zoo_reset()
+    t0 = time.perf_counter()
+    fed.fit(1)
+    torch.cuda.synchronize()
+    secs = [time.perf_counter() - t0]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fed.fit(1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    events = _kernel_events(prof)
+    del prof
+    parse_s = time.perf_counter() - t0
+    counts = _zoo_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = fed.history
+    check(all(math.isfinite(r.loss) for r in hist), f"{tag}: non-finite loss")
+    steps_ = 2 * ZOO_CLIENTS * ZOO_STEPS
+    n = cfg.n_layers
+    # as in phase 29: K5 per layer in the forward and in its remat
+    # recompute, K6 once per layer; the backward reaches layer 0
+    want = {"K1": 2, "K2": 0, "K5": 2 * n * steps_, "K6 dq": n * steps_,
+            "K6 dkv": n * steps_}
+    check(counts == want, f"{tag}: launches {counts}, predicted {want}")
+    check(frozen.checked > 0 and frozen.moved > 0,
+          f"{tag}: frozen {frozen.checked}, moved {frozen.moved}")
+    summ = fed.comm_summary()
+    t4 = table4_row(fed.assign, {p: x.to("meta") for p, x in
+                                 fed.params.items()},
+                    np.stack(fed.server.sel_history))
+    check(all(summ[k] == v for k, v in t4.items()),
+          f"{tag}: comm_summary {summ} != table4_row {t4}")
+    run = _in_run(events)
+    run["wall_ms"] = secs[1] * 1e3
+    run["busy_share"] = run["busy_ms"] / run["wall_ms"]
+    from repro_torch.kernels.masked_agg import ops as kops
+    plan_rows = kops.build_agg_plan(fed.assign, fed.params).n_rows
+    k1_bytes = (ZOO_CLIENTS + 2) * plan_rows * 2048 * 4 \
+        + plan_rows * ZOO_CLIENTS * 4
+    run["K1"]["T"] = plan_rows
+    run["K1"]["bound_ms"] = k1_bytes / memory_rate(
+        torch.cuda.get_device_name(0)) * 1e3
+    # the profiled round's half of the launches: K5 in blocks of one macro
+    # block's 8 sub-layers (the forward, then each recompute), the global
+    # sub-layer last; K6 per macro block from the global sub-layer down
+    macro = cfg.global_every
+    fwd = [t for nm, t in events if "fwd_kernel" in nm]
+    bwd = [a + b for a, b in zip([t for nm, t in events if "dq_kernel" in nm],
+                                 [t for nm, t in events
+                                  if "dkv_kernel" in nm])]
+    check(len(fwd) == want["K5"] // 2 and len(bwd) == want["K6 dq"] // 2,
+          f"{tag}: profiled K5 {len(fwd)}, K6 {len(bwd)}")
+    for kind, ts, glob in (("K5", fwd, macro - 1), ("K6", bwd, 0)):
+        for where, pick in (("global", lambda i: i % macro == glob),
+                            ("local", lambda i: i % macro != glob)):
+            sel_ = [t for i, t in enumerate(ts) if pick(i)]
+            run[f"{kind} {where} ms"] = float(np.mean(sel_)) / 1e3
+    for r, sec in zip(hist, secs):
+        print(f"[{tag}] round {r.round}: loss {r.loss:.4f} {sec:.3f} s wall "
+              f"({r.seconds:.3f} s in the server) uplink "
+              f"{r.uplink_bytes:.0f} B")
+    print(f"[{tag}] {cfg.name} full width ({n_params:,} fp32 params, "
+          f"{n_units} units, {n_units // 2} trained a client), "
+          f"{ZOO_CLIENTS} clients x {ZOO_STEPS} local steps of 1 x "
+          f"{HYMBA_S:,} tokens, Adam lr {ZOO_LR}: built in {build_s:.2f} s;"
+          f" launches {counts} == predicted; frozen (client, unit row) "
+          f"deltas exactly zero: {frozen.checked}, trained rows that moved: "
+          f"{frozen.moved}; bill == Table 4; peak memory {peak / 1e9:.2f} "
+          f"GB ({peak / 2**30:.2f} GiB) on {smi}")
+    print(f"[{tag}] profiled round: wall {secs[1]:.3f} s, device busy "
+          f"{run['busy_ms']:.1f} ms ({run['busy_share']:.1%}), "
+          f"{len(events):,} device kernels ({len(events) / secs[1]:,.0f} a "
+          f"second; the profile parsed in {parse_s:.1f} s), cuBLAS gemm "
+          f"{run['gemm_ms']:.1f} ms; in-run device ms: "
+          + ", ".join(f"{k} {run[k]['launches']} launches "
+                      f"{run[k]['total_ms']:.2f} ms ({run[k]['ms']:.4f} a "
+                      f"{'call' if k == 'K6' else 'launch'})"
+                      for k in ZOO_KERNELS if run[k]["launches"])
+          + f"; K5 local {run['K5 local ms']:.4f} / global "
+          f"{run['K5 global ms']:.4f} ms a launch, K6 local "
+          f"{run['K6 local ms']:.4f} / global {run['K6 global ms']:.4f} ms "
+          f"a call; K1 at the plan's T={plan_rows} C={ZOO_CLIENTS}: bound "
+          f"{run['K1']['bound_ms']:.4f} ms ({k1_bytes / 1e9:.2f} GB), in-run"
+          f" at {run['K1']['bound_ms'] / run['K1']['ms']:.1%} of it")
+    del fed, frozen, events
+    _free_card(tag)
+    return counts, run, peak, secs
+
+
+def phase_zoo_parity_hymba(dev):
+    """hymba-1.5b at full width cut to 2 layers (one macro block: a
+    windowed sub-layer, window cut to 256, and a global one), S = 640:
+    both K5/K6 routes, card against the host CPU."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(HYMBA_ARCH).replace(n_layers=2, global_every=2,
+                                         sliding_window=256)
+    phase_zoo_parity(dev, cfg, s=640, tag="zoo-parity-hymba")
+
+
+def k1_qwen3_plan(dev, plan_rows, smi):
+    """K1 alone at qwen3-1.7b's hub plan (``plan_rows`` rows of 2,048, 2
+    clients: 27.54 GB a call), on random tile buffers of that shape: its
+    device time beside its plain version's and one ``torch.bmm`` call's
+    with the guard (the yardstick of ``_k1_measure``), each timed alone
+    and its inputs' other layout freed, so that the card holds them."""
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.masked_agg.ref import masked_agg_ref
+
+    tag = "[k1-qwen3-plan]"
+    c, tile = ZOO_CLIENTS, 2048
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g_t = torch.randn(plan_rows, tile, generator=gen, device=dev)
+    d_t = 0.05 * torch.randn(c, plan_rows, tile, generator=gen, device=dev)
+    w_t = torch.rand(plan_rows, c, generator=gen, device=dev) + 0.5
+    w_t[::7] = 0.0                    # rows of a unit nobody selected
+    out_k = ops.masked_agg(g_t, d_t, w_t)
+    out_p = masked_agg_ref(g_t, d_t, w_t)
+    err = float((out_k - out_p).abs().max())
+    check(torch.allclose(out_k, out_p, atol=TOL, rtol=TOL),
+          f"{tag} kernel vs plain: max abs err {err}")
+    check(torch.equal(out_k[::7], g_t[::7]), f"{tag} a zero-weight row "
+          f"changed")
+    del out_k
+    ms = device_ms(lambda: ops.masked_agg(g_t, d_t, w_t), 10)
+    plain_ms = device_ms(lambda: masked_agg_ref(g_t, d_t, w_t), 10)
+    d_tct = d_t.permute(1, 0, 2).contiguous()        # (T, C, tile)
+    del d_t
+
+    def library():
+        num = torch.bmm(w_t.unsqueeze(1), d_tct).squeeze(1)
+        den = w_t.sum(1, keepdim=True)
+        return g_t + torch.where(den > 0, num / den.clamp_min(1e-9),
+                                 torch.zeros_like(num))
+
+    lib_err = float((library() - out_p).abs().max())
+    check(lib_err <= 1e-4, f"{tag} torch.bmm yardstick disagrees: {lib_err}")
+    del out_p
+    library_ms = device_ms(library, 10)
+    nbytes = 4 * (plan_rows * tile * (c + 2) + plan_rows * c)
+    bound = nbytes / memory_rate(torch.cuda.get_device_name(0)) * 1e3
+    print(f"{tag} T={plan_rows} C={c} tile {tile}: max abs err vs plain "
+          f"{err:.3e}, torch.bmm yardstick {lib_err:.3e}; device median ms "
+          f"(L2 flushed) kernel {ms:.4f}, plain {plain_ms:.4f}, torch.bmm + "
+          f"guard {library_ms:.4f}; bound {bound:.4f} ({nbytes / 1e9:.2f} "
+          f"GB; kernel at {bound / ms:.1%}) on {smi}")
+    del g_t, d_tct, w_t
+    _free_card("k1-qwen3-plan")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "max_abs_err": err}
+
+
+def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity"):
+    """qwen3-1.7b at full width cut to 2 layers (or ``cfg``), one hub
+    round of SGD at S = 1,024 (or ``s``: the chunked route), 2 clients,
+    the same params, batches and replayed selections on the card (K5/K6,
+    K1) and on the host CPU (plain versions)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core import FLConfig, Replay, build_round_step
     from repro_torch.core.masking import build_units_zoo
@@ -3554,11 +3937,11 @@ def phase_zoo_parity(dev):
     from repro_torch.launch import steps
     from repro_torch.models import get_model
 
-    cfg = get_config(ZOO_ARCH).replace(n_layers=2)
+    cfg = cfg or get_config(ZOO_ARCH).replace(n_layers=2)
     model = get_model(cfg)
     params = model.init_params(torch.Generator().manual_seed(4))
     assign = build_units_zoo(cfg, params)
-    s, c = 1024, 2
+    c = 2
     data = lm_batch(c, s, cfg.vocab, key=5)
     batches = {k: v.reshape(c, 1, 1, s) for k, v in data.items()}
     # units embed, layer0, layer1, head: each client trains n_train_units
@@ -3566,7 +3949,7 @@ def phase_zoo_parity(dev):
     n_train = 2
     sel = np.asarray([[0, 1, 1, 0], [1, 1, 0, 0]], np.float32)
     check(bool((sel.sum(1) == n_train).all()) and
-          bool(sel[:, 1:3].any(0).all()), f"zoo-parity: selection {sel}")
+          bool(sel[:, 1:3].any(0).all()), f"{tag}: selection {sel}")
     out, secs, losses = {}, {}, {}
     for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
         fl = FLConfig(n_clients=c, n_train_units=n_train, optimizer="sgd",
@@ -3583,7 +3966,7 @@ def phase_zoo_parity(dev):
         secs[side] = time.perf_counter() - t0
         if side == "card":
             check(aops.LAUNCHES["fwd"] > 0 and kops.masked_agg.launches == 1,
-                  f"zoo-parity: card launches {aops.LAUNCHES}, K1 "
+                  f"{tag}: card launches {aops.LAUNCHES}, K1 "
                   f"{kops.masked_agg.launches}")
             card_counts = dict(aops.LAUNCHES)
         out[side] = {p: v.cpu() for p, v in new.items()}
@@ -3605,7 +3988,10 @@ def phase_zoo_parity(dev):
                 rows[f"{p}[{r}]"] = (mv, er)
     least = min(rows, key=lambda r: rows[r][0])
     rel = max(rows, key=lambda r: rows[r][1] / max(rows[r][0], 1e-30))
-    print(f"[zoo-parity] {cfg.name} at full width cut to 2 layers, S={s}, "
+    print(f"[{tag}] {cfg.name} at full width cut to 2 layers"
+          + (f" (window {cfg.sliding_window}, global_every "
+             f"{cfg.global_every})" if cfg.sliding_window else "")
+          + f", S={s}, "
           f"{c} clients, one SGD step at lr {ZOO_PARITY_LR}, selection "
           f"{sel.tolist()}"
           f": card (K5/K6 {card_counts}, K1) vs host CPU (plain) max abs err "
@@ -3619,56 +4005,61 @@ def phase_zoo_parity(dev):
           f"{losses['card']:.6f} CPU {losses['cpu']:.6f}; seconds card "
           f"{secs['card']:.2f}, CPU {secs['cpu']:.2f}")
     check(err[worst] <= ZOO_PARITY_TOL,
-          f"zoo-parity {worst}: card vs CPU max abs err {err[worst]} > "
+          f"{tag} {worst}: card vs CPU max abs err {err[worst]} > "
           f"{ZOO_PARITY_TOL}")
-    check(len(rows) == 4 * cfg.n_layers, f"zoo-parity: rows {sorted(rows)}")
+    check(len(rows) == 4 * cfg.n_layers, f"{tag}: rows {sorted(rows)}")
     for r, (mv, _) in rows.items():
-        check(mv >= 10 * ZOO_PARITY_TOL, f"zoo-parity {r}: moved by {mv}, "
+        check(mv >= 10 * ZOO_PARITY_TOL, f"{tag} {r}: moved by {mv}, "
               f"under 10 x {ZOO_PARITY_TOL}")
     del out
-    _free_card("zoo-parity")
+    _free_card(tag)
 
 
-def phase_train_launcher():
-    """The training launcher as a user runs it, on the card at full width."""
+def phase_train_launcher(arch=ZOO_ARCH, rounds=1, units=30,
+                         tag="train-launcher"):
+    """The training launcher as a user runs it, on the card at full width
+    (``units``: the arch's unit count, half of them trained)."""
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           ZOO_ARCH, "--clients", "2", "--rounds", "1", "--batch-size", "1",
-           "--steps-per-round", "1", "--seq", "64"]
+           arch, "--clients", "2", "--rounds", str(rounds), "--batch-size",
+           "1", "--steps-per-round", "1", "--seq", "64"]
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     t0 = time.perf_counter()
     got = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                          env=env, cwd=root)
     secs = time.perf_counter() - t0
-    check(got.returncode == 0, f"[train-launcher] exit {got.returncode}: "
+    check(got.returncode == 0, f"[{tag}] exit {got.returncode}: "
           f"{got.stderr[-3000:]}")
     out = got.stdout
     header = next((x for x in out.splitlines() if x.startswith("arch=")), "")
-    check(header == f"arch={ZOO_ARCH} reduced=False units=30 train=15 "
-          f"clients=2 topology=hub", f"[train-launcher] header {header!r}")
-    check("comm summary:" in out, "[train-launcher] no comm summary")
+    check(header == f"arch={arch} reduced=False units={units} train="
+          f"{units // 2} clients=2 topology=hub", f"[{tag}] header {header!r}")
+    check(out.count("  round ") == rounds, f"[{tag}] round lines: {out}")
+    check("comm summary:" in out, f"[{tag}] no comm summary")
     summ = json.loads(out[out.index("comm summary:\n") + 14:
                           out.rindex("}") + 1])
     check(summ["avg_uplink_bytes"] > 0 and 0 < summ["reduction_vs_full"] < 1,
-          f"[train-launcher] comm summary {summ}")
-    print(f"[train-launcher] {' '.join(cmd[1:])}: exit 0 in {secs:.1f} s; "
+          f"[{tag}] comm summary {summ}")
+    print(f"[{tag}] {' '.join(cmd[1:])}: exit 0 in {secs:.1f} s; "
           f"{header}; " + " | ".join(x.strip() for x in out.splitlines()
                                      if x.startswith("  round"))
           + f"; comm summary {json.dumps(summ)}")
 
 
 def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
-                    attn_zoo):
+                    attn_zoo, hymba_run, k1_plan):
     """The zoo call sites' numbers for the kernels line: in-run device
     ms beside the bound and, for K5/K6, ``[attention-kernels]``' readings
-    at the same shapes (alone, plain, SDPA, max abs err)."""
+    at the same shapes (alone, plain, SDPA, max abs err); K1 at qwen3's
+    plan alone (``k1_qwen3_plan``)."""
     name = torch.cuda.get_device_name(0)
     rows = {"K1": {}, "K2": {}, "K5": {}, "K6": {}}
     k1_bytes = (ZOO_CLIENTS + 2) * plan_rows * 2048 * 4 \
         + plan_rows * ZOO_CLIENTS * 4
-    rows["K1"]["hub qwen3-1.7b"] = {
-        "T": plan_rows, "C": ZOO_CLIENTS, "in_run_ms": dense_run["K1"]["ms"],
-        "bound_ms": k1_bytes / memory_rate(name) * 1e3, "bound_by": "bytes"}
+    rows["K1"]["hub qwen3-1.7b"] = dict(
+        T=plan_rows, C=ZOO_CLIENTS, in_run_ms=dense_run["K1"]["ms"],
+        bound_ms=k1_bytes / memory_rate(name) * 1e3, bound_by="bytes",
+        **k1_plan)
     k2_bytes = packed_run["K2"]["bytes"]
     rows["K2"]["hub qwen3-1.7b packed qint8"] = {
         "elements": packed_run["K2"]["elements"],
@@ -3680,6 +4071,10 @@ def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
                gemma_run["K5 local ms"], gemma_run["K6 local ms"]),
               (f"gemma3-12b global B=1 S={GEMMA_MACRO_S}",
                gemma_run["K5 global ms"], gemma_run["K6 global ms"])]
+    shapes += [(f"{n} B=1 S={HYMBA_S}", hymba_run[f"K5 {where} ms"],
+                hymba_run[f"K6 {where} ms"])
+               for (n, _, _), where in zip(_hymba_attn_configs(),
+                                           ("local", "global"))]
     for label, k5_ms, k6_ms in shapes:
         t = attn_zoo[label]
         bound = t["bound"]
@@ -3700,7 +4095,9 @@ def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
                   f"of the bound in-run")
     k1 = rows["K1"]["hub qwen3-1.7b"]
     print(f"[zoo-kernels] K1 hub qwen3-1.7b plan T={plan_rows} C="
-          f"{ZOO_CLIENTS}: in-run {k1['in_run_ms']:.4f} ms, bound "
+          f"{ZOO_CLIENTS}: in-run {k1['in_run_ms']:.4f} ms, alone "
+          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, torch.bmm + "
+          f"guard {k1['library_ms']:.4f} ms, bound "
           f"{k1['bound_ms']:.4f} ms ({k1_bytes / 1e9:.2f} GB at "
           f"{memory_rate(name) / 1e12:.2f} TB/s) on {smi}")
     k2 = rows["K2"]["hub qwen3-1.7b packed qint8"]
@@ -3769,8 +4166,7 @@ def main() -> int:
     w, k7["launches"] = phase_serve_rwkv6(dev)
     phase_serve_rwkv6_parity(w)
     del w
-    _free_card("zoo")
-    # the zoo: the round and the train step of the zoo LMs (K1, K2, K5, K6)
+    _free_card("serve-rwkv6")
     walls = {}
 
     def timed(tag, fn, *args):
@@ -3778,6 +4174,17 @@ def main() -> int:
         out = fn(*args)
         walls[tag] = time.perf_counter() - t0
         return out
+
+    # hymba-1.5b served (K3 at a GQA group of 5; K5 in the long prefill)
+    hymba = timed("serve-hymba", phase_serve_hymba, dev)
+    timed("serve-hymba-parity", phase_serve_hymba_parity, hymba)
+    k3_paths = {"serve qwen3-1.7b": k3["launches"]}
+    k3_paths.update({f"serve hymba-1.5b {t}": c["K3"]
+                     for t, (_, c, _, _) in hymba.items()})
+    k5_serve = hymba["long"][1]["K5"]
+    del hymba
+    _free_card("zoo")
+    # the zoo: the round and the train step of the zoo LMs (K1, K2, K5, K6)
 
     dense, dense_run, plan_rows, _, _ = timed("zoo-round", phase_zoo_round,
                                               dev, smi)
@@ -3787,12 +4194,24 @@ def main() -> int:
                                    dev, smi)
     timed("zoo-parity", phase_zoo_parity, dev)
     timed("train-launcher", phase_train_launcher)
+    hymba_counts, hymba_run, _, _ = timed(
+        "zoo-round-hymba", phase_zoo_round_hymba, dev, smi)
+    timed("zoo-parity-hymba", phase_zoo_parity_hymba, dev)
+    timed("train-launcher-hymba", phase_train_launcher, HYMBA_ARCH, 2, 34,
+          "train-launcher-hymba")
+    k1_plan = timed("k1-qwen3-plan", k1_qwen3_plan, dev, plan_rows, smi)
+    added = sum(v for k, v in walls.items()
+                if "hymba" in k or k.startswith("k1-"))
     print("[zoo] wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                              walls.items())
-          + f"; phases 29-33 {sum(walls.values()):.1f}")
+          + f"; phases 29-33 {sum(walls.values()) - added:.1f}; phases "
+          f"34-39 (hymba, k1-qwen3-plan) {added:.1f}")
     zoo = zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
-                          attn_zoo)
+                          attn_zoo, hymba_run, k1_plan)
     k1_paths["hub qwen3-1.7b"] = dense["K1"]
+    k1_paths["hub hymba-1.5b"] = hymba_counts["K1"]
+    k3["launches"] = sum(k3_paths.values())
+    k3["launches_by_path"] = k3_paths
     k1_paths["hub qwen3-1.7b packed qint8"] = packed["K1"]
     k2_paths["hub qwen3-1.7b packed qint8"] = packed["K2"]
     k2_paths["hub qwen3-1.7b"] = dense["K2"]
@@ -3801,9 +4220,12 @@ def main() -> int:
         k["launches_by_path"] = paths
     zoo_paths = (("hub qwen3-1.7b", dense), ("hub qwen3-1.7b packed qint8",
                                              packed),
-                 ("train step gemma3-12b macro block", gemma))
+                 ("train step gemma3-12b macro block", gemma),
+                 ("hub hymba-1.5b", hymba_counts))
     for k, keys in ((k5, ("K5",)), (k6, ("K6 dq", "K6 dkv"))):
         paths = {p: sum(c[x] for x in keys) for p, c in zoo_paths}
+        if k is k5:
+            paths["serve hymba-1.5b long prefill"] = k5_serve
         paths["attention-kernels (direct calls)"] = k["launches"]
         k["launches"] = sum(v for p, v in paths.items()
                             if not p.startswith("attention-kernels"))

@@ -6,8 +6,8 @@ defining a module-level ``CONFIG: ArchConfig``.  Configs are registered
 by name and selectable from the serving and training launchers via
 ``--arch <id>``.  The port registers the dense family's qwen3-1.7b,
 gemma3-12b, qwen2.5-14b (QKV bias) and stablelm-3b (LayerNorm, 25%
-rotary), and the ssm family's rwkv6-3b; the other families' configs
-wait for their models.
+rotary), the ssm family's rwkv6-3b and the hybrid family's hymba-1.5b;
+the other families' configs wait for their models.
 
 ``ArchConfig.reduced()`` returns the smoke-test variant (≤2 layers,
 d_model ≤ 512, ≤4 experts) of the same family, used by tests and CPU
@@ -172,4 +172,5 @@ def list_configs() -> Tuple[str, ...]:
 def _ensure_loaded():
     # import side-effect registration of every config module the port has
     from . import (  # noqa: F401
-        gemma3_12b, qwen2_5_14b, qwen3_1_7b, rwkv6_3b, stablelm_3b)
+        gemma3_12b, hymba_1_5b, qwen2_5_14b, qwen3_1_7b, rwkv6_3b,
+        stablelm_3b)

@@ -470,6 +470,8 @@ int by_rep(const Params& p, int n_rep, int groups, cudaStream_t s) {
     case 1: return launch<T, HD, 1>(p, groups, s);
     case 2: return launch<T, HD, 2>(p, groups, s);
     case 4: return launch<T, HD, 4>(p, groups, s);
+    case 5: return launch<T, HD, 5>(p, groups, s);
+    case 6: return launch<T, HD, 6>(p, groups, s);
     case 8: return launch<T, HD, 8>(p, groups, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -490,8 +492,9 @@ int by_head_dim(const Params& p, int hd, int n_rep, int groups,
 }  // namespace
 
 // dtype 0 = float32, 1 = bfloat16 (q, both pools and out share it).
-// head_dim in {32, 64, 128, 256}; n_rep in {1, 2, 4, 8}.  Strides are in
-// elements; head_dim is contiguous everywhere, q and the pools start
+// head_dim in {32, 64, 128, 256}; n_rep in {1, 2, 4, 5, 6, 8} (5: hymba-1.5b,
+// qwen2.5-14b, llama4; 6: internvl2-26b).  Strides are in elements;
+// head_dim is contiguous everywhere, q and the pools start
 // 16-byte aligned with strides that keep every row 16-byte aligned, and
 // page ids lie in [0, pages of the pool) (the Python wrapper checks all
 // but the last, which the engine's allocator guarantees).  The split

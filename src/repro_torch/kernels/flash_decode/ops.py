@@ -57,7 +57,7 @@ from .ref import (decode_attention_ref, dense_span, flash_decode_paged_ref,
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode_paged.cu"
 HEAD_DIMS = (32, 64, 128, 256)
-N_REPS = (1, 2, 4, 8)
+N_REPS = (1, 2, 4, 5, 6, 8)     # GQA groups: 5 hymba-1.5b, qwen2.5-14b
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCKS_PER_SM = 4       # the plan's aim were every sequence full length
 MIN_TILES = 2           # a split spans at least this many ring tiles

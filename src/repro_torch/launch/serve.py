@@ -12,14 +12,19 @@
         --arch rwkv6-3b --reduced --device cpu --batch 4 --requests 8 \\
         --prompt-len 32 --gen 8 --gen-spread 4
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous \\
+        --arch hymba-1.5b --batch 8 --requests 16 --prompt-len 128 \\
+        --gen 32 --gen-spread 16
+
 The flags are those of ``repro.launch.serve``, plus ``--device``
 (default ``cuda``: the card; the run fails without one unless
 ``--device cpu`` is given).  ``--engine static`` runs the fixed-batch
 prefill+decode loop (``serve.engine.static_generate``); ``--engine
 continuous`` routes the requests through the paged continuous-batching
 engine with ``--batch`` decode slots (rwkv6-3b's state rows take no
-pages; its prefill's scan runs on kernel K7 on the card).  Weights are
-random, drawn from ``--seed``; so are the prompts, from a torch
+pages; its prefill's scan runs on kernel K7 on the card; hymba-1.5b's
+attention KV takes pages, its conv and SSM states slot rows).  Weights
+are random, drawn from ``--seed``; so are the prompts, from a torch
 generator: they are not the reference launcher's prompts.
 """
 from __future__ import annotations

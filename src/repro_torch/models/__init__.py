@@ -1,18 +1,19 @@
 """Models of the port: the paper's own (VGG16, the IMDB CNN-LSTM and the
 CASA LSTM, ``paper_models``), the toy stacked-block MLP the round-step
 tests use (``toy``), and the zoo's dense transformer family
-(``transformer``) and RWKV-6 (``rwkv6``, the ``ssm`` family), one API
-across families as in ``repro.models``.
+(``transformer``), RWKV-6 (``rwkv6``, the ``ssm`` family) and hymba
+(``hymba``, the ``hybrid`` family), one API across families as in
+``repro.models``.
 
-``get_model(cfg)`` dispatches on ``cfg.family``.  ``dense`` and ``ssm``
-are ported; the other families raise ``NotPortedError``.
+``get_model(cfg)`` dispatches on ``cfg.family``.  ``dense``, ``ssm`` and
+``hybrid`` are ported; the other families raise ``NotPortedError``.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
 from ..core.registry import NotPortedError
-from . import rwkv6, transformer
+from . import hymba, rwkv6, transformer
 
 
 class ModelApi(NamedTuple):
@@ -28,7 +29,7 @@ class ModelApi(NamedTuple):
     decode_step_paged: Optional[Callable] = None
 
 
-_FAMILY = {"dense": transformer, "ssm": rwkv6}
+_FAMILY = {"dense": transformer, "ssm": rwkv6, "hybrid": hymba}
 
 
 def get_model(cfg) -> ModelApi:

@@ -12,8 +12,10 @@ the recurrence over a per-head state matrix ``S (dk, dv)``:
 
 The chunked form processes ``chunk`` tokens with matrix products instead
 of a per-token loop; it is differentiable and is what the models' training
-``forward`` runs.  The serving prefill of rwkv6 runs the same recurrence
-through ``kernels.rwkv6_scan`` (kernel K7 on the card).
+``forward`` runs.  The v-decay form computes what does not read the
+carried state for every chunk at once, and carries the state in a loop
+of one multiply-add a chunk.  The serving prefill of rwkv6 runs the same
+recurrence through ``kernels.rwkv6_scan`` (kernel K7 on the card).
 
 Numerics: decay work happens in log space, against the chunk-final
 cumulative sum.  The per-token log-decay is floored at
@@ -71,41 +73,57 @@ def chunked_linear_scan(q, k, v, log_decay, *, decay_on: str,
     state = torch.zeros((b, h, dk, dv), dtype=f32, device=q.device) \
         if state0 is None else state0.to(f32)
     ones = torch.ones((c, c), dtype=f32, device=q.device)
+    if decay_on == "v":
+        out, state = _v_decay_chunks(qc, kc, vc, dc, state, torch.tril(ones))
+        return out.transpose(0, 1).reshape(b, s, h, dv).to(q.dtype), state
     causal_strict = torch.tril(ones, diagonal=-1)
-    causal_incl = torch.tril(ones)
     outs = []
     for qb, kb, vb, db in zip(qc, kc, vc, dc):  # (B, c, H, ...)
         cum = torch.cumsum(db, dim=1)          # c_r, r = 1..c
         total = cum[:, -1:]                    # c_last
-        if decay_on == "k":
-            # q̂_s = q_s exp(c_{s-1} - c_last); k̂_r = k_r exp(c_last - c_r)
-            cum_prev = cum - db
-            qh = qb * torch.exp(cum_prev - total)
-            kh = kb * torch.exp(total - cum)
-            att = torch.einsum("bshi,brhi->bhsr", qh, kh) * causal_strict
-            intra = torch.einsum("bhsr,brhj->bshj", att, vb)
-            if bonus is not None:
-                diag = torch.einsum("bshi,bshi->bsh", qb,
-                                    bonus.to(f32)[None, None] * kb)
-                intra = intra + diag[..., None] * vb
-            inter = torch.einsum("bshi,bhij->bshj", qb * torch.exp(cum_prev),
-                                 state)
-            out = inter + intra
-            # S_c = diag(exp(c_last)) S_0 + sum_r diag(exp(c_last-c_r)) k_r v_r^T
-            state = torch.exp(total[:, 0, :, :, None]) * state + \
-                torch.einsum("brhi,brhj->bhij", kh, vb)
-        else:
-            att = torch.einsum("bshi,brhi->bhsr", qb, kb) * causal_incl
-            vh = vb * torch.exp(total - cum)         # v_r exp(c_last - c_r)
-            qs_decay = torch.exp(cum - total)        # exp(c_s - c_last)
-            intra = torch.einsum("bhsr,brhj->bshj", att, vh) * qs_decay
-            inter = torch.einsum("bshi,bhij->bshj", qb, state) * torch.exp(cum)
-            out = inter + intra
-            state = state * torch.exp(total[:, 0, :, None, :]) + \
-                torch.einsum("brhi,brhj->bhij", kb, vh)
-        outs.append(out)
+        # q̂_s = q_s exp(c_{s-1} - c_last); k̂_r = k_r exp(c_last - c_r)
+        cum_prev = cum - db
+        qh = qb * torch.exp(cum_prev - total)
+        kh = kb * torch.exp(total - cum)
+        att = torch.einsum("bshi,brhi->bhsr", qh, kh) * causal_strict
+        intra = torch.einsum("bhsr,brhj->bshj", att, vb)
+        if bonus is not None:
+            diag = torch.einsum("bshi,bshi->bsh", qb,
+                                bonus.to(f32)[None, None] * kb)
+            intra = intra + diag[..., None] * vb
+        inter = torch.einsum("bshi,bhij->bshj", qb * torch.exp(cum_prev),
+                             state)
+        outs.append(inter + intra)
+        # S_c = diag(exp(c_last)) S_0 + sum_r diag(exp(c_last-c_r)) k_r v_r^T
+        state = torch.exp(total[:, 0, :, :, None]) * state + \
+            torch.einsum("brhi,brhj->bhij", kh, vb)
     outs = torch.stack(outs, dim=1).reshape(b, s, h, dv)
     return outs.to(q.dtype), state
+
+
+def _v_decay_chunks(qc, kc, vc, dc, state, causal_incl):
+    """The v-decay form over chunks (n, B, c, H, .): every term that does
+    not read the carried state (the intra-chunk products, each chunk's
+    k v^T contribution and its decay) for all chunks at once, then the
+    state carried chunk to chunk (one multiply-add each), then every
+    chunk's read of the state entering it at once.  Per chunk the
+    arithmetic of the one-chunk-at-a-time loop; the ~20 launches a chunk
+    of that loop become ~2, which is what a host-bound step pays for."""
+    cum = torch.cumsum(dc, dim=2)                    # c_r, r = 1..c
+    total = cum[:, :, -1:]                           # c_last
+    att = torch.einsum("nbshi,nbrhi->nbhsr", qc, kc) * causal_incl
+    vh = vc * torch.exp(total - cum)                 # v_r exp(c_last - c_r)
+    intra = torch.einsum("nbhsr,nbrhj->nbshj", att, vh) * \
+        torch.exp(cum - total)                       # exp(c_s - c_last)
+    kv = torch.einsum("nbrhi,nbrhj->nbhij", kc, vh)
+    decay = torch.exp(total[:, :, 0, :, None, :])    # (n, B, H, 1, dv)
+    entering = []
+    for i in range(qc.shape[0]):
+        entering.append(state)
+        state = state * decay[i] + kv[i]
+    inter = torch.einsum("nbshi,nbhij->nbshj", qc, torch.stack(entering)) \
+        * torch.exp(cum)
+    return inter + intra, state
 
 
 def linear_scan_decode(q, k, v, log_decay, state, *, decay_on: str,

@@ -317,6 +317,27 @@ def commit_prefill(cfg, paged: Tree, cache: Tree, slots,
     return paged
 
 
+def paged_addresses(layout, page_tables: Dict[str, torch.Tensor], steps,
+                    page_size: int):
+    """Per sub: ``(page, offset, valid)`` of the decode step's new token,
+    each (B,): the physical page and in-page offset its K/V go to, and
+    the attended length (int32), clamped to the ring allocation on a
+    sliding-window sub (ring slot = step % allocation)."""
+    out = []
+    for si, spec in enumerate(layout):
+        a = page_tables[f"sub{si}"].shape[1] * page_size
+        if spec.window > 0:
+            pos = steps % a                         # ring slot per seq
+            valid = torch.clamp(steps + 1, max=a)
+        else:
+            pos = steps
+            valid = steps + 1
+        page = page_tables[f"sub{si}"].gather(
+            1, (pos // page_size)[:, None].long())
+        out.append((page[:, 0], pos % page_size, valid.to(torch.int32)))
+    return out
+
+
 def decode_step_paged(cfg, params: Tree, paged: Tree, token, steps,
                       page_tables: Dict[str, torch.Tensor], *,
                       page_size: int):
@@ -334,30 +355,18 @@ def decode_step_paged(cfg, params: Tree, paged: Tree, token, steps,
                         token.device)
     x = L.embed_tokens(_group(params, "embed"), token)   # (B,1,d)
     positions = steps[:, None]
-    ps = page_size
-    valids, slots = [], []
-    for si, spec in enumerate(layout):
-        a = page_tables[f"sub{si}"].shape[1] * ps
-        if spec.window > 0:
-            pos = steps % a                         # ring slot per seq
-            valid = torch.clamp(steps + 1, max=a)
-        else:
-            pos = steps
-            valid = steps + 1
-        page = page_tables[f"sub{si}"].gather(1, (pos // ps)[:, None].long())
-        valids.append(valid.to(torch.int32))
-        slots.append((page[:, 0], pos % ps))
+    addr = paged_addresses(layout, page_tables, steps, page_size)
     for m in range(n_macro(cfg)):
         kp, vp = paged["pool/k"][m], paged["pool/v"][m]
         for si in range(len(layout)):
             p = _layer(params, si, m)
             h = L.apply_norm(p["ln1"], x)
             q, k, v = L.qkv_project(p["attn"], h, cfg, positions, rope)
-            page, off = slots[si]
+            page, off, valid = addr[si]
             paged_token_update(kp, k, page, off)
             paged_token_update(vp, v, page, off)
             o = paged_decode_attention(q, kp, vp, page_tables[f"sub{si}"],
-                                       valids[si])
+                                       valid)
             x = x + L.out_project(p["attn"], o)
             h = L.apply_norm(p["ln2"], x)
             x = x + L.apply_mlp(p["mlp"], h, cfg.act)

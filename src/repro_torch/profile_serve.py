@@ -1,13 +1,14 @@
 """Where the time of a serving decode step goes on the GPU.
 
     PYTHONPATH=src python -m repro_torch.profile_serve [--arch ARCH]
-        [--out FILE]
+        [--traffic serving|long] [--out FILE]
 
 Builds the serving workload (``serve_workload.build``: qwen3-1.7b, or
-``--arch`` such as rwkv6-3b, at full width in fp32, 8 slots, 16 requests
-of 128 prompt tokens, the one ``chip_smoke.py`` drives) and, after a
-warm-up, runs it through ``DecodeEngine`` once without and once under
-``torch.profiler``, recording every prefill call the engine makes (its
+``--arch`` such as rwkv6-3b or hymba-1.5b, at full width in fp32, under
+``--traffic``: by default 8 slots, 16 requests of 128 prompt tokens;
+``long``, 4 requests of 1,536; the ones ``chip_smoke.py`` drives) and,
+after a warm-up, runs it through ``DecodeEngine`` once without and once
+under ``torch.profiler``, recording every prefill call the engine makes (its
 tokens and keywords).  It then replays those prefill calls alone (each
 with its greedy first-token argmax), once without and once under the
 profiler.  The full run's device time less the replay's, divided by the
@@ -40,6 +41,8 @@ def _kind(name: str) -> str:
         return "flash_decode_paged (K3)"
     if "walk_kernel" in name or "carry_kernel" in name:   # K7's passes
         return "rwkv6_scan (K7)"
+    if "fwd_kernel" in name:         # the chunked prefill's attention
+        return "flash_attention_fwd (K5)"
     if any(k in name for k in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
                                "splitK", "dot_kernel")):
         return "matmul"
@@ -99,8 +102,8 @@ def _replay(w, calls: list) -> None:
         torch.argmax(logits[:, -1], dim=-1)
 
 
-def profile(arch: str = sw.ARCH) -> dict:
-    w = sw.build("cuda", arch=arch)
+def profile(arch: str = sw.ARCH, traffic: str = "serving") -> dict:
+    w = sw.build("cuda", arch=arch, traffic=traffic)
     sw.engine(w, n_requests=2, gen=3).run()                 # warm-up
     calls: list = []
     full = _profiled(lambda: _serve(w, calls), False)
@@ -119,10 +122,8 @@ def profile(arch: str = sw.ARCH) -> dict:
         timeout=60, check=True).stdout.strip()
     return {
         "card": smi, "torch": torch.__version__,
-        "config": {"arch": arch, "slots": sw.N_SLOTS,
-                   "page_size": sw.PAGE_SIZE, "requests": sw.N_REQUESTS,
-                   "prompt_len": sw.PROMPT_LEN, "gen": sw.GEN,
-                   "gen_spread": sw.GEN_SPREAD},
+        "config": {"arch": arch, "traffic": traffic,
+                   "page_size": sw.PAGE_SIZE, **w.traffic._asdict()},
         "decode_steps": steps,
         "prefill_calls": len(calls),
         "tokens_per_sec": stats["tokens_per_sec"],
@@ -147,9 +148,11 @@ def profile(arch: str = sw.ARCH) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=sw.ARCH, choices=list_configs())
+    ap.add_argument("--traffic", default="serving",
+                    choices=sorted(sw.TRAFFIC))
     ap.add_argument("--out", default=None, help="also write the JSON here")
     a = ap.parse_args(argv)
-    text = json.dumps(profile(a.arch), indent=1)
+    text = json.dumps(profile(a.arch, a.traffic), indent=1)
     print(text)
     if a.out:
         with open(a.out, "w") as f:

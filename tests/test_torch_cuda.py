@@ -283,7 +283,8 @@ def _pcase(dev, b, h, hkv, hd, n_pages, ps, mp, dtype=torch.float32, seed=0):
 
 @pytest.mark.parametrize("h,hkv,hd", [(4, 4, 64), (4, 2, 64), (8, 1, 32),
                                       (16, 8, 128), (16, 2, 128),
-                                      (4, 1, 256)])
+                                      (4, 1, 256), (10, 2, 64), (40, 8, 128),
+                                      (12, 2, 128)])
 def test_paged_decode_matches_plain(dev, h, hkv, hd):
     from repro_torch.kernels.flash_decode import ops as fops
     from repro_torch.kernels.flash_decode.ref import paged_decode_ref

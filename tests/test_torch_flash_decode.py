@@ -47,7 +47,7 @@ def _t(*xs):
     return [torch.as_tensor(x) for x in xs]
 
 
-@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 1), (10, 2), (12, 2)])
 def test_plain_matches_reference_kernel(h, hkv):
     q, k, v, valid = _kernel_layout(h, hkv)
     want = np.asarray(r_kernel(jnp.asarray(q), jnp.asarray(k),

@@ -121,14 +121,14 @@ def test_cpu_run_prints_reference_fields(capsys, monkeypatch):
 @pytest.mark.parametrize("extra,match", [
     (["--client-shards", "2"], "client_shards"),
     (["--prod-env"], "launch/env.py"),
-    (["--arch", "hymba-1.5b"], None)])
+    (["--arch", "granite-moe-1b-a400m"], None)])
 def test_unported_switches_raise(extra, match):
     if match is None:                 # argparse refuses an unknown arch
         with pytest.raises(SystemExit):
             train.main(["--device", "cpu", *ARGV, *extra])
-        with pytest.raises(NotPortedError, match="hybrid"):
+        with pytest.raises(NotPortedError, match="moe"):
             train.get_model(get_config("qwen3-1.7b").replace(
-                family="hybrid"))
+                family="moe"))
         return
     with pytest.raises(NotPortedError, match=match):
         train.main(["--device", "cpu", *ARGV, *extra])
@@ -168,7 +168,7 @@ def test_fl_round_step_assign_and_config_match_reference(arch, topology):
                       rfl.resolve_n_train(rassign.n_units))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-12b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-12b", "hymba-1.5b"])
 def test_prefill_and_decode_steps_match_reference(arch):
     """Reduced params drawn by the reference, the same tokens: the
     prefill step's last-token logits and two decode steps' logits."""

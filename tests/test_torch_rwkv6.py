@@ -235,5 +235,5 @@ def test_helpers_match_reference(setup):
 def test_get_model_families():
     cfg = get_config(ARCH).reduced()
     assert get_model(cfg).prefill is not None
-    with pytest.raises(NotPortedError, match="hybrid"):
-        get_model(cfg.replace(family="hybrid"))
+    with pytest.raises(NotPortedError, match="moe"):
+        get_model(cfg.replace(family="moe"))

@@ -59,7 +59,7 @@ def _close(got, want, what):
 
 def test_configs_match_reference():
     assert set(list_configs()) == {"qwen3-1.7b", "gemma3-12b", "rwkv6-3b",
-                                   "qwen2.5-14b", "stablelm-3b"}
+                                   "qwen2.5-14b", "stablelm-3b", "hymba-1.5b"}
     for name in list_configs():
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(r_get_config(name))
@@ -243,5 +243,5 @@ def test_paged_decode_equals_dense_decode_bitwise(gemma):
 def test_unported_paths_raise():
     with pytest.raises(NotPortedError, match="moe"):
         get_model(get_config("qwen3-1.7b").replace(family="moe"))
-    with pytest.raises(NotPortedError, match="hybrid"):
-        get_model(get_config("qwen3-1.7b").replace(family="hybrid"))
+    with pytest.raises(NotPortedError, match="audio"):
+        get_model(get_config("qwen3-1.7b").replace(family="audio"))
