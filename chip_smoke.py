@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in thirty-nine phases, in the order
-below except that 17-20, then 22-28, then 21 run after 8, and 34-35
-after 16, and any failure exits non-zero:
+nothing of the ``repro`` package) in forty-four phases, in the order
+below except that 17-20, then 22-28, then 21 run after 8, 34-35 and
+then 40-41 after 16, and 42-44 after 38, and any failure exits
+non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
    the checkout with ``nvcc`` (``repro_torch/kernels/_build.py``).
@@ -64,8 +65,8 @@ after 16, and any failure exits non-zero:
    sequences of 129-175 tokens) and at 8 x 4,096 tokens, on
    hymba-1.5b's (25 over 5 of 64, a GQA group of 5) at the serving shape
    and on a ring of 1,024 (8 sequences past it, valid lengths clamped
-   to the ring), and on qwen2.5-14b's (40 over 8 of 128) at the serving
-   shape, pages
+   to the ring), and on qwen2.5-14b's (40 over 8 of 128) and
+   granite-moe-1b-a400m's (16 over 8 of 64) at the serving shape, pages
    scattered by a random permutation, valid lengths ragged, fp32 and
    bf16: within 2e-5 of its plain version in fp32 and 3e-2 of the fp32
    plain version on the same bf16 inputs; bf16 also element by element
@@ -116,8 +117,9 @@ after 16, and any failure exits non-zero:
    in fp32, the forward's time against the previous design's.  Then the
    zoo's own shapes at B=1 in fp32 (qwen3-1.7b at S=4,096, gemma3-12b's
    local and global layers at S=2,048, hymba-1.5b's windowed (1,024) and
-   global layers at S=2,048, head dim 64 in groups of 5), held and timed
-   the same way but
+   global layers at S=2,048, head dim 64 in groups of 5,
+   granite-moe-1b-a400m's at S=4,096, 16 heads over 8 of 64), held and
+   timed the same way but
    reached through the model's wrapper ``models.attention.attend``
    (chunked, ``q_chunk`` 1024, a causal window of 1,024 on the local
    layer) and differentiated through an output projection, so that K6
@@ -330,10 +332,11 @@ after 16, and any failure exits non-zero:
    units, 17 trained a client), [zoo-round]'s setup at S = 2,048 (past
    the window, so the windowed and the global layers' K5/K6 do
    different work): 2 rounds, the second under ``torch.profiler``
-   (device events only).  Launches as the code predicts (K1 2, K5 512,
-   K6 256 + 256), frozen (client, unit row) deltas exactly zero, the
-   bill equal to Table 4, peak memory; the device's busy share, the
-   kernels' in-run times, windowed and global apart.
+   (host and device events; the profile must hold every launch the
+   counters saw in that round).  Launches as the code predicts (K1 2,
+   K5 512, K6 256 + 256), frozen (client, unit row) deltas exactly
+   zero, the bill equal to Table 4, peak memory; the device's busy
+   share, the kernels' in-run times, windowed and global apart.
 37. zoo-parity-hymba — [zoo-parity] on hymba-1.5b at full width cut to
    one macro block of 2 sub-layers (window cut to 256, one global),
    S = 640: card vs CPU at ZOO_PARITY_TOL with its per-row move checks.
@@ -344,6 +347,36 @@ after 16, and any failure exits non-zero:
    device medians of the kernel, the plain version and ``torch.bmm`` with
    the guard beside the byte bound.
 
+40. serve-moe — granite-moe-1b-a400m at full width in fp32
+   (1,334,756,352 params, random weights; every layer's MLP a MoE of 32
+   experts, top 8, capacity factor 1.25) through ``DecodeEngine`` under
+   both traffics, as ``[serve-hymba]`` (no ring): 84 and 63 decode
+   steps, K3 24 x 84 and 24 x 63, K5 0 and 24 (one prefill of 4 x 1,536
+   tokens); prints tokens/s, decode ms per step, TTFT and the token
+   copies dropped at capacity (``models.moe``'s device counter: prefill
+   groups only, a decode step over 8 slots has 8 slots an expert).
+41. serve-moe-parity — under each traffic, the engine against
+   ``static_generate`` on the card on as many requests as slots,
+   admitted in one group (the same prefill batch, 8 x 128 or 4 x 1,536
+   on K5; 8 or 4 decode rows): each run's dropped copies equal to its
+   routing records' and to the other run's, logits 1e-3, tokens equal
+   barring near ties; a token routed differently in the two runs must
+   lie within ROUTE_TIE of a tie (``moe.trace_routing``), a copy kept
+   by one run alone must sit in a call where such a token moved, and
+   that request's stream is compared up to that step.
+42. zoo-round-moe — [zoo-round]'s setup on granite-moe-1b-a400m (26
+   units, 13 trained a client) at S = 4,096: launches K1 2, K5 384, K6
+   192 + 192; frozen (client, unit row) deltas exactly zero, the bill
+   equal to Table 4, peak memory, the second round profiled (host and
+   device events, every launch present); then the federation built
+   again from the same seed, 2 rounds: every parameter bitwise equal.
+43. zoo-parity-moe — [zoo-parity] on granite-moe-1b-a400m cut to 2
+   layers at full width, S = 1,024, routing made decisive
+   (``_decisive_routing``): card vs CPU at ZOO_PARITY_TOL, the CPU run's
+   least router gap at least 100 x ZOO_PARITY_TOL.
+44. train-launcher-moe — [train-launcher] with ``--arch
+   granite-moe-1b-a400m``.
+
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
 the card's name and power limit (as ``nvidia-smi`` reports them) and a
@@ -351,8 +384,9 @@ JSON line of per-kernel numbers (K1's and K2's launches summed over the
 paths that ran them, each path's count in ``launches_by_path``, K1's
 other plans in ``plans``, K2's single-client dispatch in
 ``dispatch_1client``; K5's and K6's launches those of the zoo's model
-paths, 29-31, with ``[attention-kernels]``' direct calls listed beside
-them; the zoo call sites' numbers in ``zoo``); the last line is
+paths (29-31, 36, 42) and the long prefills (34, 40), with
+``[attention-kernels]``' direct calls listed beside them; the zoo call
+sites' numbers in ``zoo``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1784,14 +1818,16 @@ def _decode_cases():
     group of 5) at the serving shape and on a ring of 1,024 (the
     windowed sub-layers past the window: 8 sequences of 1,025-1,600
     tokens, valid lengths clamped to the ring); qwen2.5-14b's (40 over 8
-    of 128, a group of 5) at the serving shape."""
+    of 128, a group of 5) and granite-moe-1b-a400m's (16 over 8 of 64, a
+    group of 2) at the serving shape."""
     from repro_torch import serve_workload as sw
     from repro_torch.configs.base import get_config
 
     max_len = sw.PROMPT_LEN + sw.GEN + sw.GEN_SPREAD - 1 + 8
     serving = (sw.N_SLOTS, -(-max_len // sw.PAGE_SIZE), sw.PROMPT_LEN + 1,
                sw.PROMPT_LEN + sw.GEN + sw.GEN_SPREAD - 1)
-    hy, q14 = get_config(HYMBA_ARCH), get_config("qwen2.5-14b")
+    hy, q14, gr = (get_config(HYMBA_ARCH), get_config("qwen2.5-14b"),
+                   get_config(MOE_ARCH))
     hy_heads = (hy.n_heads, hy.n_kv_heads, hy.head_dim)
     window = hy.sliding_window
     return [("serving", *serving, 16, 8, 128, False),
@@ -1800,7 +1836,9 @@ def _decode_cases():
             ("hymba ring", 8, window // sw.PAGE_SIZE, window + 1,
              window + 576, *hy_heads, True),
             ("qwen2.5-14b serving", *serving, q14.n_heads, q14.n_kv_heads,
-             q14.head_dim, False)]
+             q14.head_dim, False),
+            ("granite serving", *serving, gr.n_heads, gr.n_kv_heads,
+             gr.head_dim, False)]
 
 
 def phase_decode_kernel(dev):
@@ -1962,24 +2000,40 @@ def _static(w):
 
 def phase_serve_parity(w, tag="serve-parity",
                        what="continuous (K3) vs static (plain)", static=None,
-                       **overrides):
+                       ran=None, flips=None, **overrides):
     """The continuous engine (qwen3: paged decode through K3) against the
     static loop (dense cache, plain attention) on the same prompts, on the
     card.  Logits rows agree to LOGIT_TOL; tokens agree, except at a step
     where the static loop's top-2 logit gap is below LOGIT_TOL (a near
     tie that rounding may break either way), after which that request's
     streams are no longer comparable.  ``overrides`` replace the engine's
-    ServeConfig fields; ``static`` is a finished static run."""
+    ServeConfig fields; ``static`` is a finished static run, ``ran`` a
+    finished engine run ``(engine, results)``; ``flips`` maps a request to
+    the step (and layer and router gap) where the two runs routed it
+    differently at a near tie: its stream is compared up to that step."""
     from repro_torch import serve_workload as sw
 
-    eng = sw.engine(w, record_logits=True, **overrides)
-    res = eng.run()
+    if ran is None:
+        eng = sw.engine(w, record_logits=True, **overrides)
+        res = eng.run()
+    else:
+        eng, res = ran
     out, rows = static or _static(w)
     worst, compared, diverged = 0.0, 0, []
     for i, g in enumerate(w.gens):
         mine = np.stack(eng.logits_rows[i])
         check(mine.shape[0] == g, f"request {i}: {mine.shape[0]} rows")
         for t in range(g):
+            if flips and i in flips and flips[i][0] == t:
+                _, layer, gap = flips[i]
+                diverged.append((i, t, gap))
+                why = (f"routes differently (router gap {gap:.3e} < "
+                       f"{ROUTE_TIE})" if gap is not None else
+                       "keeps a copy the other run drops, beside a near-tie "
+                       "flip in the same call")
+                print(f"[{tag}] request {i} {why} at step {t} (layer "
+                      f"{layer}): not compared from there")
+                break
             err = float(np.abs(mine[t] - rows[t][i]).max())
             check(err <= LOGIT_TOL, f"request {i} step {t}: logits differ "
                   f"by {err} > {LOGIT_TOL}")
@@ -2010,80 +2064,83 @@ HYMBA_PARAMS = 1_476_611_200     # the reference's init at full width
 # pages of 16: a micro-run stops at a finish or a page boundary), the
 # same for every model (qwen3-1.7b's serving run takes 84;
 # tests/test_torch_hymba.py counts both on the reduced model)
-HYMBA_STEPS = {"serving": 84, "long": 63}
+TRAFFIC_STEPS = {"serving": 84, "long": 63}
 
 
-def phase_serve_hymba(dev):
-    """hymba-1.5b at full width through ``DecodeEngine`` under both
+def _serve_traffics(dev, arch, n_params, tag, header, rings):
+    """``arch`` at full width through ``DecodeEngine`` under both
     traffics of ``serve_workload.py``: ``serving`` (8 slots, 16 requests
-    of 128 prompt tokens, no ring; the prefill on the plain attention)
-    and ``long`` (4 slots, 4 requests of 1,536 tokens: the windowed
-    sub-layers' caches are rings of 1,024; the prefill on K5)."""
+    of 128 prompt tokens; the prefill on the plain attention) and
+    ``long`` (4 slots, 4 requests of 1,536 tokens; the prefill on K5).
+    ``header(cfg)`` describes the model; ``rings(cfg, traffic)`` is the
+    expected ring flag of each sub-layer.  On the MoE family each run's
+    dropped copies are counted (``models.moe``'s device counter)."""
     from repro_torch import serve_workload as sw
     from repro_torch.common import param_count
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.models import moe
 
     out, params = {}, None
     for traffic in ("serving", "long"):
-        tag = f"[serve-hymba] {traffic}"
+        label = f"[{tag}] {traffic}"
         t0 = time.perf_counter()
-        w = sw.build(dev, arch=HYMBA_ARCH, traffic=traffic, params=params)
+        w = sw.build(dev, arch=arch, traffic=traffic, params=params)
         torch.cuda.synchronize()
         cfg, t = w.cfg, w.traffic
         if params is None:
             n = param_count(w.params)
-            check(n == HYMBA_PARAMS, f"{HYMBA_ARCH} has {n} params, "
-                  f"expected {HYMBA_PARAMS}")
+            check(n == n_params, f"{arch} has {n} params, expected "
+                  f"{n_params}")
             check(all(x.dtype == torch.float32 and x.device == dev
                       for x in w.params.values()),
                   "params are not fp32 on the card")
-            print(f"{tag}: {cfg.name} at full width: {cfg.n_layers} layers "
-                  f"({cfg.n_layers // cfg.global_every} macro blocks of "
-                  f"{cfg.global_every - 1} windowed ({cfg.sliding_window}) "
-                  f"and 1 global), d_model {cfg.d_model}, {cfg.n_heads} "
-                  f"heads / {cfg.n_kv_heads} KV heads of {cfg.head_dim} "
-                  f"beside {cfg.n_heads} SSM heads, d_ff {cfg.d_ff}, vocab "
+            print(f"{label}: {cfg.name} at full width: {header(cfg)}, vocab "
                   f"{cfg.padded_vocab}, {n} fp32 params ({n * 4 / 1e9:.2f} "
                   f"GB) drawn on the card in {time.perf_counter() - t0:.2f}"
                   f" s")
             sw.engine(w, n_requests=2, gen=3).run()  # warm-up, not measured
         params = w.params
         eng = sw.engine(w)
-        rings = [s.ring for s in eng.layout.subs]
-        check(rings == [traffic == "long"] * (cfg.global_every - 1) + [False],
-              f"{tag}: ring subs {rings}")
+        got_rings = [s.ring for s in eng.layout.subs]
+        check(got_rings == rings(cfg, traffic),
+              f"{label}: ring subs {got_rings}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fops.reset_launch_counts()
         aops.reset_launch_counts()
+        moe.reset_dropped()
         res = eng.run()
         torch.cuda.synchronize()
         k3 = fops.paged_decode_attention.launches
         k5 = aops.LAUNCHES["fwd"]
+        dropped = moe.dropped_copies()
         st = eng.stats()
         steps_ = st["n_decode_steps"]
+        m = cfg.moe
+        slots = m and moe.capacity_for(w.serve.n_slots, m.num_experts,
+                                       m.top_k, m.capacity_factor)
         want_k5 = cfg.n_layers * st["n_prefill_calls"] \
             if t.attn_impl == "chunked" else 0
-        check(steps_ == HYMBA_STEPS[traffic],
-              f"{tag}: {steps_} decode steps, predicted "
-              f"{HYMBA_STEPS[traffic]}")
-        check(k3 == cfg.n_layers * steps_, f"{tag}: K3 launched {k3} times "
+        check(steps_ == TRAFFIC_STEPS[traffic],
+              f"{label}: {steps_} decode steps, predicted "
+              f"{TRAFFIC_STEPS[traffic]}")
+        check(k3 == cfg.n_layers * steps_, f"{label}: K3 launched {k3} times "
               f"in {steps_} decode steps of {cfg.n_layers} layers")
         check(k5 == want_k5 and aops.LAUNCHES["dq"] == 0,
-              f"{tag}: K5 launched {k5} times in {st['n_prefill_calls']} "
+              f"{label}: K5 launched {k5} times in {st['n_prefill_calls']} "
               f"prefill calls, predicted {want_k5}")
         check(all(len(res[i]) == g for i, g in enumerate(w.gens)),
-              f"{tag}: a request did not finish with its token count")
+              f"{label}: a request did not finish with its token count")
         check(eng.decode_cache_size == 1,
-              f"{tag}: decode step saw {eng.decode_cache_size} input "
+              f"{label}: decode step saw {eng.decode_cache_size} input "
               f"signatures")
         peak = torch.cuda.max_memory_allocated()
-        print(f"{tag}: {st['n_requests']} requests of {t.prompt_len} "
+        print(f"{label}: {st['n_requests']} requests of {t.prompt_len} "
               f"prompt tokens over {w.serve.n_slots} slots (pages of "
               f"{w.serve.page_size}, max_len {eng.layout.max_len}, ring "
-              f"subs {sum(rings)} of {len(rings)}), prefill attention "
-              f"{t.attn_impl}: {st['total_tokens']} tokens in "
+              f"subs {sum(got_rings)} of {len(got_rings)}), prefill "
+              f"attention {t.attn_impl}: {st['total_tokens']} tokens in "
               f"{st['wall_s']:.3f} s: {st['tokens_per_sec']:.1f} tok/s; "
               f"decode {st['decode_ms_per_step']:.3f} ms per step over "
               f"{steps_} steps; {st['n_prefill_calls']} prefill calls; "
@@ -2092,16 +2149,36 @@ def phase_serve_hymba(dev):
               f"{st['latency_p99_s']:.3f} s; {st['n_preemptions']} "
               f"preemptions; peak pages {st['peak_pages']}/"
               f"{st['n_pages'] - 1}; peak memory {peak / 2**30:.2f} GiB")
-        print(f"{tag}: flash_decode_paged (K3) launches {k3} = "
+        print(f"{label}: flash_decode_paged (K3) launches {k3} = "
               f"{cfg.n_layers} x {steps_} decode steps; flash_attention_fwd"
               f" (K5) launches {k5} = {cfg.n_layers} x "
               f"{st['n_prefill_calls']} prefill calls"
               + (" (the plain attention)" if not want_k5 else "")
               + f"; every request finished with its requested token count;"
-              f" decode input signatures {eng.decode_cache_size}")
-        out[traffic] = (w, {"K3": k3, "K5": k5}, st, peak)
+              f" decode input signatures {eng.decode_cache_size}"
+              + (f"; token copies dropped at capacity {dropped} (prefill "
+                 f"groups only: a decode step over {w.serve.n_slots} slots "
+                 f"has {slots} slots an expert)" if m else ""))
+        out[traffic] = (w, {"K3": k3, "K5": k5, "dropped": dropped}, st,
+                        peak)
         del eng
     return out
+
+
+def phase_serve_hymba(dev):
+    """hymba-1.5b under both traffics: on ``long`` the windowed
+    sub-layers' caches are rings of 1,024."""
+    def header(cfg):
+        return (f"{cfg.n_layers} layers ({cfg.n_layers // cfg.global_every} "
+                f"macro blocks of {cfg.global_every - 1} windowed "
+                f"({cfg.sliding_window}) and 1 global), d_model "
+                f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV "
+                f"heads of {cfg.head_dim} beside {cfg.n_heads} SSM heads, "
+                f"d_ff {cfg.d_ff}")
+
+    return _serve_traffics(
+        dev, HYMBA_ARCH, HYMBA_PARAMS, "serve-hymba", header,
+        lambda cfg, t: [t == "long"] * (cfg.global_every - 1) + [False])
 
 
 def phase_serve_hymba_parity(runs):
@@ -2112,6 +2189,158 @@ def phase_serve_hymba_parity(runs):
             w, "serve-hymba-parity", f"{HYMBA_ARCH} {traffic}: continuous "
             f"(K3" + (", K5 prefill" if w.serve.attn_impl == "chunked"
                       else "") + ") vs static (plain)")
+
+
+# -- granite-moe-1b-a400m: the MoE family served (K3 at a GQA group of 2, K5)
+
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_PARAMS = 1_334_756_352       # the reference's init at full width
+# two card runs route a token differently only at a near tie: a routing
+# difference where the static run's k-th and (k+1)-th router
+# probabilities lie further apart than this fails the phase
+ROUTE_TIE = 1e-4
+
+
+def phase_serve_moe(dev):
+    """granite-moe-1b-a400m under both traffics (one full-attention
+    sub-layer a block: no ring)."""
+    def header(cfg):
+        m = cfg.moe
+        return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+                f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
+                f"{cfg.head_dim}, every MLP a MoE of {m.num_experts} experts "
+                f"of {m.expert_d_ff}, top {m.top_k}, capacity factor "
+                f"{m.capacity_factor}, tied embeddings")
+
+    return _serve_traffics(dev, MOE_ARCH, MOE_PARAMS, "serve-moe", header,
+                           lambda cfg, t: [False])
+
+
+def _routing_flips(eng, stat, n_layers, prompt_len, gens, tag):
+    """The engine's routing records (``moe.trace_routing``) against the
+    static loop's, call by call (the prefill's ``n_layers`` calls, then
+    each decode step's): {request: (step, layer, gap)}, the first call
+    where a request still generating is routed or dropped differently.
+    A request's first routing difference must lie within ROUTE_TIE of a
+    tie in the static run (its ``gap``).  From there its rows differ by
+    whole experts and are not compared.  The call's tokens share each
+    expert's capacity, so a routing difference can move another token's
+    copy across it: a copy kept by one run and dropped by the other is
+    allowed only in a call where some token routed differently, and its
+    request then diverges too (``gap`` None).  Returns the flips and each
+    run's dropped copies over the requests that never diverged."""
+    check(len(eng) == len(stat), f"[{tag}] {len(eng)} MoE calls in the "
+          f"engine, {len(stat)} in the static loop")
+    n = len(gens)
+    gen_t = torch.tensor(list(gens) + [0])
+    gone = torch.zeros(n + 1, dtype=torch.bool)      # row n: idle rows
+    flips, calls = {}, []
+    for c, (a, b) in enumerate(zip(eng, stat)):
+        step, layer = divmod(c, n_layers)
+        rows, k = a["topi"].shape
+        req = torch.arange(rows) // (prompt_len if step == 0 else 1)
+        req = req.clamp(max=n)
+        live = (req < n) & (step < gen_t[req])
+        ta, tb = a["topi"].sort(-1).values, b["topi"].sort(-1).values
+        moved = (ta != tb).any(-1).cpu()
+        kept = [torch.where(x["keep"].view(rows, k), x["topi"], -1)
+                .sort(-1).values for x in (a, b)]
+        shifted = (kept[0] != kept[1]).any(-1).cpu() & ~moved
+        for r in (moved & live & ~gone[req]).nonzero().flatten().tolist():
+            q, gap = int(req[r]), float(b["gap"][r])
+            check(gap < ROUTE_TIE, f"[{tag}] request {q} step {step} "
+                  f"layer {layer}: routed differently at a router gap of "
+                  f"{gap} >= {ROUTE_TIE}")
+            flips.setdefault(q, (step, layer, gap))
+        if flips:
+            gone[list(flips)] = True
+        for r in (shifted & live & ~gone[req]).nonzero().flatten().tolist():
+            q = int(req[r])
+            check(bool(moved.any()), f"[{tag}] request {q} step {step} "
+                  f"layer {layer}: a copy kept by one run and dropped by "
+                  f"the other, with every token routed alike")
+            flips.setdefault(q, (step, layer, None))
+        if flips:
+            gone[list(flips)] = True
+        calls.append((req, live, a["keep"].view(rows, k),
+                      b["keep"].view(rows, k)))
+    drops = [0, 0]
+    for req, live, ka, kb in calls:
+        ok = (req < n) & ~gone[req]
+        for i, keep in enumerate((ka, kb)):
+            drops[i] += int((~keep.cpu())[ok].sum())
+    return flips, drops
+
+
+def phase_serve_moe_parity(runs):
+    """The engine (K3; K5 in the long prefill) against ``static_generate``
+    (dense cache, plain attention) on the card, under each traffic, on as
+    many requests as the traffic has slots: admitted in one group, so
+    that both runs prefill the same batch (``serving``: 8 x 128, capacity
+    320 an expert; ``long``: all 4 of 1,536, capacity 1,920) and decode
+    as many rows (8 or 4: 8 slots an expert, nothing dropped).  A copy is
+    dropped at capacity depending on the other tokens of its call, so the
+    16-request serving traffic is not held to the static loop: the engine
+    prefills 8 prompts and then one at a time (capacity 320, then 40 an
+    expert), the static loop all 16 at once (640), and they drop
+    different copies.  The device counter's dropped copies must equal
+    each run's routing records', and the two runs' must be equal over
+    the requests that never diverged (all of them when nothing flipped).
+    A token routed differently at a near tie, or a copy moved across
+    capacity by such a token in the same call (``_routing_flips``), is
+    reported like a logits near tie, and that request's stream is not
+    compared from there."""
+    from repro_torch import serve_workload as sw
+    from repro_torch.models import moe
+
+    tag = "serve-moe-parity"
+    for traffic, (w, *_rest) in runs.items():
+        n, cfg, plen = w.serve.n_slots, w.cfg, w.traffic.prompt_len
+        w1 = w._replace(prompts=w.prompts[:n], gens=w.gens[:n])
+        moe.reset_dropped()
+        with moe.trace_routing() as stat:
+            static = _static(w1)
+        stat_drop = moe.dropped_copies()
+        moe.reset_dropped()
+        with moe.trace_routing() as routed:
+            eng = sw.engine(w1, record_logits=True)
+            res = eng.run()
+        eng_drop = moe.dropped_copies()
+        st = eng.stats()
+        check(st["n_prefill_calls"] == 1, f"[{tag}] {traffic}: "
+              f"{st['n_prefill_calls']} prefill calls")
+        for who, recs, got in (("engine", routed, eng_drop),
+                               ("static", stat, stat_drop)):
+            traced = sum(int((~r["keep"]).sum()) for r in recs)
+            check(got == traced, f"[{tag}] {traffic}: the {who}'s counter "
+                  f"dropped {got} copies, its routing records {traced}")
+        flips, (eng_kept, stat_kept) = _routing_flips(
+            routed, stat, cfg.n_layers, plen, w1.gens, tag)
+        check(eng_kept == stat_kept and (bool(flips) or eng_drop == stat_drop),
+              f"[{tag}] {traffic}: dropped copies engine {eng_drop}, "
+              f"static {stat_drop}; over the requests that never diverged "
+              f"{eng_kept}, {stat_kept}")
+        m = cfg.moe
+
+        def cap(t):
+            return moe.capacity_for(t, m.num_experts, m.top_k,
+                                    m.capacity_factor)
+
+        print(f"[{tag}] {traffic}: {n} requests of {plen} tokens admitted "
+              f"in one group: both runs prefill the same {n} x {plen} batch"
+              f" (capacity {cap(n * plen)} an expert) and decode {n} rows "
+              f"(capacity {cap(n)}); dropped copies engine {eng_drop}, "
+              f"static {stat_drop} (each == its routing records), over the "
+              f"requests that never diverged {eng_kept} == {stat_kept}; "
+              f"{len(routed)} MoE calls compared, {len(flips)} request(s) "
+              f"diverged at a near tie")
+        del routed, stat
+        phase_serve_parity(
+            w1, tag, f"{MOE_ARCH} {traffic}: continuous (K3"
+            + (", K5 prefill" if w.serve.attn_impl == "chunked" else "")
+            + ") vs static (plain)", static=static, ran=(eng, res),
+            flips=flips)
+        del eng, res, static
 
 
 # -- K4, K5, K6: the attention kernels' entry points ---------------------------
@@ -2181,7 +2410,16 @@ def _attn_cases():
     for n, cfg, w in _hymba_attn_configs():
         cases.append((f"{n} B=1 S={HYMBA_S}", cfg, w, 1, HYMBA_S,
                       torch.float32, True))
+    cases.append((f"{MOE_ARCH} B=1 S={TRAIN_S}", _moe_cfg(), 0, 1, TRAIN_S,
+                  torch.float32, True))
     return cases
+
+
+def _moe_cfg():
+    """granite-moe-1b-a400m's attention (16 heads over 8 of 64, a GQA
+    group of 2, causal): the MoE round's K5/K6 shape at ``train_4k``."""
+    from repro_torch.configs.base import get_config
+    return get_config(MOE_ARCH)
 
 
 def _hymba_attn_configs():
@@ -3446,13 +3684,9 @@ def _zoo_reset():
 
 def _kernel_events(prof):
     """Device kernel events of a profile in start order: (name, us), read
-    off the profiler's raw results (its Python event tree takes minutes
-    to build for a round of ~10^6 launches)."""
-    cuda = torch.autograd.DeviceType.CUDA
-    evs = [e for e in prof.profiler.kineto_results.events()
-           if e.device_type() == cuda]
-    evs.sort(key=lambda e: e.start_ns())
-    return [(e.name(), e.duration_ns() / 1e3) for e in evs]
+    by ``profiling.device_kernels`` (the MoE ranges left out)."""
+    from repro_torch.profiling import device_kernels
+    return [(k.name, k.us) for k in device_kernels(prof)]
 
 
 def _in_run(events):
@@ -3740,29 +3974,29 @@ def phase_zoo_train_step(dev, smi):
     return counts, run, peak, secs
 
 
-HYMBA_S = 2048                    # past the window: local != global work
-
-
-def phase_zoo_round_hymba(dev, smi):
-    """The paper's round on hymba-1.5b at full width (34 units: embed,
-    layer0-31, head; 17 trained a client), 2 clients x 2 local steps of
-    one ``lm_batch`` sequence of HYMBA_S tokens, Adam at 2e-3, hub, with
+def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False):
+    """The paper's round on ``arch`` at full width (a unit a layer, plus
+    embed and head; half trained a client), 2 clients x 2 local steps of
+    one ``lm_batch`` sequence of ``s`` tokens, Adam at 2e-3, hub, with
     the pod step's loss keywords (chunked attention, remat per macro
-    block): 2 rounds, the second under ``torch.profiler`` (device events
-    only: the SSM scan's state loop launches ~10^5 kernels a round)."""
+    block): 2 rounds, the second under ``torch.profiler`` with host and
+    device events, as ``[zoo-round]`` (profiles of the device's events
+    alone lost a round's last kernels on an H100).  The profile must hold
+    every kernel launch the counters saw in that round.  With ``repeat``
+    the federation is built again from the same seed and run 2 rounds:
+    every parameter and selection bitwise equal."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.comm import table4_row
+    from repro_torch.models import moe
 
-    tag = "zoo-round-hymba"
-    cfg = get_config(HYMBA_ARCH)
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fed = _zoo_fed(dev, cfg, s=HYMBA_S)
+    fed = _zoo_fed(dev, cfg, s=s)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    n_params = sum(x.numel() for x in fed.params.values())
-    check(n_params == HYMBA_PARAMS, f"{tag}: {n_params} params, expected "
-          f"{HYMBA_PARAMS}")
+    got = sum(x.numel() for x in fed.params.values())
+    check(got == n_params, f"{tag}: {got} params, expected {n_params}")
     n_units = cfg.n_layers + 2
     check(fed.assign.n_units == n_units and
           fed.fl.resolve_n_train(n_units) == n_units // 2 and
@@ -3771,12 +4005,14 @@ def phase_zoo_round_hymba(dev, smi):
     frozen = ZooFrozenCheck(fed.assign, fed.fl)
     fed.server.add_hook(frozen)
     _zoo_reset()
+    moe.reset_dropped()
     t0 = time.perf_counter()
     fed.fit(1)
     torch.cuda.synchronize()
     secs = [time.perf_counter() - t0]
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fed.fit(1)
         torch.cuda.synchronize()
@@ -3786,6 +4022,7 @@ def phase_zoo_round_hymba(dev, smi):
     del prof
     parse_s = time.perf_counter() - t0
     counts = _zoo_counts()
+    dropped = moe.dropped_copies()
     peak = torch.cuda.max_memory_allocated()
     hist = fed.history
     check(all(math.isfinite(r.loss) for r in hist), f"{tag}: non-finite loss")
@@ -3807,6 +4044,13 @@ def phase_zoo_round_hymba(dev, smi):
     run = _in_run(events)
     run["wall_ms"] = secs[1] * 1e3
     run["busy_share"] = run["busy_ms"] / run["wall_ms"]
+    # the profiled round's half of the counted launches
+    profiled = {k: run[k]["launches"] for k in ZOO_KERNELS}
+    half = {"K1": want["K1"] // 2, "K2": 0, "K5": want["K5"] // 2,
+            "K6": (want["K6 dq"] + want["K6 dkv"]) // 2}
+    check(profiled == half, f"{tag}: the profile holds {profiled} kernel "
+          f"events, the counters saw {half} launches in that round (the "
+          f"profile's last kernels: {[nm[:60] for nm, _ in events[-8:]]})")
     from repro_torch.kernels.masked_agg import ops as kops
     plan_rows = kops.build_agg_plan(fed.assign, fed.params).n_rows
     k1_bytes = (ZOO_CLIENTS + 2) * plan_rows * 2048 * 4 \
@@ -3814,33 +4058,42 @@ def phase_zoo_round_hymba(dev, smi):
     run["K1"]["T"] = plan_rows
     run["K1"]["bound_ms"] = k1_bytes / memory_rate(
         torch.cuda.get_device_name(0)) * 1e3
-    # the profiled round's half of the launches: K5 in blocks of one macro
-    # block's 8 sub-layers (the forward, then each recompute), the global
-    # sub-layer last; K6 per macro block from the global sub-layer down
-    macro = cfg.global_every
     fwd = [t for nm, t in events if "fwd_kernel" in nm]
     bwd = [a + b for a, b in zip([t for nm, t in events if "dq_kernel" in nm],
                                  [t for nm, t in events
                                   if "dkv_kernel" in nm])]
-    check(len(fwd) == want["K5"] // 2 and len(bwd) == want["K6 dq"] // 2,
-          f"{tag}: profiled K5 {len(fwd)}, K6 {len(bwd)}")
-    for kind, ts, glob in (("K5", fwd, macro - 1), ("K6", bwd, 0)):
-        for where, pick in (("global", lambda i: i % macro == glob),
-                            ("local", lambda i: i % macro != glob)):
-            sel_ = [t for i, t in enumerate(ts) if pick(i)]
-            run[f"{kind} {where} ms"] = float(np.mean(sel_)) / 1e3
+    split = ""
+    if cfg.global_every:
+        # the profiled round's half of the launches: K5 in blocks of one
+        # macro block's sub-layers (the forward, then each recompute), the
+        # global sub-layer last; K6 per macro block from the global
+        # sub-layer down
+        macro = cfg.global_every
+        for kind, ts, glob in (("K5", fwd, macro - 1), ("K6", bwd, 0)):
+            for where, pick in (("global", lambda i: i % macro == glob),
+                                ("local", lambda i: i % macro != glob)):
+                sel_ = [t for i, t in enumerate(ts) if pick(i)]
+                run[f"{kind} {where} ms"] = float(np.mean(sel_)) / 1e3
+        split = (f"; K5 local {run['K5 local ms']:.4f} / global "
+                 f"{run['K5 global ms']:.4f} ms a launch, K6 local "
+                 f"{run['K6 local ms']:.4f} / global "
+                 f"{run['K6 global ms']:.4f} ms a call")
     for r, sec in zip(hist, secs):
         print(f"[{tag}] round {r.round}: loss {r.loss:.4f} {sec:.3f} s wall "
               f"({r.seconds:.3f} s in the server) uplink "
               f"{r.uplink_bytes:.0f} B")
-    print(f"[{tag}] {cfg.name} full width ({n_params:,} fp32 params, "
+    print(f"[{tag}] {cfg.name} full width ({got:,} fp32 params, "
           f"{n_units} units, {n_units // 2} trained a client), "
           f"{ZOO_CLIENTS} clients x {ZOO_STEPS} local steps of 1 x "
-          f"{HYMBA_S:,} tokens, Adam lr {ZOO_LR}: built in {build_s:.2f} s;"
+          f"{s:,} tokens, Adam lr {ZOO_LR}: built in {build_s:.2f} s;"
           f" launches {counts} == predicted; frozen (client, unit row) "
           f"deltas exactly zero: {frozen.checked}, trained rows that moved: "
           f"{frozen.moved}; bill == Table 4; peak memory {peak / 1e9:.2f} "
-          f"GB ({peak / 2**30:.2f} GiB) on {smi}")
+          f"GB ({peak / 2**30:.2f} GiB, {peak / got:.1f} B a param) on "
+          f"{smi}"
+          + (f"; token copies dropped at capacity in the 2 rounds (forward "
+             f"and remat recompute): {dropped}" if cfg.moe is not None
+             else ""))
     print(f"[{tag}] profiled round: wall {secs[1]:.3f} s, device busy "
           f"{run['busy_ms']:.1f} ms ({run['busy_share']:.1%}), "
           f"{len(events):,} device kernels ({len(events) / secs[1]:,.0f} a "
@@ -3850,15 +4103,62 @@ def phase_zoo_round_hymba(dev, smi):
                       f"{run[k]['total_ms']:.2f} ms ({run[k]['ms']:.4f} a "
                       f"{'call' if k == 'K6' else 'launch'})"
                       for k in ZOO_KERNELS if run[k]["launches"])
-          + f"; K5 local {run['K5 local ms']:.4f} / global "
-          f"{run['K5 global ms']:.4f} ms a launch, K6 local "
-          f"{run['K6 local ms']:.4f} / global {run['K6 global ms']:.4f} ms "
-          f"a call; K1 at the plan's T={plan_rows} C={ZOO_CLIENTS}: bound "
-          f"{run['K1']['bound_ms']:.4f} ms ({k1_bytes / 1e9:.2f} GB), in-run"
-          f" at {run['K1']['bound_ms'] / run['K1']['ms']:.1%} of it")
-    del fed, frozen, events
+          + split + f"; K1 at the plan's T={plan_rows} C={ZOO_CLIENTS}: "
+          f"bound {run['K1']['bound_ms']:.4f} ms ({k1_bytes / 1e9:.2f} GB), "
+          f"in-run at {run['K1']['bound_ms'] / run['K1']['ms']:.1%} of it")
+    if repeat:
+        first = {p: x.cpu() for p, x in fed.params.items()}
+        sels = [np.array(x) for x in fed.server.sel_history]
+        losses = [r.loss for r in hist]
+        del fed, frozen, events
+        _free_card(tag)
+        t0 = time.perf_counter()
+        fed = _zoo_fed(dev, cfg, s=s)
+        fed.fit(2)
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t0
+        check([r.loss for r in fed.history] == losses and
+              all(np.array_equal(a, b) for a, b in
+                  zip(fed.server.sel_history, sels)),
+              f"{tag}: the rebuilt run's losses or selections differ")
+        same = [p for p, x in fed.params.items()
+                if not torch.equal(x.cpu(), first[p])]
+        check(not same, f"{tag}: rebuilt from the same seed, {len(same)} "
+              f"leaves differ after 2 rounds, e.g. {same[:3]}")
+        print(f"[{tag}] built again from the same seed, 2 rounds in "
+              f"{again:.1f} s: losses, selections and all {len(first)} "
+              f"leaves bitwise equal")
+        del first
+    del fed
     _free_card(tag)
     return counts, run, peak, secs
+
+
+HYMBA_S = 2048                    # past the window: local != global work
+
+
+def phase_zoo_round_hymba(dev, smi):
+    """hymba-1.5b (34 units: embed, layer0-31, head; 17 trained a client)
+    at S = 2,048: the windowed and the global layers' K5/K6 apart (the
+    SSM scan's state loop launches ~10^5 kernels a round)."""
+    return _zoo_round_arch(dev, smi, HYMBA_ARCH, HYMBA_PARAMS, HYMBA_S,
+                           "zoo-round-hymba")
+
+
+def phase_zoo_round_moe(dev, smi):
+    """granite-moe-1b-a400m (26 units: embed, layer0-23, head, the head
+    unit ``final_norm`` alone as the embeddings are tied; 13 trained a
+    client) at ``train_4k``'s S = 4,096, built twice from one seed."""
+    return _zoo_round_arch(dev, smi, MOE_ARCH, MOE_PARAMS, TRAIN_S,
+                           "zoo-round-moe", repeat=True)
+
+
+def phase_zoo_parity_moe(dev):
+    """granite-moe-1b-a400m at full width cut to 2 layers, S = 1,024 (the
+    chunked route), decisive routing: card against the host CPU."""
+    from repro_torch.configs.base import get_config
+    phase_zoo_parity(dev, get_config(MOE_ARCH).replace(n_layers=2),
+                     tag="zoo-parity-moe")
 
 
 def phase_zoo_parity_hymba(dev):
@@ -3923,11 +4223,41 @@ def k1_qwen3_plan(dev, plan_rows, smi):
             "max_abs_err": err}
 
 
+def _decisive_routing(cfg, params, spacing=0.02, scale=3.0):
+    """``params`` with decisive routing: the first E coordinates of every
+    embedding row a permutation of E codes ``spacing`` apart, no layer
+    writing into them (their columns of ``attn/wo`` and ``w_down`` zero)
+    and each router reading its expert's coordinate at ``scale``.  A
+    random router puts some of a few thousand tokens within rounding of
+    choosing another expert, and a card-vs-CPU comparison then differs by
+    a whole expert's share; here each token's k-th and (k+1)-th router
+    probabilities lie apart by far more than the parity bar."""
+    e = cfg.moe.num_experts
+    rng = np.random.default_rng(0)
+    out = {p: x.clone() for p, x in params.items()}
+    table = out["embed/table"]
+    codes = np.stack([rng.permutation(e) for _ in range(table.shape[0])])
+    table[:, :e] = torch.as_tensor((codes - (e - 1) / 2) * spacing,
+                                   dtype=table.dtype)
+    for p, x in out.items():
+        if p.endswith("/attn/wo") or p.endswith("/w_down"):
+            x[..., :e] = 0
+        if p.endswith("/moe/router"):
+            x.zero_()
+            x[:, torch.arange(e), torch.arange(e)] = scale
+    return out
+
+
 def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity"):
     """qwen3-1.7b at full width cut to 2 layers (or ``cfg``), one hub
     round of SGD at S = 1,024 (or ``s``: the chunked route), 2 clients,
     the same params, batches and replayed selections on the card (K5/K6,
-    K1) and on the host CPU (plain versions)."""
+    K1) and on the host CPU (plain versions).  A MoE model's routing is
+    made decisive (``_decisive_routing``), and the CPU run's least gap
+    between a token's k-th and (k+1)-th router probability must be at
+    least 100 x ZOO_PARITY_TOL."""
+    import contextlib
+    from repro_torch.models import moe
     from repro_torch.configs.base import get_config
     from repro_torch.core import FLConfig, Replay, build_round_step
     from repro_torch.core.masking import build_units_zoo
@@ -3940,6 +4270,8 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity"):
     cfg = cfg or get_config(ZOO_ARCH).replace(n_layers=2)
     model = get_model(cfg)
     params = model.init_params(torch.Generator().manual_seed(4))
+    if cfg.moe is not None:
+        params = _decisive_routing(cfg, params)
     assign = build_units_zoo(cfg, params)
     c = 2
     data = lm_batch(c, s, cfg.vocab, key=5)
@@ -3950,7 +4282,7 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity"):
     sel = np.asarray([[0, 1, 1, 0], [1, 1, 0, 0]], np.float32)
     check(bool((sel.sum(1) == n_train).all()) and
           bool(sel[:, 1:3].any(0).all()), f"{tag}: selection {sel}")
-    out, secs, losses = {}, {}, {}
+    out, secs, losses, gaps = {}, {}, {}, {}
     for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
         fl = FLConfig(n_clients=c, n_train_units=n_train, optimizer="sgd",
                       lr=ZOO_PARITY_LR)
@@ -3959,9 +4291,15 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity"):
                                 strategy=Replay([sel]), device=d)
         _zoo_reset()
         t0 = time.perf_counter()
-        new, m = step({p: v.to(d) for p, v in params.items()},
-                      {k: torch.as_tensor(v, device=d)
-                       for k, v in batches.items()}, torch.ones(c), None)
+        traced = moe.trace_routing() if cfg.moe is not None \
+            else contextlib.nullcontext([])
+        with traced as routed:
+            new, m = step({p: v.to(d) for p, v in params.items()},
+                          {k: torch.as_tensor(v, device=d)
+                           for k, v in batches.items()}, torch.ones(c), None)
+        gaps[side] = min((float(r["gap"].min()) for r in routed),
+                         default=math.inf)
+        del routed
         losses[side] = float(m["loss_mean"])
         secs[side] = time.perf_counter() - t0
         if side == "card":
@@ -4003,7 +4341,13 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity"):
               f"{r} {mv:.3e} {er:.3e}" for r, (mv, er) in rows.items())
           + f"; loss card "
           f"{losses['card']:.6f} CPU {losses['cpu']:.6f}; seconds card "
-          f"{secs['card']:.2f}, CPU {secs['cpu']:.2f}")
+          f"{secs['card']:.2f}, CPU {secs['cpu']:.2f}"
+          + (f"; least router gap (k-th less (k+1)-th probability) card "
+             f"{gaps['card']:.3e}, CPU {gaps['cpu']:.3e}"
+             if cfg.moe is not None else ""))
+    check(gaps["cpu"] >= 100 * ZOO_PARITY_TOL, f"{tag}: a token lies "
+          f"within {gaps['cpu']} of another expert set (< 100 x "
+          f"{ZOO_PARITY_TOL})")
     check(err[worst] <= ZOO_PARITY_TOL,
           f"{tag} {worst}: card vs CPU max abs err {err[worst]} > "
           f"{ZOO_PARITY_TOL}")
@@ -4047,11 +4391,11 @@ def phase_train_launcher(arch=ZOO_ARCH, rounds=1, units=30,
 
 
 def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
-                    attn_zoo, hymba_run, k1_plan):
+                    attn_zoo, hymba_run, k1_plan, moe_run):
     """The zoo call sites' numbers for the kernels line: in-run device
     ms beside the bound and, for K5/K6, ``[attention-kernels]``' readings
     at the same shapes (alone, plain, SDPA, max abs err); K1 at qwen3's
-    plan alone (``k1_qwen3_plan``)."""
+    plan alone (``k1_qwen3_plan``) and in-run at granite's."""
     name = torch.cuda.get_device_name(0)
     rows = {"K1": {}, "K2": {}, "K5": {}, "K6": {}}
     k1_bytes = (ZOO_CLIENTS + 2) * plan_rows * 2048 * 4 \
@@ -4075,6 +4419,13 @@ def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
                 hymba_run[f"K6 {where} ms"])
                for (n, _, _), where in zip(_hymba_attn_configs(),
                                            ("local", "global"))]
+    shapes.append((f"{MOE_ARCH} B=1 S={TRAIN_S}", moe_run["K5"]["ms"],
+                   moe_run["K6"]["ms"]))
+    k1m = moe_run["K1"]
+    rows["K1"][f"hub {MOE_ARCH}"] = dict(
+        T=k1m["T"], C=ZOO_CLIENTS,
+        in_run_ms=None if math.isnan(k1m["ms"]) else k1m["ms"],
+        bound_ms=k1m["bound_ms"], bound_by="bytes")
     for label, k5_ms, k6_ms in shapes:
         t = attn_zoo[label]
         bound = t["bound"]
@@ -4181,8 +4532,17 @@ def main() -> int:
     k3_paths = {"serve qwen3-1.7b": k3["launches"]}
     k3_paths.update({f"serve hymba-1.5b {t}": c["K3"]
                      for t, (_, c, _, _) in hymba.items()})
-    k5_serve = hymba["long"][1]["K5"]
+    k5_serve = {"serve hymba-1.5b long prefill": hymba["long"][1]["K5"]}
     del hymba
+    _free_card("serve-hymba")
+    # granite-moe-1b-a400m served (K3 at a GQA group of 2; K5 in the long
+    # prefill), the MoE dispatch in plain PyTorch
+    moe_serve = timed("serve-moe", phase_serve_moe, dev)
+    timed("serve-moe-parity", phase_serve_moe_parity, moe_serve)
+    k3_paths.update({f"serve {MOE_ARCH} {t}": c["K3"]
+                     for t, (_, c, _, _) in moe_serve.items()})
+    k5_serve[f"serve {MOE_ARCH} long prefill"] = moe_serve["long"][1]["K5"]
+    del moe_serve
     _free_card("zoo")
     # the zoo: the round and the train step of the zoo LMs (K1, K2, K5, K6)
 
@@ -4199,17 +4559,26 @@ def main() -> int:
     timed("zoo-parity-hymba", phase_zoo_parity_hymba, dev)
     timed("train-launcher-hymba", phase_train_launcher, HYMBA_ARCH, 2, 34,
           "train-launcher-hymba")
+    # the MoE family's round (K1, K5/K6 at a GQA group of 2)
+    moe_counts, moe_run, _, _ = timed("zoo-round-moe", phase_zoo_round_moe,
+                                      dev, smi)
+    timed("zoo-parity-moe", phase_zoo_parity_moe, dev)
+    timed("train-launcher-moe", phase_train_launcher, MOE_ARCH, 1, 26,
+          "train-launcher-moe")
     k1_plan = timed("k1-qwen3-plan", k1_qwen3_plan, dev, plan_rows, smi)
-    added = sum(v for k, v in walls.items()
-                if "hymba" in k or k.startswith("k1-"))
+    hymba_s = sum(v for k, v in walls.items()
+                  if "hymba" in k or k.startswith("k1-"))
+    moe_s = sum(v for k, v in walls.items() if "moe" in k)
     print("[zoo] wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                              walls.items())
-          + f"; phases 29-33 {sum(walls.values()) - added:.1f}; phases "
-          f"34-39 (hymba, k1-qwen3-plan) {added:.1f}")
+          + f"; phases 29-33 {sum(walls.values()) - hymba_s - moe_s:.1f}; "
+          f"phases 34-39 (hymba, k1-qwen3-plan) {hymba_s:.1f}; phases 40-44 "
+          f"(granite-moe-1b-a400m) {moe_s:.1f}")
     zoo = zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
-                          attn_zoo, hymba_run, k1_plan)
+                          attn_zoo, hymba_run, k1_plan, moe_run)
     k1_paths["hub qwen3-1.7b"] = dense["K1"]
     k1_paths["hub hymba-1.5b"] = hymba_counts["K1"]
+    k1_paths[f"hub {MOE_ARCH}"] = moe_counts["K1"]
     k3["launches"] = sum(k3_paths.values())
     k3["launches_by_path"] = k3_paths
     k1_paths["hub qwen3-1.7b packed qint8"] = packed["K1"]
@@ -4221,11 +4590,12 @@ def main() -> int:
     zoo_paths = (("hub qwen3-1.7b", dense), ("hub qwen3-1.7b packed qint8",
                                              packed),
                  ("train step gemma3-12b macro block", gemma),
-                 ("hub hymba-1.5b", hymba_counts))
+                 ("hub hymba-1.5b", hymba_counts),
+                 (f"hub {MOE_ARCH}", moe_counts))
     for k, keys in ((k5, ("K5",)), (k6, ("K6 dq", "K6 dkv"))):
         paths = {p: sum(c[x] for x in keys) for p, c in zoo_paths}
         if k is k5:
-            paths["serve hymba-1.5b long prefill"] = k5_serve
+            paths.update(k5_serve)
         paths["attention-kernels (direct calls)"] = k["launches"]
         k["launches"] = sum(v for p, v in paths.items()
                             if not p.startswith("attention-kernels"))

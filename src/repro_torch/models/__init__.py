@@ -1,12 +1,13 @@
 """Models of the port: the paper's own (VGG16, the IMDB CNN-LSTM and the
 CASA LSTM, ``paper_models``), the toy stacked-block MLP the round-step
 tests use (``toy``), and the zoo's dense transformer family
-(``transformer``), RWKV-6 (``rwkv6``, the ``ssm`` family) and hymba
-(``hymba``, the ``hybrid`` family), one API across families as in
-``repro.models``.
+(``transformer``, which also runs the ``moe`` family's blocks through
+``moe``), RWKV-6 (``rwkv6``, the ``ssm`` family) and hymba (``hymba``,
+the ``hybrid`` family), one API across families as in ``repro.models``.
 
-``get_model(cfg)`` dispatches on ``cfg.family``.  ``dense``, ``ssm`` and
-``hybrid`` are ported; the other families raise ``NotPortedError``.
+``get_model(cfg)`` dispatches on ``cfg.family``.  ``dense``, ``moe``,
+``ssm`` and ``hybrid`` are ported; the other families (``vlm``,
+``audio``) raise ``NotPortedError``.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ class ModelApi(NamedTuple):
     decode_step_paged: Optional[Callable] = None
 
 
-_FAMILY = {"dense": transformer, "ssm": rwkv6, "hybrid": hymba}
+_FAMILY = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
+           "hybrid": hymba}
 
 
 def get_model(cfg) -> ModelApi:

@@ -17,9 +17,14 @@ place (the reference returns new arrays) and return it.  ``forward`` and
 block) and ``unroll``; attention at ``attn_impl="chunked"`` runs the
 kernels K5/K6 on the card (``attention.attend``).
 
-MoE blocks (``SubSpec.moe``), the VLM patch projector (``n_patches``) and
-the sharded MoE dispatch (``moe_mesh``) are not ported yet and raise
-``NotPortedError``.
+MoE blocks (``SubSpec.moe``: granite's every layer, llama4's last
+sub-layer of each macro block of 2) run ``moe.apply_moe`` in place of the
+dense MLP, plus the always-on shared MLP (``shared/*``) where
+``moe.shared_d_ff`` is set; ``forward`` sums their aux losses over
+sub-layers and macro blocks, and the decode steps run ``apply_moe`` over
+all B rows, idle slots included, as the reference does.  The VLM patch
+projector (``n_patches``) and the sharded MoE dispatch (``moe_mesh``) are
+not ported yet and raise ``NotPortedError``.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from ..common import sorted_tree
 from ..core.registry import NotPortedError
 from ..kernels.flash_decode.ops import paged_decode_attention
 from . import layers as L
+from . import moe as M
 from .attention import (attend, cache_token_update, decode_attend,
                         decode_attend_ring, paged_token_update)
 
@@ -68,9 +74,7 @@ def n_macro(cfg) -> int:
     return cfg.n_layers // macro
 
 
-def _check_ported(cfg, layout) -> None:
-    if any(s.moe for s in layout):
-        raise NotPortedError(f"{cfg.name}: MoE blocks are not ported yet")
+def _check_ported(cfg) -> None:
     if cfg.n_patches:
         raise NotPortedError(f"{cfg.name}: the VLM patch projector is not "
                              f"ported yet")
@@ -84,7 +88,7 @@ def _dtype(cfg, dtype) -> torch.dtype:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_sub(cfg, gen, dtype) -> Tree:
+def _init_sub(cfg, gen, spec: SubSpec, dtype) -> Tree:
     dev = gen.device
     p = {f"ln1/{k}": v for k, v in
          L.init_norm(cfg.norm, cfg.d_model, dtype, dev).items()}
@@ -92,9 +96,17 @@ def _init_sub(cfg, gen, dtype) -> Tree:
               L.init_attention(gen, cfg, dtype).items()})
     p.update({f"ln2/{k}": v for k, v in
               L.init_norm(cfg.norm, cfg.d_model, dtype, dev).items()})
-    p.update({f"mlp/{k}": v for k, v in
-              L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
-                         glu=cfg.glu).items()})
+    if spec.moe:
+        p.update({f"moe/{k}": v for k, v in
+                  M.init_moe(gen, cfg.d_model, cfg.moe, dtype).items()})
+        if cfg.moe.shared_d_ff:
+            p.update({f"shared/{k}": v for k, v in
+                      L.init_mlp(gen, cfg.d_model, cfg.moe.shared_d_ff,
+                                 dtype, glu=cfg.glu).items()})
+    else:
+        p.update({f"mlp/{k}": v for k, v in
+                  L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                             glu=cfg.glu).items()})
     return p
 
 
@@ -103,13 +115,13 @@ def init_params(cfg, gen: torch.Generator, dtype=None) -> Tree:
     the reference's distributions and leaf paths, in JAX leaf order."""
     dtype = _dtype(cfg, dtype)
     layout = block_layout(cfg)
-    _check_ported(cfg, layout)
+    _check_ported(cfg)
     nm = n_macro(cfg)
     dev = gen.device
     params: Tree = {"embed/table": L.init_embed(
         gen, cfg.padded_vocab, cfg.d_model, dtype)["table"]}
-    for si in range(len(layout)):
-        subs = [_init_sub(cfg, gen, dtype) for _ in range(nm)]
+    for si, spec in enumerate(layout):
+        subs = [_init_sub(cfg, gen, spec, dtype) for _ in range(nm)]
         for k in subs[0]:
             params[f"blocks/sub{si}/{k}"] = torch.stack([s[k] for s in subs])
     for k, v in L.init_norm(cfg.norm, cfg.d_model, dtype, dev).items():
@@ -156,6 +168,17 @@ def _layers(params: Tree, si: int, nm: int):
 # forward (training / prefill)
 # ---------------------------------------------------------------------------
 
+def _apply_ffn(cfg, p, spec: SubSpec, h):
+    """The sub-layer's MLP on the normed ``h``: (y, aux).  A MoE sub-layer
+    runs ``apply_moe`` plus the shared MLP where there is one."""
+    if not spec.moe:
+        return L.apply_mlp(p["mlp"], h, cfg.act), None
+    y, aux = M.apply_moe(p["moe"], h, cfg.moe, act=cfg.act)
+    if "shared" in p:
+        y = y + L.apply_mlp(p["shared"], h, cfg.act)
+    return y, aux
+
+
 def _apply_sub(cfg, p, spec: SubSpec, x, positions, rope, attn_impl,
                q_chunk: int):
     h = L.apply_norm(p["ln1"], x)
@@ -163,8 +186,8 @@ def _apply_sub(cfg, p, spec: SubSpec, x, positions, rope, attn_impl,
     o = attend(q, k, v, impl=attn_impl, causal=True, window=spec.window,
                q_chunk=q_chunk)
     x = x + L.out_project(p["attn"], o)
-    h = L.apply_norm(p["ln2"], x)
-    return x + L.apply_mlp(p["mlp"], h, cfg.act), (k, v)
+    y, aux = _apply_ffn(cfg, p, spec, L.apply_norm(p["ln2"], x))
+    return x + y, aux, (k, v)
 
 
 def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
@@ -182,7 +205,7 @@ def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
     blocks is always unrolled, so it changes nothing here.
     """
     layout = block_layout(cfg)
-    _check_ported(cfg, layout)
+    _check_ported(cfg)
     if patches is not None or moe_mesh is not None:
         raise NotPortedError("forward: patches and moe_mesh are not ported")
     dev = tokens.device
@@ -195,19 +218,24 @@ def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
     subs = [_layers(params, si, nm) for si in range(len(layout))]
 
     def body(x, m):
-        kvs = []
+        kvs, auxes = [], []
         for si, spec in enumerate(layout):
-            x, kv = _apply_sub(cfg, subs[si][m], spec, x, positions, rope,
-                               attn_impl, q_chunk)
+            x, aux, kv = _apply_sub(cfg, subs[si][m], spec, x, positions,
+                                    rope, attn_impl, q_chunk)
             kvs.append(kv)
-        return x, kvs
+            if aux is not None:
+                auxes.append(aux)
+        return x, (torch.stack(auxes).sum() if auxes
+                   else torch.zeros((), device=dev)), kvs
 
     caches: Dict[str, list] = {}
+    aux_blocks = []
     for m in range(nm):
         if remat and torch.is_grad_enabled():
-            x, kvs = checkpoint(body, x, m, use_reentrant=False)
+            x, aux, kvs = checkpoint(body, x, m, use_reentrant=False)
         else:
-            x, kvs = body(x, m)
+            x, aux, kvs = body(x, m)
+        aux_blocks.append(aux)
         if build_cache:
             for si, (spec, (k, v)) in enumerate(zip(layout, kvs)):
                 c = _cache_from_prefill(spec, k, v, s, cache_len)
@@ -222,7 +250,7 @@ def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
     if build_cache:
         cache = {"step": torch.tensor(s, dtype=torch.int32, device=dev)}
         cache.update({f"subs/{k}": torch.stack(v) for k, v in caches.items()})
-    return logits, torch.zeros((), device=dev), cache
+    return logits, torch.stack(aux_blocks).sum(), cache
 
 
 def loss_fn(cfg, params: Tree, batch, *, attn_impl="chunked",
@@ -350,7 +378,7 @@ def decode_step_paged(cfg, params: Tree, paged: Tree, token, steps,
     ``paged_decode_attention`` (kernel K3 on the card).
     """
     layout = block_layout(cfg)
-    _check_ported(cfg, layout)
+    _check_ported(cfg)
     rope = L.rope_freqs(cfg.head_dim, cfg.rope_pct, cfg.rope_theta,
                         token.device)
     x = L.embed_tokens(_group(params, "embed"), token)   # (B,1,d)
@@ -368,8 +396,8 @@ def decode_step_paged(cfg, params: Tree, paged: Tree, token, steps,
             o = paged_decode_attention(q, kp, vp, page_tables[f"sub{si}"],
                                        valid)
             x = x + L.out_project(p["attn"], o)
-            h = L.apply_norm(p["ln2"], x)
-            x = x + L.apply_mlp(p["mlp"], h, cfg.act)
+            x = x + _apply_ffn(cfg, p, layout[si],
+                               L.apply_norm(p["ln2"], x))[0]
     x = L.apply_norm(_group(params, "final_norm"), x)
     return L.logits_head(params, x, cfg.tie_embeddings), paged
 
@@ -382,7 +410,7 @@ def decode_step(cfg, params: Tree, cache: Tree, token):
     layers).  Returns (logits, cache) with ``step`` advanced.
     """
     layout = block_layout(cfg)
-    _check_ported(cfg, layout)
+    _check_ported(cfg)
     rope = L.rope_freqs(cfg.head_dim, cfg.rope_pct, cfg.rope_theta,
                         token.device)
     step = cache["step"]
@@ -408,8 +436,7 @@ def decode_step(cfg, params: Tree, cache: Tree, token):
                 cache_token_update(vc, v, step)
                 o = decode_attend(q, kc, vc, nxt)
             x = x + L.out_project(p["attn"], o)
-            h = L.apply_norm(p["ln2"], x)
-            x = x + L.apply_mlp(p["mlp"], h, cfg.act)
+            x = x + _apply_ffn(cfg, p, spec, L.apply_norm(p["ln2"], x))[0]
     x = L.apply_norm(_group(params, "final_norm"), x)
     logits = L.logits_head(params, x, cfg.tie_embeddings)
     return logits, {**cache, "step": step + 1}

@@ -32,17 +32,10 @@ import torch
 
 from . import paper_round, paper_tasks
 from .core import Replay
+from .profiling import device_kernels
 
 MODELS = ("vgg16", "imdb", "casa")
 TOPOLOGIES = ("hub", "hierarchical", "gossip")
-
-
-def _device_us(evt) -> float:
-    # the attribute was renamed from *_cuda_* to *_device_* in torch 2.x
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    raise AttributeError("profiler event has no device time")
 
 
 def _kind(name: str) -> str:
@@ -87,32 +80,29 @@ def _measure(fed, rounds: int) -> dict:
         hist = fed.fit(rounds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side records only (kernels, memcpy, memset: no host time);
-    # the host ops that launched them carry the same device time again
-    device = [e for e in prof.key_averages()
-              if e.self_cpu_time_total == 0 and _device_us(e) > 0]
-    device_us = sum(_device_us(e) for e in device)
-    launches = sum(e.count for e in device)
+    kernels = device_kernels(prof)
+    device_us = sum(k.us for k in kernels)
     by_kind: dict = {}
     launches_by_kind: dict = {}
-    for e in device:
-        kind = _kind(e.key)
-        by_kind[kind] = by_kind.get(kind, 0.0) + _device_us(e) * 1e-3 / rounds
-        launches_by_kind[kind] = launches_by_kind.get(kind, 0) \
-            + e.count / rounds
-    top = sorted(device, key=_device_us, reverse=True)[:12]
+    by_name: dict = {}
+    for k in kernels:
+        kind = _kind(k.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + k.us * 1e-3 / rounds
+        launches_by_kind[kind] = launches_by_kind.get(kind, 0) + 1 / rounds
+        count, us = by_name.get(k.name, (0, 0.0))
+        by_name[k.name] = (count + 1, us + k.us)
+    top = sorted(by_name.items(), key=lambda x: -x[1][1])[:12]
     return {
         "round_seconds": clean,
         "round_seconds_profiled": [r.seconds for r in hist[-rounds:]],
         "profiled_wall_s": wall,
         "device_busy_share": device_us * 1e-6 / wall,
         "device_ms_per_round": device_us * 1e-3 / rounds,
-        "kernel_launches_per_round": launches / rounds,
+        "kernel_launches_per_round": len(kernels) / rounds,
         "device_ms_per_round_by_kind": by_kind,
         "kernel_launches_per_round_by_kind": launches_by_kind,
-        "top_device": [{"name": e.key[:80], "count": e.count,
-                        "device_ms": _device_us(e) * 1e-3}
-                       for e in top],
+        "top_device": [{"name": n[:80], "count": c, "device_ms": us * 1e-3}
+                       for n, (c, us) in top],
     }
 
 

@@ -4,7 +4,8 @@
         [--traffic serving|long] [--out FILE]
 
 Builds the serving workload (``serve_workload.build``: qwen3-1.7b, or
-``--arch`` such as rwkv6-3b or hymba-1.5b, at full width in fp32, under
+``--arch`` such as rwkv6-3b, hymba-1.5b or granite-moe-1b-a400m, at full
+width in fp32, under
 ``--traffic``: by default 8 slots, 16 requests of 128 prompt tokens;
 ``long``, 4 requests of 1,536; the ones ``chip_smoke.py`` drives) and,
 after a warm-up, runs it through ``DecodeEngine`` once without and once
@@ -18,11 +19,19 @@ over the host time of a decode step in the full run without the
 profiler.  The replay's device time, by kind, is the prefills'.  What
 the replay leaves out (the prefill states' commits into the slot rows or
 pages, and host-side sampling) counts toward the decode steps.
-Prints one JSON object; needs a GPU.
+
+A kernel's kind comes from its name, except on the MoE family: a kernel
+launched by an op inside one of ``models/moe.py``'s profiler ranges
+counts toward that range's kind (``moe: router``, ``moe: sort and
+rank``, ``moe: gather and scatter``, ``moe: expert bmm``), matched
+through the profiler's raw events (``profiling.device_kernels``: each
+kernel's correlation id names the op that launched it).  Prints one
+JSON object; needs a GPU.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import subprocess
@@ -33,7 +42,7 @@ import torch
 from . import serve_workload as sw
 from .configs.base import list_configs
 from .models import get_model
-from .profile_round import _device_us
+from .profiling import device_kernels
 
 
 def _kind(name: str) -> str:
@@ -64,18 +73,20 @@ def _profiled(fn, profile: bool) -> dict:
         torch.cuda.synchronize()
     out = {"wall_s": time.perf_counter() - t0, "ret": ret}
     if prof is not None:
-        device = [e for e in prof.key_averages()
-                  if e.self_cpu_time_total == 0 and _device_us(e) > 0]
-        out["device_us"] = sum(_device_us(e) for e in device)
-        out["launches"] = sum(e.count for e in device)
-        kinds: dict = {}
-        for e in device:
-            kinds[_kind(e.key)] = kinds.get(_kind(e.key), 0.0) + _device_us(e)
-        out["kinds_us"] = kinds
-        out["top"] = [{"name": e.key[:80], "count": e.count,
-                       "device_ms": _device_us(e) * 1e-3}
-                      for e in sorted(device, key=_device_us,
-                                      reverse=True)[:10]]
+        kernels = [(k.name, k.us, f"moe: {k.span}" if k.span
+                    else _kind(k.name)) for k in device_kernels(prof)]
+        out["device_us"] = sum(us for _, us, _ in kernels)
+        out["launches"] = len(kernels)
+        kinds: dict = collections.defaultdict(float)
+        by_name: dict = collections.defaultdict(lambda: [0, 0.0])
+        for name, us, kind in kernels:
+            kinds[kind] += us
+            by_name[name][0] += 1
+            by_name[name][1] += us
+        out["kinds_us"] = dict(kinds)
+        out["top"] = [{"name": n[:80], "count": c, "device_ms": us * 1e-3}
+                      for n, (c, us) in sorted(by_name.items(),
+                                               key=lambda x: -x[1][1])[:10]]
     return out
 
 

@@ -8,8 +8,12 @@ layers, d_model 2,560, 40 WKV heads of 64, d_ff 8,960, vocab 65,536,
 untied head; the prefill's scan runs on kernel K7) or ``hymba-1.5b``
 (32 layers in 4 macro blocks of 7 windowed (1,024) and 1 global
 sub-layers, d_model 1,600, 25 query heads over 5 KV heads of 64 beside
-25 SSM heads of 128, vocab 32,001 padded to 32,128, untied head).
-Weights are fp32 (the config's ``param_dtype``), random from ``seed``.
+25 SSM heads of 128, vocab 32,001 padded to 32,128, untied head) or
+``granite-moe-1b-a400m`` (24 layers, d_model 1,024, 16 query heads over
+8 KV heads of 64, every layer's MLP a MoE of 32 experts of 512 with top
+8 at capacity factor 1.25, vocab 49,155 padded to 49,280, tied
+embeddings).  Weights are fp32 (the config's ``param_dtype``), random
+from ``seed``.
 
 The traffic (``TRAFFIC``) is the continuous-batching ``DecodeEngine``
 over 16-token pages, greedy:
@@ -22,6 +26,11 @@ over 16-token pages, greedy:
   each, the prefill on ``attn_impl="chunked"`` (kernel K5 on the card):
   past hymba's window of 1,024, so its windowed sub-layers' caches are
   rings that wrap.
+
+On the MoE family a copy is dropped at capacity depending on the other
+tokens of the same call: a prefill group of 8 x 128 tokens has 320 slots
+an expert, a 4 x 1,536 one 1,920, and a decode step over 8 slots 8 (no
+copy can drop: each token sends at most one copy to an expert).
 
 ``chip_smoke.py`` drives it and ``profile_serve.py`` profiles it.
 """

@@ -1315,3 +1315,67 @@ def test_flash_attention_takes_size_one_dims_of_any_stride(dev):
     want = aops.attention_bwd(q, k, v, o, lse, g)
     got = aops.attention_bwd(q, k, v, o, lse, odd)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_apply_moe_matches_cpu_and_backward_is_bitwise(dev):
+    """``apply_moe`` at one granite-moe-1b-a400m layer's width (T = 1,024
+    tokens, d 1,024, 32 experts of 512, top 8, capacity factor 1.25) on the
+    card against the CPU: the output and aux at 2e-5, each gradient at
+    2e-5 x max(1, its largest entry) (the router's reaches ~180: fp32 sums
+    of ~1,000 terms in another order differ by ~1e-4 there, against
+    float64), the same kept copies and the same dropped count; two
+    backward passes on the card bitwise equal (the dispatch gathers, and
+    its backward sums each token's copies in a fixed order: no
+    atomics).  Routing is decisive by construction, as in
+    ``tests/test_torch_moe.py``: the first 32 coordinates of each token
+    hold a permutation of 32 codes 0.1 apart (half the tokens rank expert
+    0 first, so that its 320 slots overflow) and the router reads expert
+    e's code alone at 5; the least gap between a token's 8th and 9th
+    router probability must be at least 100 x the tolerance, so that a
+    routing flip fails loudly."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+
+    mcfg = get_config("granite-moe-1b-a400m").moe
+    e, t, d = mcfg.num_experts, 1024, 1024
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(gen, d, mcfg, torch.float32)
+    x = torch.randn(1, t, d, generator=gen)
+    g = torch.randn(1, t, d, generator=gen)
+    perm = torch.rand(t, e, generator=gen).argsort(-1)   # expert j: perm[j]
+    skew = torch.rand(t, generator=gen) < 0.5
+    top = (perm == e - 1).float().argmax(-1)
+    first = perm[:, 0].clone()
+    perm[skew, 0] = e - 1
+    perm[skew, top[skew]] = first[skew]
+    x[0, :, :e] = (perm - (e - 1) / 2) * 0.1
+    p["router"] = torch.zeros(d, e)
+    p["router"][torch.arange(e), torch.arange(e)] = 5.0
+
+    def run(device):
+        pp = {n: v.to(device).requires_grad_(True) for n, v in p.items()}
+        xx = x.to(device).requires_grad_(True)
+        moe.reset_dropped()
+        with moe.trace_routing() as trace:
+            y, aux = moe.apply_moe(pp, xx, mcfg)
+        dropped = moe.dropped_copies()
+        grads = torch.autograd.grad((y * g.to(device)).sum() + aux,
+                                    [xx, *pp.values()])
+        return y, aux, grads, trace[0], dropped
+
+    y, aux, grads, rec, dropped = run(dev)
+    y2, aux2, grads2, _, _ = run(dev)
+    cy, caux, cgrads, crec, cdropped = run("cpu")
+    gap = float(crec["gap"].min())
+    assert gap >= 100 * TOL, f"routing gap {gap} < 100 x {TOL}: a near tie"
+    assert cdropped > 0
+    assert torch.equal(rec["keep"].cpu(), crec["keep"]) and \
+        dropped == cdropped
+    torch.testing.assert_close(y.cpu(), cy, atol=TOL, rtol=0)
+    torch.testing.assert_close(aux.cpu(), caux, atol=TOL, rtol=0)
+    for name, a, b in zip(["x", *p], grads, cgrads):
+        tol = TOL * max(1.0, float(b.abs().max()))
+        err = float((a.cpu() - b).abs().max())
+        assert err <= tol, (name, err, tol)
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))

@@ -235,5 +235,5 @@ def test_helpers_match_reference(setup):
 def test_get_model_families():
     cfg = get_config(ARCH).reduced()
     assert get_model(cfg).prefill is not None
-    with pytest.raises(NotPortedError, match="moe"):
-        get_model(cfg.replace(family="moe"))
+    with pytest.raises(NotPortedError, match="vlm"):
+        get_model(cfg.replace(family="vlm"))

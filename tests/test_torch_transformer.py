@@ -59,7 +59,9 @@ def _close(got, want, what):
 
 def test_configs_match_reference():
     assert set(list_configs()) == {"qwen3-1.7b", "gemma3-12b", "rwkv6-3b",
-                                   "qwen2.5-14b", "stablelm-3b", "hymba-1.5b"}
+                                   "qwen2.5-14b", "stablelm-3b", "hymba-1.5b",
+                                   "granite-moe-1b-a400m",
+                                   "llama4-maverick-400b-a17b"}
     for name in list_configs():
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(r_get_config(name))
@@ -241,7 +243,16 @@ def test_paged_decode_equals_dense_decode_bitwise(gemma):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotPortedError, match="moe"):
-        get_model(get_config("qwen3-1.7b").replace(family="moe"))
+    with pytest.raises(NotPortedError, match="vlm"):
+        get_model(get_config("qwen3-1.7b").replace(family="vlm"))
     with pytest.raises(NotPortedError, match="audio"):
         get_model(get_config("qwen3-1.7b").replace(family="audio"))
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(NotPortedError, match="moe_mesh"):
+        model.forward(params, torch.zeros((1, 4), dtype=torch.int64),
+                      moe_mesh=object())
+    with pytest.raises(NotPortedError, match="patch projector"):
+        get_model(cfg.replace(n_patches=8)).init_params(
+            torch.Generator().manual_seed(0))
