@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in forty-four phases, in the order
-below except that 17-20, then 22-28, then 21 run after 8, 34-35 and
-then 40-41 after 16, and 42-44 after 38, and any failure exits
-non-zero:
+nothing of the ``repro`` package) in forty-nine phases, in the order
+below except that 17-20, then 22-28, then 21 run after 8, 34-35, then
+40-41, then 45-46 after 16, and 42-44, then 47-49 after 38 (39 last),
+and any failure exits non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
    the checkout with ``nvcc`` (``repro_torch/kernels/_build.py``).
@@ -66,7 +66,8 @@ non-zero:
    hymba-1.5b's (25 over 5 of 64, a GQA group of 5) at the serving shape
    and on a ring of 1,024 (8 sequences past it, valid lengths clamped
    to the ring), and on qwen2.5-14b's (40 over 8 of 128) and
-   granite-moe-1b-a400m's (16 over 8 of 64) at the serving shape, pages
+   granite-moe-1b-a400m's (16 over 8 of 64) and stablelm-3b's (32 over
+   32 of 80) at the serving shape, pages
    scattered by a random permutation, valid lengths ragged, fp32 and
    bf16: within 2e-5 of its plain version in fp32 and 3e-2 of the fp32
    plain version on the same bf16 inputs; bf16 also element by element
@@ -118,19 +119,29 @@ non-zero:
    zoo's own shapes at B=1 in fp32 (qwen3-1.7b at S=4,096, gemma3-12b's
    local and global layers at S=2,048, hymba-1.5b's windowed (1,024) and
    global layers at S=2,048, head dim 64 in groups of 5,
-   granite-moe-1b-a400m's at S=4,096, 16 heads over 8 of 64), held and
+   granite-moe-1b-a400m's at S=4,096, 16 heads over 8 of 64,
+   stablelm-3b's at S=4,096, 32 over 32 of 80, fp32 and bf16), held and
    timed the same way but
    reached through the model's wrapper ``models.attention.attend``
    (chunked, ``q_chunk`` 1024, a causal window of 1,024 on the local
    layer) and differentiated through an output projection, so that K6
-   gets the gradient layout a model gives it.
+   gets the gradient layout a model gives it.  Last, whisper-medium's
+   non-causal shapes (16 heads of 64, B=1, fp32): Sq = Sk = 1,500 and Sq
+   = 4,096 over Sk = 1,500 through ``attention.pad_noncausal`` (zero rows
+   to whole blocks, ``kv_len`` masking the padded keys), held to the
+   plain version on the unpadded inputs at the fp32 bars, the zero keys
+   counted failing them; kernel, route, plain and SDPA times beside the
+   bound of the real pairs.
 13. decode-dense — ``decode_attention`` (K4, launched on K3's kernel)
    at qwen3-1.7b width in ``decode_32k`` (8 caches of 32,768 positions,
    ragged valid lengths, fp32 and bf16), on a gemma3-12b ring cache
    (1,024 slots, window 1,024, valid lengths beyond it; also through
    ``flash_decode`` in the reference kernel's layout, and valid length 0
    giving zeros) and on a cache of 1,000 positions with ``blk_k`` 512
-   (positions 512.. never read): within 2e-5 of the plain version (3e-2
+   (positions 512.. never read), and on whisper-medium's caches (8 x
+   1,500 cross positions, all valid, fp32 and bf16; 8 x 200 self
+   positions; ``blk_k`` the cache's length, 16 heads of 64, timed as
+   ``decode_32k``): within 2e-5 of the plain version (3e-2
    for bf16, and bf16 element by element with planted wrong outputs, as
    in 9), one K3 launch per call, bitwise repeatable, the first call
    of each case with no host sync (as in 9); prints each case's split
@@ -377,16 +388,49 @@ non-zero:
 44. train-launcher-moe — [train-launcher] with ``--arch
    granite-moe-1b-a400m``.
 
+45. serve-stablelm — stablelm-3b at full width in fp32 (2,795,443,200
+   params, random weights; 32 heads over 32 of 80) under [serve]'s
+   traffic: 84 decode steps, K3 at head dim 80 launched 32 x 84 times,
+   every request's token count, one decode input signature; tokens/s,
+   decode ms per step, TTFT, latency, peak memory; then the engine
+   against ``static_generate`` as [serve-parity] (logits 1e-3).
+46. serve-whisper — whisper-medium at full width in fp32 (760,348,672
+   params, random weights, ``frames`` (8, 1,500, 1,024) from the seed)
+   through ``static_generate``: 8 sequences of 64 prompt tokens, each
+   generating 128 greedily (max_len 200); K5 24 launches (the encoder's
+   1,500 frames through the padded non-causal route), K4 48 a decode
+   step (self and cross cache in 24 layers); tokens/s, ms a step, peak
+   memory; then the same loop on the plain attention: logits within
+   1e-3, tokens equal barring near ties.
+47. zoo-round-whisper — [zoo-round-moe]'s setup on whisper-medium (50
+   units: embed, 24 encoder and 24 decoder layers, head; 25 trained a
+   client) at 4,096 decoder tokens over 1,500 frames: launches K1 2, K5
+   960 (per local step the encoder's 24, the decoder's self and cross
+   in the forward and the remat recompute), K6 576 + 576; frozen deltas
+   exactly zero, the bill equal to Table 4, the second round profiled
+   (K5/K6 in-run by attention: encoder, self, cross), then built again
+   from one seed and held bitwise.
+48. zoo-parity-whisper — [zoo-parity] on whisper-medium at full width cut
+   to 2 encoder and 2 decoder layers, 1,500 frames, S = 1,024, SGD at
+   WHISPER_PARITY_LR: card vs CPU at ZOO_PARITY_TOL, every row of the
+   self- and cross-attention projections moved by 10 x that.
+49. zoo-parity-stablelm — [zoo-parity] on stablelm-3b at full width cut to
+   2 layers, S = 1,024 (K5/K6 at head dim 80).
+
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
 the card's name and power limit (as ``nvidia-smi`` reports them) and a
 JSON line of per-kernel numbers (K1's and K2's launches summed over the
 paths that ran them, each path's count in ``launches_by_path``, K1's
 other plans in ``plans``, K2's single-client dispatch in
-``dispatch_1client``; K5's and K6's launches those of the zoo's model
-paths (29-31, 36, 42) and the long prefills (34, 40), with
-``[attention-kernels]``' direct calls listed beside them; the zoo call
-sites' numbers in ``zoo``); the last line is
+``dispatch_1client``; K3's those of the serving runs (10, 34, 40, 45);
+K4's those of whisper's decode steps (46), ``[decode-dense]``'s direct
+calls beside them and its cases in ``cases``; K5's and K6's launches
+those of the zoo's model paths (29-31, 36, 42, 47), the long prefills
+(34, 40) and whisper's encoder prefill (46), with
+``[attention-kernels]``' direct calls listed beside them and this
+slice's shapes (head dim 80, whisper's non-causal) in ``cases``; the zoo
+call sites' numbers in ``zoo``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1818,16 +1862,17 @@ def _decode_cases():
     group of 5) at the serving shape and on a ring of 1,024 (the
     windowed sub-layers past the window: 8 sequences of 1,025-1,600
     tokens, valid lengths clamped to the ring); qwen2.5-14b's (40 over 8
-    of 128, a group of 5) and granite-moe-1b-a400m's (16 over 8 of 64, a
-    group of 2) at the serving shape."""
+    of 128, a group of 5), granite-moe-1b-a400m's (16 over 8 of 64, a
+    group of 2) and stablelm-3b's (32 over 32 of 80: a row on 32 fp32 /
+    16 bf16 lanes) at the serving shape."""
     from repro_torch import serve_workload as sw
     from repro_torch.configs.base import get_config
 
     max_len = sw.PROMPT_LEN + sw.GEN + sw.GEN_SPREAD - 1 + 8
     serving = (sw.N_SLOTS, -(-max_len // sw.PAGE_SIZE), sw.PROMPT_LEN + 1,
                sw.PROMPT_LEN + sw.GEN + sw.GEN_SPREAD - 1)
-    hy, q14, gr = (get_config(HYMBA_ARCH), get_config("qwen2.5-14b"),
-                   get_config(MOE_ARCH))
+    hy, q14, gr, st = (get_config(HYMBA_ARCH), get_config("qwen2.5-14b"),
+                       get_config(MOE_ARCH), get_config(STABLELM_ARCH))
     hy_heads = (hy.n_heads, hy.n_kv_heads, hy.head_dim)
     window = hy.sliding_window
     return [("serving", *serving, 16, 8, 128, False),
@@ -1838,7 +1883,9 @@ def _decode_cases():
             ("qwen2.5-14b serving", *serving, q14.n_heads, q14.n_kv_heads,
              q14.head_dim, False),
             ("granite serving", *serving, gr.n_heads, gr.n_kv_heads,
-             gr.head_dim, False)]
+             gr.head_dim, False),
+            ("stablelm serving", *serving, st.n_heads, st.n_kv_heads,
+             st.head_dim, False)]
 
 
 def phase_decode_kernel(dev):
@@ -2342,6 +2389,205 @@ def phase_serve_moe_parity(runs):
             flips=flips)
         del eng, res, static
 
+# -- stablelm-3b (head dim 80 on K3) and whisper-medium (K4, K5) served -------
+
+STABLELM_ARCH = "stablelm-3b"
+STABLELM_PARAMS = 2_795_443_200  # by the config's dims (the meta-device init)
+WHISPER_ARCH = "whisper-medium"
+WHISPER_PARAMS = 760_348_672     # the reference's eval_shape at full width
+# [serve-whisper]: 8 sequences of 64 prompt tokens, each generating 128,
+# over self caches of 200 positions (under the decoder's 448)
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 8, 64, 128
+WHISPER_MAX_LEN = 200
+
+
+def phase_serve_stablelm(dev):
+    """stablelm-3b at full width in fp32 (32 layers, 32 heads over 32 of
+    80, LayerNorm, 25% rotary) through ``DecodeEngine`` under
+    ``[serve]``'s traffic: K3 at head dim 80 once per layer per decode
+    step; then the engine against ``static_generate`` as
+    ``[serve-parity]``."""
+    from repro_torch import serve_workload as sw
+    from repro_torch.common import param_count
+    from repro_torch.kernels.flash_decode import ops as fops
+
+    tag = "[serve-stablelm]"
+    t0 = time.perf_counter()
+    w = sw.build(dev, arch=STABLELM_ARCH)
+    torch.cuda.synchronize()
+    cfg, n = w.cfg, param_count(w.params)
+    check(n == STABLELM_PARAMS, f"{tag} {n} params, expected "
+          f"{STABLELM_PARAMS}")
+    check(cfg.head_dim == 80 and cfg.n_heads == cfg.n_kv_heads == 32,
+          f"{tag} heads {cfg.n_heads} / {cfg.n_kv_heads} of {cfg.head_dim}")
+    print(f"{tag} {cfg.name} at full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads "
+          f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}, "
+          f"{n} fp32 params ({n * 4 / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    sw.engine(w, n_requests=2, gen=3).run()          # warm-up, not measured
+    eng = sw.engine(w)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fops.reset_launch_counts()
+    res = eng.run()
+    torch.cuda.synchronize()
+    launches = fops.paged_decode_attention.launches
+    st = eng.stats()
+    steps_ = st["n_decode_steps"]
+    check(steps_ == TRAFFIC_STEPS["serving"], f"{tag} {steps_} decode "
+          f"steps, predicted {TRAFFIC_STEPS['serving']}")
+    check(launches == cfg.n_layers * steps_, f"{tag} K3 launched "
+          f"{launches} times in {steps_} decode steps of {cfg.n_layers} "
+          f"layers")
+    check(all(len(res[i]) == g for i, g in enumerate(w.gens)),
+          f"{tag} a request did not finish with its token count")
+    check(eng.decode_cache_size == 1,
+          f"{tag} decode step saw {eng.decode_cache_size} input signatures")
+    print(f"{tag} {st['n_requests']} requests of {sw.PROMPT_LEN} prompt "
+          f"tokens over {w.serve.n_slots} slots (pages of "
+          f"{w.serve.page_size}), {st['total_tokens']} tokens in "
+          f"{st['wall_s']:.3f} s: {st['tokens_per_sec']:.1f} tok/s; decode "
+          f"{st['decode_ms_per_step']:.3f} ms per step over {steps_} steps; "
+          f"TTFT p50 {st['ttft_p50_s']:.3f} s p99 {st['ttft_p99_s']:.3f} s; "
+          f"latency p50 {st['latency_p50_s']:.3f} s p99 "
+          f"{st['latency_p99_s']:.3f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{tag} flash_decode_paged (K3) at 32 over 32 heads of 80: "
+          f"launches {launches} = {cfg.n_layers} x {steps_} decode steps "
+          f"(its time alone at this shape: [decode-kernel] stablelm "
+          f"serving)")
+    del eng
+    phase_serve_parity(w, "serve-stablelm", f"{STABLELM_ARCH}: continuous "
+                       f"(K3 at head dim 80) vs static (plain)")
+    return launches
+
+
+def phase_serve_whisper(dev):
+    """whisper-medium at full width in fp32 (random weights, ``frames``
+    from the seed) through ``static_generate`` (the audio family's only
+    serving loop, as in the reference): 8 sequences of 64 prompt tokens
+    each generating 128 greedily over self caches of 200 positions.  The
+    prefill encodes 1,500 frames on K5 (``attn_impl="chunked"``: 24
+    launches through the padded non-causal route; the decoder's 64 rows
+    take the plain attention), and every decode step runs K4 48 times
+    (self and cross in 24 layers).  Then the same loop on the plain
+    attention (the encoder's ``attend_reference``, ``decode_attend`` in
+    the decode step): every logits row within LOGIT_TOL, tokens equal
+    barring near ties."""
+    from unittest import mock
+    from repro_torch.common import param_count
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.models import attention, get_model, whisper
+    from repro_torch.serve.engine import static_generate
+
+    tag = "[serve-whisper]"
+    cfg = get_config(WHISPER_ARCH)
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = param_count(params)
+    check(n == WHISPER_PARAMS, f"{tag} {n} params, expected "
+          f"{WHISPER_PARAMS}")
+    b, gen = WHISPER_BATCH, WHISPER_GEN
+    prompts = torch.randint(0, cfg.vocab, (b, WHISPER_PROMPT),
+                            generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32).numpy()
+    frames = torch.randn((b, cfg.enc_seq, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    print(f"{tag} {cfg.name} at full width: {cfg.n_enc_layers} encoder and "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.padded_vocab}, {n} fp32 params ({n * 4 / 1e9:.2f} GB) drawn "
+          f"on the card in {time.perf_counter() - t0:.2f} s; frames "
+          f"{tuple(frames.shape)} from the seed")
+
+    def run(attn_impl, k=b, steps=gen):
+        return static_generate(cfg, params, prompts[:k], steps,
+                               max_len=WHISPER_MAX_LEN, attn_impl=attn_impl,
+                               collect_logits=True, device=dev,
+                               extra={"frames": frames[:k]})
+
+    run("chunked", 2, 3)                             # warm-up, not measured
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fops.reset_launch_counts()
+    aops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, rows = run("chunked")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4, k5 = fops.paged_decode_attention.launches, dict(aops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(k4 == 2 * cfg.n_layers * (gen - 1), f"{tag} K4 launched {k4} "
+          f"times in {gen - 1} decode steps of {cfg.n_layers} layers")
+    check(k5 == {"fwd": cfg.n_enc_layers, "dq": 0, "dkv": 0},
+          f"{tag} K5/K6 launches {k5}, predicted {cfg.n_enc_layers} "
+          f"forward (the encoder)")
+    check(out.shape == (b, gen) and all(np.isfinite(r).all() for r in rows),
+          f"{tag} tokens {out.shape} or non-finite logits")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, torch.as_tensor(prompts, device=dev),
+                      frames=frames, max_len=WHISPER_MAX_LEN,
+                      attn_impl="chunked", last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    step_ms = (wall - prefill_s) / (gen - 1) * 1e3
+    print(f"{tag} {b} sequences x {WHISPER_PROMPT} prompt tokens, {gen} "
+          f"generated each (max_len {WHISPER_MAX_LEN}), greedy: {b * gen} "
+          f"tokens in {wall:.3f} s: {b * gen / wall:.1f} tok/s; prefill "
+          f"(encoder + prompt) {prefill_s * 1e3:.1f} ms; decode "
+          f"{step_ms:.3f} ms per step over {gen - 1} steps; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"{tag} flash_decode (K4) launches {k4} = 2 x {cfg.n_layers} "
+          f"layers x {gen - 1} decode steps (self cache blk_k "
+          f"{WHISPER_MAX_LEN}, cross cache blk_k {cfg.enc_seq}); "
+          f"flash_attention_fwd (K5) launches {k5['fwd']} = "
+          f"{cfg.n_enc_layers} encoder layers x 1 prefill (1,500 frames "
+          f"padded to 1,536, kv_len 1,500)")
+
+    def plain(q, k_cache, v_cache, valid):
+        return attention.decode_attend(q, k_cache, v_cache, valid)
+
+    fops.reset_launch_counts()
+    aops.reset_launch_counts()
+    with mock.patch.object(whisper, "_decode_attend", plain):
+        out_p, rows_p = run("reference")
+    check(fops.paged_decode_attention.launches == 0 and
+          aops.LAUNCHES["fwd"] == 0, f"{tag} the plain run launched a "
+          f"kernel")
+    worst, compared, diverged = 0.0, 0, []
+    for i in range(b):
+        for t in range(gen):
+            err = float(np.abs(rows[t][i] - rows_p[t][i]).max())
+            check(err <= LOGIT_TOL, f"{tag} sequence {i} step {t}: logits "
+                  f"differ by {err} > {LOGIT_TOL}")
+            worst = max(worst, err)
+            compared += 1
+            if out[i, t] != out_p[i, t]:
+                top2 = np.sort(rows_p[t][i])[-2:]
+                gap = float(top2[1] - top2[0])
+                check(gap < LOGIT_TOL, f"{tag} sequence {i} step {t}: "
+                      f"tokens {out[i, t]} vs {out_p[i, t]} with a top-2 "
+                      f"gap {gap}")
+                diverged.append((i, t, gap))
+                print(f"{tag} sequence {i} diverges at step {t}: plain "
+                      f"top-2 gap {gap:.3e} < {LOGIT_TOL}")
+                break
+    print(f"{tag} K4/K5 vs the plain attention on the card: {compared} "
+          f"logits rows of {b} sequences, max abs err {worst:.3e} (tol "
+          f"{LOGIT_TOL}); token streams equal"
+          + (f" up to {len(diverged)} near-tie divergence(s)" if diverged
+             else ""))
+    del params, frames
+    return {"K4": k4, "K5": k5["fwd"], "tok_s": b * gen / wall,
+            "step_ms": step_ms, "peak": peak}
+
 
 # -- K4, K5, K6: the attention kernels' entry points ---------------------------
 
@@ -2401,6 +2647,7 @@ def _attn_cases():
     1024, as ``steps.default_loss_kwargs``), whose output goes through an
     output projection as in ``layers.attention_block``, so that K6 gets
     the gradient layout the model gives it."""
+    from repro_torch.configs.base import get_config
     cases = [(n, cfg, w, TRAIN_B, TRAIN_S, dt, False)
              for n, cfg, w in _attn_configs()
              for dt in (torch.float32, torch.bfloat16)]
@@ -2412,6 +2659,13 @@ def _attn_cases():
                       torch.float32, True))
     cases.append((f"{MOE_ARCH} B=1 S={TRAIN_S}", _moe_cfg(), 0, 1, TRAIN_S,
                   torch.float32, True))
+    # stablelm-3b's head dim 80 (32 over 32 heads), both dtypes: the
+    # kernels run head dim 128's tiles on zero columns
+    st = get_config(STABLELM_ARCH)
+    for dt in (torch.float32, torch.bfloat16):
+        cases.append((f"{STABLELM_ARCH} B=1 S={TRAIN_S}"
+                      + ("" if dt == torch.float32 else " bf16"), st, 0, 1,
+                      TRAIN_S, dt, True))
     return cases
 
 
@@ -2521,10 +2775,10 @@ def phase_attention_kernels(dev):
         k, v = (torch.randn(b, s, hkv, hd, generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         if via_attend:
-            wo = torch.randn(h, hd, cfg.d_model, generator=gen,
-                             device=dev) / math.sqrt(h * hd)
+            wo = (torch.randn(h, hd, cfg.d_model, generator=gen,
+                              device=dev) / math.sqrt(h * hd)).to(dtype)
             gy = torch.randn(b, s, cfg.d_model, generator=gen,
-                             device=dev)
+                             device=dev).to(dtype)
             # the gradient the projection hands attend's output: the
             # plain versions take it as their dO
             g = torch.einsum("bsd,hkd->bshk", gy, wo).contiguous()
@@ -2728,11 +2982,152 @@ def phase_attention_kernels(dev):
                 "bound_by": bound["bwd"][1], "library_ms": t["lib_bwd"]}
         del q, k, v, g, o, lse
         torch.cuda.empty_cache()
-    check(driven["fwd"] == len(cases),
+    extra = _attn_noncausal(dev, name, driven)
+    check(driven["fwd"] == len(cases) + len(extra),
           f"[attention-kernels] launches {driven}")
     rows["fwd"]["launches"] = driven["fwd"]
     rows["bwd"]["launches"] = driven["dq"] + driven["dkv"]
+    # the shapes this slice added: head dim 80 and whisper's non-causal
+    # padded-key route, each kernel's numbers alone
+    for label, t in list(zoo.items()) + list(extra.items()):
+        if not label.startswith((STABLELM_ARCH, WHISPER_ARCH)):
+            continue
+        for part, outs in (("fwd", ("o", "lse")), ("bwd", ("dq", "dk", "dv"))):
+            rows[part].setdefault("cases", {})[label] = {
+                "ms": t[part], "plain_ms": t[f"plain_{part}"],
+                "bound_ms": t["bound"][part][0],
+                "bound_by": t["bound"][part][1],
+                "library_ms": t[f"lib_{part}"],
+                "max_abs_err": max(t["errs"][n] for n in outs)}
     return rows["fwd"], rows["bwd"], zoo
+
+# whisper's non-causal attention (16 heads of 64): the encoder over its
+# 1,500 frames, and the decoder's 4,096 training tokens over them
+WHISPER_ATTN = ((1500, 1500), (TRAIN_S, 1500))
+
+
+def _attn_noncausal(dev, name, driven):
+    """``[attention-kernels]``' non-causal cases at whisper's shapes
+    (``WHISPER_ATTN``, B=1, fp32), through ``attention.pad_noncausal``:
+    q, k, v padded with zero rows to whole 128-row blocks, the keys past
+    Sk masked by the kernels' ``kv_len``, the output sliced back.  One
+    launch of each kernel a call, two calls bitwise equal; o, lse and
+    the gradients against the plain version on the unpadded inputs at the
+    fp32 bars (2e-5, 5e-4); the same call with the zero keys counted
+    (``kv_len`` left at the padded length) must fail the 2e-5 bar.  Times
+    of each kernel alone on the padded inputs, of the route (padding,
+    kernels, slice), of the plain version and of SDPA (non-causal, on the
+    unpadded inputs) beside the bound, which counts the real Sq x Sk
+    pairs."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    from repro_torch.models.attention import FLASH_BLOCK, pad_noncausal
+
+    cfg = get_config(WHISPER_ARCH)
+    h, hd = cfg.n_heads, cfg.head_dim
+    out = {}
+    for sq, sk in WHISPER_ATTN:
+        label = f"{WHISPER_ARCH} non-causal B=1 Sq={sq} Sk={sk}"
+        tag = f"[attention-kernels] {label} float32 through pad_noncausal"
+        gen = torch.Generator(device=dev).manual_seed(sq + sk)
+        q, g = (torch.randn(1, sq, h, hd, generator=gen, device=dev)
+                for _ in range(2))
+        k, v = (torch.randn(1, sk, h, hd, generator=gen, device=dev)
+                for _ in range(2))
+
+        def train(q=q, k=k, v=v, g=g):
+            qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+            o = pad_noncausal(qs, ks, vs)
+            return (o.detach(),) + torch.autograd.grad((o * g).sum(),
+                                                       (qs, ks, vs))
+
+        aops.reset_launch_counts()
+        got = train()
+        torch.cuda.synchronize()
+        step = dict(aops.LAUNCHES)
+        check(step == {"fwd": 1, "dq": 1, "dkv": 1},
+              f"{tag}: launches {step}, expected one of each")
+        for key in driven:
+            driven[key] += step[key]
+        check(all(torch.equal(x, y) for x, y in zip(got, train())),
+              f"{tag}: two calls are not bitwise equal")
+        o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, causal=False)
+        want = (o_ref,) + flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, g,
+                                                  causal=False)
+        errs = {n: float((x - y).abs().max()) for n, x, y in
+                zip(ATTN_OUTS, got, want)}
+        qp, kp, vp, gp = (F.pad(x, (0, 0, 0, 0, 0, -x.shape[1] % FLASH_BLOCK))
+                          for x in (q, k, v, g))
+        o, lse = aops.attention_fwd(qp, kp, vp, causal=False, kv_len=sk)
+        errs["lse"] = float((lse[..., :sq] - lse_ref).abs().max())
+        for n, err in errs.items():
+            tol = TOL if n in ("o", "lse") else 5e-4
+            check(err <= tol, f"{tag}: {n} max abs err vs plain {err} > "
+                  f"{tol}")
+        counted = aops.attention_fwd(qp, kp, vp, causal=False)[0][:, :sq]
+        planted = float((counted - o_ref).abs().max()) / TOL
+        check(planted > 1.0, f"{tag}: o with the {kp.shape[1] - sk} zero "
+              f"keys counted passes the {TOL} bar ({planted:.3f} of it)")
+        del counted, want
+        t = {"fwd": device_ms(lambda: aops.attention_fwd(
+                 qp, kp, vp, causal=False, kv_len=sk), ATTN_ITERS),
+             "bwd": device_ms(lambda: aops.attention_bwd(
+                 qp, kp, vp, o, lse, gp, causal=False, kv_len=sk),
+                 ATTN_ITERS),
+             "train": device_ms(train, ATTN_ITERS),
+             "plain_fwd": device_ms(lambda: flash_attention_fwd_ref(
+                 q, k, v, causal=False), ATTN_ITERS),
+             "plain_bwd": device_ms(lambda: flash_attention_bwd_ref(
+                 q, k, v, o_ref, lse_ref, g, causal=False), ATTN_ITERS)}
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2),
+                v.transpose(1, 2)).transpose(1, 2)
+
+        lib_err = float((sdpa(q, k, v) - o_ref).abs().max())
+        check(lib_err <= 1e-3, f"{tag}: the sdpa yardstick disagrees by "
+              f"{lib_err}")
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_o = sdpa(qs, ks, vs)
+        t["lib_fwd"] = device_ms(lambda: sdpa(q, k, v), ATTN_ITERS)
+        t["lib_bwd"] = device_ms(lambda: torch.autograd.grad(
+            lib_o, (qs, ks, vs), g, retain_graph=True), ATTN_ITERS)
+        pairs, q_n, k_n = h * sq * sk, sq * h * hd, sk * h * hd
+        bound = {}
+        for part, ops_, nbytes in (
+                ("fwd", 4 * hd * pairs, 4 * (2 * q_n + 2 * k_n) + 4 * h * sq),
+                ("bwd", 10 * hd * pairs,
+                 4 * (4 * q_n + 4 * k_n) + 8 * h * sq)):
+            by_ops, by_bytes = ops_ / FP32_PEAK, nbytes / memory_rate(name)
+            bound[part] = (max(by_ops, by_bytes) * 1e3,
+                           "bytes" if by_bytes >= by_ops else "operations",
+                           by_ops, by_bytes, ops_, nbytes)
+        print(f"{tag}: H={h} hd={hd}, padded to Sq {qp.shape[1]} Sk "
+              f"{kp.shape[1]} with kv_len {sk}: max abs err vs plain "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f"; the zero keys counted: o at {planted:.1f}x the bar; "
+              f"sdpa yardstick o {lib_err:.3e}; launches fwd 1, dQ 1, "
+              f"dK/dV 1 per call; two calls bitwise equal")
+        print(f"{tag}: median device ms (L2 flushed): kernel fwd "
+              f"{t['fwd']:.4f}, bwd {t['bwd']:.4f} (padded inputs), the "
+              f"route fwd+bwd {t['train']:.4f}; plain fwd "
+              f"{t['plain_fwd']:.4f}, bwd {t['plain_bwd']:.4f}; sdpa fwd "
+              f"{t['lib_fwd']:.4f}, bwd {t['lib_bwd']:.4f}; bound fwd "
+              f"{bound['fwd'][0]:.4f} ms ({bound['fwd'][4] / 1e9:.2f} GFLOP "
+              f"of the real pairs at {FP32_PEAK / 1e12:.0f} TFLOP/s), bwd "
+              f"{bound['bwd'][0]:.4f} ms ({bound['bwd'][4] / 1e9:.2f} "
+              f"GFLOP); kernel at {bound['fwd'][0] / t['fwd']:.1%} (fwd) and "
+              f"{bound['bwd'][0] / t['bwd']:.1%} (bwd) of the bound; kernel "
+              f"/ sdpa {t['fwd'] / t['lib_fwd']:.2f}x (fwd), "
+              f"{t['bwd'] / t['lib_bwd']:.2f}x (bwd)")
+        out[label] = dict(t, errs=errs, bound=bound)
+        del q, k, v, g, qp, kp, vp, gp, o, lse, o_ref, lse_ref, lib_o
+        torch.cuda.empty_cache()
+    return out
 
 
 def _sdpa_decode(q, k, v, valid):
@@ -2755,13 +3150,23 @@ def phase_decode_dense(dev):
 
     name = torch.cuda.get_device_name(0)
     qwen, gemma = get_config("qwen3-1.7b"), get_config("gemma3-12b")
+    wh = get_config(WHISPER_ARCH)
     w = gemma.sliding_window
+    both = (torch.float32, torch.bfloat16)
     cases = [  # tag, config, B, S, window, valid range, blk_k, dtypes
-        ("decode_32k", qwen, 8, DECODE_S, 0, (1, DECODE_S), 512,
-         (torch.float32, torch.bfloat16)),
+        ("decode_32k", qwen, 8, DECODE_S, 0, (1, DECODE_S), 512, both),
         ("gemma3 ring", gemma, 8, w, w, (1, 4 * w), 512, (torch.float32,)),
-        ("S=1000", qwen, 4, 1000, 0, (1, 1000), 512, (torch.float32,))]
-    row, launches = None, 0
+        ("S=1000", qwen, 4, 1000, 0, (1, 1000), 512, (torch.float32,)),
+        # whisper's decode step (``[serve-whisper]``): the cross cache of
+        # 1,500 frames, every position valid, and the self cache of
+        # max_len 200 at the serving run's steps, blk_k the cache's length
+        ("whisper cross", wh, WHISPER_BATCH, wh.enc_seq, 0,
+         (wh.enc_seq, wh.enc_seq), wh.enc_seq, both),
+        ("whisper self", wh, WHISPER_BATCH, WHISPER_MAX_LEN, 0,
+         (WHISPER_PROMPT + 1, WHISPER_PROMPT + WHISPER_GEN - 1),
+         WHISPER_MAX_LEN, (torch.float32,))]
+    timed = ("decode_32k", "whisper cross", "whisper self")
+    row, launches, rows = None, 0, {}
     for tag0, cfg, b, s, window, (lo, hi), blk, dtypes in cases:
         h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         for dtype in dtypes:
@@ -2844,16 +3249,17 @@ def phase_decode_dense(dev):
                   f"{int(valid.min())}...{int(valid.max())}: max abs err vs "
                   f"plain {err:.3e} (tol {tol}); bitwise repeatable{extra}")
             print(f"{tag}: {_plan_text(pl)}; no host sync")
-            if tag0 != "decode_32k":
+            if tag0 not in timed:
                 continue
             lib = _sdpa_decode(q, k, v, valid)
             lib_err = float((lib.float() - want).abs().max())
             check(lib_err <= (1e-3 if dtype == torch.float32 else 5e-2),
                   f"{tag}: the sdpa yardstick disagrees by {lib_err}")
             del want, lib
-            ms = device_ms(lambda: fops.decode_attention(q, k, v, valid))
-            plain_ms = device_ms(lambda: decode_attention_ref(q, k, v, valid),
-                                 ATTN_ITERS)
+            ms = device_ms(lambda: fops.decode_attention(q, k, v, valid,
+                                                         blk_k=blk))
+            plain_ms = device_ms(lambda: decode_attention_ref(
+                q, k, v, valid, blk_k=blk), ATTN_ITERS)
             library_ms = device_ms(lambda: _sdpa_decode(q, k, v, valid))
             ntok = int(eff.sum())
             nbytes = (q.element_size() * (2 * ntok * hkv * hd
@@ -2868,7 +3274,13 @@ def phase_decode_dense(dev):
                   f"{by_bytes * 1e3:.4f}, {flops / 1e9:.3f} GFLOP is "
                   f"{by_ops * 1e3:.4f}; kernel at {bound / ms:.1%} of the "
                   f"bound; sdpa yardstick err {lib_err:.3e}")
-            if dtype == torch.float32:
+            rows[f"{tag0} {str(dtype)[6:]}"] = {
+                "B": b, "S": s, "H": h, "Hkv": hkv, "hd": hd, "blk_k": blk,
+                "splits": pl.n_splits, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                "library_ms": library_ms}
+            if tag0 == "decode_32k" and dtype == torch.float32:
                 row = {"name": "flash_decode", "route": "cuda",
                        "splits": pl.n_splits,
                        "source": "src/repro_torch/kernels/flash_decode/csrc/"
@@ -2882,7 +3294,8 @@ def phase_decode_dense(dev):
                        "library_ms": library_ms}
             del q, k, v
             torch.cuda.empty_cache()
-    row["launches"] = launches
+    row["direct_launches"] = launches
+    row["cases"] = rows
     return row
 
 
@@ -3647,6 +4060,10 @@ ZOO_PARITY_TOL = 1e-6             # card vs CPU params after one SGD step
 # the parity round's SGD rate: at the launcher's 2e-3 the first layer's wk
 # moves by under 1e-5, too little for a 1e-6 bar to see a wrong gradient
 ZOO_PARITY_LR = 0.1
+# whisper's: its encoder's q and k rows see a near-uniform softmax over
+# 1,500 frames, and at 0.1 they move by 3.5e-6-4.7e-6 (an H100 run), under
+# the 10 x ZOO_PARITY_TOL the phase asks of every attention row
+WHISPER_PARITY_LR = 1.0
 GEMMA_MACRO_S = 2048
 # device kernels of the zoo path, by the names they launch under
 ZOO_KERNELS = {"K1": ("masked_agg_kernel",),
@@ -3707,9 +4124,11 @@ def _in_run(events):
 
 def _zoo_fed(dev, cfg, s=None, **fl_kw):
     """``Federation.from_config`` on a zoo config as the launcher wires it
-    (``lm_batch`` data by ``iid_partition``), with the pod step's loss
-    keywords (chunked attention, remat): one sequence of ``s`` tokens
-    (``train_4k``'s length unless given) per client and local step."""
+    (``lm_batch`` data by ``iid_partition``; the audio family's
+    ``frames`` standard normals from the seed, as ``launch/train.py``
+    draws them), with the pod step's loss keywords (chunked attention,
+    remat): one sequence of ``s`` tokens (``train_4k``'s length unless
+    given) per client and local step."""
     from repro_torch.core import FLConfig, Federation
     from repro_torch.data import FederatedLoader, iid_partition, lm_batch
     from repro_torch.launch import steps
@@ -3718,6 +4137,9 @@ def _zoo_fed(dev, cfg, s=None, **fl_kw):
     s = s or SHAPES["train_4k"].seq_len
     n = ZOO_CLIENTS * ZOO_STEPS * (ZOO_ROUNDS + 1)
     data = lm_batch(n, s, cfg.vocab, key=0)
+    if cfg.family == "audio":
+        data["frames"] = np.random.default_rng(0).normal(
+            0, 1, (n, cfg.enc_seq, cfg.d_model)).astype(np.float32)
     shards = iid_partition(n, ZOO_CLIENTS, key=1)
     loader = FederatedLoader([{k: v[i] for k, v in data.items()}
                               for i in shards], batch_size=1,
@@ -3974,6 +4396,20 @@ def phase_zoo_train_step(dev, smi):
     return counts, run, peak, secs
 
 
+def _zoo_launches(cfg, steps_):
+    """The launches ``steps_`` local steps of the zoo round make (2 rounds:
+    K1 2), as the code runs them: as in phase 29, K5 per layer in the
+    forward and in its remat recompute and K6 once per layer, the
+    backward reaching layer 0.  whisper's decoder layer has two
+    attentions (causal self, non-causal cross over the frames), and its
+    encoder layer one, without remat (the reference checkpoints the
+    decoder's blocks only)."""
+    dec = 2 if cfg.family == "audio" else 1
+    n, n_enc = dec * cfg.n_layers, cfg.n_enc_layers
+    return {"K1": 2, "K2": 0, "K5": (2 * n + n_enc) * steps_,
+            "K6 dq": (n + n_enc) * steps_, "K6 dkv": (n + n_enc) * steps_}
+
+
 def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False):
     """The paper's round on ``arch`` at full width (a unit a layer, plus
     embed and head; half trained a client), 2 clients x 2 local steps of
@@ -3997,7 +4433,7 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False):
     build_s = time.perf_counter() - t0
     got = sum(x.numel() for x in fed.params.values())
     check(got == n_params, f"{tag}: {got} params, expected {n_params}")
-    n_units = cfg.n_layers + 2
+    n_units = cfg.n_layers + cfg.n_enc_layers + 2
     check(fed.assign.n_units == n_units and
           fed.fl.resolve_n_train(n_units) == n_units // 2 and
           fed.fl.resolve_fused_agg(fed.device),
@@ -4026,12 +4462,7 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False):
     peak = torch.cuda.max_memory_allocated()
     hist = fed.history
     check(all(math.isfinite(r.loss) for r in hist), f"{tag}: non-finite loss")
-    steps_ = 2 * ZOO_CLIENTS * ZOO_STEPS
-    n = cfg.n_layers
-    # as in phase 29: K5 per layer in the forward and in its remat
-    # recompute, K6 once per layer; the backward reaches layer 0
-    want = {"K1": 2, "K2": 0, "K5": 2 * n * steps_, "K6 dq": n * steps_,
-            "K6 dkv": n * steps_}
+    want = _zoo_launches(cfg, 2 * ZOO_CLIENTS * ZOO_STEPS)
     check(counts == want, f"{tag}: launches {counts}, predicted {want}")
     check(frozen.checked > 0 and frozen.moved > 0,
           f"{tag}: frozen {frozen.checked}, moved {frozen.moved}")
@@ -4078,13 +4509,34 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False):
                  f"{run['K5 global ms']:.4f} ms a launch, K6 local "
                  f"{run['K6 local ms']:.4f} / global "
                  f"{run['K6 global ms']:.4f} ms a call")
+    if cfg.family == "audio":
+        # a local step's K5 launches: the encoder's layers, then per
+        # decoder layer self and cross, then their remat recomputes; its
+        # K6 calls: per decoder layer (last first) cross and self, then
+        # the encoder's layers
+        n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+        k5_kind = ["enc"] * n_enc + ["self", "cross"] * (2 * n_dec)
+        k6_kind = ["cross", "self"] * n_dec + ["enc"] * n_enc
+        for kind, ts, order in (("K5", fwd, k5_kind), ("K6", bwd, k6_kind)):
+            for where in ("enc", "self", "cross"):
+                sel_ = [t for i, t in enumerate(ts)
+                        if order[i % len(order)] == where]
+                run[f"{kind} {where} ms"] = float(np.mean(sel_)) / 1e3
+        split = "; " + ", ".join(
+            f"{kind} {where} {run[f'{kind} {where} ms']:.4f}"
+            for kind in ("K5", "K6") for where in ("enc", "self", "cross")) \
+            + (" ms a launch (K5) / call (K6): encoder 1,500 frames "
+               f"non-causal, decoder self causal at {s:,}, cross {s:,} over "
+               "1,500 frames")
     for r, sec in zip(hist, secs):
         print(f"[{tag}] round {r.round}: loss {r.loss:.4f} {sec:.3f} s wall "
               f"({r.seconds:.3f} s in the server) uplink "
               f"{r.uplink_bytes:.0f} B")
     print(f"[{tag}] {cfg.name} full width ({got:,} fp32 params, "
           f"{n_units} units, {n_units // 2} trained a client), "
-          f"{ZOO_CLIENTS} clients x {ZOO_STEPS} local steps of 1 x "
+          + (f"{cfg.enc_seq:,} frames a sequence, " if cfg.n_enc_layers
+             else "")
+          + f"{ZOO_CLIENTS} clients x {ZOO_STEPS} local steps of 1 x "
           f"{s:,} tokens, Adam lr {ZOO_LR}: built in {build_s:.2f} s;"
           f" launches {counts} == predicted; frozen (client, unit row) "
           f"deltas exactly zero: {frozen.checked}, trained rows that moved: "
@@ -4171,6 +4623,34 @@ def phase_zoo_parity_hymba(dev):
     phase_zoo_parity(dev, cfg, s=640, tag="zoo-parity-hymba")
 
 
+def phase_zoo_round_whisper(dev, smi):
+    """whisper-medium (50 units: embed, enc0-23, layer0-23, head; 25
+    trained a client) at ``train_4k``'s 4,096 decoder tokens over 1,500
+    frames: K5/K6 on the encoder (non-causal, padded keys), the decoder's
+    causal self-attention and its cross-attention (4,096 over 1,500),
+    built twice from one seed."""
+    return _zoo_round_arch(dev, smi, WHISPER_ARCH, WHISPER_PARAMS, TRAIN_S,
+                           "zoo-round-whisper", repeat=True)
+
+
+def phase_zoo_parity_whisper(dev):
+    """whisper-medium at full width cut to 2 encoder and 2 decoder layers,
+    1,500 frames, S = 1,024: the padded non-causal route (encoder, cross)
+    and the causal one on the card against the host CPU."""
+    from repro_torch.configs.base import get_config
+    phase_zoo_parity(dev, get_config(WHISPER_ARCH).replace(
+        n_layers=2, n_enc_layers=2), tag="zoo-parity-whisper",
+        lr=WHISPER_PARITY_LR)
+
+
+def phase_zoo_parity_stablelm(dev):
+    """stablelm-3b at full width cut to 2 layers, S = 1,024: K5/K6 at head
+    dim 80 on the card against the host CPU."""
+    from repro_torch.configs.base import get_config
+    phase_zoo_parity(dev, get_config(STABLELM_ARCH).replace(n_layers=2),
+                     tag="zoo-parity-stablelm")
+
+
 def k1_qwen3_plan(dev, plan_rows, smi):
     """K1 alone at qwen3-1.7b's hub plan (``plan_rows`` rows of 2,048, 2
     clients: 27.54 GB a call), on random tile buffers of that shape: its
@@ -4248,7 +4728,8 @@ def _decisive_routing(cfg, params, spacing=0.02, scale=3.0):
     return out
 
 
-def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity"):
+def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity",
+                     lr=ZOO_PARITY_LR):
     """qwen3-1.7b at full width cut to 2 layers (or ``cfg``), one hub
     round of SGD at S = 1,024 (or ``s``: the chunked route), 2 clients,
     the same params, batches and replayed selections on the card (K5/K6,
@@ -4275,17 +4756,25 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity"):
     assign = build_units_zoo(cfg, params)
     c = 2
     data = lm_batch(c, s, cfg.vocab, key=5)
-    batches = {k: v.reshape(c, 1, 1, s) for k, v in data.items()}
-    # units embed, layer0, layer1, head: each client trains n_train_units
-    # of them, and every layer is trained by some client
-    n_train = 2
-    sel = np.asarray([[0, 1, 1, 0], [1, 1, 0, 0]], np.float32)
-    check(bool((sel.sum(1) == n_train).all()) and
-          bool(sel[:, 1:3].any(0).all()), f"{tag}: selection {sel}")
+    if cfg.family == "audio":
+        data["frames"] = np.random.default_rng(6).normal(
+            0, 1, (c, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    batches = {k: v.reshape((c, 1, 1) + v.shape[1:]) for k, v in data.items()}
+    # units embed, layer0, layer1, head (whisper: embed, enc0, enc1,
+    # layer0, layer1, head): each client trains n_train_units of them, and
+    # every layer is trained by some client
+    if cfg.n_enc_layers:
+        sel = np.asarray([[0, 1, 0, 1, 1, 0], [1, 0, 1, 0, 1, 0]], np.float32)
+    else:
+        sel = np.asarray([[0, 1, 1, 0], [1, 1, 0, 0]], np.float32)
+    n_train = int(sel.sum(1)[0])
+    check(sel.shape[1] == assign.n_units and
+          bool((sel.sum(1) == n_train).all()) and
+          bool(sel[:, 1:-1].any(0).all()), f"{tag}: selection {sel}")
     out, secs, losses, gaps = {}, {}, {}, {}
     for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
         fl = FLConfig(n_clients=c, n_train_units=n_train, optimizer="sgd",
-                      lr=ZOO_PARITY_LR)
+                      lr=lr)
         step = build_round_step(model.loss_fn, assign, fl,
                                 steps.default_loss_kwargs(cfg),
                                 strategy=Replay([sel]), device=d)
@@ -4319,7 +4808,8 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity"):
     # card-vs-CPU difference is read against its own move
     rows = {}
     for p in params:
-        if p.rsplit("/", 1)[-1] in ("wq", "wk", "wv", "wo") and "/attn/" in p:
+        if p.rsplit("/", 1)[-1] in ("wq", "wk", "wv", "wo") and \
+                ("/attn/" in p or "/xattn/" in p):
             for r in range(params[p].shape[0]):
                 mv = float((out["cpu"][p][r] - params[p][r]).abs().max())
                 er = float((out["card"][p][r] - out["cpu"][p][r]).abs().max())
@@ -4327,10 +4817,12 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity"):
     least = min(rows, key=lambda r: rows[r][0])
     rel = max(rows, key=lambda r: rows[r][1] / max(rows[r][0], 1e-30))
     print(f"[{tag}] {cfg.name} at full width cut to 2 layers"
+          + (f" (and {cfg.n_enc_layers} encoder layers over "
+             f"{cfg.enc_seq:,} frames)" if cfg.n_enc_layers else "")
           + (f" (window {cfg.sliding_window}, global_every "
              f"{cfg.global_every})" if cfg.sliding_window else "")
           + f", S={s}, "
-          f"{c} clients, one SGD step at lr {ZOO_PARITY_LR}, selection "
+          f"{c} clients, one SGD step at lr {lr}, selection "
           f"{sel.tolist()}"
           f": card (K5/K6 {card_counts}, K1) vs host CPU (plain) max abs err "
           f"{err[worst]:.3e} at {worst} (tol {ZOO_PARITY_TOL}; the round "
@@ -4351,7 +4843,9 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity"):
     check(err[worst] <= ZOO_PARITY_TOL,
           f"{tag} {worst}: card vs CPU max abs err {err[worst]} > "
           f"{ZOO_PARITY_TOL}")
-    check(len(rows) == 4 * cfg.n_layers, f"{tag}: rows {sorted(rows)}")
+    attn_layers = cfg.n_enc_layers + cfg.n_layers * (
+        2 if cfg.family == "audio" else 1)
+    check(len(rows) == 4 * attn_layers, f"{tag}: rows {sorted(rows)}")
     for r, (mv, _) in rows.items():
         check(mv >= 10 * ZOO_PARITY_TOL, f"{tag} {r}: moved by {mv}, "
               f"under 10 x {ZOO_PARITY_TOL}")
@@ -4543,6 +5037,14 @@ def main() -> int:
                      for t, (_, c, _, _) in moe_serve.items()})
     k5_serve[f"serve {MOE_ARCH} long prefill"] = moe_serve["long"][1]["K5"]
     del moe_serve
+    _free_card("serve-moe")
+    # stablelm-3b served (K3 at head dim 80), then whisper-medium through
+    # the static loop (K4 on every decode step, K5 in the encoder)
+    k3_paths[f"serve {STABLELM_ARCH}"] = timed(
+        "serve-stablelm", phase_serve_stablelm, dev)
+    _free_card("serve-stablelm")
+    whisper_serve = timed("serve-whisper", phase_serve_whisper, dev)
+    k5_serve[f"serve {WHISPER_ARCH} encoder prefill"] = whisper_serve["K5"]
     _free_card("zoo")
     # the zoo: the round and the train step of the zoo LMs (K1, K2, K5, K6)
 
@@ -4565,20 +5067,32 @@ def main() -> int:
     timed("zoo-parity-moe", phase_zoo_parity_moe, dev)
     timed("train-launcher-moe", phase_train_launcher, MOE_ARCH, 1, 26,
           "train-launcher-moe")
+    # whisper-medium's round (K1; K5/K6 on the encoder and the decoder's
+    # self- and cross-attention) and the 2-layer parities at head dim 64
+    # (whisper, the padded non-causal route) and 80 (stablelm-3b)
+    whisper_counts, whisper_run, _, _ = timed(
+        "zoo-round-whisper", phase_zoo_round_whisper, dev, smi)
+    timed("zoo-parity-whisper", phase_zoo_parity_whisper, dev)
+    timed("zoo-parity-stablelm", phase_zoo_parity_stablelm, dev)
     k1_plan = timed("k1-qwen3-plan", k1_qwen3_plan, dev, plan_rows, smi)
     hymba_s = sum(v for k, v in walls.items()
                   if "hymba" in k or k.startswith("k1-"))
     moe_s = sum(v for k, v in walls.items() if "moe" in k)
+    new_s = sum(v for k, v in walls.items()
+                if "whisper" in k or "stablelm" in k)
     print("[zoo] wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                              walls.items())
-          + f"; phases 29-33 {sum(walls.values()) - hymba_s - moe_s:.1f}; "
+          + f"; phases 29-33 "
+          f"{sum(walls.values()) - hymba_s - moe_s - new_s:.1f}; "
           f"phases 34-39 (hymba, k1-qwen3-plan) {hymba_s:.1f}; phases 40-44 "
-          f"(granite-moe-1b-a400m) {moe_s:.1f}")
+          f"(granite-moe-1b-a400m) {moe_s:.1f}; phases 45-49 (stablelm-3b, "
+          f"whisper-medium) {new_s:.1f}")
     zoo = zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
                           attn_zoo, hymba_run, k1_plan, moe_run)
     k1_paths["hub qwen3-1.7b"] = dense["K1"]
     k1_paths["hub hymba-1.5b"] = hymba_counts["K1"]
     k1_paths[f"hub {MOE_ARCH}"] = moe_counts["K1"]
+    k1_paths[f"hub {WHISPER_ARCH}"] = whisper_counts["K1"]
     k3["launches"] = sum(k3_paths.values())
     k3["launches_by_path"] = k3_paths
     k1_paths["hub qwen3-1.7b packed qint8"] = packed["K1"]
@@ -4591,7 +5105,8 @@ def main() -> int:
                                              packed),
                  ("train step gemma3-12b macro block", gemma),
                  ("hub hymba-1.5b", hymba_counts),
-                 (f"hub {MOE_ARCH}", moe_counts))
+                 (f"hub {MOE_ARCH}", moe_counts),
+                 (f"hub {WHISPER_ARCH}", whisper_counts))
     for k, keys in ((k5, ("K5",)), (k6, ("K6 dq", "K6 dkv"))):
         paths = {p: sum(c[x] for x in keys) for p, c in zoo_paths}
         if k is k5:
@@ -4600,8 +5115,18 @@ def main() -> int:
         k["launches"] = sum(v for p, v in paths.items()
                             if not p.startswith("attention-kernels"))
         k["launches_by_path"] = paths
+    for kind in ("K5", "K6"):
+        zoo[kind][f"hub {WHISPER_ARCH} B=1 S={TRAIN_S} in-run"] = {
+            f"{where}_ms": whisper_run[f"{kind} {where} ms"]
+            for where in ("enc", "self", "cross")}
     k1["zoo"], k2["zoo"], k5["zoo"], k6["zoo"] = (
         zoo["K1"], zoo["K2"], zoo["K5"], zoo["K6"])
+    # K4's main path is whisper's decode step; [decode-dense]'s direct
+    # calls are listed beside it
+    k4["launches"] = whisper_serve["K4"]
+    k4["launches_by_path"] = {
+        f"serve {WHISPER_ARCH}": whisper_serve["K4"],
+        "decode-dense (direct calls)": k4.pop("direct_launches")}
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7]}))
     print(json.dumps({"ok": True, "device": {

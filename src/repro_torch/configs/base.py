@@ -7,14 +7,15 @@ by name and selectable from the serving and training launchers via
 ``--arch <id>``.  The port registers the dense family's qwen3-1.7b,
 gemma3-12b, qwen2.5-14b (QKV bias) and stablelm-3b (LayerNorm, 25%
 rotary), the moe family's granite-moe-1b-a400m and
-llama4-maverick-400b-a17b, the ssm family's rwkv6-3b and the hybrid
-family's hymba-1.5b; the other families' configs wait for their models.
+llama4-maverick-400b-a17b, the ssm family's rwkv6-3b, the hybrid
+family's hymba-1.5b and the audio family's whisper-medium; the VLM's
+config waits for its model.
 
 ``ArchConfig.reduced()`` returns the smoke-test variant (≤2 layers,
 d_model ≤ 512, ≤4 experts) of the same family, used by tests and CPU
-runs.  Fields of features the port does not serve yet (the encoder and
-patch frontends) are kept so that the dataclass matches the reference's
-field for field.
+runs.  Fields of features the port does not serve yet (the patch
+frontend) are kept so that the dataclass matches the reference's field
+for field.
 """
 from __future__ import annotations
 
@@ -175,4 +176,4 @@ def _ensure_loaded():
     from . import (  # noqa: F401
         gemma3_12b, granite_moe_1b_a400m, hymba_1_5b,
         llama4_maverick_400b_a17b, qwen2_5_14b, qwen3_1_7b, rwkv6_3b,
-        stablelm_3b)
+        stablelm_3b, whisper_medium)

@@ -16,7 +16,9 @@ cout)`` has as many axes as a conv2d kernel.  Leading axes beyond the
 kernel's own (a client axis of stacked deltas) are kept as they are.
 Every other leaf passes through whatever its rank: the zoo
 transformer's stacked projections (``blocks/sub0/attn/wq`` of
-``(n_macro, d, H, hd)``) are not conv kernels.
+``(n_macro, d, H, hd)``) are not conv kernels, and whisper's tree
+(``enc_blocks/sub0/*``, ``blocks/sub0/xattn/*``, the MLP biases,
+``embed/pos``, ``enc_embed/pos``, ``enc_final_norm``) has none.
 """
 from __future__ import annotations
 

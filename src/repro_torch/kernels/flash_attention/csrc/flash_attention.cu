@@ -61,7 +61,11 @@
 // counts 5).  Every sum runs in a fixed order, so two runs are bitwise equal.
 // Every tensor is read and written through its (batch, sequence, head)
 // element strides with head_dim contiguous, so the model layout
-// (B, S, H, hd) needs no transpose.
+// (B, S, H, hd) needs no transpose.  Head dim 80 (stablelm-3b) runs head
+// dim 128's kernels: columns 80-127 are staged as zeros and never stored,
+// so the arithmetic is the same and 1.6x the work.  Keys at or past
+// kv_len (the count of valid keys of a call padded to whole tiles) are
+// masked as keys past the sequence are, and their dK/dV rows are zeros.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,6 +89,8 @@ struct Params {
   void* out0;           // o (forward), dQ, or dK
   void* out1;           // dV
   int batch, heads, kv_heads, n_rep, sq, sk, causal, window;
+  int sk_rows;          // K/V rows; keys at or past sk (kv_len) are masked
+  int d;                // head_dim (the instance's HD, or 80 in HD 128's)
   // element strides by Slot: (batch, sequence, head) for q, k, v, dO,
   // out0, out1; (batch, head, sequence) for lse and delta
   int64_t st[8][3];
@@ -127,16 +133,16 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows row0..row0+ROWS-1 (zeros at or past n), columns col0..col0+COLS-1
-// of a tensor with rows row_stride elements apart, into shared memory
-// with leading dimension LDS
+// (zeros at or past the row's width d) of a tensor with rows row_stride
+// elements apart, into shared memory with leading dimension LDS
 template <int ROWS, int COLS, int LDS>
 __device__ __forceinline__ void stage_rows(float* sm, const float* base,
                                            int64_t row_stride, int row0,
-                                           int n, int col0) {
+                                           int n, int col0, int d) {
   constexpr int VPR = COLS / 4;
   for (int e = threadIdx.x; e < ROWS * VPR; e += kThreads) {
     const int r = e / VPR, v = (e % VPR) * 4;
-    const bool ok = row0 + r < n;
+    const bool ok = row0 + r < n && col0 + v < d;
     cp_async16(sm + r * LDS + v,
                base + (ok ? static_cast<int64_t>(row0 + r) * row_stride : 0)
                    + col0 + v, ok);
@@ -405,17 +411,17 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Params p) {
       float* st = ring + (idx % F::SLOTS) * F::SLOT;
       if (m < F::NC)
         stage_rows<F::BK, F::DC, F::LDK>(st, kb, p.st[kK][1], k0, p.sk,
-                                         m * F::DC);
+                                         m * F::DC, p.d);
       else
         stage_rows<F::VK, HD, F::LDQ>(st, vb, p.st[kV][1],
-                                      k0 + (m - F::NC) * F::VK, p.sk, 0);
+                                      k0 + (m - F::NC) * F::VK, p.sk, 0, p.d);
     }
     cp_async_commit();
   };
 
   stage_rows<F::BQ, HD, F::LDQ>(
       sQ, static_cast<const float*>(p.q) + b * p.st[kQ][0] + h * p.st[kQ][2],
-      p.st[kQ][1], q0, p.sq, 0);
+      p.st[kQ][1], q0, p.sq, 0, p.d);
 #pragma unroll
   for (int i = 0; i < F::AHEAD; ++i) issue(i);
 
@@ -484,11 +490,13 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Params p) {
     if (qi >= p.sq) continue;
     const float ll = fmaxf(sL[pr + i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < F::PC; c += 4)
-      *reinterpret_cast<float4*>(ob + qi * p.st[kOut0][1] +
-                                 ((c / 4) * F::PCG + cgp) * 4) =
-          make_float4(acc[i][c] / ll, acc[i][c + 1] / ll, acc[i][c + 2] / ll,
-                      acc[i][c + 3] / ll);
+    for (int c = 0; c < F::PC; c += 4) {
+      const int col = ((c / 4) * F::PCG + cgp) * 4;
+      if (col < p.d)
+        *reinterpret_cast<float4*>(ob + qi * p.st[kOut0][1] + col) =
+            make_float4(acc[i][c] / ll, acc[i][c + 1] / ll,
+                        acc[i][c + 2] / ll, acc[i][c + 3] / ll);
+    }
   }
 }
 
@@ -715,24 +723,25 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params p) {
       const int k0 = (kt_lo + item) * kBN;
       float* st = ring + (idx % B::SLOTS) * B::STAGE;
       const int c0 = m < B::NC ? m * B::DC : (m - B::NC) * 2 * B::DC;
-      stage_rows<kBN, B::DC, B::LDC>(st, kb, p.st[kK][1], k0, p.sk, c0);
+      stage_rows<kBN, B::DC, B::LDC>(st, kb, p.st[kK][1], k0, p.sk, c0,
+                                     p.d);
       if (m < B::NC)
         stage_rows<kBN, B::DC, B::LDC>(st + kBN * B::LDC, vb, p.st[kV][1], k0,
-                                       p.sk, c0);
+                                       p.sk, c0, p.d);
       else
         stage_rows<kBN, B::DC, B::LDC>(st + kBN * B::LDC, kb, p.st[kK][1], k0,
-                                       p.sk, c0 + B::DC);
+                                       p.sk, c0 + B::DC, p.d);
     }
     cp_async_commit();
   };
 
   stage_rows<kBM, HD, B::LD>(
       sQ, static_cast<const float*>(p.q) + b * p.st[kQ][0] + h * p.st[kQ][2],
-      p.st[kQ][1], q0, p.sq, 0);
+      p.st[kQ][1], q0, p.sq, 0, p.d);
   stage_rows<kBM, HD, B::LD>(
       sDO,
       static_cast<const float*>(p.dout) + b * p.st[kDO][0] + h * p.st[kDO][2],
-      p.st[kDO][1], q0, p.sq, 0);
+      p.st[kDO][1], q0, p.sq, 0, p.d);
   stage_stats<kBM>(sLse, p.lse + b * p.st[kLse][0] + h * p.st[kLse][1],
                    p.st[kLse][2], q0, p.sq);
   stage_stats<kBM>(sDelta, p.delta + b * p.st[kDelta][0] +
@@ -805,7 +814,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params p) {
       for (int e = 0; e < B::PC; ++e) {
         const int col = B::RESIDENT ? 2 * grp * B::DC + pc + e
                                     : (2 * c + grp) * B::DC + pc + e;
-        ob[qi * p.st[kOut0][1] + col] = acc[c][i][e];
+        if (col < p.d) ob[qi * p.st[kOut0][1] + col] = acc[c][i][e];
       }
   }
 }
@@ -845,7 +854,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
   while (qt_hi >= qt_lo &&
          !tile_runs(p, qt_hi * kBN, min(qt_hi * kBN + kBN, p.sq) - 1, k0, k1))
     --qt_hi;
-  const int n_qt = max(0, qt_hi - qt_lo + 1);
+  // a key tile wholly at or past kv_len has no work: it writes zeros
+  const int n_qt = k0 >= p.sk ? 0 : max(0, qt_hi - qt_lo + 1);
   const int n_items = n_qt * p.n_rep;
   constexpr int SPI = B::RESIDENT ? B::NC : 2 * B::NC;
   const int n_stages = n_items * SPI;
@@ -860,11 +870,11 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
       stage_rows<kBN, B::DC, B::LDC>(
           st, static_cast<const float*>(p.q) + b * p.st[kQ][0] +
                   h * p.st[kQ][2],
-          p.st[kQ][1], q0, p.sq, c0);
+          p.st[kQ][1], q0, p.sq, c0, p.d);
       stage_rows<kBN, B::DC, B::LDC>(
           st + kBN * B::LDC, static_cast<const float*>(p.dout) +
                                  b * p.st[kDO][0] + h * p.st[kDO][2],
-          p.st[kDO][1], q0, p.sq, c0);
+          p.st[kDO][1], q0, p.sq, c0, p.d);
       if (m == 0) {
         float* ss = sStat + (item & 1) * 2 * kBN;
         stage_stats<kBN>(ss, p.lse + b * p.st[kLse][0] + h * p.st[kLse][1],
@@ -879,10 +889,10 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
 
   stage_rows<kBM, HD, B::LD>(
       sK, static_cast<const float*>(p.k) + b * p.st[kK][0] + g * p.st[kK][2],
-      p.st[kK][1], k0, p.sk, 0);
+      p.st[kK][1], k0, p.sk, 0, p.d);
   stage_rows<kBM, HD, B::LD>(
       sV, static_cast<const float*>(p.v) + b * p.st[kV][0] + g * p.st[kV][2],
-      p.st[kV][1], k0, p.sk, 0);
+      p.st[kV][1], k0, p.sk, 0, p.d);
 #pragma unroll
   for (int i = 0; i < B::AHEAD; ++i) issue(i);
 
@@ -948,13 +958,13 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < B::PR; ++i) {
     const int kj = k0 + pr + i;
-    if (kj >= p.sk) continue;
+    if (kj >= p.sk_rows) continue;
 #pragma unroll
     for (int c = 0; c < NA; ++c)
 #pragma unroll
       for (int e = 0; e < B::PC; ++e) {
         const int col = (B::RESIDENT ? 2 * B::DC : B::DC) * c + pc + e;
-        out[kj * p.st[slot][1] + col] = acc[c][i][e];
+        if (col < p.d) out[kj * p.st[slot][1] + col] = acc[c][i][e];
       }
   }
 }
@@ -994,7 +1004,8 @@ int launch(int which, const Params& p, cudaStream_t stream) {
   }
   if (which == 2) {
     const int64_t blocks =
-        static_cast<int64_t>((p.sk + kBM - 1) / kBM) * p.kv_heads * p.batch;
+        static_cast<int64_t>((p.sk_rows + kBM - 1) / kBM) * p.kv_heads *
+        p.batch;
     const int smem = (2 * kBM * B::LD + ring + 2 * kBN * kLdX + 4 * kBN) * F;
     return run(dkv_kernel<HD>, dim3(static_cast<unsigned>(blocks)), smem, p,
                stream);
@@ -1007,6 +1018,7 @@ int by_head_dim(int which, int head_dim, const Params& p,
   switch (head_dim) {
     case 32: return launch<32>(which, p, stream);
     case 64: return launch<64>(which, p, stream);
+    case 80: return launch<128>(which, p, stream);   // columns 80.. zero
     case 128: return launch<128>(which, p, stream);
     case 256: return launch<256>(which, p, stream);
   }
@@ -1018,13 +1030,16 @@ int by_head_dim(int which, int head_dim, const Params& p,
 // which: 0 = forward (writes out0 = o and lse), 1 = dQ (out0 = dq),
 // 2 = dK/dV (out0 = dk, out1 = dv, one per KV head).
 // ptrs: q, k, v, dO, lse, delta, out0, out1 (unused ones may be null).
-// dims: batch, heads, kv_heads, sq, sk, head_dim, causal, window.
-// strides: 8 x 3 element strides in the order of ptrs, (batch, sequence,
-// head) for the tensors and (batch, head, sequence) for lse and delta;
-// head_dim is contiguous and every row start is 16-byte aligned (the
-// Python wrapper checks both).  dtype 0 = float32 (bfloat16, 1, is
-// flash_attention_sm90.cu's); lse and delta are float32.  head_dim in
-// {32, 64, 128, 256}, heads a multiple of kv_heads.  Returns cudaGetLastError()
+// dims: batch, heads, kv_heads, sq, sk, head_dim, causal, window, kv_len
+// (1 <= kv_len <= sk: keys at or past it are masked, and dK/dV are zero
+// there).  strides: 8 x 3 element strides in the order of ptrs, (batch,
+// sequence, head) for the tensors and (batch, head, sequence) for lse
+// and delta; head_dim is contiguous and every row start is 16-byte
+// aligned (the Python wrapper checks both).  dtype 0 = float32
+// (bfloat16, 1, is flash_attention_sm90.cu's); lse and delta are float32.
+// head_dim in {32, 64, 80, 128, 256} (80 runs head dim 128's kernels with
+// columns 80.. loaded as zeros and never stored), heads a multiple of
+// kv_heads.  Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for what it does not take.
 extern "C" int flash_attention(int which, const void* const* ptrs,
                                const int64_t* dims, const int64_t* strides,
@@ -1046,10 +1061,14 @@ extern "C" int flash_attention(int which, const void* const* ptrs,
   const int head_dim = static_cast<int>(dims[5]);
   p.causal = static_cast<int>(dims[6]);
   p.window = static_cast<int>(dims[7]);
+  p.sk_rows = p.sk;
+  p.d = head_dim;
   if (p.batch == 0 || p.heads == 0 || p.sq == 0 || p.sk == 0) return 0;
-  if (p.kv_heads <= 0 || p.heads % p.kv_heads) {
+  if (p.kv_heads <= 0 || p.heads % p.kv_heads || dims[8] < 1 ||
+      dims[8] > p.sk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  p.sk = static_cast<int>(dims[8]);
   p.n_rep = p.heads / p.kv_heads;
   for (int t = 0; t < 8; ++t)
     for (int d = 0; d < 3; ++d) p.st[t][d] = strides[3 * t + d];

@@ -31,7 +31,16 @@
 // allowed key gives exp2(-1e30 - m) = 0 and a row with no allowed key
 // gives exp2(0) = 1 for every key: the mean of V and lse = -1e30, as the
 // dense softmax gives (the forward then visits every key tile).  Key
-// positions past the sequence are -inf: never counted, even there.
+// positions past the sequence, or at or past kv_len (the count of valid
+// keys the wrapper passes for a padded non-causal call), are -inf: never
+// counted, even there; their dK/dV rows are zeros.
+//
+// Head dim 80 (stablelm-3b) runs head dim 128's tiles: TMA fills columns
+// 80-127 with zeros (the tensor map's inner extent is 80), the products
+// over head_dim (Q K^T, dO V^T) stop after five 16-column steps, the
+// products along it (P V, dS K, P^T dO, dS^T Q) run at N = 128 on zero
+// columns, and stores stop at column 80.  The 160-byte rows do not fit
+// the 128-byte swizzle's chunks, so this padding is the simple route.
 //
 // Bound on this card: operations.  Per (batch, query head) the forward
 // does 2 products over the allowed (i, j) pairs (4 * head_dim flops a
@@ -92,6 +101,7 @@ struct Params {
   __nv_bfloat16* out0;        // o (forward), dQ, or dK
   __nv_bfloat16* out1;        // dV
   int batch, heads, kv_heads, n_rep, sq, sk, causal, window;
+  int sk_rows;                // K/V rows; keys at or past sk (kv_len) masked
   int64_t st[8][3];           // element strides, as flash_attention.cu
   float scale;                // 1 / sqrt(head_dim)
   float scale_log2;           // scale * log2(e)
@@ -330,8 +340,9 @@ __device__ __forceinline__ void zero(float (&d)[R]) {
 }
 
 // the thread's rows row0 and row0 + 8 (those below n) of a 64 x HD
-// accumulator, times mul0 / mul1, to bf16 rows row_stride apart
-template <int HD>
+// accumulator, times mul0 / mul1, to bf16 rows row_stride apart; columns
+// at or past D (the head dim, when HD pads it) are not stored
+template <int HD, int D>
 __device__ __forceinline__ void store_rows(const float (&d)[HD / 2],
                                            __nv_bfloat16* base,
                                            int64_t row_stride, int row0, int n,
@@ -344,7 +355,7 @@ __device__ __forceinline__ void store_rows(const float (&d)[HD / 2],
     const float mul = r ? mul1 : mul0;
     __nv_bfloat16* dst = base + row * row_stride + 2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
           d[4 * j + 2 * r] * mul, d[4 * j + 2 * r + 1] * mul);
   }
@@ -371,7 +382,7 @@ constexpr int kThreads = 256;   // two warpgroups
 // forward: one block per (128 query rows, query head, batch)
 // ---------------------------------------------------------------------------
 
-template <int HD, int BK>
+template <int HD, int BK, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -428,7 +439,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     zero(s);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < (D + 15) / 16; ++kk)
       MMA<BK>::ss(s, T::kmajor(sQ, BQ, wg * 64, kk), T::kmajor(sK, BK, 0, kk),
                   1);
     wg_commit();
@@ -487,7 +498,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
     inv[r] = 1.f / l[r];
   }
-  store_rows<HD>(o, p.out0 + b * p.st[kOut0][0] + h * p.st[kOut0][2],
+  store_rows<HD, D>(o, p.out0 + b * p.st[kOut0][0] + h * p.st[kOut0][2],
                  p.st[kOut0][1], row, p.sq, inv[0], inv[1]);
   if ((lane & 3) == 0) {
     float* lb = p.lse + b * p.st[kLse][0] + h * p.st[kLse][1];
@@ -506,7 +517,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // dQ: one block per (128 query rows, query head, batch), key tiles inner
 // ---------------------------------------------------------------------------
 
-template <int HD, int BK>
+template <int HD, int BK, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
@@ -575,11 +586,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     zero(dp);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < (D + 15) / 16; ++kk)
       MMA<BK>::ss(s, T::kmajor(sQ, BQ, wg * 64, kk), T::kmajor(sK, BK, 0, kk),
                   1);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < (D + 15) / 16; ++kk)
       MMA<BK>::ss(dp, T::kmajor(sDO, BQ, wg * 64, kk),
                   T::kmajor(sK + KB, BK, 0, kk), 1);
     wg_commit();
@@ -609,7 +620,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     if (tid == 0 && i + 2 < kr.n) issue(i + 2);
   }
-  store_rows<HD>(dq, p.out0 + b * p.st[kOut0][0] + h * p.st[kOut0][2],
+  store_rows<HD, D>(dq, p.out0 + b * p.st[kOut0][0] + h * p.st[kOut0][2],
                  p.st[kOut0][1], row, p.sq, 1.f, 1.f);
 }
 
@@ -619,7 +630,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // tile, then dK over every tile again, in one accumulator.
 // ---------------------------------------------------------------------------
 
-template <int HD, int BQ, bool SPLIT>
+template <int HD, int BQ, bool SPLIT, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -637,6 +648,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int lane = tid & 31;
   const int g = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * BKV, k1 = min(k0 + BKV, p.sk) - 1;
+  const int ka = k0 + wg * 64, krow = ka + warp * 16 + (lane >> 2);
+  const int n_rows = p.sk_rows;        // dK/dV rows stored
+  __nv_bfloat16* kout = p.out0 + b * p.st[kOut0][0] + g * p.st[kOut0][2];
+  __nv_bfloat16* vout = p.out1 + b * p.st[kOut1][0] + g * p.st[kOut1][2];
+  float acc0[HD / 2];                  // dV (SPLIT: dV, then dK)
+  float acc1[SPLIT ? 2 : HD / 2];      // dK
+  zero(acc0);
+  zero(acc1);
+  if (k0 >= p.sk) {   // every key of the tile at or past kv_len: zeros
+    store_rows<HD, D>(acc0, vout, p.st[kOut1][1], krow, n_rows, 1.f, 1.f);
+    store_rows<HD, D>(acc0, kout, p.st[kOut0][1], krow, n_rows, 1.f, 1.f);
+    return;
+  }
   Range qr{0, 0};
   for (int qt = 0, nq = (p.sq + BQ - 1) / BQ; qt < nq; ++qt) {
     const int q0 = qt * BQ;
@@ -680,13 +704,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (total > 0) stats(0, 0);
   __syncthreads();
 
-  const int ka = k0 + wg * 64, krow = ka + warp * 16 + (lane >> 2);
-  __nv_bfloat16* kout = p.out0 + b * p.st[kOut0][0] + g * p.st[kOut0][2];
-  __nv_bfloat16* vout = p.out1 + b * p.st[kOut1][0] + g * p.st[kOut1][2];
-  float acc0[HD / 2];                  // dV (SPLIT: dV, then dK)
-  float acc1[SPLIT ? 2 : HD / 2];      // dK
-  zero(acc0);
-  zero(acc1);
   mbar_wait(bar + 16, 0);
   for (int t = 0; t < total; ++t) {
     const int st = t & 1, q0 = q0_of(t);
@@ -696,7 +713,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (t + 1 < total) stats(t + 1, st ^ 1);
     if constexpr (SPLIT) {
       if (t == per_pass) {
-        store_rows<HD>(acc0, vout, p.st[kOut1][1], krow, p.sk, 1.f, 1.f);
+        store_rows<HD, D>(acc0, vout, p.st[kOut1][1], krow, n_rows, 1.f, 1.f);
         zero(acc0);
       }
     }
@@ -706,12 +723,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     zero(dp);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < (D + 15) / 16; ++kk)
       MMA<BQ>::ss(s, T::kmajor(sK, BKV, wg * 64, kk),
                   T::kmajor(sQ, BQ, 0, kk), 1);
     if (dk_pass) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < (D + 15) / 16; ++kk)
         MMA<BQ>::ss(dp, T::kmajor(sV, BKV, wg * 64, kk),
                     T::kmajor(sDO, BQ, 0, kk), 1);
     }
@@ -761,11 +778,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   if constexpr (SPLIT) {
     if (per_pass == 0)
-      store_rows<HD>(acc0, vout, p.st[kOut1][1], krow, p.sk, 1.f, 1.f);
-    store_rows<HD>(acc0, kout, p.st[kOut0][1], krow, p.sk, 1.f, 1.f);
+      store_rows<HD, D>(acc0, vout, p.st[kOut1][1], krow, n_rows, 1.f, 1.f);
+    store_rows<HD, D>(acc0, kout, p.st[kOut0][1], krow, n_rows, 1.f, 1.f);
   } else {
-    store_rows<HD>(acc0, vout, p.st[kOut1][1], krow, p.sk, 1.f, 1.f);
-    store_rows<HD>(acc1, kout, p.st[kOut0][1], krow, p.sk, 1.f, 1.f);
+    store_rows<HD, D>(acc0, vout, p.st[kOut1][1], krow, n_rows, 1.f, 1.f);
+    store_rows<HD, D>(acc1, kout, p.st[kOut0][1], krow, n_rows, 1.f, 1.f);
   }
 }
 
@@ -795,15 +812,15 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A 4-d map over (head_dim, sequence, head, batch) of a bf16 tensor with
-// element strides st = (batch, sequence, head), copying boxes of `rows`
-// rows by CW columns.  Returns 0 or minus the CUresult.
-int tensor_map(CUtensorMap* map, const void* ptr, int hd, int s, int h, int b,
-               const int64_t* st, int rows) {
+// A 4-d map over (head_dim d, sequence s, head, batch) of a bf16 tensor
+// with element strides st = (batch, sequence, head), copying boxes of
+// `rows` rows by cw columns (Tile<HD>::CW); columns at or past d and rows
+// at or past s land as zeros.  Returns 0 or minus the CUresult.
+int tensor_map(CUtensorMap* map, const void* ptr, int cw, int d, int s,
+               int h, int b, const int64_t* st, int rows) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return kNoDriver;
-  const int cw = hd < 64 ? hd : 64;
-  const cuuint64_t dim[4] = {static_cast<cuuint64_t>(hd),
+  const cuuint64_t dim[4] = {static_cast<cuuint64_t>(d),
                              static_cast<cuuint64_t>(s),
                              static_cast<cuuint64_t>(h),
                              static_cast<cuuint64_t>(b)};
@@ -837,7 +854,10 @@ int run(Kern kern, dim3 grid, int smem, cudaStream_t stream, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+// HD: the kernels' head dim; D: the tensors' (D < HD: the columns from D
+// on are zeros in shared memory, the products over head_dim stop at the
+// 16-column step that holds D, and nothing past D is stored)
+template <int HD, int D = HD>
 int launch(int which, const Params& p, const void* const* ptrs,
            cudaStream_t stream) {
   constexpr int BQ = 128;                          // forward and dQ rows
@@ -849,31 +869,32 @@ int launch(int which, const Params& p, const void* const* ptrs,
   CUtensorMap mq, mk, mv, mdo;
   const int rows_q = which == 2 ? BQV : BQ;
   const int rows_k = which == 0 ? BK : which == 1 ? BKQ : BKV;
-  int err = tensor_map(&mq, ptrs[kQ], HD, p.sq, p.heads, p.batch, p.st[kQ],
-                       rows_q);
+  constexpr int CW = Tile<HD>::CW;
+  int err = tensor_map(&mq, ptrs[kQ], CW, D, p.sq, p.heads, p.batch,
+                       p.st[kQ], rows_q);
+  if (!err)   // keys at or past kv_len are read as zeros
+    err = tensor_map(&mk, ptrs[kK], CW, D, p.sk, p.kv_heads, p.batch,
+                     p.st[kK], rows_k);
   if (!err)
-    err = tensor_map(&mk, ptrs[kK], HD, p.sk, p.kv_heads, p.batch, p.st[kK],
-                     rows_k);
-  if (!err)
-    err = tensor_map(&mv, ptrs[kV], HD, p.sk, p.kv_heads, p.batch, p.st[kV],
-                     rows_k);
+    err = tensor_map(&mv, ptrs[kV], CW, D, p.sk, p.kv_heads, p.batch,
+                     p.st[kV], rows_k);
   if (!err && which != 0)
-    err = tensor_map(&mdo, ptrs[kDO], HD, p.sq, p.heads, p.batch, p.st[kDO],
-                     rows_q);
+    err = tensor_map(&mdo, ptrs[kDO], CW, D, p.sq, p.heads, p.batch,
+                     p.st[kDO], rows_q);
   if (err) return err;
   if (which == 0) {
     const dim3 grid((p.sq + BQ - 1) / BQ, p.heads, p.batch);
-    return run(fwd_kernel<HD, BK>, grid, ALIGN + (BQ + 4 * BK) * ROW, stream,
+    return run(fwd_kernel<HD, BK, D>, grid, ALIGN + (BQ + 4 * BK) * ROW, stream,
                p, mq, mk, mv);
   }
   if (which == 1) {
     const dim3 grid((p.sq + BQ - 1) / BQ, p.heads, p.batch);
-    return run(dq_kernel<HD, BKQ>, grid, ALIGN + (2 * BQ + 4 * BKQ) * ROW,
+    return run(dq_kernel<HD, BKQ, D>, grid, ALIGN + (2 * BQ + 4 * BKQ) * ROW,
                stream, p, mq, mk, mv, mdo);
   }
   if (which == 2) {
-    const dim3 grid((p.sk + BKV - 1) / BKV, p.kv_heads, p.batch);
-    return run(dkv_kernel<HD, BQV, (HD > 128)>, grid,
+    const dim3 grid((p.sk_rows + BKV - 1) / BKV, p.kv_heads, p.batch);
+    return run(dkv_kernel<HD, BQV, (HD > 128), D>, grid,
                ALIGN + (2 * BKV + 4 * BQV) * ROW, stream, p, mq, mk, mv, mdo);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -885,13 +906,15 @@ int launch(int which, const Params& p, const void* const* ptrs,
 // which 0 = forward (out0 = o, and lse), 1 = dQ (out0 = dq), 2 = dK/dV
 // (out0 = dk, out1 = dv, one per KV head); ptrs q, k, v, dO, lse, delta,
 // out0, out1; dims batch, heads, kv_heads, sq, sk, head_dim, causal,
-// window; strides 8 x 3 element strides in the order of ptrs, (batch,
-// sequence, head) for the tensors and (batch, head, sequence) for lse and
-// delta.  Head_dim is contiguous and every row start 16-byte aligned (the
-// wrapper checks both).  Returns cudaGetLastError() after the launch,
-// cudaErrorInvalidValue for what it does not take, or a negative value
-// when a tensor map cannot be built (minus the driver's CUresult; -999:
-// no cuTensorMapEncodeTiled).
+// window, kv_len (1 <= kv_len <= sk: keys at or past it are masked and
+// their dK/dV rows are zero); head_dim in {32, 64, 80, 128, 256} (80 on
+// head dim 128's tiles, padded with zeros); strides 8 x 3 element strides
+// in the order of ptrs, (batch, sequence, head) for the tensors and
+// (batch, head, sequence) for lse and delta.  Head_dim is contiguous and
+// every row start 16-byte aligned (the wrapper checks both).  Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for what it
+// does not take, or a negative value when a tensor map cannot be built
+// (minus the driver's CUresult; -999: no cuTensorMapEncodeTiled).
 extern "C" int flash_attention(int which, const void* const* ptrs,
                                const int64_t* dims, const int64_t* strides,
                                int dtype, float scale, void* stream) {
@@ -909,9 +932,12 @@ extern "C" int flash_attention(int which, const void* const* ptrs,
   const int head_dim = static_cast<int>(dims[5]);
   p.causal = static_cast<int>(dims[6]);
   p.window = static_cast<int>(dims[7]);
+  p.sk_rows = p.sk;
   if (p.batch == 0 || p.heads == 0 || p.sq == 0 || p.sk == 0) return 0;
-  if (p.kv_heads <= 0 || p.heads % p.kv_heads)
+  if (p.kv_heads <= 0 || p.heads % p.kv_heads || dims[8] < 1 ||
+      dims[8] > p.sk)
     return static_cast<int>(cudaErrorInvalidValue);
+  p.sk = static_cast<int>(dims[8]);
   p.n_rep = p.heads / p.kv_heads;
   for (int t = 0; t < 8; ++t)
     for (int d = 0; d < 3; ++d) p.st[t][d] = strides[3 * t + d];
@@ -921,6 +947,7 @@ extern "C" int flash_attention(int which, const void* const* ptrs,
   switch (head_dim) {
     case 32: return launch<32>(which, p, ptrs, s);
     case 64: return launch<64>(which, p, ptrs, s);
+    case 80: return launch<128, 80>(which, p, ptrs, s);   // stablelm-3b
     case 128: return launch<128>(which, p, ptrs, s);
     case 256: return launch<256>(which, p, ptrs, s);
   }

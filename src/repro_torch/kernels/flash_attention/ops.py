@@ -29,7 +29,11 @@ wrapper's transposes into the kernel layout are not copied.
 ``Sq // blk_q`` query blocks after
 clamping the block to the length and leaves rows past them unwritten,
 so a length that is not a multiple of its block raises ``ValueError``.
-The kernels use their own tiles.  Launches are counted in
+The kernels use their own tiles.  The model-layout functions take
+``kv_len``: keys at or past it are masked, so a non-causal call padded
+with zero keys to whole blocks (``models.attention.pad_noncausal``)
+computes the unpadded call.  Head dim 80 runs head dim 128's kernels on
+zero columns, with the scale of 80.  Launches are counted in
 :data:`LAUNCHES` (``fwd``, ``dq``, ``dkv``).
 """
 from __future__ import annotations
@@ -48,7 +52,7 @@ from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {torch.float32: _CSRC / "flash_attention.cu",
            torch.bfloat16: _CSRC / "flash_attention_sm90.cu"}
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)     # 80 (stablelm-3b) on 128's tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD, _DQ, _DKV = 0, 1, 2
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
@@ -112,9 +116,10 @@ def _row_strides(t):
 
 
 def _launch(name, which, q, k, v, *, do=None, lse=None, delta=None,
-            out0=None, out1=None, causal, window):
+            out0=None, out1=None, causal, window, kv_len):
     """One kernel launch on model-layout (possibly strided) tensors; lse
-    and delta are (B,H,Sq) views."""
+    and delta are (B,H,Sq) views; keys at or past ``kv_len`` are
+    masked."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     b, sq, h, hd = q.shape
@@ -147,8 +152,8 @@ def _launch(name, which, q, k, v, *, do=None, lse=None, delta=None,
             strides += _row_strides(t)
     ptrs = (ctypes.c_void_p * 8)(*[None if t is None else t.data_ptr()
                                    for t in tensors])
-    dims = (ctypes.c_int64 * 8)(b, h, hkv, sq, sk, hd, int(bool(causal)),
-                                int(window))
+    dims = (ctypes.c_int64 * 9)(b, h, hkv, sq, sk, hd, int(bool(causal)),
+                                int(window), kv_len)
     flat = (ctypes.c_int64 * 24)(*strides)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -166,68 +171,85 @@ def _launch(name, which, q, k, v, *, do=None, lse=None, delta=None,
     LAUNCHES[("fwd", "dq", "dkv")[which]] += 1
 
 
-def _forward_into(name, q, k, v, o, lse, causal, window):
+def _kv_len(name, k, kv_len):
+    """The count of valid keys: all of k's by default, else 1..Sk."""
+    sk = k.shape[1]
+    if kv_len is None:
+        return sk
+    if not 1 <= int(kv_len) <= sk:
+        raise ValueError(f"{name}: kv_len={kv_len} is not in 1..Sk={sk}")
+    return int(kv_len)
+
+
+def _forward_into(name, q, k, v, o, lse, causal, window, kv_len):
     """Forward into o (B,Sq,H,hd) and lse (B,H,Sq), both possibly views."""
     if q.device.type == "cpu":
         o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, causal=causal,
-                                                 window=window)
+                                                 window=window, kv_len=kv_len)
         o.copy_(o_ref)
         lse.copy_(lse_ref)
         return
     _launch(name, _FWD, q, k, v, lse=lse, out0=o, causal=causal,
-            window=window)
+            window=window, kv_len=kv_len)
 
 
-def _backward_into(name, q, k, v, o, lse, do, dq, dk, dv, causal, window):
+def _backward_into(name, q, k, v, o, lse, do, dq, dk, dv, causal, window,
+                   kv_len):
     """Backward into dq (B,Sq,H,hd), dk and dv (B,Sk,Hkv,hd)."""
     if q.device.type == "cpu":
         for out, ref in zip((dq, dk, dv), flash_attention_bwd_ref(
-                q, k, v, o, lse, do, causal=causal, window=window)):
+                q, k, v, o, lse, do, causal=causal, window=window,
+                kv_len=kv_len)):
             out.copy_(ref)
         return
     # delta = rowsum(o * do), one PyTorch reduction, as kernel.py:241
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2)   # (B,H,Sq)
     _launch(name, _DQ, q, k, v, do=do, lse=lse, delta=delta, out0=dq,
-            causal=causal, window=window)
+            causal=causal, window=window, kv_len=kv_len)
     _launch(name, _DKV, q, k, v, do=do, lse=lse, delta=delta, out0=dk,
-            out1=dv, causal=causal, window=window)
+            out1=dv, causal=causal, window=window, kv_len=kv_len)
 
 
-def attention_fwd(q, k, v, *, causal=True, window=0):
+def attention_fwd(q, k, v, *, causal=True, window=0, kv_len=None):
     """Model layout forward: returns o (B,Sq,H,hd) in q's dtype and lse
-    (B,H,Sq) fp32.  CUDA tensors launch K5; CPU tensors run the plain
-    version."""
+    (B,H,Sq) fp32.  Keys at or past ``kv_len`` (default: Sk) are masked.
+    CUDA tensors launch K5; CPU tensors run the plain version."""
     name = "attention_fwd"
     _check(name, q, k, v)
+    kv_len = _kv_len(name, k, kv_len)
     b, sq, h, hd = q.shape
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _forward_into(name, q, k, v, o, lse, causal, window)
+    _forward_into(name, q, k, v, o, lse, causal, window, kv_len)
     return o, lse
 
 
-def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
+def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
+                  kv_len=None):
     """Model layout backward from the forward's o and lse: returns dq
-    (B,Sq,H,hd) and dk, dv (B,Sk,Hkv,hd) summed over each GQA group.
-    CUDA tensors launch K6 (dQ, then dK/dV); CPU tensors run the plain
-    version."""
+    (B,Sq,H,hd) and dk, dv (B,Sk,Hkv,hd) summed over each GQA group (zero
+    at and past ``kv_len``).  CUDA tensors launch K6 (dQ, then dK/dV);
+    CPU tensors run the plain version."""
     name = "attention_bwd"
     b, sq, h, hd = q.shape
     _check(name, q, k, v, (("o", o, q.shape), ("do", do, q.shape),
                            ("lse", lse, (b, h, sq))))
+    kv_len = _kv_len(name, k, kv_len)
     dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _backward_into(name, q, k, v, o, lse, do, dq, dk, dv, causal, window)
+    _backward_into(name, q, k, v, o, lse, do, dq, dk, dv, causal, window,
+                   kv_len)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o, lse = attention_fwd(q, k, v, causal=causal, window=window)
+    def forward(ctx, q, k, v, causal, window, kv_len):
+        o, lse = attention_fwd(q, k, v, causal=causal, window=window,
+                               kv_len=kv_len)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.kv_len = causal, window, kv_len
         return o
 
     @staticmethod
@@ -237,16 +259,21 @@ class _FlashAttention(torch.autograd.Function):
         # autograd may hand over a broadcast (stride 0) gradient
         do = do.to(q.dtype).contiguous()
         dq, dk, dv = attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
-                                   window=ctx.window)
-        return dq, dk, dv, None, None
+                                   window=ctx.window, kv_len=ctx.kv_len)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, causal=True, window=0, blk_q=128, blk_k=128):
+def flash_attention(q, k, v, causal=True, window=0, blk_q=128, blk_k=128,
+                    *, kv_len=None):
     """Differentiable flash attention, model layout: q (B,Sq,H,hd), k/v
     (B,Sk,Hkv,hd) -> (B,Sq,H,hd) in q's dtype.  The reference's positional
-    signature without ``interpret``."""
+    signature without ``interpret``, plus ``kv_len``: keys at or past it
+    are masked (default: none), so a call padded with zero keys to whole
+    blocks computes attention over its first ``kv_len`` keys; their
+    gradients past it are zero."""
     _check_blocks("flash_attention", q.shape[1], k.shape[1], blk_q, blk_k)
-    return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                 _kv_len("flash_attention", k, kv_len))
 
 
 def _n_rep(q, k):
@@ -281,7 +308,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, blk_q=128,
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     _forward_into(name, qm, km, vm, _q_view(o, n_rep),
-                  lse.view(k.shape[0], n_rep, q.shape[1]), causal, window)
+                  lse.view(k.shape[0], n_rep, q.shape[1]), causal, window,
+                  k.shape[1])
     return o, lse
 
 
@@ -304,7 +332,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _backward_into(name, qm, km, vm, om, lse_m, dom, _q_view(dq, n_rep),
-                   _kv_view(dk), _kv_view(dv), causal, window)
+                   _kv_view(dk), _kv_view(dv), causal, window, k.shape[1])
     return dq, dk, dv
 
 

@@ -36,7 +36,7 @@ import torch
 from ...models.attention import NEG_INF, _repeat_kv, attend_reference
 
 
-def _mask(sq, sk, causal, window, device):
+def _mask(sq, sk, causal, window, device, kv_len=None):
     qpos = torch.arange(sq, device=device)[:, None]
     kpos = torch.arange(sk, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
@@ -44,15 +44,17 @@ def _mask(sq, sk, causal, window, device):
         mask &= kpos <= qpos
     if window > 0:
         mask &= kpos > qpos - window
+    if kv_len is not None:
+        mask &= kpos < kv_len
     return mask
 
 
-def _scores(q, k, causal, window):
+def _scores(q, k, causal, window, kv_len=None):
     """fp32 scaled scores (B,H,Sq,Sk) and the mask (Sq,Sk)."""
     hd = q.shape[-1]
     kf = _repeat_kv(k.float(), q.shape[2] // k.shape[2])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(hd))
-    return s, _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    return s, _mask(q.shape[1], k.shape[1], causal, window, q.device, kv_len)
 
 
 def _round(x, dtype):
@@ -61,10 +63,12 @@ def _round(x, dtype):
 
 
 def flash_attention_fwd_ref(q, k, v, *, causal=True, window=0,
-                            round_to=None):
+                            round_to=None, kv_len=None):
     """q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd) -> o (B,Sq,H,hd) in q's dtype and
-    lse (B,H,Sq) fp32, ``lse = m + log(max(l, 1e-30))``."""
-    s, mask = _scores(q, k, causal, window)
+    lse (B,H,Sq) fp32, ``lse = m + log(max(l, 1e-30))``.  Keys at or past
+    ``kv_len`` (default: none) are masked as a causal or window mask
+    masks."""
+    s, mask = _scores(q, k, causal, window, kv_len)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
@@ -79,18 +83,18 @@ def flash_attention_fwd_ref(q, k, v, *, causal=True, window=0,
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0,
-                            round_to=None):
+                            round_to=None, kv_len=None):
     """The recompute backward from ``lse`` (B,H,Sq): returns dq
     (B,Sq,H,hd) and dk, dv (B,Sk,Hkv,hd), summed over each GQA group in
     fp32 and cast once to the inputs' dtype.
 
     ``p = where(mask, exp(s·scale − lse), 0)``, ``delta = rowsum(o·do)``,
     ``ds = p·(do·vᵀ − delta)·scale``; ``dq = ds·k``, ``dk = dsᵀ·q``,
-    ``dv = pᵀ·do``."""
+    ``dv = pᵀ·do``; the rows of dk, dv at or past ``kv_len`` are zero."""
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     n_rep = h // hkv
-    s, mask = _scores(q, k, causal, window)
+    s, mask = _scores(q, k, causal, window, kv_len)
     p = torch.where(mask, torch.exp(s - lse[..., None]),
                     torch.zeros((), device=q.device))
     dof = do.float()

@@ -46,9 +46,11 @@
 //   sequence does not own cannot reach the output.
 // * 16-byte rows.  A thread owns 16 bytes of a row (4 fp32 or 8 bf16
 //   elements; two such chunks for fp32 at head_dim 256), so a row takes
-//   head_dim * elem / 16 lanes (at most 32) and a warp-wide step covers
-//   32 / that many tokens; each dot product reduces over only those
-//   lanes (4 shuffle steps for bf16 at head_dim 128, one per two tokens).
+//   head_dim * elem / 16 lanes (at most 32; rounded up to a power of two,
+//   so at head_dim 80 a row's 20 fp32 / 10 bf16 chunks take 32 / 16 lanes
+//   and the rest hold zeros) and a warp-wide step covers 32 / that many
+//   tokens; each dot product reduces over only those lanes (4 shuffle
+//   steps for bf16 at head_dim 128, one per two tokens).
 // * Loads in flight.  K and V tiles of TILE tokens (16 KB a stage for K
 //   and V together, 32 KB for fp32 at head_dim 256) pass through a ring
 //   of kStages stages in shared memory, filled with cp.async.cg 16-byte
@@ -86,19 +88,33 @@ constexpr int kSteps = 4;           // warp-wide steps per warp per tile
 constexpr int kStages = 3;          // ring depth
 constexpr float kNegInf = -1e30f;   // the reference's masked score
 
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2);
+}
+
 // The constants of one (dtype, head_dim) instance.  ops.py::_tile_tokens
-// computes the same TILE.
+// computes the same TILE.  A row takes a power of two of lanes (the dot
+// product's shuffle tree and the lane groups' merge need one): at head
+// dim 80 a row's 20 (fp32) or 10 (bf16) chunks sit on 32 or 16 lanes, and
+// the lanes past the row's last chunk (PART) hold zeros and load nothing.
 template <typename T, int HD>
 struct Shape {
   static constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   static constexpr int CPR = HD / VEC;              // 16-byte chunks a row
-  static constexpr int LPR = CPR < 32 ? CPR : 32;   // lanes a row
-  static constexpr int C = CPR / LPR;               // chunks a lane
+  static constexpr int LPR = CPR < 32 ? pow2_ceil(CPR) : 32;  // lanes a row
+  static constexpr int C = (CPR + LPR - 1) / LPR;   // chunks a lane
+  static constexpr bool PART = C * LPR != CPR;      // lanes without a chunk
   static constexpr int EL = C * VEC;                // elements a lane
   static constexpr int TPW = 32 / LPR;              // tokens a warp step
   static constexpr int TILE = kWarps * kSteps * TPW;
+  static constexpr int COPIES = TILE * CPR;         // 16-byte copies a tile
+  static constexpr int LOADS = (COPIES + kThreads - 1) / kThreads;
   static constexpr int ROWB = HD * static_cast<int>(sizeof(T));
   static constexpr int RING = kStages * 2 * TILE * ROWB;
+  // whether chunk c of lane li lies in the row
+  __device__ static __forceinline__ bool has(int c, int li) {
+    return !PART || c * LPR + li < CPR;
+  }
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -134,14 +150,21 @@ __device__ __forceinline__ void unpack(uint4 w, const __nv_bfloat16*,
   bf16x2_to(w.w, x + 6);
 }
 
-// A lane's EL elements of a row: chunk c*LPR + li of the row, c < C.
+// A lane's EL elements of a row: chunk c*LPR + li of the row, c < C
+// (zeros for a chunk past the row's end).
 template <typename T, int HD>
 __device__ __forceinline__ void lane_row(const T* row, int li, float* x) {
   using S = Shape<T, HD>;
 #pragma unroll
-  for (int c = 0; c < S::C; ++c)
-    unpack(*reinterpret_cast<const uint4*>(row + (c * S::LPR + li) * S::VEC),
-           row, x + c * S::VEC);
+  for (int c = 0; c < S::C; ++c) {
+    if (S::has(c, li)) {
+      unpack(*reinterpret_cast<const uint4*>(row + (c * S::LPR + li) * S::VEC),
+             row, x + c * S::VEC);
+    } else {
+#pragma unroll
+      for (int v = 0; v < S::VEC; ++v) x[c * S::VEC + v] = 0.f;
+    }
+  }
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -278,10 +301,16 @@ paged_decode_split_kernel(const Params p) {
   for (int r = 0; r < NREP; ++r) {
     const T* qrow = q + b * p.q_sb + (g * NREP + r) * p.q_sh;
 #pragma unroll
-    for (int c = 0; c < S::C; ++c)
-      unpack(__ldg(reinterpret_cast<const uint4*>(
-                 qrow + (c * S::LPR + li) * S::VEC)),
-             qrow, qr[r] + c * S::VEC);
+    for (int c = 0; c < S::C; ++c) {
+      if (S::has(c, li)) {
+        unpack(__ldg(reinterpret_cast<const uint4*>(
+                   qrow + (c * S::LPR + li) * S::VEC)),
+               qrow, qr[r] + c * S::VEC);
+      } else {
+#pragma unroll
+        for (int v = 0; v < S::VEC; ++v) qr[r][c * S::VEC + v] = 0.f;
+      }
+    }
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
@@ -292,14 +321,16 @@ paged_decode_split_kernel(const Params p) {
   const int* table = p.page_table + static_cast<int64_t>(b) * p.max_pages;
   const int64_t head_off = g * p.p_sh;
   // Tile i's K and V rows into stage i % kStages; rows at or past t1 are
-  // not copied.  Each thread copies kSteps * C chunks of each.
+  // not copied.  Each thread copies LOADS chunks of each (kSteps * C
+  // when every lane holds a chunk).
   auto load_tile = [&](int i) {
     T* sk = ring + (i % kStages) * 2 * S::TILE * HD;
     T* sv = sk + S::TILE * HD;
     const int ts = t0 + i * S::TILE;
 #pragma unroll
-    for (int j = 0; j < kSteps * S::C; ++j) {
+    for (int j = 0; j < S::LOADS; ++j) {
       const int c = threadIdx.x + j * kThreads;
+      if (S::PART && c >= S::COPIES) break;
       const int tt = c / S::CPR;
       const int e = (c % S::CPR) * S::VEC;
       const int t = ts + tt;
@@ -366,10 +397,11 @@ paged_decode_split_kernel(const Params p) {
       }
 #pragma unroll
       for (int c = 0; c < S::C; ++c)
+        if (S::has(c, li))
 #pragma unroll
-        for (int v = 0; v < S::VEC; ++v)
-          sm_acc[(warp * NREP + r) * HD + (c * S::LPR + li) * S::VEC + v] =
-              acc[r][c * S::VEC + v];
+          for (int v = 0; v < S::VEC; ++v)
+            sm_acc[(warp * NREP + r) * HD + (c * S::LPR + li) * S::VEC + v] =
+                acc[r][c * S::VEC + v];
     }
   }
   __syncthreads();
@@ -483,6 +515,7 @@ int by_head_dim(const Params& p, int hd, int n_rep, int groups,
   switch (hd) {
     case 32: return by_rep<T, 32>(p, n_rep, groups, s);
     case 64: return by_rep<T, 64>(p, n_rep, groups, s);
+    case 80: return by_rep<T, 80>(p, n_rep, groups, s);   // stablelm-3b
     case 128: return by_rep<T, 128>(p, n_rep, groups, s);
     case 256: return by_rep<T, 256>(p, n_rep, groups, s);
   }
@@ -492,8 +525,9 @@ int by_head_dim(const Params& p, int hd, int n_rep, int groups,
 }  // namespace
 
 // dtype 0 = float32, 1 = bfloat16 (q, both pools and out share it).
-// head_dim in {32, 64, 128, 256}; n_rep in {1, 2, 4, 5, 6, 8} (5: hymba-1.5b,
-// qwen2.5-14b, llama4; 6: internvl2-26b).  Strides are in elements;
+// head_dim in {32, 64, 80, 128, 256} (80: stablelm-3b); n_rep in {1, 2, 4,
+// 5, 6, 8} (5: hymba-1.5b, qwen2.5-14b, llama4; 6: internvl2-26b).
+// Strides are in elements;
 // head_dim is contiguous everywhere, q and the pools start
 // 16-byte aligned with strides that keep every row 16-byte aligned, and
 // page ids lie in [0, pages of the pool) (the Python wrapper checks all

@@ -56,7 +56,7 @@ from .ref import (decode_attention_ref, dense_span, flash_decode_paged_ref,
                   flash_decode_ref, paged_decode_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode_paged.cu"
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)     # 80: stablelm-3b
 N_REPS = (1, 2, 4, 5, 6, 8)     # GQA groups: 5 hymba-1.5b, qwen2.5-14b
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCKS_PER_SM = 4       # the plan's aim were every sequence full length
@@ -81,9 +81,11 @@ def _sm_count(index: int) -> int:
 
 def _tile_tokens(head_dim: int, elem: int) -> int:
     """Tokens of one ring stage, as the kernel's ``Shape::TILE``: a lane
-    holds 16 bytes of a row, a warp step covers ``32 / lanes per row``
-    tokens, and 4 warps take 4 steps each."""
-    lanes = min(head_dim * elem // 16, 32)
+    holds 16 bytes of a row, a row takes its chunks' count of lanes
+    rounded up to a power of two (at most 32), a warp step covers ``32 /
+    lanes per row`` tokens, and 4 warps take 4 steps each."""
+    chunks = head_dim * elem // 16
+    lanes = min(1 << (chunks - 1).bit_length(), 32)
     return 16 * (32 // lanes)
 
 

@@ -16,6 +16,9 @@
         --arch hymba-1.5b --batch 8 --requests 16 --prompt-len 128 \\
         --gen 32 --gen-spread 16
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine static \\
+        --arch whisper-medium --batch 8 --prompt-len 64 --gen 128
+
 The flags are those of ``repro.launch.serve``, plus ``--device``
 (default ``cuda``: the card; the run fails without one unless
 ``--device cpu`` is given).  ``--engine static`` runs the fixed-batch
@@ -23,9 +26,12 @@ prefill+decode loop (``serve.engine.static_generate``); ``--engine
 continuous`` routes the requests through the paged continuous-batching
 engine with ``--batch`` decode slots (rwkv6-3b's state rows take no
 pages; its prefill's scan runs on kernel K7 on the card; hymba-1.5b's
-attention KV takes pages, its conv and SSM states slot rows).  Weights
-are random, drawn from ``--seed``; so are the prompts, from a torch
-generator: they are not the reference launcher's prompts.
+attention KV takes pages, its conv and SSM states slot rows).
+whisper-medium (the ``audio`` family) runs the static loop only, as in
+the reference; its ``frames`` (batch, 1,500, d_model) are drawn from
+``--seed`` too.  Weights are random, drawn from ``--seed``; so are the
+prompts, from a torch generator: they are not the reference launcher's
+prompts.
 """
 from __future__ import annotations
 
@@ -80,6 +86,11 @@ def main(argv=None):
         0, cfg.vocab, (max(b, n_req), s),
         generator=torch.Generator().manual_seed(args.seed + 1),
         dtype=torch.int32).numpy()
+    extra = {}
+    if cfg.family == "audio":
+        extra["frames"] = torch.randn(
+            (b, cfg.enc_seq, cfg.d_model),
+            generator=torch.Generator().manual_seed(args.seed + 3))
     gens = [args.gen + (i % args.gen_spread if args.gen_spread else 0)
             for i in range(n_req)]
     max_len = s + max(gens) + 8
@@ -108,7 +119,7 @@ def main(argv=None):
     t0 = time.time()
     out = static_generate(cfg, params, prompts[:b], args.gen,
                           max_len=max_len, temperature=args.temperature,
-                          seed=args.seed, device=dev)
+                          seed=args.seed, device=dev, extra=extra)
     dt = time.time() - t0
     print(f"static: prefill {b}x{s} + {args.gen} tokens/seq in {dt:.2f}s "
           f"({args.gen * b / max(dt, 1e-9):.1f} tok/s)")

@@ -7,6 +7,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --clients 2 --rounds 1 --batch-size 1 --steps-per-round 1 --seq 64
 
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch whisper-medium --clients 2 --rounds 1 --batch-size 1 \\
+        --steps-per-round 1 --seq 64
+
 The flags, defaults and output lines are those of
 ``repro.launch.train`` (a header line, one log line a round, ``total
 ...s; comm summary:`` and the JSON of ``comm_summary()``), plus
@@ -14,7 +18,9 @@ The flags, defaults and output lines are those of
 unless ``--device cpu`` is given).  It drives the paper's federated
 round (per-client layer subsets from the registered strategy, masked
 local Adam, participation-weighted FedAvg) over synthetic LM data
-(``data.lm_batch``) partitioned IID across clients, through the
+(``data.lm_batch``; for the ``audio`` family also ``frames``, (n,
+enc_seq, d_model) standard normals from ``--seed``, as the reference
+draws them) partitioned IID across clients, through the
 ``Federation`` facade, with the facade's default attention
 (``attn_impl="reference"``).  Weights are random, drawn on the device
 from ``--seed``.
@@ -29,6 +35,8 @@ from __future__ import annotations
 import argparse
 import json
 import time
+
+import numpy as np
 
 from ..common import resolve_device
 from ..configs.base import get_config, list_configs
@@ -144,6 +152,9 @@ def main(argv=None):
     dev = resolve_device(args.device)
     n = args.clients * args.batch_size * args.steps_per_round * 8
     data = lm_batch(n, args.seq, cfg.vocab, key=args.seed)
+    if cfg.family == "audio":
+        data["frames"] = np.random.default_rng(args.seed).normal(
+            0, 1, (n, cfg.enc_seq, cfg.d_model)).astype(np.float32)
     shards = iid_partition(n, args.clients, key=args.seed + 1)
     client_data = [{k: v[s] for k, v in data.items()} for s in shards]
     if args.registered > args.clients:

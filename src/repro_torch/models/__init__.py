@@ -2,19 +2,21 @@
 CASA LSTM, ``paper_models``), the toy stacked-block MLP the round-step
 tests use (``toy``), and the zoo's dense transformer family
 (``transformer``, which also runs the ``moe`` family's blocks through
-``moe``), RWKV-6 (``rwkv6``, the ``ssm`` family) and hymba (``hymba``,
-the ``hybrid`` family), one API across families as in ``repro.models``.
+``moe``), RWKV-6 (``rwkv6``, the ``ssm`` family), hymba (``hymba``,
+the ``hybrid`` family) and whisper (``whisper``, the ``audio`` family),
+one API across families as in ``repro.models``.
 
 ``get_model(cfg)`` dispatches on ``cfg.family``.  ``dense``, ``moe``,
-``ssm`` and ``hybrid`` are ported; the other families (``vlm``,
-``audio``) raise ``NotPortedError``.
+``ssm``, ``hybrid`` and ``audio`` are ported; ``vlm`` raises
+``NotPortedError``.  The paged serving entries are None for a family
+without them (whisper), as in the reference.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
 from ..core.registry import NotPortedError
-from . import hymba, rwkv6, transformer
+from . import hymba, rwkv6, transformer, whisper
 
 
 class ModelApi(NamedTuple):
@@ -31,7 +33,7 @@ class ModelApi(NamedTuple):
 
 
 _FAMILY = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
-           "hybrid": hymba}
+           "hybrid": hymba, "audio": whisper}
 
 
 def get_model(cfg) -> ModelApi:
@@ -39,6 +41,19 @@ def get_model(cfg) -> ModelApi:
         raise NotPortedError(f"{cfg.name}: the {cfg.family!r} model family is "
                              f"not ported yet (ported: {sorted(_FAMILY)})")
     mod = _FAMILY[cfg.family]
+    paged = {}
+    if hasattr(mod, "decode_step_paged"):
+        paged = dict(
+            init_paged_cache=lambda n_slots, n_pages, page_size, dtype=None,
+            device="cuda": mod.init_paged_cache(
+                cfg, n_slots, n_pages, page_size, dtype, device),
+            commit_prefill=lambda paged_c, cache, slots, page_tables,
+            page_size: mod.commit_prefill(cfg, paged_c, cache, slots,
+                                          page_tables, page_size=page_size),
+            decode_step_paged=lambda params, paged_c, token, steps,
+            page_tables, page_size: mod.decode_step_paged(
+                cfg, params, paged_c, token, steps, page_tables,
+                page_size=page_size))
     return ModelApi(
         init_params=lambda gen, dtype=None: mod.init_params(cfg, gen, dtype),
         forward=lambda params, tokens, **kw: mod.forward(
@@ -51,14 +66,5 @@ def get_model(cfg) -> ModelApi:
             cfg, params, tokens, **kw),
         decode_step=lambda params, cache, token: mod.decode_step(
             cfg, params, cache, token),
-        init_paged_cache=lambda n_slots, n_pages, page_size, dtype=None,
-            device="cuda": mod.init_paged_cache(
-                cfg, n_slots, n_pages, page_size, dtype, device),
-        commit_prefill=lambda paged, cache, slots, page_tables, page_size:
-            mod.commit_prefill(cfg, paged, cache, slots, page_tables,
-                               page_size=page_size),
-        decode_step_paged=lambda params, paged, token, steps, page_tables,
-            page_size: mod.decode_step_paged(
-                cfg, params, paged, token, steps, page_tables,
-                page_size=page_size),
+        **paged,
     )

@@ -18,8 +18,12 @@ only change the rounding order of the reference's sums, and the kernels
 ignore them.  On CPU tensors those branches run the plain versions
 above.  The card route pads a causal call to a multiple of the kernel's
 128-row block (a padded key sits after every real query, so the padding
-is exact) and refuses what no caller passes: an unaligned non-causal
-call, a non-zero ``q_offset``, a dtype other than fp32 or bf16.
+is exact), and a non-causal call at any lengths through
+``pad_noncausal``: zero rows to whole blocks, the padded keys masked by
+the kernels' ``kv_len``, the output sliced back (whisper's 1,500-frame
+encoder and its cross-attention).  It refuses what no caller passes: an
+unaligned causal call with Sq != Sk, a non-zero ``q_offset``, a dtype
+other than fp32 or bf16.
 
 Decode-time single-token attention: ``decode_attend`` (full cache),
 ``decode_attend_ring`` (ring-buffer sliding-window cache) and
@@ -185,10 +189,30 @@ def attend_windowed(q, k, v, *, window: int, q_chunk: int = 1024,
     return torch.cat(outs, dim=1)
 
 
+def _pad_rows(x, n: int):
+    """x (B,S,H,hd) with zero rows appended up to a multiple of n."""
+    return F.pad(x, (0, 0, 0, 0, 0, -x.shape[1] % n))
+
+
+def pad_noncausal(q, k, v):
+    """Non-causal attention of q (B,Sq,H,hd) over k/v (B,Sk,Hkv,hd) at
+    any Sq and Sk through ``flash_attention`` (K5/K6 on CUDA tensors, the
+    plain ``kv_len`` versions on CPU ones): q, k and v padded with zero
+    rows to whole ``FLASH_BLOCK`` blocks, the padded keys masked by
+    ``kv_len = Sk``, the output sliced back to Sq rows.  The padded query
+    rows get a zero gradient through the slice, so they add nothing to
+    dK/dV."""
+    from ..kernels.flash_attention.ops import flash_attention
+    sq, sk = q.shape[1], k.shape[1]
+    qp, kp, vp = (_pad_rows(x, FLASH_BLOCK) for x in (q, k, v))
+    return flash_attention(qp, kp, vp, False, 0, kv_len=sk)[:, :sq]
+
+
 def _attend_kernel(q, k, v, *, causal: bool, window: int, q_offset: int):
     """The chunked / windowed branch on the card: K5 forward, K6 backward
-    (``flash_attention``), a causal call padded to whole 128-row blocks
-    at the end and sliced back."""
+    (``flash_attention``); a causal call padded to whole 128-row blocks
+    at the end and sliced back, a non-causal one through
+    ``pad_noncausal``."""
     from ..kernels.flash_attention.ops import flash_attention
     if q_offset:
         raise ValueError(f"attend: q_offset={q_offset} has no kernel route "
@@ -197,14 +221,15 @@ def _attend_kernel(q, k, v, *, causal: bool, window: int, q_offset: int):
         raise ValueError(f"attend: {q.dtype} has no kernel route on "
                          f"{q.device} (float32 or bfloat16)")
     sq, sk = q.shape[1], k.shape[1]
-    pad_q, pad_k = -sq % FLASH_BLOCK, -sk % FLASH_BLOCK
-    if not (pad_q or pad_k):
+    if not (sq % FLASH_BLOCK or sk % FLASH_BLOCK):
         return flash_attention(q, k, v, causal, window)
-    if not causal or sq != sk:
+    if not causal:
+        return pad_noncausal(q, k, v)
+    if sq != sk:
         raise ValueError(f"attend: Sq={sq}, Sk={sk} are not multiples of "
-                         f"{FLASH_BLOCK}: only a causal self-attention is "
-                         f"padded on {q.device}")
-    qp, kp, vp = (F.pad(x, (0, 0, 0, 0, 0, pad_q)) for x in (q, k, v))
+                         f"{FLASH_BLOCK}: a causal call is padded on "
+                         f"{q.device} only as a self-attention")
+    qp, kp, vp = (_pad_rows(x, FLASH_BLOCK) for x in (q, k, v))
     return flash_attention(qp, kp, vp, causal, window)[:, :sq]
 
 

@@ -108,11 +108,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq,
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, dtype,
-             glu: bool = True) -> Params:
+             glu: bool = True, bias: bool = False) -> Params:
     p = {"w_up": dense_init(gen, (d, ff), dtype),
          "w_down": dense_init(gen, (ff, d), dtype)}
     if glu:
         p["w_gate"] = dense_init(gen, (d, ff), dtype)
+    if bias:
+        p["b_up"] = torch.zeros((ff,), dtype=dtype, device=gen.device)
+        p["b_down"] = torch.zeros((d,), dtype=dtype, device=gen.device)
     return p
 
 
@@ -125,15 +128,21 @@ def _act(act: str):
 def apply_mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     a = _act(act)
     h = x @ p["w_up"]
+    if "b_up" in p:
+        h = h + p["b_up"]
     h = a(x @ p["w_gate"]) * h if "w_gate" in p else a(h)
-    return h @ p["w_down"]
+    out = h @ p["w_down"]
+    return out + p["b_down"] if "b_down" in p else out
 
 
 # ---------------------------------------------------------------------------
 # attention projections
 # ---------------------------------------------------------------------------
 
-def init_attention(gen: torch.Generator, cfg, dtype) -> Params:
+def init_attention(gen: torch.Generator, cfg, dtype,
+                   cross: bool = False) -> Params:
+    """Fused projections; ``cross`` (whisper's cross-attention) leaves out
+    the qk norms, as the reference does."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dev = gen.device
     p = {
@@ -146,7 +155,7 @@ def init_attention(gen: torch.Generator, cfg, dtype) -> Params:
         p["bq"] = torch.zeros((h, hd), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((hkv, hd), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((hkv, hd), dtype=dtype, device=dev)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
         p["k_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
     return p
@@ -178,9 +187,16 @@ def out_project(p: Params, o: torch.Tensor) -> torch.Tensor:
 # embeddings / head
 # ---------------------------------------------------------------------------
 
-def init_embed(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
+def init_embed(gen: torch.Generator, vocab: int, d: int, dtype,
+               max_position: int = 0) -> Params:
+    """The token table and, with ``max_position``, learned positions
+    ``pos`` (max_position, d) (whisper's decoder)."""
     x = torch.randn((vocab, d), generator=gen, device=gen.device)
-    return {"table": (x * 0.02).to(dtype)}
+    p = {"table": (x * 0.02).to(dtype)}
+    if max_position:
+        x = torch.randn((max_position, d), generator=gen, device=gen.device)
+        p["pos"] = (x * 0.02).to(dtype)
+    return p
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:

@@ -149,12 +149,13 @@ def _layer(params: Tree, si: int, m: int) -> Dict[str, Tree]:
     return out
 
 
-def _layers(params: Tree, si: int, nm: int):
-    """Per-layer views of sub ``si`` for every macro block, each stacked
-    leaf split once with ``unbind``: its backward stacks the layers'
-    gradients in one tensor, where one ``leaf[m]`` per layer would add up
-    ``nm`` zero-padded full-size gradients."""
-    prefix = f"blocks/sub{si}/"
+def _layers(params: Tree, si: int, nm: int, stack: str = "blocks"):
+    """Per-layer views of sub ``si`` of ``stack`` for every macro block
+    (whisper's encoder is the stack ``enc_blocks``), each stacked leaf
+    split once with ``unbind``: its backward stacks the layers' gradients
+    in one tensor, where one ``leaf[m]`` per layer would add up ``nm``
+    zero-padded full-size gradients."""
+    prefix = f"{stack}/sub{si}/"
     out = [{} for _ in range(nm)]
     for path, leaf in params.items():
         if path.startswith(prefix):

@@ -331,9 +331,11 @@ def static_generate(cfg, params, prompts, gen: int, *, max_len: int,
                     temperature: float = 0.0, seed: int = 0,
                     attn_impl: str = "reference", collect_logits: bool = False,
                     rids=None, device: Device = "cuda",
-                    gumbel: Optional[GumbelFn] = None):
+                    gumbel: Optional[GumbelFn] = None, extra=None):
     """Fixed-batch prefill + decode over the dense cache: the engine's
-    oracle and the launcher's ``--engine static`` path.
+    oracle and the launcher's ``--engine static`` path (the only one of
+    the ``audio`` family, whose ``extra={"frames": ...}`` goes to the
+    prefill, moved to ``device``).
 
     Every token — including the first — is sampled with the
     per-(request, token-index) noise, so streams are comparable with the
@@ -356,8 +358,11 @@ def static_generate(cfg, params, prompts, gen: int, *, max_len: int,
             rids, np.full((b,), t, np.int32), row.shape[-1])
         return sample_tokens(row, g, temperature=temperature)
 
+    extra = {k: torch.as_tensor(v, device=dev) for k, v in
+             (extra or {}).items()}
     logits, cache = model.prefill(params, prompts, max_len=max_len,
-                                  last_only=True, **_attn_kw(cfg, attn_impl))
+                                  last_only=True, **extra,
+                                  **_attn_kw(cfg, attn_impl))
     row = logits[:, -1]
     tok = sample(row, 0)
     toks, rows = [tok], [row]

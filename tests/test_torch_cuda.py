@@ -389,7 +389,9 @@ def _dcase(dev, b, s, h, hkv, hd, dtype=torch.float32, seed=0, hi=None):
     (2, 512, 4, 4, 64, 128, 0), (3, 512, 4, 2, 64, 256, 0),
     (1, 1024, 8, 1, 32, 128, 0), (4, 256, 2, 2, 128, 64, 0),
     (3, 256, 16, 8, 256, 512, 256),          # a ring: valid beyond the window
-    (3, 1000, 16, 8, 128, 256, 0)])          # S not a multiple of blk_k
+    (3, 1000, 16, 8, 128, 256, 0),           # S not a multiple of blk_k
+    (8, 1500, 16, 16, 64, 1500, 0),          # whisper's cross cache
+    (8, 200, 16, 16, 64, 200, 0)])           # whisper's self cache
 def test_dense_decode_matches_plain(dev, b, s, h, hkv, hd, blk, window):
     from repro_torch.kernels.flash_decode import ops as fops
     from repro_torch.kernels.flash_decode.ref import decode_attention_ref
@@ -631,7 +633,9 @@ ATTN = [  # (b, s, h, hkv, hd, causal, window)
     (1, 128, 4, 4, 128, False, 0),
     (2, 96, 4, 2, 256, True, 32),
     (1, 128, 2, 1, 256, False, 0),
-    (1, 512, 2, 1, 256, True, 128)]     # the window skips whole tiles
+    (1, 512, 2, 1, 256, True, 128),     # the window skips whole tiles
+    (2, 160, 4, 4, 80, True, 0),        # head dim 80 (stablelm-3b)
+    (1, 256, 4, 2, 80, False, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1379,3 +1383,115 @@ def test_apply_moe_matches_cpu_and_backward_is_bitwise(dev):
         assert err <= tol, (name, err, tol)
     assert torch.equal(y, y2) and torch.equal(aux, aux2)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+# -- head dim 80 (stablelm-3b) and the padded non-causal route (whisper) -----
+
+@pytest.mark.parametrize("splits", [None, 1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_head_dim_80(dev, dtype, splits, monkeypatch):
+    """K3 at stablelm-3b's heads, 32 over 32 of 80 (a row on 32 fp32 / 16
+    bf16 lanes, the last 12 / 6 holding zeros), at the plan's splits and
+    at 1 and 4, against the plain version."""
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_ref
+    q, k, v, pt, valid = _pcase(dev, 4, 32, 32, 80, 80, 16, 12, dtype=dtype)
+    if splits is not None:
+        _force_splits(monkeypatch, fops, splits)
+    before = fops.paged_decode_attention.launches
+    out = fops.paged_decode_attention(q, k, v, pt, valid)
+    torch.cuda.synchronize()
+    assert fops.paged_decode_attention.launches == before + 1
+    want = paged_decode_ref(q.float(), k.float(), v.float(), pt, valid)
+    err = float((out.float() - want).abs().max())
+    assert err < (TOL if dtype == torch.float32 else 3e-2), err
+
+
+def test_flash_attention_head_dim_80_at_stablelm_width(dev):
+    """K5/K6 at head dim 80, 32 over 32 heads, S = 1,024 causal, fp32 and
+    bf16 (the existing bars: fp32 2e-5 / 5e-4, bf16 3e-2 of the fp32
+    plain version); every stored column is finite and columns past 80
+    are never written (the outputs are (..., 80))."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = _acase(dev, 1, 1024, 32, 32, 80, dtype)
+        aops.reset_launch_counts()
+        o, dq, dk, dv = _grads(aops.flash_attention, q, k, v, g, True, 0)
+        torch.cuda.synchronize()
+        assert aops.LAUNCHES == {"fwd": 1, "dq": 1, "dkv": 1}
+        qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+        o_ref, lse_ref = flash_attention_fwd_ref(qf, kf, vf)
+        want = (o_ref,) + flash_attention_bwd_ref(qf, kf, vf, o_ref, lse_ref,
+                                                  gf)
+        for name, got, ref in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                                  want):
+            err = float((got.float() - ref).abs().max())
+            if dtype == torch.float32:
+                assert err < (TOL if name == "o" else 5e-4), (name, err)
+            else:
+                assert err < 3e-2 * max(1.0, float(ref.abs().max())), \
+                    (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(1500, 1500), (4096, 1500)])
+def test_noncausal_padded_route_on_card(dev, dtype, sq, sk):
+    """``attention.pad_noncausal`` (q, k, v padded to whole blocks, the
+    keys past Sk masked by ``kv_len``, the output sliced back) at
+    whisper's shapes, 16 heads of 64: one launch of each kernel, against
+    the plain dense attention on the unpadded inputs; the padded rows of
+    dK/dV the kernels write are zero."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    from repro_torch.models import attention as A
+    q, _, _, g = _acase(dev, 1, sq, 16, 16, 64, dtype)
+    _, k, v, _ = _acase(dev, 1, sk, 16, 16, 64, dtype, seed=1)
+    aops.reset_launch_counts()
+    got = _attend_grads(A.pad_noncausal, q, k, v, g)
+    torch.cuda.synchronize()
+    assert aops.LAUNCHES == {"fwd": 1, "dq": 1, "dkv": 1}
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    o_ref, lse_ref = flash_attention_fwd_ref(qf, kf, vf, causal=False)
+    want = (o_ref,) + flash_attention_bwd_ref(qf, kf, vf, o_ref, lse_ref, gf,
+                                              causal=False)
+    for name, x, ref in zip(("o", "dq", "dk", "dv"), got, want):
+        assert x.shape == ref.shape, name
+        err = float((x.float() - ref).abs().max())
+        if dtype == torch.float32:
+            assert err < (TOL if name == "o" else 5e-4), (name, err)
+        else:
+            assert err < 3e-2 * max(1.0, float(ref.abs().max())), (name, err)
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, -sk % 128))
+    o, lse = aops.attention_fwd(q, kp, kp, causal=False, kv_len=sk)
+    _, dk, dv = aops.attention_bwd(q, kp, kp, o, lse, g, causal=False,
+                                   kv_len=sk)
+    assert not dk[:, sk:].any() and not dv[:, sk:].any()
+
+
+def test_whisper_decode_step_runs_k4(dev):
+    """Reduced whisper's ``decode_step`` on the card launches K4 twice a
+    layer (self and cross) and matches the same step on the CPU
+    (``decode_attend``) at 1e-4."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.models import get_model
+    cfg = get_config("whisper-medium").reduced().replace(enc_seq=300)
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (3, 9), generator=gen)
+    frames = torch.randn(3, cfg.enc_seq, cfg.d_model, generator=gen)
+    out = {}
+    for where in ("cpu", dev):
+        p = {k: x.to(where) for k, x in params.items()}
+        _, cache = model.prefill(p, toks.to(where), frames=frames.to(where),
+                                 max_len=24)
+        fops.reset_launch_counts()
+        logits, _ = model.decode_step(p, cache, toks[:, -1:].to(where))
+        out[str(where)] = (logits.cpu(), fops.paged_decode_attention.launches)
+    assert out[str(dev)][1] == 2 * cfg.n_layers and out["cpu"][1] == 0
+    torch.testing.assert_close(out[str(dev)][0], out["cpu"][0], atol=1e-4,
+                               rtol=0)

@@ -121,14 +121,14 @@ def test_cpu_run_prints_reference_fields(capsys, monkeypatch):
 @pytest.mark.parametrize("extra,match", [
     (["--client-shards", "2"], "client_shards"),
     (["--prod-env"], "launch/env.py"),
-    (["--arch", "whisper-medium"], None)])
+    (["--arch", "internvl2-26b"], None)])
 def test_unported_switches_raise(extra, match):
     if match is None:                 # argparse refuses an unknown arch
         with pytest.raises(SystemExit):
             train.main(["--device", "cpu", *ARGV, *extra])
-        with pytest.raises(NotPortedError, match="audio"):
+        with pytest.raises(NotPortedError, match="vlm"):
             train.get_model(get_config("qwen3-1.7b").replace(
-                family="audio"))
+                family="vlm"))
         return
     with pytest.raises(NotPortedError, match=match):
         train.main(["--device", "cpu", *ARGV, *extra])

@@ -13,7 +13,11 @@ is computed once for the module.
 ``attend``'s dispatch is held to the reference's branch at S = 128, 129,
 512 and 600, and the card route's padding (``_attend_kernel``, whose
 ``flash_attention`` takes its plain version on CPU tensors) to the plain
-chunked version at S = 200.
+chunked version at S = 200.  The non-causal route (``pad_noncausal``:
+zero rows to whole blocks, the padded keys masked by ``kv_len``, the
+output sliced back) is held, forward and gradients, to the reference's
+``attend_reference(causal=False)`` at Sq = Sk = 150 and at Sq = 256 over
+Sk = 150, with the plain ``kv_len`` version in the kernel's place.
 """
 import itertools
 
@@ -139,12 +143,30 @@ def test_kernel_route_padding_matches_plain(window):
 
 
 def test_kernel_route_refuses_what_it_cannot_run():
-    x = torch.zeros(1, 200, 2, 32)
+    """A non-causal call at any lengths has a route (``pad_noncausal``);
+    a causal one with Sq != Sk not a multiple of the block does not."""
+    x, kx = torch.zeros(1, 200, 2, 32), torch.zeros(1, 100, 2, 32)
     with pytest.raises(ValueError, match="causal"):
-        tattn._attend_kernel(x, x, x, causal=False, window=0, q_offset=0)
+        tattn._attend_kernel(x, kx, kx, causal=True, window=0, q_offset=0)
     y = torch.zeros(1, 256, 2, 32)
     with pytest.raises(ValueError, match="q_offset"):
         tattn._attend_kernel(y, y, y, causal=True, window=0, q_offset=16)
     with pytest.raises(ValueError, match="float64"):
         tattn._attend_kernel(y.double(), y.double(), y.double(), causal=True,
                              window=0, q_offset=0)
+
+
+@pytest.mark.parametrize("sq,sk", [(150, 150), (256, 150)])
+def test_noncausal_pad_route_matches_reference(sq, sk):
+    """``pad_noncausal`` (``flash_attention``'s plain ``kv_len`` version
+    on CPU tensors in the kernels' place) against the reference's dense
+    non-causal attention: outputs and the gradients of ``sum(o * g)``."""
+    rng = np.random.default_rng(sq + sk)
+    q, g = (rng.normal(size=(B, sq, H, HD)).astype(np.float32)
+            for _ in range(2))
+    k, v = (rng.normal(size=(B, sk, HKV, HD)).astype(np.float32)
+            for _ in range(2))
+    want = _ref_case(lambda q, k, v: rattn.attend_reference(
+        q, k, v, causal=False), q, k, v, g)
+    got = _port_case(tattn.pad_noncausal, q, k, v, g)
+    _close(got, want, f"non-causal Sq={sq} Sk={sk}")
