@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in forty-nine phases, in the order
+nothing of the ``repro`` package) in fifty-two phases, in the order
 below except that 17-20, then 22-28, then 21 run after 8, 34-35, then
-40-41, then 45-46 after 16, and 42-44, then 47-49 after 38 (39 last),
-and any failure exits non-zero:
+40-41, then 45-46, then 50 after 16, and 42-44, then 47-49, then 51-52
+after 38 (39 last), and any failure exits non-zero:
 
 1. build — compiles every CUDA kernel of the port from the sources in
    the checkout with ``nvcc`` (``repro_torch/kernels/_build.py``).
@@ -120,7 +120,8 @@ and any failure exits non-zero:
    local and global layers at S=2,048, hymba-1.5b's windowed (1,024) and
    global layers at S=2,048, head dim 64 in groups of 5,
    granite-moe-1b-a400m's at S=4,096, 16 heads over 8 of 64,
-   stablelm-3b's at S=4,096, 32 over 32 of 80, fp32 and bf16), held and
+   stablelm-3b's at S=4,096, 32 over 32 of 80, fp32 and bf16,
+   internvl2-26b's round at S=5,120, 48 over 8 of 128), held and
    timed the same way but
    reached through the model's wrapper ``models.attention.attend``
    (chunked, ``q_chunk`` 1024, a causal window of 1,024 on the local
@@ -416,6 +417,27 @@ and any failure exits non-zero:
    self- and cross-attention projections moved by 10 x that.
 49. zoo-parity-stablelm — [zoo-parity] on stablelm-3b at full width cut to
    2 layers, S = 1,024 (K5/K6 at head dim 80).
+50. serve-vlm — internvl2-26b at full width in fp32 cut to 24 of 48 layers
+   (10,507,038,720 params, random weights; 48 layers, 79.5 GB, do not
+   fit the card), ``patches`` (8, 1,024, 1,024) from the seed, through
+   ``static_generate``: 8 sequences of 1,024 patches and 128 prompt
+   tokens, each generating 64 greedily (max_len 1,224); K5 24 launches
+   (one a layer over 1,152 positions), K3/K4 none; tokens/s, prefill ms,
+   ms a step, peak memory; the prefill profiled (K5 in-run); then the
+   same loop on the plain attention (logits within 1e-3, tokens equal
+   barring near ties); K5 alone at the prefill's shape beside its plain
+   version, SDPA and the bound.
+51. zoo-round-vlm — [zoo-round-moe]'s setup on internvl2-26b cut to 2
+   layers at full width (1,925,222,400 params; 4 units: embed with the
+   projector, layer0, layer1, head; 2 trained a client) at 4,096 text
+   tokens after 1,024 patches: launches K1 2, K5 32, K6 16 + 16; frozen
+   deltas exactly zero, the bill equal to Table 4, peak memory, the
+   second round profiled, then built again from one seed and held
+   bitwise.
+52. zoo-parity-vlm — [zoo-parity] on internvl2-26b at full width cut to 1
+   layer, 1,024 patches and 128 text tokens (K5/K6 over 1,152
+   positions), the projector trained by one client: card vs CPU at
+   ZOO_PARITY_TOL.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -426,11 +448,12 @@ other plans in ``plans``, K2's single-client dispatch in
 ``dispatch_1client``; K3's those of the serving runs (10, 34, 40, 45);
 K4's those of whisper's decode steps (46), ``[decode-dense]``'s direct
 calls beside them and its cases in ``cases``; K5's and K6's launches
-those of the zoo's model paths (29-31, 36, 42, 47), the long prefills
-(34, 40) and whisper's encoder prefill (46), with
-``[attention-kernels]``' direct calls listed beside them and this
-slice's shapes (head dim 80, whisper's non-causal) in ``cases``; the zoo
-call sites' numbers in ``zoo``); the last line is
+those of the zoo's model paths (29-31, 36, 42, 47, 51), the long
+prefills (34, 40), whisper's encoder prefill (46) and internvl2-26b's
+prefill (50), with ``[attention-kernels]``' direct calls listed beside
+them and the later slices' shapes (head dim 80, whisper's non-causal,
+internvl2-26b's round and prefill) in ``cases``; the zoo call sites'
+numbers in ``zoo``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2589,6 +2612,197 @@ def phase_serve_whisper(dev):
             "step_ms": step_ms, "peak": peak}
 
 
+VLM_ARCH = "internvl2-26b"
+VLM_PARAMS = 19_869_020_160      # the reference's eval_shape at full width
+# 48 layers in fp32 take 79.5 GB, more than the card: every width as
+# published, the depth cut to 24 layers to serve and 2 to train
+VLM_SERVE_LAYERS, VLM_SERVE_PARAMS = 24, 10_507_038_720
+VLM_ROUND_LAYERS, VLM_ROUND_PARAMS = 2, 1_925_222_400
+# [serve-vlm]: 8 sequences of 1,024 patches and 128 prompt tokens, each
+# generating 64, over caches of launch/serve.py's s + gen + 8 + n_patches
+VLM_BATCH, VLM_PROMPT, VLM_GEN = 8, 128, 64
+VLM_MAX_LEN = VLM_PROMPT + VLM_GEN + 8 + 1024
+VLM_PARITY_S = 128               # text tokens after the 1,024 patches
+VLM_ROUND_S = 1024 + 4096        # the round's positions: patches + train_4k
+
+
+def phase_serve_vlm(dev, smi):
+    """internvl2-26b at full width in fp32 cut to 24 of 48 layers (random
+    weights, ``patches`` (8, 1,024, 1,024) from the seed) through
+    ``static_generate`` (the vlm family's only serving loop, as in the
+    reference): 8 sequences of 1,024 patches and 128 prompt tokens, each
+    generating 64 greedily (max_len 1,224).  The prefill runs K5 once a
+    layer over 1,152 positions (9 blocks of 128, no padding); the decode
+    steps launch no kernel (the plain ``decode_attend``, as the
+    reference's).  Then the prefill alone under the profiler (K5's
+    in-run time), the same loop on the plain attention (every logits row
+    within LOGIT_TOL, tokens equal barring near ties), and K5 alone at
+    the prefill's shape beside its plain version, SDPA and the bound."""
+    from repro_torch.common import param_count
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_fwd_ref
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import vit_width
+    from repro_torch.serve.engine import static_generate
+
+    tag = "[serve-vlm]"
+    cfg = get_config(VLM_ARCH).replace(n_layers=VLM_SERVE_LAYERS)
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    n = param_count(params)
+    check(n == VLM_SERVE_PARAMS, f"{tag} {n} params, expected "
+          f"{VLM_SERVE_PARAMS}")
+    b, gen, h, hkv, hd = (VLM_BATCH, VLM_GEN, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim)
+    s = cfg.n_patches + VLM_PROMPT
+    prompts = torch.randint(0, cfg.vocab, (b, VLM_PROMPT),
+                            generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32).numpy()
+    patches = torch.randn((b, cfg.n_patches, vit_width(cfg)), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(2))
+    print(f"{tag} {cfg.name} at full width cut to {cfg.n_layers} of 48 "
+          f"layers: d_model {cfg.d_model}, {h} heads / {hkv} KV heads of "
+          f"{hd}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}, projector "
+          f"{vit_width(cfg)} -> {cfg.d_model}; {n:,} fp32 params "
+          f"({n * 4 / 1e9:.2f} GB; 48 layers: {VLM_PARAMS:,}, "
+          f"{VLM_PARAMS * 4 / 1e9:.2f} GB) drawn on the card in "
+          f"{init_s:.2f} s, peak memory after init "
+          f"{init_peak / 1e9:.2f} GB; patches {tuple(patches.shape)} from "
+          f"the seed")
+
+    def run(attn_impl, k=b, steps=gen):
+        return static_generate(cfg, params, prompts[:k], steps,
+                               max_len=VLM_MAX_LEN, attn_impl=attn_impl,
+                               collect_logits=True, device=dev,
+                               extra={"patches": patches[:k]})
+
+    run("chunked", 2, 2)                             # warm-up, not measured
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fops.reset_launch_counts()
+    aops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, rows = run("chunked")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k34, k5 = fops.paged_decode_attention.launches, dict(aops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(k5 == {"fwd": cfg.n_layers, "dq": 0, "dkv": 0},
+          f"{tag} K5/K6 launches {k5}, predicted {cfg.n_layers} forward "
+          f"(one a layer in the prefill)")
+    check(k34 == 0, f"{tag} the decode steps launched K3/K4 {k34} times")
+    check(out.shape == (b, gen) and all(np.isfinite(r).all() for r in rows),
+          f"{tag} tokens {out.shape} or non-finite logits")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, torch.as_tensor(prompts, device=dev),
+                      patches=patches, max_len=VLM_MAX_LEN,
+                      attn_impl="chunked", last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    events = _kernel_events(prof)
+    del prof
+    k5_us = [t for nm, t in events if "fwd_kernel" in nm]
+    check(len(k5_us) == cfg.n_layers, f"{tag} the profiled prefill holds "
+          f"{len(k5_us)} K5 events, predicted {cfg.n_layers}")
+    busy = sum(t for _, t in events) / 1e3
+    gemm = sum(t for nm, t in events if "gemm" in nm.lower()) / 1e3
+    in_run = float(np.mean(k5_us)) / 1e3
+    step_ms = (wall - prefill_s) / (gen - 1) * 1e3
+    print(f"{tag} {b} sequences x ({cfg.n_patches:,} patches + "
+          f"{VLM_PROMPT} prompt tokens), {gen} generated each (max_len "
+          f"{VLM_MAX_LEN}), greedy: {b * gen} tokens in {wall:.3f} s: "
+          f"{b * gen / wall:.1f} tok/s; prefill ({s:,} positions, "
+          f"profiled) {prefill_s * 1e3:.1f} ms, device busy {busy:.1f} ms "
+          f"(cuBLAS gemm {gemm:.1f}, K5 {sum(k5_us) / 1e3:.1f}); decode "
+          f"{step_ms:.3f} ms per step over {gen - 1} steps; peak memory "
+          f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)")
+    print(f"{tag} flash_attention_fwd (K5) launches {k5['fwd']} = "
+          f"{cfg.n_layers} layers x 1 prefill over {s:,} positions; K3/K4 "
+          f"{k34} (the decode step's attention is the plain decode_attend)")
+
+    aops.reset_launch_counts()
+    out_p, rows_p = run("reference")
+    check(aops.LAUNCHES["fwd"] == 0 and
+          fops.paged_decode_attention.launches == 0,
+          f"{tag} the plain run launched a kernel")
+    worst, compared, diverged = 0.0, 0, []
+    for i in range(b):
+        for t in range(gen):
+            err = float(np.abs(rows[t][i] - rows_p[t][i]).max())
+            check(err <= LOGIT_TOL, f"{tag} sequence {i} step {t}: logits "
+                  f"differ by {err} > {LOGIT_TOL}")
+            worst = max(worst, err)
+            compared += 1
+            if out[i, t] != out_p[i, t]:
+                top2 = np.sort(rows_p[t][i])[-2:]
+                gap = float(top2[1] - top2[0])
+                check(gap < LOGIT_TOL, f"{tag} sequence {i} step {t}: "
+                      f"tokens {out[i, t]} vs {out_p[i, t]} with a top-2 "
+                      f"gap {gap}")
+                diverged.append((i, t, gap))
+                print(f"{tag} sequence {i} diverges at step {t}: plain "
+                      f"top-2 gap {gap:.3e} < {LOGIT_TOL}")
+                break
+    print(f"{tag} K5 vs the plain attention on the card: {compared} logits "
+          f"rows of {b} sequences, max abs err {worst:.3e} (tol "
+          f"{LOGIT_TOL}); token streams equal"
+          + (f" up to {len(diverged)} near-tie divergence(s)" if diverged
+             else ""))
+    del params, rows, rows_p
+    _free_card("serve-vlm")
+
+    # K5 alone at the prefill's shape: (8, 1,152, 48 over 8, 128), causal
+    g = torch.Generator(device=dev).manual_seed(s)
+    q = torch.randn(b, s, h, hd, generator=g, device=dev)
+    k, v = (torch.randn(b, s, hkv, hd, generator=g, device=dev)
+            for _ in range(2))
+    o, lse = aops.attention_fwd(q, k, v, causal=True, window=0)
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, causal=True, window=0)
+    err = max(float((o - o_ref).abs().max()),
+              float((lse - lse_ref).abs().max()))
+    check(err <= TOL, f"{tag} K5 at the prefill's shape: max abs err vs "
+          f"plain {err} > {TOL}")
+    lib_err = float((_sdpa_attn(q, k, v, 0) - o_ref).abs().max())
+    check(lib_err <= 1e-3, f"{tag} the sdpa yardstick disagrees by "
+          f"{lib_err}")
+    del o, lse, o_ref, lse_ref
+    t = {"ms": device_ms(lambda: aops.attention_fwd(
+            q, k, v, causal=True, window=0), ATTN_ITERS),
+         "plain_ms": device_ms(lambda: flash_attention_fwd_ref(
+             q, k, v, causal=True, window=0), ATTN_ITERS),
+         "library_ms": device_ms(lambda: _sdpa_attn(q, k, v, 0),
+                                 ATTN_ITERS)}
+    backend = _sdpa_backend(q, k, v, torch.randn_like(q), 0)
+    bound = _attn_bound(torch.cuda.get_device_name(0), b, s, h, hkv, hd,
+                        0)["fwd"]
+    print(f"{tag} K5 at ({b}, {s:,}, {h} over {hkv}, {hd}) fp32 causal: "
+          f"max abs err vs plain {err:.3e}, sdpa yardstick {lib_err:.3e}; "
+          f"device ms in-run {in_run:.4f} (mean of {len(k5_us)} launches), "
+          f"alone (L2 flushed) {t['ms']:.4f}, plain {t['plain_ms']:.4f}, "
+          f"sdpa {t['library_ms']:.4f} [{backend}]; bound {bound[0]:.4f} ms "
+          f"({bound[4] / 1e9:.2f} GFLOP at {FP32_PEAK / 1e12:.0f} TFLOP/s, "
+          f"{bound[1]}); kernel at {bound[0] / t['ms']:.1%} alone, "
+          f"{bound[0] / in_run:.1%} in-run; kernel / sdpa "
+          f"{t['ms'] / t['library_ms']:.2f}x; on {smi}")
+    del q, k, v, patches
+    return {"K5": k5["fwd"], "tok_s": b * gen / wall,
+            "prefill_ms": prefill_s * 1e3, "step_ms": step_ms, "peak": peak,
+            "case": dict(t, in_run_ms=in_run, bound_ms=bound[0],
+                         bound_by=bound[1], max_abs_err=err)}
+
+
 # -- K4, K5, K6: the attention kernels' entry points ---------------------------
 
 TRAIN_B, TRAIN_S = 2, 4096       # launch/shapes.py train_4k at batch 2
@@ -2666,6 +2880,10 @@ def _attn_cases():
         cases.append((f"{STABLELM_ARCH} B=1 S={TRAIN_S}"
                       + ("" if dt == torch.float32 else " bf16"), st, 0, 1,
                       TRAIN_S, dt, True))
+    # internvl2-26b's round: 4,096 text tokens after 1,024 patches, 48
+    # heads over 8 of 128 (a GQA group of 6)
+    cases.append((f"{VLM_ARCH} B=1 S={VLM_ROUND_S}", get_config(VLM_ARCH),
+                  0, 1, VLM_ROUND_S, torch.float32, True))
     return cases
 
 
@@ -2987,10 +3205,11 @@ def phase_attention_kernels(dev):
           f"[attention-kernels] launches {driven}")
     rows["fwd"]["launches"] = driven["fwd"]
     rows["bwd"]["launches"] = driven["dq"] + driven["dkv"]
-    # the shapes this slice added: head dim 80 and whisper's non-causal
-    # padded-key route, each kernel's numbers alone
+    # the shapes of the later slices: head dim 80, whisper's non-causal
+    # padded-key route and internvl2-26b's round, each kernel's numbers
+    # alone
     for label, t in list(zoo.items()) + list(extra.items()):
-        if not label.startswith((STABLELM_ARCH, WHISPER_ARCH)):
+        if not label.startswith((STABLELM_ARCH, WHISPER_ARCH, VLM_ARCH)):
             continue
         for part, outs in (("fwd", ("o", "lse")), ("bwd", ("dq", "dk", "dv"))):
             rows[part].setdefault("cases", {})[label] = {
@@ -4073,12 +4292,16 @@ ZOO_KERNELS = {"K1": ("masked_agg_kernel",),
 
 def _free_card(tag):
     """Collect cyclic garbage (a Federation and its hooks) and return the
-    cached blocks: a full-width zoo round needs most of the card."""
+    cached blocks: a full-width zoo round needs most of the card.  Prints
+    the process's peak host memory too: the parity phases hold
+    full-width leaves on the host."""
     import gc
+    import resource
     gc.collect()
     torch.cuda.empty_cache()
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     print(f"[{tag}] {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
-          f"allocated on the card")
+          f"allocated on the card; host peak resident {peak / 2**30:.1f} GiB")
 
 
 def _zoo_counts():
@@ -4125,14 +4348,17 @@ def _in_run(events):
 def _zoo_fed(dev, cfg, s=None, **fl_kw):
     """``Federation.from_config`` on a zoo config as the launcher wires it
     (``lm_batch`` data by ``iid_partition``; the audio family's
-    ``frames`` standard normals from the seed, as ``launch/train.py``
-    draws them), with the pod step's loss keywords (chunked attention,
-    remat): one sequence of ``s`` tokens (``train_4k``'s length unless
-    given) per client and local step."""
+    ``frames`` and the vlm family's ``patches`` standard normals from the
+    seed, as ``launch/train.py`` draws them), with the pod step's loss
+    keywords (chunked attention, remat): one sequence of ``s`` text
+    tokens (``train_4k``'s length unless given) per client and local
+    step."""
     from repro_torch.core import FLConfig, Federation
     from repro_torch.data import FederatedLoader, iid_partition, lm_batch
     from repro_torch.launch import steps
     from repro_torch.launch.shapes import SHAPES
+
+    from repro_torch.models.transformer import vit_width
 
     s = s or SHAPES["train_4k"].seq_len
     n = ZOO_CLIENTS * ZOO_STEPS * (ZOO_ROUNDS + 1)
@@ -4140,6 +4366,9 @@ def _zoo_fed(dev, cfg, s=None, **fl_kw):
     if cfg.family == "audio":
         data["frames"] = np.random.default_rng(0).normal(
             0, 1, (n, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        data["patches"] = np.random.default_rng(0).normal(
+            0, 1, (n, cfg.n_patches, vit_width(cfg))).astype(np.float32)
     shards = iid_partition(n, ZOO_CLIENTS, key=1)
     loader = FederatedLoader([{k: v[i] for k, v in data.items()}
                               for i in shards], batch_size=1,
@@ -4410,7 +4639,8 @@ def _zoo_launches(cfg, steps_):
             "K6 dq": (n + n_enc) * steps_, "K6 dkv": (n + n_enc) * steps_}
 
 
-def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False):
+def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
+                    layers=None):
     """The paper's round on ``arch`` at full width (a unit a layer, plus
     embed and head; half trained a client), 2 clients x 2 local steps of
     one ``lm_batch`` sequence of ``s`` tokens, Adam at 2e-3, hub, with
@@ -4420,12 +4650,16 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False):
     alone lost a round's last kernels on an H100).  The profile must hold
     every kernel launch the counters saw in that round.  With ``repeat``
     the federation is built again from the same seed and run 2 rounds:
-    every parameter and selection bitwise equal."""
+    every parameter and selection bitwise equal.  ``layers`` cuts the
+    depth (every width as published)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.comm import table4_row
     from repro_torch.models import moe
+    from repro_torch.models.transformer import vit_width
 
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fed = _zoo_fed(dev, cfg, s=s)
@@ -4532,10 +4766,15 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False):
         print(f"[{tag}] round {r.round}: loss {r.loss:.4f} {sec:.3f} s wall "
               f"({r.seconds:.3f} s in the server) uplink "
               f"{r.uplink_bytes:.0f} B")
-    print(f"[{tag}] {cfg.name} full width ({got:,} fp32 params, "
+    print(f"[{tag}] {cfg.name} full width"
+          + (f" cut to {cfg.n_layers} layers" if layers else "")
+          + f" ({got:,} fp32 params, "
           f"{n_units} units, {n_units // 2} trained a client), "
           + (f"{cfg.enc_seq:,} frames a sequence, " if cfg.n_enc_layers
              else "")
+          + (f"{cfg.n_patches:,} patches of {vit_width(cfg):,} before "
+             f"the text ({cfg.n_patches + s:,} positions), "
+             if cfg.n_patches else "")
           + f"{ZOO_CLIENTS} clients x {ZOO_STEPS} local steps of 1 x "
           f"{s:,} tokens, Adam lr {ZOO_LR}: built in {build_s:.2f} s;"
           f" launches {counts} == predicted; frozen (client, unit row) "
@@ -4651,6 +4890,26 @@ def phase_zoo_parity_stablelm(dev):
                      tag="zoo-parity-stablelm")
 
 
+def phase_zoo_round_vlm(dev, smi):
+    """internvl2-26b at full width cut to 2 layers (4 units: embed with
+    the projector, layer0, layer1, head; 2 trained a client) at
+    ``train_4k``'s 4,096 text tokens after 1,024 patches (5,120
+    positions): K5/K6 at 48 heads over 8 of 128, K1 on the hub
+    aggregate, built twice from one seed."""
+    return _zoo_round_arch(dev, smi, VLM_ARCH, VLM_ROUND_PARAMS, TRAIN_S,
+                           "zoo-round-vlm", repeat=True,
+                           layers=VLM_ROUND_LAYERS)
+
+
+def phase_zoo_parity_vlm(dev):
+    """internvl2-26b at full width cut to 1 layer, 1,024 patches and 128
+    text tokens (1,152 positions: the chunked route, K5/K6 on the card),
+    the projector trained by one client: card against the host CPU."""
+    from repro_torch.configs.base import get_config
+    phase_zoo_parity(dev, get_config(VLM_ARCH).replace(n_layers=1),
+                     s=VLM_PARITY_S, tag="zoo-parity-vlm")
+
+
 def k1_qwen3_plan(dev, plan_rows, smi):
     """K1 alone at qwen3-1.7b's hub plan (``plan_rows`` rows of 2,048, 2
     clients: 27.54 GB a call), on random tile buffers of that shape: its
@@ -4731,7 +4990,8 @@ def _decisive_routing(cfg, params, spacing=0.02, scale=3.0):
 def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity",
                      lr=ZOO_PARITY_LR):
     """qwen3-1.7b at full width cut to 2 layers (or ``cfg``), one hub
-    round of SGD at S = 1,024 (or ``s``: the chunked route), 2 clients,
+    round of SGD at S = 1,024 (or ``s`` text tokens, after a VLM's
+    patches: the chunked route), 2 clients,
     the same params, batches and replayed selections on the card (K5/K6,
     K1) and on the host CPU (plain versions).  A MoE model's routing is
     made decisive (``_decisive_routing``), and the CPU run's least gap
@@ -4747,6 +5007,7 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity",
     from repro_torch.kernels.masked_agg import ops as kops
     from repro_torch.launch import steps
     from repro_torch.models import get_model
+    from repro_torch.models.transformer import vit_width
 
     cfg = cfg or get_config(ZOO_ARCH).replace(n_layers=2)
     model = get_model(cfg)
@@ -4759,12 +5020,18 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity",
     if cfg.family == "audio":
         data["frames"] = np.random.default_rng(6).normal(
             0, 1, (c, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        data["patches"] = np.random.default_rng(6).normal(
+            0, 1, (c, cfg.n_patches, vit_width(cfg))).astype(np.float32)
     batches = {k: v.reshape((c, 1, 1) + v.shape[1:]) for k, v in data.items()}
     # units embed, layer0, layer1, head (whisper: embed, enc0, enc1,
-    # layer0, layer1, head): each client trains n_train_units of them, and
-    # every layer is trained by some client
+    # layer0, layer1, head; a 1-layer cut: embed, layer0, head): each
+    # client trains n_train_units of them, and every layer is trained by
+    # some client
     if cfg.n_enc_layers:
         sel = np.asarray([[0, 1, 0, 1, 1, 0], [1, 0, 1, 0, 1, 0]], np.float32)
+    elif cfg.n_layers == 1:
+        sel = np.asarray([[0, 1, 1], [1, 1, 0]], np.float32)
     else:
         sel = np.asarray([[0, 1, 1, 0], [1, 1, 0, 0]], np.float32)
     n_train = int(sel.sum(1)[0])
@@ -4816,11 +5083,14 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity",
                 rows[f"{p}[{r}]"] = (mv, er)
     least = min(rows, key=lambda r: rows[r][0])
     rel = max(rows, key=lambda r: rows[r][1] / max(rows[r][0], 1e-30))
-    print(f"[{tag}] {cfg.name} at full width cut to 2 layers"
+    print(f"[{tag}] {cfg.name} at full width cut to {cfg.n_layers} "
+          f"layer{'s' if cfg.n_layers > 1 else ''}"
           + (f" (and {cfg.n_enc_layers} encoder layers over "
              f"{cfg.enc_seq:,} frames)" if cfg.n_enc_layers else "")
           + (f" (window {cfg.sliding_window}, global_every "
              f"{cfg.global_every})" if cfg.sliding_window else "")
+          + (f", {cfg.n_patches:,} patches before the text "
+             f"({cfg.n_patches + s:,} positions)" if cfg.n_patches else "")
           + f", S={s}, "
           f"{c} clients, one SGD step at lr {lr}, selection "
           f"{sel.tolist()}"
@@ -4885,11 +5155,12 @@ def phase_train_launcher(arch=ZOO_ARCH, rounds=1, units=30,
 
 
 def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
-                    attn_zoo, hymba_run, k1_plan, moe_run):
+                    attn_zoo, hymba_run, k1_plan, moe_run, vlm_run):
     """The zoo call sites' numbers for the kernels line: in-run device
     ms beside the bound and, for K5/K6, ``[attention-kernels]``' readings
     at the same shapes (alone, plain, SDPA, max abs err); K1 at qwen3's
-    plan alone (``k1_qwen3_plan``) and in-run at granite's."""
+    plan alone (``k1_qwen3_plan``) and in-run at granite's and
+    internvl2-26b's."""
     name = torch.cuda.get_device_name(0)
     rows = {"K1": {}, "K2": {}, "K5": {}, "K6": {}}
     k1_bytes = (ZOO_CLIENTS + 2) * plan_rows * 2048 * 4 \
@@ -4915,11 +5186,17 @@ def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
                                            ("local", "global"))]
     shapes.append((f"{MOE_ARCH} B=1 S={TRAIN_S}", moe_run["K5"]["ms"],
                    moe_run["K6"]["ms"]))
-    k1m = moe_run["K1"]
-    rows["K1"][f"hub {MOE_ARCH}"] = dict(
-        T=k1m["T"], C=ZOO_CLIENTS,
-        in_run_ms=None if math.isnan(k1m["ms"]) else k1m["ms"],
-        bound_ms=k1m["bound_ms"], bound_by="bytes")
+    shapes.append((f"{VLM_ARCH} B=1 S={VLM_ROUND_S}", vlm_run["K5"]["ms"],
+                   vlm_run["K6"]["ms"]))
+    for arch, run in ((MOE_ARCH, moe_run), (VLM_ARCH, vlm_run)):
+        k1m = run["K1"]
+        rows["K1"][f"hub {arch}"] = dict(
+            T=k1m["T"], C=ZOO_CLIENTS, in_run_ms=k1m["ms"],
+            bound_ms=k1m["bound_ms"], bound_by="bytes")
+        print(f"[zoo-kernels] K1 hub {arch} plan T={k1m['T']} C="
+              f"{ZOO_CLIENTS}: in-run {k1m['ms']:.4f} ms, bound "
+              f"{k1m['bound_ms']:.4f} ms (bytes), kernel at "
+              f"{k1m['bound_ms'] / k1m['ms']:.1%} of the bound in-run")
     for label, k5_ms, k6_ms in shapes:
         t = attn_zoo[label]
         bound = t["bound"]
@@ -4956,6 +5233,7 @@ def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA GPU", file=sys.stderr)
@@ -5045,6 +5323,11 @@ def main() -> int:
     _free_card("serve-stablelm")
     whisper_serve = timed("serve-whisper", phase_serve_whisper, dev)
     k5_serve[f"serve {WHISPER_ARCH} encoder prefill"] = whisper_serve["K5"]
+    _free_card("serve-whisper")
+    # internvl2-26b cut to 24 layers through the static loop (K5 in the
+    # prefill over 1,024 patches and 128 prompt tokens)
+    vlm_serve = timed("serve-vlm", phase_serve_vlm, dev, smi)
+    k5_serve[f"serve {VLM_ARCH} prefill"] = vlm_serve["K5"]
     _free_card("zoo")
     # the zoo: the round and the train step of the zoo LMs (K1, K2, K5, K6)
 
@@ -5074,25 +5357,33 @@ def main() -> int:
         "zoo-round-whisper", phase_zoo_round_whisper, dev, smi)
     timed("zoo-parity-whisper", phase_zoo_parity_whisper, dev)
     timed("zoo-parity-stablelm", phase_zoo_parity_stablelm, dev)
+    # internvl2-26b's round cut to 2 layers (K1; K5/K6 over 1,024 patches
+    # and 4,096 text tokens) and its 1-layer parity
+    vlm_counts, vlm_run, _, _ = timed("zoo-round-vlm", phase_zoo_round_vlm,
+                                      dev, smi)
+    timed("zoo-parity-vlm", phase_zoo_parity_vlm, dev)
     k1_plan = timed("k1-qwen3-plan", k1_qwen3_plan, dev, plan_rows, smi)
     hymba_s = sum(v for k, v in walls.items()
                   if "hymba" in k or k.startswith("k1-"))
     moe_s = sum(v for k, v in walls.items() if "moe" in k)
     new_s = sum(v for k, v in walls.items()
                 if "whisper" in k or "stablelm" in k)
+    vlm_s = sum(v for k, v in walls.items() if "vlm" in k)
     print("[zoo] wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                              walls.items())
           + f"; phases 29-33 "
-          f"{sum(walls.values()) - hymba_s - moe_s - new_s:.1f}; "
+          f"{sum(walls.values()) - hymba_s - moe_s - new_s - vlm_s:.1f}; "
           f"phases 34-39 (hymba, k1-qwen3-plan) {hymba_s:.1f}; phases 40-44 "
           f"(granite-moe-1b-a400m) {moe_s:.1f}; phases 45-49 (stablelm-3b, "
-          f"whisper-medium) {new_s:.1f}")
+          f"whisper-medium) {new_s:.1f}; phases 50-52 (internvl2-26b) "
+          f"{vlm_s:.1f}")
     zoo = zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
-                          attn_zoo, hymba_run, k1_plan, moe_run)
+                          attn_zoo, hymba_run, k1_plan, moe_run, vlm_run)
     k1_paths["hub qwen3-1.7b"] = dense["K1"]
     k1_paths["hub hymba-1.5b"] = hymba_counts["K1"]
     k1_paths[f"hub {MOE_ARCH}"] = moe_counts["K1"]
     k1_paths[f"hub {WHISPER_ARCH}"] = whisper_counts["K1"]
+    k1_paths[f"hub {VLM_ARCH}"] = vlm_counts["K1"]
     k3["launches"] = sum(k3_paths.values())
     k3["launches_by_path"] = k3_paths
     k1_paths["hub qwen3-1.7b packed qint8"] = packed["K1"]
@@ -5106,7 +5397,8 @@ def main() -> int:
                  ("train step gemma3-12b macro block", gemma),
                  ("hub hymba-1.5b", hymba_counts),
                  (f"hub {MOE_ARCH}", moe_counts),
-                 (f"hub {WHISPER_ARCH}", whisper_counts))
+                 (f"hub {WHISPER_ARCH}", whisper_counts),
+                 (f"hub {VLM_ARCH}", vlm_counts))
     for k, keys in ((k5, ("K5",)), (k6, ("K6 dq", "K6 dkv"))):
         paths = {p: sum(c[x] for x in keys) for p, c in zoo_paths}
         if k is k5:
@@ -5121,12 +5413,18 @@ def main() -> int:
             for where in ("enc", "self", "cross")}
     k1["zoo"], k2["zoo"], k5["zoo"], k6["zoo"] = (
         zoo["K1"], zoo["K2"], zoo["K5"], zoo["K6"])
+    # K5 at internvl2-26b's serving prefill: (8, 1,152, 48 over 8, 128)
+    k5.setdefault("cases", {})[
+        f"serve {VLM_ARCH} prefill B={VLM_BATCH} "
+        f"S={1024 + VLM_PROMPT}"] = vlm_serve["case"]
     # K4's main path is whisper's decode step; [decode-dense]'s direct
     # calls are listed beside it
     k4["launches"] = whisper_serve["K4"]
     k4["launches_by_path"] = {
         f"serve {WHISPER_ARCH}": whisper_serve["K4"],
         "decode-dense (direct calls)": k4.pop("direct_launches")}
+    print(f"[smoke] {time.perf_counter() - t_start:.1f} s of wall in all, "
+          f"the build included")
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,14 +8,13 @@ by name and selectable from the serving and training launchers via
 gemma3-12b, qwen2.5-14b (QKV bias) and stablelm-3b (LayerNorm, 25%
 rotary), the moe family's granite-moe-1b-a400m and
 llama4-maverick-400b-a17b, the ssm family's rwkv6-3b, the hybrid
-family's hymba-1.5b and the audio family's whisper-medium; the VLM's
-config waits for its model.
+family's hymba-1.5b, the audio family's whisper-medium and the vlm
+family's internvl2-26b (its vision tower a stub that feeds
+``n_patches`` patch embeddings).
 
 ``ArchConfig.reduced()`` returns the smoke-test variant (≤2 layers,
 d_model ≤ 512, ≤4 experts) of the same family, used by tests and CPU
-runs.  Fields of features the port does not serve yet (the patch
-frontend) are kept so that the dataclass matches the reference's field
-for field.
+runs.  The dataclass matches the reference's field for field.
 """
 from __future__ import annotations
 
@@ -174,6 +173,6 @@ def list_configs() -> Tuple[str, ...]:
 def _ensure_loaded():
     # import side-effect registration of every config module the port has
     from . import (  # noqa: F401
-        gemma3_12b, granite_moe_1b_a400m, hymba_1_5b,
+        gemma3_12b, granite_moe_1b_a400m, hymba_1_5b, internvl2_26b,
         llama4_maverick_400b_a17b, qwen2_5_14b, qwen3_1_7b, rwkv6_3b,
         stablelm_3b, whisper_medium)

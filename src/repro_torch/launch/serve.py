@@ -19,6 +19,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --engine static \\
         --arch whisper-medium --batch 8 --prompt-len 64 --gen 128
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine static \\
+        --arch internvl2-26b --reduced --device cpu --batch 2 \\
+        --prompt-len 8 --gen 4
+
 The flags are those of ``repro.launch.serve``, plus ``--device``
 (default ``cuda``: the card; the run fails without one unless
 ``--device cpu`` is given).  ``--engine static`` runs the fixed-batch
@@ -27,11 +31,15 @@ continuous`` routes the requests through the paged continuous-batching
 engine with ``--batch`` decode slots (rwkv6-3b's state rows take no
 pages; its prefill's scan runs on kernel K7 on the card; hymba-1.5b's
 attention KV takes pages, its conv and SSM states slot rows).
-whisper-medium (the ``audio`` family) runs the static loop only, as in
-the reference; its ``frames`` (batch, 1,500, d_model) are drawn from
-``--seed`` too.  Weights are random, drawn from ``--seed``; so are the
-prompts, from a torch generator: they are not the reference launcher's
-prompts.
+whisper-medium (the ``audio`` family) and internvl2-26b (the ``vlm``
+family) run the static loop only, as in the reference (``--engine
+continuous`` raises the engine's ``ValueError``); whisper's ``frames``
+(batch, 1,500, d_model) and the VLM's ``patches`` (batch, n_patches,
+``vit_width``) are drawn from ``--seed`` too, and a VLM's ``max_len``
+adds its patches, as the reference's does.  Weights are random, drawn
+from ``--seed``; so are the prompts, from a torch generator: they are
+not the reference launcher's prompts.  At full width internvl2-26b's 48
+layers take 79.5 GB in fp32, more than one 80 GB card holds.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ import torch
 from ..common import resolve_device
 from ..configs.base import get_config, list_configs
 from ..models import get_model
+from ..models.transformer import vit_width
 from ..serve.engine import DecodeEngine, ServeConfig, static_generate
 
 
@@ -87,13 +96,18 @@ def main(argv=None):
         generator=torch.Generator().manual_seed(args.seed + 1),
         dtype=torch.int32).numpy()
     extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = torch.randn(
+            (b, cfg.n_patches, vit_width(cfg)),
+            generator=torch.Generator().manual_seed(args.seed + 2))
     if cfg.family == "audio":
         extra["frames"] = torch.randn(
             (b, cfg.enc_seq, cfg.d_model),
             generator=torch.Generator().manual_seed(args.seed + 3))
     gens = [args.gen + (i % args.gen_spread if args.gen_spread else 0)
             for i in range(n_req)]
-    max_len = s + max(gens) + 8
+    max_len = s + max(gens) + 8 + (cfg.n_patches if cfg.family == "vlm"
+                                   else 0)
 
     if args.engine == "continuous":
         sv = ServeConfig(n_slots=b, max_len=max_len,

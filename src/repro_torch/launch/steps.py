@@ -89,7 +89,11 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape,
         kw.pop("q_chunk", None)
 
     def prefill_step(params, batch):
-        extra = {"frames": batch["frames"]} if cfg.family == "audio" else {}
+        extra = {}
+        if cfg.family == "vlm":
+            extra["patches"] = batch["patches"]
+        if cfg.family == "audio":
+            extra["frames"] = batch["frames"]
         with torch.no_grad():
             return model.prefill(params, batch["tokens"],
                                  max_len=shape.seq_len, last_only=True,

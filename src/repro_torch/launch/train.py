@@ -11,6 +11,10 @@
         --arch whisper-medium --clients 2 --rounds 1 --batch-size 1 \\
         --steps-per-round 1 --seq 64
 
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch internvl2-26b --reduced --device cpu --clients 2 \\
+        --rounds 1 --batch-size 1 --steps-per-round 1 --seq 16
+
 The flags, defaults and output lines are those of
 ``repro.launch.train`` (a header line, one log line a round, ``total
 ...s; comm summary:`` and the JSON of ``comm_summary()``), plus
@@ -19,16 +23,16 @@ unless ``--device cpu`` is given).  It drives the paper's federated
 round (per-client layer subsets from the registered strategy, masked
 local Adam, participation-weighted FedAvg) over synthetic LM data
 (``data.lm_batch``; for the ``audio`` family also ``frames``, (n,
-enc_seq, d_model) standard normals from ``--seed``, as the reference
-draws them) partitioned IID across clients, through the
+enc_seq, d_model), and for the ``vlm`` family ``patches``, (n,
+n_patches, ``vit_width``), standard normals from ``--seed``, as the
+reference draws them) partitioned IID across clients, through the
 ``Federation`` facade, with the facade's default attention
 (``attn_impl="reference"``).  Weights are random, drawn on the device
 from ``--seed``.
 
 ``--client-shards`` (a device mesh) and ``--prod-env`` (the reference's
 XLA launch profile, ``launch/env.py``) are not ported and raise
-``NotPortedError``; so does an ``--arch`` whose model family the port
-lacks, before any data is drawn.
+``NotPortedError``.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ from ..core import (Checkpointer, FLConfig, Federation, NotPortedError,
                     registered_client_samplers, registered_strategies,
                     registered_topologies)
 from ..data import FederatedLoader, iid_partition, lm_batch
-from ..models import get_model
+from ..models.transformer import vit_width
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -148,10 +152,12 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    get_model(cfg)          # an unported family raises before any work
     dev = resolve_device(args.device)
     n = args.clients * args.batch_size * args.steps_per_round * 8
     data = lm_batch(n, args.seq, cfg.vocab, key=args.seed)
+    if cfg.family == "vlm":
+        data["patches"] = np.random.default_rng(args.seed).normal(
+            0, 1, (n, cfg.n_patches, vit_width(cfg))).astype(np.float32)
     if cfg.family == "audio":
         data["frames"] = np.random.default_rng(args.seed).normal(
             0, 1, (n, cfg.enc_seq, cfg.d_model)).astype(np.float32)

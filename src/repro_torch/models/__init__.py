@@ -2,14 +2,17 @@
 CASA LSTM, ``paper_models``), the toy stacked-block MLP the round-step
 tests use (``toy``), and the zoo's dense transformer family
 (``transformer``, which also runs the ``moe`` family's blocks through
-``moe``), RWKV-6 (``rwkv6``, the ``ssm`` family), hymba (``hymba``,
-the ``hybrid`` family) and whisper (``whisper``, the ``audio`` family),
-one API across families as in ``repro.models``.
+``moe`` and the ``vlm`` family's patch projector), RWKV-6 (``rwkv6``,
+the ``ssm`` family), hymba (``hymba``, the ``hybrid`` family) and
+whisper (``whisper``, the ``audio`` family), one API across families as
+in ``repro.models``.
 
-``get_model(cfg)`` dispatches on ``cfg.family``.  ``dense``, ``moe``,
-``ssm``, ``hybrid`` and ``audio`` are ported; ``vlm`` raises
-``NotPortedError``.  The paged serving entries are None for a family
-without them (whisper), as in the reference.
+``get_model(cfg)`` dispatches on ``cfg.family``: every family of the
+reference is ported, and an unknown one raises ``NotPortedError``.  The
+paged serving entries are None for a family without them (whisper), as
+in the reference; the ``vlm`` family has them, and the serving engine
+refuses it all the same (``serve.paged_cache.build_layout``), as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ class ModelApi(NamedTuple):
     decode_step_paged: Optional[Callable] = None
 
 
-_FAMILY = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
-           "hybrid": hymba, "audio": whisper}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "ssm": rwkv6, "hybrid": hymba, "audio": whisper}
 
 
 def get_model(cfg) -> ModelApi:

@@ -22,9 +22,12 @@ sub-layer of each macro block of 2) run ``moe.apply_moe`` in place of the
 dense MLP, plus the always-on shared MLP (``shared/*``) where
 ``moe.shared_d_ff`` is set; ``forward`` sums their aux losses over
 sub-layers and macro blocks, and the decode steps run ``apply_moe`` over
-all B rows, idle slots included, as the reference does.  The VLM patch
-projector (``n_patches``) and the sharded MoE dispatch (``moe_mesh``) are
-not ported yet and raise ``NotPortedError``.
+all B rows, idle slots included, as the reference does.  The ``vlm``
+family (internvl2-26b) projects its stub frontend's patch embeddings
+(``projector/w``, ``projector/b``) and puts them before the text tokens;
+its loss reads the text positions only, and its caches count the
+patches.  The sharded MoE dispatch (``moe_mesh``) is not ported yet and
+raises ``NotPortedError``.
 """
 from __future__ import annotations
 
@@ -74,12 +77,6 @@ def n_macro(cfg) -> int:
     return cfg.n_layers // macro
 
 
-def _check_ported(cfg) -> None:
-    if cfg.n_patches:
-        raise NotPortedError(f"{cfg.name}: the VLM patch projector is not "
-                             f"ported yet")
-
-
 def _dtype(cfg, dtype) -> torch.dtype:
     return dtype or getattr(torch, cfg.param_dtype)
 
@@ -115,21 +112,35 @@ def init_params(cfg, gen: torch.Generator, dtype=None) -> Tree:
     the reference's distributions and leaf paths, in JAX leaf order."""
     dtype = _dtype(cfg, dtype)
     layout = block_layout(cfg)
-    _check_ported(cfg)
     nm = n_macro(cfg)
     dev = gen.device
     params: Tree = {"embed/table": L.init_embed(
         gen, cfg.padded_vocab, cfg.d_model, dtype)["table"]}
     for si, spec in enumerate(layout):
-        subs = [_init_sub(cfg, gen, spec, dtype) for _ in range(nm)]
-        for k in subs[0]:
-            params[f"blocks/sub{si}/{k}"] = torch.stack([s[k] for s in subs])
+        # each layer's draws go straight into its row of the stacked leaf,
+        # so that the card holds the stack and one layer, not two stacks
+        for m in range(nm):
+            for k, v in _init_sub(cfg, gen, spec, dtype).items():
+                path = f"blocks/sub{si}/{k}"
+                if m == 0:
+                    params[path] = v.new_empty((nm,) + tuple(v.shape))
+                params[path][m] = v
     for k, v in L.init_norm(cfg.norm, cfg.d_model, dtype, dev).items():
         params[f"final_norm/{k}"] = v
     if not cfg.tie_embeddings:
         params["head/w"] = L.dense_init(gen, (cfg.d_model, cfg.padded_vocab),
                                         dtype)
+    if cfg.n_patches:     # VLM projector: stub ViT feature width -> d_model
+        params["projector/w"] = L.dense_init(
+            gen, (vit_width(cfg), cfg.d_model), dtype)
+        params["projector/b"] = torch.zeros((cfg.d_model,), dtype=dtype,
+                                            device=dev)
     return sorted_tree(params)
+
+
+def vit_width(cfg) -> int:
+    """Feature width of the stub vision frontend's patch embeddings."""
+    return min(1024, cfg.d_model)
 
 
 def _group(params: Tree, prefix: str) -> Tree:
@@ -191,12 +202,27 @@ def _apply_sub(cfg, p, spec: SubSpec, x, positions, rope, attn_impl,
     return x + y, aux, (k, v)
 
 
+def _embed_inputs(cfg, params: Tree, tokens, patches):
+    """Token embeddings, after the projected patches on a VLM: the
+    product in the projector's dtype, plus the bias, cast to the
+    embeddings' dtype (the reference's order)."""
+    x = L.embed_tokens(_group(params, "embed"), tokens)
+    if cfg.n_patches:
+        if patches is None:
+            raise ValueError(f"{cfg.name} requires patch embeddings")
+        w, b = params["projector/w"], params["projector/b"]
+        px = patches.to(w.dtype) @ w + b
+        x = torch.cat([px.to(x.dtype), x], dim=1)
+    return x
+
+
 def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
             attn_impl="chunked", q_chunk: int = 1024,
             build_cache: bool = False, cache_len: int = 0,
             remat: bool = False, last_only: bool = False,
             unroll: bool = False, moe_mesh=None):
-    """tokens (B, S) -> (logits (B,S,V), aux_loss, cache_or_None).
+    """tokens (B, S_text) [+ patches (B, n_patches, vit_width)] ->
+    (logits (B,S,V), aux_loss, cache_or_None), S = n_patches + S_text.
 
     ``remat=True`` checkpoints each macro-block while autograd records
     (``torch.utils.checkpoint``, non-reentrant): its activations are
@@ -206,12 +232,11 @@ def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
     blocks is always unrolled, so it changes nothing here.
     """
     layout = block_layout(cfg)
-    _check_ported(cfg)
-    if patches is not None or moe_mesh is not None:
-        raise NotPortedError("forward: patches and moe_mesh are not ported")
+    if moe_mesh is not None:
+        raise NotPortedError("forward: moe_mesh is not ported")
     dev = tokens.device
     rope = L.rope_freqs(cfg.head_dim, cfg.rope_pct, cfg.rope_theta, dev)
-    x = L.embed_tokens(_group(params, "embed"), tokens)
+    x = _embed_inputs(cfg, params, tokens, patches)
     b, s, _ = x.shape
     positions = torch.arange(s, device=dev).expand(b, s)
 
@@ -261,6 +286,8 @@ def loss_fn(cfg, params: Tree, batch, *, attn_impl="chunked",
                              patches=batch.get("patches"),
                              attn_impl=attn_impl, q_chunk=q_chunk,
                              remat=remat, unroll=unroll, moe_mesh=moe_mesh)
+    if cfg.n_patches:     # the loss reads the text positions only
+        logits = logits[:, cfg.n_patches:]
     loss = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
     return loss + aux, {"xent": loss, "aux": aux}
 
@@ -379,7 +406,6 @@ def decode_step_paged(cfg, params: Tree, paged: Tree, token, steps,
     ``paged_decode_attention`` (kernel K3 on the card).
     """
     layout = block_layout(cfg)
-    _check_ported(cfg)
     rope = L.rope_freqs(cfg.head_dim, cfg.rope_pct, cfg.rope_theta,
                         token.device)
     x = L.embed_tokens(_group(params, "embed"), token)   # (B,1,d)
@@ -406,12 +432,12 @@ def decode_step_paged(cfg, params: Tree, paged: Tree, token, steps,
 def decode_step(cfg, params: Tree, cache: Tree, token):
     """One decode step.  token (B, 1) int; cache from init_cache/prefill.
 
-    Writes K/V at position ``cache['step']`` (in place) and attends over
+    Writes K/V at position ``cache['step']`` (in place; the step counts
+    every cached position, a VLM's patches included) and attends over
     everything written so far (ring semantics for sliding-window
     layers).  Returns (logits, cache) with ``step`` advanced.
     """
     layout = block_layout(cfg)
-    _check_ported(cfg)
     rope = L.rope_freqs(cfg.head_dim, cfg.rope_pct, cfg.rope_theta,
                         token.device)
     step = cache["step"]

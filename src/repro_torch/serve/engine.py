@@ -334,8 +334,10 @@ def static_generate(cfg, params, prompts, gen: int, *, max_len: int,
                     gumbel: Optional[GumbelFn] = None, extra=None):
     """Fixed-batch prefill + decode over the dense cache: the engine's
     oracle and the launcher's ``--engine static`` path (the only one of
-    the ``audio`` family, whose ``extra={"frames": ...}`` goes to the
-    prefill, moved to ``device``).
+    the ``audio`` and ``vlm`` families).  ``extra`` holds their frontend's
+    inputs, ``{"frames": ...}`` or ``{"patches": ...}``, which go to the
+    prefill, moved to ``device``; a VLM's cache then counts the patches,
+    so ``max_len`` must cover them.
 
     Every token — including the first — is sampled with the
     per-(request, token-index) noise, so streams are comparable with the

@@ -3,7 +3,7 @@ reference's ``launch/train.py`` and ``launch/steps.py``.
 
 The launcher takes the reference's flags with their defaults, plus
 ``--device``; its ``--arch`` choices lack exactly the configs of the
-families the port has not ported.  ``python -m repro_torch.launch.train
+families the port has not ported (none since the ``vlm`` family).  ``python -m repro_torch.launch.train
 --reduced --device cpu`` prints the reference's header fields, with the
 same values, and the same comm-summary keys.  The switches of unported
 features raise ``NotPortedError``.  ``default_loss_kwargs`` and
@@ -36,7 +36,7 @@ from repro_torch.configs.base import get_config, list_configs
 from repro_torch.convert import from_reference
 from repro_torch.core import NotPortedError
 from repro_torch.launch import shapes, steps, train
-from repro_torch.models import _FAMILY
+from repro_torch.models import _FAMILY, get_model, transformer
 
 ARGV = ["--reduced", "--clients", "2", "--rounds", "2", "--batch-size", "2",
         "--steps-per-round", "1", "--seq", "32"]
@@ -83,7 +83,7 @@ def test_flags_match_reference(ref_parser):
 def test_arch_choices_lack_exactly_the_unported_families(ref_parser):
     ref = set(_options(ref_parser)["arch"].choices)
     port = set(_options(train.build_parser())["arch"].choices)
-    assert port == set(list_configs()) and port < ref
+    assert port == set(list_configs()) and port <= ref
     assert ref - port == {n for n in ref
                           if r_get_config(n).family not in _FAMILY}
     for name in ref - port:        # the port registers no config it can't run
@@ -123,12 +123,14 @@ def test_cpu_run_prints_reference_fields(capsys, monkeypatch):
     (["--prod-env"], "launch/env.py"),
     (["--arch", "internvl2-26b"], None)])
 def test_unported_switches_raise(extra, match):
-    if match is None:                 # argparse refuses an unknown arch
-        with pytest.raises(SystemExit):
-            train.main(["--device", "cpu", *ARGV, *extra])
-        with pytest.raises(NotPortedError, match="vlm"):
-            train.get_model(get_config("qwen3-1.7b").replace(
-                family="vlm"))
+    if match is None:                 # a ported family's arch is accepted
+        args = train.build_parser().parse_args(["--device", "cpu", *ARGV,
+                                                *extra])
+        assert args.arch == "internvl2-26b"
+        api = get_model(get_config(args.arch))
+        assert api.forward.__code__ is get_model(
+            get_config("qwen3-1.7b")).forward.__code__
+        assert _FAMILY["vlm"] is transformer
         return
     with pytest.raises(NotPortedError, match=match):
         train.main(["--device", "cpu", *ARGV, *extra])

@@ -27,8 +27,7 @@ from repro.models import get_model as r_get_model
 from repro.models import rwkv6 as r_rwkv6
 from repro_torch.configs.base import get_config
 from repro_torch.convert import from_reference, is_conv_kernel, to_reference
-from repro_torch.core import NotPortedError
-from repro_torch.models import get_model, rwkv6
+from repro_torch.models import _FAMILY, get_model, rwkv6, transformer
 
 TOL = 1e-4
 ARCH = "rwkv6-3b"
@@ -235,5 +234,7 @@ def test_helpers_match_reference(setup):
 def test_get_model_families():
     cfg = get_config(ARCH).reduced()
     assert get_model(cfg).prefill is not None
-    with pytest.raises(NotPortedError, match="vlm"):
-        get_model(cfg.replace(family="vlm"))
+    # the vlm family is the transformer's since it was ported
+    vlm = get_model(get_config("internvl2-26b").reduced())
+    assert vlm.prefill is not None and vlm.decode_step_paged is not None
+    assert _FAMILY["vlm"] is transformer

@@ -62,7 +62,7 @@ def test_configs_match_reference():
                                    "qwen2.5-14b", "stablelm-3b", "hymba-1.5b",
                                    "granite-moe-1b-a400m",
                                    "llama4-maverick-400b-a17b",
-                                   "whisper-medium"}
+                                   "whisper-medium", "internvl2-26b"}
     for name in list_configs():
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(r_get_config(name))
@@ -244,8 +244,10 @@ def test_paged_decode_equals_dense_decode_bitwise(gemma):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotPortedError, match="vlm"):
-        get_model(get_config("qwen3-1.7b").replace(family="vlm"))
+    # the vlm family is the transformer's since it was ported
+    vlm = get_config("internvl2-26b").reduced()
+    assert get_model(vlm).forward.__code__ is \
+        get_model(get_config("qwen3-1.7b")).forward.__code__
     # the audio family is whisper's since it was ported; it has no paged
     # serving entries
     assert get_model(get_config("whisper-medium")).decode_step_paged is None
@@ -255,6 +257,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotPortedError, match="moe_mesh"):
         model.forward(params, torch.zeros((1, 4), dtype=torch.int64),
                       moe_mesh=object())
-    with pytest.raises(NotPortedError, match="patch projector"):
-        get_model(cfg.replace(n_patches=8)).init_params(
-            torch.Generator().manual_seed(0))
+    # the patch projector is drawn since it was ported
+    vp = get_model(vlm).init_params(torch.Generator().manual_seed(0))
+    assert tuple(vp["projector/w"].shape) == (transformer.vit_width(vlm),
+                                              vlm.d_model)
