@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in fifty-two phases, in the order
+nothing of the ``repro`` package) in fifty-five phases, in the order
 below except that 17-20, then 22-28, then 21 run after 8, 34-35, then
-40-41, then 45-46, then 50 after 16, and 42-44, then 47-49, then 51-52
-after 38 (39 last), and any failure exits non-zero:
+40-41, then 45-46, then 50, 54 and 55 after 16, and 42, 53, 43-44, then
+47-49, then 51-52 after 38 (39 last), and any failure exits non-zero.
+Each phase's wall seconds are printed before the kernels line:
 
 1. build — compiles every CUDA kernel of the port from the sources in
    the checkout with ``nvcc`` (``repro_torch/kernels/_build.py``).
@@ -309,7 +310,7 @@ after 38 (39 last), and any failure exits non-zero:
    steps: K5 12 and K6 6 + 6 a step; the local and the global layers'
    in-run times from one profiled step.
 32. zoo-parity — qwen3-1.7b at full width cut to 2 layers, one hub round
-   of SGD at rate ZOO_PARITY_LR and S = 1,024 (the chunked route), 2
+   of SGD at rate ZOO_PARITY_LR and S = 640 (the chunked route), 2
    clients, on the card (K5, K6, K1) and on the host CPU (plain
    versions), same params, batches and replayed selections (each client trains exactly ``n_train_units``
    = 2 units, both layers trained by some client): every parameter
@@ -337,16 +338,17 @@ after 38 (39 last), and any failure exits non-zero:
    on ``serving``, every request's token count, one decode input
    signature; prints tokens/s, decode ms per step, TTFT, latency and
    peak memory.
-35. serve-hymba-parity — each traffic's engine against
-   ``static_generate`` on the card, as ``[serve-parity]`` (logits 1e-3,
-   tokens equal barring near ties).
-36. zoo-round-hymba — the paper's round on hymba-1.5b at full width (34
-   units, 17 trained a client), [zoo-round]'s setup at S = 2,048 (past
+35. serve-hymba-parity — each traffic's measured engine run (its logits
+   recorded) against ``static_generate`` on the card, as
+   ``[serve-parity]`` (logits 1e-3, tokens equal barring near ties).
+36. zoo-round-hymba — the paper's round on hymba-1.5b at full width cut
+   to 16 of 32 layers (789,711,200 params; 18 units, 9 trained a
+   client), [zoo-round]'s setup at S = 2,048 (past
    the window, so the windowed and the global layers' K5/K6 do
    different work): 2 rounds, the second under ``torch.profiler``
    (host and device events; the profile must hold every launch the
    counters saw in that round).  Launches as the code predicts (K1 2,
-   K5 512, K6 256 + 256), frozen (client, unit row) deltas exactly
+   K5 256, K6 128 + 128), frozen (client, unit row) deltas exactly
    zero, the bill equal to Table 4, peak memory; the device's busy
    share, the kernels' in-run times, windowed and global apart.
 37. zoo-parity-hymba — [zoo-parity] on hymba-1.5b at full width cut to
@@ -416,12 +418,13 @@ after 38 (39 last), and any failure exits non-zero:
    WHISPER_PARITY_LR: card vs CPU at ZOO_PARITY_TOL, every row of the
    self- and cross-attention projections moved by 10 x that.
 49. zoo-parity-stablelm — [zoo-parity] on stablelm-3b at full width cut to
-   2 layers, S = 1,024 (K5/K6 at head dim 80).
-50. serve-vlm — internvl2-26b at full width in fp32 cut to 24 of 48 layers
-   (10,507,038,720 params, random weights; 48 layers, 79.5 GB, do not
-   fit the card), ``patches`` (8, 1,024, 1,024) from the seed, through
+   2 layers, S = 640 (K5/K6 at head dim 80).
+50. serve-vlm — internvl2-26b at full width in fp32 cut to 12 of 48 layers
+   (5,826,048,000 params, random weights; 48 layers, 79.5 GB, do not
+   fit the card in fp32; phase 54 serves them in bf16), ``patches`` (8,
+   1,024, 1,024) from the seed, through
    ``static_generate``: 8 sequences of 1,024 patches and 128 prompt
-   tokens, each generating 64 greedily (max_len 1,224); K5 24 launches
+   tokens, each generating 64 greedily (max_len 1,224); K5 12 launches
    (one a layer over 1,152 positions), K3/K4 none; tokens/s, prefill ms,
    ms a step, peak memory; the prefill profiled (K5 in-run); then the
    same loop on the plain attention (logits within 1e-3, tokens equal
@@ -435,9 +438,45 @@ after 38 (39 last), and any failure exits non-zero:
    second round profiled, then built again from one seed and held
    bitwise.
 52. zoo-parity-vlm — [zoo-parity] on internvl2-26b at full width cut to 1
-   layer, 1,024 patches and 128 text tokens (K5/K6 over 1,152
-   positions), the projector trained by one client: card vs CPU at
-   ZOO_PARITY_TOL.
+   layer and 512 patches, 128 text tokens (K5/K6 over 640 positions),
+   the projector trained by one client: card vs CPU at ZOO_PARITY_TOL.
+
+53. zoo-packed-moe — [zoo-round-moe] with ``packed=True,
+   codec="qint8"``: launches K2 2 (one grouped call a round over every
+   leaf's slot rows; the expert leaves' rows of 32 x 1,024 x 512
+   elements take K2's two-visit route), K1 0, K5 384, K6 192 + 192; the
+   first round's expert slot rows' codes and scales bitwise equal to
+   K2's plain version on the same rows and uniforms; claimed ==
+   encoded == billed bytes every round; frozen slots exactly zero; the
+   second round profiled (K2's in-run time against its byte bound);
+   peak memory; rebuilt from one seed and held bitwise.
+54. serve-vlm-bf16 — internvl2-26b whole (48 layers, 19,869,020,160
+   params, 39.7 GB) in bf16 (``param_dtype="bfloat16"``) under [serve-vlm]'s
+   traffic through ``static_generate``: K5 48 launches, all on
+   ``flash_attention_sm90.cu`` (``ops.SOURCE_LAUNCHES``), K3/K4 none;
+   tokens/s, prefill ms, ms a step, peak memory.  Bars, stated as
+   BAR_FACTOR x a yardstick's distance from the same oracle (the largest
+   over logits rows of ||x - y|| / ||y||): (a1) every layer's K5 output
+   in the prefill within ``ref.rounding_error_ratio``'s bar of the
+   rounding plain version on the same q, k, v; (a2) the prefill's text
+   logits and VLM_FORCED teacher-forced decode steps against the loop on
+   the plain attention in bf16, within BAR_FACTOR x the distance of the
+   loop whose attention runs in fp32; (b) [serve-vlm]'s 12-layer fp32
+   model and its weights cast to bf16: the bf16 run on K5 within
+   BAR_FACTOR x the distance of the bf16 run on the plain attention from
+   the fp32 run; (c) a planted fault, layer 0's key tile 0 left out of
+   every later query tile, outside all three bars; (e) K5 alone at (8,
+   1,152, 48 over 8, 128) in bf16 against its rounding plain version,
+   with cuDNN's SDPA and the bound at 989 TFLOP/s.
+55. serve-gemma3 — gemma3-12b at full width in fp32 (11,765,419,776
+   params, random weights; 48 layers, 5 windowed (1,024) and 1 global a
+   macro block, 16 heads over 8 of 256) through ``DecodeEngine`` under
+   both traffics, as [serve-hymba]: K3 48 x 84 and 48 x 63 at head dim
+   256 (the long traffic's windowed sub-layers on rings of 1,024 that
+   wrap), K5 48 in the long prefill (windowed and global); each traffic's
+   engine (logits recorded) against ``static_generate``: logits within
+   1e-3, tokens equal barring near ties; then K3 alone at both traffics'
+   decode shapes, fp32 and bf16, as [decode-kernel].
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -445,19 +484,21 @@ the card's name and power limit (as ``nvidia-smi`` reports them) and a
 JSON line of per-kernel numbers (K1's and K2's launches summed over the
 paths that ran them, each path's count in ``launches_by_path``, K1's
 other plans in ``plans``, K2's single-client dispatch in
-``dispatch_1client``; K3's those of the serving runs (10, 34, 40, 45);
+``dispatch_1client``; K3's those of the serving runs (10, 34, 40, 45,
+55) and gemma3-12b's shapes in ``cases``;
 K4's those of whisper's decode steps (46), ``[decode-dense]``'s direct
 calls beside them and its cases in ``cases``; K5's and K6's launches
-those of the zoo's model paths (29-31, 36, 42, 47, 51), the long
-prefills (34, 40), whisper's encoder prefill (46) and internvl2-26b's
-prefill (50), with ``[attention-kernels]``' direct calls listed beside
-them and the later slices' shapes (head dim 80, whisper's non-causal,
-internvl2-26b's round and prefill) in ``cases``; the zoo call sites'
-numbers in ``zoo``); the last line is
+those of the zoo's model paths (29-31, 36, 42, 47, 51, 53), the long
+prefills (34, 40, 55), whisper's encoder prefill (46) and internvl2-26b's
+prefills (50, 54), with ``[attention-kernels]``' direct calls listed
+beside them and the other shapes (head dim 80, whisper's
+non-causal, internvl2-26b's round and its prefill in fp32 and bf16) in
+``cases``; the zoo call sites' numbers in ``zoo``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -911,15 +952,18 @@ def phase_codec_kernel(dev):
 
 
 class Capture:
-    """Server hook: keeps each round's metrics for the checks below."""
+    """Server hook: keeps each round's metrics for the checks below (only
+    the ``keep`` entries when given)."""
 
-    def __init__(self):
-        self.rounds = []
+    def __init__(self, keep=None):
+        self.rounds, self.keep = [], keep
 
     def on_round_start(self, server, round_idx, weights):
         return None
 
     def on_round_end(self, server, record, metrics):
+        if self.keep is not None:
+            metrics = {k: metrics[k] for k in self.keep}
         self.rounds.append((record, metrics))
 
     def on_fit_end(self, server, history):
@@ -1911,95 +1955,105 @@ def _decode_cases():
              st.head_dim, False)]
 
 
-def phase_decode_kernel(dev):
+def _decode_case(dev, shape, b, mp, lo, hi, h, hkv, hd, ring, dtype, tol,
+                 tag_name="decode-kernel"):
+    """K3 alone on one ``_paged_case``: held to its plain version (bf16
+    also element by element, with planted wrong outputs), bitwise
+    repeatable, NaN trash and unowned pages never read, no host sync;
+    device medians (L2 flushed) of the kernel, the plain version and
+    gather + SDPA beside the bound.  Returns the case's row."""
     from repro_torch.kernels.flash_decode import ops as fops
     from repro_torch.kernels.flash_decode.ref import paged_decode_ref
 
     name = torch.cuda.get_device_name(0)
+    q, k, v, pt, valid = _paged_case(dev, b, mp, lo, hi, dtype, 1,
+                                     h=h, hkv=hkv, hd=hd, ring=ring)
+    out = _no_sync(lambda: fops.paged_decode_attention(
+        q, k, v, pt, valid))
+    kf, vf = k.float(), v.float()
+    want = paged_decode_ref(q.float(), kf, vf, pt, valid)
+    torch.cuda.synchronize()
+    err = float((out.float() - want).abs().max())
+    tag = f"[{tag_name}] {shape} {str(dtype)[6:]}"
+    check(out.dtype == dtype and err <= tol,
+          f"{tag}: max abs err vs plain {err} > {tol}")
+    ps = k.shape[1]
+    pl = fops.plan(b, hkv, h // hkv, mp, ps, hd, dtype, dev)
+    bar = (_bf16_bar(tag, out, want, valid, pl,
+                     lambda vl: paged_decode_ref(q.float(), kf, vf,
+                                                 pt, vl))
+           if dtype == torch.bfloat16 else None)
+    del kf, vf
+    check(torch.equal(out, fops.paged_decode_attention(
+        q, k, v, pt, valid)), f"{tag}: not bitwise repeatable")
+    owned = torch.zeros(k.shape[0], dtype=torch.bool, device=dev)
+    owned[pt.long().flatten()] = True
+    owned[0] = False
+    kn, vn = k.clone(), v.clone()
+    kn[~owned] = float("nan")
+    vn[~owned] = float("nan")
+    nan_out = fops.paged_decode_attention(q, kn, vn, pt, valid)
+    check(bool(torch.isfinite(nan_out).all()) and
+          torch.equal(nan_out, out),
+          f"{tag}: NaN in the trash page or unowned pages reached "
+          f"the output")
+    del kn, vn, nan_out
+    lib = _sdpa(q, k, v, pt, valid)
+    lib_err = float((lib.float() - want).abs().max())
+    check(lib_err <= (1e-3 if dtype == torch.float32 else 5e-2),
+          f"{tag}: the sdpa yardstick disagrees by {lib_err}")
+    ms = device_ms(lambda: fops.paged_decode_attention(
+        q, k, v, pt, valid))
+    plain_ms = device_ms(lambda: paged_decode_ref(q, k, v, pt, valid))
+    library_ms = device_ms(lambda: _sdpa(q, k, v, pt, valid))
+    ntok = int(valid.sum())
+    pages = int(((valid + ps - 1) // ps).sum())
+    nbytes = (q.element_size() * (2 * ntok * hkv * hd + 2 * b * h * hd)
+              + 4 * (pages + b))
+    flops = 4 * ntok * h * hd
+    by_bytes, by_ops = nbytes / memory_rate(name), flops / FP32_PEAK
+    bound = max(by_bytes, by_ops) * 1e3
+    print(f"{tag}: B={b} H={h} Hkv={hkv} hd={hd} pages of {ps}, "
+          f"table width {mp}, valid {int(valid.min())}..."
+          f"{int(valid.max())} ({ntok} tokens"
+          + (", clamped to the ring" if ring else "")
+          + f"): max abs err vs plain "
+          f"{err:.3e} (tol {tol}), sdpa yardstick {lib_err:.3e}; "
+          f"bitwise repeatable; NaN trash/unowned pages never read")
+    if bar:
+        print(bar)
+    print(f"{tag}: {_plan_text(pl)}; no host sync")
+    print(f"{tag}: median device ms (L2 flushed): kernel {ms:.4f}, "
+          f"plain {plain_ms:.4f}, gather + sdpa {library_ms:.4f}; "
+          f"bound {bound:.4f}: {nbytes / 1e6:.2f} MB at "
+          f"{memory_rate(name) / 1e12:.2f} TB/s is "
+          f"{by_bytes * 1e3:.4f}, {flops / 1e9:.3f} GFLOP at "
+          f"{FP32_PEAK / 1e12:.0f} TFLOP/s is {by_ops * 1e3:.4f}; "
+          f"kernel at {bound / ms:.1%} of the bound")
+    return {"B": b, "H": h, "Hkv": hkv, "hd": hd, "splits": pl.n_splits,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms}
+
+
+def phase_decode_kernel(dev):
     row, cases = None, {}
     for shape, b, mp, lo, hi, h, hkv, hd, ring in _decode_cases():
         for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 3e-2)):
-            q, k, v, pt, valid = _paged_case(dev, b, mp, lo, hi, dtype, 1,
-                                             h=h, hkv=hkv, hd=hd, ring=ring)
-            out = _no_sync(lambda: fops.paged_decode_attention(
-                q, k, v, pt, valid))
-            kf, vf = k.float(), v.float()
-            want = paged_decode_ref(q.float(), kf, vf, pt, valid)
-            torch.cuda.synchronize()
-            err = float((out.float() - want).abs().max())
-            tag = f"[decode-kernel] {shape} {str(dtype)[6:]}"
-            check(out.dtype == dtype and err <= tol,
-                  f"{tag}: max abs err vs plain {err} > {tol}")
-            ps = k.shape[1]
-            pl = fops.plan(b, hkv, h // hkv, mp, ps, hd, dtype, dev)
-            bar = (_bf16_bar(tag, out, want, valid, pl,
-                             lambda vl: paged_decode_ref(q.float(), kf, vf,
-                                                         pt, vl))
-                   if dtype == torch.bfloat16 else None)
-            del kf, vf
-            check(torch.equal(out, fops.paged_decode_attention(
-                q, k, v, pt, valid)), f"{tag}: not bitwise repeatable")
-            owned = torch.zeros(k.shape[0], dtype=torch.bool, device=dev)
-            owned[pt.long().flatten()] = True
-            owned[0] = False
-            kn, vn = k.clone(), v.clone()
-            kn[~owned] = float("nan")
-            vn[~owned] = float("nan")
-            nan_out = fops.paged_decode_attention(q, kn, vn, pt, valid)
-            check(bool(torch.isfinite(nan_out).all()) and
-                  torch.equal(nan_out, out),
-                  f"{tag}: NaN in the trash page or unowned pages reached "
-                  f"the output")
-            lib = _sdpa(q, k, v, pt, valid)
-            lib_err = float((lib.float() - want).abs().max())
-            check(lib_err <= (1e-3 if dtype == torch.float32 else 5e-2),
-                  f"{tag}: the sdpa yardstick disagrees by {lib_err}")
-            ms = device_ms(lambda: fops.paged_decode_attention(
-                q, k, v, pt, valid))
-            plain_ms = device_ms(lambda: paged_decode_ref(q, k, v, pt, valid))
-            library_ms = device_ms(lambda: _sdpa(q, k, v, pt, valid))
-            ntok = int(valid.sum())
-            pages = int(((valid + ps - 1) // ps).sum())
-            nbytes = (q.element_size() * (2 * ntok * hkv * hd + 2 * b * h * hd)
-                      + 4 * (pages + b))
-            flops = 4 * ntok * h * hd
-            by_bytes, by_ops = nbytes / memory_rate(name), flops / FP32_PEAK
-            bound = max(by_bytes, by_ops) * 1e3
-            print(f"{tag}: B={b} H={h} Hkv={hkv} hd={hd} pages of {ps}, "
-                  f"table width {mp}, valid {int(valid.min())}..."
-                  f"{int(valid.max())} ({ntok} tokens"
-                  + (", clamped to the ring" if ring else "")
-                  + f"): max abs err vs plain "
-                  f"{err:.3e} (tol {tol}), sdpa yardstick {lib_err:.3e}; "
-                  f"bitwise repeatable; NaN trash/unowned pages never read")
-            if bar:
-                print(bar)
-            print(f"{tag}: {_plan_text(pl)}; no host sync")
-            print(f"{tag}: median device ms (L2 flushed): kernel {ms:.4f}, "
-                  f"plain {plain_ms:.4f}, gather + sdpa {library_ms:.4f}; "
-                  f"bound {bound:.4f}: {nbytes / 1e6:.2f} MB at "
-                  f"{memory_rate(name) / 1e12:.2f} TB/s is "
-                  f"{by_bytes * 1e3:.4f}, {flops / 1e9:.3f} GFLOP at "
-                  f"{FP32_PEAK / 1e12:.0f} TFLOP/s is {by_ops * 1e3:.4f}; "
-                  f"kernel at {bound / ms:.1%} of the bound")
-            cases[f"{shape} {str(dtype)[6:]}"] = {
-                "B": b, "H": h, "Hkv": hkv, "hd": hd, "splits": pl.n_splits,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound,
-                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                "library_ms": library_ms}
+            case = _decode_case(dev, shape, b, mp, lo, hi, h, hkv, hd, ring,
+                                dtype, tol)
+            cases[f"{shape} {str(dtype)[6:]}"] = case
             if shape == "serving" and dtype == torch.float32:
                 row = {"name": "flash_decode_paged", "route": "cuda",
-                       "splits": pl.n_splits,
+                       "splits": case["splits"],
                        "source": "src/repro_torch/kernels/flash_decode/csrc/"
                                  "flash_decode_paged.cu",
                        "replaces": "src/repro/kernels/flash_decode/kernel.py"
                                    ":111",
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound,
-                       "bound_by": "bytes" if by_bytes >= by_ops
-                       else "operations",
-                       "library_ms": library_ms}
+                       **{k: case[k] for k in ("max_abs_err", "ms",
+                                               "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}}
     row["cases"] = cases
     return row
 
@@ -2137,14 +2191,17 @@ HYMBA_PARAMS = 1_476_611_200     # the reference's init at full width
 TRAFFIC_STEPS = {"serving": 84, "long": 63}
 
 
-def _serve_traffics(dev, arch, n_params, tag, header, rings):
+def _serve_traffics(dev, arch, n_params, tag, header, rings, after=None):
     """``arch`` at full width through ``DecodeEngine`` under both
     traffics of ``serve_workload.py``: ``serving`` (8 slots, 16 requests
     of 128 prompt tokens; the prefill on the plain attention) and
     ``long`` (4 slots, 4 requests of 1,536 tokens; the prefill on K5).
     ``header(cfg)`` describes the model; ``rings(cfg, traffic)`` is the
     expected ring flag of each sub-layer.  On the MoE family each run's
-    dropped copies are counted (``models.moe``'s device counter)."""
+    dropped copies are counted (``models.moe``'s device counter).  With
+    ``after``, the measured runs record their logits rows to the host
+    (one (slots, V) copy a step) and ``after(traffic, w, engine,
+    results)`` runs once each has finished."""
     from repro_torch import serve_workload as sw
     from repro_torch.common import param_count
     from repro_torch.kernels.flash_attention import ops as aops
@@ -2171,7 +2228,7 @@ def _serve_traffics(dev, arch, n_params, tag, header, rings):
                   f" s")
             sw.engine(w, n_requests=2, gen=3).run()  # warm-up, not measured
         params = w.params
-        eng = sw.engine(w)
+        eng = sw.engine(w, record_logits=after is not None)
         got_rings = [s.ring for s in eng.layout.subs]
         check(got_rings == rings(cfg, traffic),
               f"{label}: ring subs {got_rings}")
@@ -2231,7 +2288,9 @@ def _serve_traffics(dev, arch, n_params, tag, header, rings):
                  f"has {slots} slots an expert)" if m else ""))
         out[traffic] = (w, {"K3": k3, "K5": k5, "dropped": dropped}, st,
                         peak)
-        del eng
+        if after is not None:
+            after(traffic, w, eng, res)
+        del eng, res
     return out
 
 
@@ -2246,19 +2305,23 @@ def phase_serve_hymba(dev):
                 f"heads of {cfg.head_dim} beside {cfg.n_heads} SSM heads, "
                 f"d_ff {cfg.d_ff}")
 
-    return _serve_traffics(
+    ran = {}
+    runs = _serve_traffics(
         dev, HYMBA_ARCH, HYMBA_PARAMS, "serve-hymba", header,
-        lambda cfg, t: [t == "long"] * (cfg.global_every - 1) + [False])
+        lambda cfg, t: [t == "long"] * (cfg.global_every - 1) + [False],
+        after=lambda t, w, eng, res: ran.__setitem__(t, (eng, res)))
+    return runs, ran
 
 
-def phase_serve_hymba_parity(runs):
-    """Each traffic's engine (K3; K5 in the long prefill) against
-    ``static_generate`` (dense cache, plain attention) on the card."""
+def phase_serve_hymba_parity(runs, ran):
+    """Each traffic's measured engine run (K3; K5 in the long prefill; its
+    logits recorded) against ``static_generate`` (dense cache, plain
+    attention) on the card."""
     for traffic, (w, *_rest) in runs.items():
         phase_serve_parity(
             w, "serve-hymba-parity", f"{HYMBA_ARCH} {traffic}: continuous "
             f"(K3" + (", K5 prefill" if w.serve.attn_impl == "chunked"
-                      else "") + ") vs static (plain)")
+                      else "") + ") vs static (plain)", ran=ran[traffic])
 
 
 # -- granite-moe-1b-a400m: the MoE family served (K3 at a GQA group of 2, K5)
@@ -2615,19 +2678,21 @@ def phase_serve_whisper(dev):
 VLM_ARCH = "internvl2-26b"
 VLM_PARAMS = 19_869_020_160      # the reference's eval_shape at full width
 # 48 layers in fp32 take 79.5 GB, more than the card: every width as
-# published, the depth cut to 24 layers to serve and 2 to train
-VLM_SERVE_LAYERS, VLM_SERVE_PARAMS = 24, 10_507_038_720
+# published, the depth cut to 12 layers to serve in fp32 (the 48 serve in
+# bf16, [serve-vlm-bf16]) and 2 to train
+VLM_SERVE_LAYERS, VLM_SERVE_PARAMS = 12, 5_826_048_000
 VLM_ROUND_LAYERS, VLM_ROUND_PARAMS = 2, 1_925_222_400
 # [serve-vlm]: 8 sequences of 1,024 patches and 128 prompt tokens, each
 # generating 64, over caches of launch/serve.py's s + gen + 8 + n_patches
 VLM_BATCH, VLM_PROMPT, VLM_GEN = 8, 128, 64
 VLM_MAX_LEN = VLM_PROMPT + VLM_GEN + 8 + 1024
-VLM_PARITY_S = 128               # text tokens after the 1,024 patches
+VLM_PARITY_S = 128               # text tokens after the patches
+VLM_PARITY_PATCHES = 512         # [zoo-parity-vlm]'s patches (640 positions)
 VLM_ROUND_S = 1024 + 4096        # the round's positions: patches + train_4k
 
 
 def phase_serve_vlm(dev, smi):
-    """internvl2-26b at full width in fp32 cut to 24 of 48 layers (random
+    """internvl2-26b at full width in fp32 cut to 12 of 48 layers (random
     weights, ``patches`` (8, 1,024, 1,024) from the seed) through
     ``static_generate`` (the vlm family's only serving loop, as in the
     reference): 8 sequences of 1,024 patches and 128 prompt tokens, each
@@ -2637,7 +2702,9 @@ def phase_serve_vlm(dev, smi):
     reference's).  Then the prefill alone under the profiler (K5's
     in-run time), the same loop on the plain attention (every logits row
     within LOGIT_TOL, tokens equal barring near ties), and K5 alone at
-    the prefill's shape beside its plain version, SDPA and the bound."""
+    the prefill's shape beside its plain version, SDPA and the bound.
+    Returns the readings and, for ``[serve-vlm-bf16]``, the params, the
+    prompts, the patches and the generated tokens."""
     from repro_torch.common import param_count
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as aops
@@ -2760,7 +2827,7 @@ def phase_serve_vlm(dev, smi):
           f"{LOGIT_TOL}); token streams equal"
           + (f" up to {len(diverged)} near-tie divergence(s)" if diverged
              else ""))
-    del params, rows, rows_p
+    del rows, rows_p
     _free_card("serve-vlm")
 
     # K5 alone at the prefill's shape: (8, 1,152, 48 over 8, 128), causal
@@ -2796,11 +2863,422 @@ def phase_serve_vlm(dev, smi):
           f"{bound[1]}); kernel at {bound[0] / t['ms']:.1%} alone, "
           f"{bound[0] / in_run:.1%} in-run; kernel / sdpa "
           f"{t['ms'] / t['library_ms']:.2f}x; on {smi}")
-    del q, k, v, patches
+    del q, k, v
     return {"K5": k5["fwd"], "tok_s": b * gen / wall,
             "prefill_ms": prefill_s * 1e3, "step_ms": step_ms, "peak": peak,
             "case": dict(t, in_run_ms=in_run, bound_ms=bound[0],
-                         bound_by=bound[1], max_abs_err=err)}
+                         bound_by=bound[1], max_abs_err=err),
+            "cfg": cfg, "params": params, "prompts": prompts,
+            "patches": patches, "tokens": out}
+
+
+# -- internvl2-26b whole in bf16: K5 on the tensor-core source ---------------
+
+VLM_BF16_PARAMS = VLM_PARAMS     # 48 layers, 2 bytes a param: 39.7 GB
+VLM_FORCED = 4                   # teacher-forced decode steps of the bars
+# the bars: a bf16 run is held to BAR_FACTOR x a yardstick's distance from
+# the same oracle, each distance the largest over logits rows of
+# ||x - y|| / ||y|| (``_rel``)
+BAR_FACTOR = 2.0
+FAULT_TILE = 128                 # the planted fault: key tile 0 of layer 0
+
+
+def _rel(got, want):
+    """The largest, over logits rows, of ``||got - want|| / ||want||``
+    (lists of logits tensors compared pair by pair)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = g.reshape(-1, g.shape[-1]).float()
+        w = w.reshape(-1, w.shape[-1]).float()
+        worst = max(worst, float(((g - w).norm(dim=1)
+                                  / w.norm(dim=1)).max()))
+    return worst
+
+
+@contextlib.contextmanager
+def _attention_swap(kind, record=None):
+    """``flash_attention`` (K5/K6's entry point, which
+    ``models.attention`` imports at each call) replaced for the block:
+    ``"fp32"`` the same call on q, k, v in fp32 (the SIMT kernels:
+    attention without bf16's rounding), cast back; ``"fault"`` layer 0's
+    first key tile left out of every query tile past the first (the
+    kernel's own launch on the rows and keys from FAULT_TILE on: a key
+    loop that starts one tile late); ``"check"`` the kernel, its output
+    held to the plain version that rounds where it rounds
+    (``ref.rounding_error_ratio``, appended to ``record`` per layer, and
+    at layer 0 that of the planted fault's output too)."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_fwd_ref, rounding_error_ratio)
+
+    real, calls = aops.flash_attention, []
+
+    def swapped(q, k, v, causal=True, window=0, *a, **kw):
+        layer = len(calls)
+        calls.append(layer)
+        if kind == "fp32":
+            return real(q.float(), k.float(), v.float(), causal, window, *a,
+                        **kw).to(q.dtype)
+        o = real(q, k, v, causal, window, *a, **kw)
+        planted = None
+        if layer == 0 and kind in ("fault", "check"):
+            t = FAULT_TILE
+            planted = o.clone()
+            planted[:, t:] = real(q[:, t:], k[:, t:], v[:, t:], causal,
+                                  window, *a, **kw)
+            if kind == "fault":
+                return planted
+        if kind == "check":
+            want = flash_attention_fwd_ref(q, k, v, causal=causal,
+                                           window=window,
+                                           round_to=torch.bfloat16)[0]
+            record.append((rounding_error_ratio(o, want),
+                           None if planted is None else
+                           rounding_error_ratio(planted, want)))
+            del want
+        return o
+
+    aops.flash_attention = swapped
+    try:
+        yield calls
+    finally:
+        aops.flash_attention = real
+
+
+@torch.no_grad()
+def _vlm_forced(cfg, params, prompts, patches, feed, attn_impl="chunked",
+                swap=None):
+    """The prefill's logits at every text position, then ``len(feed)``
+    decode steps fed ``feed``'s tokens (teacher-forced), as a list of
+    fp32 logits tensors; ``swap`` an ``_attention_swap`` kind for the
+    prefill."""
+    from repro_torch.models import get_model
+    model = get_model(cfg)
+    dev = patches.device
+    ctx = _attention_swap(swap) if swap else contextlib.nullcontext()
+    with ctx:
+        logits, cache = model.prefill(
+            params, torch.as_tensor(prompts, device=dev), patches=patches,
+            max_len=VLM_MAX_LEN, attn_impl=attn_impl, last_only=False)
+    rows = [logits[:, cfg.n_patches:].float()]
+    del logits
+    for t in feed:
+        out, cache = model.decode_step(params, cache,
+                                       torch.as_tensor(t, device=dev)[:, None])
+        rows.append(out[:, -1].float())
+    del cache
+    return rows
+
+
+def _vlm_bf16_vs_fp32(fp32_run, smi):
+    """(b): ``[serve-vlm]``'s fp32 model (12 layers) and the same weights
+    cast to bf16, on its prompts and patches, the prefill's text logits
+    and VLM_FORCED decode steps fed the fp32 run's greedy tokens.  Bar:
+    the bf16 run on K5 lies within BAR_FACTOR x the distance of the bf16
+    run on the plain attention (the reference's own bf16 path) from the
+    fp32 run; the planted fault must lie outside it."""
+    tag = "[serve-vlm-bf16] (b)"
+    cfg32, p32 = fp32_run["cfg"], fp32_run["params"]
+    prompts, patches = fp32_run["prompts"], fp32_run["patches"]
+    feed = [fp32_run["tokens"][:, t] for t in range(VLM_FORCED)]
+    f32 = _vlm_forced(cfg32, p32, prompts, patches, feed)
+    cfg16 = cfg32.replace(param_dtype="bfloat16")
+    p16 = {p: x.to(torch.bfloat16) for p, x in p32.items()}
+    fp32_run["params"] = p32 = None
+    runs = {"kernel": _vlm_forced(cfg16, p16, prompts, patches, feed),
+            "plain": _vlm_forced(cfg16, p16, prompts, patches, feed,
+                                 "reference"),
+            "fault": _vlm_forced(cfg16, p16, prompts, patches, feed,
+                                 swap="fault")}
+    del p16
+    dist = {k: _rel(v, f32) for k, v in runs.items()}
+    bar = BAR_FACTOR * dist["plain"]
+    rows = sum(r.numel() // r.shape[-1] for r in f32)
+    print(f"{tag} {cfg16.name} cut to {cfg16.n_layers} layers, the fp32 "
+          f"weights and the same cast to bf16: {rows} logits rows (the "
+          f"prefill's {VLM_PROMPT} text positions of {VLM_BATCH} sequences "
+          f"and {VLM_FORCED} teacher-forced decode steps), largest "
+          f"||x - fp32|| / ||fp32|| over rows: bf16 on K5 "
+          f"{dist['kernel']:.4e}, bf16 on the plain attention "
+          f"{dist['plain']:.4e}; bar {BAR_FACTOR:g} x the plain's = "
+          f"{bar:.4e}; planted fault (layer 0's key tile 0 left out) "
+          f"{dist['fault']:.4e} ({dist['fault'] / bar:.1f}x the bar)")
+    check(0 < dist["kernel"] <= bar, f"{tag}: bf16 on K5 lies "
+          f"{dist['kernel']} from fp32, outside {bar}")
+    check(dist["fault"] > bar, f"{tag}: the planted fault passes the bar "
+          f"({dist['fault']} <= {bar})")
+    del f32, runs
+    _free_card("serve-vlm-bf16 (b)")
+    return dict(dist, bar=bar)
+
+
+def phase_serve_vlm_bf16(dev, smi, fp32_run):
+    """internvl2-26b whole, 48 layers at full width, in bf16
+    (``param_dtype="bfloat16"``, the reference's switch: 19,869,020,160
+    params, 39.7 GB), through ``static_generate`` under ``[serve-vlm]``'s
+    traffic: 8 x (1,024 patches + 128 prompt tokens), 64 generated each.
+    K5 runs in the prefill on ``flash_attention_sm90.cu`` (48 launches
+    over 1,152 positions at a GQA group of 6), the decode steps on the
+    plain ``decode_attend`` in bf16, as in the reference.  Then (a1)
+    every layer's K5 output in the prefill inside
+    ``ref.rounding_error_ratio``'s bar of the rounding plain version on
+    the same inputs; (a2) the prefill's text logits and VLM_FORCED
+    teacher-forced decode steps (the run's own tokens) against the same
+    loop on the plain attention in bf16, within BAR_FACTOR x the
+    distance of the loop whose attention runs in fp32 from it; (b)
+    against fp32 (``_vlm_bf16_vs_fp32``); (c) the planted fault (layer
+    0's key tile 0 left out) outside every bar; (e) K5 alone at the
+    prefill's shape in bf16 beside its rounding plain version, cuDNN's
+    SDPA and the bound at 989 TFLOP/s."""
+    from repro_torch.common import param_count
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_fwd_ref, rounding_error_ratio)
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import static_generate
+
+    tag = "[serve-vlm-bf16]"
+    bars = {"b": _vlm_bf16_vs_fp32(fp32_run, smi)}
+    prompts, patches = fp32_run["prompts"], fp32_run["patches"]
+    del fp32_run
+    cfg = get_config(VLM_ARCH).replace(param_dtype="bfloat16")
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    n = param_count(params)
+    check(n == VLM_BF16_PARAMS and all(
+        x.dtype == torch.bfloat16 and x.device == dev
+        for x in params.values()), f"{tag} {n} params, expected "
+        f"{VLM_BF16_PARAMS} bf16 on the card")
+    b, gen, h, hkv, hd = (VLM_BATCH, VLM_GEN, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim)
+    s = cfg.n_patches + VLM_PROMPT
+    print(f"{tag} {cfg.name} whole at full width in bf16: {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {h} heads / {hkv} KV heads of "
+          f"{hd}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}; {n:,} bf16 "
+          f"params ({n * 2 / 1e9:.2f} GB) drawn on the card in "
+          f"{init_s:.2f} s, peak memory after init {init_peak / 1e9:.2f} "
+          f"GB; patches {tuple(patches.shape)} fp32 (cast to bf16 before "
+          f"the projector)")
+
+    def run(k=b, steps=gen):
+        return static_generate(cfg, params, prompts[:k], steps,
+                               max_len=VLM_MAX_LEN, attn_impl="chunked",
+                               collect_logits=True, device=dev,
+                               extra={"patches": patches[:k]})
+
+    run(2, 2)                                        # warm-up, not measured
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fops.reset_launch_counts()
+    aops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, rows = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k34, k5 = fops.paged_decode_attention.launches, dict(aops.LAUNCHES)
+    by_source = dict(aops.SOURCE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    sm90 = aops.SOURCES[torch.bfloat16].name
+    check(k5 == {"fwd": cfg.n_layers, "dq": 0, "dkv": 0},
+          f"{tag} K5/K6 launches {k5}, predicted {cfg.n_layers} forward")
+    check(by_source == {aops.SOURCES[torch.float32].name: 0,
+                        sm90: cfg.n_layers},
+          f"{tag} launches by source {by_source}: K5 must run on {sm90}")
+    check(k34 == 0, f"{tag} the decode steps launched K3/K4 {k34} times")
+    check(out.shape == (b, gen) and all(np.isfinite(r).all() for r in rows),
+          f"{tag} tokens {out.shape} or non-finite logits")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model.prefill(params, torch.as_tensor(prompts, device=dev),
+                      patches=patches, max_len=VLM_MAX_LEN,
+                      attn_impl="chunked", last_only=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    step_ms = (wall - prefill_s) / (gen - 1) * 1e3
+    print(f"{tag} {b} sequences x ({cfg.n_patches:,} patches + "
+          f"{VLM_PROMPT} prompt tokens), {gen} generated each (max_len "
+          f"{VLM_MAX_LEN}), greedy: {b * gen} tokens in {wall:.3f} s: "
+          f"{b * gen / wall:.1f} tok/s; prefill ({s:,} positions) "
+          f"{prefill_s * 1e3:.1f} ms; decode {step_ms:.3f} ms per step over "
+          f"{gen - 1} steps; peak memory {peak / 1e9:.2f} GB "
+          f"({peak / 2**30:.2f} GiB)")
+    print(f"{tag} flash_attention_fwd (K5) launches {k5['fwd']} = "
+          f"{cfg.n_layers} layers x 1 prefill, by source {by_source} (the "
+          f"bf16 tensor-core kernels); K3/K4 {k34}")
+
+    # (a1) every layer's K5 output against its rounding plain version
+    record = []
+    with _attention_swap("check", record), torch.no_grad():
+        model.prefill(params, torch.as_tensor(prompts, device=dev),
+                      patches=patches, max_len=VLM_MAX_LEN,
+                      attn_impl="chunked", last_only=True)
+    ratios = [r for r, _ in record]
+    planted = record[0][1]
+    print(f"{tag} (a1) K5 in each of the {len(ratios)} layers' prefill vs "
+          f"the rounding plain version on the same q, k, v "
+          f"(ref.rounding_error_ratio, bar 1): largest {max(ratios):.4f} "
+          f"(layer {int(np.argmax(ratios))}), median "
+          f"{float(np.median(ratios)):.4f}; the planted fault at layer 0 "
+          f"{planted:.1f}")
+    check(len(ratios) == cfg.n_layers and max(ratios) <= 1.0,
+          f"{tag} (a1) a layer's K5 output lies outside the bar: {ratios}")
+    check(planted > 1.0, f"{tag} (a1) the planted fault passes the bar "
+          f"({planted})")
+    del record
+
+    # (a2) the 48 layers against the same loop on the plain attention
+    feed = [out[:, t] for t in range(VLM_FORCED)]
+    runs = {"kernel": _vlm_forced(cfg, params, prompts, patches, feed),
+            "plain": _vlm_forced(cfg, params, prompts, patches, feed,
+                                 "reference"),
+            "fp32 attention": _vlm_forced(cfg, params, prompts, patches,
+                                          feed, swap="fp32"),
+            "fault": _vlm_forced(cfg, params, prompts, patches, feed,
+                                 swap="fault")}
+    plain = runs.pop("plain")
+    dist = {k: _rel(v, plain) for k, v in runs.items()}
+    bar = BAR_FACTOR * dist["fp32 attention"]
+    print(f"{tag} (a2) {cfg.n_layers} layers, {VLM_BATCH * (VLM_PROMPT + VLM_FORCED)} "
+          f"logits rows (prefill text positions, {VLM_FORCED} teacher-forced "
+          f"steps), largest ||x - plain|| / ||plain|| over rows, plain = the "
+          f"loop on the plain attention in bf16: K5 {dist['kernel']:.4e}, "
+          f"the attention in fp32 {dist['fp32 attention']:.4e}; bar "
+          f"{BAR_FACTOR:g} x the latter = {bar:.4e}; K5 vs the fp32 "
+          f"attention {_rel(runs['kernel'], runs['fp32 attention']):.4e}; "
+          f"planted fault {dist['fault']:.4e} ({dist['fault'] / bar:.1f}x "
+          f"the bar)")
+    check(0 < dist["kernel"] <= bar, f"{tag} (a2) K5's run lies "
+          f"{dist['kernel']} from the plain run, outside {bar}")
+    check(dist["fault"] > bar, f"{tag} (a2) the planted fault passes the "
+          f"bar ({dist['fault']} <= {bar})")
+    bars["a1"] = {"largest": max(ratios), "planted": planted}
+    bars["a2"] = dict(dist, bar=bar)
+    del runs, plain, params, rows
+    _free_card("serve-vlm-bf16")
+
+    # (e) K5 alone at the prefill's shape in bf16
+    g = torch.Generator(device=dev).manual_seed(s + 1)
+    q = torch.randn(b, s, h, hd, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(b, s, hkv, hd, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = aops.attention_fwd(q, k, v, causal=True, window=0)
+    o_emu, lse_emu = flash_attention_fwd_ref(q, k, v, round_to=torch.bfloat16)
+    ratio = rounding_error_ratio(o, o_emu)
+    lse_err = float((lse - lse_emu).abs().max())
+    t = FAULT_TILE
+    wrong = o.clone()
+    wrong[:, t:] = aops.attention_fwd(q[:, t:], k[:, t:], v[:, t:])[0]
+    wrong_ratio = rounding_error_ratio(wrong, o_emu)
+    del o_emu, wrong
+    o_ref = flash_attention_fwd_ref(q, k, v)[0]
+    err = float((o.float() - o_ref.float()).abs().max())
+    lib_err = float((_sdpa_attn(q, k, v, 0).float() - o_ref.float())
+                    .abs().max())
+    check(ratio <= 1.0 and lse_err <= 1e-5 and wrong_ratio > 1.0,
+          f"{tag} (e) K5 bf16 at the prefill's shape: rounding ratio "
+          f"{ratio}, lse {lse_err}, the planted output's ratio "
+          f"{wrong_ratio}")
+    check(lib_err <= 3e-2, f"{tag} (e) the sdpa yardstick disagrees by "
+          f"{lib_err}")
+    del o, lse, o_ref, lse_emu
+    tm = {"ms": device_ms(lambda: aops.attention_fwd(q, k, v), ATTN_ITERS),
+          "plain_ms": device_ms(lambda: flash_attention_fwd_ref(
+              q, k, v, round_to=torch.bfloat16), ATTN_ITERS),
+          "library_ms": device_ms(lambda: _sdpa_attn(q, k, v, 0),
+                                  ATTN_ITERS)}
+    backend = _sdpa_backend(q, k, v, torch.randn_like(q), 0)
+    bound = _attn_bound(torch.cuda.get_device_name(0), b, s, h, hkv, hd, 0,
+                        esz=2, peak=BF16_PEAK)["fwd"]
+    print(f"{tag} (e) K5 at ({b}, {s:,}, {h} over {hkv}, {hd}) bf16 "
+          f"causal on {sm90}: rounding ratio vs the rounding plain version "
+          f"{ratio:.4f} (bar 1; planted, key tile 0 left out of every later "
+          f"query tile: {wrong_ratio:.1f}), lse {lse_err:.2e}, max abs err "
+          f"vs the fp32 plain version {err:.3e}, sdpa {lib_err:.3e}; device "
+          f"ms (L2 flushed) kernel {tm['ms']:.4f}, plain (rounding) "
+          f"{tm['plain_ms']:.4f}, sdpa {tm['library_ms']:.4f} [{backend}]; "
+          f"bound {bound[0]:.4f} ms ({bound[4] / 1e9:.2f} GFLOP at "
+          f"{BF16_PEAK / 1e12:.0f} TFLOP/s, {bound[1]}); kernel at "
+          f"{bound[0] / tm['ms']:.1%}; kernel / sdpa "
+          f"{tm['ms'] / tm['library_ms']:.2f}x; on {smi}")
+    del q, k, v, patches
+    return {"K5": k5["fwd"], "tok_s": b * gen / wall,
+            "prefill_ms": prefill_s * 1e3, "step_ms": step_ms, "peak": peak,
+            "bars": bars,
+            "case": dict(tm, bound_ms=bound[0], bound_by=bound[1],
+                         max_abs_err=err, rounding_ratio=ratio)}
+
+
+# -- gemma3-12b served at full width (K3 at head dim 256, K5 in the long
+#    prefill) -----------------------------------------------------------------
+
+GEMMA_ARCH = "gemma3-12b"
+GEMMA_PARAMS = 11_765_419_776    # by the config's dims (the meta-device init)
+
+
+def _gemma3_decode_cases():
+    """K3 alone at gemma3-12b's heads (16 over 8 of 256): the serving
+    traffic's shape (8 slots of 129-175 tokens) and the long traffic's
+    rings (4 sequences past the window: all 1,024 of a ring's slots
+    valid), as ``_decode_cases`` rows."""
+    from repro_torch import serve_workload as sw
+    from repro_torch.configs.base import get_config
+    cfg = get_config(GEMMA_ARCH)
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    top = sw.PROMPT_LEN + sw.GEN + sw.GEN_SPREAD - 1
+    long = sw.TRAFFIC["long"]
+    return [("gemma3 serving", sw.N_SLOTS, -(-(top + 8) // sw.PAGE_SIZE),
+             sw.PROMPT_LEN + 1, top, *heads, False),
+            ("gemma3 ring", long.n_slots,
+             cfg.sliding_window // sw.PAGE_SIZE, long.prompt_len + 1,
+             long.prompt_len + long.gen, *heads, True)]
+
+
+def phase_serve_gemma3(dev):
+    """gemma3-12b at full width in fp32 (random weights: 48 layers in 8
+    macro blocks of 5 windowed (1,024) and 1 global sub-layers, 16 query
+    heads over 8 KV heads of 256, qk-norm, tied embeddings, vocab
+    262,144) through the paged ``DecodeEngine`` under both traffics: K3
+    on every sub-layer of every decode step at head dim 256; under
+    ``long`` the windowed sub-layers' rings of 1,024 wrap and the prefill
+    runs on K5, windowed and global.  Each traffic's engine against
+    ``static_generate`` (logits within LOGIT_TOL, streams equal barring
+    near ties), then K3 alone at both traffics' decode shapes, fp32 and
+    bf16."""
+    def header(cfg):
+        return (f"{cfg.n_layers} layers ({cfg.n_layers // cfg.global_every} "
+                f"macro blocks of {cfg.global_every - 1} windowed "
+                f"({cfg.sliding_window}) and 1 global), d_model "
+                f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV "
+                f"heads of {cfg.head_dim}, qk-norm, d_ff {cfg.d_ff}, tied "
+                f"embeddings")
+
+    def parity(traffic, w, eng, res):
+        phase_serve_parity(
+            w, "serve-gemma3", f"{GEMMA_ARCH} {traffic}: continuous (K3"
+            + (", K5 prefill" if w.serve.attn_impl == "chunked" else "")
+            + ") vs static (plain)", ran=(eng, res))
+
+    runs = _serve_traffics(
+        dev, GEMMA_ARCH, GEMMA_PARAMS, "serve-gemma3", header,
+        lambda cfg, t: [t == "long"] * (cfg.global_every - 1) + [False],
+        after=parity)
+    out = {t: (c, st, peak) for t, (_, c, st, peak) in runs.items()}
+    del runs
+    _free_card("serve-gemma3")
+    cases = {}
+    for shape, *rest in _gemma3_decode_cases():
+        for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 3e-2)):
+            cases[f"{shape} {str(dtype)[6:]}"] = _decode_case(
+                dev, shape, *rest, dtype, tol, "serve-gemma3")
+    return out, cases
 
 
 # -- K4, K5, K6: the attention kernels' entry points ---------------------------
@@ -4279,6 +4757,10 @@ ZOO_PARITY_TOL = 1e-6             # card vs CPU params after one SGD step
 # the parity round's SGD rate: at the launcher's 2e-3 the first layer's wk
 # moves by under 1e-5, too little for a 1e-6 bar to see a wrong gradient
 ZOO_PARITY_LR = 0.1
+# the 2-layer parities' text length on qwen3-1.7b and stablelm-3b: past
+# 512, so the chunked route (K5/K6) runs; cut from 1,024 to shorten the
+# host CPU's side
+ZOO_PARITY_S = 640
 # whisper's: its encoder's q and k rows see a near-uniform softmax over
 # 1,500 frames, and at 0.1 they move by 3.5e-6-4.7e-6 (an H100 run), under
 # the 10 x ZOO_PARITY_TOL the phase asks of every attention row
@@ -4449,11 +4931,12 @@ def _zoo_rounds(dev, smi, tag, packed):
         fed.server.add_hook(cap)
     _zoo_reset()
     secs = []
-    for _ in range(ZOO_ROUNDS):
-        t0 = time.perf_counter()
-        fed.fit(1)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
+    with _K2Tap(None, timing=packed) as tap:
+        for _ in range(ZOO_ROUNDS):
+            t0 = time.perf_counter()
+            fed.fit(1)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
     counts = _zoo_counts()
     peak = torch.cuda.max_memory_allocated()
     hist = fed.history
@@ -4518,6 +5001,7 @@ def _zoo_rounds(dev, smi, tag, packed):
                                  .kind == "stacked" else 1)
                    for p, d in deltas.items())
         run["K2"]["elements"], run["K2"]["bytes"] = n, 9 * n + 4 * rows
+        run["K2"]["alone_ms"], run["K2"]["plain_ms"] = tap.ms, tap.plain_ms
         del deltas
     plan_rows = None
     if not packed:
@@ -4529,7 +5013,10 @@ def _zoo_rounds(dev, smi, tag, packed):
           + ", ".join(f"{k} {run[k]['launches']} launches "
                       f"{run[k]['total_ms']:.2f} ms ({run[k]['ms']:.4f} a "
                       f"{'call' if k == 'K6' else 'launch'})"
-                      for k in ZOO_KERNELS if run[k]["launches"]))
+                      for k in ZOO_KERNELS if run[k]["launches"])
+          + (f"; the first round's K2 call alone (L2 flushed) "
+             f"{tap.ms:.4f} ms, its plain version {tap.plain_ms:.4f} ms"
+             if packed else ""))
     del fed, frozen, cap
     _free_card(tag)
     return counts, run, plan_rows, peak, secs
@@ -4639,8 +5126,57 @@ def _zoo_launches(cfg, steps_):
             "K6 dq": (n + n_enc) * steps_, "K6 dkv": (n + n_enc) * steps_}
 
 
+class _K2Tap:
+    """``core.codecs.quantize_pack_group`` (the codec's one grouped K2
+    call a round) wrapped for the block: each call's elements and rows
+    recorded, and on the first call the codes and scales of every leaf
+    whose rows hold ``p`` elements held bitwise to the plain version
+    (``ref.quantize_pack_ref``) on the same rows and uniforms, the card's
+    peak memory read before that check; with ``timing``, device medians
+    (L2 flushed) of the kernel and of the plain version on that call's
+    own leaves (the kernel's timing launches not counted)."""
+
+    def __init__(self, p, timing=False):
+        self.p, self.calls, self.leaves, self.peak = p, [], [], None
+        self.timing, self.ms, self.plain_ms = timing, None, None
+
+    def __enter__(self):
+        from repro_torch.core import codecs
+        self.real = codecs.quantize_pack_group
+        codecs.quantize_pack_group = self
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import codecs
+        codecs.quantize_pack_group = self.real
+
+    def __call__(self, xs, us, bits):
+        from repro_torch.kernels.codec.ref import quantize_pack_ref
+        out = self.real(xs, us, bits)
+        self.calls.append((sum(x.numel() for x in xs),
+                           sum(x.shape[0] for x in xs), len(xs)))
+        if self.peak is None:
+            self.peak = torch.cuda.max_memory_allocated()
+            for x, u, (codes, scale) in zip(xs, us, out):
+                if x.shape[1] == self.p:
+                    want, want_s = quantize_pack_ref(x, u, bits)
+                    self.leaves.append((tuple(x.shape), torch.equal(
+                        codes, want) and torch.equal(scale, want_s)))
+                    del want, want_s
+            if self.timing:
+                from repro_torch.kernels.codec import ops as qops
+                from repro_torch.kernels.codec.ref import \
+                    quantize_pack_group_ref
+                n = qops.quantize_pack_group.launches
+                self.ms = device_ms(lambda: self.real(xs, us, bits), 5, 1)
+                qops.quantize_pack_group.launches = n
+                self.plain_ms = device_ms(
+                    lambda: quantize_pack_group_ref(xs, us, bits), 5, 1)
+        return out
+
+
 def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
-                    layers=None):
+                    layers=None, **fl_kw):
     """The paper's round on ``arch`` at full width (a unit a layer, plus
     embed and head; half trained a client), 2 clients x 2 local steps of
     one ``lm_batch`` sequence of ``s`` tokens, Adam at 2e-3, hub, with
@@ -4651,7 +5187,11 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
     every kernel launch the counters saw in that round.  With ``repeat``
     the federation is built again from the same seed and run 2 rounds:
     every parameter and selection bitwise equal.  ``layers`` cuts the
-    depth (every width as published)."""
+    depth (every width as published).  ``fl_kw`` (``packed=True,
+    codec="qint8"``) runs the packed round: K2 once a round, no K1, the
+    bill the codec's, and on a MoE model the first round's expert slot
+    rows (``E·d·ff`` elements) held bitwise to K2's plain version
+    (``_K2Tap``)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.comm import table4_row
     from repro_torch.models import moe
@@ -4660,9 +5200,10 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
     cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(n_layers=layers)
+    packed = fl_kw.get("packed", False)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fed = _zoo_fed(dev, cfg, s=s)
+    fed = _zoo_fed(dev, cfg, s=s, **fl_kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     got = sum(x.numel() for x in fed.params.values())
@@ -4670,19 +5211,22 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
     n_units = cfg.n_layers + cfg.n_enc_layers + 2
     check(fed.assign.n_units == n_units and
           fed.fl.resolve_n_train(n_units) == n_units // 2 and
-          fed.fl.resolve_fused_agg(fed.device),
+          (packed or fed.fl.resolve_fused_agg(fed.device)),
           f"{tag}: units {fed.assign.n_units}, fused_agg off")
-    frozen = ZooFrozenCheck(fed.assign, fed.fl)
-    fed.server.add_hook(frozen)
+    frozen, cap = ZooFrozenCheck(fed.assign, fed.fl), Capture(keep=("sel",))
+    fed.server.add_hook(frozen).add_hook(cap)
+    expert = cfg.moe and cfg.moe.num_experts * cfg.d_model * \
+        cfg.moe.expert_d_ff
     _zoo_reset()
     moe.reset_dropped()
     t0 = time.perf_counter()
-    fed.fit(1)
-    torch.cuda.synchronize()
-    secs = [time.perf_counter() - t0]
+    with _K2Tap(expert, timing=packed) as tap:
+        fed.fit(1)
+        torch.cuda.synchronize()
+        secs = [time.perf_counter() - t0]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof, tap:
         t0 = time.perf_counter()
         fed.fit(1)
         torch.cuda.synchronize()
@@ -4697,21 +5241,33 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
     hist = fed.history
     check(all(math.isfinite(r.loss) for r in hist), f"{tag}: non-finite loss")
     want = _zoo_launches(cfg, 2 * ZOO_CLIENTS * ZOO_STEPS)
+    if packed:
+        want.update(K1=0, K2=2)
     check(counts == want, f"{tag}: launches {counts}, predicted {want}")
     check(frozen.checked > 0 and frozen.moved > 0,
           f"{tag}: frozen {frozen.checked}, moved {frozen.moved}")
-    summ = fed.comm_summary()
-    t4 = table4_row(fed.assign, {p: x.to("meta") for p, x in
-                                 fed.params.items()},
-                    np.stack(fed.server.sel_history))
-    check(all(summ[k] == v for k, v in t4.items()),
-          f"{tag}: comm_summary {summ} != table4_row {t4}")
+    check(len(tap.calls) == counts["K2"], f"{tag}: {len(tap.calls)} "
+          f"grouped codec calls, K2 launched {counts['K2']} times")
+    if packed:
+        wire = _check_wire_bytes(fed, cap, tag)
+        check(len(tap.leaves) == (3 if expert else 0) and
+              all(same for _, same in tap.leaves),
+              f"{tag}: expert slot rows vs K2's plain version {tap.leaves}")
+    else:
+        summ = fed.comm_summary()
+        t4 = table4_row(fed.assign, {p: x.to("meta") for p, x in
+                                     fed.params.items()},
+                        np.stack(fed.server.sel_history))
+        check(all(summ[k] == v for k, v in t4.items()),
+              f"{tag}: comm_summary {summ} != table4_row {t4}")
+    cap.rounds.clear()
     run = _in_run(events)
     run["wall_ms"] = secs[1] * 1e3
     run["busy_share"] = run["busy_ms"] / run["wall_ms"]
     # the profiled round's half of the counted launches
     profiled = {k: run[k]["launches"] for k in ZOO_KERNELS}
-    half = {"K1": want["K1"] // 2, "K2": 0, "K5": want["K5"] // 2,
+    half = {"K1": want["K1"] // 2, "K2": want["K2"] // 2,
+            "K5": want["K5"] // 2,
             "K6": (want["K6 dq"] + want["K6 dkv"]) // 2}
     check(profiled == half, f"{tag}: the profile holds {profiled} kernel "
           f"events, the counters saw {half} launches in that round (the "
@@ -4721,8 +5277,15 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
     k1_bytes = (ZOO_CLIENTS + 2) * plan_rows * 2048 * 4 \
         + plan_rows * ZOO_CLIENTS * 4
     run["K1"]["T"] = plan_rows
-    run["K1"]["bound_ms"] = k1_bytes / memory_rate(
-        torch.cuda.get_device_name(0)) * 1e3
+    rate = memory_rate(torch.cuda.get_device_name(0))
+    run["K1"]["bound_ms"] = k1_bytes / rate * 1e3
+    if packed:
+        # K2's work in the profiled round: the slot rows of every leaf (x
+        # and u read as fp32, int8 codes and an fp32 scale a row written)
+        n, rows, _ = tap.calls[-1]
+        run["K2"].update(elements=n, rows=rows, bytes=9 * n + 4 * rows,
+                         bound_ms=(9 * n + 4 * rows) / rate * 1e3,
+                         alone_ms=tap.ms, plain_ms=tap.plain_ms)
     fwd = [t for nm, t in events if "fwd_kernel" in nm]
     bwd = [a + b for a, b in zip([t for nm, t in events if "dq_kernel" in nm],
                                  [t for nm, t in events
@@ -4762,10 +5325,12 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
             + (" ms a launch (K5) / call (K6): encoder 1,500 frames "
                f"non-causal, decoder self causal at {s:,}, cross {s:,} over "
                "1,500 frames")
-    for r, sec in zip(hist, secs):
+    for i, (r, sec) in enumerate(zip(hist, secs)):
         print(f"[{tag}] round {r.round}: loss {r.loss:.4f} {sec:.3f} s wall "
               f"({r.seconds:.3f} s in the server) uplink "
-              f"{r.uplink_bytes:.0f} B")
+              f"{r.uplink_bytes:.0f} B"
+              + (f" ({fl_kw['codec']} = claimed = encoded; fp32 on the same "
+                 f"selections {wire[i][1]:.0f} B)" if packed else ""))
     print(f"[{tag}] {cfg.name} full width"
           + (f" cut to {cfg.n_layers} layers" if layers else "")
           + f" ({got:,} fp32 params, "
@@ -4779,7 +5344,10 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
           f"{s:,} tokens, Adam lr {ZOO_LR}: built in {build_s:.2f} s;"
           f" launches {counts} == predicted; frozen (client, unit row) "
           f"deltas exactly zero: {frozen.checked}, trained rows that moved: "
-          f"{frozen.moved}; bill == Table 4; peak memory {peak / 1e9:.2f} "
+          f"{frozen.moved}; bill == "
+          + (f"the codec's (rows x (P + 4) bytes of the selected units)"
+             if packed else "Table 4")
+          + f"; peak memory {peak / 1e9:.2f} "
           f"GB ({peak / 2**30:.2f} GiB, {peak / got:.1f} B a param) on "
           f"{smi}"
           + (f"; token copies dropped at capacity in the 2 rounds (forward "
@@ -4794,9 +5362,27 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
                       f"{run[k]['total_ms']:.2f} ms ({run[k]['ms']:.4f} a "
                       f"{'call' if k == 'K6' else 'launch'})"
                       for k in ZOO_KERNELS if run[k]["launches"])
-          + split + f"; K1 at the plan's T={plan_rows} C={ZOO_CLIENTS}: "
-          f"bound {run['K1']['bound_ms']:.4f} ms ({k1_bytes / 1e9:.2f} GB), "
-          f"in-run at {run['K1']['bound_ms'] / run['K1']['ms']:.1%} of it")
+          + split + (
+              f"; K2 over {run['K2']['elements']:,} slot elements in "
+              f"{run['K2']['rows']:,} rows: bound "
+              f"{run['K2']['bound_ms']:.4f} ms ({run['K2']['bytes'] / 1e9:.2f}"
+              f" GB), in-run at "
+              f"{run['K2']['bound_ms'] / max(run['K2']['ms'], 1e-9):.1%} of "
+              f"it; the first round's call alone (L2 flushed) "
+              f"{tap.ms:.4f} ms, its plain version {tap.plain_ms:.4f} ms"
+              if packed else
+              f"; K1 at the plan's T={plan_rows} C={ZOO_CLIENTS}: bound "
+              f"{run['K1']['bound_ms']:.4f} ms ({k1_bytes / 1e9:.2f} GB), "
+              f"in-run at {run['K1']['bound_ms'] / run['K1']['ms']:.1%} of "
+              f"it"))
+    if expert and packed:
+        print(f"[{tag}] the first round's grouped K2 call ({tap.calls[0][2]} "
+              f"leaves, {tap.calls[0][0]:,} elements; peak memory before the "
+              f"check {tap.peak / 1e9:.2f} GB): the codes and scales of the "
+              f"expert slot rows " + ", ".join(
+                  f"{r:,} x {c:,}" for (r, c), _ in tap.leaves)
+              + " bitwise equal to K2's plain version "
+              f"(ref.quantize_pack_ref) on the same rows and uniforms")
     if repeat:
         first = {p: x.cpu() for p, x in fed.params.items()}
         sels = [np.array(x) for x in fed.server.sel_history]
@@ -4804,7 +5390,7 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
         del fed, frozen, events
         _free_card(tag)
         t0 = time.perf_counter()
-        fed = _zoo_fed(dev, cfg, s=s)
+        fed = _zoo_fed(dev, cfg, s=s, **fl_kw)
         fed.fit(2)
         torch.cuda.synchronize()
         again = time.perf_counter() - t0
@@ -4826,14 +5412,20 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
 
 
 HYMBA_S = 2048                    # past the window: local != global work
+# the round's depth, cut from 32 to keep the smoke within its time: the
+# SSM scan's state loop made 309,000 kernels a round at 32 layers (58 s a
+# phase, 16 s of it the profile's parse)
+HYMBA_ROUND_LAYERS, HYMBA_ROUND_PARAMS = 16, 789_711_200
 
 
 def phase_zoo_round_hymba(dev, smi):
-    """hymba-1.5b (34 units: embed, layer0-31, head; 17 trained a client)
-    at S = 2,048: the windowed and the global layers' K5/K6 apart (the
-    SSM scan's state loop launches ~10^5 kernels a round)."""
-    return _zoo_round_arch(dev, smi, HYMBA_ARCH, HYMBA_PARAMS, HYMBA_S,
-                           "zoo-round-hymba")
+    """hymba-1.5b at full width cut to 16 of 32 layers, 2 macro blocks
+    (18 units: embed, layer0-15, head; 9 trained a client) at S = 2,048:
+    the windowed and the global layers' K5/K6 apart (the SSM scan's state
+    loop launches ~10^5 kernels a round)."""
+    return _zoo_round_arch(dev, smi, HYMBA_ARCH, HYMBA_ROUND_PARAMS,
+                           HYMBA_S, "zoo-round-hymba",
+                           layers=HYMBA_ROUND_LAYERS)
 
 
 def phase_zoo_round_moe(dev, smi):
@@ -4842,6 +5434,18 @@ def phase_zoo_round_moe(dev, smi):
     client) at ``train_4k``'s S = 4,096, built twice from one seed."""
     return _zoo_round_arch(dev, smi, MOE_ARCH, MOE_PARAMS, TRAIN_S,
                            "zoo-round-moe", repeat=True)
+
+
+def phase_zoo_packed_moe(dev, smi):
+    """The MoE round packed: ``[zoo-round-moe]``'s setup with
+    ``packed=True, codec="qint8"``: one grouped K2 launch a round over
+    every leaf's slot rows (the expert leaves' rows of E·d·ff = 16,777,216
+    elements take K2's two-visit route), no K1; the first round's expert
+    slot rows bitwise K2's plain version; the bill the codec's; rebuilt
+    from one seed and held bitwise."""
+    return _zoo_round_arch(dev, smi, MOE_ARCH, MOE_PARAMS, TRAIN_S,
+                           "zoo-packed-moe", repeat=True, packed=True,
+                           codec="qint8")
 
 
 def phase_zoo_parity_moe(dev):
@@ -4883,11 +5487,11 @@ def phase_zoo_parity_whisper(dev):
 
 
 def phase_zoo_parity_stablelm(dev):
-    """stablelm-3b at full width cut to 2 layers, S = 1,024: K5/K6 at head
+    """stablelm-3b at full width cut to 2 layers, S = 640: K5/K6 at head
     dim 80 on the card against the host CPU."""
     from repro_torch.configs.base import get_config
     phase_zoo_parity(dev, get_config(STABLELM_ARCH).replace(n_layers=2),
-                     tag="zoo-parity-stablelm")
+                     s=ZOO_PARITY_S, tag="zoo-parity-stablelm")
 
 
 def phase_zoo_round_vlm(dev, smi):
@@ -4902,12 +5506,15 @@ def phase_zoo_round_vlm(dev, smi):
 
 
 def phase_zoo_parity_vlm(dev):
-    """internvl2-26b at full width cut to 1 layer, 1,024 patches and 128
-    text tokens (1,152 positions: the chunked route, K5/K6 on the card),
-    the projector trained by one client: card against the host CPU."""
+    """internvl2-26b at full width cut to 1 layer and to 512 patches
+    (the config's 1,024 cut, as a length: the host CPU's side of 1,152
+    positions took 59-71 s) and 128 text tokens (640 positions: past 512,
+    the chunked route, K5/K6 on the card), the projector trained by one
+    client: card against the host CPU."""
     from repro_torch.configs.base import get_config
-    phase_zoo_parity(dev, get_config(VLM_ARCH).replace(n_layers=1),
-                     s=VLM_PARITY_S, tag="zoo-parity-vlm")
+    phase_zoo_parity(dev, get_config(VLM_ARCH).replace(
+        n_layers=1, n_patches=VLM_PARITY_PATCHES), s=VLM_PARITY_S,
+        tag="zoo-parity-vlm")
 
 
 def k1_qwen3_plan(dev, plan_rows, smi):
@@ -5173,6 +5780,8 @@ def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
     rows["K2"]["hub qwen3-1.7b packed qint8"] = {
         "elements": packed_run["K2"]["elements"],
         "in_run_ms": packed_run["K2"]["ms"],
+        "ms": packed_run["K2"]["alone_ms"],
+        "plain_ms": packed_run["K2"]["plain_ms"], "library_ms": None,
         "bound_ms": k2_bytes / memory_rate(name) * 1e3, "bound_by": "bytes"}
     shapes = [(f"{ZOO_ARCH} B=1 S={TRAIN_S}", dense_run["K5"]["ms"],
                dense_run["K6"]["ms"]),
@@ -5225,7 +5834,8 @@ def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
     k2 = rows["K2"]["hub qwen3-1.7b packed qint8"]
     print(f"[zoo-kernels] K2 hub qwen3-1.7b packed qint8, one grouped launch "
           f"over {k2['elements']:,} slot elements: in-run "
-          f"{k2['in_run_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
+          f"{k2['in_run_ms']:.4f} ms, alone {k2['ms']:.4f} ms, plain "
+          f"{k2['plain_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
           f"({k2_bytes / 1e9:.2f} GB), kernel at "
           f"{k2['bound_ms'] / k2['in_run_ms'] if k2['in_run_ms'] else math.nan:.1%}"
           f" of the bound")
@@ -5250,46 +5860,6 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    phase_build()
-    k1 = phase_kernel(dev)
-    phase_parity(dev)
-    k1_paths = {"hub vgg16": phase_round(dev)}
-    phase_round_repeat(dev)
-    k2 = phase_codec_kernel(dev)
-    k2_paths = {"hub vgg16 packed qint8": phase_packed_round(dev)}
-    phase_codec_rounds(dev)
-    k1_paths.update(phase_paper_tasks(dev))
-    phase_paper_tasks_parity(dev)
-    (k1_paths["hierarchical vgg16"],
-     k2_paths["hierarchical vgg16 packed qint8"], hier) = phase_hier_round(dev)
-    phase_gossip_round(dev)
-    k1_paths.update(phase_scored_round(dev))
-    k2_paths["hub vgg16 packed qint8 score_weighted"] = \
-        phase_scored_packed(dev)
-    phase_ckpt_resume(dev, smi)
-    k2_async, k2["dispatch_1client"] = phase_async_round(dev, smi)
-    k2_paths.update(k2_async)
-    k2_paths.update(phase_cohort_round(dev))
-    k1_chaos, k2_chaos = phase_chaos(dev)
-    k1_paths.update(k1_chaos)
-    k2_paths.update(k2_chaos)
-    phase_engine_resume(dev, smi)
-    k1["plans"] = phase_k1_plans(dev, hier)
-    del hier
-    torch.cuda.empty_cache()
-    k1_paths.update({"hierarchical vgg16 packed qint8": 0, "gossip vgg16": 0})
-    k3 = phase_decode_kernel(dev)
-    w, k3["launches"] = phase_serve(dev)
-    phase_serve_parity(w)
-    del w                                 # free qwen3 before rwkv6's build
-    torch.cuda.empty_cache()
-    k5, k6, attn_zoo = phase_attention_kernels(dev)
-    k4 = phase_decode_dense(dev)
-    k7 = phase_wkv_kernel(dev)
-    w, k7["launches"] = phase_serve_rwkv6(dev)
-    phase_serve_rwkv6_parity(w)
-    del w
-    _free_card("serve-rwkv6")
     walls = {}
 
     def timed(tag, fn, *args):
@@ -5298,14 +5868,59 @@ def main() -> int:
         walls[tag] = time.perf_counter() - t0
         return out
 
+    timed("build", phase_build)
+    k1 = timed("kernel", phase_kernel, dev)
+    timed("parity", phase_parity, dev)
+    k1_paths = {"hub vgg16": timed("round", phase_round, dev)}
+    timed("round-repeat", phase_round_repeat, dev)
+    k2 = timed("codec-kernel", phase_codec_kernel, dev)
+    k2_paths = {"hub vgg16 packed qint8": timed("packed-round",
+                                                 phase_packed_round, dev)}
+    timed("codec-rounds", phase_codec_rounds, dev)
+    k1_paths.update(timed("paper-tasks", phase_paper_tasks, dev))
+    timed("paper-tasks-parity", phase_paper_tasks_parity, dev)
+    (k1_paths["hierarchical vgg16"],
+     k2_paths["hierarchical vgg16 packed qint8"], hier) = timed(
+        "hier-round", phase_hier_round, dev)
+    timed("gossip-round", phase_gossip_round, dev)
+    k1_paths.update(timed("scored-round", phase_scored_round, dev))
+    k2_paths["hub vgg16 packed qint8 score_weighted"] = timed(
+        "scored-packed", phase_scored_packed, dev)
+    timed("ckpt-resume", phase_ckpt_resume, dev, smi)
+    k2_async, k2["dispatch_1client"] = timed("async-round",
+                                             phase_async_round, dev, smi)
+    k2_paths.update(k2_async)
+    k2_paths.update(timed("cohort-round", phase_cohort_round, dev))
+    k1_chaos, k2_chaos = timed("chaos", phase_chaos, dev)
+    k1_paths.update(k1_chaos)
+    k2_paths.update(k2_chaos)
+    timed("engine-resume", phase_engine_resume, dev, smi)
+    k1["plans"] = timed("k1-plans", phase_k1_plans, dev, hier)
+    del hier
+    torch.cuda.empty_cache()
+    k1_paths.update({"hierarchical vgg16 packed qint8": 0, "gossip vgg16": 0})
+    k3 = timed("decode-kernel", phase_decode_kernel, dev)
+    w, k3["launches"] = timed("serve", phase_serve, dev)
+    timed("serve-parity", phase_serve_parity, w)
+    del w                                 # free qwen3 before rwkv6's build
+    torch.cuda.empty_cache()
+    k5, k6, attn_zoo = timed("attention-kernels", phase_attention_kernels,
+                             dev)
+    k4 = timed("decode-dense", phase_decode_dense, dev)
+    k7 = timed("wkv-kernel", phase_wkv_kernel, dev)
+    w, k7["launches"] = timed("serve-rwkv6", phase_serve_rwkv6, dev)
+    timed("serve-rwkv6-parity", phase_serve_rwkv6_parity, w)
+    del w
+    _free_card("serve-rwkv6")
+
     # hymba-1.5b served (K3 at a GQA group of 5; K5 in the long prefill)
-    hymba = timed("serve-hymba", phase_serve_hymba, dev)
-    timed("serve-hymba-parity", phase_serve_hymba_parity, hymba)
+    hymba, hymba_ran = timed("serve-hymba", phase_serve_hymba, dev)
+    timed("serve-hymba-parity", phase_serve_hymba_parity, hymba, hymba_ran)
     k3_paths = {"serve qwen3-1.7b": k3["launches"]}
     k3_paths.update({f"serve hymba-1.5b {t}": c["K3"]
                      for t, (_, c, _, _) in hymba.items()})
     k5_serve = {"serve hymba-1.5b long prefill": hymba["long"][1]["K5"]}
-    del hymba
+    del hymba, hymba_ran
     _free_card("serve-hymba")
     # granite-moe-1b-a400m served (K3 at a GQA group of 2; K5 in the long
     # prefill), the MoE dispatch in plain PyTorch
@@ -5324,10 +5939,26 @@ def main() -> int:
     whisper_serve = timed("serve-whisper", phase_serve_whisper, dev)
     k5_serve[f"serve {WHISPER_ARCH} encoder prefill"] = whisper_serve["K5"]
     _free_card("serve-whisper")
-    # internvl2-26b cut to 24 layers through the static loop (K5 in the
-    # prefill over 1,024 patches and 128 prompt tokens)
+    # internvl2-26b cut to 12 layers in fp32 through the static loop (K5 in
+    # the prefill over 1,024 patches and 128 prompt tokens), then whole in
+    # bf16 (K5 on the tensor-core source), held to fp32 on the 12 layers
     vlm_serve = timed("serve-vlm", phase_serve_vlm, dev, smi)
     k5_serve[f"serve {VLM_ARCH} prefill"] = vlm_serve["K5"]
+    vlm_bf16 = timed("serve-vlm-bf16", phase_serve_vlm_bf16, dev, smi,
+                     vlm_serve)
+    k5_serve[f"serve {VLM_ARCH} bf16 prefill"] = vlm_bf16["K5"]
+    for key in ("cfg", "params", "prompts", "patches", "tokens"):
+        vlm_serve.pop(key)
+    _free_card("serve-vlm-bf16")
+    # gemma3-12b at full width through the paged engine (K3 at head dim
+    # 256 on full and ring pages; K5 windowed and global in the long
+    # prefill)
+    gemma_serve, gemma_cases = timed("serve-gemma3", phase_serve_gemma3, dev)
+    k3_paths[f"serve {GEMMA_ARCH}"] = gemma_serve["serving"][0]["K3"]
+    k3_paths[f"serve {GEMMA_ARCH} long"] = gemma_serve["long"][0]["K3"]
+    k5_serve[f"serve {GEMMA_ARCH} long prefill"] = \
+        gemma_serve["long"][0]["K5"]
+    k3["cases"].update(gemma_cases)
     _free_card("zoo")
     # the zoo: the round and the train step of the zoo LMs (K1, K2, K5, K6)
 
@@ -5337,16 +5968,19 @@ def main() -> int:
                                         smi)
     gemma, gemma_run, _, _ = timed("zoo-train-step", phase_zoo_train_step,
                                    dev, smi)
-    timed("zoo-parity", phase_zoo_parity, dev)
+    timed("zoo-parity", phase_zoo_parity, dev, None, ZOO_PARITY_S)
     timed("train-launcher", phase_train_launcher)
     hymba_counts, hymba_run, _, _ = timed(
         "zoo-round-hymba", phase_zoo_round_hymba, dev, smi)
     timed("zoo-parity-hymba", phase_zoo_parity_hymba, dev)
     timed("train-launcher-hymba", phase_train_launcher, HYMBA_ARCH, 2, 34,
           "train-launcher-hymba")
-    # the MoE family's round (K1, K5/K6 at a GQA group of 2)
+    # the MoE family's round (K1, K5/K6 at a GQA group of 2), then packed
+    # with qint8 (K2 over the expert leaves' slot rows, no K1)
     moe_counts, moe_run, _, _ = timed("zoo-round-moe", phase_zoo_round_moe,
                                       dev, smi)
+    pmoe_counts, pmoe_run, pmoe_peak, _ = timed(
+        "zoo-packed-moe", phase_zoo_packed_moe, dev, smi)
     timed("zoo-parity-moe", phase_zoo_parity_moe, dev)
     timed("train-launcher-moe", phase_train_launcher, MOE_ARCH, 1, 26,
           "train-launcher-moe")
@@ -5363,25 +5997,62 @@ def main() -> int:
                                       dev, smi)
     timed("zoo-parity-vlm", phase_zoo_parity_vlm, dev)
     k1_plan = timed("k1-qwen3-plan", k1_qwen3_plan, dev, plan_rows, smi)
-    hymba_s = sum(v for k, v in walls.items()
-                  if "hymba" in k or k.startswith("k1-"))
-    moe_s = sum(v for k, v in walls.items() if "moe" in k)
-    new_s = sum(v for k, v in walls.items()
-                if "whisper" in k or "stablelm" in k)
-    vlm_s = sum(v for k, v in walls.items() if "vlm" in k)
+    groups = {"build": ("build",),
+              "paper (kernel .. k1-plans)": (
+                  "kernel", "parity", "round", "round-repeat", "codec-kernel",
+                  "packed-round", "codec-rounds", "paper-tasks",
+                  "paper-tasks-parity", "hier-round", "gossip-round",
+                  "scored-round", "scored-packed", "ckpt-resume",
+                  "async-round", "cohort-round", "chaos", "engine-resume",
+                  "k1-plans"),
+              "kernels and qwen3 / rwkv6 serving": (
+                  "decode-kernel", "serve", "serve-parity",
+                  "attention-kernels", "decode-dense", "wkv-kernel",
+                  "serve-rwkv6", "serve-rwkv6-parity"),
+              "hymba-1.5b": ("serve-hymba", "serve-hymba-parity",
+                             "zoo-round-hymba", "zoo-parity-hymba",
+                             "train-launcher-hymba", "k1-qwen3-plan"),
+              MOE_ARCH: ("serve-moe", "serve-moe-parity", "zoo-round-moe",
+                         "zoo-parity-moe", "train-launcher-moe"),
+              "stablelm-3b, whisper-medium": (
+                  "serve-stablelm", "serve-whisper", "zoo-round-whisper",
+                  "zoo-parity-whisper", "zoo-parity-stablelm"),
+              "internvl2-26b": ("serve-vlm", "zoo-round-vlm",
+                                "zoo-parity-vlm"),
+              "qwen3-1.7b zoo, gemma3 train step": (
+                  "zoo-round", "zoo-packed", "zoo-train-step", "zoo-parity",
+                  "train-launcher"),
+              "gemma3-12b served, internvl2-26b in bf16, granite packed": (
+                  "zoo-packed-moe", "serve-vlm-bf16", "serve-gemma3")}
+    check(sorted(sum(groups.values(), ())) == sorted(walls),
+          f"wall groups {sorted(sum(groups.values(), ()))} vs phases "
+          f"{sorted(walls)}")
     print("[zoo] wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                              walls.items())
-          + f"; phases 29-33 "
-          f"{sum(walls.values()) - hymba_s - moe_s - new_s - vlm_s:.1f}; "
-          f"phases 34-39 (hymba, k1-qwen3-plan) {hymba_s:.1f}; phases 40-44 "
-          f"(granite-moe-1b-a400m) {moe_s:.1f}; phases 45-49 (stablelm-3b, "
-          f"whisper-medium) {new_s:.1f}; phases 50-52 (internvl2-26b) "
-          f"{vlm_s:.1f}")
+          + "; by group: " + ", ".join(
+              f"{g} {sum(walls[t] for t in tags):.1f}"
+              for g, tags in groups.items()))
     zoo = zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
                           attn_zoo, hymba_run, k1_plan, moe_run, vlm_run)
+    name = torch.cuda.get_device_name(0)
+    zoo["K2"][f"hub {MOE_ARCH} packed qint8"] = {
+        "elements": pmoe_run["K2"]["elements"],
+        "in_run_ms": pmoe_run["K2"]["ms"], "ms": pmoe_run["K2"]["alone_ms"],
+        "plain_ms": pmoe_run["K2"]["plain_ms"], "library_ms": None,
+        "bound_ms": pmoe_run["K2"]["bound_ms"], "bound_by": "bytes",
+        "peak_GB": pmoe_peak / 1e9}
+    print(f"[zoo-kernels] K2 hub {MOE_ARCH} packed qint8, one grouped launch "
+          f"over {pmoe_run['K2']['elements']:,} slot elements: in-run "
+          f"{pmoe_run['K2']['ms']:.4f} ms, alone "
+          f"{pmoe_run['K2']['alone_ms']:.4f} ms, plain "
+          f"{pmoe_run['K2']['plain_ms']:.4f} ms, bound "
+          f"{pmoe_run['K2']['bound_ms']:.4f} ms, kernel at "
+          f"{pmoe_run['K2']['bound_ms'] / pmoe_run['K2']['ms']:.1%} of the "
+          f"bound on {name}")
     k1_paths["hub qwen3-1.7b"] = dense["K1"]
     k1_paths["hub hymba-1.5b"] = hymba_counts["K1"]
     k1_paths[f"hub {MOE_ARCH}"] = moe_counts["K1"]
+    k1_paths[f"hub {MOE_ARCH} packed qint8"] = pmoe_counts["K1"]
     k1_paths[f"hub {WHISPER_ARCH}"] = whisper_counts["K1"]
     k1_paths[f"hub {VLM_ARCH}"] = vlm_counts["K1"]
     k3["launches"] = sum(k3_paths.values())
@@ -5389,6 +6060,7 @@ def main() -> int:
     k1_paths["hub qwen3-1.7b packed qint8"] = packed["K1"]
     k2_paths["hub qwen3-1.7b packed qint8"] = packed["K2"]
     k2_paths["hub qwen3-1.7b"] = dense["K2"]
+    k2_paths[f"hub {MOE_ARCH} packed qint8"] = pmoe_counts["K2"]
     for k, paths in ((k1, k1_paths), (k2, k2_paths)):
         k["launches"] = sum(paths.values())
         k["launches_by_path"] = paths
@@ -5397,6 +6069,7 @@ def main() -> int:
                  ("train step gemma3-12b macro block", gemma),
                  ("hub hymba-1.5b", hymba_counts),
                  (f"hub {MOE_ARCH}", moe_counts),
+                 (f"hub {MOE_ARCH} packed qint8", pmoe_counts),
                  (f"hub {WHISPER_ARCH}", whisper_counts),
                  (f"hub {VLM_ARCH}", vlm_counts))
     for k, keys in ((k5, ("K5",)), (k6, ("K6 dq", "K6 dkv"))):
@@ -5413,10 +6086,14 @@ def main() -> int:
             for where in ("enc", "self", "cross")}
     k1["zoo"], k2["zoo"], k5["zoo"], k6["zoo"] = (
         zoo["K1"], zoo["K2"], zoo["K5"], zoo["K6"])
-    # K5 at internvl2-26b's serving prefill: (8, 1,152, 48 over 8, 128)
+    # K5 at internvl2-26b's serving prefill: (8, 1,152, 48 over 8, 128),
+    # fp32 on the SIMT source and bf16 on the tensor-core one
+    s_vlm = 1024 + VLM_PROMPT
     k5.setdefault("cases", {})[
-        f"serve {VLM_ARCH} prefill B={VLM_BATCH} "
-        f"S={1024 + VLM_PROMPT}"] = vlm_serve["case"]
+        f"serve {VLM_ARCH} prefill B={VLM_BATCH} S={s_vlm}"] = \
+        vlm_serve["case"]
+    k5["cases"][f"serve {VLM_ARCH} bf16 prefill B={VLM_BATCH} S={s_vlm}"] = \
+        vlm_bf16["case"]
     # K4's main path is whisper's decode step; [decode-dense]'s direct
     # calls are listed beside it
     k4["launches"] = whisper_serve["K4"]

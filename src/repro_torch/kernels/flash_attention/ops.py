@@ -34,7 +34,8 @@ The kernels use their own tiles.  The model-layout functions take
 with zero keys to whole blocks (``models.attention.pad_noncausal``)
 computes the unpadded call.  Head dim 80 runs head dim 128's kernels on
 zero columns, with the scale of 80.  Launches are counted in
-:data:`LAUNCHES` (``fwd``, ``dq``, ``dkv``).
+:data:`LAUNCHES` (``fwd``, ``dq``, ``dkv``) and, by the source whose
+library took them, in :data:`SOURCE_LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ HEAD_DIMS = (32, 64, 80, 128, 256)     # 80 (stablelm-3b) on 128's tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD, _DQ, _DKV = 0, 1, 2
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
+SOURCE_LAUNCHES = {src.name: 0 for src in SOURCES.values()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,6 +171,7 @@ def _launch(name, which, q, k, v, *, do=None, lse=None, delta=None,
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {err}")
     LAUNCHES[("fwd", "dq", "dkv")[which]] += 1
+    SOURCE_LAUNCHES[SOURCES[q.dtype].name] += 1
 
 
 def _kv_len(name, k, kv_len):
@@ -337,5 +340,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, SOURCE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0

@@ -345,7 +345,7 @@ def static_generate(cfg, params, prompts, gen: int, *, max_len: int,
     (default: 0..B-1 in batch order).  ``params`` must lie on ``device``.
 
     Returns generated tokens (B, gen) int32, plus the per-step logits rows
-    [(B, V)] * gen when ``collect_logits``.
+    [(B, V)] * gen when ``collect_logits`` (float32: numpy has no bf16).
     """
     dev = resolve_device(device)
     model = get_model(cfg)
@@ -377,7 +377,7 @@ def static_generate(cfg, params, prompts, gen: int, *, max_len: int,
             rows.append(row)
     out = torch.stack(toks, dim=1).cpu().numpy().astype(np.int32)
     if collect_logits:
-        return out, [r.cpu().numpy() for r in rows]
+        return out, [r.float().cpu().numpy() for r in rows]
     return out
 
 

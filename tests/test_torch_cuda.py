@@ -1495,3 +1495,120 @@ def test_whisper_decode_step_runs_k4(dev):
     assert out[str(dev)][1] == 2 * cfg.n_layers and out["cpu"][1] == 0
     torch.testing.assert_close(out[str(dev)][0], out["cpu"][0], atol=1e-4,
                                rtol=0)
+
+
+# -- head dim 256 (gemma3-12b), internvl2-26b's bf16 attention at a GQA group
+#    of 6, and every registered config's attention shape ----------------------
+
+@pytest.mark.parametrize("splits", [None, 3])
+@pytest.mark.parametrize("ring", [False, True], ids=["full", "ring"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_head_dim_256(dev, dtype, ring, splits, monkeypatch):
+    """K3 at gemma3-12b's heads, 16 over 8 of 256 (a GQA group of 2; an
+    fp32 row of 64 chunks on 32 lanes, two a lane), on scattered pages of
+    ragged lengths and on a wrapped ring of 1,024 (every slot valid, as
+    the model clamps a windowed sub-layer's lengths past the window), at
+    the plan's splits and at 3, against the plain version: fp32 within
+    2e-5, bf16 inside ``ref.bf16_error_ratio``'s bar of the fp32 plain
+    version on the same inputs."""
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import (bf16_error_ratio,
+                                                      paged_decode_ref)
+    mp = 64 if ring else 12
+    q, k, v, pt, valid = _pcase(dev, 4, 16, 8, 256, 4 * mp + 9, 16, mp,
+                                dtype=dtype, seed=3)
+    if ring:
+        valid.fill_(mp * 16)
+        pt = torch.as_tensor(np.random.default_rng(3).permutation(
+            np.arange(1, 4 * mp + 1)).reshape(4, mp), dtype=torch.int32,
+            device=dev)
+    if splits is not None:
+        _force_splits(monkeypatch, fops, splits)
+    before = fops.paged_decode_attention.launches
+    out = fops.paged_decode_attention(q, k, v, pt, valid)
+    torch.cuda.synchronize()
+    assert fops.paged_decode_attention.launches == before + 1
+    want = paged_decode_ref(q.float(), k.float(), v.float(), pt, valid)
+    if dtype == torch.float32:
+        assert float((out - want).abs().max()) < TOL
+    else:
+        assert bf16_error_ratio(out, want) <= 1.0
+    assert torch.equal(out, fops.paged_decode_attention(q, k, v, pt, valid))
+
+
+def test_flash_attention_bf16_at_group_6(dev):
+    """K5/K6 in bf16 at internvl2-26b's heads (48 over 8 of 128, a GQA
+    group of 6) over its serving prefill's 1,152 causal positions, on the
+    tensor-core source, element by element inside
+    ``ref.rounding_error_ratio``'s bar of the plain version that rounds
+    where the kernels round; one launch each of the forward, dQ and
+    dK/dV."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref,
+        rounding_error_ratio)
+    dtype = torch.bfloat16
+    q, k, v, g = _acase(dev, 2, 1152, 48, 8, 128, dtype, seed=6)
+    aops.reset_launch_counts()
+    o, dq, dk, dv = _grads(aops.flash_attention, q, k, v, g, True, 0)
+    torch.cuda.synchronize()
+    assert aops.LAUNCHES == {"fwd": 1, "dq": 1, "dkv": 1}
+    assert aops.SOURCE_LAUNCHES == {aops.SOURCES[torch.float32].name: 0,
+                                    aops.SOURCES[dtype].name: 3}
+    _, lse = aops.attention_fwd(q, k, v)
+    o_emu, lse_emu = flash_attention_fwd_ref(q, k, v, round_to=dtype)
+    want = (o_emu,) + flash_attention_bwd_ref(q, k, v, o, lse, g,
+                                              round_to=dtype)
+    for name, got, ref in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                              want):
+        assert rounding_error_ratio(got, ref) <= 1.0, name
+    torch.testing.assert_close(lse, lse_emu, atol=1e-5, rtol=0)
+
+
+def _attention_configs():
+    """Every registered config with attention (not the ssm family): its
+    name, heads, KV heads, head dim and window."""
+    from repro_torch.configs.base import get_config, list_configs
+    out = []
+    for name in list_configs():
+        cfg = get_config(name)
+        if cfg.family != "ssm":
+            out.append((name, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        cfg.sliding_window))
+    return out
+
+
+@pytest.mark.parametrize("name,h,hkv,hd,window", _attention_configs())
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_registered_attention_shapes_on_card(dev, dtype, name, h, hkv, hd,
+                                             window):
+    """Each registered config's heads, KV heads and head dim on K3 (paged
+    decode) and on K5/K6 (causal, and windowed where the config has a
+    window, cut to 96 to fit 256 positions), against the plain versions
+    at the bars of the tests above: the shapes
+    ``tests/test_torch_kernel_shapes.py`` checks on the CPU, run here."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_ref
+    fp32 = dtype == torch.float32
+    q, k, v, pt, valid = _pcase(dev, 2, h, hkv, hd, 30, 16, 6, dtype=dtype)
+    out = fops.paged_decode_attention(q, k, v, pt, valid)
+    want = paged_decode_ref(q.float(), k.float(), v.float(), pt, valid)
+    assert float((out.float() - want).abs().max()) < (TOL if fp32 else 3e-2)
+    for w in sorted({0, min(window, 96)}):
+        q, k, v, g = _acase(dev, 1, 256, h, hkv, hd, dtype, seed=w)
+        o, dq, dk, dv = _grads(aops.flash_attention, q, k, v, g, True, w)
+        qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+        o_ref, lse_ref = flash_attention_fwd_ref(qf, kf, vf, window=w)
+        refs = (o_ref,) + flash_attention_bwd_ref(qf, kf, vf, o_ref, lse_ref,
+                                                  gf, window=w)
+        for what, got, ref in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                                  refs):
+            err = float((got.float() - ref).abs().max())
+            if fp32:
+                assert err < (TOL if what == "o" else 5e-4), (what, w, err)
+            else:
+                assert err < 3e-2 * max(1.0, float(ref.abs().max())), \
+                    (what, w, err)
