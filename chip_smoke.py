@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in fifty-five phases, in the order
-below except that 17-20, then 22-28, then 21 run after 8, 34-35, then
-40-41, then 45-46, then 50, 54 and 55 after 16, and 42, 53, 43-44, then
-47-49, then 51-52 after 38 (39 last), and any failure exits non-zero.
+nothing of the ``repro`` package) in fifty-eight phases, in the order
+below except that 17-20, then 22-28, then 56-57, then 21 run after 8,
+34-35, then 40-41, then 45-46, then 50, 54 and 55 after 16, and 42, 53,
+43-44, then 47-49, then 51-52 after 38 (39, then 58 last), and any
+failure exits non-zero.  Phases 56-57 start ranks of their own, as
+``python3 chip_smoke.py --worker ...``, and wait for every one.
 Each phase's wall seconds are printed before the kernels line:
 
 1. build — compiles every CUDA kernel of the port from the sources in
@@ -310,7 +312,7 @@ Each phase's wall seconds are printed before the kernels line:
    steps: K5 12 and K6 6 + 6 a step; the local and the global layers'
    in-run times from one profiled step.
 32. zoo-parity — qwen3-1.7b at full width cut to 2 layers, one hub round
-   of SGD at rate ZOO_PARITY_LR and S = 640 (the chunked route), 2
+   of SGD at rate ZOO_PARITY_LR and S = 544 (the chunked route), 2
    clients, on the card (K5, K6, K1) and on the host CPU (plain
    versions), same params, batches and replayed selections (each client trains exactly ``n_train_units``
    = 2 units, both layers trained by some client): every parameter
@@ -353,7 +355,7 @@ Each phase's wall seconds are printed before the kernels line:
    share, the kernels' in-run times, windowed and global apart.
 37. zoo-parity-hymba — [zoo-parity] on hymba-1.5b at full width cut to
    one macro block of 2 sub-layers (window cut to 256, one global),
-   S = 640: card vs CPU at ZOO_PARITY_TOL with its per-row move checks.
+   S = 544: card vs CPU at ZOO_PARITY_TOL with its per-row move checks.
 38. train-launcher-hymba — [train-launcher] with ``--arch hymba-1.5b
    --rounds 2``.
 39. k1-qwen3-plan — K1 alone at qwen3-1.7b's hub plan (840,177 rows of
@@ -385,7 +387,7 @@ Each phase's wall seconds are printed before the kernels line:
    device events, every launch present); then the federation built
    again from the same seed, 2 rounds: every parameter bitwise equal.
 43. zoo-parity-moe — [zoo-parity] on granite-moe-1b-a400m cut to 2
-   layers at full width, S = 1,024, routing made decisive
+   layers at full width, S = 544, routing made decisive
    (``_decisive_routing``): card vs CPU at ZOO_PARITY_TOL, the CPU run's
    least router gap at least 100 x ZOO_PARITY_TOL.
 44. train-launcher-moe — [train-launcher] with ``--arch
@@ -414,11 +416,11 @@ Each phase's wall seconds are printed before the kernels line:
    (K5/K6 in-run by attention: encoder, self, cross), then built again
    from one seed and held bitwise.
 48. zoo-parity-whisper — [zoo-parity] on whisper-medium at full width cut
-   to 2 encoder and 2 decoder layers, 1,500 frames, S = 1,024, SGD at
+   to 2 encoder and 2 decoder layers, 1,500 frames, S = 544, SGD at
    WHISPER_PARITY_LR: card vs CPU at ZOO_PARITY_TOL, every row of the
    self- and cross-attention projections moved by 10 x that.
 49. zoo-parity-stablelm — [zoo-parity] on stablelm-3b at full width cut to
-   2 layers, S = 640 (K5/K6 at head dim 80).
+   2 layers, S = 544 (K5/K6 at head dim 80).
 50. serve-vlm — internvl2-26b at full width in fp32 cut to 12 of 48 layers
    (5,826,048,000 params, random weights; 48 layers, 79.5 GB, do not
    fit the card in fp32; phase 54 serves them in bf16), ``patches`` (8,
@@ -438,7 +440,7 @@ Each phase's wall seconds are printed before the kernels line:
    second round profiled, then built again from one seed and held
    bitwise.
 52. zoo-parity-vlm — [zoo-parity] on internvl2-26b at full width cut to 1
-   layer and 512 patches, 128 text tokens (K5/K6 over 640 positions),
+   layer and 416 patches, 128 text tokens (K5/K6 over 544 positions),
    the projector trained by one client: card vs CPU at ZOO_PARITY_TOL.
 
 53. zoo-packed-moe — [zoo-round-moe] with ``packed=True,
@@ -477,12 +479,38 @@ Each phase's wall seconds are printed before the kernels line:
    engine (logits recorded) against ``static_generate``: logits within
    1e-3, tokens equal barring near ties; then K3 alone at both traffics'
    decode shapes, fp32 and bf16, as [decode-kernel].
+56. mesh-round — cell 1 ([round]), its packed qint8 round
+   ([packed-round]) and the cohort of 8 from 1,000 in chunks of 4
+   ([cohort-round]), each with ``client_shards=2``: 2 ranks, processes
+   of their own (``chip_smoke.py --worker``) joined over gloo, share the
+   card (NCCL refuses two ranks on one device); each trains its half of
+   every cohort and all-gathers the other's rows.  Every rank's final
+   params and selections (digests), losses and bill equal the
+   single-process run's; K1 3 launches a rank on the dense path, K2 one
+   a round or chunk on each rank; each rank's round seconds beside the
+   single-process run's.
+57. moe-ep — ``apply_moe_sharded`` on one MoE layer of
+   granite-moe-1b-a400m at full width (d 1,024, 32 experts of 512, top
+   8, capacity factor 1.25) at 2 x 2,048 tokens with decisive routing,
+   on meshes (data 1, model 2) and (data 2, model 2) of gloo ranks on
+   the card and a (1, 1) mesh over NCCL, all side by side: on every rank
+   y within 1e-5 and aux within 1e-6 of ``apply_moe`` on the card, every
+   gradient within 1e-5 of its largest entry, the copies dropped over
+   the ranks equal to ``apply_moe``'s, the least routing gap at least
+   100 x the y bar, and a planted fault (ranks past model index 0 one
+   expert off) outside the y bar; forward + backward seconds a rank.
+58. k1-zoo-plans — [k1-qwen3-plan] at the plans of the hymba-1.5b
+   (16 layers), whisper-medium, granite-moe-1b-a400m and internvl2-26b
+   (2 layers) rounds, each taken from the plan its round built: the
+   kernel, its plain version and ``torch.bmm`` + guard beside the byte
+   bound.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
 the card's name and power limit (as ``nvidia-smi`` reports them) and a
 JSON line of per-kernel numbers (K1's and K2's launches summed over the
-paths that ran them, each path's count in ``launches_by_path``, K1's
+paths that ran them, [mesh-round]'s ranks' included, each path's count
+in ``launches_by_path``, K1's
 other plans in ``plans``, K2's single-client dispatch in
 ``dispatch_1client``; K3's those of the serving runs (10, 34, 40, 45,
 55) and gemma3-12b's shapes in ``cases``;
@@ -510,9 +538,11 @@ import time
 
 import numpy as np
 
-# one card: set before torch initialises CUDA
+# one card: set before torch initialises CUDA (a rank of [mesh-round] or
+# [moe-ep] sees the cards its parent gave it)
 CARD = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
-os.environ["CUDA_VISIBLE_DEVICES"] = CARD
+if sys.argv[1:2] != ["--worker"]:
+    os.environ["CUDA_VISIBLE_DEVICES"] = CARD
 
 import torch  # noqa: E402
 
@@ -797,6 +827,7 @@ def phase_round(dev):
     check(launches == ROUNDS,
           f"masked_agg launched {launches} times in {ROUNDS} rounds")
     check(frozen.checked > 0, "no frozen unit was checked")
+    MESH_WANT["dense"] = _run_record(fed)
     summ = fed.comm_summary()
     t4 = table4_row(fed.assign, fed.params, np.stack(fed.server.sel_history))
     check(all(summ[k] == v for k, v in t4.items()),
@@ -1033,6 +1064,7 @@ def phase_packed_round(dev):
     grouped = ({p: x.clone() for p, x in fed.params.items()},
                list(fed.server.sel_history), fed.comm_summary(),
                [r.seconds for r in hist])
+    MESH_WANT["packed qint8"] = _run_record(fed)
     n_frozen = frozen.checked
     del fed, frozen, cap
     torch.cuda.empty_cache()
@@ -2687,7 +2719,7 @@ VLM_ROUND_LAYERS, VLM_ROUND_PARAMS = 2, 1_925_222_400
 VLM_BATCH, VLM_PROMPT, VLM_GEN = 8, 128, 64
 VLM_MAX_LEN = VLM_PROMPT + VLM_GEN + 8 + 1024
 VLM_PARITY_S = 128               # text tokens after the patches
-VLM_PARITY_PATCHES = 512         # [zoo-parity-vlm]'s patches (640 positions)
+VLM_PARITY_PATCHES = 416         # [zoo-parity-vlm]'s patches (544 positions)
 VLM_ROUND_S = 1024 + 4096        # the round's positions: patches + train_4k
 
 
@@ -4532,6 +4564,8 @@ def phase_cohort_round(dev):
                   f"{r.uplink_bytes:.0f} B qint8; K2 {launches // 2} "
                   f"launches a round ({eng.n_chunks} chunks of {chunk})")
         k2[f"cohort 1000 chunk {chunk} vgg16 qint8"] = launches
+        if chunk == MESH_CHUNK:
+            MESH_WANT[f"cohort chunk {chunk}"] = _run_record(fed)
         runs[chunk] = ({p: x.clone() for p, x in fed.params.items()},
                        list(fed.server.sel_history), fed.comm_summary(),
                        [r.loss for r in hist], eng.fleet)
@@ -4760,7 +4794,7 @@ ZOO_PARITY_LR = 0.1
 # the 2-layer parities' text length on qwen3-1.7b and stablelm-3b: past
 # 512, so the chunked route (K5/K6) runs; cut from 1,024 to shorten the
 # host CPU's side
-ZOO_PARITY_S = 640
+ZOO_PARITY_S = 544                # past 512: the chunked route, K5/K6
 # whisper's: its encoder's q and k rows see a near-uniform softmax over
 # 1,500 frames, and at 0.1 they move by 3.5e-6-4.7e-6 (an H100 run), under
 # the 10 x ZOO_PARITY_TOL the phase asks of every attention row
@@ -5449,21 +5483,21 @@ def phase_zoo_packed_moe(dev, smi):
 
 
 def phase_zoo_parity_moe(dev):
-    """granite-moe-1b-a400m at full width cut to 2 layers, S = 1,024 (the
+    """granite-moe-1b-a400m at full width cut to 2 layers, S = 544 (the
     chunked route), decisive routing: card against the host CPU."""
     from repro_torch.configs.base import get_config
     phase_zoo_parity(dev, get_config(MOE_ARCH).replace(n_layers=2),
-                     tag="zoo-parity-moe")
+                     s=ZOO_PARITY_S, tag="zoo-parity-moe")
 
 
 def phase_zoo_parity_hymba(dev):
     """hymba-1.5b at full width cut to 2 layers (one macro block: a
-    windowed sub-layer, window cut to 256, and a global one), S = 640:
+    windowed sub-layer, window cut to 256, and a global one), S = 544:
     both K5/K6 routes, card against the host CPU."""
     from repro_torch.configs.base import get_config
     cfg = get_config(HYMBA_ARCH).replace(n_layers=2, global_every=2,
                                          sliding_window=256)
-    phase_zoo_parity(dev, cfg, s=640, tag="zoo-parity-hymba")
+    phase_zoo_parity(dev, cfg, s=ZOO_PARITY_S, tag="zoo-parity-hymba")
 
 
 def phase_zoo_round_whisper(dev, smi):
@@ -5478,16 +5512,16 @@ def phase_zoo_round_whisper(dev, smi):
 
 def phase_zoo_parity_whisper(dev):
     """whisper-medium at full width cut to 2 encoder and 2 decoder layers,
-    1,500 frames, S = 1,024: the padded non-causal route (encoder, cross)
+    1,500 frames, S = 544: the padded non-causal route (encoder, cross)
     and the causal one on the card against the host CPU."""
     from repro_torch.configs.base import get_config
     phase_zoo_parity(dev, get_config(WHISPER_ARCH).replace(
-        n_layers=2, n_enc_layers=2), tag="zoo-parity-whisper",
-        lr=WHISPER_PARITY_LR)
+        n_layers=2, n_enc_layers=2), s=ZOO_PARITY_S,
+        tag="zoo-parity-whisper", lr=WHISPER_PARITY_LR)
 
 
 def phase_zoo_parity_stablelm(dev):
-    """stablelm-3b at full width cut to 2 layers, S = 640: K5/K6 at head
+    """stablelm-3b at full width cut to 2 layers, S = 544: K5/K6 at head
     dim 80 on the card against the host CPU."""
     from repro_torch.configs.base import get_config
     phase_zoo_parity(dev, get_config(STABLELM_ARCH).replace(n_layers=2),
@@ -5506,9 +5540,9 @@ def phase_zoo_round_vlm(dev, smi):
 
 
 def phase_zoo_parity_vlm(dev):
-    """internvl2-26b at full width cut to 1 layer and to 512 patches
+    """internvl2-26b at full width cut to 1 layer and to 416 patches
     (the config's 1,024 cut, as a length: the host CPU's side of 1,152
-    positions took 59-71 s) and 128 text tokens (640 positions: past 512,
+    positions took 59-71 s) and 128 text tokens (544 positions: past 512,
     the chunked route, K5/K6 on the card), the projector trained by one
     client: card against the host CPU."""
     from repro_torch.configs.base import get_config
@@ -5517,16 +5551,16 @@ def phase_zoo_parity_vlm(dev):
         tag="zoo-parity-vlm")
 
 
-def k1_qwen3_plan(dev, plan_rows, smi):
+def k1_qwen3_plan(dev, plan_rows, smi, tag="[k1-qwen3-plan]"):
     """K1 alone at qwen3-1.7b's hub plan (``plan_rows`` rows of 2,048, 2
-    clients: 27.54 GB a call), on random tile buffers of that shape: its
-    device time beside its plain version's and one ``torch.bmm`` call's
-    with the guard (the yardstick of ``_k1_measure``), each timed alone
-    and its inputs' other layout freed, so that the card holds them."""
+    clients: 27.54 GB a call), or another round's plan, on random tile
+    buffers of that shape: its device time beside its plain version's and
+    one ``torch.bmm`` call's with the guard (the yardstick of
+    ``_k1_measure``), each timed alone and its inputs' other layout
+    freed, so that the card holds them."""
     from repro_torch.kernels.masked_agg import ops
     from repro_torch.kernels.masked_agg.ref import masked_agg_ref
 
-    tag = "[k1-qwen3-plan]"
     c, tile = ZOO_CLIENTS, 2048
     gen = torch.Generator(device=dev).manual_seed(0)
     g_t = torch.randn(plan_rows, tile, generator=gen, device=dev)
@@ -5564,7 +5598,7 @@ def k1_qwen3_plan(dev, plan_rows, smi):
           f"guard {library_ms:.4f}; bound {bound:.4f} ({nbytes / 1e9:.2f} "
           f"GB; kernel at {bound / ms:.1%}) on {smi}")
     del g_t, d_tct, w_t
-    _free_card("k1-qwen3-plan")
+    _free_card(tag[1:].replace("]", ""))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "max_abs_err": err}
 
@@ -5842,8 +5876,327 @@ def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the mesh: client shards and the expert-parallel MoE, on ranks spawned as
+# ``python3 chip_smoke.py --worker ...`` (one process each, joined over a
+# FileStore; gloo lets several ranks share the one card, NCCL refuses it)
+
+MESH_CHUNK = 4
+# the single-process runs' records (_run_record), filled by [round],
+# [packed-round] and [cohort-round]
+MESH_WANT = {}
+MOE_EP_TOKENS = (2, 2048)        # train_4k's 4,096 tokens, 2 rows
+MOE_EP_MESHES = (((1, 2), "gloo"), ((2, 2), "gloo"), ((1, 1), "nccl"))
+MOE_EP_Y_TOL, MOE_EP_AUX_TOL, MOE_EP_GRAD_TOL = 1e-5, 1e-6, 1e-5
+
+
+# [mesh-round]'s paths, (paper_round.build overrides, rounds): cell 1
+# dense (as [round]), packed qint8 (as [packed-round]) and the cohort of 8
+# from 1,000 in chunks of 4 (as [cohort-round])
+MESH_PATHS = {"dense": (dict(eval_images=256), ROUNDS),
+              "packed qint8": (dict(eval_images=256, packed=True,
+                                    codec="qint8"), ROUNDS),
+              f"cohort chunk {MESH_CHUNK}": (
+                  dict(cohort_chunk=MESH_CHUNK, faults="crash:0.1",
+                       client_sampler="loss_proportional", **COHORT_KW), 2)}
+
+
+def _run_record(fed):
+    """A run's final params and selections as digests, its losses, bill
+    and round seconds (through JSON, as a rank hands them back)."""
+    import hashlib
+    h = hashlib.sha256()
+    for p, x in fed.params.items():
+        h.update(p.encode())
+        h.update(x.detach().cpu().numpy().tobytes())
+    sel = hashlib.sha256(b"".join(np.ascontiguousarray(x).tobytes()
+                                  for x in fed.server.sel_history))
+    return json.loads(json.dumps({
+        "params": h.hexdigest(), "sel": sel.hexdigest(),
+        "losses": [r.loss for r in fed.history],
+        "seconds": [r.seconds for r in fed.history],
+        "bill": fed.comm_summary()}))
+
+
+def _start_ranks(target, world, backend="gloo", **kw):
+    """``world`` ranks of ``target`` in processes of their own; their
+    stdout and stderr are this script's."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    procs = []
+    for rank in range(world):
+        out = os.path.join(tmp, f"{rank}.json")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", target,
+             str(rank), str(world), os.path.join(tmp, "store"), out,
+             backend, json.dumps(kw)]), out))
+    return procs
+
+
+def _wait_ranks(procs, timeout=600):
+    """The ranks' results in rank order; every rank is stopped if one
+    fails or the time runs out."""
+    t_end = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, t_end - time.monotonic()))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode]
+    check(not bad, f"ranks {bad} failed (exit codes "
+          f"{[procs[r][0].returncode for r in bad]})")
+    out = []
+    for _, path in procs:
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _worker(argv) -> int:
+    """One rank: join the group, run the target, write its JSON."""
+    target, rank, world, store, out, backend, kw = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    import torch.distributed as dist
+    # a card a rank where there are as many (NCCL), else ranks share
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        res = {"mesh-round": _mesh_round_worker,
+               "moe-ep": _moe_ep_worker}[target](rank, world,
+                                                  **json.loads(kw))
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _mesh_round_worker(rank, world):
+    from repro_torch import paper_round
+    from repro_torch.kernels.codec import ops as qops
+    from repro_torch.kernels.masked_agg import ops
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for name, (kw, rounds) in MESH_PATHS.items():
+        fed = paper_round.build(dev, client_shards=world, **kw)
+        ops.reset_launch_counts()
+        qops.reset_launch_counts()
+        hist = fed.fit(rounds)
+        torch.cuda.synchronize()
+        rec = _run_record(fed)
+        eng = fed.server.cohort_engine
+        rec.update(K1=ops.masked_agg.launches,
+                   K2=qops.quantize_pack_group.launches,
+                   chunks=sum(eng.n_chunks for r in hist if not r.skipped)
+                   if eng is not None else 0)
+        out[name] = rec
+        print(f"[mesh-round] rank {rank} of {world}, {name}: round seconds "
+              + ", ".join(f"{x:.3f}" for x in rec["seconds"])
+              + f"; K1 {rec['K1']}, K2 {rec['K2']} launches", flush=True)
+        del fed, eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_round(dev, world=2, backend="gloo"):
+    """Cell 1, its packed qint8 round and the cohort of 8 from 1,000 in
+    chunks of 4, each with ``client_shards=2`` over 2 gloo ranks sharing
+    the card: every rank's final params, selections, losses and bill equal
+    to the single-process run's ([round], [packed-round], [cohort-round]),
+    bitwise; K1 once a round on the dense path, K2 once a round or chunk,
+    on every rank.  Returns the launches by (path, rank).  ``world`` and
+    ``backend`` set the ranks (NCCL needs a card a rank)."""
+    check(sorted(MESH_WANT) == sorted(MESH_PATHS),
+          f"single-process records {sorted(MESH_WANT)}")
+    t0 = time.perf_counter()
+    ranks = _wait_ranks(_start_ranks("mesh-round", world, backend))
+    secs = time.perf_counter() - t0
+    k1, k2 = {}, {}
+    for name, want in MESH_WANT.items():
+        for r, res in enumerate(ranks):
+            got = res[name]
+            for key in ("params", "sel", "losses", "bill"):
+                check(got[key] == want[key], f"[mesh-round] {name} rank {r}: "
+                      f"{key} differ from the single-process run's")
+            k1_want = ROUNDS if name == "dense" else 0
+            k2_want = 0 if name == "dense" else (
+                got["chunks"] if name.startswith("cohort") else ROUNDS)
+            check(got["K1"] == k1_want and got["K2"] == k2_want,
+                  f"[mesh-round] {name} rank {r}: K1 {got['K1']} (want "
+                  f"{k1_want}), K2 {got['K2']} (want {k2_want})")
+            k1[f"mesh-round {name} vgg16 rank {r}"] = got["K1"]
+            k2[f"mesh-round {name} vgg16 rank {r}"] = got["K2"]
+        print(f"[mesh-round] {name}: every rank bitwise the single-process "
+              f"run (params {want['params'][:12]}.., selections, losses, "
+              f"bill); round seconds single-process "
+              + ", ".join(f"{x:.3f}" for x in want["seconds"])
+              + "".join(f"; rank {r} " + ", ".join(
+                  f"{x:.3f}" for x in res[name]["seconds"])
+                  for r, res in enumerate(ranks)))
+    print(f"[mesh-round] {world} ranks over {backend}, 3 paths: "
+          f"{secs:.1f} s with the ranks' start")
+    return k1, k2
+
+
+def _moe_ep_inputs(dev):
+    """One MoE layer of granite-moe-1b-a400m at full width (d 1,024, 32
+    experts of 512, top 8, capacity factor 1.25) drawn from seed 0 on the
+    host, at 2 x 2,048 tokens with decisive routing (the first 32
+    coordinates of each token a permutation of codes 0.05 apart, each
+    router column reading its expert's coordinate at 3.0, the rest scaled
+    by 0.01); the output weights g; the least gap between a token's k-th
+    and (k+1)-th router probability."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MOE_ARCH)
+    mcfg, d, e = cfg.moe, cfg.d_model, cfg.moe.num_experts
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(gen, d, mcfg, torch.float32)
+    x = torch.randn(*MOE_EP_TOKENS, d, generator=gen)
+    rng = np.random.default_rng(0)
+    n = MOE_EP_TOKENS[0] * MOE_EP_TOKENS[1]
+    codes = np.stack([rng.permutation(e) for _ in range(n)])
+    x[..., :e] = torch.as_tensor((codes - (e - 1) / 2) * 0.05,
+                                 dtype=torch.float32).view(*x.shape[:2], e)
+    p["router"][:e] = 3.0 * torch.eye(e)
+    p["router"][e:] *= 0.01
+    g = torch.randn(*x.shape, generator=gen)
+    p = {k: v.to(dev) for k, v in p.items()}
+    x, g = x.to(dev), g.to(dev)
+    top = torch.topk(torch.softmax(x.view(n, d) @ p["router"], -1),
+                     mcfg.top_k + 1, dim=-1).values
+    gap = float((top[:, -2] - top[:, -1]).min())
+    return p, x, g, mcfg, gap
+
+
+def _moe_ep_worker(rank, world, shape):
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.models import moe
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = _mesh(tuple(shape), ("data", "model"), "cuda")
+    p, x, g, mcfg, gap = _moe_ep_inputs(dev)
+    names = ("router", "w_gate", "w_up", "w_down")
+
+    def run(fn):
+        leaves = [p[n].detach().requires_grad_(True) for n in names] + \
+            [x.detach().requires_grad_(True)]
+        pp = dict(zip(names, leaves))
+        moe.reset_dropped()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = fn(pp, leaves[-1])
+        grads = torch.autograd.grad((y * g).sum() + aux, leaves)
+        torch.cuda.synchronize()
+        return (y.detach(), aux.detach(), grads, moe.dropped_copies(),
+                time.perf_counter() - t0)
+
+    def plain(pp, xx):
+        return moe.apply_moe(pp, xx, mcfg)
+
+    def sharded(pp, xx):
+        return moe.apply_moe_sharded(pp, xx, mcfg, mesh=mesh)
+
+    # each timed on its second call (the first loads cuBLAS' kernels)
+    run(plain)
+    y0, aux0, g0, drop0, plain_s = run(plain)
+    run(sharded)
+    y1, aux1, g1, drop1, secs = run(sharded)
+    out = {"y_err": float((y1 - y0).abs().max()),
+           "aux_err": float((aux1 - aux0).abs()),
+           "grad_errs": [float((a - b).abs().max() / b.abs().max())
+                         for a, b in zip(g1, g0)],
+           "dropped": drop1, "dropped_plain": drop0, "gap": gap,
+           "seconds": secs, "plain_seconds": plain_s, "fault_y_err": None}
+    if shape[1] > 1:
+        # the planted fault: ranks past model index 0 take the expert
+        # shard one expert further on
+        shard = moe._ExpertShard.apply
+        moe._ExpertShard.apply = lambda w, lo, hi, *a: shard(
+            torch.roll(w, -1, 0) if lo else w, lo, hi, *a)
+        try:
+            yf = run(sharded)[0]
+        finally:
+            moe._ExpertShard.apply = shard
+        out["fault_y_err"] = float((yf - y0).abs().max())
+    return out
+
+
+def phase_moe_ep(smi, meshes=MOE_EP_MESHES):
+    """``apply_moe_sharded`` on one full-width granite MoE layer at
+    train_4k's 4,096 tokens, on meshes (data 1, model 2) and (data 2,
+    model 2) of gloo ranks sharing the card and a (1, 1) mesh over NCCL,
+    side by side: on every rank y within 1e-5 and aux within 1e-6 of
+    ``apply_moe`` on the card, every gradient within 1e-5 of its largest
+    entry, the dropped copies summed over the ranks equal, decisive
+    routing (the least gap >= 100 x the y bar), and the planted fault
+    outside the y bar."""
+    t0 = time.perf_counter()
+    started = [(shape, backend, _start_ranks(
+        "moe-ep", shape[0] * shape[1], backend, shape=list(shape)))
+        for shape, backend in meshes]
+    for shape, backend, procs in started:
+        ranks = _wait_ranks(procs)
+        tag = f"[moe-ep] mesh (data {shape[0]}, model {shape[1]}) {backend}"
+        gap = ranks[0]["gap"]
+        check(gap >= 100 * MOE_EP_Y_TOL, f"{tag}: routing gap {gap}")
+        for r, res in enumerate(ranks):
+            check(res["y_err"] < MOE_EP_Y_TOL and
+                  res["aux_err"] < MOE_EP_AUX_TOL and
+                  max(res["grad_errs"]) < MOE_EP_GRAD_TOL,
+                  f"{tag} rank {r}: y {res['y_err']:.3e}, aux "
+                  f"{res['aux_err']:.3e}, grads {res['grad_errs']}")
+            if res["fault_y_err"] is not None:
+                check(res["fault_y_err"] > MOE_EP_Y_TOL,
+                      f"{tag} rank {r}: the planted fault passed the y bar "
+                      f"({res['fault_y_err']:.3e})")
+        dropped = sum(res["dropped"] for res in ranks)
+        check(dropped == ranks[0]["dropped_plain"],
+              f"{tag}: {dropped} copies dropped against apply_moe's "
+              f"{ranks[0]['dropped_plain']}")
+        print(f"{tag}: y max err {max(r['y_err'] for r in ranks):.3e}, aux "
+              f"{max(r['aux_err'] for r in ranks):.3e}, gradients "
+              f"{max(max(r['grad_errs']) for r in ranks):.3e} (relative), "
+              f"dropped copies {dropped} == apply_moe's; least routing gap "
+              f"{gap:.3e}; planted fault y err "
+              + (", ".join(f"{r['fault_y_err']:.3e}" for r in ranks)
+                 if ranks[0]["fault_y_err"] is not None else "n/a")
+              + "; forward + backward s per rank "
+              + ", ".join(f"{r['seconds']:.3f}" for r in ranks)
+              + f" (apply_moe {ranks[0]['plain_seconds']:.3f}) on {smi}")
+    print(f"[moe-ep] {len(meshes)} meshes, "
+          f"{sum(a * b for (a, b), _ in meshes)} ranks: "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+
+
+def phase_k1_zoo_plans(dev, smi, runs):
+    """``[k1-qwen3-plan]`` at every other plan K1 runs in the zoo rounds:
+    ``runs`` maps a path to its round's record, whose plan rows (``T``)
+    come from the tiling plan the round built."""
+    name = torch.cuda.get_device_name(0)
+    rows = {}
+    for path, run in runs.items():
+        t = run["K1"]["T"]
+        res = k1_qwen3_plan(dev, t, smi, tag=f"[k1-zoo-plans] {path}")
+        nbytes = (ZOO_CLIENTS + 2) * t * 2048 * 4 + t * ZOO_CLIENTS * 4
+        rows[path] = dict(T=t, C=ZOO_CLIENTS, in_run_ms=run["K1"]["ms"],
+                          bound_ms=nbytes / memory_rate(name) * 1e3,
+                          bound_by="bytes", **res)
+    check(len(rows) == 4, f"[k1-zoo-plans] {len(rows)} plans")
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    if sys.argv[1:2] == ["--worker"]:      # a rank of [mesh-round], [moe-ep]
+        return _worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA GPU", file=sys.stderr)
@@ -5895,6 +6248,12 @@ def main() -> int:
     k1_paths.update(k1_chaos)
     k2_paths.update(k2_chaos)
     timed("engine-resume", phase_engine_resume, dev, smi)
+    # the mesh: cell 1's paths with client_shards=2 over 2 ranks sharing
+    # the card, and the expert-parallel MoE layer on 3 meshes
+    k1_mesh, k2_mesh = timed("mesh-round", phase_mesh_round, dev)
+    k1_paths.update(k1_mesh)
+    k2_paths.update(k2_mesh)
+    timed("moe-ep", phase_moe_ep, smi)
     k1["plans"] = timed("k1-plans", phase_k1_plans, dev, hier)
     del hier
     torch.cuda.empty_cache()
@@ -5997,6 +6356,9 @@ def main() -> int:
                                       dev, smi)
     timed("zoo-parity-vlm", phase_zoo_parity_vlm, dev)
     k1_plan = timed("k1-qwen3-plan", k1_qwen3_plan, dev, plan_rows, smi)
+    k1_zoo_plans = timed("k1-zoo-plans", phase_k1_zoo_plans, dev, smi, {
+        "hub hymba-1.5b": hymba_run, f"hub {WHISPER_ARCH}": whisper_run,
+        f"hub {MOE_ARCH}": moe_run, f"hub {VLM_ARCH}": vlm_run})
     groups = {"build": ("build",),
               "paper (kernel .. k1-plans)": (
                   "kernel", "parity", "round", "round-repeat", "codec-kernel",
@@ -6005,6 +6367,8 @@ def main() -> int:
                   "scored-round", "scored-packed", "ckpt-resume",
                   "async-round", "cohort-round", "chaos", "engine-resume",
                   "k1-plans"),
+              "the mesh (client shards, expert-parallel MoE, K1 plans)": (
+                  "mesh-round", "moe-ep", "k1-zoo-plans"),
               "kernels and qwen3 / rwkv6 serving": (
                   "decode-kernel", "serve", "serve-parity",
                   "attention-kernels", "decode-dense", "wkv-kernel",
@@ -6035,6 +6399,14 @@ def main() -> int:
     zoo = zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
                           attn_zoo, hymba_run, k1_plan, moe_run, vlm_run)
     name = torch.cuda.get_device_name(0)
+    for path, row in k1_zoo_plans.items():
+        zoo["K1"].setdefault(path, {}).update(row)
+        print(f"[zoo-kernels] K1 {path} plan T={row['T']} C={row['C']}: "
+              f"in-run {row['in_run_ms']:.4f} ms, alone {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms, torch.bmm + guard "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"(bytes); kernel at {row['bound_ms'] / row['ms']:.1%} of the "
+              f"bound alone on {smi}")
     zoo["K2"][f"hub {MOE_ARCH} packed qint8"] = {
         "elements": pmoe_run["K2"]["elements"],
         "in_run_ms": pmoe_run["K2"]["ms"], "ms": pmoe_run["K2"]["alone_ms"],

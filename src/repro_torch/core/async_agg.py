@@ -330,7 +330,7 @@ def build_cohort_step(loss_fn: Callable, assign, fl,
     from . import codecs as _codecs
     from .client import packed_cohort_fn
     from .masking import cohort_slot_plans
-    from .topology import _live_ctx, _selection_setup
+    from .topology import _cohort_runner, _live_ctx, _selection_setup
     strat, ctx = _selection_setup(assign, fl, strategy, scores)
     if strat.dense:
         raise ValueError(
@@ -345,6 +345,8 @@ def build_cohort_step(loss_fn: Callable, assign, fl,
     # buffer holds DECODED deltas (billing uses encoded wire bytes)
     codec_fn = _codecs.build_codec_transform(
         _codecs.resolve_codec(fl.codec), assign, fl)
+    runner: Dict[str, Any] = {}          # the cohort runner, built on the
+    #                                      params' device at first use
 
     def select(gen, sel_state=None):
         sel = strat.select(gen, _live_ctx(ctx, sel_state))
@@ -357,9 +359,13 @@ def build_cohort_step(loss_fn: Callable, assign, fl,
         k = sel.shape[0]
         rows, valid = cohort_slot_plans(assign, sel, n_slots,
                                         global_params)
-        pdeltas, metrics = cohort_stage(global_params, rows, valid,
-                                        client_batches)
         dev = next(iter(global_params.values())).device
+        if "shards" not in runner:
+            runner["shards"] = _cohort_runner(fl, dev)
+        # with client shards a dispatch of fewer clients than shards leaves
+        # some ranks' blocks empty: they train nothing and take the rows
+        pdeltas, metrics = runner["shards"].run(
+            cohort_stage, global_params, rows, valid, client_batches)
         rows = {p: r.to(dev) for p, r in rows.items()}
         valid = {p: v.to(dev) for p, v in valid.items()}
         out = {"loss_mean": metrics["loss_mean"]}

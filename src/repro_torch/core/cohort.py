@@ -294,7 +294,8 @@ def build_cohort_programs(loss_fn: Callable, assign, fl,
     from .aggregation import gate_packed_updates
     from .client import packed_cohort_fn
     from .masking import cohort_slot_plans
-    from .topology import _live_ctx, _selection_setup, resolve_topology
+    from .topology import (_cohort_runner, _live_ctx, _selection_setup,
+                           resolve_topology)
     topo = resolve_topology(topology if topology is not None
                             else fl.topology)
     strat, ctx = _selection_setup(assign, fl, strategy, scores)
@@ -320,14 +321,19 @@ def build_cohort_programs(loss_fn: Callable, assign, fl,
     gate_on = _faults.gate_enabled(fl)
     codec_fn = _codecs.build_codec_transform(
         _codecs.resolve_codec(fl.codec), assign, fl)
+    runner: Dict[str, Any] = {}          # the chunk's cohort runner, built
+    #                                      on the params' device at first use
 
     def chunk_step(global_params, acc, sel_chunk, w_chunk, positions,
                    batches, *, mode=None, scale=None, uniform=None):
         k = sel_chunk.shape[0]
         rows, valid = cohort_slot_plans(assign, sel_chunk, n_slots,
                                         global_params)
-        pdeltas, metrics = cohort(global_params, rows, valid, batches)
         dev = next(iter(global_params.values())).device
+        if "shards" not in runner:
+            runner["shards"] = _cohort_runner(fl, dev)
+        pdeltas, metrics = runner["shards"].run(cohort, global_params, rows,
+                                                valid, batches)
         rows = {p: r.to(dev) for p, r in rows.items()}
         valid = {p: v.to(dev) for p, v in valid.items()}
         out = {"loss": metrics["loss_mean"]}

@@ -4,7 +4,8 @@ Byte counts are exact functions of the unit assignment and the selection
 matrix — no simulation noise.  Pure numpy, copied from
 ``repro.core.comm`` so the port's byte counts equal the reference's
 exactly: the hub accounting the paper reports, the edge membership,
-the hierarchical and gossip rounds, and the buffered (async) flushes.
+the hierarchical and gossip rounds, the buffered (async) flushes, and
+the client-axis collective's payload (``collective_round_bytes``).
 
 * **hub** (the paper's FEDn combiner): per round,
     uplink_c   = Σ_u sel_cu · unit_bytes_u      (only trained layers ship)
@@ -209,6 +210,30 @@ def gossip_round_bytes(sel: np.ndarray, ubytes: np.ndarray,
             "degree": float(degree),
             "downlink": 0.0,
             "total": payload}
+
+
+def collective_round_bytes(sel: np.ndarray, ubytes: np.ndarray,
+                           n_devices_per_client: int = 1
+                           ) -> Dict[str, float]:
+    """Bytes crossing the client-axis all-reduce boundary per round.
+
+    A unit participates in the reduce iff ANY client selected it
+    (independent selection -> almost all units; synchronized -> exactly
+    the selected subset).  Ring all-reduce moves ~2x the payload.
+    """
+    sel = np.asarray(sel)
+    active = sel.max(axis=0) > 0
+    payload = float(ubytes[active].sum())
+    return {"payload": payload,
+            "ring_bytes": 2.0 * payload,
+            "active_units": int(active.sum()),
+            "frac_of_full": payload / float(ubytes.sum())}
+
+
+def expected_uplink_fraction(n_units: int, n_train: int) -> float:
+    """E[selected bytes]/total under uniform selection = n_train/U
+    (unit sizes cancel in expectation)."""
+    return n_train / n_units
 
 
 def table4_row(assign: UnitAssignment, params, sel_history,

@@ -22,9 +22,11 @@ round-trips the packed deltas before aggregation.
 The round engines' switches (``async_buffer``, ``n_registered``,
 ``cohort_chunk``, ``history_cap``, ``faults``, ``max_delta_norm``,
 ``client_drop_prob``) drive the ports of ``core/async_agg.py``,
-``core/cohort.py`` and ``core/faults.py``.  ``client_shards`` splits a
-cohort over a device mesh, which is not ported yet: it raises
-:class:`NotPortedError` when set.
+``core/cohort.py`` and ``core/faults.py``.  ``client_shards`` splits
+the cohort stage of every star round path over a ``(client,)`` device
+mesh (``launch/mesh.py``): each rank of the initialized default process
+group trains its block of clients and the rows are all-gathered, so
+every rank holds the unsharded round's numbers bitwise.
 """
 from __future__ import annotations
 
@@ -37,7 +39,6 @@ import torch
 from ..common import Device, resolve_device
 from .masking import UnitAssignment
 from .strategies import SelectionStrategy
-from .registry import NotPortedError
 from .topology import Topology, resolve_topology
 
 
@@ -288,16 +289,6 @@ class FLConfig:
                     "torn delivery corrupts packed payload bytes; the "
                     "validation gate that catches it runs on the packed "
                     "path: set packed=True")
-        # features of the reference that the port does not have yet:
-        # refuse their switches instead of silently running without them
-        defaults = FLConfig.__dataclass_fields__
-        for name in _UNPORTED_SWITCHES:
-            value = getattr(self, name)
-            if value != defaults[name].default:
-                raise NotPortedError(
-                    f"FLConfig.{name}={value!r}: that engine is not "
-                    f"ported to repro_torch yet (leave it at "
-                    f"{defaults[name].default!r})")
 
     def uses_cohort_engine(self) -> bool:
         """Whether Federation attaches the chunk-streaming CohortEngine
@@ -336,12 +327,6 @@ class FLConfig:
         the trained-unit count plus the optional always-trained head."""
         return min(n_units, self.resolve_n_train(n_units)
                    + (1 if self.always_train_head else 0))
-
-
-# FLConfig switches of features that are not ported yet: client_shards
-# splits the cohort over a (client,) device mesh (ROADMAP queue 1, the
-# mesh and sharding item)
-_UNPORTED_SWITCHES = ("client_shards",)
 
 
 def build_round_step(loss_fn: Callable, assign: UnitAssignment,

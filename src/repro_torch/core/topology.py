@@ -115,6 +115,38 @@ def _live_ctx(ctx: SelectionContext, sel_state) -> SelectionContext:
                                state=sel_state)
 
 
+class _OneShard:
+    """The unsharded cohort: this process runs every client."""
+
+    def block(self, n_clients: int) -> Tuple[int, int]:
+        return 0, n_clients
+
+    def gather(self, local, n_clients: int, device=None):
+        return local
+
+    def fill(self, full: torch.Tensor) -> torch.Tensor:
+        return full
+
+    def run(self, fn: Callable, replicated, *per_client):
+        return fn(replicated, *per_client)
+
+
+def _cohort_runner(fl, device: torch.device):
+    """How a round step runs its cohort stage: every client in this
+    process, or split over the ``(client,)`` mesh when
+    ``fl.client_shards`` is set (DESIGN.md §13; ``launch.mesh``).  The
+    result has ``run(fn, gp, *per_client)`` (``gp`` replicated,
+    everything else carrying a leading client axis), ``block(n)`` (this
+    rank's clients), ``gather(local, n)`` and ``fill(tile_buffer)``.  A
+    client's row of a local update does not depend on the others, and
+    the gathers copy bytes, so both agree bitwise."""
+    if not fl.client_shards:
+        return _OneShard()
+    from ..launch.mesh import ClientShards, make_client_mesh
+    return ClientShards(make_client_mesh(fl.client_shards,
+                                         device_type=device.type))
+
+
 def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                      loss_kwargs: Optional[Dict], *, strategy, scores=None,
                      device: torch.device, fused: bool = False,
@@ -181,13 +213,15 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                                      scoring=scoring)
     codec_fn = _codecs.build_codec_transform(
         _codecs.resolve_codec(fl.codec), assign, fl)
+    shards = _cohort_runner(fl, device)
     plan = {}
 
     def packed_step(global_params, client_batches, weights, sel, uniform,
                     codec_state, fault_plan):
         rows, valid = cohort_slot_plans(assign, sel, n_slots,
                                         global_params)
-        deltas, m = packed_cohort(global_params, rows, valid, client_batches)
+        deltas, m = shards.run(packed_cohort, global_params, rows, valid,
+                               client_batches)
         # the plan on the round's device, moved once per leaf
         rows = {p: r.to(device) for p, r in rows.items()}
         valid = {p: v.to(device) for p, v in valid.items()}
@@ -237,7 +271,8 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                 plan["plan"] = agg_ops.build_agg_plan(assign, global_params)
             d_t = agg_ops.new_tile_buffer(plan["plan"], (n,), device=device)
         losses, deltas, norms = [], [], []
-        for c in range(n):
+        lo, hi = shards.block(n)
+        for c in range(lo, hi):
             # the dense (full) strategy trains every unit unmasked
             mask = None if strat.dense else \
                 mask_tree(assign, sel[c], global_params)
@@ -254,27 +289,32 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
                 agg_ops.pack_into(plan["plan"], d, d_t[c])
             else:
                 deltas.append(d)
+        # with client shards: the other ranks' clients, gathered (their
+        # rows of the tile buffer filled in place)
+        per_client, norms = shards.gather(
+            (torch.stack(losses), torch.stack(norms) if scoring else None),
+            n)
+        if fused_tiles:
+            shards.fill(d_t)
+        else:
+            deltas = shards.gather(tree_stack(deltas), n)
         if strat.dense:
-            deltas = tree_stack(deltas)
             new_params = aggregate_dense(global_params, deltas, sel, weights)
         elif aggregate is not None:
-            deltas = tree_stack(deltas)
             new_params = aggregate(global_params, deltas, sel, weights)
         elif fused_tiles:
             new_params = agg_ops.masked_combine_packed(
                 global_params, d_t, sel * weights[:, None], plan["plan"])
             deltas = agg_ops.unpack(plan["plan"], d_t, global_params)
         else:
-            deltas = tree_stack(deltas)
             new_params = masked_fedavg(global_params, deltas, sel, weights,
                                        assign)
-        per_client = torch.stack(losses)
         metrics = {"loss_mean": per_client.mean(),
                    "loss_per_client": per_client,
                    "sel": sel,
                    "deltas": deltas}
         if scoring:
-            metrics["unit_sqnorm"] = torch.stack(norms)
+            metrics["unit_sqnorm"] = norms
         return new_params, metrics
 
     round_step.selection_strategy = strat
@@ -393,6 +433,14 @@ class Topology:
             "reduction_vs_full": 1.0 - float(np.mean(per_round)) / full
             if full else 0.0,
         }
+
+    # -- mesh view --------------------------------------------------------
+
+    def make_mesh(self, fl, *, multi_pod: bool = False,
+                  device_type: str = "cuda"):
+        from ..launch.mesh import make_fl_mesh
+        return make_fl_mesh(fl.n_clients, multi_pod=multi_pod,
+                            device_type=device_type)
 
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name!r})"
@@ -524,6 +572,13 @@ class Hierarchical(Topology):
                 hierarchical_masked_fedavg_packed(g, d, r, v, sel, w,
                                                   assign, mem))
 
+    def make_mesh(self, fl, *, multi_pod: bool = False,
+                  device_type: str = "cuda"):
+        from ..launch.mesh import make_hier_fl_mesh
+        return make_hier_fl_mesh(fl.resolve_n_edges(), fl.n_clients,
+                                 multi_pod=multi_pod,
+                                 device_type=device_type)
+
     def build_buffered_flush(self, assign, fl):
         mem = torch.as_tensor(comm.edge_membership(fl.n_clients,
                                                    fl.resolve_n_edges()))
@@ -606,6 +661,12 @@ class Gossip(Topology):
             raise ValueError(
                 "packed round path: gossip mixing blends full replicas, "
                 "so there is nothing to pack — use hub or hierarchical")
+        if fl.client_shards:
+            raise ValueError(
+                "client_shards: gossip carries per-client replicas as "
+                "server state and mixes them with a ring matmul — the "
+                "cohort cannot shard over the client mesh axis; use "
+                "hub or hierarchical")
         strat, ctx = _selection_setup(assign, fl, strategy, scores)
         mix = torch.as_tensor(ring_mixing_matrix(fl.n_clients),
                               device=device)

@@ -30,21 +30,33 @@ reference draws them) partitioned IID across clients, through the
 (``attn_impl="reference"``).  Weights are random, drawn on the device
 from ``--seed``.
 
-``--client-shards`` (a device mesh) and ``--prod-env`` (the reference's
-XLA launch profile, ``launch/env.py``) are not ported and raise
-``NotPortedError``.
+``--client-shards k`` splits each round's cohort over k ranks
+(``launch/mesh.py``); run it under ``torchrun --nproc-per-node k``:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --reduced --device cpu --clients 2 --rounds 2 --batch-size 2 \
+        --steps-per-round 1 --seq 32 --client-shards 2
+
+The launcher initializes the default process group from torchrun's
+environment: NCCL when every local rank has a card of its own, else gloo
+(ranks sharing one card, or the CPU); only rank 0 prints.
+``--prod-env`` re-execs the launcher under ``launch/env.py``'s
+production profile (allocator settings, tcmalloc).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
+import sys
 import time
 
 import numpy as np
 
 from ..common import resolve_device
 from ..configs.base import get_config, list_configs
-from ..core import (Checkpointer, FLConfig, Federation, NotPortedError,
+from ..core import (Checkpointer, FLConfig, Federation,
                     registered_client_samplers, registered_strategies,
                     registered_topologies)
 from ..data import FederatedLoader, iid_partition, lm_batch
@@ -103,15 +115,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-round cohort draw from the registered "
                          "fleet (core/cohort.py registry)")
     ap.add_argument("--client-shards", type=int, default=0,
-                    help="split the cohort over this many device groups "
-                         "(not ported: any value but 0 raises)")
+                    help="split the cohort over this many ranks on the "
+                         "mesh client axis (0 = one process); run under "
+                         "torchrun --nproc-per-node N")
     ap.add_argument("--history-cap", type=int, default=0,
                     help="retain at most N rounds of selection history; "
                          "older rounds fold into O(1) accounting "
                          "totals (0 = unbounded)")
     ap.add_argument("--prod-env", action="store_true",
-                    help="the reference's production launch profile "
-                         "(launch/env.py; not ported: raises)")
+                    help="re-exec under the production launch profile "
+                         "(launch/env.py: expandable allocator segments, "
+                         "tcmalloc)")
     ap.add_argument("--faults", default="",
                     help="fault-injection chaos spec, e.g. "
                          "'crash:0.1,nan:0.05,kill:0.02' (core/faults.py;"
@@ -142,17 +156,63 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _init_ranks(device: str):
+    """The default process group from torchrun's environment (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ...): NCCL when every local rank has
+    a card of its own, else gloo.  Returns (rank, this rank's device,
+    whether this call made the group)."""
+    import torch
+    import torch.distributed as dist
+    dev = resolve_device(device)
+    made = not dist.is_initialized()
+    if made:
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(
+                "--client-shards needs one process per shard: run the "
+                "launcher under torchrun --nproc-per-node N (or call "
+                "torch.distributed.init_process_group before main)")
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        n_local = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+        nccl = dev.type == "cuda" and torch.cuda.device_count() >= n_local
+        if nccl:
+            torch.cuda.set_device(local)
+        dist.init_process_group("nccl" if nccl else "gloo",
+                                init_method="env://")
+        if nccl:
+            dev = torch.device("cuda", local)
+    return dist.get_rank(), dev, made
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.prod_env:
-        raise NotPortedError(
-            "--prod-env: the production launch profile (the reference's "
-            "launch/env.py) is not ported to repro_torch yet")
+        # LD_PRELOAD only takes effect at process start: replace this
+        # launcher with itself under the profile (a no-op in the re-exec'd
+        # child: env.GUARD_VAR is set there)
+        from .env import reexec_under_prod_env
+        reexec_under_prod_env("repro_torch.launch.train",
+                              sys.argv[1:] if argv is None else argv)
 
+    rank, dev, made = 0, resolve_device(args.device), False
+    if args.client_shards:
+        rank, dev, made = _init_ranks(args.device)
+    try:
+        if rank:
+            with open(os.devnull, "w") as quiet, \
+                    contextlib.redirect_stdout(quiet):
+                _run(args, dev)
+        else:
+            _run(args, dev)
+    finally:
+        if made:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(args, dev):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    dev = resolve_device(args.device)
     n = args.clients * args.batch_size * args.steps_per_round * 8
     data = lm_batch(n, args.seq, cfg.vocab, key=args.seed)
     if cfg.family == "vlm":
@@ -213,6 +273,8 @@ def main(argv=None):
            f" chunk={fl.cohort_chunk or args.clients}"
            f" sampler={fl.client_sampler or 'uniform'}"
            if fl.uses_cohort_engine() else "") +
+          (f" client_shards={fl.client_shards}"
+           if fl.client_shards else "") +
           (f" faults={fl.faults}" if fl.faults else "") +
           (f" codec={fl.codec}" if fl.codec != "none" else ""))
     t0 = time.time()

@@ -26,8 +26,8 @@ all B rows, idle slots included, as the reference does.  The ``vlm``
 family (internvl2-26b) projects its stub frontend's patch embeddings
 (``projector/w``, ``projector/b``) and puts them before the text tokens;
 its loss reads the text positions only, and its caches count the
-patches.  The sharded MoE dispatch (``moe_mesh``) is not ported yet and
-raises ``NotPortedError``.
+patches.  ``forward(moe_mesh=...)`` runs every MoE sub-layer through the
+expert-parallel ``moe.apply_moe_sharded`` over that device mesh.
 """
 from __future__ import annotations
 
@@ -38,7 +38,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..common import sorted_tree
-from ..core.registry import NotPortedError
 from ..kernels.flash_decode.ops import paged_decode_attention
 from . import layers as L
 from . import moe as M
@@ -180,25 +179,30 @@ def _layers(params: Tree, si: int, nm: int, stack: str = "blocks"):
 # forward (training / prefill)
 # ---------------------------------------------------------------------------
 
-def _apply_ffn(cfg, p, spec: SubSpec, h):
+def _apply_ffn(cfg, p, spec: SubSpec, h, moe_mesh=None):
     """The sub-layer's MLP on the normed ``h``: (y, aux).  A MoE sub-layer
-    runs ``apply_moe`` plus the shared MLP where there is one."""
+    runs ``apply_moe`` (``apply_moe_sharded`` over ``moe_mesh`` when one
+    is given) plus the shared MLP where there is one."""
     if not spec.moe:
         return L.apply_mlp(p["mlp"], h, cfg.act), None
-    y, aux = M.apply_moe(p["moe"], h, cfg.moe, act=cfg.act)
+    if moe_mesh is not None:       # the expert-parallel dispatch
+        y, aux = M.apply_moe_sharded(p["moe"], h, cfg.moe, act=cfg.act,
+                                     mesh=moe_mesh)
+    else:
+        y, aux = M.apply_moe(p["moe"], h, cfg.moe, act=cfg.act)
     if "shared" in p:
         y = y + L.apply_mlp(p["shared"], h, cfg.act)
     return y, aux
 
 
 def _apply_sub(cfg, p, spec: SubSpec, x, positions, rope, attn_impl,
-               q_chunk: int):
+               q_chunk: int, moe_mesh=None):
     h = L.apply_norm(p["ln1"], x)
     q, k, v = L.qkv_project(p["attn"], h, cfg, positions, rope)
     o = attend(q, k, v, impl=attn_impl, causal=True, window=spec.window,
                q_chunk=q_chunk)
     x = x + L.out_project(p["attn"], o)
-    y, aux = _apply_ffn(cfg, p, spec, L.apply_norm(p["ln2"], x))
+    y, aux = _apply_ffn(cfg, p, spec, L.apply_norm(p["ln2"], x), moe_mesh)
     return x + y, aux, (k, v)
 
 
@@ -232,8 +236,6 @@ def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
     blocks is always unrolled, so it changes nothing here.
     """
     layout = block_layout(cfg)
-    if moe_mesh is not None:
-        raise NotPortedError("forward: moe_mesh is not ported")
     dev = tokens.device
     rope = L.rope_freqs(cfg.head_dim, cfg.rope_pct, cfg.rope_theta, dev)
     x = _embed_inputs(cfg, params, tokens, patches)
@@ -247,7 +249,7 @@ def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
         kvs, auxes = [], []
         for si, spec in enumerate(layout):
             x, aux, kv = _apply_sub(cfg, subs[si][m], spec, x, positions,
-                                    rope, attn_impl, q_chunk)
+                                    rope, attn_impl, q_chunk, moe_mesh)
             kvs.append(kv)
             if aux is not None:
                 auxes.append(aux)

@@ -18,7 +18,6 @@ from repro.core import topology as rtopo
 from repro_torch import common as tcommon
 from repro_torch.core import comm, federation, freezing, masking
 from repro_torch.core import strategies, topology
-from repro_torch.core.registry import NotPortedError
 
 U, NTRAIN, NCLI = 14, 5, 6
 
@@ -131,13 +130,9 @@ def test_flconfig_validators_match_reference(kw):
 ])
 def test_unported_engines_raise(kw):
     """Every engine switch the reference accepts builds the same config
-    in the port, except ``client_shards`` (a device mesh, not ported):
-    it still raises ``NotPortedError``."""
+    in the port, ``client_shards`` (the cohort over a device mesh)
+    included: none raises ``NotPortedError`` any more."""
     ref = rfed.FLConfig(n_clients=4, **kw)         # valid in the reference
-    if "client_shards" in kw:
-        with pytest.raises(NotPortedError, match="not ported"):
-            federation.FLConfig(n_clients=4, **kw)
-        return
     got = federation.FLConfig(n_clients=4, **kw)
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     assert got.uses_cohort_engine() == ref.uses_cohort_engine()

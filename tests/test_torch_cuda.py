@@ -1612,3 +1612,46 @@ def test_registered_attention_shapes_on_card(dev, dtype, name, h, hkv, hd,
             else:
                 assert err < 3e-2 * max(1.0, float(ref.abs().max())), \
                     (what, w, err)
+
+
+# ---------------------------------------------------------------------------
+# the mesh on the card: ranks spawned by tests/torch_ranks.py
+
+
+def test_shard_over_clients_two_ranks_on_one_card(dev, tmp_path):
+    """Two gloo ranks share the card: ``shard_over_clients`` on CUDA
+    tensors is bitwise the plain call, also with an empty block."""
+    import torch_ranks
+    for got, want, one, want_one in torch_ranks.spawn(
+            "shard_over_clients_case", 2, tmp_path, device="cuda"):
+        for g, w in ((got, want), (one, want_one)):
+            assert torch.equal(g["a"], w["a"])
+            assert all(torch.equal(x, y) for x, y in zip(g["b"], w["b"]))
+
+
+@pytest.mark.parametrize("e,k", [(8, 2), (8, 1), (4, 4)])
+def test_apply_moe_sharded_world_of_one_over_nccl(dev, tmp_path, e, k):
+    """``apply_moe_sharded`` on a (1, 1) mesh over NCCL against
+    ``apply_moe`` on the card: y 1e-5, aux 1e-6, gradients 1e-5."""
+    import torch_ranks
+    (y_err, aux_err, grad_errs, kind), = torch_ranks.spawn(
+        "moe_ep_cuda", 1, tmp_path, backend="nccl", e=e, k=k,
+        seed=10 * e + k)
+    assert kind == "cuda"
+    assert y_err < 1e-5 and aux_err < 1e-6
+    assert max(grad_errs) < 1e-5, grad_errs
+
+
+def test_prod_env_allocator_setting_parses(dev):
+    """The production profile's allocator setting is one the card's
+    caching allocator takes."""
+    import subprocess
+    import sys
+    from repro_torch.launch.env import production_env
+    e = production_env(tcmalloc=False)
+    r = subprocess.run([sys.executable, "-c",
+                        "import torch; x = torch.ones(1 << 20, "
+                        "device='cuda'); print(int(x.sum()))"],
+                       env=e, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith(str(1 << 20))

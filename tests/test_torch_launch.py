@@ -5,8 +5,9 @@ The launcher takes the reference's flags with their defaults, plus
 ``--device``; its ``--arch`` choices lack exactly the configs of the
 families the port has not ported (none since the ``vlm`` family).  ``python -m repro_torch.launch.train
 --reduced --device cpu`` prints the reference's header fields, with the
-same values, and the same comm-summary keys.  The switches of unported
-features raise ``NotPortedError``.  ``default_loss_kwargs`` and
+same values, and the same comm-summary keys.  Every switch of the
+reference is ported (``--client-shards`` and ``--prod-env`` since the
+mesh slice).  ``default_loss_kwargs`` and
 ``make_fl_round_step``'s unit assignment and ``FLConfig`` equal the
 reference's.  ``make_prefill_step`` and ``make_decode_step`` give the
 reference's logits (1e-4 abs, as ``test_torch_transformer.py``) on the
@@ -34,7 +35,6 @@ from repro.launch import train as r_train
 from repro.models import get_model as r_get_model
 from repro_torch.configs.base import get_config, list_configs
 from repro_torch.convert import from_reference
-from repro_torch.core import NotPortedError
 from repro_torch.launch import shapes, steps, train
 from repro_torch.models import _FAMILY, get_model, transformer
 
@@ -119,10 +119,22 @@ def test_cpu_run_prints_reference_fields(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--client-shards", "2"], "client_shards"),
-    (["--prod-env"], "launch/env.py"),
+    (["--client-shards", "2"], "torchrun"),
+    (["--prod-env"], "repro_torch.launch.train"),
     (["--arch", "internvl2-26b"], None)])
-def test_unported_switches_raise(extra, match):
+def test_unported_switches_raise(extra, match, monkeypatch):
+    """Every switch of the reference's launcher is ported: none raises
+    ``NotPortedError``.  ``--client-shards`` outside torchrun (no process
+    group) names torchrun; ``--prod-env`` re-execs the port's launcher
+    (``os.execve`` recorded, the run then goes on here)."""
+    if extra == ["--prod-env"]:
+        called = []
+        monkeypatch.setattr(os, "execve",
+                            lambda path, argv, e: called.append(argv))
+        monkeypatch.delenv("REPRO_PROD_ENV", raising=False)
+        train.main(["--device", "cpu", *ARGV, *extra])
+        assert match in called[0]
+        return
     if match is None:                 # a ported family's arch is accepted
         args = train.build_parser().parse_args(["--device", "cpu", *ARGV,
                                                 *extra])
@@ -132,7 +144,9 @@ def test_unported_switches_raise(extra, match):
             get_config("qwen3-1.7b")).forward.__code__
         assert _FAMILY["vlm"] is transformer
         return
-    with pytest.raises(NotPortedError, match=match):
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match=match):
         train.main(["--device", "cpu", *ARGV, *extra])
 
 

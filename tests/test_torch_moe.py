@@ -36,6 +36,7 @@ coordinate alone.  Every other weight is the reference's random draw.
 import contextlib
 import dataclasses
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -333,8 +334,10 @@ def test_apply_moe_sharded_and_counter():
     assert moe.dropped_copies() == 2 * (32 - 16)
     moe.reset_dropped()
     assert moe.dropped_copies() == 0
-    with pytest.raises(moe.NotPortedError, match="mesh"):
-        moe.apply_moe_sharded(p, x, cfg.moe, mesh=object())
+    # a mesh with no model axis has nowhere to put the experts
+    with pytest.raises(ValueError, match="'model' axis"):
+        moe.apply_moe_sharded(p, x, cfg.moe, mesh=types.SimpleNamespace(
+            shape={"data": 1}))
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ teacher-forced: both packages are fed the same tokens, so a near-tie in
 the argmax can not make the streams part.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +22,6 @@ from repro.configs.base import get_config as r_get_config
 from repro.models import get_model as r_get_model
 from repro_torch.configs.base import get_config, list_configs
 from repro_torch.convert import from_reference, is_conv_kernel, to_reference
-from repro_torch.core import NotPortedError
 from repro_torch.models import get_model, transformer
 
 TOL = 1e-4
@@ -254,9 +254,11 @@ def test_unported_paths_raise():
     cfg = get_config("granite-moe-1b-a400m").reduced()
     model = get_model(cfg)
     params = model.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotPortedError, match="moe_mesh"):
+    # moe_mesh reaches the expert-parallel dispatch (ported), which wants
+    # a model axis
+    with pytest.raises(ValueError, match="'model' axis"):
         model.forward(params, torch.zeros((1, 4), dtype=torch.int64),
-                      moe_mesh=object())
+                      moe_mesh=types.SimpleNamespace(shape={"data": 1}))
     # the patch projector is drawn since it was ported
     vp = get_model(vlm).init_params(torch.Generator().manual_seed(0))
     assert tuple(vp["projector/w"].shape) == (transformer.vit_width(vlm),
