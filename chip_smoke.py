@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in fifty-eight phases, in the order
+nothing of the ``repro`` package) in sixty phases, in the order
 below except that 17-20, then 22-28, then 56-57, then 21 run after 8,
-34-35, then 40-41, then 45-46, then 50, 54 and 55 after 16, and 42, 53,
-43-44, then 47-49, then 51-52 after 38 (39, then 58 last), and any
+34-35, then 40-41, then 45-46, then 50, 54 and 55 after 16, 59-60 after
+31, and 42, 53, 43-44, then 47-49, then 51-52 after 38 (39, then 58
+last), and any
 failure exits non-zero.  Phases 56-57 start ranks of their own, as
 ``python3 chip_smoke.py --worker ...``, and wait for every one.
 Each phase's wall seconds are printed before the kernels line:
@@ -504,6 +505,23 @@ Each phase's wall seconds are printed before the kernels line:
    (2 layers) rounds, each taken from the plan its round built: the
    kernel, its plain version and ``torch.bmm`` + guard beside the byte
    bound.
+59. dryrun — ``repro_torch.launch.dryrun`` on the ``meta`` device over
+   exactly [zoo-train-step]'s configuration, held to that phase's
+   readings: (a) argument bytes equal the card's params, Adam moments
+   and batch bytes exactly; (b) the predicted peak within 25% of
+   ``torch.cuda.max_memory_allocated()``; (c) the roofline's dominant
+   term at most the fastest measured step; (d) measured / roofline
+   printed.  Then the ``--mesh one`` records of qwen3-1.7b at
+   ``train_4k`` (batch 1), ``decode_32k`` and the ``fl_round`` step (the
+   last through the CLI in a host-only process of its own, started
+   before phase 12 and waited for after phase 60), printed without
+   bars.
+60. analysis — ``python -m repro_torch.analysis.cli --level trace
+   --device cuda``, in process: zero unsuppressed findings, the same
+   program list as the CPU run of the same registry, K1 launched in the
+   dense round step, K2 in the qint8 round step and K3 in the reduced
+   qwen3 decode; the decode program also runs once under
+   ``torch.cuda.set_sync_debug_mode("error")``.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -526,6 +544,7 @@ non-causal, internvl2-26b's round and its prefill in fp32 and bf16) in
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -3327,26 +3346,16 @@ LSE_EMU_TOL = 1e-5
 ATTN_OUTS = ("o", "dq", "dk", "dv")
 
 
-def _allowed_pairs(s, causal, window):
-    """Allowed (query, key) pairs of one (batch, head) at Sq = Sk = s."""
-    i = np.arange(s)
-    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
-    hi = i if causal else np.full_like(i, s - 1)
-    return int((hi - lo + 1).clip(min=0).sum())
-
-
 def _attn_bound(name, b, s, h, hkv, hd, window, esz=4, peak=FP32_PEAK):
     """Causal attention's fwd / bwd bounds at Sq = Sk = s: ``{part: (ms,
     what bounds it, seconds by operations, seconds by bytes, operations,
-    bytes)}``, each input read once and each output written once."""
-    pairs = b * h * _allowed_pairs(s, True, window)
-    q_n, k_n = b * s * h * hd, b * s * hkv * hd
-    parts = {"fwd": (4 * hd * pairs,
-                     esz * (2 * q_n + 2 * k_n) + 4 * b * h * s),
-             "bwd": (10 * hd * pairs,
-                     esz * (4 * q_n + 4 * k_n) + 8 * b * h * s)}
+    bytes)}``, the work ``launch.roofline.attention_work`` counts (the
+    dry run's formula): each input read once and each output written
+    once."""
+    from repro_torch.launch.roofline import attention_work
     out = {}
-    for part, (ops_, nbytes) in parts.items():
+    for part, (ops_, nbytes) in attention_work(b, s, s, h, hkv, hd, True,
+                                               window, esz=esz).items():
         by_ops, by_bytes = ops_ / peak, nbytes / memory_rate(name)
         out[part] = (max(by_ops, by_bytes) * 1e3,
                      "bytes" if by_bytes >= by_ops else "operations",
@@ -5086,6 +5095,10 @@ def phase_zoo_train_step(dev, smi):
     data = lm_batch(3, GEMMA_MACRO_S, cfg.vocab, key=2)
     batches = [{k: torch.as_tensor(v[i:i + 1], device=dev)
                 for k, v in data.items()} for i in range(3)]
+    # what a step takes as arguments: params, Adam moments, one batch
+    arg_bytes = sum(x.nbytes for tree in (params, opt.mu, opt.nu,
+                                          batches[0])
+                    for x in tree.values())
     _zoo_reset()
     losses, secs = [], []
     for b in batches[:2]:
@@ -5143,7 +5156,143 @@ def phase_zoo_train_step(dev, smi):
           f"{run['K6 local ms']:.4f} / {run['K6 global ms']:.4f} ms a call")
     del params, opt, step, batches
     _free_card(tag)
-    return counts, run, peak, secs
+    return counts, run, peak, secs, arg_bytes
+
+
+def start_fl_round_dryrun():
+    """[dryrun]'s ``fl_round`` record, qwen3-1.7b's 16 clients' local
+    steps on ``meta`` (50-75 s of host time), as the CLI in a process of
+    its own on no card, started before [attention-kernels] (device-timed
+    kernels) so that it is done before [dryrun];
+    ``finish_fl_round_dryrun`` waits, and an exit kills it if it still
+    runs."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-1.7b", "--shape", "train_4k", "--step", "fl_round",
+         "--out", os.path.join(root, "results", "dryrun")],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                            PYTHONPATH=os.path.join(root, "src")))
+    atexit.register(_stop, proc)
+    return proc
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def phase_dryrun(peak, secs, arg_bytes, smi):
+    """[zoo-train-step]'s configuration through the dry run on ``meta``,
+    held to that phase's readings; then qwen3-1.7b's records (the
+    ``fl_round`` one from ``start_fl_round_dryrun``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES
+
+    tag = "dryrun"
+    full = get_config("gemma3-12b")
+    cfg = full.replace(n_layers=full.global_every)
+    shape = dataclasses.replace(SHAPES["train_4k"], name="train_2k",
+                                seq_len=GEMMA_MACRO_S, global_batch=1)
+    t0 = time.perf_counter()
+    rec = dryrun.run_dryrun(cfg, shape, verbose=False)
+    secs_dry = time.perf_counter() - t0
+    ma, r = rec["memory_analysis"], rec["roofline"]
+    check(ma["argument_size_in_bytes"] == arg_bytes,
+          f"{tag}: argument bytes {ma['argument_size_in_bytes']:,.0f} vs the "
+          f"card's params, moments and batch {arg_bytes:,}")
+    ratio = ma["peak_bytes"] / peak
+    check(abs(ratio - 1.0) <= 0.25,
+          f"{tag}: predicted peak {ma['peak_bytes'] / 1e9:.2f} GB vs "
+          f"measured {peak / 1e9:.2f} GB (ratio {ratio:.3f})")
+    bound = r[r["dominant"] + "_s"]
+    step = min(secs)
+    check(bound <= step,
+          f"{tag}: the roofline's {r['dominant']} term {bound:.3f} s is "
+          f"above the measured step {step:.3f} s: the count is wrong")
+    print(f"[{tag}] {cfg.name} cut to {cfg.n_layers} layers, train at "
+          f"S={GEMMA_MACRO_S}, batch 1, on meta in {secs_dry:.1f} s: (a) "
+          f"argument bytes {ma['argument_size_in_bytes']:,.0f} == the "
+          f"card's {arg_bytes:,}; (b) predicted peak "
+          f"{ma['peak_bytes'] / 1e9:.2f} GB vs max_memory_allocated "
+          f"{peak / 1e9:.2f} GB, ratio {ratio:.3f}; (c) "
+          f"{rec['cost_analysis']['flops_per_device']:.4e} FLOPs "
+          f"(attention {rec['cost_analysis']['attention']['flops']:.4e}), "
+          f"{rec['cost_analysis']['bytes_per_device']:.4e} B: roofline "
+          f"compute {r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, "
+          f"{r['dominant']}-bound {bound:.4f} s <= the fastest measured step "
+          f"{step:.4f} s; (d) measured / roofline {step / bound:.3f} "
+          f"(H100 fp32 peak, {smi})")
+    for shape_name, kw in (("train_4k", {"batch": 1}), ("decode_32k", {})):
+        t0 = time.perf_counter()
+        rec = dryrun.run_dryrun("qwen3-1.7b", shape_name, verbose=False, **kw)
+        ma, r = rec["memory_analysis"], rec["roofline"]
+        print(f"[{tag}] qwen3-1.7b x {shape_name} x {rec['step']}"
+              f"{' (batch 1)' if kw.get('batch') else ''} --mesh one: "
+              f"{rec['cost_analysis']['flops_per_device']:.4e} FLOPs, "
+              f"{rec['cost_analysis']['bytes_per_device']:.4e} B, model "
+              f"FLOPs {rec['model_flops_global']:.4e} (useful ratio "
+              f"{rec['useful_flops_ratio']:.3f}); argument "
+              f"{ma['argument_size_in_bytes'] / 1e9:.2f} GB, peak "
+              f"{ma['peak_bytes'] / 1e9:.2f} GB, fits 80 GB "
+              f"{rec['fits_hbm_80gb']}; roofline compute "
+              f"{r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s -> "
+              f"{r['dominant']}-bound ({time.perf_counter() - t0:.1f} s on "
+              f"meta)")
+
+
+def finish_fl_round_dryrun(proc):
+    """Wait for [dryrun]'s fl_round process and print its record."""
+    try:
+        out, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    print("\n".join(f"[dryrun] {line}" for line in out.splitlines()))
+    check(proc.returncode == 0,
+          f"dryrun: the fl_round dry run exited {proc.returncode}")
+
+
+# the trace level's registered programs, in registry order
+ANALYSIS_KERNELS = {"trace:sync/round_step_dense": "K1",
+                    "trace:sync/round_step_qint8": "K2",
+                    "trace:serve/decode": "K3"}
+
+
+def phase_analysis():
+    """The analysis gate's trace level on the card, in process."""
+    from repro_torch.analysis import cli
+    from repro_torch.analysis import tracecheck as T
+
+    tag = "analysis"
+    root = os.path.dirname(os.path.abspath(__file__))
+    report = os.path.join(root, "results", "analysis_torch.json")
+    t0 = time.perf_counter()
+    rc = cli.main(["--level", "trace", "--device", "cuda", "--report",
+                   report])
+    check(rc == 0, f"{tag}: the trace level reported findings on the card "
+                   f"(see {report})")
+    reg = T.traced_programs("cuda")
+    secs = time.perf_counter() - t0
+    cpu = [p.name for p in T.traced_programs("cpu").programs]
+    names = [p.name for p in reg.programs]
+    check(names == cpu, f"{tag}: programs on the card {names} vs the CPU's "
+                        f"{cpu}")
+    launches = {p.name: p.launches for p in reg.programs}
+    for prog, k in ANALYSIS_KERNELS.items():
+        check(launches[prog][k] > 0,
+              f"{tag}: {k} never launched in {prog}: {launches[prog]}")
+    print(f"[{tag}] {len(names)} programs on the card, 0 findings, the "
+          f"decode under set_sync_debug_mode('error') too, in {secs:.1f} s; "
+          f"launches " + ", ".join(
+              f"{k} {launches[p][k]} in {p}" for p, k in
+              ANALYSIS_KERNELS.items()))
+    return {k: {f"analysis {p}": launches[p][k]}
+            for p, k in ANALYSIS_KERNELS.items()}
 
 
 def _zoo_launches(cfg, steps_):
@@ -6263,6 +6412,7 @@ def main() -> int:
     timed("serve-parity", phase_serve_parity, w)
     del w                                 # free qwen3 before rwkv6's build
     torch.cuda.empty_cache()
+    fl_round = start_fl_round_dryrun()     # host only, runs alongside
     k5, k6, attn_zoo = timed("attention-kernels", phase_attention_kernels,
                              dev)
     k4 = timed("decode-dense", phase_decode_dense, dev)
@@ -6325,8 +6475,13 @@ def main() -> int:
                                               dev, smi)
     packed, packed_run, _, _, _ = timed("zoo-packed", phase_zoo_packed, dev,
                                         smi)
-    gemma, gemma_run, _, _ = timed("zoo-train-step", phase_zoo_train_step,
-                                   dev, smi)
+    gemma, gemma_run, gemma_peak, gemma_secs, gemma_args = timed(
+        "zoo-train-step", phase_zoo_train_step, dev, smi)
+    # the dry run of that same step on meta, held to its readings; then
+    # the analysis gate's trace level on the card
+    timed("dryrun", phase_dryrun, gemma_peak, gemma_secs, gemma_args, smi)
+    analysis = timed("analysis", phase_analysis)
+    timed("dryrun-fl-round", finish_fl_round_dryrun, fl_round)
     timed("zoo-parity", phase_zoo_parity, dev, None, ZOO_PARITY_S)
     timed("train-launcher", phase_train_launcher)
     hymba_counts, hymba_run, _, _ = timed(
@@ -6387,7 +6542,9 @@ def main() -> int:
                   "zoo-round", "zoo-packed", "zoo-train-step", "zoo-parity",
                   "train-launcher"),
               "gemma3-12b served, internvl2-26b in bf16, granite packed": (
-                  "zoo-packed-moe", "serve-vlm-bf16", "serve-gemma3")}
+                  "zoo-packed-moe", "serve-vlm-bf16", "serve-gemma3"),
+              "dry run and analysis": ("dryrun", "analysis",
+                                       "dryrun-fl-round")}
     check(sorted(sum(groups.values(), ())) == sorted(walls),
           f"wall groups {sorted(sum(groups.values(), ()))} vs phases "
           f"{sorted(walls)}")
@@ -6427,6 +6584,9 @@ def main() -> int:
     k1_paths[f"hub {MOE_ARCH} packed qint8"] = pmoe_counts["K1"]
     k1_paths[f"hub {WHISPER_ARCH}"] = whisper_counts["K1"]
     k1_paths[f"hub {VLM_ARCH}"] = vlm_counts["K1"]
+    k1_paths.update(analysis["K1"])
+    k2_paths.update(analysis["K2"])
+    k3_paths.update(analysis["K3"])
     k3["launches"] = sum(k3_paths.values())
     k3["launches_by_path"] = k3_paths
     k1_paths["hub qwen3-1.7b packed qint8"] = packed["K1"]

@@ -50,6 +50,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis.compileguard import CompileGuard
 from ..common import TensorSpec, flatten_with_paths
 from .registry import unknown_name_message
 
@@ -239,7 +240,8 @@ class BufferedAggregator:
         # topology's buffered aggregation, session.py) return
         # (new_params, quarantined) instead of bare params
         self.gated = gated
-        self._flush = flush_fn
+        self._flush = CompileGuard(flush_fn, name="async_flush",
+                                   max_programs=1)
         self.entries: List[BufferedUpdate] = []
         # duplicate-delivery defense: per-client seq watermark.  Each
         # client has at most one dispatch in flight, so its seqs arrive
@@ -382,7 +384,13 @@ def build_cohort_step(loss_fn: Callable, assign, fl,
                 out["codec_state"] = new_state
         return pdeltas, rows, valid, out
 
-    return select, cohort, n_slots
+    # the reference runs every dispatch at the cohort's full width (one
+    # program); this one trains only the dispatched clients, so the
+    # cohort piece sees two signatures: all C clients at the first fill,
+    # one client at every refill
+    return (CompileGuard(select, name="async_select", max_programs=1),
+            CompileGuard(cohort, name="async_cohort", max_programs=2),
+            n_slots)
 
 
 def slot_template(assign, params, n_slots: int) -> Dict[str, Any]:

@@ -55,6 +55,7 @@ from typing import (Any, Callable, ClassVar, Dict, List, Optional, Sequence,
 import numpy as np
 import torch
 
+from ..analysis.compileguard import CompileGuard
 from ..common import TensorSpec
 from .registry import unknown_name_message
 
@@ -366,10 +367,18 @@ def build_cohort_programs(loss_fn: Callable, assign, fl,
         # reduces, so the recorded loss is bitwise the sync round's
         return new_params, losses.mean()
 
-    return CohortPrograms(select=select, acc_init=acc_init,
-                          chunk=chunk_step, finalize=finalize,
-                          sampler=sampler, strategy=strat, scoring=scoring,
-                          n_slots=n_slots)
+    # CompileGuard pins each piece to one input signature across the
+    # round's chunks and across rounds; the chunk folds into its carry
+    # (argument 1) in place
+    return CohortPrograms(
+        select=CompileGuard(select, name="cohort_select", max_programs=1),
+        acc_init=CompileGuard(acc_init, name="cohort_acc_init",
+                              max_programs=1),
+        chunk=CompileGuard(chunk_step, name="cohort_chunk", max_programs=1,
+                           donate_argnums=(1,)),
+        finalize=CompileGuard(finalize, name="cohort_finalize",
+                              max_programs=1),
+        sampler=sampler, strategy=strat, scoring=scoring, n_slots=n_slots)
 
 
 def _seed_words(*coords: int) -> List[int]:

@@ -49,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..analysis.compileguard import CompileGuard
 from ..common import Device, resolve_device
 from . import codecs, comm
 from .federation import FLConfig
@@ -268,7 +269,12 @@ class Server:
                  strategy: Union[str, SelectionStrategy, None] = None,
                  conv_spatial: int = 2, device: Device = "cuda"):
         self.device = resolve_device(device)
-        self.round_step = round_step
+        # CompileGuard (repro_torch.analysis.compileguard) holds the path
+        # to ONE input signature and names the argument that changed
+        # otherwise.  The step returns new params (the reference donates
+        # its params argument; this one overwrites nothing it is given)
+        self.round_step = CompileGuard(round_step, name="round_step",
+                                       max_programs=1)
         self.assign = assign
         self.fl = fl
         self.topology = resolve_topology(topology if topology is not None

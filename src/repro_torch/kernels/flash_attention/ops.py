@@ -36,6 +36,11 @@ computes the unpadded call.  Head dim 80 runs head dim 128's kernels on
 zero columns, with the scale of 80.  Launches are counted in
 :data:`LAUNCHES` (``fwd``, ``dq``, ``dkv``) and, by the source whose
 library took them, in :data:`SOURCE_LAUNCHES`.
+
+Tensors on the ``meta`` device stand for the card in the dry run
+(``launch/dryrun.py``): they take the kernels' route, shapes and
+allocations included, and launch nothing; the work a launch would do
+(``launch.roofline.attention_work``) is added to :data:`META_WORK`.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD, _DQ, _DKV = 0, 1, 2
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
 SOURCE_LAUNCHES = {src.name: 0 for src in SOURCES.values()}
+META_WORK = {"flops": 0, "bytes": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,8 +190,22 @@ def _kv_len(name, k, kv_len):
     return int(kv_len)
 
 
+def _meta_work(part, q, k, causal, window, kv_len):
+    """Add the work of one forward or backward on ``meta`` tensors."""
+    from ...launch.roofline import attention_work
+    b, sq, h, hd = q.shape
+    flops, nbytes = attention_work(b, sq, k.shape[1], h, k.shape[2], hd,
+                                   causal, window, kv_len,
+                                   q.element_size())[part]
+    META_WORK["flops"] += flops
+    META_WORK["bytes"] += nbytes
+
+
 def _forward_into(name, q, k, v, o, lse, causal, window, kv_len):
     """Forward into o (B,Sq,H,hd) and lse (B,H,Sq), both possibly views."""
+    if q.device.type == "meta":
+        _meta_work("fwd", q, k, causal, window, kv_len)
+        return
     if q.device.type == "cpu":
         o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, causal=causal,
                                                  window=window, kv_len=kv_len)
@@ -207,6 +227,9 @@ def _backward_into(name, q, k, v, o, lse, do, dq, dk, dv, causal, window,
         return
     # delta = rowsum(o * do), one PyTorch reduction, as kernel.py:241
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2)   # (B,H,Sq)
+    if q.device.type == "meta":
+        _meta_work("bwd", q, k, causal, window, kv_len)
+        return
     _launch(name, _DQ, q, k, v, do=do, lse=lse, delta=delta, out0=dq,
             causal=causal, window=window, kv_len=kv_len)
     _launch(name, _DKV, q, k, v, do=do, lse=lse, delta=delta, out0=dk,

@@ -244,7 +244,8 @@ def attend(q, k, v, *, impl: str = "chunked", causal: bool = True,
         return attend_reference(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)
     if window > 0 or impl == "chunked":
-        if q.device.type == "cuda":
+        # the dry run's meta tensors stand for the card: its route
+        if q.device.type in ("cuda", "meta"):
             return _attend_kernel(q, k, v, causal=causal or window > 0,
                                   window=window, q_offset=q_offset)
         if window > 0:

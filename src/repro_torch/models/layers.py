@@ -12,6 +12,7 @@ device mesh.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -73,11 +74,14 @@ def rms_norm_heads(w: torch.Tensor, x: torch.Tensor,
 # rotary embeddings
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=32)
 def rope_freqs(head_dim: int, rope_pct: float, theta: float, device="cpu"):
     """Inverse frequencies for the rotated slice of the head dim.
 
     ``inv`` is the reference's numpy float32 expression, so the table is
-    bitwise the reference's."""
+    bitwise the reference's.  Cached per device (callers only read it):
+    building it is a host-to-device copy, which would make every decode
+    step wait for the host."""
     rot = int(head_dim * rope_pct)
     rot -= rot % 2
     if rot == 0:

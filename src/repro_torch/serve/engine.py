@@ -10,10 +10,12 @@ scheduling point, as in the reference:
 * **decode**  — one ``decode_step_paged`` + sample over the engine's
   fixed slot count.  Every dynamic quantity (token, per-slot steps, page
   tables) is a fixed-shape tensor, so admitting and evicting sequences
-  mid-flight never changes the decode step's input signature:
-  ``decode_cache_size`` counts the distinct signatures (shapes and
-  dtypes) it has seen, and it stays 1 — the contract a CUDA graph of the
-  step will need.
+  mid-flight never changes the decode step's input signature: the step
+  is a ``CompileGuard`` with a budget of one signature (shapes, dtypes
+  and devices), which ``decode_cache_size`` reads — the contract a CUDA
+  graph of the step will need.  The prefill and the commit are guards
+  with no budget (one signature per prompt length), and the static
+  loop's prefill and decode steps one signature each.
 
 A decode micro-run chains several steps device to device (the sampled
 token feeds the next step without leaving the card) and syncs with the
@@ -39,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..analysis.compileguard import CompileGuard
 from ..common import Device, resolve_device
 from ..models import get_model
 from .paged_cache import PageAllocator, PagedTables, build_layout
@@ -93,10 +96,6 @@ def _attn_kw(cfg, attn_impl: str) -> Dict[str, str]:
     return {"attn_impl": attn_impl} if cfg.family != "ssm" else {}
 
 
-def _signature(*tensors) -> tuple:
-    return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
-
-
 class DecodeEngine:
     """Continuous-batching serving loop for one model.
 
@@ -136,7 +135,12 @@ class DecodeEngine:
         self.n_decode_steps = 0
         self.n_prefill_calls = 0
         self.decode_seconds = 0.0    # host wall time of decode micro-runs
-        self._decode_signatures: set = set()
+        self._prefill = CompileGuard(self._prefill_fn, name="serve_prefill",
+                                     max_programs=None)
+        self._commit = CompileGuard(self.model.commit_prefill,
+                                    name="serve_commit", max_programs=None)
+        self._decode = CompileGuard(self._decode_fn, name="serve_decode",
+                                    max_programs=1)
         self._tables_cache = None
         self._tables_version = -1
 
@@ -201,7 +205,7 @@ class DecodeEngine:
     def decode_cache_size(self) -> int:
         """Distinct input signatures the decode step has seen (must stay 1
         across admit/evict/preempt)."""
-        return len(self._decode_signatures)
+        return self._decode.cache_size
 
     # -- device functions ---------------------------------------------------
 
@@ -210,7 +214,7 @@ class DecodeEngine:
         noise = None if t <= 0 else self.gumbel(rids, gidx, row.shape[-1])
         return sample_tokens(row, noise, temperature=t)
 
-    def _prefill(self, tokens, rids, gidx):
+    def _prefill_fn(self, tokens, rids, gidx):
         self.n_prefill_calls += 1
         logits, cache = self.model.prefill(
             self.params, tokens, max_len=self.layout.max_len, last_only=True,
@@ -218,9 +222,7 @@ class DecodeEngine:
         row = logits[:, -1]
         return self._sample(row, rids, gidx), row, cache
 
-    def _decode(self, token, steps, tables, rids, gidx):
-        self._decode_signatures.add(
-            _signature(token, steps, *tables.values()))
+    def _decode_fn(self, token, steps, tables, rids, gidx):
         logits, self.paged = self.model.decode_step_paged(
             self.params, self.paged, token, steps, tables,
             self.serve.page_size)
@@ -243,7 +245,7 @@ class DecodeEngine:
             rids = np.asarray([r.rid for r in reqs], np.int32)
             gidx = np.asarray([len(r.generated) for r in reqs], np.int32)
             tok, row, cache = self._prefill(toks, rids, gidx)
-            self.paged = self.model.commit_prefill(
+            self.paged = self._commit(
                 self.paged, cache, slots, self.tables.rows(slots),
                 self.serve.page_size)
             tok_np = tok.cpu().numpy()
@@ -362,14 +364,17 @@ def static_generate(cfg, params, prompts, gen: int, *, max_len: int,
 
     extra = {k: torch.as_tensor(v, device=dev) for k, v in
              (extra or {}).items()}
-    logits, cache = model.prefill(params, prompts, max_len=max_len,
-                                  last_only=True, **extra,
-                                  **_attn_kw(cfg, attn_impl))
+    prefill = CompileGuard(functools.partial(
+        model.prefill, max_len=max_len, last_only=True,
+        **_attn_kw(cfg, attn_impl)), name="static_prefill", max_programs=1)
+    decode = CompileGuard(model.decode_step, name="static_decode",
+                          max_programs=1)
+    logits, cache = prefill(params, prompts, **extra)
     row = logits[:, -1]
     tok = sample(row, 0)
     toks, rows = [tok], [row]
     for t in range(1, gen):
-        logits, cache = model.decode_step(params, cache, tok[:, None])
+        logits, cache = decode(params, cache, tok[:, None])
         row = logits[:, -1]
         tok = sample(row, t)
         toks.append(tok)

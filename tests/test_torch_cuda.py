@@ -1655,3 +1655,52 @@ def test_prod_env_allocator_setting_parses(dev):
                        env=e, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().endswith(str(1 << 20))
+
+
+def test_trace_level_on_the_card_is_clean_and_launches_kernels(dev):
+    """The analysis gate's trace level on CUDA: no finding (the decode
+    also under the sync debug mode), the CPU run's program list, and
+    K1 / K2 / K3 launched in the dense, qint8 and decode programs."""
+    from pathlib import Path
+    from repro_torch.analysis import tracecheck as T
+    from repro_torch.analysis.findings import run_checkers
+    T.set_trace_device("cuda")
+    try:
+        reg = T.traced_programs("cuda")
+        assert run_checkers(Path(__file__).resolve().parents[1],
+                            "trace") == []
+    finally:
+        T.set_trace_device("cpu")
+    assert [p.name for p in reg.programs] == \
+        [p.name for p in T.traced_programs("cpu").programs]
+    launches = {p.name: p.launches for p in reg.programs}
+    assert launches["trace:sync/round_step_dense"]["K1"] > 0
+    assert launches["trace:sync/round_step_qint8"]["K2"] > 0
+    assert launches["trace:serve/decode"]["K3"] > 0
+
+
+def test_dryrun_argument_bytes_against_real_allocations(dev):
+    """A reduced train step's argument bytes from the meta dry run are
+    the bytes its params, Adam moments and batch take on the card (the
+    caching allocator rounds each tensor up to 512 bytes)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import get_model
+    from repro_torch.optim.masked import adam_init
+    cfg = get_config("qwen3-1.7b").reduced()
+    rec = dryrun.run_dryrun(cfg, InputShape("t", 1024, 2, "train"),
+                            verbose=False)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = get_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    opt = adam_init(params)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in lm_batch(2, 1024, cfg.vocab).items()}
+    leaves = [x for t in (params, opt.mu, opt.nu, batch) for x in t.values()]
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == \
+        sum(x.nbytes for x in leaves)
+    assert torch.cuda.memory_allocated() - before == \
+        sum(-(-x.nbytes // 512) * 512 for x in leaves)
