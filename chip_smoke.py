@@ -16,13 +16,17 @@ Each phase's wall seconds are printed before the kernels line:
 1. build — compiles every CUDA kernel of the port from the sources in
    the checkout with ``nvcc`` (``repro_torch/kernels/_build.py``).
 2. kernel — ``masked_agg`` at the round's shapes (VGG16 at full width,
-   8 clients, tile 2048, with a unit nobody selected, a client of
-   weight 0 and leaves that are not a multiple of the tile) against its
-   plain PyTorch version on the card, at the reference's own bar
-   (atol = rtol = 2e-5); the tree-level fused FedAvg against the plain
-   ``masked_fedavg``; bitwise repeatability; median times of the
-   kernel, the plain version and a ``torch.bmm`` yardstick beside the
-   bound the card's memory rate sets.
+   8 clients, tile 2048, the selection drawn as the round draws it
+   (``uniform``, 7 of 14 units a client) with unit 1 then selected by
+   nobody, a client of weight 0 and leaves that are not a multiple of
+   the tile) against its plain PyTorch version on the card, at the
+   reference's own bar (atol = rtol = 2e-5), the rows of unit 1
+   bitwise the global tiles; with a NaN planted in a plane whose unit its client did not
+   select, the output bitwise the clean one; the tree-level fused FedAvg
+   against the plain ``masked_fedavg``; bitwise repeatability; median
+   times of the kernel, the plain version, an empty kernel and a
+   ``torch.bmm`` yardstick beside two bounds the card's memory rate
+   sets: the live planes' bytes (this run's work) and every plane's.
 3. parity — one small hub round on the card through the kernel
    against the same round on the CPU through the plain aggregation,
    with the same selection replayed.
@@ -219,11 +223,12 @@ Each phase's wall seconds are printed before the kernels line:
    entry) of the trained replicas' mean; the state's size and peak
    memory.
 21. k1-plans — K1 at the IMDB and CASA hub plans (10 clients, random
-   deltas, a unit nobody selected, a client of weight 0) and at the
-   hierarchical hub combine (the 2 edge planes of 19's last round)
-   against its plain version at 2e-5, bitwise repeatable; device medians
-   (L2 flushed) of the kernel, the plain version and a ``torch.bmm``
-   yardstick beside the bound in bytes.
+   deltas, selections drawn as the round draws them with unit 1 then
+   selected by nobody, a client of weight 0) and at the hierarchical hub combine (the 2 edge planes of 19's
+   last round) against its plain version at 2e-5, an unselected NaN
+   skipped bitwise, bitwise repeatable; device medians (L2 flushed) of
+   the kernel, the plain version, an empty kernel and a ``torch.bmm``
+   yardstick beside both bounds in bytes (live planes, every plane).
 22. scored-round — VGG16 at full width under the scored strategies
    (``paper_round.build(strategy=...)``): ``score_weighted``,
    ``depth_dropout`` and ``successive`` 4 hub rounds each, and
@@ -360,9 +365,13 @@ Each phase's wall seconds are printed before the kernels line:
 38. train-launcher-hymba — [train-launcher] with ``--arch hymba-1.5b
    --rounds 2``.
 39. k1-qwen3-plan — K1 alone at qwen3-1.7b's hub plan (840,177 rows of
-   2,048, 2 clients) on random tile buffers: against its plain version,
-   device medians of the kernel, the plain version and ``torch.bmm`` with
-   the guard beside the byte bound.
+   2,048, 2 clients, the round's row -> unit table) on random tile
+   buffers with the selection drawn as the round draws it (15 of 30
+   units a client): against its plain version on every row, the rows
+   of the units nobody selected unchanged, an unselected NaN skipped
+   bitwise; device medians of the kernel,
+   the plain version, an empty kernel and ``torch.bmm`` with the guard
+   beside both byte bounds.
 
 40. serve-moe — granite-moe-1b-a400m at full width in fp32
    (1,334,756,352 params, random weights; every layer's MLP a MoE of 32
@@ -503,8 +512,8 @@ Each phase's wall seconds are printed before the kernels line:
 58. k1-zoo-plans — [k1-qwen3-plan] at the plans of the hymba-1.5b
    (16 layers), whisper-medium, granite-moe-1b-a400m and internvl2-26b
    (2 layers) rounds, each taken from the plan its round built: the
-   kernel, its plain version and ``torch.bmm`` + guard beside the byte
-   bound.
+   kernel, its plain version and ``torch.bmm`` + guard beside both byte
+   bounds.
 59. dryrun — ``repro_torch.launch.dryrun`` on the ``meta`` device over
    exactly [zoo-train-step]'s configuration, held to that phase's
    readings: (a) argument bytes equal the card's params, Adam moments
@@ -529,7 +538,8 @@ the card's name and power limit (as ``nvidia-smi`` reports them) and a
 JSON line of per-kernel numbers (K1's and K2's launches summed over the
 paths that ran them, [mesh-round]'s ranks' included, each path's count
 in ``launches_by_path``, K1's
-other plans in ``plans``, K2's single-client dispatch in
+other plans in ``plans``, its ``bound_ms`` the live planes' bytes (the
+work this run's selections need) beside ``bound_all_planes_ms``, K2's single-client dispatch in
 ``dispatch_1client``; K3's those of the serving runs (10, 34, 40, 45,
 55) and gemma3-12b's shapes in ``cases``;
 K4's those of whisper's decode steps (46), ``[decode-dense]``'s direct
@@ -623,17 +633,21 @@ def phase_build():
     print(f"[build] {len(logs)} kernel source(s) in {secs:.2f} s")
 
 
-def _k1_case(dev, params, assign, c):
+def _k1_case(dev, params, assign, c, n_train):
     """K1's inputs at ``params``' tile plan for ``c`` clients: random
-    deltas, unit 1 selected by nobody, client ``c // 2`` of weight 0;
-    zero padding, so that whole tile buffers can be compared."""
+    deltas, the selection drawn as the round draws it (``uniform``, each
+    client ``n_train`` units) with unit 1 then taken from every client
+    (a unit nobody selected: its rows must keep the global value),
+    client ``c // 2`` of weight 0 (a crashed client: its selected planes
+    are still read); zero padding, so that whole tile buffers can be
+    compared."""
     from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.masked_agg.ref import draw_selection
 
     plan = ops.build_agg_plan(assign, params)
-    rng = np.random.default_rng(0)
-    sel = torch.as_tensor(rng.integers(0, 2, (c, assign.n_units)),
-                          dtype=torch.float32)
+    sel = draw_selection(c, assign.n_units, n_train, 0)
     sel[:, 1] = 0.0                                  # a unit nobody selected
+    rng = np.random.default_rng(0)
     weights = torch.as_tensor(rng.uniform(0.5, 2.0, c), dtype=torch.float32)
     weights[c // 2] = 0.0                            # a client of weight 0
     dgen = torch.Generator(device=dev).manual_seed(0)
@@ -644,29 +658,32 @@ def _k1_case(dev, params, assign, c):
                         ops.new_tile_buffer(plan, device=dev).zero_())
     d_t = ops.pack_into(plan, deltas,
                         ops.new_tile_buffer(plan, (c,), device=dev).zero_())
-    w_t = ops.row_weights(plan, sel * weights[:, None], dev)
-    return plan, sel, weights, deltas, g_t, d_t, w_t
+    k1_in = (g_t, d_t, sel.to(dev), weights.to(dev), plan.row_unit_on(dev))
+    return plan, sel, weights, deltas, k1_in
 
 
-def _k1_check(tag, g_t, d_t, w_t, still=None):
-    """K1 against its plain version at TOL, bitwise repeatable, and the
-    tile rows ``still`` (a unit nobody selected) unchanged; returns the
-    max abs error and the plain output."""
-    from repro_torch.kernels.masked_agg import ops
-    from repro_torch.kernels.masked_agg.ref import masked_agg_ref
+def _k1_check(tag, k1_in, nobody=True):
+    """K1 on ``k1_in = (g_t, d_t, sel, w, row_unit)`` against its plain
+    version at TOL on every row, bitwise repeatable, the rows of a unit
+    nobody selected unchanged (such rows required unless ``nobody`` is
+    False), and a NaN planted in a plane whose unit its client did not
+    select never reaching the output (``ops.check_kernel``).  Returns the
+    max abs error."""
+    from repro_torch.kernels.masked_agg.ops import check_kernel
 
-    out_k = ops.masked_agg(g_t, d_t, w_t)
-    out_p = masked_agg_ref(g_t, d_t, w_t)
-    torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
-    check(torch.allclose(out_k, out_p, atol=TOL, rtol=TOL),
-          f"{tag}: kernel vs plain: max abs err {err}")
-    check(torch.equal(out_k, ops.masked_agg(g_t, d_t, w_t)),
-          f"{tag}: kernel is not bitwise repeatable")
-    if still is not None:
-        check(torch.equal(out_k[still], g_t[still]),
-              f"{tag}: a unit nobody selected changed")
-    return err, out_p
+    try:
+        res = check_kernel(k1_in, TOL, nobody=nobody)
+    except RuntimeError as e:
+        raise RuntimeError(f"chip_smoke: {tag} {e}") from e
+    if res["nan_at"] is None:
+        print(f"{tag} every client plane is live: no unselected NaN to "
+              f"plant")
+    else:
+        c0, t0 = res["nan_at"]
+        print(f"{tag} a NaN in client {c0}'s row {t0} (a unit it did not "
+              f"select): the output bitwise the clean one, the plain "
+              f"version's within {TOL}")
+    return res["max_abs_err"]
 
 
 def phase_kernel(dev):
@@ -674,20 +691,19 @@ def phase_kernel(dev):
     from repro_torch.core.aggregation import masked_fedavg
     from repro_torch.kernels.masked_agg import ops
     from repro_torch.models import paper_models as pm
-    from repro_torch.paper_round import N_CLIENTS, WIDTH
+    from repro_torch.paper_round import N_CLIENTS, N_TRAIN, WIDTH
 
     gen = torch.Generator().manual_seed(0)
     params = {p: x.to(dev) for p, x in
               pm.init_vgg16(gen, width_mult=WIDTH).items()}
     assign = build_units_flat(params, pm.vgg16_units(params))
     c = N_CLIENTS
-    plan, sel, weights, deltas, g_t, d_t, w_t = _k1_case(dev, params,
-                                                         assign, c)
+    plan, sel, weights, deltas, k1_in = _k1_case(dev, params, assign, c,
+                                                 N_TRAIN)
     ragged = [s for s in plan.segments if s.n % plan.tile]
     check(ragged, "no leaf off the tile multiple in the plan")
-    t, tile = g_t.shape
-    err, out_p = _k1_check("kernel", g_t, d_t, w_t, torch.as_tensor(
-        plan.row_unit == 1, device=dev))
+    t, tile = k1_in[0].shape
+    err = _k1_check("[kernel]", k1_in)
     tree_k = ops.masked_fedavg_fused(params, deltas, sel, weights, assign,
                                      plan=plan)
     tree_p = masked_fedavg(params, deltas, sel, weights, assign)
@@ -699,29 +715,33 @@ def phase_kernel(dev):
           f"{err:.3e}, tree-level vs masked_fedavg {tree_err:.3e} "
           f"(tol {TOL})")
 
-    m = _k1_measure(g_t, d_t, w_t, out_p, median_ms)
+    m = _k1_measure(k1_in, median_ms)
     print(f"[kernel] median ms: kernel {m['ms']:.4f}, plain "
-          f"{m['plain_ms']:.4f}, torch.bmm {m['library_ms']:.4f}; bound "
-          f"{m['bound_ms']:.4f}: {m['text']}")
+          f"{m['plain_ms']:.4f}, torch.bmm {m['library_ms']:.4f}: {m['text']}")
     return {"name": "masked_agg", "route": "cuda",
             "source": "src/repro_torch/kernels/masked_agg/csrc/masked_agg.cu",
             "replaces": "src/repro/kernels/masked_agg/kernel.py:41",
             "max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"]}
+            "library_ms": m["library_ms"],
+            "bound_all_planes_ms": m["bound_all_ms"],
+            "live_planes": m["live"], "empty_kernel_ms": m["empty_ms"]}
 
 
-def _k1_measure(g_t, d_t, w_t, out_p, timer):
+def _k1_measure(k1_in, timer):
     """K1's time, its plain version's and a ``torch.bmm`` yardstick's on
-    the same (T, tile) / (C, T, tile) / (T, C) inputs (``timer`` is
-    ``median_ms`` or ``device_ms``), beside the bound: bytes (each input
-    read once, the output written once) over the memory rate, or FLOPs
-    over the fp32 peak."""
+    the same inputs (``timer`` is ``median_ms`` or ``device_ms``), beside
+    the bound of this run's work (the live planes' bytes over the memory
+    rate, or their FLOPs over the fp32 peak), the bound of every client
+    plane (the previous design's work) and an empty kernel's time (the
+    launch floor)."""
     from repro_torch.kernels.masked_agg import ops
     from repro_torch.kernels.masked_agg.ref import masked_agg_ref
+    from repro_torch.kernels.masked_agg.ref import k1_bytes
 
+    g_t, d_t, sel, w, ru = k1_in
     t, tile = g_t.shape
-    c = d_t.shape[0]
+    w_t = (sel[:, ru.long()] * w[:, None]).t().contiguous()   # (T, C)
     d_tct = d_t.permute(1, 0, 2).contiguous()        # (T, C, tile)
 
     def library():
@@ -730,24 +750,35 @@ def _k1_measure(g_t, d_t, w_t, out_p, timer):
         return g_t + torch.where(den > 0, num / den.clamp_min(1e-9),
                                  torch.zeros_like(num))
 
-    lib_err = float((library() - out_p).abs().max())
+    lib_err = float((library() - masked_agg_ref(*k1_in)).abs().max())
     check(lib_err <= 1e-4, f"torch.bmm yardstick disagrees: {lib_err}")
-    nbytes = 4 * (t * tile * (c + 2) + t * c)
-    flops = 2 * c * t * tile
+    nb = k1_bytes(ru.cpu().numpy(), sel, tile)
+    flops = 2 * nb["live"] * t * tile
     name = torch.cuda.get_device_name(0)
-    by_bytes, by_ops = nbytes / memory_rate(name), flops / FP32_PEAK
+    rate = memory_rate(name)
+    by_bytes, by_ops = nb["live_bytes"] / rate, flops / FP32_PEAK
     launches0 = ops.masked_agg.launches
-    ms = timer(lambda: ops.masked_agg(g_t, d_t, w_t))
-    plain_ms = timer(lambda: masked_agg_ref(g_t, d_t, w_t))
+    ms = timer(lambda: ops.masked_agg(*k1_in))
+    plain_ms = timer(lambda: masked_agg_ref(*k1_in))
     library_ms = timer(library)
+    empty_ms = timer(lambda: torch.cuda._sleep(0))
     check(ops.masked_agg.launches > launches0, "timing did not launch")
+    bound = max(by_bytes, by_ops) * 1e3
+    all_ms = nb["all"] / rate * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_ms": bound, "bound_all_ms": all_ms, "live": nb["live"],
+            "empty_ms": empty_ms,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "text": f"{nbytes / 1e6:.1f} MB at "
-                    f"{memory_rate(name) / 1e12:.2f} TB/s is "
-                    f"{by_bytes * 1e3:.4f}, {flops / 1e9:.2f} GFLOP at "
-                    f"{FP32_PEAK / 1e12:.0f} TFLOP/s is {by_ops * 1e3:.4f}"}
+            "text": f"live planes {nb['live']:.3f} of {nb['planes']} a row "
+                    f"({nb['live'] / nb['planes']:.1%}); bound of the live "
+                    f"planes {nb['live_bytes'] / 1e6:.1f} MB at "
+                    f"{rate / 1e12:.2f} TB/s = {by_bytes * 1e3:.4f} ms "
+                    f"({flops / 1e9:.2f} GFLOP at {FP32_PEAK / 1e12:.0f} "
+                    f"TFLOP/s {by_ops * 1e3:.4f}), the kernel at "
+                    f"{bound / ms:.1%}; bound of every plane "
+                    f"{nb['all'] / 1e6:.1f} MB = {all_ms:.4f} ms, the kernel "
+                    f"at {all_ms / ms:.1%}; an empty kernel {empty_ms:.4f} "
+                    f"ms (the kernel {ms / empty_ms:.2f}x it)"}
 
 
 def phase_parity(dev):
@@ -1384,7 +1415,8 @@ def phase_hier_round(dev):
                         .zero_())
     d_t = ops.pack_into(plan, means, ops.new_tile_buffer(
         plan, (2,), device=dev).zero_())
-    w_t = ops.row_weights(plan, e_den, dev)
+    hier_in = (g_t, d_t, e_den.to(dev), torch.ones(2, device=dev),
+               plan.row_unit_on(dev))
     print(f"[hier-round] masked_agg launches {k1} (one a round over E=2 edge "
           f"planes, T={plan.n_rows}); frozen (client, leaf) deltas exactly "
           f"zero: {frozen.checked}; fused two-stage aggregate vs "
@@ -1424,7 +1456,7 @@ def phase_hier_round(dev):
           f"{frozen.checked}")
     del fed
     torch.cuda.empty_cache()
-    return k1, k2, (g_t, d_t, w_t)
+    return k1, k2, hier_in
 
 
 def phase_gossip_round(dev):
@@ -1825,10 +1857,11 @@ def phase_ckpt_resume(dev, smi):
 
 
 def phase_k1_plans(dev, hier_inputs):
-    """K1 at the IMDB and CASA hub plans (10 clients) and at the
-    hierarchical hub combine (VGG16, 2 edge planes from ``[hier-round]``):
-    against its plain version, device medians (L2 flushed) beside the
-    bound and a ``torch.bmm`` yardstick."""
+    """K1 at the IMDB and CASA hub plans (10 clients, selections drawn as
+    the round draws them) and at the hierarchical hub combine (VGG16, 2
+    edge planes from ``[hier-round]``): against its plain version, an
+    unselected NaN skipped, device medians (L2 flushed) beside both
+    bounds, an empty kernel and a ``torch.bmm`` yardstick."""
     from repro_torch import paper_tasks
     from repro_torch.core import build_units_flat
     from repro_torch.models import paper_models as pm
@@ -1841,23 +1874,27 @@ def phase_k1_plans(dev, hier_inputs):
         params = {p: x.to(dev) for p, x in
                   init(torch.Generator().manual_seed(0)).items()}
         assign = build_units_flat(params, units(params))
-        plan, *_, g_t, d_t, w_t = _k1_case(dev, params, assign,
-                                           paper_tasks.N_CLIENTS)
-        cases.append((task, g_t, d_t, w_t, torch.as_tensor(
-            plan.row_unit == 1, device=dev)))
-    cases.append(("vgg16 hierarchical combine", *hier_inputs, None))
-    for tag, g_t, d_t, w_t, still in cases:
-        err, out_p = _k1_check(tag, g_t, d_t, w_t, still)
-        m = _k1_measure(g_t, d_t, w_t, out_p, device_ms)
-        t, _ = g_t.shape
-        print(f"[k1-plans] {tag}: T={t} planes={d_t.shape[0]}: max abs err "
-              f"{err:.3e}; device median ms kernel {m['ms']:.4f}, plain "
-              f"{m['plain_ms']:.4f}, torch.bmm {m['library_ms']:.4f}; bound "
-              f"{m['bound_ms']:.4f} (the kernel at "
-              f"{m['bound_ms'] / m['ms']:.1%} of it): {m['text']}")
-        out.append({"plan": tag, "rows": t, "planes": int(d_t.shape[0]),
-                    "max_abs_err": err, "ms": m["ms"],
-                    "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        *_, k1_in = _k1_case(dev, params, assign, paper_tasks.N_CLIENTS,
+                             paper_tasks.N_TRAIN[task])
+        cases.append((task, k1_in))
+    cases.append(("vgg16 hierarchical combine", hier_inputs))
+    for tag, k1_in in cases:
+        # the combine's edge planes come from a real round, which may
+        # leave no unit without a participant
+        err = _k1_check(f"[k1-plans] {tag}:", k1_in,
+                        nobody=tag in paper_tasks.TASKS)
+        m = _k1_measure(k1_in, device_ms)
+        t, _ = k1_in[0].shape
+        print(f"[k1-plans] {tag}: T={t} planes={k1_in[1].shape[0]}: max abs "
+              f"err {err:.3e}; device median ms "
+              f"kernel {m['ms']:.4f}, plain {m['plain_ms']:.4f}, torch.bmm "
+              f"{m['library_ms']:.4f}: {m['text']}")
+        out.append({"plan": tag, "rows": t, "planes": int(k1_in[1].shape[0]),
+                    "live_planes": m["live"], "max_abs_err": err,
+                    "ms": m["ms"], "plain_ms": m["plain_ms"],
+                    "bound_ms": m["bound_ms"],
+                    "bound_all_planes_ms": m["bound_all_ms"],
+                    "empty_kernel_ms": m["empty_ms"],
                     "library_ms": m["library_ms"]})
     return out
 
@@ -1865,29 +1902,13 @@ def phase_k1_plans(dev, hier_inputs):
 
 QWEN3_PARAMS = 1_720_574_976     # the reference's init at full width
 LOGIT_TOL = 1e-3                 # card: continuous (K3) vs static (plain)
-FLUSH_FLOATS = 16 << 20          # 64 MB: more than the H100's 50 MB L2
 
 
 def device_ms(fn, iters=20, warmup=3):
-    """Median device time of ``fn`` with L2 flushed before each call.
-
-    The host enqueues every (flush, event, call, event) behind a GPU sleep,
-    so the window between the events holds the device work of ``fn``
-    alone, not the host's enqueue."""
-    flush = torch.empty(FLUSH_FLOATS, device="cuda")
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    evs = [(torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda._sleep(100_000_000)
-    for a, b in evs:
-        flush.zero_()
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in evs]))
+    """Median device time of ``fn`` with L2 flushed before each call
+    (``repro_torch.profiling.device_ms``)."""
+    from repro_torch.profiling import device_ms as timed
+    return timed(fn, iters, warmup)
 
 
 def _paged_case(dev, b, mp, lo, hi, dtype, seed, h=16, hkv=8, hd=128, ps=16,
@@ -5046,10 +5067,8 @@ def _zoo_rounds(dev, smi, tag, packed):
         run["K2"]["elements"], run["K2"]["bytes"] = n, 9 * n + 4 * rows
         run["K2"]["alone_ms"], run["K2"]["plain_ms"] = tap.ms, tap.plain_ms
         del deltas
-    plan_rows = None
     if not packed:
-        from repro_torch.kernels.masked_agg import ops as kops
-        plan_rows = kops.build_agg_plan(fed.assign, fed.params).n_rows
+        _k1_plan_record(fed, run)
     print(f"[{tag}] profiled round: wall {wall:.3f} s, device busy "
           f"{run['busy_ms']:.1f} ms ({run['busy_share']:.1%}), cuBLAS gemm "
           f"{run['gemm_ms']:.1f} ms; in-run device ms: "
@@ -5062,7 +5081,35 @@ def _zoo_rounds(dev, smi, tag, packed):
              if packed else ""))
     del fed, frozen, cap
     _free_card(tag)
-    return counts, run, plan_rows, peak, secs
+    return counts, run, peak, secs
+
+
+def _k1_plan_record(fed, run):
+    """K1's plan in a zoo round, into ``run["K1"]``: its rows ``T``,
+    ``row_unit`` table, ``units`` and ``train`` a client (what
+    ``k1_qwen3_plan`` rebuilds it from), and the bounds of the profiled
+    round's work (its selection's live planes, and every plane)."""
+    from repro_torch.kernels.masked_agg import ops as kops
+    from repro_torch.kernels.masked_agg.ref import k1_bytes
+
+    plan = kops.build_agg_plan(fed.assign, fed.params)
+    nb = k1_bytes(plan.row_unit, torch.as_tensor(fed.server.sel_history[-1]),
+                  plan.tile)
+    rate = memory_rate(torch.cuda.get_device_name(0))
+    run["K1"].update(T=plan.n_rows, row_unit=plan.row_unit,
+                     units=fed.assign.n_units,
+                     train=fed.fl.resolve_n_train(fed.assign.n_units),
+                     live=nb["live"], bound_ms=nb["live_bytes"] / rate * 1e3,
+                     bound_all_ms=nb["all"] / rate * 1e3)
+    return run["K1"]
+
+
+def _k1_in_run_text(k1):
+    return (f"live planes {k1['live']:.3f} of {ZOO_CLIENTS} a row, bound of "
+            f"the live planes {k1['bound_ms']:.4f} ms (in-run at "
+            f"{k1['bound_ms'] / k1['ms']:.1%}), of every plane "
+            f"{k1['bound_all_ms']:.4f} ms (at "
+            f"{k1['bound_all_ms'] / k1['ms']:.1%})")
 
 
 def phase_zoo_round(dev, smi):
@@ -5455,13 +5502,8 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
     check(profiled == half, f"{tag}: the profile holds {profiled} kernel "
           f"events, the counters saw {half} launches in that round (the "
           f"profile's last kernels: {[nm[:60] for nm, _ in events[-8:]]})")
-    from repro_torch.kernels.masked_agg import ops as kops
-    plan_rows = kops.build_agg_plan(fed.assign, fed.params).n_rows
-    k1_bytes = (ZOO_CLIENTS + 2) * plan_rows * 2048 * 4 \
-        + plan_rows * ZOO_CLIENTS * 4
-    run["K1"]["T"] = plan_rows
+    k1 = _k1_plan_record(fed, run)
     rate = memory_rate(torch.cuda.get_device_name(0))
-    run["K1"]["bound_ms"] = k1_bytes / rate * 1e3
     if packed:
         # K2's work in the profiled round: the slot rows of every leaf (x
         # and u read as fp32, int8 codes and an fp32 scale a row written)
@@ -5554,10 +5596,8 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
               f"it; the first round's call alone (L2 flushed) "
               f"{tap.ms:.4f} ms, its plain version {tap.plain_ms:.4f} ms"
               if packed else
-              f"; K1 at the plan's T={plan_rows} C={ZOO_CLIENTS}: bound "
-              f"{run['K1']['bound_ms']:.4f} ms ({k1_bytes / 1e9:.2f} GB), "
-              f"in-run at {run['K1']['bound_ms'] / run['K1']['ms']:.1%} of "
-              f"it"))
+              f"; K1 at the plan's T={k1['T']} C={ZOO_CLIENTS}: "
+              f"{_k1_in_run_text(k1)}"))
     if expert and packed:
         print(f"[{tag}] the first round's grouped K2 call ({tap.calls[0][2]} "
               f"leaves, {tap.calls[0][0]:,} elements; peak memory before the "
@@ -5700,34 +5740,37 @@ def phase_zoo_parity_vlm(dev):
         tag="zoo-parity-vlm")
 
 
-def k1_qwen3_plan(dev, plan_rows, smi, tag="[k1-qwen3-plan]"):
-    """K1 alone at qwen3-1.7b's hub plan (``plan_rows`` rows of 2,048, 2
-    clients: 27.54 GB a call), or another round's plan, on random tile
-    buffers of that shape: its device time beside its plain version's and
-    one ``torch.bmm`` call's with the guard (the yardstick of
-    ``_k1_measure``), each timed alone and its inputs' other layout
-    freed, so that the card holds them."""
+def k1_qwen3_plan(dev, k1_plan, smi, tag="[k1-qwen3-plan]"):
+    """K1 alone at qwen3-1.7b's hub plan (840,177 rows of 2,048, 2
+    clients), or another round's plan (``k1_plan``: the rows ``T``, the
+    plan's ``row_unit`` table, ``units`` and ``train`` a client), on
+    random tile buffers with the selection drawn as the round draws it
+    (seed 0 leaves units nobody selected at every zoo plan): against its
+    plain version on every row, an unselected NaN skipped and the rows of
+    a unit nobody selected unchanged (``_k1_check``), its device time
+    beside its plain version's and one ``torch.bmm`` call's with the guard
+    (the yardstick of ``_k1_measure``, held to the plain version on every
+    row), each timed alone and its inputs' other layout freed, so that
+    the card holds them; both bounds and an empty kernel."""
     from repro_torch.kernels.masked_agg import ops
-    from repro_torch.kernels.masked_agg.ref import masked_agg_ref
+    from repro_torch.kernels.masked_agg.ref import (draw_selection,
+                                                    k1_bytes, masked_agg_ref)
 
-    c, tile = ZOO_CLIENTS, 2048
+    c, tile, plan_rows = ZOO_CLIENTS, 2048, k1_plan["T"]
     gen = torch.Generator(device=dev).manual_seed(0)
     g_t = torch.randn(plan_rows, tile, generator=gen, device=dev)
     d_t = 0.05 * torch.randn(c, plan_rows, tile, generator=gen, device=dev)
-    w_t = torch.rand(plan_rows, c, generator=gen, device=dev) + 0.5
-    w_t[::7] = 0.0                    # rows of a unit nobody selected
-    out_k = ops.masked_agg(g_t, d_t, w_t)
-    out_p = masked_agg_ref(g_t, d_t, w_t)
-    err = float((out_k - out_p).abs().max())
-    check(torch.allclose(out_k, out_p, atol=TOL, rtol=TOL),
-          f"{tag} kernel vs plain: max abs err {err}")
-    check(torch.equal(out_k[::7], g_t[::7]), f"{tag} a zero-weight row "
-          f"changed")
-    del out_k
-    ms = device_ms(lambda: ops.masked_agg(g_t, d_t, w_t), 10)
-    plain_ms = device_ms(lambda: masked_agg_ref(g_t, d_t, w_t), 10)
+    sel = draw_selection(c, k1_plan["units"], k1_plan["train"], 0).to(dev)
+    w = (torch.rand(c, generator=gen, device=dev) + 0.5)
+    ru = torch.as_tensor(k1_plan["row_unit"].astype(np.int32), device=dev)
+    k1_in = (g_t, d_t, sel, w, ru)
+    err = _k1_check(tag, k1_in)
+    ms = device_ms(lambda: ops.masked_agg(*k1_in), 10)
+    plain_ms = device_ms(lambda: masked_agg_ref(*k1_in), 10)
+    empty_ms = device_ms(lambda: torch.cuda._sleep(0), 10)
+    w_t = (sel[:, ru.long()] * w[:, None]).t().contiguous()   # (T, C)
     d_tct = d_t.permute(1, 0, 2).contiguous()        # (T, C, tile)
-    del d_t
+    del d_t, k1_in
 
     def library():
         num = torch.bmm(w_t.unsqueeze(1), d_tct).squeeze(1)
@@ -5735,21 +5778,34 @@ def k1_qwen3_plan(dev, plan_rows, smi, tag="[k1-qwen3-plan]"):
         return g_t + torch.where(den > 0, num / den.clamp_min(1e-9),
                                  torch.zeros_like(num))
 
-    lib_err = float((library() - out_p).abs().max())
+    out_l, lib_err = library(), 0.0
+    for a in range(0, plan_rows, ops.CHECK_ROWS):
+        b = min(a + ops.CHECK_ROWS, plan_rows)
+        want = masked_agg_ref(g_t[a:b], d_tct[a:b].permute(1, 0, 2), sel, w,
+                              ru[a:b])
+        lib_err = max(lib_err, float((out_l[a:b] - want).abs().max()))
     check(lib_err <= 1e-4, f"{tag} torch.bmm yardstick disagrees: {lib_err}")
-    del out_p
+    del out_l, want
     library_ms = device_ms(library, 10)
-    nbytes = 4 * (plan_rows * tile * (c + 2) + plan_rows * c)
-    bound = nbytes / memory_rate(torch.cuda.get_device_name(0)) * 1e3
+    nb = k1_bytes(k1_plan["row_unit"], sel, tile)
+    rate = memory_rate(torch.cuda.get_device_name(0))
+    bound, bound_all = nb["live_bytes"] / rate * 1e3, nb["all"] / rate * 1e3
     print(f"{tag} T={plan_rows} C={c} tile {tile}: max abs err vs plain "
-          f"{err:.3e}, torch.bmm yardstick {lib_err:.3e}; device median ms "
-          f"(L2 flushed) kernel {ms:.4f}, plain {plain_ms:.4f}, torch.bmm + "
-          f"guard {library_ms:.4f}; bound {bound:.4f} ({nbytes / 1e9:.2f} "
-          f"GB; kernel at {bound / ms:.1%}) on {smi}")
+          f"{err:.3e}, torch.bmm yardstick {lib_err:.3e} (every row); live "
+          f"planes {nb['live']:.3f} of {c} a row "
+          f"({nb['live'] / c:.1%}); device median ms (L2 flushed) kernel "
+          f"{ms:.4f}, plain {plain_ms:.4f}, torch.bmm + guard "
+          f"{library_ms:.4f}, an empty kernel {empty_ms:.4f}; bound of the "
+          f"live planes {bound:.4f} ({nb['live_bytes'] / 1e9:.2f} GB; kernel "
+          f"at {bound / ms:.1%}), of every plane {bound_all:.4f} "
+          f"({nb['all'] / 1e9:.2f} GB; kernel at {bound_all / ms:.1%}) on "
+          f"{smi}")
     del g_t, d_tct, w_t
     _free_card(tag[1:].replace("]", ""))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "max_abs_err": err}
+            "max_abs_err": err, "bound_ms": bound,
+            "bound_all_planes_ms": bound_all, "live_planes": nb["live"],
+            "empty_kernel_ms": empty_ms}
 
 
 def _decisive_routing(cfg, params, spacing=0.02, scale=3.0):
@@ -5944,21 +6000,21 @@ def phase_train_launcher(arch=ZOO_ARCH, rounds=1, units=30,
           + f"; comm summary {json.dumps(summ)}")
 
 
-def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
+def zoo_kernel_rows(smi, dense_run, packed_run, gemma_run,
                     attn_zoo, hymba_run, k1_plan, moe_run, vlm_run):
     """The zoo call sites' numbers for the kernels line: in-run device
     ms beside the bound and, for K5/K6, ``[attention-kernels]``' readings
     at the same shapes (alone, plain, SDPA, max abs err); K1 at qwen3's
-    plan alone (``k1_qwen3_plan``) and in-run at granite's and
-    internvl2-26b's."""
+    plan alone (``k1_qwen3_plan``, with its own bounds) and in-run at
+    qwen3's, granite's and internvl2-26b's (the profiled round's
+    bounds)."""
     name = torch.cuda.get_device_name(0)
     rows = {"K1": {}, "K2": {}, "K5": {}, "K6": {}}
-    k1_bytes = (ZOO_CLIENTS + 2) * plan_rows * 2048 * 4 \
-        + plan_rows * ZOO_CLIENTS * 4
+    k1_in_run = dense_run["K1"]
     rows["K1"]["hub qwen3-1.7b"] = dict(
-        T=plan_rows, C=ZOO_CLIENTS, in_run_ms=dense_run["K1"]["ms"],
-        bound_ms=k1_bytes / memory_rate(name) * 1e3, bound_by="bytes",
-        **k1_plan)
+        T=k1_in_run["T"], C=ZOO_CLIENTS, in_run_ms=k1_in_run["ms"],
+        in_run_bound_ms=k1_in_run["bound_ms"],
+        in_run_live_planes=k1_in_run["live"], bound_by="bytes", **k1_plan)
     k2_bytes = packed_run["K2"]["bytes"]
     rows["K2"]["hub qwen3-1.7b packed qint8"] = {
         "elements": packed_run["K2"]["elements"],
@@ -5984,11 +6040,12 @@ def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
         k1m = run["K1"]
         rows["K1"][f"hub {arch}"] = dict(
             T=k1m["T"], C=ZOO_CLIENTS, in_run_ms=k1m["ms"],
-            bound_ms=k1m["bound_ms"], bound_by="bytes")
+            in_run_bound_ms=k1m["bound_ms"],
+            in_run_bound_all_planes_ms=k1m["bound_all_ms"],
+            in_run_live_planes=k1m["live"], bound_by="bytes")
         print(f"[zoo-kernels] K1 hub {arch} plan T={k1m['T']} C="
-              f"{ZOO_CLIENTS}: in-run {k1m['ms']:.4f} ms, bound "
-              f"{k1m['bound_ms']:.4f} ms (bytes), kernel at "
-              f"{k1m['bound_ms'] / k1m['ms']:.1%} of the bound in-run")
+              f"{ZOO_CLIENTS}: in-run {k1m['ms']:.4f} ms, "
+              f"{_k1_in_run_text(k1m)}")
     for label, k5_ms, k6_ms in shapes:
         t = attn_zoo[label]
         bound = t["bound"]
@@ -6008,11 +6065,13 @@ def zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
                   f"{bound[part][0] / in_run if in_run else math.nan:.1%} "
                   f"of the bound in-run")
     k1 = rows["K1"]["hub qwen3-1.7b"]
-    print(f"[zoo-kernels] K1 hub qwen3-1.7b plan T={plan_rows} C="
-          f"{ZOO_CLIENTS}: in-run {k1['in_run_ms']:.4f} ms, alone "
-          f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, torch.bmm + "
-          f"guard {k1['library_ms']:.4f} ms, bound "
-          f"{k1['bound_ms']:.4f} ms ({k1_bytes / 1e9:.2f} GB at "
+    print(f"[zoo-kernels] K1 hub qwen3-1.7b plan T={k1['T']} C="
+          f"{ZOO_CLIENTS}: in-run {k1['in_run_ms']:.4f} ms, "
+          f"{_k1_in_run_text(k1_in_run)}; alone {k1['ms']:.4f} ms, plain "
+          f"{k1['plain_ms']:.4f} ms, torch.bmm + guard "
+          f"{k1['library_ms']:.4f} ms, bound of its live planes "
+          f"{k1['bound_ms']:.4f} ms, of every plane "
+          f"{k1['bound_all_planes_ms']:.4f} ms (at "
           f"{memory_rate(name) / 1e12:.2f} TB/s) on {smi}")
     k2 = rows["K2"]["hub qwen3-1.7b packed qint8"]
     print(f"[zoo-kernels] K2 hub qwen3-1.7b packed qint8, one grouped launch "
@@ -6327,16 +6386,17 @@ def phase_moe_ep(smi, meshes=MOE_EP_MESHES):
 
 def phase_k1_zoo_plans(dev, smi, runs):
     """``[k1-qwen3-plan]`` at every other plan K1 runs in the zoo rounds:
-    ``runs`` maps a path to its round's record, whose plan rows (``T``)
-    come from the tiling plan the round built."""
-    name = torch.cuda.get_device_name(0)
+    ``runs`` maps a path to its round's record, whose plan (``T``,
+    ``row_unit``, units) comes from the tiling plan the round built."""
     rows = {}
     for path, run in runs.items():
-        t = run["K1"]["T"]
-        res = k1_qwen3_plan(dev, t, smi, tag=f"[k1-zoo-plans] {path}")
-        nbytes = (ZOO_CLIENTS + 2) * t * 2048 * 4 + t * ZOO_CLIENTS * 4
-        rows[path] = dict(T=t, C=ZOO_CLIENTS, in_run_ms=run["K1"]["ms"],
-                          bound_ms=nbytes / memory_rate(name) * 1e3,
+        res = k1_qwen3_plan(dev, run["K1"], smi,
+                            tag=f"[k1-zoo-plans] {path}")
+        rows[path] = dict(T=run["K1"]["T"], C=ZOO_CLIENTS,
+                          in_run_ms=run["K1"]["ms"],
+                          in_run_bound_ms=run["K1"]["bound_ms"],
+                          in_run_bound_all_planes_ms=run["K1"]["bound_all_ms"],
+                          in_run_live_planes=run["K1"]["live"],
                           bound_by="bytes", **res)
     check(len(rows) == 4, f"[k1-zoo-plans] {len(rows)} plans")
     return rows
@@ -6471,10 +6531,9 @@ def main() -> int:
     _free_card("zoo")
     # the zoo: the round and the train step of the zoo LMs (K1, K2, K5, K6)
 
-    dense, dense_run, plan_rows, _, _ = timed("zoo-round", phase_zoo_round,
-                                              dev, smi)
-    packed, packed_run, _, _, _ = timed("zoo-packed", phase_zoo_packed, dev,
-                                        smi)
+    dense, dense_run, _, _ = timed("zoo-round", phase_zoo_round, dev, smi)
+    packed, packed_run, _, _ = timed("zoo-packed", phase_zoo_packed, dev,
+                                     smi)
     gemma, gemma_run, gemma_peak, gemma_secs, gemma_args = timed(
         "zoo-train-step", phase_zoo_train_step, dev, smi)
     # the dry run of that same step on meta, held to its readings; then
@@ -6510,7 +6569,8 @@ def main() -> int:
     vlm_counts, vlm_run, _, _ = timed("zoo-round-vlm", phase_zoo_round_vlm,
                                       dev, smi)
     timed("zoo-parity-vlm", phase_zoo_parity_vlm, dev)
-    k1_plan = timed("k1-qwen3-plan", k1_qwen3_plan, dev, plan_rows, smi)
+    k1_plan = timed("k1-qwen3-plan", k1_qwen3_plan, dev, dense_run["K1"],
+                    smi)
     k1_zoo_plans = timed("k1-zoo-plans", phase_k1_zoo_plans, dev, smi, {
         "hub hymba-1.5b": hymba_run, f"hub {WHISPER_ARCH}": whisper_run,
         f"hub {MOE_ARCH}": moe_run, f"hub {VLM_ARCH}": vlm_run})
@@ -6553,7 +6613,7 @@ def main() -> int:
           + "; by group: " + ", ".join(
               f"{g} {sum(walls[t] for t in tags):.1f}"
               for g, tags in groups.items()))
-    zoo = zoo_kernel_rows(smi, dense_run, plan_rows, packed_run, gemma_run,
+    zoo = zoo_kernel_rows(smi, dense_run, packed_run, gemma_run,
                           attn_zoo, hymba_run, k1_plan, moe_run, vlm_run)
     name = torch.cuda.get_device_name(0)
     for path, row in k1_zoo_plans.items():
@@ -6561,9 +6621,12 @@ def main() -> int:
         print(f"[zoo-kernels] K1 {path} plan T={row['T']} C={row['C']}: "
               f"in-run {row['in_run_ms']:.4f} ms, alone {row['ms']:.4f} ms, "
               f"plain {row['plain_ms']:.4f} ms, torch.bmm + guard "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"(bytes); kernel at {row['bound_ms'] / row['ms']:.1%} of the "
-              f"bound alone on {smi}")
+              f"{row['library_ms']:.4f} ms; alone, live planes "
+              f"{row['live_planes']:.3f} a row, bound of the live planes "
+              f"{row['bound_ms']:.4f} ms (kernel at "
+              f"{row['bound_ms'] / row['ms']:.1%}), of every plane "
+              f"{row['bound_all_planes_ms']:.4f} ms (at "
+              f"{row['bound_all_planes_ms'] / row['ms']:.1%}) on {smi}")
     zoo["K2"][f"hub {MOE_ARCH} packed qint8"] = {
         "elements": pmoe_run["K2"]["elements"],
         "in_run_ms": pmoe_run["K2"]["ms"], "ms": pmoe_run["K2"]["alone_ms"],

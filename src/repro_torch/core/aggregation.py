@@ -295,9 +295,10 @@ def hierarchical_edge_partials(deltas: Tree, sel: torch.Tensor,
     Returns ``(edge_means, e_den)``: per-edge partial *means* (a tree
     with a leading E axis; zero where an edge had no participant) and
     the per-edge per-unit weight mass ``e_den (E, U)`` (on ``sel``'s
-    device).  Any flat combiner fed these with ``wsel = e_den`` — the
-    fused kernel's ``masked_combine_packed`` in particular — reproduces
-    the hub combine: ``Σ_e e_den·mean / Σ_e e_den = Σ_e num / Σ_e den``.
+    device).  Any flat combiner fed these with ``e_den`` as the weight
+    mass — the fused kernel's ``masked_combine_packed`` with unit edge
+    weights in particular — reproduces the hub combine: ``Σ_e
+    e_den·mean / Σ_e e_den = Σ_e num / Σ_e den``.
     """
     wf = weights.float().to(sel.device)
     mem = membership.float().to(sel.device)

@@ -304,7 +304,7 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
             new_params = aggregate(global_params, deltas, sel, weights)
         elif fused_tiles:
             new_params = agg_ops.masked_combine_packed(
-                global_params, d_t, sel * weights[:, None], plan["plan"])
+                global_params, d_t, sel, weights, plan["plan"])
             deltas = agg_ops.unpack(plan["plan"], d_t, global_params)
         else:
             new_params = masked_fedavg(global_params, deltas, sel, weights,
@@ -326,8 +326,10 @@ def _fused_hier_aggregate(assign: UnitAssignment, mem: torch.Tensor
     """Two-stage masked FedAvg with the hub combine through the fused
     kernel: per-edge partial means (stage 1, plain PyTorch) packed into
     an ``(E, T, tile)`` buffer, then one K1 launch over the E planes with
-    the per-edge weight mass ``e_den (E, U)`` as ``wsel``.  The tiling
-    plan is built once, at the first call."""
+    the per-edge weight mass ``e_den (E, U)`` as the selection and unit
+    client weights (an edge plane is read only where ``e_den > 0``, and
+    stage 1 writes zeros elsewhere).  The tiling plan is built once, at
+    the first call."""
     plan = {}
 
     def aggregate(g, d, sel, w):
@@ -337,7 +339,8 @@ def _fused_hier_aggregate(assign: UnitAssignment, mem: torch.Tensor
         dev = next(iter(g.values())).device
         d_t = agg_ops.pack_into(plan["plan"], means, agg_ops.new_tile_buffer(
             plan["plan"], (mem.shape[0],), device=dev))
-        return agg_ops.masked_combine_packed(g, d_t, e_den, plan["plan"])
+        return agg_ops.masked_combine_packed(
+            g, d_t, e_den, torch.ones(mem.shape[0]), plan["plan"])
 
     return aggregate
 

@@ -1,20 +1,25 @@
 """Masked FedAvg through the hand-written CUDA kernel.
 
-Tree-level wrapper: pack params/deltas into unit tiles, run the fused
+Tree-level wrapper: pack the deltas into unit tiles, run the fused
 kernel, unpack.  Drop-in replacement for ``core.aggregation.
 masked_fedavg`` (held to it in tests/test_torch_masked_agg.py and, on
 the card, by chip_smoke.py).
 
 The packing metadata — which unit owns each tile row, segment sizes,
 row offsets — is a pure function of the unit assignment and the leaf
-shapes, so it is planned ONCE (:func:`build_agg_plan`) and reused.
+shapes, so it is planned ONCE (:func:`build_agg_plan`) and reused; the
+row -> unit table goes to each device once (``AggPlan.row_unit_on``).
 
 Layout.  Each (leaf, unit) segment is padded to whole ``tile`` rows.
-The global tiles are ``(T, tile)``, the weights ``(T, C)`` and the
-deltas a client-stacked ``(C, T, tile)`` buffer: the hub round writes
-each client's delta straight into its plane (:func:`pack_into`), and the
-kernel reads the planes in place through their client stride — there
-is no ``(T, C, tile)`` transpose copy as in the TPU wrapper.
+The global tiles are ``(T, tile)`` and the deltas a client-stacked
+``(C, T, tile)`` buffer: the hub round writes each client's delta
+straight into its plane (:func:`pack_into`), and the kernel reads the
+planes in place through their client stride — there is no ``(T, C,
+tile)`` transpose copy as in the TPU wrapper.  The weights stay ``(C,
+U)`` selections and ``(C,)`` client weights: the kernel looks each row's
+unit up itself, so no ``(T, C)`` table is built per round.  A fused
+round's new params are views of the kernel's output buffer, and the next
+round reads them there (:func:`tile_source`) instead of packing them.
 
 :func:`masked_agg` is the kernel's wrapper: it checks device, dtype,
 shape, strides and alignment, launches the CUDA kernel for CUDA
@@ -58,6 +63,17 @@ class AggPlan(NamedTuple):
     segments: Tuple[AggSegment, ...]
     n_rows: int                  # total tile rows
     row_unit: np.ndarray         # (n_rows,) unit id of every tile row
+    n_units: int                 # U of the assignment
+    tables: Dict[torch.device, torch.Tensor]   # row_unit_on's cache
+
+    def row_unit_on(self, device) -> torch.Tensor:
+        """``row_unit`` as an int32 tensor on ``device``, copied there
+        once per plan (callers only read it)."""
+        device = torch.device(device)
+        if device not in self.tables:
+            self.tables[device] = torch.as_tensor(
+                self.row_unit.astype(np.int32), device=device)
+        return self.tables[device]
 
 
 def build_agg_plan(assign: UnitAssignment, params, tile: int = TILE
@@ -82,7 +98,7 @@ def build_agg_plan(assign: UnitAssignment, params, tile: int = TILE
             row_unit.extend([int(u)] * nt)
             n_rows += nt
     return AggPlan(tile, tuple(leaves), tuple(segments), n_rows,
-                   np.asarray(row_unit, np.int64))
+                   np.asarray(row_unit, np.int64), assign.n_units, {})
 
 
 def _segment_views(plan: AggPlan, buf: torch.Tensor):
@@ -142,12 +158,49 @@ def unpack(plan: AggPlan, buf: torch.Tensor,
     return out
 
 
-def _check(name, x, shape, device):
+def tile_source(plan: AggPlan, tree: Dict[str, torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+    """The ``(T, tile)`` buffer whose :func:`unpack` views ``tree``'s
+    leaves are, or None.
+
+    A fused round's result is :func:`unpack`'s views of the kernel's
+    output buffer, and the server keeps it as the next round's global
+    params: the next round then reads its global tiles in place instead
+    of packing them anew.  Every leaf must be a float32 tensor with
+    exactly the storage, offset, strides and shape that ``unpack`` gives
+    it; anything else (the first round, a restored checkpoint, a
+    replaced or cast leaf) returns None, and the caller packs as
+    before."""
+    leaves = [tree.get(path) for path, _, _ in plan.leaves]
+    if any(x is None or x.dtype != torch.float32 for x in leaves):
+        return None
+    storage = leaves[0].untyped_storage()
+    if any(x.untyped_storage().data_ptr() != storage.data_ptr()
+           for x in leaves):
+        return None
+    first = next(s for s in plan.segments if s.path == plan.leaves[0][0])
+    base = leaves[0].storage_offset() - first.row * plan.tile
+    if base < 0 or (base + plan.n_rows * plan.tile) * 4 > storage.nbytes():
+        return None
+    buf = leaves[0].as_strided((plan.n_rows, plan.tile), (plan.tile, 1),
+                               base)
+    if buf.data_ptr() % 16:
+        return None
+    views = unpack(plan, buf, tree)
+    for (path, _, _), x in zip(plan.leaves, leaves):
+        v = views[path]
+        if (x.storage_offset(), x.stride(), x.shape) != \
+                (v.storage_offset(), v.stride(), v.shape):
+            return None
+    return buf
+
+
+def _check(name, x, shape, device, dtype=torch.float32):
     if x.device != device:
         raise ValueError(f"masked_agg: {name} is on {x.device}, "
                          f"expected {device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"masked_agg: {name} must be float32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise ValueError(f"masked_agg: {name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"masked_agg: {name} has shape {tuple(x.shape)}, "
                          f"expected {tuple(shape)}")
@@ -157,32 +210,62 @@ def _check(name, x, shape, device):
 def _kernel():
     lib = _build.load(SOURCE)
     fn = lib.masked_agg_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def masked_agg(g_t: torch.Tensor, d_t: torch.Tensor,
-               w_t: torch.Tensor) -> torch.Tensor:
-    """global (T, tile); deltas (C, T, tile); weights (T, C) -> (T, tile).
+# Launch shape: blocks of THREADS threads, each owning ``vec`` float4s of
+# one tile row (masked_agg.cu's note has the sweep that chose it).
+THREADS = 64
+MIN_BLOCKS = 8 * 132           # 8 blocks for each of the H100's 132 SMs
+CHECK_ROWS = 1 << 16           # rows a plain-version call in check_kernel
 
-    CUDA tensors launch the CUDA kernel (or raise); CPU tensors run the
-    plain version.  ``d_t`` may be any view whose (T, tile) planes are
-    contiguous — the kernel reads it through its client stride.
+
+def launch_vec(n_rows: int, tile: int) -> int:
+    """Float4s a thread for a ``(n_rows, tile)`` call: 2 where that still
+    gives at least :data:`MIN_BLOCKS` blocks, else 1 (CASA's 44 rows)."""
+    chunks = -(-(tile // 4) // (THREADS * 2))
+    return 2 if n_rows * chunks >= MIN_BLOCKS else 1
+
+
+def masked_agg(g_t: torch.Tensor, d_t: torch.Tensor, sel_cu: torch.Tensor,
+               w_c: torch.Tensor, row_unit: torch.Tensor) -> torch.Tensor:
+    """global (T, tile); deltas (C, T, tile); selection (C, U); client
+    weights (C,); row -> unit table (T,) int32 -> (T, tile).
+
+    The weight of (row t, client c) is ``sel_cu[c, row_unit[t]]·w_c[c]``;
+    a client's plane is read only in the rows of units it selected
+    (``ref.masked_agg_ref`` has the full contract).  CUDA tensors launch
+    the CUDA kernel (or raise); CPU tensors run the plain version.
+    ``d_t`` may be any view whose (T, tile) planes are contiguous — the
+    kernel reads it through its client stride.  ``row_unit``'s entries
+    must lie below U (the tiling plan's table does); the kernel does not
+    check them.
     """
+    for name, x, dims in (("global", g_t, 2), ("deltas", d_t, 3),
+                          ("selection", sel_cu, 2),
+                          ("client weights", w_c, 1),
+                          ("row_unit", row_unit, 1)):
+        if x.dim() != dims:
+            raise ValueError(f"masked_agg: {name} has shape "
+                             f"{tuple(x.shape)}, expected {dims} dims")
     t, tile = g_t.shape
-    c = d_t.shape[0]
+    c, u = sel_cu.shape
     device = g_t.device
     _check("global", g_t, (t, tile), device)
     _check("deltas", d_t, (c, t, tile), device)
-    _check("weights", w_t, (t, c), device)
+    _check("selection", sel_cu, (c, u), device)
+    _check("client weights", w_c, (c,), device)
+    _check("row_unit", row_unit, (t,), device, torch.int32)
     if device.type == "cpu":
-        return masked_agg_ref(g_t, d_t, w_t)
+        return masked_agg_ref(g_t, d_t, sel_cu, w_c, row_unit)
     if device.type != "cuda":
         raise ValueError(f"masked_agg: no kernel for device {device}")
-    if not (g_t.is_contiguous() and w_t.is_contiguous()):
-        raise ValueError("masked_agg: global and weights must be contiguous")
+    if not all(x.is_contiguous() for x in (g_t, sel_cu, w_c, row_unit)):
+        raise ValueError("masked_agg: global, selection, client weights and "
+                         "row_unit must be contiguous")
     if d_t.stride(2) != 1 or d_t.stride(1) != tile or d_t.stride(0) % 4:
         raise ValueError(
             f"masked_agg: each client plane of the deltas must be a "
@@ -197,8 +280,10 @@ def masked_agg(g_t: torch.Tensor, d_t: torch.Tensor,
             raise ValueError(f"masked_agg: {name} is not 16-byte aligned")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel()(g_t.data_ptr(), d_t.data_ptr(), w_t.data_ptr(),
-                        out.data_ptr(), t, c, tile, d_t.stride(0), stream)
+        err = _kernel()(g_t.data_ptr(), d_t.data_ptr(), sel_cu.data_ptr(),
+                        w_c.data_ptr(), row_unit.data_ptr(), out.data_ptr(),
+                        t, c, u, tile, d_t.stride(0), launch_vec(t, tile),
+                        stream)
     if err != 0:
         raise RuntimeError(f"masked_agg: CUDA kernel launch failed with "
                            f"cudaError {err}")
@@ -209,34 +294,28 @@ def masked_agg(g_t: torch.Tensor, d_t: torch.Tensor,
 masked_agg.launches = 0
 
 
-def row_weights(plan: AggPlan, wsel: torch.Tensor,
-                device) -> torch.Tensor:
-    """``wsel (C, U)`` -> per-tile-row weights ``(T, C)`` on ``device``."""
-    rows = torch.as_tensor(plan.row_unit)
-    return wsel.float()[:, rows].t().contiguous().to(device)
-
-
 def masked_combine_packed(global_params, d_t: torch.Tensor,
-                          wsel: torch.Tensor, plan: AggPlan):
-    """Fused ``new_u = g_u + Σ_c wsel_cu·Δ_cu / Σ_c wsel_cu`` over deltas
-    already packed into a ``(C, T, tile)`` buffer."""
+                          sel_cu: torch.Tensor, w_c: torch.Tensor,
+                          plan: AggPlan):
+    """Fused ``new_u = g_u + Σ_c w_c·sel_cu·Δ_cu / Σ_c w_c·sel_cu`` over
+    deltas already packed into a ``(C, T, tile)`` buffer.  The global
+    tiles are read in place when ``global_params`` are the views of a
+    previous call's output (:func:`tile_source`), else packed into a new
+    buffer; the output is always a new buffer, so ``global_params`` are
+    never written."""
     dev = d_t.device
-    g_t = pack_into(plan, global_params, new_tile_buffer(plan, device=dev))
-    out_t = masked_agg(g_t, d_t, row_weights(plan, wsel, dev))
+    if tuple(sel_cu.shape) != (d_t.shape[0], plan.n_units):
+        raise ValueError(f"masked_agg: selection has shape "
+                         f"{tuple(sel_cu.shape)}, expected "
+                         f"{(d_t.shape[0], plan.n_units)}")
+    g_t = tile_source(plan, global_params)
+    if g_t is None or g_t.device != dev:
+        g_t = pack_into(plan, global_params,
+                        new_tile_buffer(plan, device=dev))
+    out_t = masked_agg(g_t, d_t, sel_cu.to(dev, torch.float32).contiguous(),
+                       w_c.to(dev, torch.float32).contiguous(),
+                       plan.row_unit_on(dev))
     return unpack(plan, out_t, global_params)
-
-
-def masked_combine_fused(global_params, deltas, wsel: torch.Tensor,
-                         assign: UnitAssignment, *, tile: int = TILE,
-                         plan: Optional[AggPlan] = None):
-    """``deltas``: client-stacked tree (C leading); ``wsel (C, U)`` is
-    the per-client per-unit weight mass (``sel * weights``)."""
-    if plan is None or plan.tile != tile:
-        plan = build_agg_plan(assign, global_params, tile)
-    dev = next(iter(global_params.values())).device
-    d_t = pack_into(plan, deltas,
-                    new_tile_buffer(plan, (wsel.shape[0],), device=dev))
-    return masked_combine_packed(global_params, d_t, wsel, plan)
 
 
 def masked_fedavg_fused(global_params, deltas, sel: torch.Tensor,
@@ -246,9 +325,67 @@ def masked_fedavg_fused(global_params, deltas, sel: torch.Tensor,
 
     deltas: client-stacked tree (C leading); sel (C, U); weights (C,).
     """
-    wsel = sel.float() * weights.float().to(sel.device)[:, None]
-    return masked_combine_fused(global_params, deltas, wsel, assign,
-                                tile=tile, plan=plan)
+    if plan is None or plan.tile != tile:
+        plan = build_agg_plan(assign, global_params, tile)
+    dev = next(iter(global_params.values())).device
+    d_t = pack_into(plan, deltas,
+                    new_tile_buffer(plan, (sel.shape[0],), device=dev))
+    return masked_combine_packed(global_params, d_t, sel, weights, plan)
+
+
+def check_kernel(k1_in, tol: float = 2e-5, *, nobody: bool = False
+                 ) -> dict:
+    """:func:`masked_agg` on ``k1_in = (g_t, d_t, sel_cu, w_c, row_unit)``
+    against its plain version within ``tol`` on every row (the plain
+    version run :data:`CHECK_ROWS` rows at a time, so that a plan of 10^6
+    rows needs no full-size temporaries beside the output), bitwise
+    repeatable, and the rows of a unit nobody selected unchanged (with
+    ``nobody``, such rows must exist); then with a NaN planted in a plane
+    whose unit its client did not select (in a row that moves where
+    there is one): the output bitwise the clean one and the plain
+    version's rows around it within ``tol``.  Raises RuntimeError on a
+    failure; returns the max abs error and the NaN's ``(client, row)``
+    (None where every plane is live)."""
+    g_t, d_t, sel, w, ru = k1_in
+    t = g_t.shape[0]
+    out = masked_agg(*k1_in)
+    err = 0.0
+    for a in range(0, t, CHECK_ROWS):
+        b = min(a + CHECK_ROWS, t)
+        want = masked_agg_ref(g_t[a:b], d_t[:, a:b], sel, w, ru[a:b])
+        e = float((out[a:b] - want).abs().max())
+        if not torch.allclose(out[a:b], want, atol=tol, rtol=tol):
+            raise RuntimeError(f"masked_agg disagrees with its plain version "
+                               f"in rows {a}-{b}: max abs err {e}")
+        err = max(err, e)
+    del want
+    if not torch.equal(out, masked_agg(*k1_in)):
+        raise RuntimeError("masked_agg is not bitwise repeatable")
+    live = sel[:, ru.long()] != 0                        # (C, T)
+    still = ~live.any(0)
+    if nobody and not bool(still.any()):
+        raise RuntimeError("no row of a unit nobody selected to check")
+    if not torch.equal(out[still], g_t[still]):
+        raise RuntimeError("masked_agg changed a unit nobody selected")
+    where = torch.nonzero(~live & live.any(0))
+    if not len(where):
+        where = torch.nonzero(~live)
+    if not len(where):
+        return {"max_abs_err": err, "nan_at": None}
+    c0, t0 = (int(x) for x in where[0])
+    saved = d_t[c0, t0, :4].clone()
+    d_t[c0, t0, :4] = float("nan")
+    try:
+        out_n = masked_agg(*k1_in)
+        a, b = max(t0 - 8, 0), t0 + 8
+        near = masked_agg_ref(g_t[a:b], d_t[:, a:b], sel, w, ru[a:b])
+    finally:
+        d_t[c0, t0, :4] = saved
+    if not (torch.equal(out_n, out) and
+            torch.allclose(out_n[a:b], near, atol=tol, rtol=tol)):
+        raise RuntimeError(f"a NaN in client {c0}'s unselected row {t0} "
+                           f"reached masked_agg's output")
+    return {"max_abs_err": err, "nan_at": (c0, t0)}
 
 
 def reset_launch_counts() -> None:

@@ -6,16 +6,21 @@ returns the device's kernels, memcpys and memsets in start order.  The
 profiler ranges of ``models/moe.py`` also appear on the device's
 timeline, spanning their kernels: they are not kernels and are left
 out.  ``profile_serve.py``, ``profile_round.py`` and ``chip_smoke.py``
-read their profiles through it.
+read their profiles through it.  ``device_ms(fn)`` is the device time
+of one call, L2 flushed, that ``profile_masked_agg.py`` and
+``chip_smoke.py`` time kernels with.
 """
 from __future__ import annotations
 
 import bisect
 from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .models import moe
+
+FLUSH_FLOATS = 16 << 20          # 64 MB: more than the H100's 50 MB L2
 
 
 class Kernel(NamedTuple):
@@ -49,3 +54,25 @@ def device_kernels(prof) -> List[Kernel]:
                 span = spans[i][2]
         out.append(Kernel(e.name(), e.duration_ns() / 1e3, span))
     return out
+
+
+def device_ms(fn, iters=20, warmup=3) -> float:
+    """Median device time of ``fn`` with L2 flushed before each call.
+
+    The host enqueues every (flush, event, call, event) behind a GPU sleep,
+    so the window between the events holds the device work of ``fn``
+    alone, not the host's enqueue."""
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(100_000_000)
+    for a, b in evs:
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in evs]))

@@ -25,52 +25,122 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(dev, t, c, tile, seed=0):
+def _case(dev, t, c, tile, seed=0, n_units=5):
+    """K1's inputs: unit 1 selected by nobody (its rows keep the global
+    value), client ``c - 1`` of weight 0 but selecting unit 0 (still
+    read), the other selections random."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     g = torch.randn(t, tile, generator=gen, device=dev)
     d = torch.randn(c, t, tile, generator=gen, device=dev)
-    w = torch.rand(t, c, generator=gen, device=dev)
-    w[t // 2] = 0.0                                   # denominator 0
-    w[:, c - 1] = 0.0                                 # a client of weight 0
-    return g, d, w
+    rng = np.random.default_rng(seed)
+    sel = torch.as_tensor(rng.integers(0, 2, (c, n_units)),
+                          dtype=torch.float32)
+    sel[:, 1] = 0.0
+    sel[:, 0] = 1.0
+    w = torch.as_tensor(rng.uniform(0.5, 2.0, c), dtype=torch.float32)
+    w[c - 1] = 0.0
+    ru = torch.as_tensor(np.arange(t) % n_units, dtype=torch.int32)
+    return g, d, sel.to(dev), w.to(dev), ru.to(dev)
 
 
 @pytest.mark.parametrize("t,c,tile", [(1, 1, 4), (7, 3, 256), (33, 8, 2048),
-                                      (5, 2, 12)])
+                                      (5, 2, 12), (44, 10, 2048),
+                                      (9, 33, 256)])
 def test_kernel_matches_plain(dev, t, c, tile):
-    g, d, w = _case(dev, t, c, tile)
+    args = _case(dev, t, c, tile)
+    g, ru = args[0], args[-1]
     before = ops.masked_agg.launches
-    out = ops.masked_agg(g, d, w)
+    out = ops.masked_agg(*args)
     torch.cuda.synchronize()
     assert ops.masked_agg.launches == before + 1
-    torch.testing.assert_close(out, masked_agg_ref(g, d, w), atol=TOL,
+    torch.testing.assert_close(out, masked_agg_ref(*args), atol=TOL,
                                rtol=TOL)
-    assert torch.equal(out[t // 2], g[t // 2])        # nobody trained
-    assert torch.equal(out, ops.masked_agg(g, d, w))  # bitwise repeatable
+    still = ru == 1                                   # nobody trained
+    assert torch.equal(out[still], g[still])
+    assert torch.equal(out, ops.masked_agg(*args))    # bitwise repeatable
+
+
+@pytest.mark.parametrize("t,c,tile", [(300, 10, 2048), (300, 33, 2000),
+                                      (1100, 2, 12)])
+def test_kernel_launch_widths_agree_bitwise(dev, t, c, tile):
+    """A call of ``t`` rows launches 2 float4s a thread, its slices of
+    256 rows 1 (``ops.launch_vec``); both sum each element's clients in
+    the same order, so the slices' outputs are bitwise the whole call's
+    rows, ragged chunks included."""
+    g, d, sel, w, ru = _case(dev, t, c, tile, seed=t)
+    assert ops.launch_vec(t, tile) == 2 and ops.launch_vec(256, tile) == 1
+    whole = ops.masked_agg(g, d, sel, w, ru)
+    torch.testing.assert_close(whole, masked_agg_ref(g, d, sel, w, ru),
+                               atol=TOL, rtol=TOL)
+    for a in range(0, t, 256):
+        part = ops.masked_agg(g[a:a + 256], d[:, a:a + 256], sel, w,
+                              ru[a:a + 256])
+        assert torch.equal(part, whole[a:a + 256]), a
 
 
 def test_kernel_reads_strided_client_planes(dev):
     # planes of a larger (C, T + 3, tile) buffer: client stride != T*tile
-    g, d, w = _case(dev, 6, 4, 256)
+    g, d, sel, w, ru = _case(dev, 6, 4, 256)
     big = torch.zeros(4, 9, 256, device=dev)
     big[:, 2:8] = d
     view = big[:, 2:8]
     assert not view.is_contiguous()
-    torch.testing.assert_close(ops.masked_agg(g, view, w),
-                               masked_agg_ref(g, d, w), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(ops.masked_agg(g, view, sel, w, ru),
+                               masked_agg_ref(g, d, sel, w, ru), atol=TOL,
+                               rtol=TOL)
 
 
-@pytest.mark.parametrize("bad", ["misaligned", "row_stride", "float64"])
+@pytest.mark.parametrize("where", ["unselected", "zero_weight"])
+def test_kernel_nan_planes(dev, where):
+    """A NaN in a plane the client did not select is never read (the
+    output equals the clean one bitwise); a NaN in a selected plane of
+    a zero-weight client reaches the output (0·NaN), in the kernel and
+    its plain version alike."""
+    g, d, sel, w, ru = _case(dev, 10, 4, 256)
+    clean = ops.masked_agg(g, d, sel, w, ru)
+    if where == "unselected":
+        sel[0, 2], sel[1, 2] = 0.0, 1.0               # row 2 is unit 2
+        clean = ops.masked_agg(g, d, sel, w, ru)
+        d[0, 2, 9] = float("nan")
+        out = ops.masked_agg(g, d, sel, w, ru)
+        assert torch.equal(out, clean)
+        assert torch.equal(out, ops.masked_agg(g, d.nan_to_num(0.0), sel,
+                                               w, ru))
+        torch.testing.assert_close(out, masked_agg_ref(g, d, sel, w, ru),
+                                   atol=TOL, rtol=TOL)
+    else:
+        d[3, 0, 9] = float("nan")                     # client 3: weight 0
+        out = ops.masked_agg(g, d, sel, w, ru)
+        plain = masked_agg_ref(g, d, sel, w, ru)
+        assert bool(torch.isnan(out[0, 9])) and bool(torch.isnan(plain[0, 9]))
+        nan = torch.isnan(out)
+        assert int(nan.sum()) == 1
+        torch.testing.assert_close(out[~nan], clean[~nan], atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("bad", ["misaligned", "row_stride", "float64",
+                                 "row_unit_dtype", "row_unit_len",
+                                 "sel_shape", "cpu_mix"])
 def test_kernel_wrapper_raises(dev, bad):
-    g, d, w = _case(dev, 4, 2, 256)
+    g, d, sel, w, ru = _case(dev, 4, 2, 256)
     if bad == "misaligned":
         g = torch.zeros(4 * 256 + 1, device=dev)[1:].view(4, 256)
     elif bad == "row_stride":
         d = torch.zeros(2, 4, 512, device=dev)[:, :, :256]
-    else:
+    elif bad == "float64":
         w = w.double()
+    elif bad == "row_unit_dtype":
+        ru = ru.long()
+    elif bad == "row_unit_len":
+        ru = ru[:3]
+    elif bad == "sel_shape":
+        sel = sel[:1]
+    else:
+        sel = sel.cpu()
+    before = ops.masked_agg.launches
     with pytest.raises(ValueError, match="masked_agg"):
-        ops.masked_agg(g, d, w)
+        ops.masked_agg(g, d, sel, w, ru)
+    assert ops.masked_agg.launches == before
 
 
 def test_fused_tree_matches_plain_on_card(dev):
@@ -932,15 +1002,42 @@ def test_kill_resume_is_bitwise_on_card(dev, tmp_path, kw):
 
 
 def test_kernel_two_edge_planes_match_plain(dev):
-    """K1 as the hierarchical hub combine: E = 2 planes of edge means."""
-    g, d, w = _case(dev, 1293, 2, 2048)
+    """K1 as the hierarchical hub combine: E = 2 planes of edge means,
+    their weight mass as the selection and unit edge weights."""
+    g, d, sel, _, ru = _case(dev, 1293, 2, 2048)
+    w = torch.ones(2, device=dev)
     before = ops.masked_agg.launches
-    out = ops.masked_agg(g, d, w)
+    out = ops.masked_agg(g, d, sel, w, ru)
     torch.cuda.synchronize()
     assert ops.masked_agg.launches == before + 1
-    torch.testing.assert_close(out, masked_agg_ref(g, d, w), atol=TOL,
-                               rtol=TOL)
-    assert torch.equal(out[1293 // 2], g[1293 // 2])
+    torch.testing.assert_close(out, masked_agg_ref(g, d, sel, w, ru),
+                               atol=TOL, rtol=TOL)
+    assert torch.equal(out[ru == 1], g[ru == 1])
+
+
+def test_fused_rounds_read_global_tiles_in_place_on_card(dev):
+    """Two fused aggregates on the card: the second reads the first's
+    output buffer in place, bitwise the packing path's result, and the
+    first's params stay as they were."""
+    from repro_torch.core.masking import build_units_flat
+    from repro_torch.models import paper_models as pm
+    params = {k: v.to(dev) for k, v in pm.init_vgg16(
+        torch.Generator().manual_seed(0), width_mult=0.25).items()}
+    assign = build_units_flat(params, pm.vgg16_units(params))
+    plan = ops.build_agg_plan(assign, params)
+    rng = np.random.default_rng(1)
+    sel = torch.as_tensor(rng.integers(0, 2, (5, 14)), dtype=torch.float32)
+    w = torch.as_tensor(rng.uniform(0.5, 2.0, 5), dtype=torch.float32)
+    d_t = ops.new_tile_buffer(plan, (5,), device=dev).normal_()
+    first = ops.masked_combine_packed(params, d_t, sel, w, plan)
+    assert ops.tile_source(plan, first) is not None
+    keep = {p: x.clone() for p, x in first.items()}
+    second = ops.masked_combine_packed(first, d_t, sel, w, plan)
+    packed = ops.masked_combine_packed(keep, d_t, sel, w, plan)
+    assert ops.tile_source(plan, keep) is None
+    for p in params:
+        assert torch.equal(second[p], packed[p]), p
+        assert torch.equal(first[p], keep[p]), p
 
 
 def test_hierarchical_fused_aggregate_matches_plain(dev):
