@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in sixty phases, in the order
+nothing of the ``repro`` package) in sixty-one phases, in the order
 below except that 17-20, then 22-28, then 56-57, then 21 run after 8,
 34-35, then 40-41, then 45-46, then 50, 54 and 55 after 16, 59-60 after
-31, and 42, 53, 43-44, then 47-49, then 51-52 after 38 (39, then 58
-last), and any
+31, and 42, 53, 43-44, then 47-49, then 51-52 and 61 after 38 (39, then
+58 last), and any
 failure exits non-zero.  Phases 56-57 start ranks of their own, as
 ``python3 chip_smoke.py --worker ...``, and wait for every one.
 Each phase's wall seconds are printed before the kernels line:
@@ -531,6 +531,30 @@ Each phase's wall seconds are printed before the kernels line:
    dense round step, K2 in the qint8 round step and K3 in the reduced
    qwen3 decode; the decode program also runs once under
    ``torch.cuda.set_sync_debug_mode("error")``.
+61. zoo-round-bf16 — qwen3-1.7b at full width in bf16
+   (``param_dtype="bfloat16"``, 1,720,574,976 params, 3.44 GB drawn on
+   the card), [zoo-round]'s setup with 4 clients (the launcher's
+   default): (d) one local step from the initial params on the first
+   client batch with the round's loss keywords, (d1) on K5/K6 bf16
+   against the same step on the plain attention in bf16 within
+   BAR_FACTOR x the distance of the step whose attention runs in fp32,
+   the largest over leaves of ||g - g_plain|| / ||g_plain||, (d2) every
+   layer's K6 dq, dk, dv within ``ref.rounding_error_ratio``'s bar of
+   the rounding plain backward on the same inputs, (d3) a planted fault
+   (layer 0's key tile 0 left out) outside both; then 2 rounds counted
+   and a third profiled: (a) launches K1 2, all on ``masked_agg_bf16``, K5
+   896, K6 448 + 448, all on ``flash_attention_sm90.cu``; (b) every
+   param bf16 after each round, bf16 client planes and global tiles, the
+   global read in place from round 2 on, frozen deltas exactly zero, the
+   bill Table 4's; (c) K1 bf16 alone on round 3's own planes within one
+   bf16 step of its plain version (or fp32 rounding where the update
+   cancels the global value), an unselected NaN skipped, the fp32
+   instance on the same tiles cast up bitwise the same after one
+   rounding, its time beside the fp32 instance's, the plain version's,
+   ``torch.bmm`` + guard in bf16 and both byte bounds; (e) round
+   seconds, peak memory, busy share, cuBLAS's share, K1/K5/K6 in-run
+   beside their bounds, set beside [zoo-round]'s fp32 figures; then
+   rebuilt from the seed, its first round held bitwise.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -545,12 +569,14 @@ work this run's selections need) beside ``bound_all_planes_ms``, K2's single-cli
 K4's those of whisper's decode steps (46), ``[decode-dense]``'s direct
 calls beside them and its cases in ``cases``; K5's and K6's launches
 those of the zoo's model paths (29-31, 36, 42, 47, 51, 53), the long
-prefills (34, 40, 55), whisper's encoder prefill (46) and internvl2-26b's
+prefills (34, 40, 55), the bf16 round (61), whisper's encoder prefill
+(46) and internvl2-26b's
 prefills (50, 54), with ``[attention-kernels]``' direct calls listed
 beside them and the other shapes (head dim 80, whisper's
 non-causal, internvl2-26b's round and its prefill in fp32 and bf16) in
-``cases``; the zoo call sites' numbers in ``zoo``); the last line is
-``{"ok": true, "device": {...}}``.
+``cases``; the zoo call sites' numbers in ``zoo``; K1's bf16 instance,
+whose main path is phase 61's round, as an eighth entry); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2968,7 +2994,7 @@ def _rel(got, want):
 
 
 @contextlib.contextmanager
-def _attention_swap(kind, record=None):
+def _attention_swap(kind, record=None, remat_layers=None):
     """``flash_attention`` (K5/K6's entry point, which
     ``models.attention`` imports at each call) replaced for the block:
     ``"fp32"`` the same call on q, k, v in fp32 (the SIMT kernels:
@@ -2978,7 +3004,10 @@ def _attention_swap(kind, record=None):
     loop that starts one tile late); ``"check"`` the kernel, its output
     held to the plain version that rounds where it rounds
     (``ref.rounding_error_ratio``, appended to ``record`` per layer, and
-    at layer 0 that of the planted fault's output too)."""
+    at layer 0 that of the planted fault's output too).  With
+    ``remat_layers`` = n, calls past the n-th are a remat backward's
+    recomputes, last layer first, and count as the layer they recompute
+    (the fault then also reaches layer 0's recompute)."""
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_fwd_ref, rounding_error_ratio)
@@ -2986,7 +3015,9 @@ def _attention_swap(kind, record=None):
     real, calls = aops.flash_attention, []
 
     def swapped(q, k, v, causal=True, window=0, *a, **kw):
-        layer = len(calls)
+        layer = n = len(calls)
+        if remat_layers is not None and n >= remat_layers:
+            layer = 2 * remat_layers - 1 - n
         calls.append(layer)
         if kind == "fp32":
             return real(q.float(), k.float(), v.float(), causal, window, *a,
@@ -4875,10 +4906,14 @@ def _kernel_events(prof):
     return [(k.name, k.us) for k in device_kernels(prof)]
 
 
+# cuBLAS's kernels, by name: ``*gemm*`` and, on Hopper in bf16, ``nvjet_*``
+CUBLAS_NAMES = ("gemm", "nvjet")
+
+
 def _in_run(events):
     """Per kernel kind: launches and device ms per launch (K6: a dQ and a
     dK/dV launch per call, ms per call), the device's busy ms and the
-    matmul (cuBLAS gemm) ms."""
+    matmul (cuBLAS, CUBLAS_NAMES) ms."""
     out = {}
     for kind, names in ZOO_KERNELS.items():
         us = [t for n, t in events if any(k in n for k in names)]
@@ -4887,18 +4922,30 @@ def _in_run(events):
                      "ms": sum(us) / max(calls, 1) / 1e3,
                      "total_ms": sum(us) / 1e3}
     out["busy_ms"] = sum(t for _, t in events) / 1e3
-    out["gemm_ms"] = sum(t for n, t in events if "gemm" in n.lower()) / 1e3
+    out["gemm_ms"] = sum(t for n, t in events
+                         if any(k in n.lower() for k in CUBLAS_NAMES)) / 1e3
     return out
 
 
-def _zoo_fed(dev, cfg, s=None, **fl_kw):
+def _top_kernels(events, n=8):
+    """The ``n`` kernel names (cut to 48 characters) with the most device
+    time in ``events``: ``[(name, ms, launches)]``."""
+    tot = {}
+    for name, us in events:
+        ms, k = tot.get(name[:48], (0.0, 0))
+        tot[name[:48]] = (ms + us / 1e3, k + 1)
+    return sorted(((k, ms, c) for k, (ms, c) in tot.items()),
+                  key=lambda x: -x[1])[:n]
+
+
+def _zoo_fed(dev, cfg, s=None, clients=ZOO_CLIENTS, **fl_kw):
     """``Federation.from_config`` on a zoo config as the launcher wires it
     (``lm_batch`` data by ``iid_partition``; the audio family's
     ``frames`` and the vlm family's ``patches`` standard normals from the
     seed, as ``launch/train.py`` draws them), with the pod step's loss
     keywords (chunked attention, remat): one sequence of ``s`` text
     tokens (``train_4k``'s length unless given) per client and local
-    step."""
+    step, ``clients`` clients."""
     from repro_torch.core import FLConfig, Federation
     from repro_torch.data import FederatedLoader, iid_partition, lm_batch
     from repro_torch.launch import steps
@@ -4907,7 +4954,7 @@ def _zoo_fed(dev, cfg, s=None, **fl_kw):
     from repro_torch.models.transformer import vit_width
 
     s = s or SHAPES["train_4k"].seq_len
-    n = ZOO_CLIENTS * ZOO_STEPS * (ZOO_ROUNDS + 1)
+    n = clients * ZOO_STEPS * (ZOO_ROUNDS + 1)
     data = lm_batch(n, s, cfg.vocab, key=0)
     if cfg.family == "audio":
         data["frames"] = np.random.default_rng(0).normal(
@@ -4915,11 +4962,11 @@ def _zoo_fed(dev, cfg, s=None, **fl_kw):
     if cfg.family == "vlm":
         data["patches"] = np.random.default_rng(0).normal(
             0, 1, (n, cfg.n_patches, vit_width(cfg))).astype(np.float32)
-    shards = iid_partition(n, ZOO_CLIENTS, key=1)
+    shards = iid_partition(n, clients, key=1)
     loader = FederatedLoader([{k: v[i] for k, v in data.items()}
                               for i in shards], batch_size=1,
                              steps_per_round=ZOO_STEPS, key=0)
-    fl = FLConfig(n_clients=ZOO_CLIENTS, train_fraction=0.5,
+    fl = FLConfig(n_clients=clients, train_fraction=0.5,
                   strategy="uniform", topology="hub", lr=ZOO_LR, **fl_kw)
     return Federation.from_config(cfg, fl, data=loader, device=dev,
                                   loss_kwargs=steps.default_loss_kwargs(cfg))
@@ -5740,6 +5787,488 @@ def phase_zoo_parity_vlm(dev):
         tag="zoo-parity-vlm")
 
 
+# -- the zoo round in bf16: K1's bf16 instance, K5/K6 bf16 trained through --
+
+BF16 = torch.bfloat16
+BF16_CLIENTS = 4                  # launch/train.py's default cohort
+# the torch.bmm yardstick in bf16 rounds its numerator, its quotient and
+# its sum (a bf16 step, 2^-8, of each's own size): it is held to the plain
+# version within 2^-6 of |out| + |update| at every element
+BF16_LIB_TOL = 2.0 ** -6
+
+
+class _K1Tap:
+    """``ops.tile_source`` and ``ops.masked_agg`` wrapped for the block:
+    for each aggregate, whether the global tiles were read in place (the
+    buffer ``tile_source`` found) and the dtypes of the global tiles and
+    the client planes; with ``keep`` set, the call's inputs are kept (K1
+    alone at the round's own planes; set it for the last round only, so
+    that no round holds another's planes).  The wrapper counts its
+    launches on the name ``masked_agg``, which is the tap in the block:
+    ``launches`` passes them on to it."""
+
+    def __init__(self):
+        self.calls, self.keep, self.last = [], False, None
+
+    def __enter__(self):
+        from repro_torch.kernels.masked_agg import ops
+        self.ops, self.real = ops, (ops.tile_source, ops.masked_agg)
+        ops.tile_source, ops.masked_agg = self._source, self
+        return self
+
+    @property
+    def launches(self):
+        return self.real[1].launches
+
+    @launches.setter
+    def launches(self, n):
+        self.real[1].launches = n
+
+    def __exit__(self, *exc):
+        self.ops.tile_source, self.ops.masked_agg = self.real
+
+    def _source(self, plan, tree):
+        found = self.real[0](plan, tree)
+        self.calls.append({"in_place": found is not None})
+        return found
+
+    def __call__(self, g_t, d_t, *rest):
+        self.calls[-1].update(global_dtype=g_t.dtype, planes_dtype=d_t.dtype)
+        if self.keep:
+            self.last = (g_t, d_t) + rest
+        return self.real[1](g_t, d_t, *rest)
+
+
+class _Bf16Params:
+    """Server hook: every global param bf16 after each round."""
+
+    def __init__(self):
+        self.rounds = 0
+
+    def on_round_start(self, server, round_idx, weights):
+        return None
+
+    def on_round_end(self, server, record, metrics):
+        bad = [p for p, x in server.params.items() if x.dtype != BF16]
+        check(not bad, f"round {record.round}: {len(bad)} params left bf16, "
+              f"e.g. {bad[:3]}")
+        self.rounds += 1
+
+    def on_fit_end(self, server, history):
+        pass
+
+
+def _grad_dist(got, want):
+    """The largest, over leaves, of ``||got - want|| / ||want||`` in fp32."""
+    return max(float((got[p].float() - w.float()).norm() / w.float().norm())
+               for p, w in want.items())
+
+
+def _bf16_step_bars(fed, cfg, tag):
+    """(d): one local step at full width on the round's first client
+    batch with the round's loss keywords, from the round's initial
+    params: loss and every gradient.  (d1) the step on K5/K6 bf16
+    against the same step on the plain attention in bf16, within
+    BAR_FACTOR x the distance of the step whose attention runs in fp32
+    (q, k, v cast up, the output cast down) from it, each distance the
+    largest over leaves of ||g - g_plain|| / ||g_plain||; (d2) in the K5/K6
+    step every layer's K6 dq, dk, dv against the plain backward that
+    rounds where the kernel rounds (``ref.rounding_error_ratio``, bar 1),
+    read at ``ops.attention_bwd``, the kernels' own autograd call; (d3)
+    the planted fault, layer 0's key tile 0 left out of every later query
+    tile (forward and remat recompute; for (d2) each layer's K6 launched
+    on the rows and keys from FAULT_TILE on), outside both bars."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, rounding_error_ratio)
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+
+    model, kw = get_model(cfg), steps.default_loss_kwargs(cfg)
+    first = fed.loader.client_batches(0, [0])
+    batch = {k: torch.as_tensor(v[0, 0], device=fed.device)
+             for k, v in first.items()}
+    params, n = fed.params, cfg.n_layers
+
+    def step(swap=None, **over):
+        leaves = {p: x.detach().requires_grad_(True)
+                  for p, x in params.items()}
+        ctx = _attention_swap(swap, remat_layers=n) if swap \
+            else contextlib.nullcontext()
+        with ctx:
+            loss, _ = model.loss_fn(leaves, batch, **dict(kw, **over))
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return float(loss.detach()), dict(zip(leaves, grads))
+
+    record, real_bwd = [], aops.attention_bwd
+
+    def checked(q, k, v, o, lse, do, *, causal=True, window=0, kv_len=None):
+        out = real_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                       kv_len=kv_len)
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window, round_to=BF16,
+                                       kv_len=kv_len)
+        t = FAULT_TILE
+        o_t, lse_t = aops.attention_fwd(q[:, t:], k[:, t:], v[:, t:],
+                                        causal=causal, window=window)
+        late = real_bwd(q[:, t:], k[:, t:], v[:, t:], o_t, lse_t,
+                        do[:, t:].contiguous(), causal=causal, window=window)
+        planted = []
+        for x, y in zip(out, late):
+            x = x.clone()
+            x[:, t:] = y
+            planted.append(x)
+        record.append(([rounding_error_ratio(x, y) for x, y in zip(out, want)],
+                       [rounding_error_ratio(x, y)
+                        for x, y in zip(planted, want)]))
+        del want, late, planted
+        return out
+
+    t0 = time.perf_counter()
+    plain_loss, plain = step(attn_impl="reference")
+    aops.attention_bwd = checked
+    try:
+        kern_loss, grads = step()
+    finally:
+        aops.attention_bwd = real_bwd
+    dist, losses = {"kernel": _grad_dist(grads, plain)}, {"kernel": kern_loss}
+    check(all(g.dtype == BF16 for g in grads.values()),
+          f"{tag} (d) gradients not bf16")
+    del grads
+    for kind in ("fp32", "fault"):
+        losses[kind], grads = step(kind)
+        dist[kind] = _grad_dist(grads, plain)
+        del grads
+    secs = time.perf_counter() - t0
+    del plain
+    bar = BAR_FACTOR * dist["fp32"]
+    ratios = np.array([r for r, _ in record])             # (layers, 3)
+    planted = np.array([p for _, p in record])
+    print(f"{tag} (d1) one local step at full width in bf16, the round's "
+          f"first client batch (1 x {TRAIN_S:,} tokens, loss keywords "
+          f"{kw}), from the round's initial params: loss on K5/K6 "
+          f"{kern_loss:.6f}, on the plain attention {plain_loss:.6f}, with "
+          f"the attention in fp32 {losses['fp32']:.6f}, planted fault "
+          f"{losses['fault']:.6f}; largest ||g - g_plain|| / ||g_plain|| "
+          f"over the {len(params)} leaves: K5/K6 {dist['kernel']:.4e}, the "
+          f"attention in fp32 {dist['fp32']:.4e}; bar {BAR_FACTOR:g} x the "
+          f"latter = {bar:.4e}; planted fault {dist['fault']:.4e} "
+          f"({dist['fault'] / bar:.1f}x the bar); 4 steps in {secs:.1f} s")
+    print(f"{tag} (d2) K6 in each of the {len(record)} layers' backward vs "
+          f"the plain backward that rounds where it rounds "
+          f"(ref.rounding_error_ratio, bar 1): largest dq "
+          f"{ratios[:, 0].max():.4f}, "
+          f"dk {ratios[:, 1].max():.4f}, dv {ratios[:, 2].max():.4f} (layer "
+          f"order of the backward: last first); the planted fault's "
+          f"outputs at the least {planted.min():.1f}")
+    check(0 < dist["kernel"] <= bar, f"{tag} (d1) the K5/K6 step lies "
+          f"{dist['kernel']} from the plain step, outside {bar}")
+    check(dist["fault"] > bar, f"{tag} (d1) the planted fault passes the "
+          f"bar ({dist['fault']} <= {bar})")
+    check(len(record) == n and ratios.max() <= 1.0,
+          f"{tag} (d2) {len(record)} K6 calls, ratios {ratios.max(0)}")
+    check(planted.min() > 1.0, f"{tag} (d2) a planted fault passes the bar "
+          f"({planted.min()})")
+    return {"d1": dict(dist, bar=bar, losses=dict(losses, plain=plain_loss)),
+            "d2": {"largest": float(ratios.max()),
+                   "planted_least": float(planted.min())}}
+
+
+def _k1_bf16_alone(k1_in, plan, smi, tag):
+    """(c): K1's bf16 instance alone on the round's own planes (the last
+    aggregate's global tiles, client planes, selection, weights and row
+    table; the padding past each segment, never set by a round, zeroed
+    first, so that whole outputs compare): agreeing with its plain
+    version at every element by ``ref.bf16_agrees`` (one bf16 step, or
+    the fp32 sums' own rounding where the update cancels the global
+    value), two launches bitwise equal, an unselected NaN skipped bitwise
+    (``ops.check_kernel``); the fp32 instance on the same tiles cast up,
+    its output rounded once bitwise the bf16 call's; device medians, L2
+    flushed, of the kernel, the fp32 instance on the cast-up tiles (what
+    the dtype saves), the plain version and ``torch.bmm`` + the guard in
+    bf16 (the library yardstick, held to the plain version within
+    BF16_LIB_TOL), beside both byte bounds in bf16 and the live bound in
+    fp32."""
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.masked_agg.ref import k1_bytes, masked_agg_ref
+
+    g_t, d_t, sel, w, ru = k1_in
+    t, tile = g_t.shape
+    c = d_t.shape[0]
+    for seg in plan.segments:
+        g_t[seg.row + seg.n_tiles - 1, seg.n - (seg.n_tiles - 1) * tile:] = 0
+        d_t[:, seg.row + seg.n_tiles - 1,
+            seg.n - (seg.n_tiles - 1) * tile:] = 0
+    try:
+        res = ops.check_kernel(k1_in, TOL)
+    except RuntimeError as e:
+        raise RuntimeError(f"chip_smoke: {tag} (c) {e}") from e
+    out = ops.masked_agg(*k1_in)
+    g32, d32 = g_t.float(), d_t.float()
+    same = torch.equal(ops.masked_agg(g32, d32, sel, w, ru).to(BF16), out)
+    check(same, f"{tag} (c) the fp32 instance on the tiles cast up, "
+          f"rounded once, differs from the bf16 call")
+    fp32_ms = device_ms(lambda: ops.masked_agg(g32, d32, sel, w, ru), 10)
+    del g32, d32
+    torch.cuda.empty_cache()
+    ms = device_ms(lambda: ops.masked_agg(*k1_in), 10)
+    plain_ms = device_ms(lambda: masked_agg_ref(*k1_in), 3, 1)
+    w_t = (sel[:, ru.long()] * w[:, None]).t().contiguous().to(BF16)
+    d_tct = d_t.permute(1, 0, 2).contiguous()            # (T, C, tile)
+
+    def library():
+        num = torch.bmm(w_t.unsqueeze(1), d_tct).squeeze(1)
+        den = w_t.sum(1, keepdim=True)
+        return g_t + torch.where(den > 0, num / den.clamp_min(1e-9),
+                                 torch.zeros_like(num))
+
+    lib, lib_ratio = library(), 0.0
+    for a in range(0, t, ops.CHECK_ROWS):
+        b = min(a + ops.CHECK_ROWS, t)
+        want = masked_agg_ref(g_t[a:b], d_t[:, a:b], sel, w, ru[a:b]).float()
+        bar = BF16_LIB_TOL * (want.abs() + (want - g_t[a:b].float()).abs())
+        err = (lib[a:b].float() - want).abs()
+        lib_ratio = max(lib_ratio, float((err / bar.clamp_min(1e-30))
+                                         .max()))
+    del lib, want, bar, err
+    check(lib_ratio <= 1.0, f"{tag} (c) the torch.bmm yardstick lies "
+          f"{lib_ratio:.2f}x its bar from the plain version")
+    library_ms = device_ms(library, 10)
+    del w_t, d_tct
+    rate = memory_rate(torch.cuda.get_device_name(0))
+    ru_np = ru.cpu().numpy()
+    nb, nb32 = k1_bytes(ru_np, sel, tile, 2), k1_bytes(ru_np, sel, tile, 4)
+    bound, bound_all = nb["live_bytes"] / rate * 1e3, nb["all"] / rate * 1e3
+    bound32 = nb32["live_bytes"] / rate * 1e3
+    nan = res["nan_at"]
+    print(f"{tag} (c) K1 bf16 (masked_agg_bf16) alone on the round's own "
+          f"planes, T={t} C={c} tile {tile}: within one bf16 step of its "
+          f"plain version at every element, or fp32 rounding where the "
+          f"update cancels the global value (max abs err "
+          f"{res['max_abs_err']:.3e}), two launches bitwise equal, "
+          + (f"a NaN in client {nan[0]}'s unselected row {nan[1]} skipped "
+             f"bitwise" if nan else "every plane live (no NaN planted)")
+          + f"; the fp32 instance on the tiles cast up, rounded once, "
+          f"bitwise the bf16 call; torch.bmm + guard in bf16 at "
+          f"{lib_ratio:.3f} of its bar; live planes {nb['live']:.3f} of {c} "
+          f"a row; device median ms (L2 flushed): kernel {ms:.4f}, fp32 "
+          f"instance on the tiles cast up {fp32_ms:.4f} (its live bound "
+          f"{bound32:.4f}), plain {plain_ms:.4f}, torch.bmm + guard "
+          f"{library_ms:.4f}; bf16 bound of the live planes {bound:.4f} "
+          f"({nb['live_bytes'] / 1e9:.2f} GB; kernel at {bound / ms:.1%}), "
+          f"of every plane {bound_all:.4f} ({nb['all'] / 1e9:.2f} GB; at "
+          f"{bound_all / ms:.1%}) on {smi}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "fp32_cast_up_ms": fp32_ms, "max_abs_err": res["max_abs_err"],
+            "bound_ms": bound, "bound_all_planes_ms": bound_all,
+            "fp32_bound_ms": bound32, "live_planes": nb["live"], "T": t,
+            "C": c}
+
+
+def phase_zoo_round_bf16(dev, smi, fp32_round):
+    """qwen3-1.7b at full width in bf16 (``param_dtype="bfloat16"``, the
+    reference's switch; 1,720,574,976 params, 3.44 GB, drawn on the card
+    from a seed), ``Federation.from_config`` as [zoo-round] with
+    BF16_CLIENTS (4, the launcher's default) clients: (d) the step bars
+    (``_bf16_step_bars``) from the initial params; then 2 rounds counted:
+    (a) launches K1 2 (``masked_agg_bf16``, none of
+    ``masked_agg_f32``), K5 896, K6 448 + 448, every K5/K6 launch on
+    ``flash_attention_sm90.cu``; (b) every param bf16 after each round,
+    frozen (client, unit row) deltas exactly zero, the bill Table 4's, the
+    client planes and global tiles bf16, the global read in place from
+    round 2 on, then the federation rebuilt from the seed and its first
+    round held bitwise (loss, selection, every leaf); one more round
+    under the profiler (counted apart, as [zoo-round] does); (c) K1 alone
+    on that round's own planes (``_k1_bf16_alone``); (e) each round's
+    seconds, the peak memory of the counted rounds, the profiled round's
+    busy share, cuBLAS's share, its kernels with the most device time and
+    K1's, K5's and K6's in-run ms beside their bounds, set beside
+    [zoo-round]'s fp32 figures (``fp32_round``: its counts, profiled run,
+    peak and counted rounds' seconds at ZOO_CLIENTS clients)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.comm import table4_row
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.masked_agg import ops as kops
+    from repro_torch.kernels.masked_agg.ref import k1_bytes
+
+    tag = "[zoo-round-bf16]"
+    cfg = get_config(ZOO_ARCH).replace(param_dtype="bfloat16")
+    c, name = BF16_CLIENTS, torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    fed = _zoo_fed(dev, cfg, clients=c)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n = sum(x.numel() for x in fed.params.values())
+    check(n == ZOO_PARAMS and all(x.dtype == BF16 and x.device == dev
+                                  for x in fed.params.values()),
+          f"{tag} {n} params, expected {ZOO_PARAMS} bf16 on the card")
+    n_units = cfg.n_layers + 2
+    check(fed.assign.n_units == n_units and
+          fed.fl.resolve_n_train(n_units) == n_units // 2 and
+          fed.fl.resolve_fused_agg(fed.device),
+          f"{tag} units {fed.assign.n_units}, fused_agg off")
+    bars = _bf16_step_bars(fed, cfg, tag)
+    _free_card("zoo-round-bf16 (d)")
+    frozen, bf16_hook = ZooFrozenCheck(fed.assign, fed.fl), _Bf16Params()
+    fed.server.add_hook(frozen).add_hook(bf16_hook)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.reset_peak_memory_stats()
+    _zoo_reset()
+    secs = []
+    with _K1Tap() as tap:
+        for r in range(ZOO_ROUNDS):
+            t0 = time.perf_counter()
+            fed.fit(1)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if r == 0:      # the rebuild's reference, off the clock
+                first = {p: x.cpu() for p, x in fed.params.items()}
+                first_sel = np.array(fed.server.sel_history[0])
+        peak = torch.cuda.max_memory_allocated()
+        counts = _zoo_counts()
+        by_entry, by_source = dict(kops.LAUNCHES), dict(aops.SOURCE_LAUNCHES)
+        # one more round under the profiler; K1 alone later reads its planes
+        _zoo_reset()
+        tap.keep = True
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fed.fit(1)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    again_counts = _zoo_counts()
+    t0 = time.perf_counter()
+    events = _kernel_events(prof)
+    del prof
+    parse_s = time.perf_counter() - t0
+    hist = fed.history
+    check(all(math.isfinite(r.loss) for r in hist), f"{tag} non-finite loss")
+    want = _zoo_launches(cfg, ZOO_ROUNDS * c * ZOO_STEPS)
+    check(counts == want, f"{tag} launches {counts}, predicted {want}")
+    sm90 = aops.SOURCES[BF16].name
+    attn = want["K5"] + want["K6 dq"] + want["K6 dkv"]
+    check(by_source == {aops.SOURCES[torch.float32].name: 0, sm90: attn},
+          f"{tag} K5/K6 launches by source {by_source}: all {attn} must run "
+          f"on {sm90}")
+    check(by_entry == {"masked_agg_f32": 0, "masked_agg_bf16": ZOO_ROUNDS},
+          f"{tag} K1 launches by entry point {by_entry}")
+    check(bf16_hook.rounds == ZOO_ROUNDS + 1,
+          f"{tag} {bf16_hook.rounds} rounds")
+    check(tap.calls == [{"in_place": r > 0, "global_dtype": BF16,
+                         "planes_dtype": BF16}
+                        for r in range(ZOO_ROUNDS + 1)],
+          f"{tag} aggregates {tap.calls}: bf16 tiles and planes, the global "
+          f"read in place from round 2 on")
+    check(frozen.checked > 0 and frozen.moved > 0,
+          f"{tag} frozen {frozen.checked}, moved {frozen.moved}")
+    summ = fed.comm_summary()
+    t4 = table4_row(fed.assign, {p: x.to("meta") for p, x in
+                                 fed.params.items()},
+                    np.stack(fed.server.sel_history))
+    check(all(summ[k] == v for k, v in t4.items()),
+          f"{tag} comm_summary {summ} != table4_row {t4}")
+    run = _in_run(events)
+    run["wall_ms"] = secs[-1] * 1e3
+    run["busy_share"] = run["busy_ms"] / run["wall_ms"]
+    # the same round's work unprofiled: the second counted round's wall
+    run["busy_share_unprofiled"] = run["busy_ms"] / (secs[1] * 1e3)
+    profiled = {k: run[k]["launches"] for k in ZOO_KERNELS}
+    half = {"K1": 1, "K2": 0, "K5": want["K5"] // 2,
+            "K6": (want["K6 dq"] + want["K6 dkv"]) // 2}
+    check(profiled == half and again_counts == {
+              "K1": 1, "K2": 0, "K5": half["K5"], "K6 dq": half["K6"] // 2,
+              "K6 dkv": half["K6"] // 2},
+          f"{tag} the profile holds {profiled} kernel events, the counters "
+          f"saw {again_counts} launches in that round, {half} predicted")
+    top = _top_kernels(events)
+    plan = kops.build_agg_plan(fed.assign, fed.params)
+    rate = memory_rate(name)
+    nb = k1_bytes(plan.row_unit, torch.as_tensor(fed.server.sel_history[-1]),
+                  plan.tile, 2)
+    run["K1"].update(T=plan.n_rows, live=nb["live"],
+                     bound_ms=nb["live_bytes"] / rate * 1e3,
+                     bound_all_ms=nb["all"] / rate * 1e3)
+    attn_b = _attn_bound(name, 1, TRAIN_S, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim, 0, esz=2, peak=BF16_PEAK)
+    for kind, part in (("K5", "fwd"), ("K6", "bwd")):
+        run[kind]["bound_ms"], run[kind]["bound_by"] = attn_b[part][:2]
+    for r, sec in zip(hist, secs):
+        print(f"{tag} round {r.round}: loss {r.loss:.4f} {sec:.3f} s wall "
+              f"({r.seconds:.3f} s in the server) uplink "
+              f"{r.uplink_bytes:.0f} B"
+              + (" (profiled)" if r.round == ZOO_ROUNDS else ""))
+    print(f"{tag} {cfg.name} full width in bf16 ({n:,} params, "
+          f"{n * 2 / 1e9:.2f} GB, {n_units} units, {n_units // 2} trained a "
+          f"client), {c} clients x {ZOO_STEPS} local steps of 1 x "
+          f"{TRAIN_S:,} tokens, Adam lr {ZOO_LR}: built in {build_s:.2f} s; "
+          f"launches {counts} == predicted, K5/K6 by source {by_source}, K1 "
+          f"by entry point {by_entry}; every param bf16 after each round; "
+          f"client planes and global tiles bf16, the global read in place "
+          f"from round 2 on; frozen (client, unit row) deltas exactly zero: "
+          f"{frozen.checked}, trained rows that moved: {frozen.moved}; bill "
+          f"== Table 4 (4 B a param); peak memory {peak / 1e9:.2f} GB "
+          f"({peak / 2**30:.2f} GiB, {peak / n:.1f} B a param) on {smi}")
+    f_counts, f_run, f_peak, f_secs = fp32_round
+    print(f"{tag} (e) profiled round: wall {secs[-1]:.3f} s, device busy "
+          f"{run['busy_ms']:.1f} ms ({run['busy_share']:.1%}; "
+          f"{run['busy_share_unprofiled']:.1%} of round {ZOO_ROUNDS - 1}'s "
+          f"unprofiled wall), cuBLAS "
+          f"{run['gemm_ms']:.1f} ms ({run['gemm_ms'] / run['busy_ms']:.1%} "
+          f"of busy), {len(events):,} device kernels (parsed in "
+          f"{parse_s:.1f} s); the most device time: "
+          + "; ".join(f"{nm} {ms:.1f} ms x {k}" for nm, ms, k in top)
+          + f"; in-run: K1 {run['K1']['ms']:.4f} ms (bf16 live "
+          f"bound {run['K1']['bound_ms']:.4f}, at "
+          f"{run['K1']['bound_ms'] / run['K1']['ms']:.1%}; live planes "
+          f"{nb['live']:.3f} of {c} a row; every plane "
+          f"{run['K1']['bound_all_ms']:.4f}), K5 {run['K5']['ms']:.4f} ms a "
+          f"launch (bound {attn_b['fwd'][0]:.4f} at "
+          f"{BF16_PEAK / 1e12:.0f} TFLOP/s, at "
+          f"{attn_b['fwd'][0] / run['K5']['ms']:.1%}; "
+          f"{run['K5']['total_ms']:.1f} ms in all), K6 {run['K6']['ms']:.4f} ms a call (bound "
+          f"{attn_b['bwd'][0]:.4f}, at "
+          f"{attn_b['bwd'][0] / run['K6']['ms']:.1%}; "
+          f"{run['K6']['total_ms']:.1f} ms in all).  Beside [zoo-round] "
+          f"in fp32 ({ZOO_CLIENTS} clients): round s "
+          + ", ".join(f"{x:.3f}" for x in f_secs)
+          + f" against {', '.join(f'{x:.3f}' for x in secs[:-1])} here; "
+          f"peak "
+          f"{f_peak / 1e9:.2f} GB against {peak / 1e9:.2f}; busy "
+          f"{f_run['busy_share']:.1%}, gemm {f_run['gemm_ms']:.1f} of "
+          f"{f_run['busy_ms']:.1f} ms; K1 {f_run['K1']['ms']:.4f} ms, K5 "
+          f"{f_run['K5']['ms']:.4f} ms a launch, K6 {f_run['K6']['ms']:.4f} "
+          f"ms a call; the clients differ ({c} against {ZOO_CLIENTS}: "
+          f"{c / ZOO_CLIENTS:g}x the local steps a round)")
+    k1_in, tap.last = tap.last, None
+    losses = [r.loss for r in hist]
+    del fed, frozen, events, tap
+    _free_card("zoo-round-bf16")
+    k1 = _k1_bf16_alone(k1_in, plan, smi, tag)
+    del k1_in
+    _free_card("zoo-round-bf16 (c)")
+    t0 = time.perf_counter()
+    fed = _zoo_fed(dev, cfg, clients=c)
+    fed.fit(1)
+    torch.cuda.synchronize()
+    again = time.perf_counter() - t0
+    check(fed.history[0].loss == losses[0] and
+          np.array_equal(fed.server.sel_history[0], first_sel),
+          f"{tag} the rebuilt run's first loss or selection differs")
+    same = [p for p, x in fed.params.items()
+            if not torch.equal(x.cpu(), first[p])]
+    check(not same, f"{tag} rebuilt from the same seed, {len(same)} leaves "
+          f"differ after its first round, e.g. {same[:3]}")
+    print(f"{tag} built again from the same seed, its first round in "
+          f"{again:.1f} s: loss, selection and all {len(first)} leaves "
+          f"bitwise equal to the first run's")
+    del fed, first
+    _free_card("zoo-round-bf16")
+    k1.update(in_run_ms=run["K1"]["ms"], in_run_bound_ms=run["K1"]["bound_ms"],
+              in_run_live_planes=run["K1"]["live"])
+    run["top"] = top
+    return counts, run, k1, bars, peak, secs
+
+
 def k1_qwen3_plan(dev, k1_plan, smi, tag="[k1-qwen3-plan]"):
     """K1 alone at qwen3-1.7b's hub plan (840,177 rows of 2,048, 2
     clients), or another round's plan (``k1_plan``: the rows ``T``, the
@@ -6531,7 +7060,8 @@ def main() -> int:
     _free_card("zoo")
     # the zoo: the round and the train step of the zoo LMs (K1, K2, K5, K6)
 
-    dense, dense_run, _, _ = timed("zoo-round", phase_zoo_round, dev, smi)
+    dense, dense_run, dense_peak, dense_secs = timed(
+        "zoo-round", phase_zoo_round, dev, smi)
     packed, packed_run, _, _ = timed("zoo-packed", phase_zoo_packed, dev,
                                      smi)
     gemma, gemma_run, gemma_peak, gemma_secs, gemma_args = timed(
@@ -6569,6 +7099,11 @@ def main() -> int:
     vlm_counts, vlm_run, _, _ = timed("zoo-round-vlm", phase_zoo_round_vlm,
                                       dev, smi)
     timed("zoo-parity-vlm", phase_zoo_parity_vlm, dev)
+    # qwen3-1.7b's round in bf16 at 4 clients: K1's bf16 instance, K5/K6
+    # bf16 forward and backward under remat, the step bars
+    bf16_counts, bf16_run, k1_bf16, bf16_bars, _, _ = timed(
+        "zoo-round-bf16", phase_zoo_round_bf16, dev, smi,
+        (dense, dense_run, dense_peak, dense_secs))
     k1_plan = timed("k1-qwen3-plan", k1_qwen3_plan, dev, dense_run["K1"],
                     smi)
     k1_zoo_plans = timed("k1-zoo-plans", phase_k1_zoo_plans, dev, smi, {
@@ -6598,6 +7133,7 @@ def main() -> int:
                   "zoo-parity-whisper", "zoo-parity-stablelm"),
               "internvl2-26b": ("serve-vlm", "zoo-round-vlm",
                                 "zoo-parity-vlm"),
+              "qwen3-1.7b round in bf16": ("zoo-round-bf16",),
               "qwen3-1.7b zoo, gemma3 train step": (
                   "zoo-round", "zoo-packed", "zoo-train-step", "zoo-parity",
                   "train-launcher"),
@@ -6666,7 +7202,8 @@ def main() -> int:
                  (f"hub {MOE_ARCH}", moe_counts),
                  (f"hub {MOE_ARCH} packed qint8", pmoe_counts),
                  (f"hub {WHISPER_ARCH}", whisper_counts),
-                 (f"hub {VLM_ARCH}", vlm_counts))
+                 (f"hub {VLM_ARCH}", vlm_counts),
+                 ("hub qwen3-1.7b bf16", bf16_counts))
     for k, keys in ((k5, ("K5",)), (k6, ("K6 dq", "K6 dkv"))):
         paths = {p: sum(c[x] for x in keys) for p, c in zoo_paths}
         if k is k5:
@@ -6679,8 +7216,26 @@ def main() -> int:
         zoo[kind][f"hub {WHISPER_ARCH} B=1 S={TRAIN_S} in-run"] = {
             f"{where}_ms": whisper_run[f"{kind} {where} ms"]
             for where in ("enc", "self", "cross")}
+    for kind in ("K5", "K6"):
+        zoo[kind][f"hub qwen3-1.7b bf16 B=1 S={TRAIN_S} in-run"] = {
+            "in_run_ms": bf16_run[kind]["ms"],
+            "bound_ms": bf16_run[kind]["bound_ms"],
+            "bound_by": bf16_run[kind]["bound_by"],
+            "launches": (bf16_counts["K5"] if kind == "K5" else
+                         bf16_counts["K6 dq"] + bf16_counts["K6 dkv"]),
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_sm90.cu"}
+    k6["bf16_step_bars"] = bf16_bars
     k1["zoo"], k2["zoo"], k5["zoo"], k6["zoo"] = (
         zoo["K1"], zoo["K2"], zoo["K5"], zoo["K6"])
+    # K1's bf16 instance: its main path is the bf16 round's aggregate
+    k1_bf16.update(
+        name="masked_agg (bf16)", route="cuda",
+        source="src/repro_torch/kernels/masked_agg/csrc/masked_agg.cu",
+        replaces="src/repro/kernels/masked_agg/kernel.py:41",
+        entry_point="masked_agg_bf16", launches=bf16_counts["K1"],
+        launches_by_path={"hub qwen3-1.7b bf16": bf16_counts["K1"]},
+        bound_by="bytes")
     # K5 at internvl2-26b's serving prefill: (8, 1,152, 48 over 8, 128),
     # fp32 on the SIMT source and bf16 on the tensor-core one
     s_vlm = 1024 + VLM_PROMPT
@@ -6698,7 +7253,7 @@ def main() -> int:
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s of wall in all, "
           f"the build included")
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k1_bf16]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

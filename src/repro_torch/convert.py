@@ -8,6 +8,12 @@ OIHW and OIW.  Every other leaf has the same layout in both.
 dicts, as ``jax.tree_util`` holds them) and returns the port's flat
 tree; ``to_reference`` reverses it exactly.
 
+bf16 leaves cross bitwise both ways: the reference holds them as
+``ml_dtypes.bfloat16`` arrays, which torch cannot read, so their bits go
+through a 16-bit integer view (:func:`_to_torch`, :func:`_to_numpy`);
+``ml_dtypes`` is imported only when a bf16 tensor is converted back.
+Every other dtype is converted as numpy and torch convert it.
+
 A conv kernel is a leaf named ``w`` under a ``conv<N>`` node
 (:func:`is_conv_kernel`).  Its spatial rank is the caller's to state —
 ``conv_spatial=2`` (VGG16, the default) or ``1`` (IMDB's conv1d) — and
@@ -54,6 +60,24 @@ def _transpose(x: np.ndarray, path: str, axes) -> np.ndarray:
         tuple(range(x.ndim - k)) + tuple(x.ndim + a for a in axes)))
 
 
+def _to_torch(x: np.ndarray) -> torch.Tensor:
+    """A contiguous numpy array as a torch tensor; a bf16 array (named
+    ``bfloat16`` by ``ml_dtypes``) through its 16-bit view."""
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.tensor(x)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as a numpy array; bf16 as ``ml_dtypes.bfloat16`` with
+    the same bits."""
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.contiguous().view(torch.int16).numpy().view(
+            ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def _spatial(conv_spatial: int) -> int:
     if conv_spatial not in _TO_PORT:
         raise ValueError(f"conv_spatial must be 1 or 2, got {conv_spatial}")
@@ -69,7 +93,7 @@ def from_reference(np_params: Mapping[str, Any], *, conv_spatial: int = 2
         x = np.asarray(leaf)
         if is_conv_kernel(path):
             x = _transpose(x, path, axes)
-        out[path] = torch.tensor(np.ascontiguousarray(x))
+        out[path] = _to_torch(np.ascontiguousarray(x))
     return out
 
 
@@ -86,7 +110,7 @@ def to_reference_flat(params: Mapping[str, torch.Tensor], *,
     axes = _TO_REF[_spatial(conv_spatial)]
     out = {}
     for path, leaf in params.items():
-        x = leaf.detach().cpu().numpy()
+        x = _to_numpy(leaf.detach().cpu())
         if is_conv_kernel(path):
             x = _transpose(x, path, axes)
         out[path] = x

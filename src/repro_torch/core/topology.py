@@ -269,7 +269,11 @@ def _star_round_step(loss_fn: Callable, assign: UnitAssignment, fl,
         if fused_tiles:
             if "plan" not in plan:
                 plan["plan"] = agg_ops.build_agg_plan(assign, global_params)
-            d_t = agg_ops.new_tile_buffer(plan["plan"], (n,), device=device)
+            # the planes take the dtype the reference's concatenation of the
+            # deltas would: bf16 for an all-bf16 tree, else fp32
+            d_t = agg_ops.new_tile_buffer(
+                plan["plan"], (n,), device=device,
+                dtype=agg_ops.tile_dtype(global_params))
         losses, deltas, norms = [], [], []
         lo, hi = shards.block(n)
         for c in range(lo, hi):

@@ -23,8 +23,17 @@ round reads them there (:func:`tile_source`) instead of packing them.
 
 :func:`masked_agg` is the kernel's wrapper: it checks device, dtype,
 shape, strides and alignment, launches the CUDA kernel for CUDA
-tensors (counting each launch in ``masked_agg.launches``) and runs the
-plain version (``ref.masked_agg_ref``) only for CPU tensors.
+tensors (counting each launch in ``masked_agg.launches`` and, by entry
+point, in :data:`LAUNCHES`) and runs the plain version
+(``ref.masked_agg_ref``) only for CPU tensors.
+
+Dtypes.  The kernel has an fp32 and a bf16 instance (:data:`ENTRY`),
+as the Pallas kernel has one for each dtype it is given: the global
+tiles, the planes and the output are one of the two, sums are fp32.  A
+tree's tiles take its leaves' dtype where every leaf is bf16, else fp32
+(:func:`tile_dtype`): the reference concatenates the leaves, so an
+all-bf16 tree gives bf16 tiles and a mixed one fp32; a float64 tree
+(the card-vs-CPU parity's) is tiled in fp32, as before.
 """
 from __future__ import annotations
 
@@ -39,10 +48,13 @@ import torch
 from ...common import flatten_with_paths
 from ...core.masking import UnitAssignment, leaf_unit_ids
 from .. import _build
-from .ref import masked_agg_ref
+from .ref import bf16_agrees, masked_agg_ref
 
 TILE = 2048
 SOURCE = Path(__file__).resolve().parent / "csrc" / "masked_agg.cu"
+# the kernel's C entry point for each dtype of tiles it takes
+ENTRY = {torch.float32: "masked_agg_f32", torch.bfloat16: "masked_agg_bf16"}
+LAUNCHES = {name: 0 for name in ENTRY.values()}
 
 
 class AggSegment(NamedTuple):
@@ -123,22 +135,30 @@ def pack_into(plan: AggPlan, tree: Dict[str, torch.Tensor],
     return buf
 
 
+def tile_dtype(tree: Dict[str, torch.Tensor]) -> torch.dtype:
+    """The dtype ``tree``'s tiles take: bf16 where every leaf is bf16,
+    else fp32 (module docstring)."""
+    return torch.bfloat16 if all(x.dtype == torch.bfloat16
+                                 for x in tree.values()) else torch.float32
+
+
 def new_tile_buffer(plan: AggPlan, lead: Tuple[int, ...] = (), *,
-                    device=None) -> torch.Tensor:
-    """Uninitialised ``(*lead, T, tile)`` float32 buffer.  Its padding
-    is never set: the kernel's output at a payload element reads only
-    that element, and :func:`unpack` reads payload only."""
-    return torch.empty(lead + (plan.n_rows, plan.tile), dtype=torch.float32,
+                    device=None, dtype=torch.float32) -> torch.Tensor:
+    """Uninitialised ``(*lead, T, tile)`` buffer of ``dtype``.  Its
+    padding is never set: the kernel's output at a payload element reads
+    only that element, and :func:`unpack` reads payload only."""
+    return torch.empty(lead + (plan.n_rows, plan.tile), dtype=dtype,
                        device=device)
 
 
 def unpack(plan: AggPlan, buf: torch.Tensor,
            like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """``(..., T, tile)`` -> tree with ``buf``'s leading dims and the
-    leaf shapes and dtypes of ``like``.  Every float32 leaf is a view
-    into ``buf``: a stacked leaf's macro rows are consecutive segments of
-    equal length (:func:`build_agg_plan`), so its ``(n_macro, ...)``
-    view strides over them and skips each segment's padding."""
+    leaf shapes and dtypes of ``like``.  Every leaf of ``buf``'s dtype
+    is a view into ``buf``, with no copy (any other is cast): a stacked
+    leaf's macro rows are consecutive segments of equal length
+    (:func:`build_agg_plan`), so its ``(n_macro, ...)`` view strides over
+    them and skips each segment's padding."""
     lead = tuple(buf.shape[:-2])
     flat = buf.reshape(lead + (-1,))
     first = {}
@@ -166,13 +186,14 @@ def tile_source(plan: AggPlan, tree: Dict[str, torch.Tensor]
     A fused round's result is :func:`unpack`'s views of the kernel's
     output buffer, and the server keeps it as the next round's global
     params: the next round then reads its global tiles in place instead
-    of packing them anew.  Every leaf must be a float32 tensor with
-    exactly the storage, offset, strides and shape that ``unpack`` gives
-    it; anything else (the first round, a restored checkpoint, a
-    replaced or cast leaf) returns None, and the caller packs as
-    before."""
+    of packing them anew.  Every leaf must be of one dtype the kernel
+    takes (fp32 or bf16), with exactly the storage, offset, strides and
+    shape that ``unpack`` gives it; anything else (the first round, a
+    restored checkpoint, a replaced or cast leaf) returns None, and the
+    caller packs as before."""
     leaves = [tree.get(path) for path, _, _ in plan.leaves]
-    if any(x is None or x.dtype != torch.float32 for x in leaves):
+    if any(x is None for x in leaves) or leaves[0].dtype not in ENTRY or \
+            any(x.dtype != leaves[0].dtype for x in leaves):
         return None
     storage = leaves[0].untyped_storage()
     if any(x.untyped_storage().data_ptr() != storage.data_ptr()
@@ -180,7 +201,8 @@ def tile_source(plan: AggPlan, tree: Dict[str, torch.Tensor]
         return None
     first = next(s for s in plan.segments if s.path == plan.leaves[0][0])
     base = leaves[0].storage_offset() - first.row * plan.tile
-    if base < 0 or (base + plan.n_rows * plan.tile) * 4 > storage.nbytes():
+    esz = leaves[0].element_size()
+    if base < 0 or (base + plan.n_rows * plan.tile) * esz > storage.nbytes():
         return None
     buf = leaves[0].as_strided((plan.n_rows, plan.tile), (plan.tile, 1),
                                base)
@@ -195,7 +217,7 @@ def tile_source(plan: AggPlan, tree: Dict[str, torch.Tensor]
     return buf
 
 
-def _check(name, x, shape, device, dtype=torch.float32):
+def _check(name, x, shape, device, dtype):
     if x.device != device:
         raise ValueError(f"masked_agg: {name} is on {x.device}, "
                          f"expected {device}")
@@ -207,33 +229,38 @@ def _check(name, x, shape, device, dtype=torch.float32):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load(SOURCE)
-    fn = lib.masked_agg_f32
+def _kernel(entry: str):
+    fn = getattr(_build.load(SOURCE), entry)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-# Launch shape: blocks of THREADS threads, each owning ``vec`` float4s of
-# one tile row (masked_agg.cu's note has the sweep that chose it).
+# Launch shape: blocks of THREADS threads, each owning ``vec`` 16-byte
+# vectors of one tile row (masked_agg.cu's note has the sweep that chose
+# it).
 THREADS = 64
 MIN_BLOCKS = 8 * 132           # 8 blocks for each of the H100's 132 SMs
 CHECK_ROWS = 1 << 16           # rows a plain-version call in check_kernel
 
 
-def launch_vec(n_rows: int, tile: int) -> int:
-    """Float4s a thread for a ``(n_rows, tile)`` call: 2 where that still
-    gives at least :data:`MIN_BLOCKS` blocks, else 1 (CASA's 44 rows)."""
-    chunks = -(-(tile // 4) // (THREADS * 2))
+def launch_vec(n_rows: int, tile: int, esz: int = 4) -> int:
+    """16-byte vectors a thread for a ``(n_rows, tile)`` call of
+    ``esz``-byte elements (4 fp32 or 8 bf16 a vector): 2 where that still
+    gives at least :data:`MIN_BLOCKS` blocks, else 1 (CASA's 44 rows).  A
+    block moves the same bytes in either dtype, so the rule is one: a
+    2,048-element bf16 row is 256 vectors, 2 blocks at 2 a thread."""
+    chunks = -(-(tile * esz // 16) // (THREADS * 2))
     return 2 if n_rows * chunks >= MIN_BLOCKS else 1
 
 
 def masked_agg(g_t: torch.Tensor, d_t: torch.Tensor, sel_cu: torch.Tensor,
                w_c: torch.Tensor, row_unit: torch.Tensor) -> torch.Tensor:
     """global (T, tile); deltas (C, T, tile); selection (C, U); client
-    weights (C,); row -> unit table (T,) int32 -> (T, tile).
+    weights (C,); row -> unit table (T,) int32 -> (T, tile).  Global,
+    deltas and output are one dtype, fp32 or bf16 (a mix raises); the
+    selection and weights fp32.
 
     The weight of (row t, client c) is ``sel_cu[c, row_unit[t]]·w_c[c]``;
     a client's plane is read only in the rows of units it selected
@@ -253,11 +280,14 @@ def masked_agg(g_t: torch.Tensor, d_t: torch.Tensor, sel_cu: torch.Tensor,
                              f"{tuple(x.shape)}, expected {dims} dims")
     t, tile = g_t.shape
     c, u = sel_cu.shape
-    device = g_t.device
-    _check("global", g_t, (t, tile), device)
-    _check("deltas", d_t, (c, t, tile), device)
-    _check("selection", sel_cu, (c, u), device)
-    _check("client weights", w_c, (c,), device)
+    device, dtype = g_t.device, g_t.dtype
+    if dtype not in ENTRY:
+        raise ValueError(f"masked_agg: global must be float32 or bfloat16, "
+                         f"got {dtype}")
+    _check("global", g_t, (t, tile), device, dtype)
+    _check("deltas", d_t, (c, t, tile), device, dtype)
+    _check("selection", sel_cu, (c, u), device, torch.float32)
+    _check("client weights", w_c, (c,), device, torch.float32)
     _check("row_unit", row_unit, (t,), device, torch.int32)
     if device.type == "cpu":
         return masked_agg_ref(g_t, d_t, sel_cu, w_c, row_unit)
@@ -266,28 +296,31 @@ def masked_agg(g_t: torch.Tensor, d_t: torch.Tensor, sel_cu: torch.Tensor,
     if not all(x.is_contiguous() for x in (g_t, sel_cu, w_c, row_unit)):
         raise ValueError("masked_agg: global, selection, client weights and "
                          "row_unit must be contiguous")
-    if d_t.stride(2) != 1 or d_t.stride(1) != tile or d_t.stride(0) % 4:
+    esz = g_t.element_size()
+    vec = 16 // esz                       # elements a 16-byte vector
+    if d_t.stride(2) != 1 or d_t.stride(1) != tile or d_t.stride(0) % vec:
         raise ValueError(
             f"masked_agg: each client plane of the deltas must be a "
             f"contiguous (T, tile) block with a client stride that is a "
-            f"multiple of 4; got strides {d_t.stride()}")
-    if tile % 4:
-        raise ValueError(f"masked_agg: tile must be a multiple of 4, "
-                         f"got {tile}")
+            f"multiple of {vec}; got strides {d_t.stride()}")
+    if tile % vec:
+        raise ValueError(f"masked_agg: tile must be a multiple of {vec} "
+                         f"for {dtype}, got {tile}")
     out = torch.empty_like(g_t)
     for name, x in (("global", g_t), ("deltas", d_t), ("out", out)):
         if x.data_ptr() % 16:
             raise ValueError(f"masked_agg: {name} is not 16-byte aligned")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel()(g_t.data_ptr(), d_t.data_ptr(), sel_cu.data_ptr(),
-                        w_c.data_ptr(), row_unit.data_ptr(), out.data_ptr(),
-                        t, c, u, tile, d_t.stride(0), launch_vec(t, tile),
-                        stream)
+        err = _kernel(ENTRY[dtype])(
+            g_t.data_ptr(), d_t.data_ptr(), sel_cu.data_ptr(),
+            w_c.data_ptr(), row_unit.data_ptr(), out.data_ptr(), t, c, u,
+            tile, d_t.stride(0), launch_vec(t, tile, esz), stream)
     if err != 0:
         raise RuntimeError(f"masked_agg: CUDA kernel launch failed with "
                            f"cudaError {err}")
     masked_agg.launches += 1
+    LAUNCHES[ENTRY[dtype]] += 1
     return out
 
 
@@ -300,18 +333,18 @@ def masked_combine_packed(global_params, d_t: torch.Tensor,
     """Fused ``new_u = g_u + Σ_c w_c·sel_cu·Δ_cu / Σ_c w_c·sel_cu`` over
     deltas already packed into a ``(C, T, tile)`` buffer.  The global
     tiles are read in place when ``global_params`` are the views of a
-    previous call's output (:func:`tile_source`), else packed into a new
-    buffer; the output is always a new buffer, so ``global_params`` are
-    never written."""
+    previous call's output (:func:`tile_source`) of ``d_t``'s dtype, else
+    packed into a new buffer of that dtype; the output is always a new
+    buffer, so ``global_params`` are never written."""
     dev = d_t.device
     if tuple(sel_cu.shape) != (d_t.shape[0], plan.n_units):
         raise ValueError(f"masked_agg: selection has shape "
                          f"{tuple(sel_cu.shape)}, expected "
                          f"{(d_t.shape[0], plan.n_units)}")
     g_t = tile_source(plan, global_params)
-    if g_t is None or g_t.device != dev:
+    if g_t is None or g_t.device != dev or g_t.dtype != d_t.dtype:
         g_t = pack_into(plan, global_params,
-                        new_tile_buffer(plan, device=dev))
+                        new_tile_buffer(plan, device=dev, dtype=d_t.dtype))
     out_t = masked_agg(g_t, d_t, sel_cu.to(dev, torch.float32).contiguous(),
                        w_c.to(dev, torch.float32).contiguous(),
                        plan.row_unit_on(dev))
@@ -328,33 +361,41 @@ def masked_fedavg_fused(global_params, deltas, sel: torch.Tensor,
     if plan is None or plan.tile != tile:
         plan = build_agg_plan(assign, global_params, tile)
     dev = next(iter(global_params.values())).device
-    d_t = pack_into(plan, deltas,
-                    new_tile_buffer(plan, (sel.shape[0],), device=dev))
+    d_t = pack_into(plan, deltas, new_tile_buffer(
+        plan, (sel.shape[0],), device=dev, dtype=tile_dtype(global_params)))
     return masked_combine_packed(global_params, d_t, sel, weights, plan)
 
 
 def check_kernel(k1_in, tol: float = 2e-5, *, nobody: bool = False
                  ) -> dict:
     """:func:`masked_agg` on ``k1_in = (g_t, d_t, sel_cu, w_c, row_unit)``
-    against its plain version within ``tol`` on every row (the plain
+    against its plain version on every row, within ``tol`` in fp32 and
+    by ``ref.bf16_agrees`` in bf16 (one bf16 step, or the fp32 sums' own
+    rounding where the update cancels the global value) (the plain
     version run :data:`CHECK_ROWS` rows at a time, so that a plan of 10^6
     rows needs no full-size temporaries beside the output), bitwise
     repeatable, and the rows of a unit nobody selected unchanged (with
     ``nobody``, such rows must exist); then with a NaN planted in a plane
     whose unit its client did not select (in a row that moves where
     there is one): the output bitwise the clean one and the plain
-    version's rows around it within ``tol``.  Raises RuntimeError on a
-    failure; returns the max abs error and the NaN's ``(client, row)``
-    (None where every plane is live)."""
+    version's rows around it within the same bar.  Raises RuntimeError
+    on a failure; returns the max abs error and the NaN's ``(client,
+    row)`` (None where every plane is live)."""
     g_t, d_t, sel, w, ru = k1_in
     t = g_t.shape[0]
+
+    def agree(got, want, a, b):
+        if got.dtype == torch.bfloat16:
+            return bool(bf16_agrees(got, want, g_t[a:b]).all())
+        return torch.allclose(got, want, atol=tol, rtol=tol)
+
     out = masked_agg(*k1_in)
     err = 0.0
     for a in range(0, t, CHECK_ROWS):
         b = min(a + CHECK_ROWS, t)
         want = masked_agg_ref(g_t[a:b], d_t[:, a:b], sel, w, ru[a:b])
-        e = float((out[a:b] - want).abs().max())
-        if not torch.allclose(out[a:b], want, atol=tol, rtol=tol):
+        e = float((out[a:b].float() - want.float()).abs().max())
+        if not agree(out[a:b], want, a, b):
             raise RuntimeError(f"masked_agg disagrees with its plain version "
                                f"in rows {a}-{b}: max abs err {e}")
         err = max(err, e)
@@ -382,7 +423,7 @@ def check_kernel(k1_in, tol: float = 2e-5, *, nobody: bool = False
     finally:
         d_t[c0, t0, :4] = saved
     if not (torch.equal(out_n, out) and
-            torch.allclose(out_n[a:b], near, atol=tol, rtol=tol)):
+            agree(out_n[a:b], near, a, b)):
         raise RuntimeError(f"a NaN in client {c0}'s unselected row {t0} "
                            f"reached masked_agg's output")
     return {"max_abs_err": err, "nan_at": (c0, t0)}
@@ -390,3 +431,5 @@ def check_kernel(k1_in, tol: float = 2e-5, *, nobody: bool = False
 
 def reset_launch_counts() -> None:
     masked_agg.launches = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -2,8 +2,10 @@
 
 ``masked_agg_ref`` is the tile-level function the CUDA kernel computes:
 the wrapper runs it for CPU tensors, and ``chip_smoke.py`` holds the
-kernel to it on the card (``ops.check_kernel``).  The tree-level oracle
-is ``core.aggregation.masked_fedavg``.  ``draw_selection`` and
+kernel to it on the card (``ops.check_kernel``).  It takes fp32 or bf16
+tiles alike: sums in fp32, one cast to the global's dtype at the end, as
+the Pallas body does.  The tree-level oracle is
+``core.aggregation.masked_fedavg``.  ``draw_selection`` and
 ``k1_bytes`` give the card's measurements their inputs and bounds.
 """
 from __future__ import annotations
@@ -41,6 +43,28 @@ def masked_agg_ref(g_t: torch.Tensor, d_t: torch.Tensor,
     return (g_t.float() + upd).to(g_t.dtype)
 
 
+def bf16_agrees(got: torch.Tensor, want: torch.Tensor, g: torch.Tensor
+                ) -> torch.Tensor:
+    """Elementwise: bf16 ``got`` agrees with the plain version's bf16
+    ``want`` for global tiles ``g``.  Both sum in fp32 and round once, in
+    another order (the kernel's FMAs against the plain version's products
+    and sums), so they may round to neighbouring bf16 values: one bf16
+    step.  Where the update cancels the global value, the result is far
+    smaller than its operands and the fp32 sums' own rounding (a few fp32
+    steps of |g| and |update|) can span many bf16 steps of it (an H100
+    run: g 0.0298, the update -0.0298, the kernel 1.86e-8, the plain
+    version 1.68e-8, float64 1.73e-8); such an element agrees within
+    2^-20 (|g| + |update|)."""
+    def ordered(x):         # bf16 bits in value order, +0 and -0 alike
+        i = x.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+
+    steps = (ordered(got) - ordered(want)).abs()
+    x, y, g = got.float(), want.float(), g.float()
+    near = (x - y).abs() <= 2.0 ** -20 * (g.abs() + (y - g).abs())
+    return (steps <= 1) | near
+
+
 def draw_selection(n_clients: int, n_units: int, n_train: int,
                    seed: int) -> torch.Tensor:
     """(C, U) float32: the ``uniform`` strategy's draw for one round."""
@@ -50,15 +74,17 @@ def draw_selection(n_clients: int, n_units: int, n_train: int,
                                                   n_train))
 
 
-def k1_bytes(row_unit: np.ndarray, sel_cu: torch.Tensor, tile: int
-             ) -> dict:
-    """K1's bytes at a plan: every client plane read (the previous
-    design's work), and the live planes only (this design's work: the
+def k1_bytes(row_unit: np.ndarray, sel_cu: torch.Tensor, tile: int,
+             esz: int = 4) -> dict:
+    """K1's bytes at a plan of ``esz``-byte tiles (4 fp32, 2 bf16): every
+    client plane read (the previous design's work, with its (T, C) fp32
+    weight table), and the live planes only (this design's work: the
     global tiles, the planes whose unit the client selected, the (C, U)
     selection, the C weights and the row table read once, the output
     written once); ``live`` is the mean of live planes a row."""
     t, (c, u) = len(row_unit), tuple(sel_cu.shape)
     live = float((sel_cu.cpu().numpy()[:, row_unit] != 0).sum()) / t
     return {"live": live, "planes": c,
-            "all": 4 * (t * tile * (c + 2) + t * c),
-            "live_bytes": 4 * t * tile * (2 + live) + 4 * (c * u + c + t)}
+            "all": esz * t * tile * (c + 2) + 4 * t * c,
+            "live_bytes": esz * t * tile * (2 + live)
+            + 4 * (c * u + c + t)}

@@ -2,7 +2,8 @@
 port runs it on.
 
     PYTHONPATH=src python -m repro_torch.profile_masked_agg \
-        [--plans vgg16,imdb,...] [--seed N] [--out FILE]
+        [--plans vgg16,imdb,...] [--seed N] [--dtype float32|bfloat16]
+        [--out FILE]
 
 The plans: the paper's hub rounds (VGG16 at full width with 8 clients,
 IMDB and CASA with 10), the hierarchical hub combine (VGG16's plan over
@@ -19,8 +20,10 @@ every row, bitwise repeatable, an unselected NaN skipped
 with L2 flushed (``profiling.device_ms``) of the kernel and of an empty
 kernel (the launch floor); both byte bounds (every client plane, and
 the live planes only) at the H100's memory rate
-(``launch.roofline.HBM_BW``).  Prints a line a plan and one JSON
-object; needs a GPU and ``nvcc``.
+(``launch.roofline.HBM_BW``).  ``--dtype bfloat16`` runs K1's bf16
+instance on the same draws rounded to bf16 (held to its plain version
+by ``ref.bf16_agrees``; bounds at 2 bytes an element).  Prints a line a
+plan and one JSON object; needs a GPU and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -74,12 +77,12 @@ def _zoo_plan(name):
     return ops.build_agg_plan(assign, params), 2, assign.n_units // 2
 
 
-def plan_inputs(name: str, dev, seed: int = 0):
+def plan_inputs(name: str, dev, seed: int = 0, dtype=torch.float32):
     """``(plan, g_t, d_t, sel_cu, w_c)`` on ``dev`` for one of
     :data:`PLANS`: the hub's client planes and ``(sel, weights)``, or
     for ``hierarchical`` the combine's 2 edge planes (zero where an edge
     has no participant, as stage 1 writes them) with ``e_den`` and unit
-    edge weights."""
+    edge weights; the tiles drawn in fp32, then rounded to ``dtype``."""
     from .core.comm import edge_membership
     plan, c, n_train = (_zoo_plan(name) if name in ZOO
                         else _paper_plan(name))
@@ -100,18 +103,18 @@ def plan_inputs(name: str, dev, seed: int = 0):
         quiet = torch.as_tensor(sel.numpy()[:, plan.row_unit] <= 0,
                                 device=dev)
         d_t[quiet] = 0.0
-    return plan, g_t, d_t, sel.to(dev), w.to(dev)
+    return plan, g_t.to(dtype), d_t.to(dtype), sel.to(dev), w.to(dev)
 
 
-def profile_plan(name, dev, *, seed=0):
-    plan, g_t, d_t, sel, w = plan_inputs(name, dev, seed)
+def profile_plan(name, dev, *, seed=0, dtype=torch.float32):
+    plan, g_t, d_t, sel, w = plan_inputs(name, dev, seed, dtype)
     k1_in = (g_t, d_t, sel, w, plan.row_unit_on(dev))
-    t, tile = plan.n_rows, plan.tile
+    t, tile, esz = plan.n_rows, plan.tile, g_t.element_size()
     err = ops.check_kernel(k1_in)["max_abs_err"]
-    nb = k1_bytes(plan.row_unit, sel, tile)
-    rec = {"plan": name, "T": t, "planes": nb["planes"],
-           "units": plan.n_units, "live": nb["live"],
-           "vec": ops.launch_vec(t, tile), "max_abs_err": err,
+    nb = k1_bytes(plan.row_unit, sel, tile, esz)
+    rec = {"plan": name, "dtype": str(dtype).replace("torch.", ""), "T": t,
+           "planes": nb["planes"], "units": plan.n_units, "live": nb["live"],
+           "vec": ops.launch_vec(t, tile, esz), "max_abs_err": err,
            "bound_all_ms": nb["all"] / HBM_BW * 1e3,
            "bound_live_ms": nb["live_bytes"] / HBM_BW * 1e3,
            "empty_ms": device_ms(lambda: torch.cuda._sleep(0)),
@@ -125,6 +128,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plans", default=",".join(PLANS))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -133,10 +138,12 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     recs = []
     for plan in args.plans.split(","):
-        rec = profile_plan(plan, dev, seed=args.seed)
+        rec = profile_plan(plan, dev, seed=args.seed,
+                           dtype=getattr(torch, args.dtype))
         recs.append(rec)
         ms = rec["ms"]
-        print(f"[k1] {plan}: T={rec['T']} planes={rec['planes']} live "
+        print(f"[k1] {plan} {args.dtype}: T={rec['T']} "
+              f"planes={rec['planes']} live "
               f"{rec['live']:.3f} ({rec['live'] / rec['planes']:.1%}), "
               f"{ops.THREADS} x {rec['vec']}, max abs err "
               f"{rec['max_abs_err']:.3e}; ms {ms:.4f}; bounds all "

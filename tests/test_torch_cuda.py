@@ -1801,3 +1801,137 @@ def test_dryrun_argument_bytes_against_real_allocations(dev):
         sum(x.nbytes for x in leaves)
     assert torch.cuda.memory_allocated() - before == \
         sum(-(-x.nbytes // 512) * 512 for x in leaves)
+
+
+# -- K1's bf16 instance --------------------------------------------------------
+
+BF16 = torch.bfloat16
+# (rows, clients) of the nine plans K1 runs, the zoo's rows cut by 100:
+# VGG16 hub, IMDB, CASA, the hierarchical combine, qwen3-1.7b, hymba-1.5b
+# (16 layers), whisper-medium, granite-moe-1b-a400m, internvl2-26b (2
+# layers); then one plane and 33 (past a warp's 32 clients)
+K1_BF16_PLANS = [(7252, 8), (1293, 10), (44, 10), (7252, 2), (8402, 2),
+                 (3857, 2), (3714, 2), (6518, 2), (9401, 2), (300, 1),
+                 (300, 33)]
+
+
+def _bf16_case(dev, t, c, tile=2048, seed=0):
+    """``_case`` in bf16, each client's unselected planes zero (as a
+    round writes them)."""
+    g, d, sel, w, ru = _case(dev, t, c, tile, seed)
+    d = 0.05 * d * sel[:, ru.long()][..., None]
+    return g.to(BF16), d.to(BF16), sel, w, ru
+
+
+def _agrees(got, want, g):
+    """One bf16 step, or fp32 rounding where the update cancels g
+    (``ref.bf16_agrees``)."""
+    from repro_torch.kernels.masked_agg.ref import bf16_agrees
+    return bool(bf16_agrees(got, want, g).all())
+
+
+@pytest.mark.parametrize("t,c", K1_BF16_PLANS)
+def test_kernel_bf16_matches_plain(dev, t, c):
+    g, d, sel, w, ru = _bf16_case(dev, t, c, seed=t + c)
+    before = dict(ops.LAUNCHES)
+    out = ops.masked_agg(g, d, sel, w, ru)
+    torch.cuda.synchronize()
+    assert out.dtype == BF16
+    assert ops.LAUNCHES == {"masked_agg_f32": before["masked_agg_f32"],
+                            "masked_agg_bf16": before["masked_agg_bf16"] + 1}
+    assert _agrees(out, masked_agg_ref(g, d, sel, w, ru), g)
+    still = ru == 1                                   # nobody trained
+    assert torch.equal(out[still], g[still])
+    assert torch.equal(out, ops.masked_agg(g, d, sel, w, ru))
+
+
+@pytest.mark.parametrize("t,c,tile", [(1100, 2, 2048), (600, 10, 2000),
+                                      (2200, 6, 24)])
+def test_kernel_bf16_launch_widths_agree_bitwise(dev, t, c, tile):
+    """Two 16-byte vectors a thread over the whole call, one over slices
+    of 256 rows: bitwise the same rows, ragged chunks included."""
+    g, d, sel, w, ru = _bf16_case(dev, t, c, tile, seed=t)
+    assert ops.launch_vec(t, tile, 2) == 2
+    assert ops.launch_vec(256, tile, 2) == 1
+    whole = ops.masked_agg(g, d, sel, w, ru)
+    assert _agrees(whole, masked_agg_ref(g, d, sel, w, ru), g)
+    for a in range(0, t, 256):
+        part = ops.masked_agg(g[a:a + 256], d[:, a:a + 256], sel, w,
+                              ru[a:a + 256])
+        assert torch.equal(part, whole[a:a + 256]), a
+
+
+@pytest.mark.parametrize("where", ["unselected", "zero_weight"])
+def test_kernel_bf16_nan_planes(dev, where):
+    """bf16 as ``test_kernel_nan_planes``: an unselected NaN never read,
+    a zero-weight client's selected NaN reaching the output."""
+    g, d, sel, w, ru = _bf16_case(dev, 10, 4, 256)
+    if where == "unselected":
+        sel[0, 2], sel[1, 2] = 0.0, 1.0               # row 2 is unit 2
+        clean = ops.masked_agg(g, d, sel, w, ru)
+        d[0, 2, 9] = float("nan")
+        out = ops.masked_agg(g, d, sel, w, ru)
+        assert torch.equal(out, clean)
+        assert _agrees(out, masked_agg_ref(g, d, sel, w, ru), g)
+    else:
+        clean = ops.masked_agg(g, d, sel, w, ru)
+        d[3, 0, 9] = float("nan")                     # client 3: weight 0
+        out = ops.masked_agg(g, d, sel, w, ru)
+        plain = masked_agg_ref(g, d, sel, w, ru)
+        assert bool(torch.isnan(out[0, 9])) and bool(torch.isnan(plain[0, 9]))
+        nan = torch.isnan(out)
+        assert int(nan.sum()) == 1
+        assert torch.equal(out[~nan], clean[~nan])
+
+
+@pytest.mark.parametrize("bad", ["deltas_fp32", "global_fp32", "fp16",
+                                 "tile", "client_stride"])
+def test_kernel_bf16_wrapper_raises(dev, bad):
+    """A dtype mix, a dtype the kernel lacks, and a tile or client stride
+    off a 16-byte vector of 8 bf16s raise before any launch: no cast to
+    the fp32 instance, no plain fallback."""
+    g, d, sel, w, ru = _bf16_case(dev, 4, 2, 256)
+    if bad == "deltas_fp32":
+        d = d.float()
+    elif bad == "global_fp32":
+        g = g.float()
+    elif bad == "fp16":
+        g, d = g.half(), d.half()
+    elif bad == "tile":
+        g, d = g[:, :252].contiguous(), d[:, :, :252].contiguous()
+    else:
+        big = torch.zeros(2 * 4 * 256 + 4, dtype=BF16, device=dev)
+        d = big.as_strided((2, 4, 256), (4 * 256 + 4, 256, 1))
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="masked_agg"):
+        ops.masked_agg(g, d, sel, w, ru)
+    assert ops.LAUNCHES == before
+
+
+def test_fused_bf16_rounds_read_global_tiles_in_place_on_card(dev):
+    """Two bf16 fused aggregates on the card: bf16 planes and global,
+    the second read in place (bitwise the packing path) and no fp32
+    launch."""
+    from repro_torch.core.masking import build_units_flat
+    from repro_torch.models import paper_models as pm
+    params = {k: v.to(dev, BF16) for k, v in pm.init_vgg16(
+        torch.Generator().manual_seed(0), width_mult=0.25).items()}
+    assign = build_units_flat(params, pm.vgg16_units(params))
+    plan = ops.build_agg_plan(assign, params)
+    assert ops.tile_dtype(params) == BF16
+    rng = np.random.default_rng(1)
+    sel = torch.as_tensor(rng.integers(0, 2, (5, 14)), dtype=torch.float32)
+    w = torch.as_tensor(rng.uniform(0.5, 2.0, 5), dtype=torch.float32)
+    d_t = ops.new_tile_buffer(plan, (5,), device=dev, dtype=BF16).normal_()
+    before = dict(ops.LAUNCHES)
+    first = ops.masked_combine_packed(params, d_t, sel, w, plan)
+    assert {x.dtype for x in first.values()} == {BF16}
+    assert ops.tile_source(plan, first) is not None
+    keep = {p: x.clone() for p, x in first.items()}
+    second = ops.masked_combine_packed(first, d_t, sel, w, plan)
+    packed = ops.masked_combine_packed(keep, d_t, sel, w, plan)
+    for p in params:
+        assert torch.equal(second[p], packed[p]), p
+        assert torch.equal(first[p], keep[p]), p
+    assert ops.LAUNCHES["masked_agg_f32"] == before["masked_agg_f32"]
+    assert ops.LAUNCHES["masked_agg_bf16"] == before["masked_agg_bf16"] + 3
