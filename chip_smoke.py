@@ -4,12 +4,12 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in sixty-one phases, in the order
+nothing of the ``repro`` package) in sixty-five phases, in the order
 below except that 17-20, then 22-28, then 56-57, then 21 run after 8,
-34-35, then 40-41, then 45-46, then 50, 54 and 55 after 16, 59-60 after
-31, and 42, 53, 43-44, then 47-49, then 51-52 and 61 after 38 (39, then
-58 last), and any
-failure exits non-zero.  Phases 56-57 start ranks of their own, as
+62 after 11, 63, then 34-35, then 40-41, then 45, 64 and 46, then 50,
+54, 55 and 65 after 16, 59-60 after 31, and 42, 53, 43-44, then 47-49,
+then 51-52 and 61 after 38 (39, then 58 last), and any failure exits
+non-zero.  Phases 56-57 start ranks of their own, as
 ``python3 chip_smoke.py --worker ...``, and wait for every one.
 Each phase's wall seconds are printed before the kernels line:
 
@@ -250,9 +250,10 @@ Each phase's wall seconds are printed before the kernels line:
    packed run's.
 24. ckpt-resume — ``score_weighted`` hub, packed ``topk_ef`` (the
    error-feedback residual), packed qint8 (the codec's device
-   generator) and gossip (8 stacked replicas), VGG16 at full width: 4
-   rounds straight against 2 rounds, ``Federation.save``, a new
-   ``Federation`` restored, 2 more rounds: state, ``sel_state``, codec
+   generator) and gossip (8 stacked replicas), VGG16 at full width: 2
+   rounds straight against 1 round, ``Federation.save``, a new
+   ``Federation`` restored, 1 more round (4 and 2 + 2 before a cut for
+   the smoke's time): state, ``sel_state``, codec
    state, ``sel_history`` and ``comm_summary()`` bitwise equal; the
    checkpoint's bytes and the save and restore wall times beside the
    card's name and power limit.
@@ -390,9 +391,9 @@ Each phase's wall seconds are printed before the kernels line:
    lie within ROUTE_TIE of a tie (``moe.trace_routing``), a copy kept
    by one run alone must sit in a call where such a token moved, and
    that request's stream is compared up to that step.
-42. zoo-round-moe — [zoo-round]'s setup on granite-moe-1b-a400m (26
-   units, 13 trained a client) at S = 4,096: launches K1 2, K5 384, K6
-   192 + 192; frozen (client, unit row) deltas exactly zero, the bill
+42. zoo-round-moe — [zoo-round]'s setup on granite-moe-1b-a400m at
+   full width cut to 12 of 24 layers (14 units, 7 trained a client) at
+   S = 4,096: launches K1 2, K5 192, K6 96 + 96; frozen (client, unit row) deltas exactly zero, the bill
    equal to Table 4, peak memory, the second round profiled (host and
    device events, every launch present); then the federation built
    again from the same seed, 2 rounds: every parameter bitwise equal.
@@ -451,12 +452,13 @@ Each phase's wall seconds are printed before the kernels line:
    bitwise.
 52. zoo-parity-vlm — [zoo-parity] on internvl2-26b at full width cut to 1
    layer and 416 patches, 128 text tokens (K5/K6 over 544 positions),
-   the projector trained by one client: card vs CPU at ZOO_PARITY_TOL.
+   one client training every unit, the projector included: card vs CPU
+   at ZOO_PARITY_TOL.
 
 53. zoo-packed-moe — [zoo-round-moe] with ``packed=True,
    codec="qint8"``: launches K2 2 (one grouped call a round over every
    leaf's slot rows; the expert leaves' rows of 32 x 1,024 x 512
-   elements take K2's two-visit route), K1 0, K5 384, K6 192 + 192; the
+   elements take K2's two-visit route), K1 0, K5 192, K6 96 + 96; the
    first round's expert slot rows' codes and scales bitwise equal to
    K2's plain version on the same rows and uniforms; claimed ==
    encoded == billed bytes every round; frozen slots exactly zero; the
@@ -555,6 +557,41 @@ Each phase's wall seconds are printed before the kernels line:
    seconds, peak memory, busy share, cuBLAS's share, K1/K5/K6 in-run
    beside their bounds, set beside [zoo-round]'s fp32 figures; then
    rebuilt from the seed, its first round held bitwise.
+62. serve-bf16 — qwen3-1.7b in bf16 (``param_dtype="bfloat16"``, the
+   reference's switch): [serve]'s weights cast leaf by leaf
+   (``serve_workload.cast``, 3.44 GB), through ``DecodeEngine`` under
+   [serve]'s traffic and ``TRAFFIC["long"]``, each as
+   ``_bf16_serving``: (e3) a greedy run, counters zeroed just before it:
+   K3's bf16 instance 28 x 84 and 28 x 63, K5's on
+   ``flash_attention_sm90.cu`` 28 in the long prefill, no fp32 launch,
+   no plain version; its tokens/s, decode ms a step, TTFT, latency,
+   peak memory; (e4) bf16 params and page pool, one decode signature;
+   (e1) the first 8 (4) requests forced to the fp32 run's first 8
+   tokens ([serve-parity]'s rows; an fp32 long run's), rows recorded,
+   on the kernel (profiled: device ms a step by kind, K3 ms a call and
+   K5 ms beside their bounds), on the plain gather + attention in bf16
+   (the first decode step's calls also held, the kernel's output to the
+   plain version in fp32 element by element, ``ref.bf16_error_ratio``),
+   and (e2) with layer
+   0's first page of every sequence left out: the kernel within 2 x the
+   plain run's distance from the fp32 rows, of both; the fault outside
+   both bars; the greedy stream parts from fp32's only at a near tie.
+63. serve-rwkv6-bf16 — rwkv6-3b in bf16 on [serve-rwkv6]'s weights, the
+   decay's base set to RWKV-6's own init (the reference's zeros carry
+   nothing across a chunk), served in fp32 (8 requests, 8 tokens,
+   rows recorded), cast (6.15 GB), then ``_bf16_serving`` under
+   [serve]'s traffic: K7's bf16 instance 32 a prefill call, 288 (r, k,
+   v bf16, the log-decay fp32; mixes bf16, WKV state fp32); the plain
+   version ``chunked_linear_scan``; the element-wise bar against K7's
+   fp32 instance; the fault drops layer 0's carry between chunks.
+64. serve-stablelm-bf16 — stablelm-3b in bf16 on [serve-stablelm]'s
+   weights cast (5.59 GB) and its parity's rows, as 62 under [serve]'s
+   traffic: K3 bf16 at head dim 80, 32 x 84.
+65. serve-gemma3-bf16 — gemma3-12b in bf16 on [serve-gemma3]'s long
+   run: its rows recorded, then its weights cast leaf by leaf (23.53
+   GB), as 62 under ``TRAFFIC["long"]``: K3 bf16 48 x 63 at head dim
+   256 on the global sub-layers' pages and the windowed ones' rings of
+   1,024 that wrap, K5 bf16 48 (windowed and global) in the prefill.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -565,17 +602,20 @@ in ``launches_by_path``, K1's
 other plans in ``plans``, its ``bound_ms`` the live planes' bytes (the
 work this run's selections need) beside ``bound_all_planes_ms``, K2's single-client dispatch in
 ``dispatch_1client``; K3's those of the serving runs (10, 34, 40, 45,
-55) and gemma3-12b's shapes in ``cases``;
+55, and in bf16 62, 64, 65, their in-run times in ``bf16_in_run``) and
+gemma3-12b's shapes in ``cases``;
 K4's those of whisper's decode steps (46), ``[decode-dense]``'s direct
 calls beside them and its cases in ``cases``; K5's and K6's launches
 those of the zoo's model paths (29-31, 36, 42, 47, 51, 53), the long
-prefills (34, 40, 55), the bf16 round (61), whisper's encoder prefill
-(46) and internvl2-26b's
-prefills (50, 54), with ``[attention-kernels]``' direct calls listed
+prefills (34, 40, 55, and in bf16 62, 65), the bf16 round (61),
+whisper's encoder prefill (46) and internvl2-26b's prefills (50, 54),
+with ``[attention-kernels]``' direct calls listed
 beside them and the other shapes (head dim 80, whisper's
 non-causal, internvl2-26b's round and its prefill in fp32 and bf16) in
-``cases``; the zoo call sites' numbers in ``zoo``; K1's bf16 instance,
-whose main path is phase 61's round, as an eighth entry); the last line
+``cases``; the zoo call sites' numbers in ``zoo``; K7's those of
+rwkv6's prefills (15, and in bf16 63, its in-run time in
+``bf16_in_run``); K1's bf16 instance, whose main path is phase 61's
+round, as an eighth entry); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -598,7 +638,6 @@ import numpy as np
 CARD = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
 if sys.argv[1:2] != ["--worker"]:
     os.environ["CUDA_VISIBLE_DEVICES"] = CARD
-
 import torch  # noqa: E402
 
 ROUNDS = 3
@@ -647,16 +686,55 @@ def median_ms(fn, iters=20, warmup=3):
     return float(np.median(times))
 
 
-def phase_build():
-    from repro_torch.kernels import _build
-    t0 = time.perf_counter()
-    logs = _build.build()
-    secs = time.perf_counter() - t0
+FIRST_SOURCES = ("masked_agg.cu", "quantize_pack.cu")   # K1, K2
+
+
+def _print_build(logs):
     for name, log in logs.items():
         print(f"[build] {name}:")
         for line in log.strip().splitlines():
             print(f"    {line}")
-    print(f"[build] {len(logs)} kernel source(s) in {secs:.2f} s")
+
+
+def phase_build():
+    """Build K1's and K2's libraries, which the VGG16 phases run, and
+    start ``nvcc`` for every other library in a thread (all together, as
+    ``_build.build`` does); ``finish_build`` waits for them.  Returns
+    ``(thread, result)``."""
+    import threading
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    first = [s for s in _build.kernel_sources() if s.name in FIRST_SOURCES]
+    check(len(first) == len(FIRST_SOURCES), f"[build] sources {first}")
+    _print_build(_build.build(first))
+    rest = [s for s in _build.kernel_sources() if s not in first]
+    res = {"t0": t0}
+
+    def run():
+        try:
+            res["logs"] = _build.build(rest)
+        except BaseException as e:             # raised in finish_build
+            res["error"] = e
+        res["secs"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, name="build")
+    thread.start()
+    return thread, res
+
+
+def finish_build(started):
+    """Wait for the libraries ``phase_build`` left building, print their
+    compiler output and raise if one failed."""
+    from repro_torch.kernels import _build
+    thread, res = started
+    thread.join()
+    if "error" in res:
+        raise res["error"]
+    _print_build(res["logs"])
+    n = len(_build.units(_build.kernel_sources()))
+    print(f"[build] {n} kernel libraries from "
+          f"{len(_build.kernel_sources())} sources in {res['secs']:.2f} s "
+          f"(K1's and K2's first; the rest beside the first phases)")
 
 
 def _k1_case(dev, params, assign, c, n_train):
@@ -1803,13 +1881,17 @@ def _same_state(a, b):
     return set(a) == set(b) and all(torch.equal(a[p], b[p]) for p in a)
 
 
+CKPT_ROUNDS = 2          # straight, against 1 + save + restore + 1
+
+
 def phase_ckpt_resume(dev, smi):
     """Four runs of VGG16 at full width (score_weighted hub; packed
     topk_ef, with its error-feedback residual; packed qint8, with its
-    device generator; gossip, 8 stacked replicas), each 4 rounds straight
-    against 2 rounds, ``Federation.save``, a new ``Federation`` restored,
-    2 more rounds: the state, the selection state, the codec state,
-    ``sel_history`` and ``comm_summary()`` bitwise equal.  Prints each
+    device generator; gossip, 8 stacked replicas), each CKPT_ROUNDS rounds
+    straight against half of them, ``Federation.save``, a new
+    ``Federation`` restored, the rest: the state, the selection state,
+    the codec state, ``sel_history`` and ``comm_summary()`` bitwise
+    equal.  Prints each
     checkpoint's bytes and the save and restore wall times."""
     import shutil
     import tempfile
@@ -1823,9 +1905,9 @@ def phase_ckpt_resume(dev, smi):
     try:
         for tag, kw in runs:
             full = paper_round.build(dev, **kw)
-            full.fit(SCORED_ROUNDS)
+            full.fit(CKPT_ROUNDS)
             half = paper_round.build(dev, **kw)
-            half.fit(SCORED_ROUNDS // 2)
+            half.fit(CKPT_ROUNDS // 2)
             path = os.path.join(tmp, tag.replace(" ", "_"))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1840,9 +1922,9 @@ def phase_ckpt_resume(dev, smi):
             meta = resumed.restore(path)
             torch.cuda.synchronize()
             t_restore = time.perf_counter() - t0
-            check(meta["round"] == SCORED_ROUNDS // 2,
+            check(meta["round"] == CKPT_ROUNDS // 2,
                   f"{tag}: restored round {meta['round']}")
-            resumed.fit(SCORED_ROUNDS - SCORED_ROUNDS // 2)
+            resumed.fit(CKPT_ROUNDS - CKPT_ROUNDS // 2)
             torch.cuda.synchronize()
             a, b = full.server, resumed.server
             check(_same_state(a.params, b.params),
@@ -1856,7 +1938,7 @@ def phase_ckpt_resume(dev, smi):
                   (a.codec_state is None or
                    _same_state(a.codec_state, b.codec_state)),
                   f"{tag}: codec state differs")
-            check(len(a.sel_history) == len(b.sel_history) == SCORED_ROUNDS
+            check(len(a.sel_history) == len(b.sel_history) == CKPT_ROUNDS
                   and all(np.array_equal(x, y) for x, y in
                           zip(a.sel_history, b.sel_history)),
                   f"{tag}: sel_history differs")
@@ -1869,9 +1951,9 @@ def phase_ckpt_resume(dev, smi):
                 extra.append("EF residual")
             if a.codec_generator is not None:
                 extra.append("codec generator")
-            print(f"[ckpt-resume] {tag}: {SCORED_ROUNDS} rounds straight == "
-                  f"{SCORED_ROUNDS // 2} + save + restore into a new "
-                  f"Federation + {SCORED_ROUNDS - SCORED_ROUNDS // 2}, "
+            print(f"[ckpt-resume] {tag}: {CKPT_ROUNDS} rounds straight == "
+                  f"{CKPT_ROUNDS // 2} + save + restore into a new "
+                  f"Federation + {CKPT_ROUNDS - CKPT_ROUNDS // 2}, "
                   f"bitwise: state ({len(a.params)} leaves), "
                   + ", ".join(extra + ["sel_history", "comm_summary"])
                   + f"; checkpoint {nbytes} B, save {t_save:.3f} s, restore "
@@ -2232,7 +2314,8 @@ def phase_serve_parity(w, tag="serve-parity",
     ServeConfig fields; ``static`` is a finished static run, ``ran`` a
     finished engine run ``(engine, results)``; ``flips`` maps a request to
     the step (and layer and router gap) where the two runs routed it
-    differently at a near tie: its stream is compared up to that step."""
+    differently at a near tie: its stream is compared up to that step.
+    Returns the engine run ``(engine, results)``, its rows recorded."""
     from repro_torch import serve_workload as sw
 
     if ran is None:
@@ -2275,6 +2358,7 @@ def phase_serve_parity(w, tag="serve-parity",
           f"{worst:.3e} (tol {LOGIT_TOL}); token streams equal"
           + (f" up to {len(diverged)} near-tie divergence(s)" if diverged
              else ""))
+    return eng, res
 
 
 # -- hymba-1.5b: the hybrid family served (K3 at a GQA group of 5, K5) -------
@@ -2426,6 +2510,9 @@ def phase_serve_hymba_parity(runs, ran):
 
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_PARAMS = 1_334_756_352       # the reference's init at full width
+# [zoo-round-moe] and [zoo-packed-moe] cut to 12 of 24 layers for the
+# smoke's time: every width as published
+MOE_ROUND_LAYERS, MOE_ROUND_PARAMS = 12, 692_610_048
 # two card runs route a token differently only at a near tie: a routing
 # difference where the static run's k-th and (k+1)-th router
 # probabilities lie further apart than this fails the phase
@@ -2590,7 +2677,8 @@ def phase_serve_stablelm(dev):
     80, LayerNorm, 25% rotary) through ``DecodeEngine`` under
     ``[serve]``'s traffic: K3 at head dim 80 once per layer per decode
     step; then the engine against ``static_generate`` as
-    ``[serve-parity]``."""
+    ``[serve-parity]``.  Returns the launches, the workload and the
+    parity's engine run."""
     from repro_torch import serve_workload as sw
     from repro_torch.common import param_count
     from repro_torch.kernels.flash_decode import ops as fops
@@ -2642,9 +2730,10 @@ def phase_serve_stablelm(dev):
           f"(its time alone at this shape: [decode-kernel] stablelm "
           f"serving)")
     del eng
-    phase_serve_parity(w, "serve-stablelm", f"{STABLELM_ARCH}: continuous "
-                       f"(K3 at head dim 80) vs static (plain)")
-    return launches
+    run = phase_serve_parity(w, "serve-stablelm", f"{STABLELM_ARCH}: "
+                             f"continuous (K3 at head dim 80) vs static "
+                             f"(plain)")
+    return launches, w, run
 
 
 def phase_serve_whisper(dev):
@@ -3363,11 +3452,15 @@ def phase_serve_gemma3(dev):
                 f"heads of {cfg.head_dim}, qk-norm, d_ff {cfg.d_ff}, tied "
                 f"embeddings")
 
+    kept = {}
+
     def parity(traffic, w, eng, res):
         phase_serve_parity(
             w, "serve-gemma3", f"{GEMMA_ARCH} {traffic}: continuous (K3"
             + (", K5 prefill" if w.serve.attn_impl == "chunked" else "")
             + ") vs static (plain)", ran=(eng, res))
+        if traffic == "long":
+            kept["long"] = (w, eng, res)
 
     runs = _serve_traffics(
         dev, GEMMA_ARCH, GEMMA_PARAMS, "serve-gemma3", header,
@@ -3381,7 +3474,30 @@ def phase_serve_gemma3(dev):
         for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 3e-2)):
             cases[f"{shape} {str(dtype)[6:]}"] = _decode_case(
                 dev, shape, *rest, dtype, tol, "serve-gemma3")
-    return out, cases
+    return out, cases, kept.pop("long")
+
+
+def phase_serve_gemma3_bf16(dev, smi, fp32_long):
+    """gemma3-12b in bf16 (configuration 39) under ``TRAFFIC["long"]``:
+    ``[serve-gemma3]``'s long run (``fp32_long``: its workload and engine
+    run, rows recorded), its weights then cast leaf by leaf (47.06 GB in
+    fp32 beside 23.53 GB in bf16 would leave little room), through
+    ``_bf16_serving``: K3 bf16 at head dim 256 on the global sub-layers'
+    pages and the windowed ones' rings of 1,024 that wrap, K5 bf16
+    windowed and global in the prefill."""
+    from repro_torch.serve.paged_cache import build_layout
+    tag = "[serve-gemma3-bf16]"
+    w, eng, res = fp32_long
+    fp32 = _engine_rows(eng, res)
+    del eng, res, fp32_long
+    w16 = _bf16_twin(tag, w, GEMMA_PARAMS)
+    cfg = w16.cfg
+    rings = [s.ring for s in build_layout(cfg, w16.serve.page_size,
+                                          w16.serve.max_len).subs]
+    check(rings == [True] * (cfg.global_every - 1) + [False],
+          f"{tag} ring subs {rings}")
+    return {"long": _bf16_serving(f"{tag} long", w16, "long", fp32, smi,
+                                  "[serve-gemma3] long")}
 
 
 # -- K4, K5, K6: the attention kernels' entry points ---------------------------
@@ -4384,6 +4500,622 @@ def phase_serve_rwkv6_parity(w):
           f"(tol {LOGIT_TOL})")
 
 
+# -- bf16 serving through the paged engine (K3's, K5's and K7's bf16
+#    instances on model paths) -----------------------------------------------
+
+FORCE = 1e4                      # a forced token's noise: above any logit
+FORCED_GEN = 8                   # tokens a request in the forced runs
+CHECKED_LAYERS = 1               # calls of the plain run held one by one,
+                                 # in units of the model's layers
+# profiler ranges around the engine's prefill (with its first-token
+# sample) and commit, each ending in a device sync: a kernel that starts
+# inside one is its, any other the decode steps'
+SERVE_RANGES = {"serve/prefill": "prefill", "serve/commit": "commit"}
+
+
+def _engine_rows(eng, res):
+    """A finished engine run's (tokens, float32 rows), by request."""
+    return ({i: np.asarray(t) for i, t in res.items()},
+            {i: np.stack(r) for i, r in eng.logits_rows.items()})
+
+
+def _forcing(streams, device):
+    """The engine's injected sampling noise at temperature 1 that forces
+    request r's token g to ``streams[r][g]``: a one-hot of FORCE (zeros
+    on a slot with nothing to force), so every run follows one token
+    history and its rows stay comparable at every step."""
+    def noise(rids, gidx, vocab):
+        at = [(j, int(streams[r][g])) for j, (r, g) in
+              enumerate(zip(rids.tolist(), gidx.tolist()))
+              if r in streams and g < len(streams[r])]
+        out = torch.zeros((len(rids), vocab), device=device)
+        if at:
+            idx = torch.as_tensor(at, device=device)
+            out[idx[:, 0], idx[:, 1]] = FORCE
+        return out
+    return noise
+
+
+def _ranged(fn, name):
+    """``fn`` inside the profiler range ``name``, which it leaves only
+    once the device has run what it launched."""
+    def run(*a, **kw):
+        with torch.profiler.record_function(name):
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+        return out
+    return run
+
+
+def _by_range(prof):
+    """``prof``'s device kernels by SERVE_RANGES kind (by device start
+    within a range's span on the profile's clock; ``"decode"`` outside
+    them), each ``{kernel kind: ms}``.  A kernel launched through a
+    ctypes entry point carries no host op to match it to, so its start
+    is what places it."""
+    from repro_torch.profile_serve import _kind
+    from repro_torch.profiling import device_kernels
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.start_ns(), e.end_ns(), SERVE_RANGES[e.name()])
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() != cuda and e.name() in SERVE_RANGES]
+    out = {}
+    for k in device_kernels(prof):
+        if k.name in SERVE_RANGES:             # the ranges' own device rows
+            continue
+        where = next((kind for a, b, kind in spans
+                      if a <= k.start_ns <= b), "decode")
+        kinds = out.setdefault(where, {})
+        kinds[_kind(k.name)] = kinds.get(_kind(k.name), 0.0) + k.us / 1e3
+    return out
+
+
+@contextlib.contextmanager
+def _plain_calls():
+    """Counts, by name, the calls of K3's, K5's and K7's plain versions
+    made while the block runs: where their wrappers run them (a CPU
+    tensor) and rwkv6's training scan."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.models import rwkv6
+    sites = ((fops, "paged_decode_ref"), (aops, "flash_attention_fwd_ref"),
+             (wops, "rwkv6_scan_chunked_ref"), (rwkv6, "chunked_linear_scan"))
+    calls = {name: 0 for _, name in sites}
+    real = {name: getattr(mod, name) for mod, name in sites}
+
+    def counted(name):
+        def fn(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return fn
+
+    for mod, name in sites:
+        setattr(mod, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for mod, name in sites:
+            setattr(mod, name, real[name])
+
+
+@contextlib.contextmanager
+def _serve_swap(kind, cfg, record=None):
+    """The model's one kernel call site replaced for the block: K3's
+    (``transformer.paged_decode_attention``) or, on rwkv6, K7's
+    (``rwkv6.wkv``).  ``"plain"`` returns the kernel's plain version on
+    the same bf16 tensors (K3: ``ref.paged_decode_ref``, the gather and
+    the attention; K7: ``linear_scan.chunked_linear_scan``); with
+    ``record`` it appends each call's work and, on its first
+    CHECKED_LAYERS x n_layers calls, also runs the kernel and the planted
+    fault on the same inputs and records how far each lies, element by
+    element (``ref.bf16_error_ratio``; the fault only at layer 0), from
+    the plain version in fp32 (K3) or from K7's fp32 instance on the
+    inputs cast up (K7; its distance from the plain version in fp32
+    too); None on the calls past them.  ``"fault"`` returns the kernel with
+    layer 0's call wrong: K3 with the first page of every sequence left
+    out, K7 with the carry between chunks dropped (every chunk scanned
+    from a zero state)."""
+    from repro_torch.kernels.flash_decode import ref as fref
+    from repro_torch.kernels.rwkv6_scan import ref as wref
+    from repro_torch.models import rwkv6, transformer
+    from repro_torch.models.linear_scan import chunked_linear_scan
+    n = [0]
+    if cfg.family == "ssm":
+        mod, name = rwkv6, "wkv"
+        real = mod.wkv
+
+        def faulty(r, k, v, ld, u, chunk):
+            b, s, h, dk = r.shape
+            m = s // chunk
+
+            def split(x):
+                return x.reshape(b * m, chunk, h, x.shape[-1])
+            o, st = real(split(r), split(k), split(v), split(ld), u,
+                         chunk=chunk)
+            return (o.reshape(b, s, h, -1),
+                    st.reshape(b, m, h, dk, -1)[:, -1].contiguous())
+
+        def swapped(r, k, v, ld, u, *, chunk):
+            layer = n[0] % cfg.n_layers
+            n[0] += 1
+            if kind == "fault" and layer == 0:
+                return faulty(r, k, v, ld, u, chunk)
+            if kind == "fault":
+                return real(r, k, v, ld, u, chunk=chunk)
+            out = chunked_linear_scan(r, k, v, ld, decay_on="k", bonus=u,
+                                      chunk=chunk)
+            work = (*r.shape, v.shape[-1], chunk, r.element_size(),
+                    ld.element_size())
+            if record is not None and n[0] > CHECKED_LAYERS * cfg.n_layers:
+                record.append((*work, None, None, None))
+            elif record is not None:
+                # against K7's fp32 instance on the same inputs cast up
+                # (the same order of sums: the plain version's differs by
+                # fp32's order of sums at the size a state that carries
+                # ~100 tokens reaches), and the plain version in fp32
+                want = real(r.float(), k.float(), v.float(), ld, u,
+                            chunk=chunk)[0]
+                got = real(r, k, v, ld, u, chunk=chunk)[0]
+                plain32 = chunked_linear_scan(
+                    r.float(), k.float(), v.float(), ld, decay_on="k",
+                    bonus=u, chunk=chunk)[0]
+                record.append((*work, wref.bf16_error_ratio(got, plain32),
+                               wref.bf16_error_ratio(got, want),
+                               wref.bf16_error_ratio(faulty(
+                                   r, k, v, ld, u, chunk)[0], want)
+                               if layer == 0 else None))
+            return out
+    else:
+        mod, name = transformer, "paged_decode_attention"
+        real = mod.paged_decode_attention
+
+        def faulty(q, kp, vp, pt, valid):
+            ps = kp.shape[1]
+            return real(q, kp, vp, pt[:, 1:].contiguous(),
+                        torch.where(valid > ps, valid - ps, valid))
+
+        def swapped(q, kp, vp, pt, valid):
+            layer = n[0] % cfg.n_layers
+            n[0] += 1
+            if kind == "fault" and layer == 0:
+                return faulty(q, kp, vp, pt, valid)
+            if kind == "fault":
+                return real(q, kp, vp, pt, valid)
+            out = fref.paged_decode_ref(q, kp, vp, pt, valid)
+            ps = kp.shape[1]
+            b, _, h, hd = q.shape
+            work = (valid.sum(), ((valid + ps - 1) // ps).sum(), b, h,
+                    kp.shape[2], hd, q.element_size())
+            if record is not None and n[0] > CHECKED_LAYERS * cfg.n_layers:
+                record.append((*work, None, None))
+            elif record is not None:
+                want = fref.paged_decode_ref(q.float(), kp.float(),
+                                             vp.float(), pt, valid)
+                record.append((
+                    *work,
+                    fref.bf16_error_ratio(real(q, kp, vp, pt, valid), want),
+                    fref.bf16_error_ratio(faulty(q, kp, vp, pt, valid),
+                                          want) if layer == 0 else None))
+            return out
+    setattr(mod, name, swapped)
+    try:
+        yield n
+    finally:
+        setattr(mod, name, real)
+
+
+def _near_tie_steps(rows32, *rows16):
+    """Per request, the steps up to and including the first where the
+    fp32 row's two largest logits lie closer than the largest elementwise
+    difference between a bf16 run's row (of ``rows16``) and the fp32 row
+    there."""
+    n = {}
+    for i, r32 in rows32.items():
+        n[i] = len(r32)
+        for t in range(len(r32)):
+            top2 = np.partition(r32[t], -2)[-2:]
+            if abs(top2[1] - top2[0]) < max(np.abs(r[i][t] - r32[t]).max()
+                                            for r in rows16):
+                n[i] = t + 1
+                break
+    return n
+
+
+def _rows_dist(got, want):
+    """The largest, over every row of every request, of ``||got - want||
+    / ||want||``."""
+    return max(float((np.linalg.norm(got[i] - want[i], axis=1)
+                      / np.linalg.norm(want[i], axis=1)).max())
+               for i in want)
+
+
+def _k3_bound(record, name, peak):
+    """K3's bound a call, averaged over ``record``'s calls: each call's K
+    and V rows of its valid tokens, q, the output, its table rows and
+    valid lengths moved once, or its 4 ops a token a head a channel at
+    ``peak``; (ms, what bounds it)."""
+    tok = int(torch.stack([r[0] for r in record]).sum())
+    pages = int(torch.stack([r[1] for r in record]).sum())
+    b, h, hkv, hd, esz = record[0][2:7]
+    nbytes = esz * (2 * tok * hkv * hd + len(record) * 2 * b * h * hd) \
+        + 4 * (pages + len(record) * b)
+    by_bytes = nbytes / memory_rate(name)
+    by_ops = 4 * tok * h * hd / peak
+    return (max(by_bytes, by_ops) * 1e3 / len(record),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def _k7_bound(record, name):
+    """K7's bound over ``record``'s calls, as ``[wkv-kernel]``'s: (ms in
+    all, what bounds it)."""
+    nbytes = flops = 0
+    for b, s, h, dk, dv, chunk, esz, dsz, *_ in record:
+        tokens = b * s * h
+        nbytes += (tokens * (dk * (3 * esz + dsz) + dv * esz) + 4 * h * dk
+                   + 4 * b * h * dk * dv)
+        flops += tokens * 2 * (2 * chunk * dk + 2 * dk * dv)
+    by_bytes, by_ops = nbytes / memory_rate(name), flops / FP32_PEAK
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def _k5_bound(cfg, b, s, name):
+    """K5's bf16 forward bound over one prefill's layers (each sub-layer's
+    window), at 989 TFLOP/s: ms in all."""
+    from repro_torch.models.transformer import block_layout, n_macro
+    return sum(_attn_bound(name, b, s, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, sub.window, esz=2,
+                           peak=BF16_PEAK)["fwd"][0]
+               for sub in block_layout(cfg)) * n_macro(cfg)
+
+
+def _bf16_serving(tag, w, traffic, fp32, smi, fp32_tag):
+    """One bf16 configuration under one traffic, on ``w`` (the bf16 twin
+    of a workload served in fp32 under ``TRAFFIC[traffic]``: ``fp32`` is
+    that engine run's tokens and logits rows by request, ``fp32_tag`` the
+    phase that ran it).
+
+    (e3) A greedy run, counters zeroed just before it: K3 bf16 once a
+    layer a decode step (K7 bf16 once a layer a prefill call on rwkv6),
+    K5 bf16 once a layer a prefill call on ``flash_attention_sm90.cu`` on
+    the long traffic, nothing of fp32, no plain version; its tokens/s,
+    decode ms a step, TTFT, latency and peak memory.  (e4) bf16 params
+    and pools (bf16 mixes, fp32 WKV state), one decode signature.  (e1)
+    Three runs of the first ``n_slots`` requests (one admission group),
+    each forced to the fp32 run's first FORCED_GEN tokens (``_forcing``;
+    random weights part greedy streams at near ties within a few
+    steps), their rows recorded: the kernel (under the profiler: device
+    ms a decode step by kind, K3 ms a call, K7's and K5's ms beside
+    their bounds), the plain version in its place (``_serve_swap``,
+    which also holds the kernel's output on its first CHECKED_LAYERS x
+    n_layers calls element by element), and (e2) the planted fault.
+    Every row is compared: the kernel within BAR_FACTOR x the plain
+    run's distance from the fp32 rows, of the plain run and of the fp32
+    rows; the fault outside.  The greedy run's streams equal the fp32
+    run's up to each request's first near tie (``_near_tie_steps``), the
+    count printed.
+    Returns the figures."""
+    from repro_torch import serve_workload as sw
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg, t, dev = w.cfg, w.traffic, w.device
+    name = torch.cuda.get_device_name(0)
+    ssm = cfg.family == "ssm"
+    check(cfg.param_dtype == "bfloat16" and all(
+        x.dtype == bf16 and x.device == dev for x in w.params.values()),
+        f"{tag} params are not bf16 on the card")
+    sw.engine(w, n_requests=2, gen=3).run()          # warm-up, not measured
+
+    def reset():
+        for ops in (aops, fops, wops):
+            ops.reset_launch_counts()
+
+    eng = sw.engine(w)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    with _plain_calls() as plain:
+        res = eng.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats()
+    steps_, calls_ = st["n_decode_steps"], st["n_prefill_calls"]
+    k3 = {str(k)[6:]: v for k, v in fops.DTYPE_LAUNCHES.items()}
+    k7 = {str(k)[6:]: v for k, v in wops.DTYPE_LAUNCHES.items()}
+    k5 = dict(aops.SOURCE_LAUNCHES)
+    sm90 = aops.SOURCES[bf16].name
+    want = {"K3": 0 if ssm else cfg.n_layers * steps_,
+            "K7": cfg.n_layers * calls_ if ssm else 0,
+            "K5": cfg.n_layers * calls_ if t.attn_impl == "chunked"
+            and not ssm else 0}
+    check(steps_ == TRAFFIC_STEPS[traffic], f"{tag} {steps_} decode steps,"
+          f" predicted {TRAFFIC_STEPS[traffic]}")
+    check(k3 == {"float32": 0, "bfloat16": want["K3"]} and
+          fops.paged_decode_attention.launches == want["K3"],
+          f"{tag} K3 launches {k3}, predicted {want['K3']} bf16")
+    check(k7 == {"float32": 0, "bfloat16": want["K7"]} and
+          wops.rwkv6_scan.launches == want["K7"],
+          f"{tag} K7 launches {k7}, predicted {want['K7']} bf16")
+    check(k5 == {aops.SOURCES[f32].name: 0, sm90: want["K5"]} and
+          aops.LAUNCHES == {"fwd": want["K5"], "dq": 0, "dkv": 0},
+          f"{tag} K5 launches {aops.LAUNCHES} by source {k5}, predicted "
+          f"{want['K5']} forward on {sm90}")
+    check(not any(plain.values()), f"{tag} plain versions ran: {plain}")
+    check(all(len(res[i]) == g for i, g in enumerate(w.gens)),
+          f"{tag} a request did not finish with its token count")
+    check(eng.decode_cache_size == 1, f"{tag} decode step saw "
+          f"{eng.decode_cache_size} input signatures")
+    types = {p: x.dtype for p, x in eng.paged.items()}
+    want_types = ({"state/sub0/x_tmix": bf16, "state/sub0/x_cmix": bf16,
+                   "state/sub0/wkv": f32} if ssm else
+                  {"pool/k": bf16, "pool/v": bf16})
+    check(types == want_types, f"{tag} engine state dtypes {types}")
+    print(f"{tag} {st['n_requests']} requests of {t.prompt_len} prompt "
+          f"tokens over {w.serve.n_slots} slots (max_len "
+          f"{eng.layout.max_len}), prefill attention {t.attn_impl}: "
+          f"{st['total_tokens']} tokens in {st['wall_s']:.3f} s: "
+          f"{st['tokens_per_sec']:.1f} tok/s; decode "
+          f"{st['decode_ms_per_step']:.3f} ms per step (host) over "
+          f"{steps_} steps; {calls_} prefill calls; TTFT p50 "
+          f"{st['ttft_p50_s']:.3f} s p99 {st['ttft_p99_s']:.3f} s; latency "
+          f"p50 {st['latency_p50_s']:.3f} s p99 {st['latency_p99_s']:.3f} "
+          f"s; peak memory {peak / 2**30:.2f} GiB; on {smi}")
+    print(f"{tag} (e3) launches: K3 {k3} (predicted {want['K3']} = "
+          f"{cfg.n_layers} x {steps_} decode steps in bf16), K7 {k7} "
+          f"(predicted {want['K7']}), K5 by source {k5} (predicted "
+          f"{want['K5']} on {sm90}); plain versions {plain}; (e4) params "
+          f"bf16, engine state " + ", ".join(
+              f"{p} {str(d)[6:]}" for p, d in types.items())
+          + f"; decode input signatures {eng.decode_cache_size}")
+    del eng
+
+    # (e1), (e2): the first n_slots requests (one admission group), each
+    # forced to the fp32 run's first FORCED_GEN tokens; the kernel's run
+    # under the profiler (device time of its steps by kind)
+    n_req = w.serve.n_slots
+    toks32 = {i: fp32[0][i][:FORCED_GEN] for i in range(n_req)}
+    rows32 = {i: fp32[1][i][:FORCED_GEN] for i in range(n_req)}
+    rows, record, kinds, f_steps, secs = {}, [], {}, 0, {}
+    for kind in ("kernel", "plain", "fault"):
+        eng = sw.engine(w, n_requests=n_req, gen=FORCED_GEN,
+                        record_logits=True, temperature=1.0)
+        eng.gumbel = _forcing(toks32, dev)
+        swap, prof = contextlib.nullcontext(), contextlib.nullcontext()
+        if kind == "kernel":
+            eng._prefill = _ranged(eng._prefill, "serve/prefill")
+            eng._commit = _ranged(eng._commit, "serve/commit")
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+        else:
+            swap = _serve_swap(kind, cfg, record if kind == "plain"
+                               else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with swap, prof:
+            got = eng.run()
+            torch.cuda.synchronize()
+        secs[kind] = time.perf_counter() - t0
+        check(all(np.array_equal(got[i], toks32[i]) for i in toks32),
+              f"{tag} the {kind} run did not follow the forced streams")
+        rows[kind] = _engine_rows(eng, got)[1]
+        if kind == "kernel":
+            f_steps = eng.stats()["n_decode_steps"]
+            kinds = _by_range(prof)
+        del eng, prof
+    dec, pre = kinds.get("decode", {}), kinds.get("prefill", {})
+    step_dev = sum(v for k, v in dec.items() if k != "memcpy / memset") \
+        / f_steps
+    dist = {"kernel vs plain": _rows_dist(rows["kernel"], rows["plain"]),
+            "plain vs fp32": _rows_dist(rows["plain"], rows32),
+            "kernel vs fp32": _rows_dist(rows["kernel"], rows32),
+            "fault vs plain": _rows_dist(rows["fault"], rows["plain"])}
+    bar = BAR_FACTOR * dist["plain vs fp32"]
+    n_rows = sum(len(r) for r in rows32.values())
+    ratios = [r[-2] for r in record if r[-2] is not None]
+    planted = [r[-1] for r in record if r[-1] is not None]
+    # K7: the ratio the bar reads is against its fp32 instance; the one
+    # against the plain version in fp32 is printed beside it
+    to_plain = [r[-3] for r in record if r[-3] is not None] if ssm \
+        else ratios
+    near = _near_tie_steps(rows32, rows["plain"])
+    either = _near_tie_steps(rows32, rows["plain"], rows["kernel"])
+    parted = {}
+    for i, k in either.items():
+        other = np.flatnonzero(res[i][:FORCED_GEN] != toks32[i])
+        parted[i] = int(other[0]) if len(other) else None
+        check(parted[i] is None or parted[i] >= k - 1, f"{tag} request {i}"
+              f": the greedy bf16 stream parts from the fp32 one at step "
+              f"{parted[i]}, before its first near tie at step {k - 1}")
+    what = ("layer 0 drops the carry between chunks" if ssm else
+            "layer 0 leaves out the first page of every sequence")
+    kname = "K7" if ssm else "K3"
+    print(f"{tag} (e1) the first {n_req} requests forced to the fp32 "
+          f"streams of {fp32_tag}, {FORCED_GEN} tokens each: {n_rows} "
+          f"logits rows, every step compared; largest ||x - y|| / ||y|| "
+          f"over rows: kernel vs plain {dist['kernel vs plain']:.4e}, "
+          f"kernel vs fp32 {dist['kernel vs fp32']:.4e}, plain vs fp32 "
+          f"{dist['plain vs fp32']:.4e}; bar {BAR_FACTOR:g} x the last = "
+          f"{bar:.4e}; (e2) planted fault ({what}) vs plain "
+          f"{dist['fault vs plain']:.4e} ({dist['fault vs plain'] / bar:.1f}"
+          f"x the bar); the runs' seconds " + ", ".join(
+              f"{k} {v:.1f}" for k, v in secs.items()))
+    print(f"{tag} (e1) in the model, the plain run's first {len(ratios)} "
+          f"{kname} calls of {len(record)}: the kernel on the same bf16 "
+          f"inputs against "
+          + ("its fp32 instance on them cast up" if ssm else
+             "the plain version in fp32")
+          + f", element by element (ref.bf16_error_ratio, bar 1): largest "
+          f"{max(ratios):.4f}, median {float(np.median(ratios)):.4f}"
+          + (f" (against the plain version in fp32: largest "
+             f"{max(to_plain):.4f}, median {float(np.median(to_plain)):.4f}"
+             f", not held)" if ssm else "")
+          + f"; (e2) the planted fault at layer 0: least {min(planted):.1f}")
+    print(f"{tag} (e1) greedy streams over those steps: up to each "
+          f"request's first near tie (fp32 top-2 gap below the largest "
+          f"|plain - fp32|) {sum(near.values())} of {n_rows} ({near}); the "
+          f"greedy bf16 stream (the kernel's) parts from the fp32 one at "
+          f"steps {parted} (None: not within {FORCED_GEN}), each at or "
+          f"after its first near tie by the plain or the kernel rows")
+    check(0 < dist["kernel vs plain"] <= bar and dist["kernel vs fp32"]
+          <= bar, f"{tag} (e1) the kernel's rows lie {dist} apart, outside "
+          f"{bar}")
+    check(max(ratios) <= 1.0, f"{tag} (e1) a {kname} call lies outside the "
+          f"element-wise bar: {max(ratios)}")
+    check(dist["fault vs plain"] > bar and min(planted) > 1.0,
+          f"{tag} (e2) the planted fault passes a bar ("
+          f"{dist['fault vs plain']} <= {bar}, or element-wise "
+          f"{min(planted)} <= 1)")
+    print(f"{tag} device ms a decode step {step_dev:.4f} over the kernel "
+          f"run's {f_steps} steps of {n_req} sequences (the recorded rows' "
+          f"copies left out; busy share "
+          f"{step_dev / st['decode_ms_per_step']:.1%} of the greedy run's "
+          f"host ms a step {st['decode_ms_per_step']:.3f}),"
+          f" by kind: " + ", ".join(f"{k} {v / f_steps:.4f}" for k, v in
+                                    sorted(dec.items(), key=lambda x: -x[1]))
+          + "; prefill device ms by kind: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(pre.items(),
+                                                 key=lambda x: -x[1]))
+          + f"; on {smi}")
+    out = {"tok_s": st["tokens_per_sec"], "step_ms": st["decode_ms_per_step"],
+           "step_device_ms": step_dev,
+           "busy": step_dev / st["decode_ms_per_step"],
+           "ttft_p50_s": st["ttft_p50_s"], "ttft_p99_s": st["ttft_p99_s"],
+           "latency_p50_s": st["latency_p50_s"],
+           "latency_p99_s": st["latency_p99_s"], "peak_GiB": peak / 2**30,
+           "steps": steps_, "prefill_calls": calls_,
+           "launches": {"K3": want["K3"], "K5": want["K5"],
+                        "K7": want["K7"]},
+           "bars": dict(dist, bar=bar, rows=n_rows,
+                        element_ratio=max(ratios),
+                        element_ratio_to_plain=max(to_plain),
+                        planted_element_ratio=min(planted),
+                        near_tie_steps=sum(near.values()))}
+    k3_name, k7_name, k5_name = ("flash_decode_paged (K3)", "rwkv6_scan (K7)",
+                                 "flash_attention_fwd (K5)")
+    if ssm:
+        bound, by = _k7_bound(record, name)
+        calls = len(record)
+        ms = pre.get(k7_name, 0.0)
+        out["K7"] = {"in_run_ms": ms / calls, "bound_ms": bound / calls,
+                     "bound_by": by, "launches": want["K7"]}
+        print(f"{tag} rwkv6_scan (K7) bf16 in the kernel run's prefills: "
+              f"{ms:.4f} ms device for its {calls} calls ({ms / calls:.4f} a "
+              f"call), bound {bound:.4f} ms ({by}), kernel at "
+              f"{bound / max(ms, 1e-9):.1%} of it; on {smi}")
+    else:
+        bound, by = _k3_bound(record, name, BF16_PEAK)
+        calls = len(record)
+        ms = dec.get(k3_name, 0.0) / calls
+        out["K3"] = {"in_run_ms": ms, "bound_ms": bound, "bound_by": by,
+                     "launches": want["K3"]}
+        print(f"{tag} flash_decode_paged (K3) bf16 in the kernel run's "
+              f"decode steps: {ms:.4f} ms a call ({calls} calls, "
+              f"{ms * cfg.n_layers:.4f} ms a step of {cfg.n_layers}), bound "
+              f"{bound:.4f} ms a call ({by}, the run's valid lengths), "
+              f"kernel at {bound / max(ms, 1e-9):.1%} of it; on {smi}")
+        if want["K5"]:
+            k5_ms = pre.get(k5_name, 0.0)
+            k5_bound = _k5_bound(cfg, n_req, t.prompt_len, name)
+            out["K5"] = {"in_run_ms": k5_ms / cfg.n_layers,
+                         "bound_ms": k5_bound / cfg.n_layers,
+                         "launches": want["K5"], "source": sm90}
+            print(f"{tag} flash_attention_fwd (K5) bf16 in the kernel "
+                  f"run's prefill: {k5_ms:.4f} ms for its {cfg.n_layers} "
+                  f"launches ({k5_ms / cfg.n_layers:.4f} a launch), bound "
+                  f"{k5_bound:.4f} ms at 989 TFLOP/s, kernel at "
+                  f"{k5_bound / max(k5_ms, 1e-9):.1%}; on {smi}")
+    del rows
+    return out
+
+
+def _bf16_twin(tag, w, n_params):
+    """``serve_workload.cast`` of ``w`` (its fp32 leaves freed one by
+    one), checked and reported: the bf16 twin."""
+    from repro_torch import serve_workload as sw
+    from repro_torch.common import param_count
+    t0 = time.perf_counter()
+    w16 = sw.cast(w)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = param_count(w16.params)
+    check(n == n_params and not w.params and all(
+        x.dtype == torch.bfloat16 for x in w16.params.values()),
+        f"{tag} the bf16 twin has {n} params (expected {n_params}), the "
+        f"fp32 workload {len(w.params)} leaves left")
+    print(f"{tag} {w16.cfg.name} at full width in bf16 "
+          f"(param_dtype=\"bfloat16\", the reference's switch): the fp32 "
+          f"phase's {n:,} params cast leaf by leaf on the card in "
+          f"{secs:.2f} s ({n * 2 / 1e9:.2f} GB; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after)")
+    return w16
+
+
+def phase_serve_bf16(dev, smi, w, parity_run):
+    """qwen3-1.7b in bf16 (configuration 38): ``[serve]``'s weights cast,
+    under ``[serve]``'s traffic and ``TRAFFIC["long"]`` (the prefill on K5
+    bf16), each through ``_bf16_serving``; the long traffic's fp32 rows
+    from an fp32 engine run on the same weights first.  ``parity_run`` is
+    ``[serve-parity]``'s engine run (its rows recorded)."""
+    from repro_torch import serve_workload as sw
+    tag = "[serve-bf16]"
+    wl = sw.build(dev, traffic="long", params=w.params)
+    eng = sw.engine(wl, record_logits=True, gen=FORCED_GEN)
+    fp32 = {"serving": _engine_rows(*parity_run),
+            "long": _engine_rows(eng, eng.run())}
+    del eng, parity_run
+    w16 = _bf16_twin(tag, w, QWEN3_PARAMS)
+    del wl
+    out = {}
+    for traffic in ("serving", "long"):
+        wt = w16 if traffic == "serving" else sw.build(
+            dev, traffic=traffic, params=w16.params, param_dtype="bfloat16")
+        out[traffic] = _bf16_serving(
+            f"{tag} {traffic}", wt, traffic, fp32.pop(traffic), smi,
+            "[serve-parity]" if traffic == "serving" else "an fp32 long run")
+    return out
+
+
+def phase_serve_rwkv6_bf16(dev, smi, w):
+    """rwkv6-3b in bf16 (configuration 41) under ``[serve]``'s traffic:
+    ``[serve-rwkv6]``'s weights with the decay's base set to RWKV-6's own
+    init (``rwkv6.decay_base_init``; the reference draws zeros, under
+    which a token's decay is near exp(-1) and no state carries across a
+    chunk: K7's carry would go unseen), served in fp32 (8 slots, rows recorded),
+    cast, then ``_bf16_serving``: the prefill's scan on K7 bf16 (r, k, v
+    bf16, the log-decay fp32), the decode steps on
+    ``linear_scan_decode``."""
+    from repro_torch import serve_workload as sw
+    from repro_torch.models import rwkv6
+    tag = "[serve-rwkv6-bf16]"
+    cfg = w.cfg
+    w.params["blocks/sub0/wkv/decay_base"].copy_(rwkv6.decay_base_init(
+        cfg.n_layers, cfg.n_heads, cfg.head_dim))
+    eng = sw.engine(w, n_requests=w.serve.n_slots, gen=FORCED_GEN,
+                    record_logits=True)
+    fp32 = _engine_rows(eng, eng.run())
+    del eng
+    w16 = _bf16_twin(tag, w, RWKV_PARAMS)
+    return {"serving": _bf16_serving(f"{tag} serving", w16, "serving", fp32,
+                                     smi, "an fp32 run on the same weights")}
+
+
+def phase_serve_stablelm_bf16(dev, smi, w, parity_run):
+    """stablelm-3b in bf16 (configuration 40): ``[serve-stablelm]``'s
+    weights cast, under its traffic, through ``_bf16_serving``: K3 bf16
+    at head dim 80 (10 16-byte chunks a row on 16 lanes)."""
+    tag = "[serve-stablelm-bf16]"
+    fp32 = _engine_rows(*parity_run)
+    del parity_run
+    w16 = _bf16_twin(tag, w, STABLELM_PARAMS)
+    return {"serving": _bf16_serving(f"{tag} serving", w16, "serving", fp32,
+                                     smi, "[serve-stablelm]'s parity")}
+
+
 # -- the round engines (async, cohort, faults) on the VGG16 round --------------
 
 ENGINE_ROUNDS = 3        # flushes or rounds of each engine run
@@ -5090,7 +5822,11 @@ def _zoo_rounds(dev, smi, tag, packed):
           f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) of "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB"
           f" on {smi}")
-    # one more round under the profiler: the kernels' device time in-run
+    # one more round under the profiler: the kernels' device time in-run.
+    # The fp32 round peaks at 65 of the card's 79 GiB; once, the cached
+    # segments the earlier rounds left held 15.6 GiB too fragmented for
+    # this round's 1.3 GiB Adam moments: it starts from the live tensors
+    torch.cuda.empty_cache()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     _zoo_reset()
@@ -5699,11 +6435,13 @@ def phase_zoo_round_hymba(dev, smi):
 
 
 def phase_zoo_round_moe(dev, smi):
-    """granite-moe-1b-a400m (26 units: embed, layer0-23, head, the head
-    unit ``final_norm`` alone as the embeddings are tied; 13 trained a
-    client) at ``train_4k``'s S = 4,096, built twice from one seed."""
-    return _zoo_round_arch(dev, smi, MOE_ARCH, MOE_PARAMS, TRAIN_S,
-                           "zoo-round-moe", repeat=True)
+    """granite-moe-1b-a400m at full width cut to 12 of its 24 layers (14
+    units: embed, layer0-11, head, the head unit ``final_norm`` alone as
+    the embeddings are tied; 7 trained a client) at ``train_4k``'s S =
+    4,096, built twice from one seed."""
+    return _zoo_round_arch(dev, smi, MOE_ARCH, MOE_ROUND_PARAMS, TRAIN_S,
+                           "zoo-round-moe", repeat=True,
+                           layers=MOE_ROUND_LAYERS)
 
 
 def phase_zoo_packed_moe(dev, smi):
@@ -5712,10 +6450,11 @@ def phase_zoo_packed_moe(dev, smi):
     every leaf's slot rows (the expert leaves' rows of E·d·ff = 16,777,216
     elements take K2's two-visit route), no K1; the first round's expert
     slot rows bitwise K2's plain version; the bill the codec's; rebuilt
-    from one seed and held bitwise."""
-    return _zoo_round_arch(dev, smi, MOE_ARCH, MOE_PARAMS, TRAIN_S,
+    from one seed and held bitwise.  12 of 24 layers, as
+    ``[zoo-round-moe]``."""
+    return _zoo_round_arch(dev, smi, MOE_ARCH, MOE_ROUND_PARAMS, TRAIN_S,
                            "zoo-packed-moe", repeat=True, packed=True,
-                           codec="qint8")
+                           codec="qint8", layers=MOE_ROUND_LAYERS)
 
 
 def phase_zoo_parity_moe(dev):
@@ -5779,12 +6518,15 @@ def phase_zoo_parity_vlm(dev):
     """internvl2-26b at full width cut to 1 layer and to 416 patches
     (the config's 1,024 cut, as a length: the host CPU's side of 1,152
     positions took 59-71 s) and 128 text tokens (544 positions: past 512,
-    the chunked route, K5/K6 on the card), the projector trained by one
-    client: card against the host CPU."""
+    the chunked route, K5/K6 on the card), one client training every
+    unit, the projector included (with two clients the host CPU's side
+    took 37-75 s): card against the host CPU.  With every unit selected,
+    K1's per-unit masking at internvl2-26b's plan is checked on the card
+    only by ``[k1-zoo-plans]``."""
     from repro_torch.configs.base import get_config
     phase_zoo_parity(dev, get_config(VLM_ARCH).replace(
         n_layers=1, n_patches=VLM_PARITY_PATCHES), s=VLM_PARITY_S,
-        tag="zoo-parity-vlm")
+        tag="zoo-parity-vlm", clients=1)
 
 
 # -- the zoo round in bf16: K1's bf16 instance, K5/K6 bf16 trained through --
@@ -6363,12 +7105,13 @@ def _decisive_routing(cfg, params, spacing=0.02, scale=3.0):
 
 
 def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity",
-                     lr=ZOO_PARITY_LR):
+                     lr=ZOO_PARITY_LR, clients=2):
     """qwen3-1.7b at full width cut to 2 layers (or ``cfg``), one hub
     round of SGD at S = 1,024 (or ``s`` text tokens, after a VLM's
-    patches: the chunked route), 2 clients,
-    the same params, batches and replayed selections on the card (K5/K6,
-    K1) and on the host CPU (plain versions).  A MoE model's routing is
+    patches: the chunked route), 2 clients (or 1 training every unit),
+    the same params (drawn on the card, copied to the host), batches and
+    replayed selections on the card (K5/K6, K1) and on the host CPU
+    (plain versions).  A MoE model's routing is
     made decisive (``_decisive_routing``), and the CPU run's least gap
     between a token's k-th and (k+1)-th router probability must be at
     least 100 x ZOO_PARITY_TOL."""
@@ -6386,11 +7129,14 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity",
 
     cfg = cfg or get_config(ZOO_ARCH).replace(n_layers=2)
     model = get_model(cfg)
-    params = model.init_params(torch.Generator().manual_seed(4))
+    # drawn on the card: the host's generator took ~10 s for internvl2's
+    # 1.5 B params
+    params = {p: x.cpu() for p, x in model.init_params(
+        torch.Generator(device=dev).manual_seed(4)).items()}
     if cfg.moe is not None:
         params = _decisive_routing(cfg, params)
     assign = build_units_zoo(cfg, params)
-    c = 2
+    c = clients
     data = lm_batch(c, s, cfg.vocab, key=5)
     if cfg.family == "audio":
         data["frames"] = np.random.default_rng(6).normal(
@@ -6403,7 +7149,9 @@ def phase_zoo_parity(dev, cfg=None, s=1024, tag="zoo-parity",
     # layer0, layer1, head; a 1-layer cut: embed, layer0, head): each
     # client trains n_train_units of them, and every layer is trained by
     # some client
-    if cfg.n_enc_layers:
+    if c == 1:
+        sel = np.ones((1, assign.n_units), np.float32)
+    elif cfg.n_enc_layers:
         sel = np.asarray([[0, 1, 0, 1, 1, 0], [1, 0, 1, 0, 1, 0]], np.float32)
     elif cfg.n_layers == 1:
         sel = np.asarray([[0, 1, 1], [1, 1, 0]], np.float32)
@@ -6657,7 +7405,8 @@ def _run_record(fed):
 
 def _start_ranks(target, world, backend="gloo", **kw):
     """``world`` ranks of ``target`` in processes of their own; their
-    stdout and stderr are this script's."""
+    stdout and stderr are this script's, and an exit kills any still
+    running."""
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     procs = []
@@ -6667,6 +7416,7 @@ def _start_ranks(target, world, backend="gloo", **kw):
             [sys.executable, os.path.abspath(__file__), "--worker", target,
              str(rank), str(world), os.path.join(tmp, "store"), out,
              backend, json.dumps(kw)]), out))
+        atexit.register(_stop, procs[-1][0])    # if a phase fails first
     return procs
 
 
@@ -6742,19 +7492,31 @@ def _mesh_round_worker(rank, world):
     return out
 
 
-def phase_mesh_round(dev, world=2, backend="gloo"):
-    """Cell 1, its packed qint8 round and the cohort of 8 from 1,000 in
-    chunks of 4, each with ``client_shards=2`` over 2 gloo ranks sharing
-    the card: every rank's final params, selections, losses and bill equal
-    to the single-process run's ([round], [packed-round], [cohort-round]),
-    bitwise; K1 once a round on the dense path, K2 once a round or chunk,
-    on every rank.  Returns the launches by (path, rank).  ``world`` and
-    ``backend`` set the ranks (NCCL needs a card a rank)."""
+def start_mesh_round(world=2, backend="gloo"):
+    """Start ``[mesh-round]``'s ranks: cell 1, its packed qint8 round and
+    the cohort of 8 from 1,000 in chunks of 4, each with
+    ``client_shards=world`` over ``world`` ranks (gloo: sharing the card;
+    NCCL needs a card a rank).  They run beside phases that time nothing
+    on the device; ``wait_mesh_round`` collects them."""
+    return time.perf_counter(), world, backend, _start_ranks(
+        "mesh-round", world, backend)
+
+
+def wait_mesh_round(started):
+    t0, world, backend, procs = started
+    ranks = _wait_ranks(procs)
+    return ranks, world, backend, time.perf_counter() - t0
+
+
+def check_mesh_round(waited):
+    """``[mesh-round]``: every rank's final params, selections, losses and
+    bill equal to the single-process run's ([round], [packed-round],
+    [cohort-round]), bitwise; K1 once a round on the dense path, K2 once a
+    round or chunk, on every rank.  Returns the launches by (path,
+    rank)."""
+    ranks, world, backend, secs = waited
     check(sorted(MESH_WANT) == sorted(MESH_PATHS),
           f"single-process records {sorted(MESH_WANT)}")
-    t0 = time.perf_counter()
-    ranks = _wait_ranks(_start_ranks("mesh-round", world, backend))
-    secs = time.perf_counter() - t0
     k1, k2 = {}, {}
     for name, want in MESH_WANT.items():
         for r, res in enumerate(ranks):
@@ -6866,7 +7628,15 @@ def _moe_ep_worker(rank, world, shape):
     return out
 
 
-def phase_moe_ep(smi, meshes=MOE_EP_MESHES):
+def start_moe_ep(meshes=MOE_EP_MESHES):
+    """Start ``[moe-ep]``'s ranks, every mesh's together; they run beside
+    phases that time nothing on the device."""
+    return time.perf_counter(), [(shape, backend, _start_ranks(
+        "moe-ep", shape[0] * shape[1], backend, shape=list(shape)))
+        for shape, backend in meshes]
+
+
+def phase_moe_ep(smi, started):
     """``apply_moe_sharded`` on one full-width granite MoE layer at
     train_4k's 4,096 tokens, on meshes (data 1, model 2) and (data 2,
     model 2) of gloo ranks sharing the card and a (1, 1) mesh over NCCL,
@@ -6874,11 +7644,8 @@ def phase_moe_ep(smi, meshes=MOE_EP_MESHES):
     ``apply_moe`` on the card, every gradient within 1e-5 of its largest
     entry, the dropped copies summed over the ranks equal, decisive
     routing (the least gap >= 100 x the y bar), and the planted fault
-    outside the y bar."""
-    t0 = time.perf_counter()
-    started = [(shape, backend, _start_ranks(
-        "moe-ep", shape[0] * shape[1], backend, shape=list(shape)))
-        for shape, backend in meshes]
+    outside the y bar (the ranks from ``start_moe_ep``)."""
+    t0, started = started
     for shape, backend, procs in started:
         ranks = _wait_ranks(procs)
         tag = f"[moe-ep] mesh (data {shape[0]}, model {shape[1]}) {backend}"
@@ -6908,8 +7675,8 @@ def phase_moe_ep(smi, meshes=MOE_EP_MESHES):
               + "; forward + backward s per rank "
               + ", ".join(f"{r['seconds']:.3f}" for r in ranks)
               + f" (apply_moe {ranks[0]['plain_seconds']:.3f}) on {smi}")
-    print(f"[moe-ep] {len(meshes)} meshes, "
-          f"{sum(a * b for (a, b), _ in meshes)} ranks: "
+    print(f"[moe-ep] {len(started)} meshes, "
+          f"{sum(a * b for (a, b), _, _ in started)} ranks: "
           f"{time.perf_counter() - t0:.1f} s with the ranks' start")
 
 
@@ -6959,7 +7726,18 @@ def main() -> int:
         walls[tag] = time.perf_counter() - t0
         return out
 
-    timed("build", phase_build)
+    build = timed("build", phase_build)
+    # the mesh's ranks (cell 1's paths with client_shards=2 over 2 ranks
+    # sharing the card; the expert-parallel MoE layer on 3 meshes) and the
+    # rest of the build run beside the resume phases, which time nothing
+    # on the device
+    mesh = start_mesh_round()
+    moe_ep = start_moe_ep()
+    timed("ckpt-resume", phase_ckpt_resume, dev, smi)
+    timed("engine-resume", phase_engine_resume, dev, smi)
+    mesh = timed("mesh-round", wait_mesh_round, mesh)
+    timed("moe-ep", phase_moe_ep, smi, moe_ep)
+    timed("build-rest", finish_build, build)
     k1 = timed("kernel", phase_kernel, dev)
     timed("parity", phase_parity, dev)
     k1_paths = {"hub vgg16": timed("round", phase_round, dev)}
@@ -6977,7 +7755,6 @@ def main() -> int:
     k1_paths.update(timed("scored-round", phase_scored_round, dev))
     k2_paths["hub vgg16 packed qint8 score_weighted"] = timed(
         "scored-packed", phase_scored_packed, dev)
-    timed("ckpt-resume", phase_ckpt_resume, dev, smi)
     k2_async, k2["dispatch_1client"] = timed("async-round",
                                              phase_async_round, dev, smi)
     k2_paths.update(k2_async)
@@ -6985,21 +7762,22 @@ def main() -> int:
     k1_chaos, k2_chaos = timed("chaos", phase_chaos, dev)
     k1_paths.update(k1_chaos)
     k2_paths.update(k2_chaos)
-    timed("engine-resume", phase_engine_resume, dev, smi)
-    # the mesh: cell 1's paths with client_shards=2 over 2 ranks sharing
-    # the card, and the expert-parallel MoE layer on 3 meshes
-    k1_mesh, k2_mesh = timed("mesh-round", phase_mesh_round, dev)
+    # the mesh's ranks against the single-process runs
+    k1_mesh, k2_mesh = check_mesh_round(mesh)
     k1_paths.update(k1_mesh)
     k2_paths.update(k2_mesh)
-    timed("moe-ep", phase_moe_ep, smi)
     k1["plans"] = timed("k1-plans", phase_k1_plans, dev, hier)
     del hier
     torch.cuda.empty_cache()
     k1_paths.update({"hierarchical vgg16 packed qint8": 0, "gossip vgg16": 0})
     k3 = timed("decode-kernel", phase_decode_kernel, dev)
     w, k3["launches"] = timed("serve", phase_serve, dev)
-    timed("serve-parity", phase_serve_parity, w)
-    del w                                 # free qwen3 before rwkv6's build
+    run = timed("serve-parity", phase_serve_parity, w)
+    # qwen3-1.7b in bf16 on [serve]'s weights cast (K3 bf16; K5 bf16 in
+    # the long prefill)
+    bf16_serve = {ZOO_ARCH: timed("serve-bf16", phase_serve_bf16, dev, smi,
+                                  w, run)}
+    del w, run                            # free qwen3 before rwkv6's build
     torch.cuda.empty_cache()
     fl_round = start_fl_round_dryrun()     # host only, runs alongside
     k5, k6, attn_zoo = timed("attention-kernels", phase_attention_kernels,
@@ -7008,6 +7786,8 @@ def main() -> int:
     k7 = timed("wkv-kernel", phase_wkv_kernel, dev)
     w, k7["launches"] = timed("serve-rwkv6", phase_serve_rwkv6, dev)
     timed("serve-rwkv6-parity", phase_serve_rwkv6_parity, w)
+    bf16_serve["rwkv6-3b"] = timed("serve-rwkv6-bf16",
+                                   phase_serve_rwkv6_bf16, dev, smi, w)
     del w
     _free_card("serve-rwkv6")
 
@@ -7018,6 +7798,7 @@ def main() -> int:
     k3_paths.update({f"serve hymba-1.5b {t}": c["K3"]
                      for t, (_, c, _, _) in hymba.items()})
     k5_serve = {"serve hymba-1.5b long prefill": hymba["long"][1]["K5"]}
+    k5_bf16_serve = {}
     del hymba, hymba_ran
     _free_card("serve-hymba")
     # granite-moe-1b-a400m served (K3 at a GQA group of 2; K5 in the long
@@ -7031,8 +7812,12 @@ def main() -> int:
     _free_card("serve-moe")
     # stablelm-3b served (K3 at head dim 80), then whisper-medium through
     # the static loop (K4 on every decode step, K5 in the encoder)
-    k3_paths[f"serve {STABLELM_ARCH}"] = timed(
+    k3_paths[f"serve {STABLELM_ARCH}"], w, run = timed(
         "serve-stablelm", phase_serve_stablelm, dev)
+    bf16_serve[STABLELM_ARCH] = timed("serve-stablelm-bf16",
+                                      phase_serve_stablelm_bf16, dev, smi, w,
+                                      run)
+    del w, run
     _free_card("serve-stablelm")
     whisper_serve = timed("serve-whisper", phase_serve_whisper, dev)
     k5_serve[f"serve {WHISPER_ARCH} encoder prefill"] = whisper_serve["K5"]
@@ -7051,12 +7836,40 @@ def main() -> int:
     # gemma3-12b at full width through the paged engine (K3 at head dim
     # 256 on full and ring pages; K5 windowed and global in the long
     # prefill)
-    gemma_serve, gemma_cases = timed("serve-gemma3", phase_serve_gemma3, dev)
+    gemma_serve, gemma_cases, gemma_long = timed(
+        "serve-gemma3", phase_serve_gemma3, dev)
     k3_paths[f"serve {GEMMA_ARCH}"] = gemma_serve["serving"][0]["K3"]
     k3_paths[f"serve {GEMMA_ARCH} long"] = gemma_serve["long"][0]["K3"]
     k5_serve[f"serve {GEMMA_ARCH} long prefill"] = \
         gemma_serve["long"][0]["K5"]
     k3["cases"].update(gemma_cases)
+    _free_card("serve-gemma3")
+    # gemma3-12b in bf16 on those weights cast (K3 bf16 at head dim 256,
+    # K5 bf16 windowed and global in the long prefill)
+    bf16_serve[GEMMA_ARCH] = timed("serve-gemma3-bf16",
+                                   phase_serve_gemma3_bf16, dev, smi,
+                                   gemma_long)
+    del gemma_long
+    # the bf16 serving paths: K3's, K5's and K7's bf16 instances in models
+    k7_paths = {"serve rwkv6-3b": k7["launches"]}
+    for arch, runs in bf16_serve.items():
+        for traffic, r in runs.items():
+            path = f"serve {arch} bf16" + (" long" if traffic == "long"
+                                           else "")
+            bars = {k: r["bars"][k] for k in ("kernel vs plain", "bar",
+                                              "fault vs plain", "rows")}
+            if "K3" in r:
+                k3_paths[path] = r["launches"]["K3"]
+                k3.setdefault("bf16_in_run", {})[path] = dict(r["K3"],
+                                                              bars=bars)
+            if "K7" in r:
+                k7_paths[path] = r["launches"]["K7"]
+                k7["bf16_in_run"] = {path: dict(r["K7"], bars=bars)}
+            if "K5" in r:
+                k5_serve[f"{path} prefill"] = r["launches"]["K5"]
+                k5_bf16_serve[f"{path} prefill in-run"] = r["K5"]
+    k7["launches"] = sum(k7_paths.values())
+    k7["launches_by_path"] = k7_paths
     _free_card("zoo")
     # the zoo: the round and the train step of the zoo LMs (K1, K2, K5, K6)
 
@@ -7109,7 +7922,7 @@ def main() -> int:
     k1_zoo_plans = timed("k1-zoo-plans", phase_k1_zoo_plans, dev, smi, {
         "hub hymba-1.5b": hymba_run, f"hub {WHISPER_ARCH}": whisper_run,
         f"hub {MOE_ARCH}": moe_run, f"hub {VLM_ARCH}": vlm_run})
-    groups = {"build": ("build",),
+    groups = {"build": ("build", "build-rest"),
               "paper (kernel .. k1-plans)": (
                   "kernel", "parity", "round", "round-repeat", "codec-kernel",
                   "packed-round", "codec-rounds", "paper-tasks",
@@ -7140,7 +7953,10 @@ def main() -> int:
               "gemma3-12b served, internvl2-26b in bf16, granite packed": (
                   "zoo-packed-moe", "serve-vlm-bf16", "serve-gemma3"),
               "dry run and analysis": ("dryrun", "analysis",
-                                       "dryrun-fl-round")}
+                                       "dryrun-fl-round"),
+              "bf16 serving (qwen3, rwkv6, stablelm, gemma3)": (
+                  "serve-bf16", "serve-rwkv6-bf16", "serve-stablelm-bf16",
+                  "serve-gemma3-bf16")}
     check(sorted(sum(groups.values(), ())) == sorted(walls),
           f"wall groups {sorted(sum(groups.values(), ()))} vs phases "
           f"{sorted(walls)}")
@@ -7244,6 +8060,7 @@ def main() -> int:
         vlm_serve["case"]
     k5["cases"][f"serve {VLM_ARCH} bf16 prefill B={VLM_BATCH} S={s_vlm}"] = \
         vlm_bf16["case"]
+    k5["cases"].update(k5_bf16_serve)
     # K4's main path is whisper's decode step; [decode-dense]'s direct
     # calls are listed beside it
     k4["launches"] = whisper_serve["K4"]

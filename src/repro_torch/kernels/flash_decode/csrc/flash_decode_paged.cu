@@ -509,15 +509,39 @@ int by_rep(const Params& p, int n_rep, int groups, cudaStream_t s) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The build compiles this file once per head dim, with FD_HEAD_DIM set
+// (kernels/_build.py SPLITS), so that its 120 kernels compile in
+// parallel; each library then holds one head dim's instances and
+// refuses the others.
+#ifndef FD_HEAD_DIM
+#error "flash_decode_paged.cu builds once per head dim: define FD_HEAD_DIM"
+#endif
+#define FD_HAS_HEAD_DIM(hd) (FD_HEAD_DIM == (hd))
+
 template <typename T>
 int by_head_dim(const Params& p, int hd, int n_rep, int groups,
                 cudaStream_t s) {
   switch (hd) {
-    case 32: return by_rep<T, 32>(p, n_rep, groups, s);
-    case 64: return by_rep<T, 64>(p, n_rep, groups, s);
-    case 80: return by_rep<T, 80>(p, n_rep, groups, s);   // stablelm-3b
-    case 128: return by_rep<T, 128>(p, n_rep, groups, s);
-    case 256: return by_rep<T, 256>(p, n_rep, groups, s);
+    case 32:
+      if constexpr (FD_HAS_HEAD_DIM(32))
+        return by_rep<T, 32>(p, n_rep, groups, s);
+      break;
+    case 64:
+      if constexpr (FD_HAS_HEAD_DIM(64))
+        return by_rep<T, 64>(p, n_rep, groups, s);
+      break;
+    case 80:                                             // stablelm-3b
+      if constexpr (FD_HAS_HEAD_DIM(80))
+        return by_rep<T, 80>(p, n_rep, groups, s);
+      break;
+    case 128:
+      if constexpr (FD_HAS_HEAD_DIM(128))
+        return by_rep<T, 128>(p, n_rep, groups, s);
+      break;
+    case 256:
+      if constexpr (FD_HAS_HEAD_DIM(256))
+        return by_rep<T, 256>(p, n_rep, groups, s);
+      break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

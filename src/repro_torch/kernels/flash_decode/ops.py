@@ -7,7 +7,8 @@ pools ``(P, ps, Hkv, hd)`` (one layer's view of the engine's pool),
 ``page_table (B, MP)`` int32, ``valid_len (B,)`` int32.  It checks
 device, dtype, shape, strides and alignment, launches the CUDA kernel
 (``csrc/flash_decode_paged.cu``) for CUDA tensors, counting each call
-that launches in ``paged_decode_attention.launches``, and runs the plain
+that launches in ``paged_decode_attention.launches`` (and by dtype in
+``DTYPE_LAUNCHES``), and runs the plain
 version (``ref.paged_decode_ref``) only for CPU tensors.  The kernel
 reads the pool in place through its strides: unlike the TPU wrapper,
 which copies the whole layer pool into ``(Hkv, P, ps, hd)`` on every
@@ -59,14 +60,18 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode_paged.cu"
 HEAD_DIMS = (32, 64, 80, 128, 256)     # 80: stablelm-3b
 N_REPS = (1, 2, 4, 5, 6, 8)     # GQA groups: 5 hymba-1.5b, qwen2.5-14b
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# launches by q's dtype, beside paged_decode_attention.launches (their sum)
+DTYPE_LAUNCHES = {dtype: 0 for dtype in _DTYPES}
 BLOCKS_PER_SM = 4       # the plan's aim were every sequence full length
 MIN_TILES = 2           # a split spans at least this many ring tiles
 SPLIT_BYTES = 1 << 20   # and at most this many bytes of K and V
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load(SOURCE)
+def _kernel(head_dim: int):
+    """The C entry point of the library that holds ``head_dim``'s
+    instances (the source builds once per head dim: ``_build.SPLITS``)."""
+    lib = _build.load(SOURCE, f"FD_HEAD_DIM={head_dim}")
     fn = lib.flash_decode_paged
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
         + [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
@@ -201,16 +206,18 @@ def _launch(name, q, k_pool, v_pool, page_table, valid_len, out, *, b, h,
                       device=q.device) if pl.n_splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                        page_table.data_ptr(), valid_len.data_ptr(),
-                        out.data_ptr(), ws.data_ptr() if ws is not None
-                        else None, _DTYPES[q.dtype], hd, h // hkv, b, hkv,
-                        mp, ps, pl.n_splits, pl.span, *q_s, *p_s, *o_s, *v_s,
-                        1.0 / math.sqrt(hd), stream)
+        err = _kernel(hd)(q.data_ptr(), k_pool.data_ptr(),
+                          v_pool.data_ptr(), page_table.data_ptr(),
+                          valid_len.data_ptr(), out.data_ptr(),
+                          ws.data_ptr() if ws is not None else None,
+                          _DTYPES[q.dtype], hd, h // hkv, b, hkv, mp, ps,
+                          pl.n_splits, pl.span, *q_s, *p_s, *o_s, *v_s,
+                          1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {err}")
     paged_decode_attention.launches += 1
+    DTYPE_LAUNCHES[q.dtype] += 1
     return out
 
 
@@ -360,3 +367,5 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def reset_launch_counts() -> None:
     paged_decode_attention.launches = 0
+    for dtype in DTYPE_LAUNCHES:
+        DTYPE_LAUNCHES[dtype] = 0

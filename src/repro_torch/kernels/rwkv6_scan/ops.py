@@ -7,7 +7,8 @@ ops``): r, k, log_decay ``(B, S, H, dk)``, v ``(B, S, H, dv)``, u
 ``(H, dk)``.  Both return ``o`` in r's dtype and the final state in
 float32.  Both check device, dtype, shape and strides, launch the CUDA
 kernel (``csrc/rwkv6_scan.cu``) for CUDA tensors, counting each call that
-launches in ``rwkv6_scan.launches``, and run the plain chunked version
+launches in ``rwkv6_scan.launches`` (and by dtype in ``DTYPE_LAUNCHES``),
+and run the plain chunked version
 (``ref.rwkv6_scan_chunked_ref``) only for CPU tensors.  The kernel reads
 both layouts through their strides: :func:`wkv` makes none of the
 reference wrapper's ``(B, S, H, .) -> (BH, S, .)`` transpose copies.
@@ -48,6 +49,8 @@ MAX_CHUNK = 32
 MAX_DK = 64
 COLS = 64               # dv columns a block owns
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# launches by r's dtype, beside rwkv6_scan.launches (their sum)
+DTYPE_LAUNCHES = {dtype: 0 for dtype in _DTYPES}
 MIN_ROW_BLOCKS = 2      # rows alone give this many blocks per SM: no split
 BLOCKS_PER_SM = 16      # what a split row aims at
 MIN_SEG_CHUNKS = 2      # chunks a segment holds at least
@@ -189,6 +192,7 @@ def _launch(name, r, k, v, log_decay, u, *, n_rows, n_heads, s, dk, dv,
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError {err}")
     rwkv6_scan.launches += 1
+    DTYPE_LAUNCHES[r.dtype] += 1
     return o, state
 
 
@@ -259,3 +263,5 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def reset_launch_counts() -> None:
     rwkv6_scan.launches = 0
+    for dtype in DTYPE_LAUNCHES:
+        DTYPE_LAUNCHES[dtype] = 0

@@ -106,6 +106,22 @@ def init_params(cfg, gen: torch.Generator, dtype=None) -> Tree:
     return sorted_tree(params)
 
 
+def decay_base_init(n_layers: int, n_heads: int, head_dim: int
+                    ) -> torch.Tensor:
+    """RWKV-6's own init of ``wkv/decay_base``, float32 on the CPU:
+    ``-6 + 5 (c / (C - 1)) ** (0.7 + 1.3 l / (L - 1))`` over channel c of
+    C and layer l of L, so that a token's decay runs from exp(-e^-6) to
+    exp(-e^-1).  :func:`init_params` draws zeros, as the reference does:
+    a decay near exp(-1) a token, under which no state carries across a
+    chunk of 16."""
+    c = torch.arange(n_heads * head_dim, dtype=torch.float64) \
+        / (n_heads * head_dim - 1)
+    ratio = torch.arange(n_layers, dtype=torch.float64)[:, None] \
+        / max(n_layers - 1, 1)
+    base = -6.0 + 5.0 * c[None] ** (0.7 + 1.3 * ratio)
+    return base.reshape(n_layers, n_heads, head_dim).float()
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------

@@ -25,9 +25,9 @@ sub-layers and macro blocks, and the decode steps run ``apply_moe`` over
 all B rows, idle slots included, as the reference does.  The ``vlm``
 family (internvl2-26b) projects its stub frontend's patch embeddings
 (``projector/w``, ``projector/b``) and puts them before the text tokens;
-its loss reads the text positions only, and its caches count the
-patches.  ``forward(moe_mesh=...)`` runs every MoE sub-layer through the
-expert-parallel ``moe.apply_moe_sharded`` over that device mesh.
+its loss runs the head on the text positions only, and its caches count
+the patches.  ``forward(moe_mesh=...)`` runs every MoE sub-layer through
+the expert-parallel ``moe.apply_moe_sharded`` over that device mesh.
 """
 from __future__ import annotations
 
@@ -224,9 +224,11 @@ def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
             attn_impl="chunked", q_chunk: int = 1024,
             build_cache: bool = False, cache_len: int = 0,
             remat: bool = False, last_only: bool = False,
-            unroll: bool = False, moe_mesh=None):
+            unroll: bool = False, moe_mesh=None, logits_from: int = 0):
     """tokens (B, S_text) [+ patches (B, n_patches, vit_width)] ->
-    (logits (B,S,V), aux_loss, cache_or_None), S = n_patches + S_text.
+    (logits (B,S,V), aux_loss, cache_or_None), S = n_patches + S_text;
+    with ``logits_from`` the logits of positions from it on only (the
+    head's rows are independent), as ``last_only`` gives the last.
 
     ``remat=True`` checkpoints each macro-block while autograd records
     (``torch.utils.checkpoint``, non-reentrant): its activations are
@@ -272,6 +274,8 @@ def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
         del kvs
     if last_only:
         x = x[:, -1:]
+    elif logits_from:
+        x = x[:, logits_from:]
     x = L.apply_norm(_group(params, "final_norm"), x)
     logits = L.logits_head(params, x, cfg.tie_embeddings)
     cache = None
@@ -284,12 +288,13 @@ def forward(cfg, params: Tree, tokens: torch.Tensor, *, patches=None,
 def loss_fn(cfg, params: Tree, batch, *, attn_impl="chunked",
             q_chunk: int = 1024, remat: bool = False, unroll: bool = False,
             moe_mesh=None):
+    # the loss reads the text positions only: a VLM's head runs on those
+    # (the reference slices the logits of every position; the same rows)
     logits, aux, _ = forward(cfg, params, batch["tokens"],
                              patches=batch.get("patches"),
                              attn_impl=attn_impl, q_chunk=q_chunk,
-                             remat=remat, unroll=unroll, moe_mesh=moe_mesh)
-    if cfg.n_patches:     # the loss reads the text positions only
-        logits = logits[:, cfg.n_patches:]
+                             remat=remat, unroll=unroll, moe_mesh=moe_mesh,
+                             logits_from=cfg.n_patches)
     loss = L.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
     return loss + aux, {"xent": loss, "aux": aux}
 

@@ -1,11 +1,13 @@
 """Where the time of a serving decode step goes on the GPU.
 
     PYTHONPATH=src python -m repro_torch.profile_serve [--arch ARCH]
-        [--traffic serving|long] [--out FILE]
+        [--traffic serving|long] [--dtype float32|bfloat16] [--out FILE]
 
 Builds the serving workload (``serve_workload.build``: qwen3-1.7b, or
 ``--arch`` such as rwkv6-3b, hymba-1.5b or granite-moe-1b-a400m, at full
-width in fp32, under
+width in ``--dtype``, the reference's ``param_dtype`` switch: fp32 by
+default; in bf16 the page pool is bf16 and K3, K5 and K7 run their bf16
+instances), under
 ``--traffic``: by default 8 slots, 16 requests of 128 prompt tokens;
 ``long``, 4 requests of 1,536; the ones ``chip_smoke.py`` drives) and,
 after a warm-up, runs it through ``DecodeEngine`` once without and once
@@ -16,7 +18,9 @@ profiler.  The full run's device time less the replay's, divided by the
 decode steps, gives per decode step: the device time, by kernel kind,
 and the kernel launches; the device's busy share is that device time
 over the host time of a decode step in the full run without the
-profiler.  The replay's device time, by kind, is the prefills'.  What
+profiler.  The replay's device time, by kind, is the prefills'.  The
+hand-written kernels' launch counters (K3 and K7 by dtype, K5/K6 by
+part and source) are read over the full run without the profiler.  What
 the replay leaves out (the prefill states' commits into the slot rows or
 pages, and host-side sampling) counts toward the decode steps.
 
@@ -41,6 +45,9 @@ import torch
 
 from . import serve_workload as sw
 from .configs.base import list_configs
+from .kernels.flash_attention import ops as aops
+from .kernels.flash_decode import ops as fops
+from .kernels.rwkv6_scan import ops as wops
 from .models import get_model
 from .profiling import device_kernels
 
@@ -53,7 +60,7 @@ def _kind(name: str) -> str:
     if "fwd_kernel" in name:         # the chunked prefill's attention
         return "flash_attention_fwd (K5)"
     if any(k in name for k in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
-                               "splitK", "dot_kernel")):
+                               "splitK", "dot_kernel", "nvjet")):
         return "matmul"
     if "Memcpy" in name or "Memset" in name:
         return "memcpy / memset"
@@ -113,11 +120,30 @@ def _replay(w, calls: list) -> None:
         torch.argmax(logits[:, -1], dim=-1)
 
 
-def profile(arch: str = sw.ARCH, traffic: str = "serving") -> dict:
-    w = sw.build("cuda", arch=arch, traffic=traffic)
+def _reset_counts() -> None:
+    for ops in (aops, fops, wops):
+        ops.reset_launch_counts()
+
+
+def _counts() -> dict:
+    """The hand-written kernels' launch counters: K3 and K7 by dtype,
+    K5/K6 by part and by source."""
+    return {"flash_decode_paged (K3)": {str(k)[6:]: v for k, v in
+                                        fops.DTYPE_LAUNCHES.items()},
+            "rwkv6_scan (K7)": {str(k)[6:]: v for k, v in
+                                wops.DTYPE_LAUNCHES.items()},
+            "flash_attention (K5/K6)": dict(aops.LAUNCHES),
+            "flash_attention by source": dict(aops.SOURCE_LAUNCHES)}
+
+
+def profile(arch: str = sw.ARCH, traffic: str = "serving",
+            dtype: str = "float32") -> dict:
+    w = sw.build("cuda", arch=arch, traffic=traffic, param_dtype=dtype)
     sw.engine(w, n_requests=2, gen=3).run()                 # warm-up
     calls: list = []
+    _reset_counts()
     full = _profiled(lambda: _serve(w, calls), False)
+    counts = _counts()
     pfull = _profiled(lambda: _serve(w, []), True)
     pre = _profiled(lambda: _replay(w, calls), False)
     ppre = _profiled(lambda: _replay(w, calls), True)
@@ -133,9 +159,10 @@ def profile(arch: str = sw.ARCH, traffic: str = "serving") -> dict:
         timeout=60, check=True).stdout.strip()
     return {
         "card": smi, "torch": torch.__version__,
-        "config": {"arch": arch, "traffic": traffic,
+        "config": {"arch": arch, "traffic": traffic, "dtype": dtype,
                    "page_size": sw.PAGE_SIZE, **w.traffic._asdict()},
         "decode_steps": steps,
+        "kernel_launches_full_run": counts,
         "prefill_calls": len(calls),
         "tokens_per_sec": stats["tokens_per_sec"],
         "decode_ms_per_step_host": stats["decode_ms_per_step"],
@@ -161,9 +188,12 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default=sw.ARCH, choices=list_configs())
     ap.add_argument("--traffic", default="serving",
                     choices=sorted(sw.TRAFFIC))
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the params' dtype (the config's param_dtype)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     a = ap.parse_args(argv)
-    text = json.dumps(profile(a.arch, a.traffic), indent=1)
+    text = json.dumps(profile(a.arch, a.traffic, a.dtype), indent=1)
     print(text)
     if a.out:
         with open(a.out, "w") as f:

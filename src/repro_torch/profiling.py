@@ -2,7 +2,8 @@
 
 ``device_kernels(prof)`` reads the profiler's raw events (its Python
 event tree takes minutes to build for a round of ~10^6 launches) and
-returns the device's kernels, memcpys and memsets in start order.  The
+returns the device's kernels, memcpys and memsets in start order, each
+with its device start on the profile's clock.  The
 profiler ranges of ``models/moe.py`` also appear on the device's
 timeline, spanning their kernels: they are not kernels and are left
 out.  ``profile_serve.py``, ``profile_round.py`` and ``chip_smoke.py``
@@ -27,6 +28,7 @@ class Kernel(NamedTuple):
     name: str
     us: float               # device time
     span: Optional[str]     # the moe.RANGES kind the launching op ran in
+    start_ns: int           # on the profile's clock, as its host events
 
 
 def device_kernels(prof) -> List[Kernel]:
@@ -52,7 +54,8 @@ def device_kernels(prof) -> List[Kernel]:
             i = bisect.bisect_right(starts, t) - 1
             if i >= 0 and t <= spans[i][1]:
                 span = spans[i][2]
-        out.append(Kernel(e.name(), e.duration_ns() / 1e3, span))
+        out.append(Kernel(e.name(), e.duration_ns() / 1e3, span,
+                          e.start_ns()))
     return out
 
 

@@ -19,7 +19,9 @@ scheduling point, as in the reference:
 
 A decode micro-run chains several steps device to device (the sampled
 token feeds the next step without leaving the card) and syncs with the
-host once at its end.
+host once at its end.  Logits rows kept for the host (``record_logits``,
+``static_generate(collect_logits=True)``, ``slotted_generate``) are
+float32 whatever the model's dtype: numpy has no bf16.
 
 Sampling at temperature > 0 is ``argmax(logits / T + g)`` with ``g`` a
 row of Gumbel noise for the (request, token index) — the formula of
@@ -87,7 +89,7 @@ class ServeConfig:
     seed: int = 0
     eos_id: int = -1             # -1 = disabled
     attn_impl: str = "reference"
-    record_logits: bool = False  # keep per-request logits rows (tests)
+    record_logits: bool = False  # keep per-request logits rows (float32)
 
 
 def _attn_kw(cfg, attn_impl: str) -> Dict[str, str]:
@@ -249,7 +251,8 @@ class DecodeEngine:
                 self.paged, cache, slots, self.tables.rows(slots),
                 self.serve.page_size)
             tok_np = tok.cpu().numpy()
-            row_np = row.cpu().numpy() if self.serve.record_logits else None
+            row_np = (row.float().cpu().numpy() if self.serve.record_logits
+                      else None)
             now = time.perf_counter()
             for i, (slot, req) in enumerate(group):
                 if req.resume_pending is not None:
@@ -309,7 +312,7 @@ class DecodeEngine:
             tok_d = tok[:, None]
             self.n_decode_steps += 1
         tok_np = torch.stack(toks).cpu().numpy()              # (k, n_slots)
-        row_np = torch.stack(rows).cpu().numpy() if rows else None
+        row_np = torch.stack(rows).float().cpu().numpy() if rows else None
         now = time.perf_counter()
         self.decode_seconds += now - t0
         for j in range(k):
@@ -406,7 +409,7 @@ def slotted_generate(cfg, params, prompts, gens, *, n_slots: int,
     preemption (the engine runs none on a slot-row state).
 
     Returns ``(tokens, rows)``: per request its generated tokens (int32)
-    and its logits rows, one (V,) array per token.
+    and its logits rows, one (V,) float32 array per token.
     """
     if cfg.family != "ssm":
         raise ValueError(f"slotted_generate: {cfg.family} family: its dense "
@@ -444,7 +447,7 @@ def slotted_generate(cfg, params, prompts, gens, *, n_slots: int,
                     x[:, idx] = pre[key].to(x.dtype)
             row = logits[:, -1]
             tok = sample_tokens(row, None, temperature=0.0).cpu().numpy()
-            row = row.cpu().numpy()
+            row = row.float().cpu().numpy()
             for j, s in enumerate(group):
                 if take(slots[s], tok[j], row[j]):
                     slots[s] = None
@@ -458,7 +461,7 @@ def slotted_generate(cfg, params, prompts, gens, *, n_slots: int,
                                           torch.as_tensor(last, device=dev))
         row = logits[:, -1]
         tok = sample_tokens(row, None, temperature=0.0).cpu().numpy()
-        row = row.cpu().numpy()
+        row = row.float().cpu().numpy()
         for s, i in enumerate(slots):
             if i is not None and take(i, tok[s], row[s]):
                 slots[s] = None

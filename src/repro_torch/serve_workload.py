@@ -12,8 +12,13 @@ sub-layers, d_model 1,600, 25 query heads over 5 KV heads of 64 beside
 ``granite-moe-1b-a400m`` (24 layers, d_model 1,024, 16 query heads over
 8 KV heads of 64, every layer's MLP a MoE of 32 experts of 512 with top
 8 at capacity factor 1.25, vocab 49,155 padded to 49,280, tied
-embeddings).  Weights are fp32 (the config's ``param_dtype``), random
-from ``seed``.
+embeddings).  Weights are random from ``seed``, in the dtype of the
+reference's switch ``param_dtype`` (fp32 by default; the KV page pool
+and rwkv6's slot rows follow it, rwkv6's WKV state stays fp32).
+:func:`cast` turns a built workload into its twin in another dtype, leaf
+by leaf, so that a model served in fp32 can be served again in bf16 on
+the same weights without holding both copies (the bf16 draw equals the
+fp32 draw cast).
 
 The traffic (``TRAFFIC``) is the continuous-batching ``DecodeEngine``
 over 16-token pages, greedy:
@@ -82,19 +87,33 @@ class Workload(NamedTuple):
     traffic: Traffic
 
 
+def _check_dtype(cfg: ArchConfig, params: dict) -> None:
+    want = getattr(torch, cfg.param_dtype)
+    wrong = [p for p, x in params.items() if x.dtype != want]
+    if wrong:
+        raise ValueError(f"{cfg.name} with param_dtype {cfg.param_dtype}: "
+                         f"params {wrong[:3]} are "
+                         f"{params[wrong[0]].dtype}")
+
+
 def build(device: Device = "cuda", *, arch: str = ARCH, seed: int = 0,
           traffic: str = "serving", params=None,
-          **serve_overrides) -> Workload:
-    """``arch``'s params on ``device`` (drawn there from ``seed``, or
-    ``params`` when given), prompts from a CPU generator seeded ``seed +
-    1``, and the engine's ``ServeConfig`` for ``TRAFFIC[traffic]``
-    (``serve_overrides`` replace its fields)."""
+          param_dtype: Optional[str] = None, **serve_overrides) -> Workload:
+    """``arch``'s params on ``device`` in ``param_dtype`` (by default the
+    config's own, fp32): drawn there from ``seed``, or ``params`` when
+    given, which must all be of that dtype (``ValueError`` otherwise);
+    prompts from a CPU generator seeded ``seed + 1``, and the engine's
+    ``ServeConfig`` for ``TRAFFIC[traffic]`` (``serve_overrides`` replace
+    its fields)."""
     dev = resolve_device(device)
     cfg = get_config(arch)
+    if param_dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=param_dtype)
     t = TRAFFIC[traffic]
     if params is None:
         params = get_model(cfg).init_params(
             torch.Generator(device=dev).manual_seed(seed))
+    _check_dtype(cfg, params)
     prompts = torch.randint(0, cfg.vocab, (t.n_requests, t.prompt_len),
                             generator=torch.Generator().manual_seed(seed + 1),
                             dtype=torch.int32).numpy()
@@ -104,6 +123,20 @@ def build(device: Device = "cuda", *, arch: str = ARCH, seed: int = 0,
                     page_size=PAGE_SIZE, attn_impl=t.attn_impl),
         **serve_overrides)
     return Workload(cfg, params, prompts, gens, serve, dev, t)
+
+
+def cast(w: Workload, param_dtype: str = "bfloat16") -> Workload:
+    """``w``'s twin with its params cast to ``param_dtype`` (and the
+    config's switch set to it): the same prompts, lengths and traffic.
+    The leaves move out of ``w.params`` one at a time, each cast and its
+    old copy freed before the next (``w.params`` is left empty), so the
+    card never holds more than the old copy and one cast leaf."""
+    dtype = getattr(torch, param_dtype)
+    params = {}
+    for p in list(w.params):
+        params[p] = w.params.pop(p).to(dtype)
+    return w._replace(cfg=dataclasses.replace(w.cfg, param_dtype=param_dtype),
+                      params=params)
 
 
 def engine(w: Workload, n_requests: Optional[int] = None, gen=None,

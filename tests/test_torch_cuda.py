@@ -5,6 +5,8 @@ file imports neither JAX nor the reference, so it also runs on a GPU
 machine that has no JAX:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -650,7 +652,7 @@ def test_decode_wrappers_do_not_sync(dev):
     kd3 = kd.permute(0, 2, 1, 3).reshape(4, 512, 64).contiguous()
     vd3 = vd.permute(0, 2, 1, 3).reshape(4, 512, 64).contiguous()
     qd3, vd3_len = qd[:, 0].reshape(8, 1, 64), vd_len.repeat_interleave(4)
-    fops._kernel()                       # the first load builds
+    fops._kernel(64)                     # the first load builds
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1935,3 +1937,134 @@ def test_fused_bf16_rounds_read_global_tiles_in_place_on_card(dev):
         assert torch.equal(first[p], keep[p]), p
     assert ops.LAUNCHES["masked_agg_f32"] == before["masked_agg_f32"]
     assert ops.LAUNCHES["masked_agg_bf16"] == before["masked_agg_bf16"] + 3
+
+
+# -- bf16 serving through the paged engine: K3's and K7's bf16 instances -----
+
+# (arch, head dim): K3 at a GQA group of 2 and head dim 128 (qwen3-1.7b),
+# at 256 on rings that wrap (gemma3-12b: prompts past its reduced window
+# of 64) and at 80 (stablelm-3b: 10 16-byte chunks on 16 lanes)
+SERVE_BF16 = [("qwen3-1.7b", 128, 24, 48), ("gemma3-12b", 256, 70, 96),
+              ("stablelm-3b", 80, 24, 48)]
+
+
+def _rows_rel(got, want):
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+
+
+@contextlib.contextmanager
+def _counted(mod, name, calls):
+    real = getattr(mod, name)
+
+    def fn(*a, **kw):
+        calls.append(name)
+        return real(*a, **kw)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+@pytest.mark.parametrize("arch,hd,prompt,max_len", SERVE_BF16)
+def test_serve_bf16_decode_step_k3_vs_plain(dev, arch, hd, prompt, max_len):
+    """One engine decode step of a reduced model in bf16 at ``hd``: with
+    K3 (its bf16 launches move by one a layer, the plain version never
+    runs) against the same step with the model's K3 call replaced by the
+    plain gather + attention in bf16, within 2 x the plain run's distance
+    from the fp32 engine on the same weights."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import paged_decode_ref
+    from repro_torch.models import get_model, transformer
+    from repro_torch.serve.engine import DecodeEngine, ServeConfig
+    cfg = get_config(arch).reduced().replace(head_dim=hd)
+    params = get_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (3, prompt))
+
+    def decode_rows(dtype, plain=False):
+        c = cfg.replace(param_dtype=str(dtype)[6:])
+        eng = DecodeEngine(c, {p: x.to(dtype) for p, x in params.items()},
+                           ServeConfig(n_slots=3, max_len=max_len,
+                                       record_logits=True), device=dev)
+        for p in prompts:
+            eng.submit(p, 2)            # the prefill's token, one step
+        real = transformer.paged_decode_attention
+        if plain:
+            transformer.paged_decode_attention = paged_decode_ref
+        try:
+            eng.run()
+        finally:
+            transformer.paged_decode_attention = real
+        assert eng.decode_cache_size == 1
+        return eng, torch.stack([torch.as_tensor(eng.logits_rows[i][1])
+                                 for i in range(len(prompts))])
+
+    fops.reset_launch_counts()
+    plain_calls = []
+    with _counted(fops, "paged_decode_ref", plain_calls):
+        eng, kernel = decode_rows(BF16)
+    assert fops.DTYPE_LAUNCHES == {torch.float32: 0, BF16: cfg.n_layers}
+    assert plain_calls == []
+    assert {eng.paged["pool/k"].dtype, eng.paged["pool/v"].dtype} == {BF16}
+    if arch == "gemma3-12b":
+        assert any(s.ring for s in eng.layout.subs)
+    fops.reset_launch_counts()
+    _, plain = decode_rows(BF16, plain=True)
+    assert fops.DTYPE_LAUNCHES[BF16] == 0
+    _, fp32 = decode_rows(torch.float32)
+    bar = 2.0 * _rows_rel(plain, fp32)
+    assert 0 < _rows_rel(kernel, plain) <= bar
+    assert _rows_rel(kernel, fp32) <= bar
+
+
+def test_serve_bf16_rwkv6_prefill_k7_vs_plain(dev):
+    """rwkv6's bf16 prefill (r, k, v bf16, the log-decay fp32) with K7
+    (its bf16 launches move by one a layer, no plain scan runs) against
+    the same prefill with the scan on ``chunked_linear_scan``, within 2 x
+    the plain run's distance from the fp32 prefill, the decay's base at
+    RWKV-6's init so that the state carries across chunks; the WKV state
+    stays fp32."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    from repro_torch.models import get_model, linear_scan, rwkv6
+    cfg = get_config("rwkv6-3b").reduced()
+    params = get_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    params["blocks/sub0/wkv/decay_base"].copy_(rwkv6.decay_base_init(
+        cfg.n_layers, cfg.n_heads, cfg.head_dim))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 96)), device=dev)
+
+    def prefill(dtype, plain=False):
+        c16 = cfg.replace(param_dtype=str(dtype)[6:])
+        p = {k: x.to(dtype) for k, x in params.items()}
+        real = rwkv6.wkv
+        if plain:
+            rwkv6.wkv = lambda r, k, v, ld, u, *, chunk: \
+                linear_scan.chunked_linear_scan(r, k, v, ld, decay_on="k",
+                                                bonus=u, chunk=chunk)
+        try:
+            with torch.no_grad():
+                logits, cache = get_model(c16).prefill(p, tokens)
+        finally:
+            rwkv6.wkv = real
+        return logits.float(), cache
+
+    wops.reset_launch_counts()
+    plain_calls = []
+    with _counted(wops, "rwkv6_scan_chunked_ref", plain_calls), \
+            _counted(rwkv6, "chunked_linear_scan", plain_calls):
+        kernel, cache = prefill(BF16)
+    assert wops.DTYPE_LAUNCHES == {torch.float32: 0, BF16: cfg.n_layers}
+    assert plain_calls == []
+    assert cache["subs/sub0/wkv"].dtype == torch.float32
+    assert cache["subs/sub0/x_tmix"].dtype == BF16
+    wops.reset_launch_counts()
+    plain, _ = prefill(BF16, plain=True)
+    assert wops.rwkv6_scan.launches == 0
+    fp32, _ = prefill(torch.float32)
+    bar = 2.0 * _rows_rel(plain, fp32)
+    assert 0 < _rows_rel(kernel, plain) <= bar
+    assert _rows_rel(kernel, fp32) <= bar

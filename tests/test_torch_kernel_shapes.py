@@ -89,6 +89,40 @@ def test_wrapper_constants_have_kernel_cases():
         assert _switch_cases(source, fn) == set(attn_ops.HEAD_DIMS), source
 
 
+def test_k3_builds_one_library_per_wrapper_head_dim():
+    """K3's source compiles once per head dim the wrapper takes, each case
+    of its dispatch gated by its own value; every other source once."""
+    from repro_torch.kernels import _build
+    assert _build.SPLITS[decode_ops.SOURCE.name] == ("FD_HEAD_DIM",
+                                                     decode_ops.HEAD_DIMS)
+    units = _build.units(_build.kernel_sources())
+    k3 = [d for src, d in units if src == decode_ops.SOURCE]
+    assert k3 == [f"FD_HEAD_DIM={hd}" for hd in decode_ops.HEAD_DIMS]
+    assert len(units) == len(_build.kernel_sources()) + len(k3) - 1
+    assert len({_build.library_path(*u) for u in units}) == len(units)
+    text = decode_ops.SOURCE.read_text()
+    for hd in decode_ops.HEAD_DIMS:
+        assert re.search(rf"case {hd}:[^\n]*\n\s*if constexpr "
+                         rf"\(FD_HAS_HEAD_DIM\({hd}\)\)", text), hd
+
+
+def test_split_source_builds_only_with_its_define():
+    """K3's source has no build without ``FD_HEAD_DIM``: the source stops
+    at ``#error`` and the loader refuses a missing or unlisted define; a
+    source that is not split refuses one."""
+    from repro_torch.kernels import _build
+    assert re.search(r"#ifndef FD_HEAD_DIM\s*\n#error",
+                     decode_ops.SOURCE.read_text())
+    for define in (None, "FD_HEAD_DIM=96", "OTHER=64"):
+        with pytest.raises(ValueError, match="FD_HEAD_DIM"):
+            _build.library_path(decode_ops.SOURCE, define)
+        with pytest.raises(ValueError, match="FD_HEAD_DIM"):
+            _build.load(decode_ops.SOURCE, define)
+    with pytest.raises(ValueError, match="no define"):
+        _build.library_path(attn_ops.SOURCES[torch.float32],
+                            "FD_HEAD_DIM=64")
+
+
 # ---------------------------------------------------------------------------
 # stablelm-3b at head dim 80 against the reference
 # ---------------------------------------------------------------------------
