@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It drives ``repro_torch`` only (no JAX,
-nothing of the ``repro`` package) in sixty-five phases, in the order
+nothing of the ``repro`` package) in sixty-eight phases, in the order
 below except that 17-20, then 22-28, then 56-57, then 21 run after 8,
-62 after 11, 63, then 34-35, then 40-41, then 45, 64 and 46, then 50,
-54, 55 and 65 after 16, 59-60 after 31, and 42, 53, 43-44, then 47-49,
-then 51-52 and 61 after 38 (39, then 58 last), and any failure exits
+62 after 11, 63, then 34-35 and 66, then 40-41, then 45, 64, 46 and 67,
+then 50, 54, 55 and 65 after 16, 59-60 after 31, and 42, 53, 43-44,
+then 47, 68 and 48-49, then 51-52 and 61 after 38 (39, then 58 last),
+and any failure exits
 non-zero.  Phases 56-57 start ranks of their own, as
 ``python3 chip_smoke.py --worker ...``, and wait for every one.
 Each phase's wall seconds are printed before the kernels line:
@@ -413,7 +414,7 @@ Each phase's wall seconds are printed before the kernels line:
 46. serve-whisper — whisper-medium at full width in fp32 (760,348,672
    params, random weights, ``frames`` (8, 1,500, 1,024) from the seed)
    through ``static_generate``: 8 sequences of 64 prompt tokens, each
-   generating 128 greedily (max_len 200); K5 24 launches (the encoder's
+   generating 64 greedily (max_len 200); K5 24 launches (the encoder's
    1,500 frames through the padded non-causal route), K4 48 a decode
    step (self and cross cache in 24 layers); tokens/s, ms a step, peak
    memory; then the same loop on the plain attention: logits within
@@ -592,6 +593,32 @@ Each phase's wall seconds are printed before the kernels line:
    GB), as 62 under ``TRAFFIC["long"]``: K3 bf16 48 x 63 at head dim
    256 on the global sub-layers' pages and the windowed ones' rings of
    1,024 that wrap, K5 bf16 48 (windowed and global) in the prefill.
+66. serve-hymba-bf16 — hymba-1.5b in bf16 on [serve-hymba]'s long run:
+   its rows recorded, then its weights cast leaf by leaf (2.95 GB), as
+   62 under ``TRAFFIC["long"]``: K3 bf16 32 x 63 at a GQA group of 5 (25
+   heads over 5 of 64) on the global sub-layers' pages and the windowed
+   ones' rings of 1,024 that wrap, K5 bf16 32 in the prefill; the conv
+   state bf16 and the SSM state fp32; K3's first checked call timed
+   alone beside its plain version and a gather + SDPA yardstick.
+67. serve-whisper-bf16 — whisper-medium in bf16 on [serve-whisper]'s
+   weights and frames cast (1.52 GB; the frames bf16, as the model takes
+   them): a greedy ``static_generate`` of 32 tokens (K5 bf16 24 in the
+   encoder's padded non-causal prefill, K4 bf16 48 a decode step, none of
+   fp32, no plain version), the caches bf16; the 8 sequences forced to
+   [serve-whisper]'s fp32 streams for 8 tokens on the kernels (profiled),
+   on the plain attention (the first decode step's 48 K4 calls, self and
+   cross, also held element by element to the plain version in fp32) and
+   with layer 0 leaving out K4's first ring stage of the self cache and
+   its first split of the cross cache: the bars of 62; K4 alone at the
+   self and cross caches
+   and K5 at the encoder's shape beside their plain versions and SDPA.
+68. zoo-round-whisper-bf16 — [zoo-round-whisper]'s setup in bf16
+   (760,348,672 params, the frames bf16) as 61: (d) the step bars, the
+   K6 bar by attention (encoder, decoder self, cross; the fault at the
+   encoder's layer 0), one counted round (K1 bf16 1, K5 bf16 480, K6
+   bf16 288 + 288, all on ``flash_attention_sm90.cu``), one profiled,
+   K1 bf16 alone at whisper's plan, the rebuild held bitwise on its
+   first round.
 
 It runs on one card: the first of ``CUDA_VISIBLE_DEVICES`` (card 0 if
 that is unset), and it hides the others.  Before the last line it prints
@@ -602,20 +629,23 @@ in ``launches_by_path``, K1's
 other plans in ``plans``, its ``bound_ms`` the live planes' bytes (the
 work this run's selections need) beside ``bound_all_planes_ms``, K2's single-client dispatch in
 ``dispatch_1client``; K3's those of the serving runs (10, 34, 40, 45,
-55, and in bf16 62, 64, 65, their in-run times in ``bf16_in_run``) and
-gemma3-12b's shapes in ``cases``;
-K4's those of whisper's decode steps (46), ``[decode-dense]``'s direct
+55, and in bf16 62, 64, 65, 66, their in-run times in ``bf16_in_run``)
+and gemma3-12b's shapes in ``cases``;
+K4's those of whisper's decode steps (46, and in bf16 67, its in-run
+time in ``bf16_in_run``), ``[decode-dense]``'s direct
 calls beside them and its cases in ``cases``; K5's and K6's launches
 those of the zoo's model paths (29-31, 36, 42, 47, 51, 53), the long
-prefills (34, 40, 55, and in bf16 62, 65), the bf16 round (61),
-whisper's encoder prefill (46) and internvl2-26b's prefills (50, 54),
+prefills (34, 40, 55, and in bf16 62, 65, 66), the bf16 rounds (61,
+68), whisper's encoder prefill (46, and in bf16 67) and internvl2-26b's
+prefills (50, 54),
 with ``[attention-kernels]``' direct calls listed
 beside them and the other shapes (head dim 80, whisper's
 non-causal, internvl2-26b's round and its prefill in fp32 and bf16) in
 ``cases``; the zoo call sites' numbers in ``zoo``; K7's those of
 rwkv6's prefills (15, and in bf16 63, its in-run time in
-``bf16_in_run``); K1's bf16 instance, whose main path is phase 61's
-round, as an eighth entry); the last line
+``bf16_in_run``); K1's bf16 instance, whose main paths are phases 61's
+and 68's rounds, as an eighth entry, whisper's plan in ``plans``); the
+last line
 is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2666,9 +2696,10 @@ STABLELM_ARCH = "stablelm-3b"
 STABLELM_PARAMS = 2_795_443_200  # by the config's dims (the meta-device init)
 WHISPER_ARCH = "whisper-medium"
 WHISPER_PARAMS = 760_348_672     # the reference's eval_shape at full width
-# [serve-whisper]: 8 sequences of 64 prompt tokens, each generating 128,
-# over self caches of 200 positions (under the decoder's 448)
-WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 8, 64, 128
+# [serve-whisper]: 8 sequences of 64 prompt tokens, each generating 64
+# (128 until the bf16 phases needed the smoke's time), over self caches
+# of 200 positions (under the decoder's 448)
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 8, 64, 64
 WHISPER_MAX_LEN = 200
 
 
@@ -2740,14 +2771,16 @@ def phase_serve_whisper(dev):
     """whisper-medium at full width in fp32 (random weights, ``frames``
     from the seed) through ``static_generate`` (the audio family's only
     serving loop, as in the reference): 8 sequences of 64 prompt tokens
-    each generating 128 greedily over self caches of 200 positions.  The
+    each generating 64 greedily over self caches of 200 positions.  The
     prefill encodes 1,500 frames on K5 (``attn_impl="chunked"``: 24
     launches through the padded non-causal route; the decoder's 64 rows
     take the plain attention), and every decode step runs K4 48 times
     (self and cross in 24 layers).  Then the same loop on the plain
     attention (the encoder's ``attend_reference``, ``decode_attend`` in
     the decode step): every logits row within LOGIT_TOL, tokens equal
-    barring near ties."""
+    barring near ties.  Returns the figures and, under ``"bf16_in"``,
+    the model, prompts, frames, tokens and rows that
+    ``[serve-whisper-bf16]`` casts and holds itself to."""
     from unittest import mock
     from repro_torch.common import param_count
     from repro_torch.configs.base import get_config
@@ -2857,9 +2890,11 @@ def phase_serve_whisper(dev):
           f"{LOGIT_TOL}); token streams equal"
           + (f" up to {len(diverged)} near-tie divergence(s)" if diverged
              else ""))
-    del params, frames
+    del out_p, rows_p
     return {"K4": k4, "K5": k5["fwd"], "tok_s": b * gen / wall,
-            "step_ms": step_ms, "peak": peak}
+            "step_ms": step_ms, "peak": peak,
+            "bf16_in": {"cfg": cfg, "params": params, "prompts": prompts,
+                        "frames": frames, "tokens": out, "rows": rows}}
 
 
 VLM_ARCH = "internvl2-26b"
@@ -3116,14 +3151,18 @@ def _attention_swap(kind, record=None, remat_layers=None):
         if layer == 0 and kind in ("fault", "check"):
             t = FAULT_TILE
             planted = o.clone()
+            late = dict(kw)
+            if late.get("kv_len") is not None:      # padded keys stay out
+                late["kv_len"] -= t
             planted[:, t:] = real(q[:, t:], k[:, t:], v[:, t:], causal,
-                                  window, *a, **kw)
+                                  window, *a, **late)
             if kind == "fault":
                 return planted
         if kind == "check":
             want = flash_attention_fwd_ref(q, k, v, causal=causal,
                                            window=window,
-                                           round_to=torch.bfloat16)[0]
+                                           round_to=torch.bfloat16,
+                                           kv_len=kw.get("kv_len"))[0]
             record.append((rounding_error_ratio(o, want),
                            None if planted is None else
                            rounding_error_ratio(planted, want)))
@@ -3514,16 +3553,19 @@ LSE_EMU_TOL = 1e-5
 ATTN_OUTS = ("o", "dq", "dk", "dv")
 
 
-def _attn_bound(name, b, s, h, hkv, hd, window, esz=4, peak=FP32_PEAK):
-    """Causal attention's fwd / bwd bounds at Sq = Sk = s: ``{part: (ms,
-    what bounds it, seconds by operations, seconds by bytes, operations,
-    bytes)}``, the work ``launch.roofline.attention_work`` counts (the
-    dry run's formula): each input read once and each output written
-    once."""
+def _attn_bound(name, b, s, h, hkv, hd, window, esz=4, peak=FP32_PEAK,
+                sk=None, causal=True):
+    """Causal attention's fwd / bwd bounds at Sq = Sk = s (or over ``sk``
+    keys, non-causal with ``causal=False``): ``{part: (ms, what bounds
+    it, seconds by operations, seconds by bytes, operations, bytes)}``,
+    the work ``launch.roofline.attention_work`` counts (the dry run's
+    formula) on the real, unpadded shapes: each input read once and each
+    output written once."""
     from repro_torch.launch.roofline import attention_work
     out = {}
-    for part, (ops_, nbytes) in attention_work(b, s, s, h, hkv, hd, True,
-                                               window, esz=esz).items():
+    for part, (ops_, nbytes) in attention_work(b, s, sk or s, h, hkv, hd,
+                                               causal, window,
+                                               esz=esz).items():
         by_ops, by_bytes = ops_ / peak, nbytes / memory_rate(name)
         out[part] = (max(by_ops, by_bytes) * 1e3,
                      "bytes" if by_bytes >= by_ops else "operations",
@@ -4065,12 +4107,13 @@ def phase_decode_dense(dev):
         ("S=1000", qwen, 4, 1000, 0, (1, 1000), 512, (torch.float32,)),
         # whisper's decode step (``[serve-whisper]``): the cross cache of
         # 1,500 frames, every position valid, and the self cache of
-        # max_len 200 at the serving run's steps, blk_k the cache's length
+        # max_len 200 at the steps of 128 generated tokens, blk_k the
+        # cache's length
         ("whisper cross", wh, WHISPER_BATCH, wh.enc_seq, 0,
          (wh.enc_seq, wh.enc_seq), wh.enc_seq, both),
         ("whisper self", wh, WHISPER_BATCH, WHISPER_MAX_LEN, 0,
-         (WHISPER_PROMPT + 1, WHISPER_PROMPT + WHISPER_GEN - 1),
-         WHISPER_MAX_LEN, (torch.float32,))]
+         (WHISPER_PROMPT + 1, WHISPER_PROMPT + 127), WHISPER_MAX_LEN,
+         (torch.float32,))]
     timed = ("decode_32k", "whisper cross", "whisper self")
     row, launches, rows = None, 0, {}
     for tag0, cfg, b, s, window, (lo, hi), blk, dtypes in cases:
@@ -4572,14 +4615,15 @@ def _by_range(prof):
 
 @contextlib.contextmanager
 def _plain_calls():
-    """Counts, by name, the calls of K3's, K5's and K7's plain versions
-    made while the block runs: where their wrappers run them (a CPU
-    tensor) and rwkv6's training scan."""
+    """Counts, by name, the calls of K3's, K4's, K5's and K7's plain
+    versions made while the block runs: where their wrappers run them (a
+    CPU tensor) and rwkv6's training scan."""
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.kernels.flash_decode import ops as fops
     from repro_torch.kernels.rwkv6_scan import ops as wops
     from repro_torch.models import rwkv6
-    sites = ((fops, "paged_decode_ref"), (aops, "flash_attention_fwd_ref"),
+    sites = ((fops, "paged_decode_ref"), (fops, "decode_attention_ref"),
+             (aops, "flash_attention_fwd_ref"),
              (wops, "rwkv6_scan_chunked_ref"), (rwkv6, "chunked_linear_scan"))
     calls = {name: 0 for _, name in sites}
     real = {name: getattr(mod, name) for mod, name in sites}
@@ -4600,10 +4644,10 @@ def _plain_calls():
 
 
 @contextlib.contextmanager
-def _serve_swap(kind, cfg, record=None):
+def _serve_swap(kind, cfg, record=None, keep=None):
     """The model's one kernel call site replaced for the block: K3's
-    (``transformer.paged_decode_attention``) or, on rwkv6, K7's
-    (``rwkv6.wkv``).  ``"plain"`` returns the kernel's plain version on
+    (``transformer.paged_decode_attention``, hymba's own
+    ``hymba.paged_decode_attention``) or, on rwkv6, K7's (``rwkv6.wkv``).  ``"plain"`` returns the kernel's plain version on
     the same bf16 tensors (K3: ``ref.paged_decode_ref``, the gather and
     the attention; K7: ``linear_scan.chunked_linear_scan``); with
     ``record`` it appends each call's work and, on its first
@@ -4615,10 +4659,11 @@ def _serve_swap(kind, cfg, record=None):
     too); None on the calls past them.  ``"fault"`` returns the kernel with
     layer 0's call wrong: K3 with the first page of every sequence left
     out, K7 with the carry between chunks dropped (every chunk scanned
-    from a zero state)."""
+    from a zero state).  With ``keep`` (a dict) the first checked K3
+    call's inputs are kept under ``"K3"``, for timing alone."""
     from repro_torch.kernels.flash_decode import ref as fref
     from repro_torch.kernels.rwkv6_scan import ref as wref
-    from repro_torch.models import rwkv6, transformer
+    from repro_torch.models import hymba, rwkv6, transformer
     from repro_torch.models.linear_scan import chunked_linear_scan
     n = [0]
     if cfg.family == "ssm":
@@ -4667,7 +4712,8 @@ def _serve_swap(kind, cfg, record=None):
                                if layer == 0 else None))
             return out
     else:
-        mod, name = transformer, "paged_decode_attention"
+        mod = hymba if cfg.family == "hybrid" else transformer
+        name = "paged_decode_attention"
         real = mod.paged_decode_attention
 
         def faulty(q, kp, vp, pt, valid):
@@ -4690,6 +4736,9 @@ def _serve_swap(kind, cfg, record=None):
             if record is not None and n[0] > CHECKED_LAYERS * cfg.n_layers:
                 record.append((*work, None, None))
             elif record is not None:
+                if keep is not None and "K3" not in keep:
+                    keep["K3"] = (q.clone(), kp, vp, pt.clone(),
+                                  valid.clone())
                 want = fref.paged_decode_ref(q.float(), kp.float(),
                                              vp.float(), pt, valid)
                 record.append((
@@ -4770,7 +4819,7 @@ def _k5_bound(cfg, b, s, name):
                for sub in block_layout(cfg)) * n_macro(cfg)
 
 
-def _bf16_serving(tag, w, traffic, fp32, smi, fp32_tag):
+def _bf16_serving(tag, w, traffic, fp32, smi, fp32_tag, time_k3=False):
     """One bf16 configuration under one traffic, on ``w`` (the bf16 twin
     of a workload served in fp32 under ``TRAFFIC[traffic]``: ``fp32`` is
     that engine run's tokens and logits rows by request, ``fp32_tag`` the
@@ -4781,7 +4830,8 @@ def _bf16_serving(tag, w, traffic, fp32, smi, fp32_tag):
     K5 bf16 once a layer a prefill call on ``flash_attention_sm90.cu`` on
     the long traffic, nothing of fp32, no plain version; its tokens/s,
     decode ms a step, TTFT, latency and peak memory.  (e4) bf16 params
-    and pools (bf16 mixes, fp32 WKV state), one decode signature.  (e1)
+    and pools (rwkv6: bf16 mixes, fp32 WKV state; hymba: bf16 conv
+    state, fp32 SSM state), one decode signature.  (e1)
     Three runs of the first ``n_slots`` requests (one admission group),
     each forced to the fp32 run's first FORCED_GEN tokens (``_forcing``;
     random weights part greedy streams at near ties within a few
@@ -4794,7 +4844,10 @@ def _bf16_serving(tag, w, traffic, fp32, smi, fp32_tag):
     run's distance from the fp32 rows, of the plain run and of the fp32
     rows; the fault outside.  The greedy run's streams equal the fp32
     run's up to each request's first near tie (``_near_tie_steps``), the
-    count printed.
+    count printed.  With ``time_k3``, K3's first checked call (layer 0,
+    the first decode step) is timed alone on its own inputs (device
+    medians, L2 flushed) beside its plain version and a gather + SDPA
+    yardstick.
     Returns the figures."""
     from repro_torch import serve_workload as sw
     from repro_torch.kernels.flash_attention import ops as aops
@@ -4853,6 +4906,11 @@ def _bf16_serving(tag, w, traffic, fp32, smi, fp32_tag):
     want_types = ({"state/sub0/x_tmix": bf16, "state/sub0/x_cmix": bf16,
                    "state/sub0/wkv": f32} if ssm else
                   {"pool/k": bf16, "pool/v": bf16})
+    if cfg.family == "hybrid":          # conv state bf16, SSM state fp32
+        from repro_torch.models.transformer import block_layout
+        for i in range(len(block_layout(cfg))):
+            want_types.update({f"state/sub{i}/conv": bf16,
+                               f"state/sub{i}/ssm": f32})
     check(types == want_types, f"{tag} engine state dtypes {types}")
     print(f"{tag} {st['n_requests']} requests of {t.prompt_len} prompt "
           f"tokens over {w.serve.n_slots} slots (max_len "
@@ -4880,6 +4938,7 @@ def _bf16_serving(tag, w, traffic, fp32, smi, fp32_tag):
     toks32 = {i: fp32[0][i][:FORCED_GEN] for i in range(n_req)}
     rows32 = {i: fp32[1][i][:FORCED_GEN] for i in range(n_req)}
     rows, record, kinds, f_steps, secs = {}, [], {}, 0, {}
+    keep = {} if time_k3 else None
     for kind in ("kernel", "plain", "fault"):
         eng = sw.engine(w, n_requests=n_req, gen=FORCED_GEN,
                         record_logits=True, temperature=1.0)
@@ -4893,7 +4952,7 @@ def _bf16_serving(tag, w, traffic, fp32, smi, fp32_tag):
                 torch.profiler.ProfilerActivity.CUDA])
         else:
             swap = _serve_swap(kind, cfg, record if kind == "plain"
-                               else None)
+                               else None, keep if kind == "plain" else None)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with swap, prof:
@@ -5018,6 +5077,29 @@ def _bf16_serving(tag, w, traffic, fp32, smi, fp32_tag):
               f"{ms * cfg.n_layers:.4f} ms a step of {cfg.n_layers}), bound "
               f"{bound:.4f} ms a call ({by}, the run's valid lengths), "
               f"kernel at {bound / max(ms, 1e-9):.1%} of it; on {smi}")
+        if keep:
+            from repro_torch.kernels.flash_decode.ref import paged_decode_ref
+            q, kp, vp, pt, valid = keep.pop("K3")
+            alone = {"ms": device_ms(lambda: fops.paged_decode_attention(
+                         q, kp, vp, pt, valid)),
+                     "plain_ms": device_ms(lambda: paged_decode_ref(
+                         q, kp, vp, pt, valid)),
+                     "library_ms": device_ms(lambda: _sdpa(q, kp, vp, pt,
+                                                           valid))}
+            one = _k3_bound([(valid.sum(), ((valid + kp.shape[1] - 1)
+                                            // kp.shape[1]).sum(),
+                              *q.shape[:1], q.shape[2], kp.shape[2],
+                              q.shape[3], q.element_size())], name,
+                            BF16_PEAK)
+            out["K3"].update(alone, call_bound_ms=one[0])
+            print(f"{tag} K3 bf16 alone on layer 0's first decode call's own "
+                  f"inputs ({len(valid)} sequences, valid "
+                  f"{valid.min().item()}-{valid.max().item()}): device median "
+                  f"ms (L2 flushed) kernel {alone['ms']:.4f}, plain "
+                  f"{alone['plain_ms']:.4f}, gather + SDPA "
+                  f"{alone['library_ms']:.4f}; bound {one[0]:.4f} ms (kernel "
+                  f"at {one[0] / alone['ms']:.1%}); on {smi}")
+            del q, kp, vp, pt, valid
         if want["K5"]:
             k5_ms = pre.get(k5_name, 0.0)
             k5_bound = _k5_bound(cfg, n_req, t.prompt_len, name)
@@ -5114,6 +5196,386 @@ def phase_serve_stablelm_bf16(dev, smi, w, parity_run):
     w16 = _bf16_twin(tag, w, STABLELM_PARAMS)
     return {"serving": _bf16_serving(f"{tag} serving", w16, "serving", fp32,
                                      smi, "[serve-stablelm]'s parity")}
+
+
+def phase_serve_hymba_bf16(dev, smi, runs, ran):
+    """hymba-1.5b in bf16 (configuration 42): ``[serve-hymba]``'s weights
+    cast leaf by leaf after its long run's rows were recorded, under
+    ``TRAFFIC["long"]`` only, through ``_bf16_serving``: K3 bf16 at a GQA
+    group of 5 (25 heads over 5 of 64) on the global sub-layers' pages and
+    the windowed ones' rings of 1,024 that wrap, K5 bf16 32 (windowed and
+    global) in the prefill; the SSM branch's conv state bf16, its SSM
+    state fp32; K3's first checked call timed alone."""
+    tag = "[serve-hymba-bf16]"
+    w = runs["long"][0]
+    fp32 = _engine_rows(*ran.pop("long"))
+    runs.clear()
+    w16 = _bf16_twin(tag, w, HYMBA_PARAMS)
+    del w
+    return {"long": _bf16_serving(f"{tag} long", w16, "long", fp32, smi,
+                                  "[serve-hymba] long", time_k3=True)}
+
+
+# [serve-whisper-bf16]'s greedy run: tokens a sequence (the fp32 run's 128,
+# cut for the smoke's time)
+WHISPER_BF16_GEN = 32
+
+
+@contextlib.contextmanager
+def _whisper_swap(kind, cfg, cuts, record=None, keep=None):
+    """whisper's K4 call site (``whisper._decode_attend``; a decode step
+    calls it self, cross, in each layer) replaced for the block.
+    ``"plain"`` returns K4's plain version (``ref.decode_attention_ref``)
+    on the same bf16 tensors; with ``record`` it appends each call's
+    work, and on the first decode step's calls also runs the kernel (and
+    at layer 0's cross-attention the planted fault) on the same inputs
+    and records how far each lies, element by element, from the plain
+    version in fp32 (``ref.bf16_error_ratio``); ``keep`` takes layer 0's
+    first self and cross inputs.  ``"fault"`` returns the kernel with
+    layer 0's two calls leaving out the first ``cuts`` = (self, cross)
+    positions of their caches (a key loop that starts late: K4's first
+    ring stage of the self cache, its first split of the cross cache)."""
+    from repro_torch.kernels.flash_decode import ref as fref
+    from repro_torch.models import whisper
+    real, n, per_step = whisper._decode_attend, [0], 2 * cfg.n_layers
+
+    def faulty(q, k, v, valid, cut):
+        return real(q, k[:, cut:], v[:, cut:], valid - cut)
+
+    def swapped(q, k, v, valid):
+        i = n[0]
+        n[0] += 1
+        layer0 = i % per_step < 2
+        cut = cuts[i % per_step] if layer0 else 0
+        if kind == "fault":
+            return faulty(q, k, v, valid, cut) if layer0 \
+                else real(q, k, v, valid)
+        out = fref.decode_attention_ref(q, k, v, valid, blk_k=k.shape[1])
+        if record is not None:
+            b, _, h, hd = q.shape
+            work = (valid.sum(), valid.new_tensor(b), b, h, k.shape[2], hd,
+                    q.element_size())
+            if i < per_step:
+                if keep is not None and i < 2:
+                    keep["cross" if i else "self"] = (q.clone(), k.clone(),
+                                                      v.clone(),
+                                                      valid.clone())
+                want = fref.decode_attention_ref(q.float(), k.float(),
+                                                 v.float(), valid,
+                                                 blk_k=k.shape[1])
+                record.append((*work, fref.bf16_error_ratio(
+                    real(q, k, v, valid), want), fref.bf16_error_ratio(
+                    faulty(q, k, v, valid, cut), want) if layer0 else None))
+            else:
+                record.append((*work, None, None))
+        return out
+
+    whisper._decode_attend = swapped
+    try:
+        yield n
+    finally:
+        whisper._decode_attend = real
+
+
+def phase_serve_whisper_bf16(dev, smi, fp32_run):
+    """whisper-medium in bf16 (configuration 43): ``[serve-whisper]``'s
+    weights and frames cast leaf by leaf (``param_dtype="bfloat16"``, the
+    reference's switch; the frames bf16, as the model takes them),
+    through ``static_generate`` (``fp32_run``: [serve-whisper]'s model,
+    prompts, frames, tokens and rows).  (e3) A greedy run of
+    WHISPER_BF16_GEN tokens, counters zeroed just before it: K5 bf16 24
+    in the encoder's prefill on ``flash_attention_sm90.cu`` (1,500 frames
+    padded to 1,536, ``kv_len``), K4 bf16 48 a decode step (self and
+    cross caches), nothing of fp32, no plain version; tokens/s, ms a
+    decode step, peak memory.  (e4) the params, the self and cross caches
+    bf16, the rows float32.  (e1) Three runs forced to the fp32 run's
+    first FORCED_GEN tokens (``_forcing``), rows recorded: the kernels
+    (profiled: device ms a decode step by kind, K4 ms a call and K5 ms a
+    launch beside their bounds), the plain attention (the encoder's
+    ``attend_reference``, K4's plain version in each decode step, the
+    first step's K4 calls also held element by element, the kernel's
+    output to the plain version in fp32), and (e2) the planted fault,
+    layer 0's first self-cache ring stage (64 tokens) and first
+    cross-cache split (320 of 1,500 frames) left out; every row compared
+    (the cross cut alone moves the rows less than bf16's own noise on
+    random frames, so the self cut carries the rows' bar and the cross
+    cut the element-wise one): the
+    kernels within BAR_FACTOR x the plain run's distance from the fp32
+    rows, of both; the fault outside; the greedy stream parts from the
+    fp32 one only at a near tie.  K4 alone (self and cross) and K5 alone
+    (the encoder's call) on the run's own shapes beside their plain
+    versions and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.common import param_count
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_ref
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    from repro_torch.models import get_model, whisper
+    from repro_torch.models.attention import FLASH_BLOCK
+    from repro_torch.serve.engine import static_generate
+
+    tag = "[serve-whisper-bf16]"
+    bf16, f32 = torch.bfloat16, torch.float32
+    name = torch.cuda.get_device_name(0)
+    cfg32, params, prompts, frames32, out32, rows32_t = (
+        fp32_run.pop(k) for k in ("cfg", "params", "prompts", "frames",
+                                  "tokens", "rows"))
+    cfg = cfg32.replace(param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    p16 = {}
+    for p in list(params):
+        p16[p] = params.pop(p).to(bf16)
+    frames = frames32.to(bf16)
+    del frames32
+    torch.cuda.synchronize()
+    n = param_count(p16)
+    check(n == WHISPER_PARAMS and all(x.dtype == bf16 for x in p16.values()),
+          f"{tag} the bf16 twin has {n} params, expected {WHISPER_PARAMS}")
+    print(f"{tag} {cfg.name} at full width in bf16 (param_dtype=\"bfloat16\""
+          f", the reference's switch): [serve-whisper]'s {n:,} params cast "
+          f"leaf by leaf on the card in {time.perf_counter() - t0:.2f} s "
+          f"({n * 2 / 1e9:.2f} GB), its frames {tuple(frames.shape)} cast "
+          f"to bf16 (the model takes the params' dtype; it never casts them)")
+    b, gen = WHISPER_BATCH, WHISPER_BF16_GEN
+
+    def run(attn_impl="chunked", k=b, steps=gen, forced=None):
+        kw = {} if forced is None else dict(temperature=1.0,
+                                            gumbel=_forcing(forced, dev))
+        toks, rows = static_generate(
+            cfg, p16, prompts[:k], steps, max_len=WHISPER_MAX_LEN,
+            attn_impl=attn_impl, collect_logits=True, device=dev,
+            extra={"frames": frames[:k]}, **kw)
+        return toks, {i: np.stack([r[i] for r in rows]) for i in range(k)}
+
+    run(k=2, steps=3)                                # warm-up, not measured
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for ops in (aops, fops):
+        ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _plain_calls() as plain:
+        toks, rows = run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    k4 = {str(k)[6:]: v for k, v in fops.DTYPE_LAUNCHES.items()}
+    k5 = dict(aops.SOURCE_LAUNCHES)
+    sm90 = aops.SOURCES[bf16].name
+    want = {"K4": 2 * cfg.n_layers * (gen - 1), "K5": cfg.n_enc_layers}
+    check(k4 == {"float32": 0, "bfloat16": want["K4"]},
+          f"{tag} K4 launches {k4}, predicted {want['K4']} bf16")
+    check(k5 == {aops.SOURCES[f32].name: 0, sm90: want["K5"]} and
+          aops.LAUNCHES == {"fwd": want["K5"], "dq": 0, "dkv": 0},
+          f"{tag} K5 launches {aops.LAUNCHES} by source {k5}, predicted "
+          f"{want['K5']} forward on {sm90}")
+    check(not any(plain.values()), f"{tag} plain versions ran: {plain}")
+    check(toks.shape == (b, gen) and all(
+        r.dtype == np.float32 and r.shape == (gen, cfg.padded_vocab) and
+        np.isfinite(r).all() for r in rows.values()),
+        f"{tag} tokens {toks.shape} or rows not finite float32")
+    model = get_model(cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.prefill(p16, torch.as_tensor(prompts, device=dev),
+                                 frames=frames, max_len=WHISPER_MAX_LEN,
+                                 attn_impl="chunked", last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    types = {p: str(x.dtype)[6:] for p, x in cache.items() if p != "step"}
+    check(set(types.values()) == {"bfloat16"} and len(types) == 4,
+          f"{tag} cache dtypes {types}")
+    del cache
+    step_ms = (wall - prefill_s) / (gen - 1) * 1e3
+    print(f"{tag} (e3) {b} sequences x {WHISPER_PROMPT} prompt tokens, {gen} "
+          f"generated each (max_len {WHISPER_MAX_LEN}), greedy: {b * gen} "
+          f"tokens in {wall:.3f} s: {b * gen / wall:.1f} tok/s; prefill "
+          f"(encoder + prompt) {prefill_s * 1e3:.1f} ms; decode {step_ms:.3f}"
+          f" ms per step (host) over {gen - 1} steps; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches: K4 {k4} (predicted "
+          f"{want['K4']} = 2 x {cfg.n_layers} layers x {gen - 1} decode "
+          f"steps in bf16), K5 by source {k5} (predicted {want['K5']} on "
+          f"{sm90}: the encoder's 1,500 frames padded to 1,536, kv_len "
+          f"1,500); plain versions {plain}; (e4) params bf16, caches "
+          + ", ".join(f"{p} {d}" for p, d in types.items())
+          + f", rows float32; on {smi}")
+
+    # (e1), (e2): every sequence forced to the fp32 run's first FORCED_GEN
+    # tokens; the kernels' run under the profiler
+    toks32 = {i: out32[i, :FORCED_GEN] for i in range(b)}
+    rows32 = {i: np.stack([r[i] for r in rows32_t[:FORCED_GEN]])
+              for i in range(b)}
+    # the fault's cuts: K4's first ring stage of the self cache (64 tokens
+    # in bf16), its first split of the cross cache (320 of 1,500)
+    pl = fops.plan(b, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, 1,
+                   cfg.enc_seq, cfg.head_dim, bf16, dev)
+    cuts = (pl.tile, pl.span)
+    f_rows, record, keep, secs = {}, [], {}, {}
+    real_prefill = whisper.prefill
+    for kind in ("kernel", "plain", "fault"):
+        swap, prof = contextlib.nullcontext(), contextlib.nullcontext()
+        if kind == "kernel":
+            whisper.prefill = _ranged(real_prefill, "serve/prefill")
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+        else:
+            swap = _whisper_swap(kind, cfg, cuts, record if kind == "plain"
+                                 else None, keep)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with swap, prof:
+                got, f_rows[kind] = run(
+                    "reference" if kind == "plain" else "chunked",
+                    steps=FORCED_GEN, forced=toks32)
+                torch.cuda.synchronize()
+        finally:
+            whisper.prefill = real_prefill
+        secs[kind] = time.perf_counter() - t0
+        check(all(np.array_equal(got[i], toks32[i]) for i in toks32),
+              f"{tag} the {kind} run did not follow the forced streams")
+        if kind == "kernel":
+            kinds = _by_range(prof)
+        del prof
+    dec, pre = kinds.get("decode", {}), kinds.get("prefill", {})
+    f_steps = FORCED_GEN - 1
+    step_dev = sum(v for k, v in dec.items() if k != "memcpy / memset") \
+        / f_steps
+    dist = {"kernel vs plain": _rows_dist(f_rows["kernel"], f_rows["plain"]),
+            "plain vs fp32": _rows_dist(f_rows["plain"], rows32),
+            "kernel vs fp32": _rows_dist(f_rows["kernel"], rows32),
+            "fault vs plain": _rows_dist(f_rows["fault"], f_rows["plain"])}
+    bar = BAR_FACTOR * dist["plain vs fp32"]
+    n_rows = sum(len(r) for r in rows32.values())
+    ratios = [r[-2] for r in record if r[-2] is not None]
+    planted = [r[-1] for r in record if r[-1] is not None]
+    near = _near_tie_steps(rows32, f_rows["plain"])
+    either = _near_tie_steps(rows32, f_rows["plain"], f_rows["kernel"])
+    parted = {}
+    for i, k in either.items():
+        other = np.flatnonzero(toks[i, :FORCED_GEN] != toks32[i])
+        parted[i] = int(other[0]) if len(other) else None
+        check(parted[i] is None or parted[i] >= k - 1, f"{tag} sequence {i}"
+              f": the greedy bf16 stream parts from the fp32 one at step "
+              f"{parted[i]}, before its first near tie at step {k - 1}")
+    print(f"{tag} (e1) the {b} sequences forced to [serve-whisper]'s fp32 "
+          f"streams, {FORCED_GEN} tokens each: {n_rows} logits rows, every "
+          f"step compared; largest ||x - y|| / ||y|| over rows: kernels vs "
+          f"plain {dist['kernel vs plain']:.4e}, kernels vs fp32 "
+          f"{dist['kernel vs fp32']:.4e}, plain vs fp32 "
+          f"{dist['plain vs fp32']:.4e}; bar {BAR_FACTOR:g} x the last = "
+          f"{bar:.4e}; (e2) planted fault (layer 0 leaves out the first "
+          f"{cuts[0]} self-cache positions, K4's first ring stage, and the "
+          f"first {cuts[1]} of {cfg.enc_seq:,} cross-cache positions, its "
+          f"first split) vs plain {dist['fault vs plain']:.4e} "
+          f"({dist['fault vs plain'] / bar:.1f}x the bar); the runs' seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    print(f"{tag} (e1) in the model, the plain run's first decode step's "
+          f"{len(ratios)} K4 calls (self and cross, every layer) of "
+          f"{len(record)}: the kernel on the same bf16 inputs against the "
+          f"plain version in fp32, element by element (ref.bf16_error_ratio,"
+          f" bar 1): largest {max(ratios):.4f}, median "
+          f"{float(np.median(ratios)):.4f}; (e2) the planted fault at layer "
+          f"0's self / cross call: "
+          + " / ".join(f"{x:.1f}" for x in planted))
+    print(f"{tag} (e1) greedy streams over those steps: up to each "
+          f"sequence's first near tie (fp32 top-2 gap below the largest "
+          f"|plain - fp32|) {sum(near.values())} of {n_rows} ({near}); the "
+          f"greedy bf16 stream parts from the fp32 one at steps {parted} "
+          f"(None: not within {FORCED_GEN}), each at or after its first near "
+          f"tie by the plain or the kernels' rows")
+    check(0 < dist["kernel vs plain"] <= bar and dist["kernel vs fp32"]
+          <= bar, f"{tag} (e1) the kernels' rows lie {dist} apart, outside "
+          f"{bar}")
+    check(len(ratios) == 2 * cfg.n_layers and max(ratios) <= 1.0,
+          f"{tag} (e1) {len(ratios)} K4 calls checked, the largest at "
+          f"{max(ratios)} of the element-wise bar")
+    check(dist["fault vs plain"] > bar and len(planted) == 2 and
+          min(planted) > 1.0, f"{tag} (e2) the planted fault passes a bar ("
+          f"{dist['fault vs plain']} <= {bar}, or element-wise {planted} "
+          f"<= 1)")
+    k4_calls = 2 * cfg.n_layers * f_steps
+    k4_ms = dec.get("flash_decode_paged (K3)", 0.0) / k4_calls
+    k4_bound, k4_by = _k3_bound(record, name, BF16_PEAK)
+    k5_ms = pre.get("flash_attention_fwd (K5)", 0.0) / cfg.n_enc_layers
+    k5_b = _attn_bound(name, b, cfg.enc_seq, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, 0, esz=2, peak=BF16_PEAK, causal=False)
+    print(f"{tag} device ms a decode step {step_dev:.4f} over the kernels' "
+          f"run's {f_steps} steps of {b} sequences (busy share "
+          f"{step_dev / step_ms:.1%} of the greedy run's host ms a step "
+          f"{step_ms:.3f}), by kind: " + ", ".join(
+              f"{k} {v / f_steps:.4f}" for k, v in
+              sorted(dec.items(), key=lambda x: -x[1]))
+          + "; prefill device ms by kind: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(pre.items(),
+                                                 key=lambda x: -x[1]))
+          + f"; K4 bf16 in the steps {k4_ms:.4f} ms a call ({k4_calls} "
+          f"calls; bound {k4_bound:.4f} ms a call, {k4_by}, kernel at "
+          f"{k4_bound / max(k4_ms, 1e-9):.1%}); K5 bf16 in the prefill "
+          f"{k5_ms:.4f} ms a launch (bound {k5_b['fwd'][0]:.4f} at 989 "
+          f"TFLOP/s on the real 1,500 x 1,500 pairs, at "
+          f"{k5_b['fwd'][0] / max(k5_ms, 1e-9):.1%}); on {smi}")
+    # K4 alone at layer 0's first self and cross calls, K5 alone at the
+    # encoder's call, each beside its plain version and SDPA
+    alone = {}
+    for which, (q, k, v, valid) in keep.items():
+        want_ = decode_attention_ref(q.float(), k.float(), v.float(), valid,
+                                     blk_k=k.shape[1])
+        lib = _sdpa_decode(q, k, v, valid)
+        check(_rel([lib], [want_]) <= 2e-2, f"{tag} the SDPA yardstick at "
+              f"the {which} cache lies {_rel([lib], [want_])} from the "
+              f"plain version")
+        one = _k3_bound([(valid.sum(), valid.new_tensor(b), b, cfg.n_heads,
+                          cfg.n_kv_heads, cfg.head_dim, 2)], name, BF16_PEAK)
+        alone[which] = {
+            "ms": device_ms(lambda: fops.decode_attention(
+                q, k, v, valid, blk_k=k.shape[1])),
+            "plain_ms": device_ms(lambda: decode_attention_ref(
+                q, k, v, valid, blk_k=k.shape[1])),
+            "library_ms": device_ms(lambda: _sdpa_decode(q, k, v, valid)),
+            "bound_ms": one[0], "bound_by": one[1],
+            "valid": [int(valid.min()), int(valid.max())]}
+    gen_ = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((b, cfg.enc_seq, cfg.n_heads, cfg.head_dim),
+                    generator=gen_, device=dev).to(bf16)
+    xp = F.pad(x, (0, 0, 0, 0, 0, -cfg.enc_seq % FLASH_BLOCK))
+
+    def sdpa():
+        t = x.transpose(1, 2)
+        return F.scaled_dot_product_attention(t, t, t).transpose(1, 2)
+
+    alone["encoder"] = {
+        "ms": device_ms(lambda: aops.attention_fwd(
+            xp, xp, xp, causal=False, kv_len=cfg.enc_seq), 10),
+        "plain_ms": device_ms(lambda: flash_attention_fwd_ref(
+            x, x, x, causal=False, round_to=bf16), 5, 1),
+        "library_ms": device_ms(sdpa, 10),
+        "bound_ms": k5_b["fwd"][0], "bound_by": k5_b["fwd"][1]}
+    print(f"{tag} alone, device median ms (L2 flushed), kernel / plain / "
+          f"SDPA (bound): " + "; ".join(
+              f"{w_} {a['ms']:.4f} / {a['plain_ms']:.4f} / "
+              f"{a['library_ms']:.4f} ({a['bound_ms']:.4f}, kernel at "
+              f"{a['bound_ms'] / a['ms']:.1%})" for w_, a in alone.items())
+          + f" (K4 at layer 0's first self and cross calls, masked SDPA; "
+          f"K5 at the encoder's shape, {b} x {cfg.enc_seq:,} non-causal, "
+          f"padded to 1,536 with kv_len, SDPA on the unpadded inputs); on "
+          f"{smi}")
+    del p16, frames, keep, x, xp
+    return {"K4": want["K4"], "K5": want["K5"], "tok_s": b * gen / wall,
+            "step_ms": step_ms, "step_device_ms": step_dev, "peak": peak,
+            "bars": dict(dist, bar=bar, rows=n_rows,
+                         element_ratio=max(ratios),
+                         planted_element_ratio=min(planted),
+                         near_tie_steps=sum(near.values())),
+            "K4_in_run": {"in_run_ms": k4_ms, "bound_ms": k4_bound,
+                          "bound_by": k4_by, "launches": want["K4"],
+                          "alone": {w_: alone[w_] for w_ in ("self",
+                                                             "cross")}},
+            "K5_in_run": {"in_run_ms": k5_ms, "bound_ms": k5_b["fwd"][0],
+                          "launches": want["K5"], "source": sm90,
+                          "alone": alone["encoder"]}}
 
 
 # -- the round engines (async, cohort, faults) on the VGG16 round --------------
@@ -5674,7 +6136,9 @@ def _zoo_fed(dev, cfg, s=None, clients=ZOO_CLIENTS, **fl_kw):
     """``Federation.from_config`` on a zoo config as the launcher wires it
     (``lm_batch`` data by ``iid_partition``; the audio family's
     ``frames`` and the vlm family's ``patches`` standard normals from the
-    seed, as ``launch/train.py`` draws them), with the pod step's loss
+    seed, as ``launch/train.py`` draws them; on bf16 params the frames
+    that draw rounded once to bf16, a CPU tensor the loader indexes, as
+    the model takes them), with the pod step's loss
     keywords (chunked attention, remat): one sequence of ``s`` text
     tokens (``train_4k``'s length unless given) per client and local
     step, ``clients`` clients."""
@@ -5691,6 +6155,8 @@ def _zoo_fed(dev, cfg, s=None, clients=ZOO_CLIENTS, **fl_kw):
     if cfg.family == "audio":
         data["frames"] = np.random.default_rng(0).normal(
             0, 1, (n, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        if cfg.param_dtype == "bfloat16":
+            data["frames"] = torch.from_numpy(data["frames"]).to(BF16)
     if cfg.family == "vlm":
         data["patches"] = np.random.default_rng(0).normal(
             0, 1, (n, cfg.n_patches, vit_width(cfg))).astype(np.float32)
@@ -6321,8 +6787,8 @@ def _zoo_round_arch(dev, smi, arch, n_params, s, tag, repeat=False,
         # the encoder's layers
         n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
         k5_kind = ["enc"] * n_enc + ["self", "cross"] * (2 * n_dec)
-        k6_kind = ["cross", "self"] * n_dec + ["enc"] * n_enc
-        for kind, ts, order in (("K5", fwd, k5_kind), ("K6", bwd, k6_kind)):
+        for kind, ts, order in (("K5", fwd, k5_kind),
+                                ("K6", bwd, _k6_kinds(cfg))):
             for where in ("enc", "self", "cross"):
                 sel_ = [t for i, t in enumerate(ts)
                         if order[i % len(order)] == where]
@@ -6533,6 +6999,9 @@ def phase_zoo_parity_vlm(dev):
 
 BF16 = torch.bfloat16
 BF16_CLIENTS = 4                  # launch/train.py's default cohort
+# [zoo-round-whisper-bf16]'s counted rounds, cut from 2 for the smoke's
+# time (a profiled round follows, and the rebuild holds the first)
+WHISPER_BF16_ROUNDS = 1
 # the torch.bmm yardstick in bf16 rounds its numerator, its quotient and
 # its sum (a bf16 step, 2^-8, of each's own size): it is held to the plain
 # version within 2^-6 of |out| + |update| at every element
@@ -6606,6 +7075,20 @@ def _grad_dist(got, want):
                for p, w in want.items())
 
 
+def _attn_calls(cfg):
+    """Attention calls in one forward: a layer's one, whisper's decoder
+    layer's two (causal self, cross over the frames) and its encoder
+    layers'."""
+    return (2 if cfg.family == "audio" else 1) * cfg.n_layers + \
+        cfg.n_enc_layers
+
+
+def _k6_kinds(cfg):
+    """Each K6 call's attention, in a whisper step's backward order: per
+    decoder layer, last first, cross and self, then the encoder's."""
+    return ["cross", "self"] * cfg.n_layers + ["enc"] * cfg.n_enc_layers
+
+
 def _bf16_step_bars(fed, cfg, tag):
     """(d): one local step at full width on the round's first client
     batch with the round's loss keywords, from the round's initial
@@ -6619,7 +7102,12 @@ def _bf16_step_bars(fed, cfg, tag):
     read at ``ops.attention_bwd``, the kernels' own autograd call; (d3)
     the planted fault, layer 0's key tile 0 left out of every later query
     tile (forward and remat recompute; for (d2) each layer's K6 launched
-    on the rows and keys from FAULT_TILE on), outside both bars."""
+    on the rows and keys from FAULT_TILE on), outside both bars.  On
+    whisper every attention call counts as a layer (``_attn_calls``):
+    layer 0 is the encoder's first, which has no remat recompute; a
+    padded non-causal call's ``kv_len`` moves with its keys; (d2)'s fault
+    must pass the bar in every output of a causal layer and in the
+    largest output of a non-causal one."""
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, rounding_error_ratio)
@@ -6630,7 +7118,7 @@ def _bf16_step_bars(fed, cfg, tag):
     first = fed.loader.client_batches(0, [0])
     batch = {k: torch.as_tensor(v[0, 0], device=fed.device)
              for k, v in first.items()}
-    params, n = fed.params, cfg.n_layers
+    params, n = fed.params, _attn_calls(cfg)
 
     def step(swap=None, **over):
         leaves = {p: x.detach().requires_grad_(True)
@@ -6651,10 +7139,13 @@ def _bf16_step_bars(fed, cfg, tag):
                                        window=window, round_to=BF16,
                                        kv_len=kv_len)
         t = FAULT_TILE
+        kv_t = None if kv_len is None else kv_len - t
         o_t, lse_t = aops.attention_fwd(q[:, t:], k[:, t:], v[:, t:],
-                                        causal=causal, window=window)
+                                        causal=causal, window=window,
+                                        kv_len=kv_t)
         late = real_bwd(q[:, t:], k[:, t:], v[:, t:], o_t, lse_t,
-                        do[:, t:].contiguous(), causal=causal, window=window)
+                        do[:, t:].contiguous(), causal=causal, window=window,
+                        kv_len=kv_t)
         planted = []
         for x, y in zip(out, late):
             x = x.clone()
@@ -6662,7 +7153,7 @@ def _bf16_step_bars(fed, cfg, tag):
             planted.append(x)
         record.append(([rounding_error_ratio(x, y) for x, y in zip(out, want)],
                        [rounding_error_ratio(x, y)
-                        for x, y in zip(planted, want)]))
+                        for x, y in zip(planted, want)], causal))
         del want, late, planted
         return out
 
@@ -6684,10 +7175,19 @@ def _bf16_step_bars(fed, cfg, tag):
     secs = time.perf_counter() - t0
     del plain
     bar = BAR_FACTOR * dist["fp32"]
-    ratios = np.array([r for r, _ in record])             # (layers, 3)
-    planted = np.array([p for _, p in record])
+    ratios = np.array([r for r, _, _ in record])          # (layers, 3)
+    planted = np.array([p for _, p, _ in record])
+    # the fault must show in each layer's K6 outputs: in all three on a
+    # causal layer; on a non-causal one (whisper's encoder and cross over
+    # 1,500 near-uniformly attended frames) the dK/dV rows that lose only
+    # the first 128 queries' share move less than the rounding bar, so
+    # there in the largest of the three
+    seen = np.where(np.array([c for _, _, c in record]), planted.min(1),
+                    planted.max(1))
     print(f"{tag} (d1) one local step at full width in bf16, the round's "
-          f"first client batch (1 x {TRAIN_S:,} tokens, loss keywords "
+          f"first client batch (1 x {TRAIN_S:,} tokens"
+          + (f" over {cfg.enc_seq:,} frames" if cfg.n_enc_layers else "")
+          + f", loss keywords "
           f"{kw}), from the round's initial params: loss on K5/K6 "
           f"{kern_loss:.6f}, on the plain attention {plain_loss:.6f}, with "
           f"the attention in fp32 {losses['fp32']:.6f}, planted fault "
@@ -6696,24 +7196,38 @@ def _bf16_step_bars(fed, cfg, tag):
           f"attention in fp32 {dist['fp32']:.4e}; bar {BAR_FACTOR:g} x the "
           f"latter = {bar:.4e}; planted fault {dist['fault']:.4e} "
           f"({dist['fault'] / bar:.1f}x the bar); 4 steps in {secs:.1f} s")
+    by_kind = ""
+    if cfg.family == "audio" and len(record) == n:
+        kinds = np.array(_k6_kinds(cfg))
+        by_kind = "; by attention, largest of dq / dk / dv: " + ", ".join(
+            f"{where} " + " / ".join(f"{x:.4f}" for x in
+                                     ratios[kinds == where].max(0))
+            for where in ("enc", "self", "cross")) + \
+            "; the planted fault's least dq / dk / dv: " + ", ".join(
+                f"{where} " + " / ".join(f"{x:.1f}" for x in
+                                         planted[kinds == where].min(0))
+                for where in ("enc", "self", "cross"))
     print(f"{tag} (d2) K6 in each of the {len(record)} layers' backward vs "
           f"the plain backward that rounds where it rounds "
           f"(ref.rounding_error_ratio, bar 1): largest dq "
           f"{ratios[:, 0].max():.4f}, "
           f"dk {ratios[:, 1].max():.4f}, dv {ratios[:, 2].max():.4f} (layer "
-          f"order of the backward: last first); the planted fault's "
-          f"outputs at the least {planted.min():.1f}")
+          f"order of the backward: last first){by_kind}; the planted "
+          f"fault's outputs at the least {planted.min():.1f}, each layer's "
+          f"(causal: its least output; non-causal: its largest) at the "
+          f"least {seen.min():.1f}")
     check(0 < dist["kernel"] <= bar, f"{tag} (d1) the K5/K6 step lies "
           f"{dist['kernel']} from the plain step, outside {bar}")
     check(dist["fault"] > bar, f"{tag} (d1) the planted fault passes the "
           f"bar ({dist['fault']} <= {bar})")
     check(len(record) == n and ratios.max() <= 1.0,
           f"{tag} (d2) {len(record)} K6 calls, ratios {ratios.max(0)}")
-    check(planted.min() > 1.0, f"{tag} (d2) a planted fault passes the bar "
-          f"({planted.min()})")
+    check(seen.min() > 1.0, f"{tag} (d2) a planted fault passes the bar in a "
+          f"layer ({seen.min()})")
     return {"d1": dict(dist, bar=bar, losses=dict(losses, plain=plain_loss)),
             "d2": {"largest": float(ratios.max()),
-                   "planted_least": float(planted.min())}}
+                   "planted_least": float(planted.min()),
+                   "planted_seen_least": float(seen.min())}}
 
 
 def _k1_bf16_alone(k1_in, plan, smi, tag):
@@ -6807,14 +7321,111 @@ def _k1_bf16_alone(k1_in, plan, smi, tag):
             "C": c}
 
 
+def _whisper_attn_split(cfg, events, run, name):
+    """A whisper round's profiled K5 launches and K6 calls by attention
+    (encoder, decoder self, cross; as [zoo-round-whisper] splits its fp32
+    round) into ``run["K5 enc"]`` ...: in-run ms, launches and the bf16
+    bound at 989 TFLOP/s on the real (unpadded) shapes; and, after the
+    round's launches are counted, each
+    kernel alone on random bf16 inputs of that shape (padded as the
+    model pads them; device medians, L2 flushed) beside one SDPA call's
+    forward or backward (cuDNN's, on the unpadded inputs); returns the
+    text printed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.models.attention import FLASH_BLOCK
+    n_enc, n_dec, h, hd = (cfg.n_enc_layers, cfg.n_layers, cfg.n_heads,
+                           cfg.head_dim)
+    shapes = {"enc": (cfg.enc_seq, cfg.enc_seq, False),
+              "self": (TRAIN_S, TRAIN_S, True),
+              "cross": (TRAIN_S, cfg.enc_seq, False)}
+    fwd = [t for nm, t in events if "fwd_kernel" in nm]
+    bwd = [a + b for a, b in zip([t for nm, t in events if "dq_kernel" in nm],
+                                 [t for nm, t in events
+                                  if "dkv_kernel" in nm])]
+    k5_kind = ["enc"] * n_enc + ["self", "cross"] * (2 * n_dec)
+    for kind, ts, order, part in (("K5", fwd, k5_kind, "fwd"),
+                                  ("K6", bwd, _k6_kinds(cfg), "bwd")):
+        for where, (sq, sk, causal) in shapes.items():
+            sel_ = [t for i, t in enumerate(ts)
+                    if order[i % len(order)] == where]
+            bnd = _attn_bound(name, 1, sq, h, h, hd, 0, esz=2,
+                              peak=BF16_PEAK, sk=sk, causal=causal)
+            run[f"{kind} {where}"] = {
+                "in_run_ms": float(np.mean(sel_)) / 1e3,
+                "launches": len(sel_), "bound_ms": bnd[part][0],
+                "bound_by": bnd[part][1]}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for where, (sq, sk, causal) in shapes.items():
+        q, g = (torch.randn(1, sq, h, hd, generator=gen, device="cuda")
+                .to(BF16) for _ in range(2))
+        k, v = (torch.randn(1, sk, h, hd, generator=gen, device="cuda")
+                .to(BF16) for _ in range(2))
+        pad = [F.pad(x, (0, 0, 0, 0, 0, -x.shape[1] % FLASH_BLOCK))
+               for x in (q, k, v, g)]
+        kw = dict(causal=causal, kv_len=None if causal else sk)
+        o, lse = aops.attention_fwd(*pad[:3], **kw)
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_o = F.scaled_dot_product_attention(
+            qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
+            is_causal=causal)
+        gt = g.transpose(1, 2)
+        run[f"K5 {where}"].update(
+            ms=device_ms(lambda: aops.attention_fwd(*pad[:3], **kw), 10),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal), 10))
+        run[f"K6 {where}"].update(
+            ms=device_ms(lambda: aops.attention_bwd(
+                *pad[:3], o, lse, pad[3], **kw), 10),
+            library_ms=device_ms(lambda: torch.autograd.grad(
+                lib_o, (qs, ks, vs), gt, retain_graph=True), 10))
+        del q, k, v, g, pad, o, lse, qs, ks, vs, lib_o, gt
+    return ("; by attention, a launch (K5) / call (K6) in-run beside its "
+            "bound at 989 TFLOP/s, then alone and one SDPA call (bf16, "
+            "cuDNN) on random inputs of its shape: " + ", ".join(
+                f"{kind} {where} {r['in_run_ms']:.4f} (bound "
+                f"{r['bound_ms']:.4f}, at {r['bound_ms'] / r['in_run_ms']:.1%};"
+                f" alone {r['ms']:.4f}, SDPA {r['library_ms']:.4f})"
+                for kind in ("K5", "K6") for where in shapes
+                for r in (run[f"{kind} {where}"],))
+            + f" (encoder {cfg.enc_seq:,} frames non-causal, decoder self "
+            f"causal at {TRAIN_S:,}, cross {TRAIN_S:,} over "
+            f"{cfg.enc_seq:,} frames)")
+
+
 def phase_zoo_round_bf16(dev, smi, fp32_round):
-    """qwen3-1.7b at full width in bf16 (``param_dtype="bfloat16"``, the
-    reference's switch; 1,720,574,976 params, 3.44 GB, drawn on the card
-    from a seed), ``Federation.from_config`` as [zoo-round] with
-    BF16_CLIENTS (4, the launcher's default) clients: (d) the step bars
-    (``_bf16_step_bars``) from the initial params; then 2 rounds counted:
-    (a) launches K1 2 (``masked_agg_bf16``, none of
-    ``masked_agg_f32``), K5 896, K6 448 + 448, every K5/K6 launch on
+    """qwen3-1.7b at full width in bf16 (cell 37) as ``_zoo_round_bf16``,
+    with BF16_CLIENTS (4, the launcher's default) clients over 2 counted
+    rounds: K1 2, K5 896, K6 448 + 448."""
+    return _zoo_round_bf16(dev, smi, fp32_round, "[zoo-round-bf16]",
+                           ZOO_ARCH, ZOO_PARAMS, BF16_CLIENTS, ZOO_ROUNDS,
+                           "[zoo-round]")
+
+
+def phase_zoo_round_whisper_bf16(dev, smi, fp32_round):
+    """whisper-medium at full width in bf16 (configuration 44):
+    ``[zoo-round-whisper]``'s setup (2 clients, 4,096 decoder tokens over
+    1,500 frames, the frames bf16) as ``_zoo_round_bf16``, one counted
+    round and one profiled (cut for the smoke's time), the rebuild held
+    bitwise on its first: K1 bf16 1, K5 bf16 480, K6 bf16 288 + 288 a
+    round, every K5/K6 launch on ``flash_attention_sm90.cu`` (the
+    encoder's and the cross-attention's padded non-causal calls, the
+    decoder's causal ones); (d2) K6 by attention."""
+    return _zoo_round_bf16(dev, smi, fp32_round, "[zoo-round-whisper-bf16]",
+                           WHISPER_ARCH, WHISPER_PARAMS, ZOO_CLIENTS,
+                           WHISPER_BF16_ROUNDS, "[zoo-round-whisper]")
+
+
+def _zoo_round_bf16(dev, smi, fp32_round, tag, arch, n_params, c, rounds,
+                    fp32_tag):
+    """``arch`` at full width in bf16 (``param_dtype="bfloat16"``, the
+    reference's switch; drawn on the card from a seed),
+    ``Federation.from_config`` as [zoo-round] with ``c`` clients: (d) the
+    step bars (``_bf16_step_bars``) from the initial params; then
+    ``rounds`` rounds counted: (a) launches K1 one a round
+    (``masked_agg_bf16``, none of ``masked_agg_f32``), K5 and K6 as
+    ``_zoo_launches`` predicts, every K5/K6 launch on
     ``flash_attention_sm90.cu``; (b) every param bf16 after each round,
     frozen (client, unit row) deltas exactly zero, the bill Table 4's, the
     client planes and global tiles bf16, the global read in place from
@@ -6824,27 +7435,27 @@ def phase_zoo_round_bf16(dev, smi, fp32_round):
     on that round's own planes (``_k1_bf16_alone``); (e) each round's
     seconds, the peak memory of the counted rounds, the profiled round's
     busy share, cuBLAS's share, its kernels with the most device time and
-    K1's, K5's and K6's in-run ms beside their bounds, set beside
-    [zoo-round]'s fp32 figures (``fp32_round``: its counts, profiled run,
-    peak and counted rounds' seconds at ZOO_CLIENTS clients)."""
+    K1's, K5's and K6's in-run ms beside their bounds (on whisper by
+    attention: encoder, decoder self, cross), set beside ``fp32_tag``'s
+    fp32 figures (``fp32_round``: its counts, profiled run, peak and
+    counted rounds' seconds at ZOO_CLIENTS clients)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.comm import table4_row
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.kernels.masked_agg import ops as kops
     from repro_torch.kernels.masked_agg.ref import k1_bytes
 
-    tag = "[zoo-round-bf16]"
-    cfg = get_config(ZOO_ARCH).replace(param_dtype="bfloat16")
-    c, name = BF16_CLIENTS, torch.cuda.get_device_name(0)
+    cfg = get_config(arch).replace(param_dtype="bfloat16")
+    name = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
     fed = _zoo_fed(dev, cfg, clients=c)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n = sum(x.numel() for x in fed.params.values())
-    check(n == ZOO_PARAMS and all(x.dtype == BF16 and x.device == dev
-                                  for x in fed.params.values()),
-          f"{tag} {n} params, expected {ZOO_PARAMS} bf16 on the card")
-    n_units = cfg.n_layers + 2
+    check(n == n_params and all(x.dtype == BF16 and x.device == dev
+                                for x in fed.params.values()),
+          f"{tag} {n} params, expected {n_params} bf16 on the card")
+    n_units = cfg.n_layers + cfg.n_enc_layers + 2
     check(fed.assign.n_units == n_units and
           fed.fl.resolve_n_train(n_units) == n_units // 2 and
           fed.fl.resolve_fused_agg(fed.device),
@@ -6859,7 +7470,7 @@ def phase_zoo_round_bf16(dev, smi, fp32_round):
     _zoo_reset()
     secs = []
     with _K1Tap() as tap:
-        for r in range(ZOO_ROUNDS):
+        for r in range(rounds):
             t0 = time.perf_counter()
             fed.fit(1)
             torch.cuda.synchronize()
@@ -6885,20 +7496,20 @@ def phase_zoo_round_bf16(dev, smi, fp32_round):
     parse_s = time.perf_counter() - t0
     hist = fed.history
     check(all(math.isfinite(r.loss) for r in hist), f"{tag} non-finite loss")
-    want = _zoo_launches(cfg, ZOO_ROUNDS * c * ZOO_STEPS)
+    want = dict(_zoo_launches(cfg, rounds * c * ZOO_STEPS), K1=rounds)
     check(counts == want, f"{tag} launches {counts}, predicted {want}")
     sm90 = aops.SOURCES[BF16].name
     attn = want["K5"] + want["K6 dq"] + want["K6 dkv"]
     check(by_source == {aops.SOURCES[torch.float32].name: 0, sm90: attn},
           f"{tag} K5/K6 launches by source {by_source}: all {attn} must run "
           f"on {sm90}")
-    check(by_entry == {"masked_agg_f32": 0, "masked_agg_bf16": ZOO_ROUNDS},
+    check(by_entry == {"masked_agg_f32": 0, "masked_agg_bf16": rounds},
           f"{tag} K1 launches by entry point {by_entry}")
-    check(bf16_hook.rounds == ZOO_ROUNDS + 1,
+    check(bf16_hook.rounds == rounds + 1,
           f"{tag} {bf16_hook.rounds} rounds")
     check(tap.calls == [{"in_place": r > 0, "global_dtype": BF16,
                          "planes_dtype": BF16}
-                        for r in range(ZOO_ROUNDS + 1)],
+                        for r in range(rounds + 1)],
           f"{tag} aggregates {tap.calls}: bf16 tiles and planes, the global "
           f"read in place from round 2 on")
     check(frozen.checked > 0 and frozen.moved > 0,
@@ -6913,10 +7524,10 @@ def phase_zoo_round_bf16(dev, smi, fp32_round):
     run["wall_ms"] = secs[-1] * 1e3
     run["busy_share"] = run["busy_ms"] / run["wall_ms"]
     # the same round's work unprofiled: the second counted round's wall
-    run["busy_share_unprofiled"] = run["busy_ms"] / (secs[1] * 1e3)
+    run["busy_share_unprofiled"] = run["busy_ms"] / (secs[rounds - 1] * 1e3)
     profiled = {k: run[k]["launches"] for k in ZOO_KERNELS}
-    half = {"K1": 1, "K2": 0, "K5": want["K5"] // 2,
-            "K6": (want["K6 dq"] + want["K6 dkv"]) // 2}
+    half = {"K1": 1, "K2": 0, "K5": want["K5"] // rounds,
+            "K6": (want["K6 dq"] + want["K6 dkv"]) // rounds}
     check(profiled == half and again_counts == {
               "K1": 1, "K2": 0, "K5": half["K5"], "K6 dq": half["K6"] // 2,
               "K6 dkv": half["K6"] // 2},
@@ -6934,15 +7545,21 @@ def phase_zoo_round_bf16(dev, smi, fp32_round):
                          cfg.head_dim, 0, esz=2, peak=BF16_PEAK)
     for kind, part in (("K5", "fwd"), ("K6", "bwd")):
         run[kind]["bound_ms"], run[kind]["bound_by"] = attn_b[part][:2]
+    split = ""
+    if cfg.family == "audio":
+        split = _whisper_attn_split(cfg, events, run, name)
     for r, sec in zip(hist, secs):
         print(f"{tag} round {r.round}: loss {r.loss:.4f} {sec:.3f} s wall "
               f"({r.seconds:.3f} s in the server) uplink "
               f"{r.uplink_bytes:.0f} B"
-              + (" (profiled)" if r.round == ZOO_ROUNDS else ""))
+              + (" (profiled)" if r.round == rounds else ""))
     print(f"{tag} {cfg.name} full width in bf16 ({n:,} params, "
           f"{n * 2 / 1e9:.2f} GB, {n_units} units, {n_units // 2} trained a "
           f"client), {c} clients x {ZOO_STEPS} local steps of 1 x "
-          f"{TRAIN_S:,} tokens, Adam lr {ZOO_LR}: built in {build_s:.2f} s; "
+          f"{TRAIN_S:,} tokens"
+          + (f" over {cfg.enc_seq:,} bf16 frames" if cfg.n_enc_layers
+             else "")
+          + f", Adam lr {ZOO_LR}: built in {build_s:.2f} s; "
           f"launches {counts} == predicted, K5/K6 by source {by_source}, K1 "
           f"by entry point {by_entry}; every param bf16 after each round; "
           f"client planes and global tiles bf16, the global read in place "
@@ -6953,7 +7570,7 @@ def phase_zoo_round_bf16(dev, smi, fp32_round):
     f_counts, f_run, f_peak, f_secs = fp32_round
     print(f"{tag} (e) profiled round: wall {secs[-1]:.3f} s, device busy "
           f"{run['busy_ms']:.1f} ms ({run['busy_share']:.1%}; "
-          f"{run['busy_share_unprofiled']:.1%} of round {ZOO_ROUNDS - 1}'s "
+          f"{run['busy_share_unprofiled']:.1%} of round {rounds - 1}'s "
           f"unprofiled wall), cuBLAS "
           f"{run['gemm_ms']:.1f} ms ({run['gemm_ms'] / run['busy_ms']:.1%} "
           f"of busy), {len(events):,} device kernels (parsed in "
@@ -6970,8 +7587,8 @@ def phase_zoo_round_bf16(dev, smi, fp32_round):
           f"{run['K5']['total_ms']:.1f} ms in all), K6 {run['K6']['ms']:.4f} ms a call (bound "
           f"{attn_b['bwd'][0]:.4f}, at "
           f"{attn_b['bwd'][0] / run['K6']['ms']:.1%}; "
-          f"{run['K6']['total_ms']:.1f} ms in all).  Beside [zoo-round] "
-          f"in fp32 ({ZOO_CLIENTS} clients): round s "
+          f"{run['K6']['total_ms']:.1f} ms in all){split}.  Beside "
+          f"{fp32_tag} in fp32 ({ZOO_CLIENTS} clients): round s "
           + ", ".join(f"{x:.3f}" for x in f_secs)
           + f" against {', '.join(f'{x:.3f}' for x in secs[:-1])} here; "
           f"peak "
@@ -6979,8 +7596,10 @@ def phase_zoo_round_bf16(dev, smi, fp32_round):
           f"{f_run['busy_share']:.1%}, gemm {f_run['gemm_ms']:.1f} of "
           f"{f_run['busy_ms']:.1f} ms; K1 {f_run['K1']['ms']:.4f} ms, K5 "
           f"{f_run['K5']['ms']:.4f} ms a launch, K6 {f_run['K6']['ms']:.4f} "
-          f"ms a call; the clients differ ({c} against {ZOO_CLIENTS}: "
-          f"{c / ZOO_CLIENTS:g}x the local steps a round)")
+          f"ms a call"
+          + (f"; the clients differ ({c} against {ZOO_CLIENTS}: "
+             f"{c / ZOO_CLIENTS:g}x the local steps a round)"
+             if c != ZOO_CLIENTS else ""))
     k1_in, tap.last = tap.last, None
     losses = [r.loss for r in hist]
     del fed, frozen, events, tap
@@ -7799,6 +8418,10 @@ def main() -> int:
                      for t, (_, c, _, _) in hymba.items()})
     k5_serve = {"serve hymba-1.5b long prefill": hymba["long"][1]["K5"]}
     k5_bf16_serve = {}
+    # hymba-1.5b in bf16 on those weights cast (K3 bf16 at a GQA group of
+    # 5 on pages and wrapped rings, K5 bf16 in the long prefill)
+    bf16_serve[HYMBA_ARCH] = timed("serve-hymba-bf16", phase_serve_hymba_bf16,
+                                   dev, smi, hymba, hymba_ran)
     del hymba, hymba_ran
     _free_card("serve-hymba")
     # granite-moe-1b-a400m served (K3 at a GQA group of 2; K5 in the long
@@ -7821,6 +8444,14 @@ def main() -> int:
     _free_card("serve-stablelm")
     whisper_serve = timed("serve-whisper", phase_serve_whisper, dev)
     k5_serve[f"serve {WHISPER_ARCH} encoder prefill"] = whisper_serve["K5"]
+    # whisper-medium in bf16 on those weights and frames cast (K4 bf16 in
+    # every decode step, K5 bf16 in the encoder)
+    whisper_bf16 = timed("serve-whisper-bf16", phase_serve_whisper_bf16, dev,
+                         smi, whisper_serve.pop("bf16_in"))
+    k5_serve[f"serve {WHISPER_ARCH} bf16 encoder prefill"] = \
+        whisper_bf16["K5"]
+    k5_bf16_serve[f"serve {WHISPER_ARCH} bf16 encoder prefill in-run"] = \
+        whisper_bf16["K5_in_run"]
     _free_card("serve-whisper")
     # internvl2-26b cut to 12 layers in fp32 through the static loop (K5 in
     # the prefill over 1,024 patches and 128 prompt tokens), then whole in
@@ -7903,8 +8534,13 @@ def main() -> int:
     # whisper-medium's round (K1; K5/K6 on the encoder and the decoder's
     # self- and cross-attention) and the 2-layer parities at head dim 64
     # (whisper, the padded non-causal route) and 80 (stablelm-3b)
-    whisper_counts, whisper_run, _, _ = timed(
+    whisper_counts, whisper_run, whisper_peak, whisper_secs = timed(
         "zoo-round-whisper", phase_zoo_round_whisper, dev, smi)
+    # the same round in bf16 (K1 bf16, K5/K6 bf16 on the padded non-causal
+    # route and the causal one, the step bars)
+    wbf16_counts, wbf16_run, k1_wbf16, wbf16_bars, _, _ = timed(
+        "zoo-round-whisper-bf16", phase_zoo_round_whisper_bf16, dev, smi,
+        (whisper_counts, whisper_run, whisper_peak, whisper_secs))
     timed("zoo-parity-whisper", phase_zoo_parity_whisper, dev)
     timed("zoo-parity-stablelm", phase_zoo_parity_stablelm, dev)
     # internvl2-26b's round cut to 2 layers (K1; K5/K6 over 1,024 patches
@@ -7956,7 +8592,10 @@ def main() -> int:
                                        "dryrun-fl-round"),
               "bf16 serving (qwen3, rwkv6, stablelm, gemma3)": (
                   "serve-bf16", "serve-rwkv6-bf16", "serve-stablelm-bf16",
-                  "serve-gemma3-bf16")}
+                  "serve-gemma3-bf16"),
+              "hymba-1.5b and whisper-medium in bf16": (
+                  "serve-hymba-bf16", "serve-whisper-bf16",
+                  "zoo-round-whisper-bf16")}
     check(sorted(sum(groups.values(), ())) == sorted(walls),
           f"wall groups {sorted(sum(groups.values(), ()))} vs phases "
           f"{sorted(walls)}")
@@ -8019,7 +8658,8 @@ def main() -> int:
                  (f"hub {MOE_ARCH} packed qint8", pmoe_counts),
                  (f"hub {WHISPER_ARCH}", whisper_counts),
                  (f"hub {VLM_ARCH}", vlm_counts),
-                 ("hub qwen3-1.7b bf16", bf16_counts))
+                 ("hub qwen3-1.7b bf16", bf16_counts),
+                 (f"hub {WHISPER_ARCH} bf16", wbf16_counts))
     for k, keys in ((k5, ("K5",)), (k6, ("K6 dq", "K6 dkv"))):
         paths = {p: sum(c[x] for x in keys) for p, c in zoo_paths}
         if k is k5:
@@ -8041,7 +8681,14 @@ def main() -> int:
                          bf16_counts["K6 dq"] + bf16_counts["K6 dkv"]),
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_sm90.cu"}
-    k6["bf16_step_bars"] = bf16_bars
+    for kind in ("K5", "K6"):
+        zoo[kind][f"hub {WHISPER_ARCH} bf16 B=1 S={TRAIN_S} in-run"] = dict(
+            {where: wbf16_run[f"{kind} {where}"]
+             for where in ("enc", "self", "cross")},
+            source="src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_sm90.cu")
+    k6["bf16_step_bars"] = {"hub qwen3-1.7b bf16": bf16_bars,
+                            f"hub {WHISPER_ARCH} bf16": wbf16_bars}
     k1["zoo"], k2["zoo"], k5["zoo"], k6["zoo"] = (
         zoo["K1"], zoo["K2"], zoo["K5"], zoo["K6"])
     # K1's bf16 instance: its main path is the bf16 round's aggregate
@@ -8049,9 +8696,14 @@ def main() -> int:
         name="masked_agg (bf16)", route="cuda",
         source="src/repro_torch/kernels/masked_agg/csrc/masked_agg.cu",
         replaces="src/repro/kernels/masked_agg/kernel.py:41",
-        entry_point="masked_agg_bf16", launches=bf16_counts["K1"],
-        launches_by_path={"hub qwen3-1.7b bf16": bf16_counts["K1"]},
+        entry_point="masked_agg_bf16",
+        launches=bf16_counts["K1"] + wbf16_counts["K1"],
+        launches_by_path={"hub qwen3-1.7b bf16": bf16_counts["K1"],
+                          f"hub {WHISPER_ARCH} bf16": wbf16_counts["K1"]},
         bound_by="bytes")
+    k1_wbf16.update(in_run_ms=wbf16_run["K1"]["ms"],
+                    in_run_bound_ms=wbf16_run["K1"]["bound_ms"])
+    k1_bf16["plans"] = {f"hub {WHISPER_ARCH} bf16": k1_wbf16}
     # K5 at internvl2-26b's serving prefill: (8, 1,152, 48 over 8, 128),
     # fp32 on the SIMT source and bf16 on the tensor-core one
     s_vlm = 1024 + VLM_PROMPT
@@ -8063,10 +8715,15 @@ def main() -> int:
     k5["cases"].update(k5_bf16_serve)
     # K4's main path is whisper's decode step; [decode-dense]'s direct
     # calls are listed beside it
-    k4["launches"] = whisper_serve["K4"]
+    k4["launches"] = whisper_serve["K4"] + whisper_bf16["K4"]
     k4["launches_by_path"] = {
         f"serve {WHISPER_ARCH}": whisper_serve["K4"],
+        f"serve {WHISPER_ARCH} bf16": whisper_bf16["K4"],
         "decode-dense (direct calls)": k4.pop("direct_launches")}
+    k4["bf16_in_run"] = {f"serve {WHISPER_ARCH} bf16": dict(
+        whisper_bf16["K4_in_run"],
+        bars={k: whisper_bf16["bars"][k] for k in (
+            "kernel vs plain", "bar", "fault vs plain", "rows")})}
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s of wall in all, "
           f"the build included")
     print(smi)

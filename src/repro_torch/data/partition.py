@@ -1,13 +1,17 @@
 """Client data partitioning (IID and Dirichlet Non-IID) + round loaders.
 
 Pure numpy, copied from ``repro.data.partition`` so both packages build
-the same shards and round batches (held array-equal in the tests).
+the same shards and round batches (held array-equal in the tests).  A
+client's leaf may also be a CPU tensor, for a dtype numpy lacks (a bf16
+whisper's frames): its batches are drawn by the same indices and
+stacked as tensors.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
 
 
 def iid_partition(n: int, n_clients: int, *, key: int = 0) -> List[np.ndarray]:
@@ -91,5 +95,6 @@ class FederatedLoader:
             per_client.append({k: v[idx].reshape(
                 (self.steps, self.batch_size) + v.shape[1:])
                 for k, v in data.items()})
-        return {k: np.stack([pc[k] for pc in per_client])
-                for k in per_client[0]}
+        return {k: (torch.stack if isinstance(pc0, torch.Tensor)
+                    else np.stack)([pc[k] for pc in per_client])
+                for k, pc0 in per_client[0].items()}

@@ -18,7 +18,12 @@
 // scale, masked to the finite -1e30 where (causal && j > i) or (window >
 // 0 && j <= i - window); o_i = softmax_j(s_ij) v_j, lse_i = m_i +
 // log(max(l_i, 1e-30)); p_ij = allowed ? exp(s_ij - lse_i) : 0, delta_i =
-// o_i . do_i (one PyTorch reduction), ds_ij = p_ij (do_i . v_j - delta_i)
+// o_i . do_i (one PyTorch reduction; on a non-causal call on o in fp32
+// before its bf16 rounding, which the forward then keeps: the rounded o
+// breaks sum_j ds_ij = 0 by do . (its rounding), which a component
+// common to every key turns into an error of dq; over whisper's 1,500
+// near-uniformly attended frames that was 4x the error of attention in
+// fp32), ds_ij = p_ij (do_i . v_j - delta_i)
 // * scale, dq_i = sum_j ds_ij k_j, dk_j and dv_j summed over the GQA
 // group.  q, k, v, dO and the outputs are bf16, lse and delta fp32.  The
 // products take bf16 operands and accumulate in fp32; P (forward, dQ,
@@ -100,6 +105,8 @@ struct Params {
   const float* delta;         // rowsum(o * dO) (backward)
   __nv_bfloat16* out0;        // o (forward), dQ, or dK
   __nv_bfloat16* out1;        // dV
+  float* o32;                 // the forward's o in fp32, before its bf16
+                              // rounding (the out1 slot; null: not kept)
   int batch, heads, kv_heads, n_rep, sq, sk, causal, window;
   int sk_rows;                // K/V rows; keys at or past sk (kv_len) masked
   int64_t st[8][3];           // element strides, as flash_attention.cu
@@ -361,6 +368,26 @@ __device__ __forceinline__ void store_rows(const float (&d)[HD / 2],
   }
 }
 
+// the same rows in fp32, unrounded (float2 stores)
+template <int HD, int D>
+__device__ __forceinline__ void store_rows_f32(const float (&d)[HD / 2],
+                                               float* base,
+                                               int64_t row_stride, int row0,
+                                               int n, float mul0, float mul1) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    const float mul = r ? mul1 : mul0;
+    float* dst = base + row * row_stride + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(
+          d[4 * j + 2 * r] * mul, d[4 * j + 2 * r + 1] * mul);
+  }
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -500,6 +527,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   store_rows<HD, D>(o, p.out0 + b * p.st[kOut0][0] + h * p.st[kOut0][2],
                  p.st[kOut0][1], row, p.sq, inv[0], inv[1]);
+  if (p.o32)   // for the backward's delta: rowsum(o * dO) before rounding
+    store_rows_f32<HD, D>(o, p.o32 + b * p.st[kOut1][0] + h * p.st[kOut1][2],
+                          p.st[kOut1][1], row, p.sq, inv[0], inv[1]);
   if ((lane & 3) == 0) {
     float* lb = p.lse + b * p.st[kLse][0] + h * p.st[kLse][1];
 #pragma unroll
@@ -903,8 +933,10 @@ int launch(int which, const Params& p, const void* const* ptrs,
 }  // namespace
 
 // The entry point of flash_attention.cu's shape, for bf16 only (dtype 1):
-// which 0 = forward (out0 = o, and lse), 1 = dQ (out0 = dq), 2 = dK/dV
-// (out0 = dk, out1 = dv, one per KV head); ptrs q, k, v, dO, lse, delta,
+// which 0 = forward (out0 = o, and lse; out1, when not null, o in fp32
+// before its bf16 rounding, for the backward's delta), 1 = dQ (out0 =
+// dq), 2 = dK/dV (out0 = dk, out1 = dv, one per KV head); ptrs q, k, v,
+// dO, lse, delta,
 // out0, out1; dims batch, heads, kv_heads, sq, sk, head_dim, causal,
 // window, kv_len (1 <= kv_len <= sk: keys at or past it are masked and
 // their dK/dV rows are zero); head_dim in {32, 64, 80, 128, 256} (80 on
@@ -924,6 +956,8 @@ extern "C" int flash_attention(int which, const void* const* ptrs,
   p.delta = static_cast<const float*>(ptrs[kDelta]);
   p.out0 = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[kOut0]));
   p.out1 = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[kOut1]));
+  p.o32 = which == 0 ? static_cast<float*>(const_cast<void*>(ptrs[kOut1]))
+                     : nullptr;
   p.batch = static_cast<int>(dims[0]);
   p.heads = static_cast<int>(dims[1]);
   p.kv_heads = static_cast<int>(dims[2]);

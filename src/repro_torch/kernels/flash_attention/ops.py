@@ -6,7 +6,15 @@
 ``Hkv`` (query head ``h`` reads KV head ``h // (H // Hkv)``).  It is a
 ``torch.autograd.Function``: the forward launches K5 and saves q, k, v,
 o and the per-row logsumexp; the backward launches K6's dQ and dK/dV
-kernels, the latter summing each GQA group itself.  It is
+kernels, the latter summing each GQA group itself.  On a non-causal call
+on bf16 CUDA tensors the forward also keeps o in fp32 before its
+rounding (``attention_fwd(..., keep_fp32=True)``), and the backward's
+``delta = rowsum(o * dO)`` reads that: with the rounded o, ``sum_j
+ds_ij`` is off zero by ``dO`` times o's rounding, which a component
+common to every key carries into dQ, the more so the more keys a row
+spreads over (whisper's encoder and cross-attention over 1,500 frames:
+4x the gradient error of attention in fp32).  Causal calls keep the
+rounded o, the rounding that the bf16 bars and tests hold them to.  It is
 once-differentiable, as the reference's ``custom_vjp`` has no second
 derivative either.  :func:`attention_fwd` and :func:`attention_bwd` are
 the same two steps called directly.
@@ -107,6 +115,8 @@ def _check(name, q, k, v, extra=()):
             raise ValueError(f"{name}: {tname} is on {t.device}, expected "
                              f"{q.device}")
         want = torch.float32 if tname in ("lse", "delta") else q.dtype
+        if tname == "o" and t.dtype == torch.float32:    # kept unrounded
+            want = t.dtype
         if t.dtype != want:
             raise ValueError(f"{name}: {tname} is {t.dtype}, expected "
                              f"{want}")
@@ -201,8 +211,9 @@ def _meta_work(part, q, k, causal, window, kv_len):
     META_WORK["bytes"] += nbytes
 
 
-def _forward_into(name, q, k, v, o, lse, causal, window, kv_len):
-    """Forward into o (B,Sq,H,hd) and lse (B,H,Sq), both possibly views."""
+def _forward_into(name, q, k, v, o, lse, causal, window, kv_len, o32=None):
+    """Forward into o (B,Sq,H,hd) and lse (B,H,Sq), both possibly views,
+    and, when given, o32 (B,Sq,H,hd) fp32: o before its bf16 rounding."""
     if q.device.type == "meta":
         _meta_work("fwd", q, k, causal, window, kv_len)
         return
@@ -212,7 +223,7 @@ def _forward_into(name, q, k, v, o, lse, causal, window, kv_len):
         o.copy_(o_ref)
         lse.copy_(lse_ref)
         return
-    _launch(name, _FWD, q, k, v, lse=lse, out0=o, causal=causal,
+    _launch(name, _FWD, q, k, v, lse=lse, out0=o, out1=o32, causal=causal,
             window=window, kv_len=kv_len)
 
 
@@ -236,26 +247,34 @@ def _backward_into(name, q, k, v, o, lse, do, dq, dk, dv, causal, window,
             out1=dv, causal=causal, window=window, kv_len=kv_len)
 
 
-def attention_fwd(q, k, v, *, causal=True, window=0, kv_len=None):
+def attention_fwd(q, k, v, *, causal=True, window=0, kv_len=None,
+                  keep_fp32=False):
     """Model layout forward: returns o (B,Sq,H,hd) in q's dtype and lse
     (B,H,Sq) fp32.  Keys at or past ``kv_len`` (default: Sk) are masked.
-    CUDA tensors launch K5; CPU tensors run the plain version."""
+    CUDA tensors launch K5; CPU tensors run the plain version.  With
+    ``keep_fp32`` it returns a third tensor: on bf16 CUDA tensors o in
+    fp32 before its rounding (the kernel writes both), else None."""
     name = "attention_fwd"
     _check(name, q, k, v)
     kv_len = _kv_len(name, k, kv_len)
     b, sq, h, hd = q.shape
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _forward_into(name, q, k, v, o, lse, causal, window, kv_len)
-    return o, lse
+    o32 = torch.empty((b, sq, h, hd), dtype=torch.float32, device=q.device) \
+        if keep_fp32 and q.device.type == "cuda" and \
+        q.dtype == torch.bfloat16 else None
+    _forward_into(name, q, k, v, o, lse, causal, window, kv_len, o32)
+    return (o, lse, o32) if keep_fp32 else (o, lse)
 
 
 def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
                   kv_len=None):
     """Model layout backward from the forward's o and lse: returns dq
     (B,Sq,H,hd) and dk, dv (B,Sk,Hkv,hd) summed over each GQA group (zero
-    at and past ``kv_len``).  CUDA tensors launch K6 (dQ, then dK/dV);
-    CPU tensors run the plain version."""
+    at and past ``kv_len``).  ``o`` may be the forward's fp32 o before its
+    rounding (``attention_fwd(..., keep_fp32=True)``): only ``delta``
+    reads it.  CUDA tensors launch K6 (dQ, then dK/dV); CPU tensors run
+    the plain version."""
     name = "attention_bwd"
     b, sq, h, hd = q.shape
     _check(name, q, k, v, (("o", o, q.shape), ("do", do, q.shape),
@@ -272,9 +291,16 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, kv_len):
-        o, lse = attention_fwd(q, k, v, causal=causal, window=window,
-                               kv_len=kv_len)
-        ctx.save_for_backward(q, k, v, o, lse)
+        if causal:      # delta from the rounded o, as the bf16 bars hold
+            o, lse = attention_fwd(q, k, v, causal=causal, window=window,
+                                   kv_len=kv_len)
+            kept = o
+        else:           # delta from o before its bf16 rounding
+            o, lse, o32 = attention_fwd(q, k, v, causal=causal,
+                                        window=window, kv_len=kv_len,
+                                        keep_fp32=True)
+            kept = o if o32 is None else o32
+        ctx.save_for_backward(q, k, v, kept, lse)
         ctx.causal, ctx.window, ctx.kv_len = causal, window, kv_len
         return o
 

@@ -1,8 +1,10 @@
 """bf16 serving through the paged engine: the port's ``DecodeEngine`` on
 bf16 params (``param_dtype="bfloat16"``, the reference's own switch)
 against the reference's bf16 ``DecodeEngine``, on reduced qwen3-1.7b,
-gemma3-12b (``max_len`` past its reduced window of 64, so the rings
-wrap), stablelm-3b and rwkv6-3b (slot-row states, no pages).  Both
+gemma3-12b and hymba-1.5b (``max_len`` past their reduced window of 64,
+so the rings wrap; hymba's SSM branch beside its attention, K3 at a GQA
+group of 2 here), stablelm-3b and rwkv6-3b (slot-row states, no
+pages).  Both
 engines get the reference's bf16 draw (its fp32 draw cast), converted by
 ``convert.from_reference``, and the same numpy prompts.
 
@@ -28,8 +30,9 @@ bf16 and fp32 rows there.
   scan with the carry between chunks dropped (K7's call).
 * ``record_logits=True`` and ``slotted_generate`` run on bf16 params,
   their rows float32 on the host.
-* The page pool is bf16, rwkv6's mixes bf16 and its WKV state fp32, and
-  the decode step sees one input signature.
+* The page pool is bf16, rwkv6's mixes bf16 and its WKV state fp32,
+  hymba's conv state bf16 and its SSM state fp32, and the decode step
+  sees one input signature.
 * ``serve_workload.build`` refuses params whose dtype is not the
   config's; ``serve_workload.cast`` makes a workload's bf16 twin.
 
@@ -50,17 +53,18 @@ from repro_torch.configs.base import get_config
 from repro_torch.convert import from_reference
 from repro_torch.kernels.flash_decode.ops import paged_decode_attention
 from repro_torch.kernels.rwkv6_scan.ops import wkv
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import hymba, rwkv6, transformer
 from repro_torch.serve.engine import DecodeEngine, ServeConfig, \
     slotted_generate
 
-ARCHS = ("qwen3-1.7b", "gemma3-12b", "stablelm-3b", "rwkv6-3b")
+ARCHS = ("qwen3-1.7b", "gemma3-12b", "stablelm-3b", "rwkv6-3b",
+         "hymba-1.5b")
 BAR_FACTOR = 2.0
 FORCE = 1e4                   # the forced token's noise: above any logit
 N_SLOTS, PAGE = 2, 16
-# (prompt length, max_len): gemma3's reduced window is 64, so its rings
-# wrap in the prefill and again in the decode steps
-SHAPES = {"gemma3-12b": (70, 96)}
+# (prompt length, max_len): gemma3's and hymba's reduced window is 64, so
+# their rings wrap in the prefill and again in the decode steps
+SHAPES = {"gemma3-12b": (70, 96), "hymba-1.5b": (70, 96)}
 PROMPT, MAX_LEN = 24, 48
 GENS = (8, 5, 7)              # 3 requests over 2 slots: one waits
 BF16 = torch.bfloat16
@@ -148,7 +152,8 @@ class _Fault:
     """Layer 0's K3 call (the first of every ``n_layers``) with the first
     page of every sequence left out, or its K7 call with the carry
     between chunks dropped (each chunk scanned from a zero state), on the
-    port's module attributes; restored on exit."""
+    port's module attributes (hymba's K3 call site is its own module's);
+    restored on exit."""
 
     def __init__(self, cfg):
         self.cfg, self.calls = cfg, 0
@@ -179,8 +184,9 @@ class _Fault:
         if self.cfg.family == "ssm":
             self.mod, self.name, fn = rwkv6, "wkv", self._k7
         else:
-            self.mod, self.name, fn = (transformer, "paged_decode_attention",
-                                       self._k3)
+            self.mod, self.name, fn = (
+                hymba if self.cfg.family == "hybrid" else transformer,
+                "paged_decode_attention", self._k3)
         self.real = getattr(self.mod, self.name)
         setattr(self.mod, self.name, fn)
         return self
@@ -282,8 +288,11 @@ def test_bf16_engine_types(cases, arch):
         assert eng.paged["state/sub0/wkv"].dtype == torch.float32
     else:
         assert {eng.paged["pool/k"].dtype, eng.paged["pool/v"].dtype} == {BF16}
+    if c["c16"].family == "hybrid":
+        assert eng.paged["state/sub0/conv"].dtype == BF16
+        assert eng.paged["state/sub0/ssm"].dtype == torch.float32
     assert eng.decode_cache_size == 1
-    if arch == "gemma3-12b":
+    if arch in SHAPES:
         assert any(s.ring for s in eng.layout.subs)
 
 

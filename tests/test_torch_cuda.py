@@ -2068,3 +2068,153 @@ def test_serve_bf16_rwkv6_prefill_k7_vs_plain(dev):
     bar = 2.0 * _rows_rel(plain, fp32)
     assert 0 < _rows_rel(kernel, plain) <= bar
     assert _rows_rel(kernel, fp32) <= bar
+
+
+# -- whisper-medium and hymba-1.5b in bf16: K4's bf16 instance at whisper's
+#    caches, K5/K6 bf16 on the padded non-causal route, K3 bf16 at a GQA
+#    group of 5 on a ring that wraps ------------------------------------------
+
+@pytest.mark.parametrize("s", [200, 1500], ids=["self", "cross"])
+def test_dense_decode_bf16_at_whisper_caches(dev, s):
+    """K4's bf16 instance as whisper's decode step calls it: 8 sequences,
+    16 heads of 64, ``blk_k`` the cache's length (the self cache's 200
+    positions, ragged valid lengths; the cross cache's 1,500, every one
+    valid): one bf16 launch, inside ``ref.bf16_error_ratio``'s bar of the
+    plain version in fp32 on the same inputs, two calls bitwise equal."""
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import (bf16_error_ratio,
+                                                      decode_attention_ref)
+    q, k, v, valid = _dcase(dev, 8, s, 16, 16, 64, dtype=torch.bfloat16,
+                            seed=5)
+    if s == 1500:
+        valid.fill_(s)
+    fops.reset_launch_counts()
+    out = fops.decode_attention(q, k, v, valid, blk_k=s)
+    torch.cuda.synchronize()
+    assert fops.DTYPE_LAUNCHES == {torch.float32: 0, torch.bfloat16: 1}
+    want = decode_attention_ref(q.float(), k.float(), v.float(), valid,
+                                blk_k=s)
+    assert out.dtype == torch.bfloat16
+    assert bf16_error_ratio(out, want) <= 1.0
+    assert torch.equal(out, fops.decode_attention(q, k, v, valid, blk_k=s))
+
+
+def test_noncausal_bf16_pad_rows_reach_no_gradient(dev):
+    """K5/K6 bf16 (``flash_attention_sm90.cu``) on the padded non-causal
+    route at whisper's encoder, 1,500 of 1,536 keys, 16 heads of 64: the
+    forward and both backward kernels once each, none of the fp32 source;
+    o, dq, dk, dv inside ``ref.rounding_error_ratio``'s bar of the plain
+    version that rounds where the kernels round; with large values
+    planted in the 36 pad rows of K and V (masked by ``kv_len``) every
+    real output and gradient is bitwise the same and the pad rows of dK
+    and dV stay zero."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref,
+        rounding_error_ratio)
+    bf16, sk = torch.bfloat16, 1500
+    q, k, v, g = _acase(dev, 1, 1536, 16, 16, 64, bf16, seed=2)
+    k[:, sk:] = 0
+    v[:, sk:] = 0
+    aops.reset_launch_counts()
+    o, lse = aops.attention_fwd(q, k, v, causal=False, kv_len=sk)
+    dq, dk, dv = aops.attention_bwd(q, k, v, o, lse, g, causal=False,
+                                    kv_len=sk)
+    torch.cuda.synchronize()
+    assert aops.LAUNCHES == {"fwd": 1, "dq": 1, "dkv": 1}
+    assert aops.SOURCE_LAUNCHES == {aops.SOURCES[torch.float32].name: 0,
+                                    aops.SOURCES[bf16].name: 3}
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, causal=False,
+                                             round_to=bf16, kv_len=sk)
+    want = (o_ref,) + flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, g,
+                                              causal=False, round_to=bf16,
+                                              kv_len=sk)
+    for name, x, ref in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), want):
+        assert rounding_error_ratio(x, ref) <= 1.0, name
+    assert not dk[:, sk:].any() and not dv[:, sk:].any()
+    k2, v2 = k.clone(), v.clone()
+    k2[:, sk:] = 300.0
+    v2[:, sk:] = -300.0
+    o2, lse2 = aops.attention_fwd(q, k2, v2, causal=False, kv_len=sk)
+    dq2, dk2, dv2 = aops.attention_bwd(q, k2, v2, o2, lse2, g, causal=False,
+                                       kv_len=sk)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    assert torch.equal(dq2, dq)
+    assert torch.equal(dk2[:, :sk], dk[:, :sk])
+    assert torch.equal(dv2[:, :sk], dv[:, :sk])
+    assert not dk2[:, sk:].any() and not dv2[:, sk:].any()
+
+
+@pytest.mark.parametrize("splits", [None, 3])
+def test_paged_decode_bf16_group_5_on_a_wrapped_ring(dev, splits,
+                                                     monkeypatch):
+    """K3's bf16 instance at hymba-1.5b's heads, 25 over 5 of 64 (a GQA
+    group of 5), on a wrapped ring of 1,024 (64 pages of 16, every slot
+    valid, as the model clamps a windowed sub-layer's lengths past the
+    window), at the plan's splits and at 3: one bf16 launch, inside
+    ``ref.bf16_error_ratio``'s bar of the plain version in fp32, two
+    calls bitwise equal."""
+    from repro_torch.kernels.flash_decode import ops as fops
+    from repro_torch.kernels.flash_decode.ref import (bf16_error_ratio,
+                                                      paged_decode_ref)
+    mp = 64
+    q, k, v, pt, valid = _pcase(dev, 4, 25, 5, 64, 4 * mp + 9, 16, mp,
+                                dtype=torch.bfloat16, seed=7)
+    valid.fill_(mp * 16)
+    pt = torch.as_tensor(np.random.default_rng(7).permutation(
+        np.arange(1, 4 * mp + 1)).reshape(4, mp), dtype=torch.int32,
+        device=dev)
+    if splits is not None:
+        _force_splits(monkeypatch, fops, splits)
+    fops.reset_launch_counts()
+    out = fops.paged_decode_attention(q, k, v, pt, valid)
+    torch.cuda.synchronize()
+    assert fops.DTYPE_LAUNCHES == {torch.float32: 0, torch.bfloat16: 1}
+    want = paged_decode_ref(q.float(), k.float(), v.float(), pt, valid)
+    assert bf16_error_ratio(out, want) <= 1.0
+    assert torch.equal(out, fops.paged_decode_attention(q, k, v, pt, valid))
+
+
+def test_bf16_backward_delta_reads_unrounded_o(dev):
+    """K6 bf16 over 1,500 near-uniformly attended keys and values that
+    share a large common component (as whisper's cross-attention over
+    its frames): the forward keeps o in fp32 before its rounding
+    (``keep_fp32``, its bf16 rounding bitwise the bf16 o), the
+    differentiable op's backward reads delta from it, and its dq lies
+    far closer to the fp32 plain backward than the same kernels' dq from
+    the rounded o, which breaks ``sum_j ds_ij = 0`` by dO times o's
+    rounding."""
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    bf16, sk = torch.bfloat16, 1500
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    q = (0.1 * randn(1, 1024, 16, 64)).to(bf16)
+    k = (4 * randn(1, 1, 16, 64) + randn(1, 1536, 16, 64)).to(bf16)
+    v = (4 * randn(1, 1, 16, 64) + randn(1, 1536, 16, 64)).to(bf16)
+    k[:, sk:] = 0
+    v[:, sk:] = 0
+    g = randn(1, 1024, 16, 64).to(bf16)
+    o, lse, o32 = aops.attention_fwd(q, k, v, causal=False, kv_len=sk,
+                                     keep_fp32=True)
+    assert o32.dtype == torch.float32 and torch.equal(o32.to(bf16), o)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    o_ref, lse_ref = flash_attention_fwd_ref(qf, kf, vf, causal=False,
+                                             kv_len=sk)
+    dq_ref = flash_attention_bwd_ref(qf, kf, vf, o_ref, lse_ref, gf,
+                                     causal=False, kv_len=sk)[0]
+
+    def rel(x):
+        return float((x.float() - dq_ref).norm() / dq_ref.norm())
+    kept = aops.attention_bwd(q, k, v, o32, lse, g, causal=False,
+                              kv_len=sk)[0]
+    rounded = aops.attention_bwd(q, k, v, o, lse, g, causal=False,
+                                 kv_len=sk)[0]
+    qs = q.detach().requires_grad_()
+    via = torch.autograd.grad((aops.flash_attention(
+        qs, k, v, False, 0, kv_len=sk) * g).sum(), qs)[0]
+    assert torch.equal(via, kept)
+    assert 3 * rel(kept) < rel(rounded), (rel(kept), rel(rounded))
